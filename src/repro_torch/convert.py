@@ -1,0 +1,67 @@
+"""State carried across from the JAX package to this one.
+
+There are no weights; what the two packages must share to be compared is
+the problem and the controller state. These functions take the JAX
+package's objects **as numpy arrays and plain Python values** — the caller
+does the ``np.asarray``; nothing here imports or sees a jax type — and
+build this package's objects from them:
+
+    problem_to_torch     (a_mat, y)            -> tensors on a device
+    shards_to_torch      pre-split (a_p, y_p)  -> tensors on a device, A in a_dtype
+    schedule_from_deltas a Fixed/DP schedule's ``deltas`` (+ rates, sigma2_d)
+    bt_tables_from_arrays  the 16 arrays of a BTTables tuple -> BTTables
+    prior_from_fields / problem_from_fields   dataclasses by their fields
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .core.denoisers import BernoulliGauss
+from .core.engine import BTTables, DPSchedule, EngineConfig, FixedSchedule
+from .core.engine import to_f32 as _f32
+from .core.state_evolution import CSProblem
+
+__all__ = ["problem_to_torch", "shards_to_torch", "schedule_from_deltas",
+           "bt_tables_from_arrays", "prior_from_fields",
+           "problem_from_fields"]
+
+def problem_to_torch(a_mat, y, device="cuda"):
+    """(A (M, N), y (M,)) as float32 tensors on ``device``."""
+    return _f32(a_mat, device), _f32(y, device)
+
+
+def shards_to_torch(a_p, y_p, device="cuda", a_dtype: str = "float32"):
+    """Pre-split row shards (a_p (P, Mp, N), y_p (P, Mp)) as the engine's
+    operands: A stored in ``a_dtype``, y in float32."""
+    a_tdtype = EngineConfig(a_dtype=a_dtype).a_tdtype
+    return _f32(a_p, device).to(a_tdtype).contiguous(), _f32(y_p, device)
+
+
+def schedule_from_deltas(deltas, rates=None, sigma2_d=None):
+    """A ``FixedSchedule`` from its bin sizes, or a ``DPSchedule`` when the
+    DP's ``rates`` and ``sigma2_d`` come along."""
+    if rates is None:
+        return FixedSchedule(np.asarray(deltas))
+    return DPSchedule.from_arrays(np.asarray(deltas), rates, sigma2_d)
+
+
+def bt_tables_from_arrays(fields, device="cpu") -> BTTables:
+    """``BTTables`` from the reference tuple's 16 arrays, given in field
+    order or as a mapping by field name."""
+    if isinstance(fields, dict):
+        fields = [fields[name] for name in BTTables._fields]
+    fields = list(fields)
+    assert len(fields) == len(BTTables._fields), \
+        f"need {len(BTTables._fields)} arrays, got {len(fields)}"
+    return BTTables(*(_f32(v, device) for v in fields))
+
+
+def prior_from_fields(eps: float, mu_s: float, sigma_s: float) -> BernoulliGauss:
+    return BernoulliGauss(float(eps), float(mu_s), float(sigma_s))
+
+
+def problem_from_fields(n: int, m: int, eps: float, mu_s: float,
+                        sigma_s: float, snr_db: float) -> CSProblem:
+    return CSProblem(n=int(n), m=int(m),
+                     prior=prior_from_fields(eps, mu_s, sigma_s),
+                     snr_db=float(snr_db))

@@ -1,0 +1,59 @@
+"""Dispatch for the fused AMP LC step: the device of the tensors decides.
+
+A CUDA tensor goes to the hand-written kernels (``amp_fused.py``) and either
+launches or raises; a CPU tensor goes to the plain versions (``ref.py``).
+There is no switch and no fallback from one to the other.
+
+The CUDA kernels mask their own ragged edges, so unlike the TPU kernels they
+need no tile-aligned operands: ``pad_row_shards`` is kept as the public
+place where alignment would happen at solve entry, and is the identity.
+The invariant it stood for stays: the (M, N)-sized operand is never padded
+or copied inside the iteration loop.
+"""
+from __future__ import annotations
+
+import torch
+
+from .amp_fused import (F_THREADS, Z_WARPS, amp_local_cuda_grid, vec_width)
+from .ref import amp_local_ref, amp_local_ref_grid
+
+__all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards"]
+
+
+def row_tiles(mp: int, n: int, a_dtype: torch.dtype = torch.float32):
+    """(bm, bn) of the CUDA kernels for a (P, Mp, N) row-shard stack: rows
+    per z-pass block (one warp a row) and columns per f-pass block (threads
+    times the vector width N allows). Ragged edges are masked, so neither
+    has to divide its dimension."""
+    return Z_WARPS, F_THREADS * vec_width(n, a_dtype)
+
+
+def pad_row_shards(a_p, y_p):
+    """Alignment of a (..., P, Mp, N) row-shard stack at solve entry.
+
+    Nothing needs aligning for the CUDA kernels (they mask ragged edges and
+    take scalar loads when N is not a multiple of the vector width), so the
+    inputs come back unchanged."""
+    return a_p, y_p
+
+
+def amp_local_grid(a_p, x, y_p, z_p, onsager, n_proc: int):
+    """Fused LC step over the whole (P, Mp, N) shard stack, optionally with
+    a leading batch dimension (``ref.py`` for shapes).
+
+    Returns ``(z_new, f_p, ss)`` — ``ss`` the fused sigma2_hat numerator
+    ``sum(z_new**2)`` per batch entry. A may be bfloat16 (widened in the
+    kernel / by the plain version; sums are float32)."""
+    if a_p.is_cuda:
+        return amp_local_cuda_grid(a_p, x, y_p, z_p, onsager, n_proc)
+    return amp_local_ref_grid(a_p, x, y_p, z_p, onsager, n_proc)
+
+
+def amp_local_step(a, x, y, z, onsager, n_proc: int):
+    """Fused z'/f computation for one processor's LC step (v1 signature:
+    a single (M, N) shard, ``n_proc`` only scales x)."""
+    if not a.is_cuda:
+        return amp_local_ref(a, x, y, z, onsager, n_proc)
+    z_new, f_p, _ = amp_local_cuda_grid(a[None], x, y[None], z[None],
+                                        onsager, n_proc)
+    return z_new[0], f_p[0]

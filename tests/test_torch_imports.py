@@ -1,0 +1,187 @@
+"""What the PyTorch port may and may not do around its edges: it imports
+neither ``jax`` nor the JAX package ``repro``; its default device is the
+card and without one it raises; its solve loop asks the host nothing.
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+import repro_torch.core.amp as tamp
+import repro_torch.core.denoisers as td
+import repro_torch.core.engine as te
+import repro_torch.core.mp_amp as tmp
+import repro_torch.core.state_evolution as tse
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _modules():
+    return ["repro_torch"] + sorted(
+        info.name for info in pkgutil.walk_packages([PKG],
+                                                    prefix="repro_torch."))
+
+
+def test_port_has_the_expected_modules():
+    names = set(_modules())
+    for want in ("repro_torch.convert", "repro_torch.core.engine",
+                 "repro_torch.core.amp", "repro_torch.core.mp_amp",
+                 "repro_torch.core.denoisers", "repro_torch.core.quantize",
+                 "repro_torch.core.state_evolution",
+                 "repro_torch.core.rate_alloc",
+                 "repro_torch.core.rate_distortion",
+                 "repro_torch.kernels.build",
+                 "repro_torch.kernels.amp_fused.ops",
+                 "repro_torch.kernels.amp_fused.ref",
+                 "repro_torch.kernels.amp_fused.amp_fused"):
+        assert want in names, want
+    assert os.path.exists(os.path.join(PKG, "csrc", "amp_local.cu"))
+
+
+def test_importing_the_port_imports_neither_jax_nor_repro():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    neither ``jax`` nor ``repro`` in ``sys.modules`` (and needs no nvcc,
+    no triton and no card to be imported)."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def _sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "chip_profile.py")]
+    for base, _, files in os.walk(PKG):
+        paths += [os.path.join(base, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    return sorted(paths)    # every test worker must collect the same list
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_sources_name_neither_jax_nor_repro(path):
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
+                     re.M)
+    with open(path) as fh:
+        hit = pat.search(fh.read())
+    assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
+    """The engine and the frontends default to the card and do not carry
+    on on the CPU when there is none."""
+    assert te.EngineConfig().device == "cuda"
+    assert tmp.MPAMPConfig().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prior = td.BernoulliGauss(0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.AmpEngine(prior, te.EngineConfig(n_proc=2, n_iter=2))
+    a = np.zeros((8, 16), np.float32)
+    y = np.zeros(8, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tamp.amp_solve(y, a, prior, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmp.mp_amp_solve(y, a, prior, tmp.MPAMPConfig(2, 2), [np.inf, np.inf])
+    # asked for the CPU, it runs there
+    te.AmpEngine(prior, te.EngineConfig(n_proc=2, n_iter=2, device="cpu"))
+
+
+def _small_problem():
+    rng = np.random.default_rng(0)
+    n, m = 256, 96
+    prob = tse.CSProblem(n=n, m=m, prior=td.BernoulliGauss(0.1))
+    s0 = (rng.random(n) < 0.1) * rng.normal(size=n)
+    a = (rng.normal(size=(m, n)) / np.sqrt(m)).astype(np.float32)
+    y = (a @ s0 + np.sqrt(prob.sigma_e2) * rng.normal(size=m)).astype(np.float32)
+    return prob, a, y
+
+
+@pytest.mark.parametrize("ctrl", ["fixed", "bt"])
+@pytest.mark.parametrize("batched", [False, True], ids=["solve", "solve_many"])
+def test_no_host_sync_inside_the_solve_loop(ctrl, batched, monkeypatch):
+    """Between iteration 0 and T nothing reads a tensor's value on the
+    host: ``item``/``tolist``/``__bool__``/``__float__``/``cpu``/``numpy``
+    raise while ``_solve_core`` runs (on the CPU they would not block, but
+    the same calls on the card would each wait for the device)."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    controller = te.FixedSchedule([np.inf, 0.05, 0.02]) if ctrl == "fixed" \
+        else te.BTRateControl(prob, p, t, n_s2_grid=4, n_u_grid=7)
+    eng = te.AmpEngine(prob.prior, te.EngineConfig(n_proc=p, n_iter=t,
+                                                   device="cpu"),
+                       te.EcsqTransport(), controller)
+    inner = eng._solve_core
+    calls = []
+
+    def guarded(*args, **kw):
+        def boom(name):
+            def raiser(self, *a_, **k_):
+                raise AssertionError(f"host sync inside the loop: {name}")
+            return raiser
+        with monkeypatch.context() as mp:
+            for name in ("item", "tolist", "__bool__", "__float__", "__int__",
+                         "cpu", "numpy", "__index__"):
+                mp.setattr(torch.Tensor, name, boom(name))
+            calls.append(1)
+            return inner(*args, **kw)
+
+    monkeypatch.setattr(eng, "_solve_core", guarded)
+    if batched:
+        tr = eng.solve_many(np.stack([y, 1.1 * y]), a)
+        assert tr.x.shape == (2, 256)
+    else:
+        tr = eng.solve(y, a)
+        assert tr.x.shape == (256,)
+    assert calls == [1] and np.all(np.isfinite(tr.x))
+
+
+def test_the_guard_itself_catches_a_sync(monkeypatch):
+    """The host loop does sync once per iteration, by design — and the same
+    patch that guards ``solve`` sees it."""
+    prob, a, y = _small_problem()
+    eng = te.AmpEngine(prob.prior, te.EngineConfig(n_proc=4, n_iter=2,
+                                                   device="cpu"),
+                       te.EcsqTransport(), te.FixedSchedule([0.1, 0.1]))
+
+    def raiser(self, *a_, **k_):
+        raise AssertionError("host sync")
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "__float__", raiser)
+        with pytest.raises(AssertionError, match="host sync"):
+            eng.solve_host_loop(y, a)
+
+
+def test_loop_body_sources_hold_no_sync_calls():
+    """Source check on the functions that make up the loop body."""
+    import inspect
+    fns = [te.AmpEngine._body, te.AmpEngine._local, te.AmpEngine._fuse,
+           te.AmpEngine._gc, te.AmpEngine._solve_core, te.amp_gc_step,
+           te.bt_delta_for, te.interp, te._bt_mmse, te._bt_predict_next,
+           te._bt_msg_sd, te._bt_rate_lookup, te._bt_cap_sq2,
+           te.EcsqTransport.fuse, te.ExactFusion.fuse,
+           te.BTRateControl.delta_for]
+    pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
+    for fn in fns:
+        src = inspect.getsource(fn)
+        hit = pat.search(src)
+        assert hit is None, f"{fn.__qualname__}: {hit.group(0)!r}"
+
+
+def test_version():
+    assert isinstance(repro_torch.__version__, str)
