@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version on the card, drives the port's main path
-— the row-layout MP-AMP solve at the paper's size (N=10000, M=3000, P=30,
-eps=0.05, 20 dB, T=10): centralized, lossless, DP-rated and BT-rated ECSQ
-fusion, and a batch of 8 — through the entry points a user calls, checks
-the results, and times the kernels against their bounds.
+Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
+per source, all at once), holds each against its plain PyTorch version on
+the card, and drives the port's paths through the entry points a user
+calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
 
-Prints one JSON object per phase (device, build, kernel_check, reference,
-solve, timing), then ``{"kernels": [...]}``, then as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is non-zero and the last line is not printed. ``--out`` also writes all
-of it to one JSON file. Needs a CUDA device and nvcc; needs no network.
-Takes under a minute on an H100.
+  * the row layout (P=30): centralized, lossless, DP- and BT-rated ECSQ
+    fusion, a batch of 8; and int8 / int4 block-quantized fusion;
+  * the column layout, C-MP-AMP (P=25): lossless (== centralized AMP),
+    ColDPSchedule- and column-BT-rated ECSQ, int8 block-quantized, two
+    inner iterations per round, a batch of 4, bfloat16 A; and a wide
+    problem of the shape the solve service routes to columns (N=20000,
+    M=4000, P=20), BT-rated.
+
+It checks the results, that the paths launched the kernels and made no host
+sync inside their loops, and times the kernels against their bounds.
+
+Prints one JSON object per phase, then the card's name and power limit,
+then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the exit code is non-zero
+and the last line is not printed. ``--out`` also writes all of it to one
+JSON file. Needs a CUDA device and nvcc; needs no network. Takes about 35
+seconds on an H100.
 """
 from __future__ import annotations
 
@@ -42,22 +51,39 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.core.amp import amp_solve, sample_problem  # noqa: E402
 from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
                                         make_mmse_interp)
-from repro_torch.core.engine import (AmpEngine, DPSchedule,  # noqa: E402
-                                     EcsqTransport, EngineConfig,
-                                     FixedSchedule, bt_delta_for)
+from repro_torch.core.engine import (AmpEngine, BlockQuantTransport,  # noqa: E402
+                                     ColDPSchedule, ColumnBTRateControl,
+                                     ColumnPartition, DPSchedule,
+                                     EcsqTransport, EngineConfig, ExactFusion,
+                                     FixedSchedule, bt_delta_for,
+                                     col_bt_delta_for)
 from repro_torch.core.mp_amp import MPAMPConfig, mp_amp_solve  # noqa: E402
-from repro_torch.core.rate_alloc import BTController, dp_allocate  # noqa: E402
+from repro_torch.core.rate_alloc import (BTController, dp_allocate,  # noqa: E402
+                                         dp_allocate_col)
 from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import (PAPER_T, CSProblem,  # noqa: E402
                                               se_trajectory)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k  # noqa: E402
+from repro_torch.kernels.amp_fused import col as kc  # noqa: E402
 from repro_torch.kernels.amp_fused import ref  # noqa: E402
+from repro_torch.kernels.quantize import ops as qops  # noqa: E402
+from repro_torch.kernels.quantize import quantize as kq  # noqa: E402
 
 DEV = torch.device("cuda:0")
-SOURCE = "src/repro_torch/csrc/amp_local.cu"
+SOURCES = {"amp_local_z": "src/repro_torch/csrc/amp_local.cu",
+           "amp_local_f": "src/repro_torch/csrc/amp_local.cu",
+           "col_residual": "src/repro_torch/csrc/amp_col.cu",
+           "col_inner": "src/repro_torch/csrc/amp_col.cu",
+           "quantize_blocks": "src/repro_torch/csrc/quantize.cu",
+           "dequantize_blocks": "src/repro_torch/csrc/quantize.cu"}
 REPLACES = {"amp_local_z": "src/repro/kernels/amp_fused/amp_fused.py:102",
-            "amp_local_f": "src/repro/kernels/amp_fused/amp_fused.py:123"}
+            "amp_local_f": "src/repro/kernels/amp_fused/amp_fused.py:123",
+            "col_residual": "src/repro/kernels/amp_fused/col.py:67",
+            "col_inner": "src/repro/kernels/amp_fused/col.py:175",
+            "quantize_blocks": "src/repro/kernels/quantize/quantize.py:44",
+            "dequantize_blocks": "src/repro/kernels/quantize/quantize.py:72"}
+COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts)
 
 # NVIDIA H100 SXM data sheet: device memory rate and float32 rate outside
 # the tensor cores (the kernels do float32 FMAs on CUDA cores).
@@ -68,12 +94,31 @@ FP32_FLOP_PER_S = 67e12
 N, M, P, EPS, SNR_DB = 10_000, 3_000, 30, 0.05, 20.0
 T = PAPER_T[EPS]
 BATCH = 8
+# The column layout: P must divide N (10000 / 30 does not), so P=25.
+P_COL = 25
+COL_BATCH = 4
+# A wide problem of the regime the solve service sends to column buckets
+# (N/M = 5 >= its col_aspect of 4).
+WIDE_N, WIDE_M, WIDE_P = 20_000, 4_000, 20
+COL_DP_BITS = 3.0 * T   # total bits per residual entry over the T rounds
+PRIOR_SCALARS = (EPS, 0.0, 1.0)   # eps, mu_s, sigma_s^2 of the inner step
 KERNEL_RTOL = 1e-5      # max |kernel - plain| / max |plain|, float32 sums in
                         # different orders; bf16 A: both sides get the same
-                        # bf16 matrix and accumulate in float32
+                        # bf16 matrix and accumulate in float32. The block
+                        # quantizer is held to bit-identity instead.
 SEED = 1234
 
 RESULT: dict = {}
+
+
+def reset_all_counts() -> None:
+    k.reset_launch_counts()
+    kc.reset_launch_counts()
+    kq.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    return {key: v for counts in COUNTERS for key, v in counts.items()}
 
 
 def emit(phase: str, **fields) -> None:
@@ -175,6 +220,15 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time of a call: its bytes over the memory rate or its
+    float32 operations over the CUDA-core rate, whichever is longer."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def lc_bounds(b, shared, p, mp, n, dtype):
     """Least time for the z-pass and the f-pass: every input read once,
     every output written once, over the memory rate; against the float32
@@ -184,13 +238,8 @@ def lc_bounds(b, shared, p, mp, n, dtype):
     z_bytes = a_bytes + 4 * bb * (n + 3 * p * mp + 2)       # x, y, z, z', ons, ss
     f_bytes = a_bytes + 4 * bb * (p * mp + n + p * n)       # z', x, f
     flops = 2.0 * bb * p * mp * n
-    out = {}
-    for name, nbytes in (("amp_local_z", z_bytes), ("amp_local_f", f_bytes)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-        out[name] = {"bound_ms": 1e3 * max(t_b, t_o),
-                     "bound_by": "bytes" if t_b >= t_o else "operations",
-                     "bytes": nbytes, "flops": flops}
-    return out
+    return {"amp_local_z": bound(z_bytes, flops),
+            "amp_local_f": bound(f_bytes, flops)}
 
 
 def check_kernels() -> dict:
@@ -227,6 +276,118 @@ def check_kernels() -> dict:
     return {(r["shape"], r["a_dtype"]): r for r in rows}
 
 
+COL_SHAPES = [
+    # name, B (None = unbatched), shared A, P, M, Np
+    ("paper_P25", None, False, P_COL, M, N // P_COL),
+    ("wide_P20", None, False, WIDE_P, WIDE_M, WIDE_N // WIDE_P),
+    ("ragged_masked", None, False, 3, 101, 77),
+    ("batch4_per_instance_A", COL_BATCH, False, P_COL, M, N // P_COL),
+    ("batch4_shared_A", COL_BATCH, True, P_COL, M, N // P_COL),
+]
+
+
+def col_inputs(b, shared, p, m, np_, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lead = () if b is None else (b,)
+    a_lead = () if (b is None or shared) else (b,)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=DEV)
+    a = (rnd(*a_lead, p, m, np_) / m ** 0.5).to(dtype).contiguous()
+    x, x0 = 0.1 * rnd(*lead, p, np_), 0.1 * rnd(*lead, p, np_)
+    return a, x, x0, rnd(*lead, p, m), rnd(*lead, m)
+
+
+def check_col_kernels() -> dict:
+    """K2 and K3 (both ``update_z``) against their plain versions; K3's
+    ``c_p`` must be the same bits over two runs."""
+    rows = []
+    for name, b, shared, p, m, np_ in COL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, x, x0, z, g = col_inputs(b, shared, p, m, np_, dtype, SEED)
+            mask = ((torch.arange(np_, device=DEV) % 3) != 0).float() \
+                if name.startswith("ragged") else None
+            r_k = kc.col_residual_cuda(a, x)
+            torch.cuda.synchronize()
+            r_r = ref.col_residual_ref(a, x)
+            row = {"shape": name, "a_dtype": str(dtype).split(".")[-1],
+                   "B": b, "shared_a": shared, "P": p, "M": m, "Np": np_,
+                   "vec": k.vec_width(np_, dtype),
+                   "row_chunk": kc.row_chunk(DEV, (b or 1) * p, m, np_, dtype),
+                   "r_rel_err": rel_err(r_k, r_r),
+                   "r_max_abs_err": float((r_k - r_r).abs().max())}
+            assert r_k.shape == x.shape[:-1] + (m,)
+            for upd in (False, True):
+                args = (a, x, x0, z, g, mask, float(m), *PRIOR_SCALARS, upd)
+                x_k, c_k, z_k = kc.col_inner_cuda(*args)
+                torch.cuda.synchronize()
+                x_r, c_r, z_r = ref.col_inner_step_ref(*args)
+                _, c_again, _ = kc.col_inner_cuda(*args)
+                torch.cuda.synchronize()
+                tag = "upd" if upd else "final"
+                row[f"x_rel_err_{tag}"] = rel_err(x_k, x_r)
+                row[f"c_rel_err_{tag}"] = rel_err(c_k, c_r)
+                row[f"x_max_abs_err_{tag}"] = float((x_k - x_r).abs().max())
+                row[f"c_bit_identical_{tag}"] = bool(torch.equal(c_k, c_again))
+                if upd:
+                    row["z_rel_err_upd"] = rel_err(z_k, z_r)
+                    row["z_max_abs_err_upd"] = float((z_k - z_r).abs().max())
+                else:
+                    assert z_k is z
+                assert x_k.shape == x.shape and c_k.shape == x.shape[:-1]
+                assert row[f"c_bit_identical_{tag}"], row
+            rows.append(row)
+            for key in [key for key in row if "rel_err" in key]:
+                assert row[key] <= KERNEL_RTOL, (row, key)
+            del a, x, x0, z, g, r_k, r_r
+    emit("kernel_check_col", rtol=KERNEL_RTOL, cases=rows)
+    return {(r["shape"], r["a_dtype"]): r for r in rows}
+
+
+Q_SHAPES = [("row_messages", P, N), ("col_contributions", P_COL, M),
+            ("ragged", 7, 1001)]
+
+
+def quant_inputs(r, n, seed):
+    """Messages of three scales, a large-magnitude row and an all-zero row."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(r, n, generator=g, device=DEV)
+    x[0] = 0.0
+    x[1] *= 1e4
+    x[2] *= 1e-3
+    return x.contiguous()
+
+
+def check_quantize_kernels() -> dict:
+    """K4a/K4b against the plain versions: q, the scale bits and the
+    dequantized values must be identical, bit for bit."""
+    rows = []
+    for name, r, n in Q_SHAPES:
+        x = quant_inputs(r, n, SEED)
+        for qmax in (127, 7):
+            for block in (512, 256):
+                q_k, s_k = kq.quantize_cuda(x, qmax, block)
+                d_k = kq.dequantize_cuda(q_k, s_k, block)
+                torch.cuda.synchronize()
+                q_r, s_r = qops.quantize_plain(x, qmax, block)
+                d_r = qops.dequantize_plain(q_r, s_r, block)
+                bound = s_r.float().repeat_interleave(block, -1)[:, :n] / 2
+                row = {"shape": name, "R": r, "N": n, "qmax": qmax,
+                       "block": block,
+                       "q_identical": bool(torch.equal(q_k, q_r)),
+                       "scale_bits_identical": bool(torch.equal(
+                           s_k.view(torch.int16), s_r.view(torch.int16))),
+                       "dequantized_identical": bool(torch.equal(d_k, d_r)),
+                       "q_max_abs_err": float((q_k.int() - q_r.int()).abs().max()),
+                       "dequantized_max_abs_err": float((d_k - d_r).abs().max()),
+                       "within_half_bin": bool(((d_k - x).abs() <= bound).all())}
+                rows.append(row)
+                assert q_k.shape == (r, n) and s_k.shape == (r, -(-n // block))
+                assert all(row[key] for key in (
+                    "q_identical", "scale_bits_identical",
+                    "dequantized_identical", "within_half_bin")), row
+    emit("kernel_check_quantize", limit="bit-identical", cases=rows)
+    return {(r["shape"], r["qmax"], r["block"]): r for r in rows}
+
+
 def check_against_cpu_reference() -> None:
     """End to end on a small input: the card (CUDA kernels) against the CPU
     (plain versions), same numpy-made problem; lossless, so no quantizer
@@ -251,7 +412,19 @@ def check_against_cpu_reference() -> None:
         out[a_dtype] = {"max_abs_dx": dx, "max_rel_dsigma2": ds}
         assert np.all(np.isfinite(runs["cuda"].x)) and runs["cuda"].x.shape == (n,)
         assert dx <= 1e-4 and ds <= 1e-3, out
-    emit("reference", small_problem={"N": n, "M": m, "P": p, "T": t},
+    for n_inner in (1, 2):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = AmpEngine(prior, EngineConfig(
+                n_proc=4, n_iter=t, device=dev,
+                layout=ColumnPartition(n_inner)), ExactFusion())
+            runs[dev] = eng.solve(y, a)
+        dx = float(np.abs(runs["cuda"].x - runs["cpu"].x).max())
+        ds = float(np.abs(runs["cuda"].sigma2_hat / runs["cpu"].sigma2_hat - 1).max())
+        out[f"column_n_inner{n_inner}"] = {"max_abs_dx": dx, "max_rel_dsigma2": ds}
+        assert np.all(np.isfinite(runs["cuda"].x)) and runs["cuda"].x.shape == (n,)
+        assert dx <= 1e-4 and ds <= 1e-3, out
+    emit("reference", small_problem={"N": n, "M": m, "P": p, "P_col": 4, "T": t},
          card_vs_cpu=out, limits={"max_abs_dx": 1e-4, "max_rel_dsigma2": 1e-3})
 
 
@@ -376,20 +549,179 @@ def run_main_path() -> dict:
          sigma2_hat_over_se=[float(v) for v in s2_ratio],
          batch_sdr_db=sdr_b, launches_per_solve=counts,
          first_call_wall_ms=wall, a_bytes_batch=int(BATCH * M * N * 4))
-    return {"prior": prior, "a": a, "y": y, "bt": bt._in_graph,
-            "dp_sched": dp_sched, "launches": main_path_launches}
+    return {"prior": prior, "prob": prob, "mm": mm, "a": a, "y": y,
+            "s0": s0_np, "cen_x": cen.x, "ll_mse": float(ll.mse[-1]),
+            "bt": bt._in_graph, "dp_sched": dp_sched,
+            "launches": main_path_launches}
 
 
-def check_no_host_sync(ctx) -> None:
-    """One BT-rated solve with PyTorch's sync debug mode on: any call that
-    makes the host wait for the device between iteration 0 and T is
-    reported with the line of this repository that made it. All operands,
-    the schedule included, are on the card before the mode is switched on."""
-    eng = AmpEngine(ctx["prior"], EngineConfig(n_proc=P, n_iter=T),
-                    EcsqTransport(), ctx["bt"])
-    a_p, y_p = eng._split(ctx["y"], ctx["a"])
-    sched = torch.zeros(T, device=DEV)
-    eng.dispatch_single(a_p, y_p, M, N, sched)   # warm: allocator, tables
+def entropy_bits(sym: np.ndarray) -> float:
+    """Empirical entropy (bits per symbol) of one round's symbols."""
+    _, counts = np.unique(sym, return_counts=True)
+    prob = counts / counts.sum()
+    return float(-(prob * np.log2(prob)).sum())
+
+
+def col_engine(prior, transport, controller=None, n_iter=T, n_inner=1,
+               p=P_COL, **cfg):
+    return AmpEngine(prior, EngineConfig(n_proc=p, n_iter=n_iter,
+                                         layout=ColumnPartition(n_inner), **cfg),
+                     transport, controller)
+
+
+def run_col_path(ctx) -> dict:
+    """The column layout through ``AmpEngine.solve`` / ``solve_many``."""
+    prior, prob, mm = ctx["prior"], ctx["prob"], ctx["mm"]
+    a, y, s0 = ctx["a"], ctx["y"], ctx["s0"]
+    t0 = time.perf_counter()
+    dp_col = dp_allocate_col(prob, P_COL, T, COL_DP_BITS, mmse_fn=mm)
+    dp_sched = ColDPSchedule(dp_col, prob, P_COL)
+    bt_col = ColumnBTRateControl(prob, P_COL, T, c_ratio=1.05, r_max=6.0,
+                                 mmse_fn=mm)
+    prob_w = CSProblem(n=WIDE_N, m=WIDE_M, prior=prior, snr_db=SNR_DB)
+    bt_w = ColumnBTRateControl(prob_w, WIDE_P, T, c_ratio=1.05, r_max=6.0,
+                               mmse_fn=mm)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    s0_w, a_w, y_w = sample_problem(gen, WIDE_N, WIDE_M, prior,
+                                    prob_w.sigma_e2, device="cuda")
+    s0_w = s0_w.cpu().numpy()
+    gen_b = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    probs = [sample_problem(gen_b, N, M, prior, prob.sigma_e2, device="cuda")
+             for _ in range(COL_BATCH)]
+    a_b = torch.stack([q[1] for q in probs])
+    y_b = torch.stack([q[2] for q in probs])
+    del probs
+    setup_s = time.perf_counter() - t0
+
+    counts, wall = {}, {}
+
+    def counted(name, fn):
+        before = all_counts()
+        out, wall[name] = timed(fn)
+        counts[name] = {key: v - before[key] for key, v in all_counts().items()
+                        if v != before[key]}
+        return out
+
+    reset_all_counts()
+    ll = counted("lossless", lambda: col_engine(prior, ExactFusion()).solve(y, a))
+    dpr = counted("dp", lambda: col_engine(prior, EcsqTransport(),
+                                           dp_sched).solve(y, a))
+    btr = counted("bt", lambda: col_engine(prior, EcsqTransport(),
+                                           bt_col).solve(y, a))
+    b8 = counted("block8", lambda: col_engine(
+        prior, BlockQuantTransport(8)).solve(y, a))
+    two = counted("n_inner2", lambda: col_engine(
+        prior, ExactFusion(), n_iter=T // 2, n_inner=2).solve(y, a))
+    bf = counted("bf16_a", lambda: col_engine(
+        prior, ExactFusion(), a_dtype="bfloat16").solve(y, a))
+    many = counted("solve_many", lambda: col_engine(
+        prior, ExactFusion(), collect_symbols=False).solve_many(y_b, a_b))
+    ll_w = counted("wide_lossless", lambda: col_engine(
+        prior, ExactFusion(), p=WIDE_P).solve(y_w, a_w))
+    bt_wr = counted("wide_bt", lambda: col_engine(
+        prior, EcsqTransport(), bt_w, p=WIDE_P).solve(y_w, a_w))
+    launches = all_counts()                    # read just after the path
+    singles = [col_engine(prior, ExactFusion(), collect_symbols=False)
+               .solve(y_b[i], a_b[i]) for i in range(COL_BATCH)]
+    del a_b, y_b, a_w, y_w
+
+    # ---- checks -----------------------------------------------------------
+    mse = {name: float(tr.mse(s0)[-1]) for name, tr in (
+        ("lossless", ll), ("dp", dpr), ("bt", btr), ("block8", b8),
+        ("n_inner2", two), ("bf16_a", bf))}
+    mse["wide_lossless"] = float(ll_w.mse(s0_w)[-1])
+    mse["wide_bt"] = float(bt_wr.mse(s0_w)[-1])
+    for tr in (ll, dpr, btr, b8, two, bf):
+        assert tr.x.shape == (N,) and np.all(np.isfinite(tr.x))
+    assert ll.symbols.shape == (T, P_COL, M), ll.symbols.shape
+    dx = float(np.abs(ll.x - ctx["cen_x"]).max())
+    assert dx <= 1e-4, f"lossless C-MP-AMP != centralized AMP: max|dx|={dx}"
+    ratio = {name: mse[name] / mse["lossless"]
+             for name in ("dp", "bt", "block8", "n_inner2", "bf16_a")}
+    ratio["wide_bt"] = mse["wide_bt"] / mse["wide_lossless"]
+    limits = {"dp": 1.5, "bt": 1.5, "block8": 1.3, "wide_bt": 1.5}
+    for name, lim in limits.items():
+        assert ratio[name] < lim, (name, ratio)
+    for tr in (btr, bt_wr):
+        assert np.isinf(tr.deltas[0]) and tr.rates[0] == 0.0, tr.rates
+        assert np.all(np.isfinite(tr.deltas[1:]))
+        assert np.all((tr.rates[1:] > 0) & (tr.rates[1:] <= 6.0 + 1e-5)), tr.rates
+    assert np.isinf(dpr.deltas[0]) and np.all(np.isfinite(dpr.deltas[1:]))
+    assert b8.extra_var[0] == 0.0 and np.all(b8.extra_var[1:] > 0), b8.extra_var
+    np.testing.assert_allclose(dpr.extra_var[1:],
+                               P_COL * dpr.deltas[1:] ** 2 / 12.0, rtol=1e-6)
+    assert dpr.extra_var[0] == 0.0
+    mse_two = two.mse(s0)
+    assert np.all(np.diff(mse_two) < 0), mse_two
+    assert abs(mse["bf16_a"] / mse["lossless"] - 1.0) <= 0.01, mse
+    assert many.x.shape == (COL_BATCH, N) and np.all(np.isfinite(many.x))
+    many_dx = [float(np.abs(many.x[i] - one.x).max() / np.abs(one.x).max())
+               for i, one in enumerate(singles)]
+    assert max(many_dx) <= 1e-5, many_dx
+    for name, c in counts.items():
+        n_rounds = T // 2 if name == "n_inner2" else T
+        n_inner = 2 if name == "n_inner2" else 1
+        want = {"col_residual": n_rounds, "col_inner": n_rounds * n_inner}
+        if name == "block8":
+            want.update(quantize_blocks=T, dequantize_blocks=T)
+        assert c == want, (name, c, want)
+    assert launches["col_residual"] > 0 and launches["col_inner"] > 0
+
+    bits = {"dp_analytic": float(np.sum(dp_col.rates)),
+            "dp_empirical": sum(entropy_bits(dpr.symbols[t]) for t in range(1, T)),
+            "bt_analytic": float(np.sum(btr.rates)),
+            "bt_empirical": sum(entropy_bits(btr.symbols[t]) for t in range(1, T)),
+            "block8_wire": (T - 1) * (8 + 16 / 512),
+            "uncompressed": 32.0 * (T - 1)}
+    emit("col_solve", operating_point={"N": N, "M": M, "P": P_COL, "T": T,
+                                       "eps": EPS, "snr_db": SNR_DB,
+                                       "seed": SEED},
+         wide={"N": WIDE_N, "M": WIDE_M, "P": WIDE_P, "seed": SEED + 2},
+         host_setup_s=setup_s,
+         sdr_db={name: sdr_db(prior, v) for name, v in mse.items()},
+         mse_ratio_to_lossless=ratio, limits=limits,
+         max_abs_dx_lossless_vs_centralized=dx,
+         n_inner2_mse_per_round=[float(v) for v in mse_two],
+         batch_vs_single_rel_dx=many_dx,
+         bits_per_residual_entry=bits,
+         bt_rates=[float(v) for v in btr.rates],
+         dp_rates=[float(v) for v in dp_col.rates],
+         wide_bt_rates=[float(v) for v in bt_wr.rates],
+         launches_per_solve=counts, first_call_wall_ms=wall,
+         a_bytes_batch=int(COL_BATCH * M * N * 4))
+    return {"dp_sched": dp_sched, "bt": bt_col, "launches": launches}
+
+
+def run_block_quant_row(ctx) -> dict:
+    """int8 and int4 block-quantized fusion on the row solve (P=30)."""
+    prior, a, y, s0 = ctx["prior"], ctx["a"], ctx["y"], ctx["s0"]
+    reset_all_counts()
+    runs = {bits: AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
+                            BlockQuantTransport(bits)).solve(y, a)
+            for bits in (8, 4)}
+    launches = all_counts()                    # read just after the path
+    ratio = {f"int{bits}": float(tr.mse(s0)[-1]) / ctx["ll_mse"]
+             for bits, tr in runs.items()}
+    for tr in runs.values():
+        assert tr.x.shape == (N,) and np.all(np.isfinite(tr.x))
+        assert tr.symbols.shape == (T, P, N) and np.all(tr.extra_var > 0)
+    assert np.abs(runs[4].symbols).max() <= 7
+    assert ratio["int8"] < 1.3, ratio
+    want = {"amp_local_z": 2 * T, "amp_local_f": 2 * T,
+            "quantize_blocks": 2 * T, "dequantize_blocks": 2 * T}
+    assert {key: launches[key] for key in want} == want, launches
+    emit("block_quant_row", P=P, mse_ratio_to_lossless=ratio,
+         limits={"int8": 1.3},
+         sdr_db={f"int{bits}": sdr_db(prior, float(tr.mse(s0)[-1]))
+                 for bits, tr in runs.items()})
+    return {"launches": launches}
+
+
+
+def sync_sites(fn) -> list:
+    """Run ``fn`` with PyTorch's sync debug mode on: every call that makes
+    the host wait for the device is reported with the lines of this
+    repository that made it. The caller warms ``fn`` up first."""
     torch.cuda.synchronize()
     sites = []
 
@@ -407,18 +739,72 @@ def check_no_host_sync(ctx) -> None:
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
-        x, outs = eng.dispatch_single(a_p, y_p, M, N, sched)
-        torch.cuda.set_sync_debug_mode("default")
+        try:
+            x, _ = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert not sites, f"host syncs inside the solve loop at {sorted(set(sites))}"
     assert bool(torch.isfinite(x).all())
-    emit("no_host_sync", solve="BT-rated, dispatch_single",
-         synchronizing_calls_in_loop=len(sites))
+    return sites
+
+
+def check_no_host_sync(ctx, col_ctx) -> None:
+    """Solves with the sync debug mode on (``sync_sites``): the row
+    lossless, BT-rated and int8 solves and the column lossless, DP, BT and
+    int8 solves. All operands, the schedule included, are on the card
+    before the mode is switched on."""
+    prior = ctx["prior"]
+    row = {"row_lossless": AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
+                                     EcsqTransport(),
+                                     FixedSchedule([np.inf] * T)),
+           "row_bt": AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
+                               EcsqTransport(), ctx["bt"]),
+           "row_block8": AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
+                                   BlockQuantTransport(8))}
+    a_p, y_p = row["row_bt"]._split(ctx["y"], ctx["a"])
+    found = {}
+    for name, eng in row.items():
+        sched = eng._f32(eng._sched_operand())
+        run = lambda e=eng, s=sched: e.dispatch_single(a_p, y_p, M, N, s)
+        run()                                  # warm: allocator, tables
+        found[name] = sync_sites(run)
+    col = {"col_lossless": col_engine(prior, ExactFusion()),
+           "col_dp": col_engine(prior, EcsqTransport(), col_ctx["dp_sched"]),
+           "col_bt": col_engine(prior, EcsqTransport(), col_ctx["bt"]),
+           "col_block8": col_engine(prior, BlockQuantTransport(8))}
+    a_cp, y_d = col["col_lossless"]._split_col(ctx["y"], ctx["a"])
+    for name, ceng in col.items():
+        sched_c = ceng._f32(ceng._sched_operand())
+        run = lambda e=ceng, s=sched_c: e._col_solve_core(a_cp, y_d, s, M, N)
+        run()
+        found[name] = sync_sites(run)
+    bad = {name: sorted(set(v)) for name, v in found.items() if v}
+    assert not bad, f"host syncs inside the solve loop: {bad}"
+    emit("no_host_sync", solves=sorted(found),
+         synchronizing_calls_in_loop={name: len(v) for name, v in found.items()})
 
 
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+
+def _time_calls(calls: dict, bounds: dict) -> dict:
+    """ms / plain_ms / library_ms of each kernel (``time_ms``), its
+    wrapper's call time on an idle card and its share of the bound."""
+    row = {}
+    for kernel, fns in calls.items():
+        v = dict(bounds[kernel])
+        for what, fn in fns.items():
+            t = time_ms(fn)
+            v[what] = t["ms"]
+            if t["host_paced"]:
+                v.setdefault("host_paced", []).append(what)
+        v.setdefault("library_ms", None)
+        v["wrapper_call_ms"] = time_call_ms(fns["ms"])
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
+        row[kernel] = v
+    return row
+
 
 def time_kernels() -> dict:
     table = {}
@@ -440,20 +826,93 @@ def time_kernels() -> dict:
                     "library_ms": lambda: torch.einsum(
                         "...pmn,...pm->...pn", a32, z_new)},
             }
-            row = {}
-            for kernel, fns in calls.items():
-                v = dict(bounds[kernel])
-                for what, fn in fns.items():
-                    t = time_ms(fn)
-                    v[what] = t["ms"]
-                    if t["host_paced"]:
-                        v.setdefault("host_paced", []).append(what)
-                v["wrapper_call_ms"] = time_call_ms(fns["ms"])
-                v["share_of_bound"] = v["bound_ms"] / v["ms"]
-                row[kernel] = v
+            row = _time_calls(calls, bounds)
             key = f"{name}/{str(dtype).split('.')[-1]}"
             table[key] = row
             del a, a32, x, y, z, z_new
+    return table
+
+
+def col_bounds(b, shared, p, m, np_, dtype):
+    """Least times of K2 and K3 (each input read once, each output written
+    once, over the memory rate; against the float32 operations over the
+    CUDA-core rate). K3's derivative and denoiser are ~40 flops a column."""
+    bb = 1 if b is None else b
+    a_bytes = (1 if shared else bb) * p * m * np_ * (2 if dtype == torch.bfloat16 else 4)
+    vec_x, vec_z = 4 * bb * p * np_, 4 * bb * p * m
+    mac = 2.0 * bb * p * m * np_
+    return {
+        "col_residual": bound(a_bytes + vec_x + vec_z, mac),           # x; r
+        # x, z; x', c
+        "col_inner_final": bound(a_bytes + 2 * vec_x + vec_z + 4 * bb * p,
+                                 mac + 40.0 * bb * p * np_),
+        # x, x0, z, g; x', c, z'
+        "col_inner_upd": bound(
+            a_bytes + 3 * vec_x + 2 * vec_z + 4 * bb * (p + m),
+            2 * mac + 40.0 * bb * p * np_),
+    }
+
+
+def quant_bounds(r, n, block):
+    """Least times of K4a/K4b: x read and q + scales written, and back;
+    about 5 float32 operations an element (abs, max, divide, round,
+    clamp) for K4a, 2 for K4b."""
+    scales = 2 * r * (-(-n // block))
+    return {"quantize_blocks": bound(5 * r * n + scales, 5.0 * r * n),
+            "dequantize_blocks": bound(5 * r * n + scales, 2.0 * r * n)}
+
+
+COL_TIMED = [s for s in COL_SHAPES if s[0] in ("paper_P25", "wide_P20",
+                                               "batch4_per_instance_A")]
+
+
+def time_col_kernels() -> dict:
+    table = {}
+    for name, b, shared, p, m, np_ in COL_TIMED:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, x, x0, z, g = col_inputs(b, shared, p, m, np_, dtype, SEED)
+            a32 = a.float()   # the library yardstick gets float32 A ready-made
+            inner = lambda upd: (a, x, x0, z, g, None, float(m),
+                                 *PRIOR_SCALARS, upd)
+            stage0 = lambda: torch.einsum("...pmn,...pm->...pn", a32, z)
+            calls = {
+                "col_residual": {
+                    "ms": lambda: kc.col_residual_cuda(a, x),
+                    "plain_ms": lambda: ref.col_residual_ref(a, x),
+                    "library_ms": lambda: torch.einsum(
+                        "...pmn,...pn->...pm", a32, x)},
+                "col_inner_final": {
+                    "ms": lambda: kc.col_inner_cuda(*inner(False)),
+                    "plain_ms": lambda: ref.col_inner_step_ref(*inner(False)),
+                    "library_ms": stage0},
+                "col_inner_upd": {
+                    "ms": lambda: kc.col_inner_cuda(*inner(True)),
+                    "plain_ms": lambda: ref.col_inner_step_ref(*inner(True)),
+                    "library_ms": stage0},
+            }
+            table[f"{name}/{str(dtype).split('.')[-1]}"] = _time_calls(
+                calls, col_bounds(b, shared, p, m, np_, dtype))
+            del a, a32, x, x0, z, g
+    return table
+
+
+def time_quantize_kernels() -> dict:
+    """At the transports' shapes: the row messages (P=30, N) and the column
+    contributions (P=25, M), qmax 127, block 512. No single PyTorch call
+    computes the block quantizer, so there is no library yardstick."""
+    table = {}
+    for name, r, n in Q_SHAPES[:2]:
+        x = quant_inputs(r, n, SEED)
+        q, s = kq.quantize_cuda(x, 127, 512)
+        calls = {
+            "quantize_blocks": {
+                "ms": lambda: kq.quantize_cuda(x, 127, 512),
+                "plain_ms": lambda: qops.quantize_plain(x, 127, 512)},
+            "dequantize_blocks": {
+                "ms": lambda: kq.dequantize_cuda(q, s, 512),
+                "plain_ms": lambda: qops.dequantize_plain(q, s, 512)},
+        }
+        table[name] = _time_calls(calls, quant_bounds(r, n, 512))
     return table
 
 
@@ -482,6 +941,35 @@ def time_solves(ctx) -> dict:
     out["bt_controller_ms"] = time_call_ms(bt_decisions)
     out["bt_controller_share_of_bt_solve"] = \
         out["bt_controller_ms"] / out["bt_solve_ms"]
+    b8 = AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
+                   BlockQuantTransport(8))
+    out["block8_solve_ms"] = time_call_ms(
+        lambda: b8.dispatch_single(a_p, y_p, M, N))
+    return out
+
+
+def time_col_solves(ctx, col_ctx) -> dict:
+    """Device-resident column solves (operands already on the card), host
+    pace included, as ``time_solves``; and the column BT decisions alone."""
+    prior, out = ctx["prior"], {}
+    engines = {"lossless": col_engine(prior, ExactFusion()),
+               "dp": col_engine(prior, EcsqTransport(), col_ctx["dp_sched"]),
+               "bt": col_engine(prior, EcsqTransport(), col_ctx["bt"]),
+               "block8": col_engine(prior, BlockQuantTransport(8))}
+    a_cp, y_d = engines["lossless"]._split_col(ctx["y"], ctx["a"])
+    for name, eng in engines.items():
+        sched = eng._f32(eng._sched_operand())
+        out[f"{name}_solve_ms"] = time_call_ms(
+            lambda e=eng, s=sched: e._col_solve_core(a_cp, y_d, s, M, N))
+    tables = col_ctx["bt"].tables_on(DEV)
+    v = torch.tensor(0.01, device=DEV)
+
+    def bt_decisions():
+        for t in range(T):
+            col_bt_delta_for(tables, t, v)
+    out["bt_controller_ms"] = time_call_ms(bt_decisions)
+    out["bt_controller_share_of_bt_solve"] = \
+        out["bt_controller_ms"] / out["bt_solve_ms"]
     return out
 
 
@@ -498,8 +986,10 @@ def main() -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    paths = build.ensure_built(["amp_local"])
+    paths = build.ensure_built(["amp_local", "amp_col", "quantize"])
     k._library()
+    kc._library()
+    kq._library()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(str(p), ROOT) for n, p in paths.items()},
          nvcc=[{key: rec[key] for key in ("name", "command", "seconds")}
@@ -509,27 +999,62 @@ def main() -> None:
                 if "registers" in line or "spill" in line])
 
     errs = check_kernels()
+    errs_col = check_col_kernels()
+    errs_q = check_quantize_kernels()
     check_against_cpu_reference()
     ctx = run_main_path()
-    check_no_host_sync(ctx)
+    col_ctx = run_col_path(ctx)
+    bq_ctx = run_block_quant_row(ctx)
+    check_no_host_sync(ctx, col_ctx)
 
     kernel_times = time_kernels()
+    col_times = time_col_kernels()
+    quant_times = time_quantize_kernels()
     solve_times = time_solves(ctx)
+    col_solve_times = time_col_solves(ctx, col_ctx)
     emit("timing", card=smi,
          method="CUDA events, warm, median; kernels queued behind a busy "
                 "device (device time), solves on an idle one (host pace "
                 "included)",
-         lc_step=kernel_times, solve=solve_times)
+         lc_step=kernel_times, col_kernels=col_times,
+         quantize_kernels=quant_times, solve=solve_times,
+         col_solve=col_solve_times)
 
-    main_key, err_key = "paper_P30/float32", ("paper_P30", "float32")
+    # each kernel: its time at the shape its main path gives it, its
+    # launches on the path(s) that drove it (counts reset just before each)
+    col_launches, bq_launches = col_ctx["launches"], bq_ctx["launches"]
+    q_err = max(r["q_max_abs_err"] for r in errs_q.values())
+    d_err = max(r["dequantized_max_abs_err"] for r in errs_q.values())
+    paper_col = errs_col[("paper_P25", "float32")]
+    rows = {
+        "amp_local_z": (kernel_times["paper_P30/float32"]["amp_local_z"],
+                        ctx["launches"]["amp_local_z"],
+                        errs[("paper_P30", "float32")]["z_max_abs_err"]),
+        "amp_local_f": (kernel_times["paper_P30/float32"]["amp_local_f"],
+                        ctx["launches"]["amp_local_f"],
+                        errs[("paper_P30", "float32")]["f_max_abs_err"]),
+        "col_residual": (col_times["paper_P25/float32"]["col_residual"],
+                         col_launches["col_residual"],
+                         paper_col["r_max_abs_err"]),
+        "col_inner": (col_times["paper_P25/float32"]["col_inner_final"],
+                      col_launches["col_inner"],
+                      max(paper_col["x_max_abs_err_final"],
+                          paper_col["x_max_abs_err_upd"],
+                          paper_col["z_max_abs_err_upd"])),
+        "quantize_blocks": (quant_times["row_messages"]["quantize_blocks"],
+                            col_launches["quantize_blocks"]
+                            + bq_launches["quantize_blocks"], q_err),
+        "dequantize_blocks": (quant_times["row_messages"]["dequantize_blocks"],
+                              col_launches["dequantize_blocks"]
+                              + bq_launches["dequantize_blocks"], d_err),
+    }
     kernels = []
-    for name in ("amp_local_z", "amp_local_f"):
-        tm = kernel_times[main_key][name]
+    for name, (tm, launches, err) in rows.items():
+        assert launches > 0, (name, launches)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": ctx["launches"][name],
-            "max_abs_err": errs[err_key][f"{name[-1]}_max_abs_err"],
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
 

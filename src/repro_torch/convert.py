@@ -9,7 +9,9 @@ build this package's objects from them:
     problem_to_torch     (a_mat, y)            -> tensors on a device
     shards_to_torch      pre-split (a_p, y_p)  -> tensors on a device, A in a_dtype
     schedule_from_deltas a Fixed/DP schedule's ``deltas`` (+ rates, sigma2_d)
-    bt_tables_from_arrays  the 16 arrays of a BTTables tuple -> BTTables
+    col_dp_schedule_from_arrays  a ColDPSchedule's ``deltas``, ``rates``, ``d_traj``
+    bt_tables_from_arrays      the 16 arrays of a BTTables tuple -> BTTables
+    col_bt_tables_from_arrays  the 14 arrays of a ColBTTables tuple -> ColBTTables
     prior_from_fields / problem_from_fields   dataclasses by their fields
 """
 from __future__ import annotations
@@ -17,13 +19,16 @@ from __future__ import annotations
 import numpy as np
 
 from .core.denoisers import BernoulliGauss
-from .core.engine import BTTables, DPSchedule, EngineConfig, FixedSchedule
+from .core.engine import (BTTables, ColBTTables, ColDPSchedule, DPSchedule,
+                          EngineConfig, FixedSchedule)
 from .core.engine import to_f32 as _f32
 from .core.state_evolution import CSProblem
 
 __all__ = ["problem_to_torch", "shards_to_torch", "schedule_from_deltas",
-           "bt_tables_from_arrays", "prior_from_fields",
+           "col_dp_schedule_from_arrays", "bt_tables_from_arrays",
+           "col_bt_tables_from_arrays", "prior_from_fields",
            "problem_from_fields"]
+
 
 def problem_to_torch(a_mat, y, device="cuda"):
     """(A (M, N), y (M,)) as float32 tensors on ``device``."""
@@ -45,15 +50,31 @@ def schedule_from_deltas(deltas, rates=None, sigma2_d=None):
     return DPSchedule.from_arrays(np.asarray(deltas), rates, sigma2_d)
 
 
+def col_dp_schedule_from_arrays(deltas, rates, d_traj) -> ColDPSchedule:
+    """A ``ColDPSchedule`` from its bin sizes, the DP's rates and its
+    predicted block-MSE trajectory."""
+    return ColDPSchedule.from_arrays(np.asarray(deltas), rates, d_traj)
+
+
+def _tables_from_arrays(cls, fields, device):
+    if isinstance(fields, dict):
+        fields = [fields[name] for name in cls._fields]
+    fields = list(fields)
+    assert len(fields) == len(cls._fields), \
+        f"need {len(cls._fields)} arrays, got {len(fields)}"
+    return cls(*(_f32(v, device) for v in fields))
+
+
 def bt_tables_from_arrays(fields, device="cpu") -> BTTables:
     """``BTTables`` from the reference tuple's 16 arrays, given in field
     order or as a mapping by field name."""
-    if isinstance(fields, dict):
-        fields = [fields[name] for name in BTTables._fields]
-    fields = list(fields)
-    assert len(fields) == len(BTTables._fields), \
-        f"need {len(BTTables._fields)} arrays, got {len(fields)}"
-    return BTTables(*(_f32(v, device) for v in fields))
+    return _tables_from_arrays(BTTables, fields, device)
+
+
+def col_bt_tables_from_arrays(fields, device="cpu") -> ColBTTables:
+    """``ColBTTables`` from the reference tuple's 14 arrays, given in field
+    order or as a mapping by field name."""
+    return _tables_from_arrays(ColBTTables, fields, device)
 
 
 def prior_from_fields(eps: float, mu_s: float, sigma_s: float) -> BernoulliGauss:

@@ -1,5 +1,6 @@
-"""Unified MP-AMP engine, row layout (the counterpart of the JAX package's
-``repro.core.engine``; its DESIGN.md §3 describes the structure).
+"""Unified MP-AMP engine, row and column layouts (the counterpart of the JAX
+package's ``repro.core.engine``; its DESIGN.md §3 and §7 describe the
+structure).
 
 The paper's algorithm family — centralized AMP, lossless MP-AMP, ECSQ
 MP-AMP with fixed / DP / BT rate schedules — is one iteration body
@@ -7,9 +8,16 @@ parameterized by
 
   * a **Transport**: how the per-processor fusion messages f_t^p are
     compressed before the sum at the fusion center
-    (``ExactFusion`` | ``EcsqTransport``), and
+    (``ExactFusion`` | ``EcsqTransport`` | ``BlockQuantTransport``), and
   * a **RateController**: how the quantizer resolution is chosen per
-    iteration (``FixedSchedule`` | ``DPSchedule`` | ``BTRateControl``).
+    iteration (``FixedSchedule`` | ``DPSchedule`` | ``BTRateControl``; in
+    the column layout ``ColDPSchedule`` | ``ColumnBTRateControl``).
+
+``EngineConfig.layout`` picks the partition: ``RowPartition`` (the paper's:
+each processor owns M/P rows and sends a length-N message) or
+``ColumnPartition`` (C-MP-AMP: each processor owns N/P columns and sends its
+length-M residual contribution A_p x_p; ``n_inner`` local iterations per
+fusion round).
 
 ``AmpEngine.solve`` runs the T iterations as a Python loop of tensor ops on
 ``EngineConfig.device`` with **no host synchronisation inside the loop**:
@@ -19,16 +27,18 @@ fixed count of tensor ops (``bt_delta_for``), lossless iterations are a
 place into preallocated device tensors that come to numpy once, at exit.
 ``solve_many`` solves B instances at once with an explicit leading batch
 dimension on every operand (A per instance or shared). The local
-computation goes through ``kernels/amp_fused`` — the hand-written CUDA
-kernels when the tensors are on the card, their plain versions on the CPU;
-the device alone decides. ``solve_host_loop`` is the one entry point that
+computation goes through ``kernels/amp_fused`` and the block quantizer
+through ``kernels/quantize`` — the hand-written CUDA kernels when the
+tensors are on the card, their plain versions on the CPU; the device alone
+decides. ``solve_host_loop`` (row layout only) is the one entry point that
 synchronises every iteration, by design: it serves arbitrary Python
 rate-controller callables.
 
 What the JAX engine has and this one does not: an ahead-of-time executable
 cache (``_run``, ``compile_count``) — eager PyTorch compiles nothing, only
-``dispatch_count`` is kept — and the ``use_kernel`` / ``kernel_interpret`` /
-``donate`` switches.
+``dispatch_count`` is kept — the ``use_kernel`` / ``kernel_interpret`` /
+``donate`` switches, and (for now) erasure (``drop=``), the heterogeneous
+batch path and device-sharded solves.
 """
 from __future__ import annotations
 
@@ -39,19 +49,26 @@ from typing import NamedTuple, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from ..kernels.amp_fused.ops import amp_local_grid, pad_row_shards
-from .denoisers import BernoulliGauss, eta_and_deriv
-from .quantize import dequantize_midtread, message_mixture, quantize_midtread
-from .rate_alloc import BTController, rate_for_sigma_q2
+from ..kernels.amp_fused.ops import (amp_local_grid, col_inner_step,
+                                     col_residual, pad_col_shards,
+                                     pad_row_shards)
+from ..kernels.quantize.ops import dequantize, quantize
+from .compression import QuantConfig, quant_noise_var
+from .denoisers import BernoulliGauss, eta_and_deriv, make_mmse_interp
+from .quantize import (GaussMixture, dequantize_midtread, ecsq_entropy,
+                       message_mixture, quantize_midtread)
+from .rate_alloc import (BTController, col_sigma_q2_for_rate,
+                         erasure_rate_factors, rate_for_sigma_q2)
 from .rate_distortion import RDModel
-from .state_evolution import CSProblem
+from .state_evolution import CSProblem, se_trajectory_col
 
 __all__ = [
     "AmpEngine", "EngineConfig", "EngineTrace", "RowPartition",
-    "Transport", "ExactFusion", "EcsqTransport",
-    "RateController", "FixedSchedule", "DPSchedule", "BTRateControl",
-    "BTTables", "bt_delta_for", "interp", "amp_gc_step", "split_problem",
-    "to_f32",
+    "ColumnPartition", "Transport", "ExactFusion", "EcsqTransport",
+    "BlockQuantTransport", "RateController", "FixedSchedule", "DPSchedule",
+    "BTRateControl", "BTTables", "bt_delta_for", "ColBTTables",
+    "col_bt_delta_for", "ColumnBTRateControl", "ColDPSchedule", "interp",
+    "amp_gc_step", "split_problem", "split_problem_cols", "to_f32",
 ]
 
 
@@ -66,6 +83,21 @@ def split_problem(a_mat, y, n_proc: int):
     assert m % n_proc == 0, f"M={m} not divisible by P={n_proc}"
     mp = m // n_proc
     return a_mat.reshape(n_proc, mp, n), y.reshape(n_proc, mp)
+
+
+def split_problem_cols(a_mat, n_proc: int):
+    """Column-partition A across processors: (..., M, N) -> (..., P, M, N/P).
+
+    Processor p owns the contiguous column block ``A[:, p*N/P:(p+1)*N/P]``
+    and the matching slice of the signal (C-MP-AMP); y is shared, not split.
+    numpy arrays and torch tensors alike; the result is a contiguous copy.
+    """
+    *lead, m, n = a_mat.shape
+    assert n % n_proc == 0, f"N={n} not divisible by P={n_proc}"
+    blocks = a_mat.reshape(*lead, m, n_proc, n // n_proc)
+    if isinstance(blocks, torch.Tensor):
+        return blocks.movedim(-2, -3).contiguous()
+    return np.ascontiguousarray(np.moveaxis(blocks, -2, -3))
 
 
 def to_f32(v, device) -> torch.Tensor:
@@ -83,6 +115,34 @@ def to_f32(v, device) -> torch.Tensor:
 class RowPartition:
     """The source paper's layout: each processor owns M/P measurement rows;
     the fusion sums the per-processor denoiser messages f^p (length N)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnPartition:
+    """C-MP-AMP layout (arXiv:1701.02578): each processor owns N/P signal
+    columns; the fusion sums the quantized residual contributions A_p x_p
+    (length M). ``EngineConfig.n_iter`` counts *outer rounds* (one fusion
+    exchange each); every round runs ``n_inner`` local AMP iterations.
+
+    The Onsager memory survives the fusion boundary: the next round's
+    residual starts from ``g^{s+1} + sum_q c_q z_q^last``, where
+    ``z_q^last`` is the residual that fed processor q's final denoise and
+    ``c_q = sum(eta')/M`` its coefficient. At ``n_inner == 1`` every
+    ``z_q^last`` is the previous fused residual, the correction collapses
+    to ``(sum_q c_q) g^s`` and C-MP-AMP under exact fusion *is*
+    centralized AMP; the engine then carries only that scalar. At
+    ``n_inner > 1`` the correction is a second, uncompressed length-M
+    exchange. (The reference's docstring and its DESIGN.md §7 give the
+    derivation.)
+    """
+
+    n_inner: int = 1
+
+    @property
+    def carry_fused(self) -> bool:
+        """Scalar-carry path: at one inner iteration per round the joint
+        boundary correction is a scalar times the previous fused residual."""
+        return self.n_inner == 1
 
 
 def amp_gc_step(f, denoise_var, prior: BernoulliGauss, kappa):
@@ -143,6 +203,37 @@ class EcsqTransport:
         f = torch.sum(f_q, dim=-2)
         extra = torch.where(lossless, 0.0, n_proc * safe_delta**2 / 12.0)
         return f, extra, q
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockQuantTransport:
+    """Per-block max-abs int8/int4 quantization of each message (the wire
+    format of ``core/compression.py``), through the block-quantize kernels.
+
+    The rate is fixed by the wire width (``bits`` + a bf16 scale per block)
+    instead of a controller, so ``delta`` is ignored; the noise accounting
+    uses the realized per-block bin sizes: ``extra = P * mean(Delta^2)/12``,
+    the mean over the P x blocks of each batch entry. Symbols are the int
+    codes as float32, shaped like the messages. The int4 codes travel
+    unpacked here: this transport emulates the wire, it does not pack.
+    """
+
+    bits: int = 8
+    block: int = 512
+
+    @property
+    def qc(self) -> QuantConfig:
+        return QuantConfig(bits=self.bits, block=self.block)
+
+    def fuse(self, f_p, delta):
+        n_proc, length = f_p.shape[-2:]
+        qc = self.qc
+        q, scale = quantize(f_p.reshape(-1, length), qc.qmax, qc.block)
+        deq = dequantize(q, scale, qc.block).reshape(f_p.shape)
+        f = torch.sum(deq, dim=-2)
+        scale = scale.reshape(f_p.shape[:-1] + scale.shape[-1:])
+        extra = quant_noise_var(scale, qc, batch_dims=f_p.ndim - 2) * n_proc
+        return f, extra, q.reshape(f_p.shape).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +428,19 @@ def bt_delta_for(tb: BTTables, t: int, sigma2_hat):
     return torch.sqrt(12.0 * sq2), rate
 
 
-class BTRateControl:
+class _TablesOnDevice:
+    """A controller whose tables are built on the host as CPU tensors
+    (``self.tables``) and copied once to each device a solve runs on."""
+
+    def tables_on(self, device):
+        device = torch.device(device)
+        tb = self._on_device.get(device)
+        if tb is None:
+            tb = self._on_device[device] = self.tables.to(device)
+        return tb
+
+
+class BTRateControl(_TablesOnDevice):
     """BT back-tracking (paper Sec. 3.3) as device tensor ops.
 
     Re-expresses ``rate_alloc.BTController`` as fixed-count loops:
@@ -455,15 +558,169 @@ class BTRateControl:
         self._on_device = {}
         return self
 
-    def tables_on(self, device) -> BTTables:
-        device = torch.device(device)
-        tb = self._on_device.get(device)
-        if tb is None:
-            tb = self._on_device[device] = self.tables.to(device)
-        return tb
-
     def delta_for(self, t, sigma2_hat):
         return bt_delta_for(self.tables_on(sigma2_hat.device), t, sigma2_hat)
+
+
+# ---------------------------------------------------------------------------
+# column-layout rate control (C-MP-AMP)
+# ---------------------------------------------------------------------------
+
+class ColBTTables(NamedTuple):
+    """The column BT controller's state as float32 tensors.
+
+    The quantized payload is the residual contribution r^p = A_p x_p, whose
+    entries are ~ N(0, v_r) (``quantize.residual_mixture``), so the rate
+    model is a *one-dimensional* table: H_Q of a unit Gaussian as a function
+    of the normalized bin u = Delta / sd(r^p).
+    """
+
+    log_v: torch.Tensor        # (400,) MMSE interp grid, log variance
+    log_m: torch.Tensor        # (400,) log mmse values
+    targets: torch.Tensor      # (S,) c_ratio * tau_C^{s} (lossless column SE)
+    log2u_grid: torch.Tensor   # (n_u,) rate-table axis
+    hq_tab: torch.Tensor       # (n_u,) H_Q(u) of the unit Gaussian
+    u_cap: torch.Tensor        # () log2 u achieving the delivered-rate cap
+    sigma_e2: torch.Tensor     # () problem scalars -------------------
+    inv_kappa: torch.Tensor    # ()
+    n_proc: torch.Tensor       # () float
+    eps: torch.Tensor          # () prior
+    mu_s: torch.Tensor         # ()
+    sigma_s2: torch.Tensor     # ()
+    r_max: torch.Tensor        # () delivered-rate cap (erasure-adjusted)
+    surv: torch.Tensor         # () survival probability 1 - erasure_rate;
+                               #    exactly 1.0 on a lossless link
+
+    def to(self, device) -> "ColBTTables":
+        return ColBTTables(*(f.to(device) for f in self))
+
+
+def col_bt_delta_for(tb: ColBTTables, t: int, v_prev):
+    """One column-BT decision on the device: (tables, round, v_hat_{s-1}) ->
+    (delta, rate), closed form, about 25 tensor ops and no bisection.
+
+    From the previous round's fused-residual plug-in v_hat the predicted
+    block MSE is d = mmse(v_hat); the largest admissible quantizer MSE keeps
+    the predicted variance of this round's fused residual,
+    ``sigma_e^2 + d / kappa + P * sigma_Q^2``, within the target
+    ``c * tau_C^s`` (quantization noise lands additively on g). The r_max
+    cap inverts the 1-D Gaussian H_Q table. Round 0 is lossless for free
+    (its exchanged contributions are all zero): delta = inf, rate = 0 —
+    ``t`` is a Python int, so that is a Python branch and reads nothing on
+    the host. ``v_prev`` is () or (B,).
+    """
+    if t == 0:
+        return torch.full_like(v_prev, math.inf), torch.zeros_like(v_prev)
+    v_prev = torch.clamp(v_prev, min=1e-30)
+    d = _bt_mmse(tb, v_prev)
+    sm = tb.eps * (tb.mu_s**2 + tb.sigma_s2)
+    v_r = torch.clamp(sm - d, min=1e-30) * tb.inv_kappa / tb.n_proc
+    sd_r = torch.sqrt(v_r)
+    # erasure reset semantics (tb.surv == 1.0 is a bit-exact no-op)
+    d_in = tb.surv * d + (1.0 - tb.surv) * sm
+    base = tb.sigma_e2 + d_in * tb.inv_kappa
+    sq2_adm = torch.clamp(tb.targets[t] - base, min=0.0) / (tb.n_proc * tb.surv)
+    sq2_cap = (torch.exp2(tb.u_cap) * sd_r) ** 2 / 12.0
+    # the cap binds when the admissible bin is finer than r_max affords
+    sq2 = torch.minimum(torch.maximum(sq2_adm, sq2_cap), v_r)
+    lu = 0.5 * torch.log2(12.0 * sq2 / v_r)
+    lu_c = torch.clamp(lu, min=tb.log2u_grid[0], max=tb.log2u_grid[-1])
+    rate = torch.minimum(interp(lu_c, tb.log2u_grid, tb.hq_tab), tb.r_max)
+    return torch.sqrt(12.0 * sq2), rate
+
+
+class ColumnBTRateControl(_TablesOnDevice):
+    """BT back-tracking for the column layout as device tensor ops.
+
+    Tables are built once at construction (host side, numpy): the MMSE
+    interp grid (same 400-point log-log grid as ``BTRateControl``), the
+    per-round targets from the lossless column SE (``se_trajectory_col``),
+    and the 1-D unit-Gaussian ECSQ entropy table H_Q(u) with its r_max
+    inversion. ``n_inner == 1`` only (the measured plug-in pins the block
+    MSE only there); multi-inner-round schedules use ``dp_allocate_col``.
+    """
+
+    def __init__(self, prob: CSProblem, n_proc: int, n_iter: int,
+                 c_ratio: float = 1.05, r_max: float = 6.0,
+                 n_inner: int = 1, mmse_fn=None, n_u_grid: int = 256,
+                 erasure_rate: float = 0.0, recovery: str = "retransmit"):
+        if n_inner != 1:
+            raise ValueError(
+                "column BT tracks the measured plug-in, which pins the block "
+                "MSE only at n_inner=1; use dp_allocate_col for multi-inner-"
+                "round rate schedules")
+        self.prob = prob
+        self.n_proc = n_proc
+        self.n_iter = n_iter
+        self.c_ratio = c_ratio
+        self.r_max = r_max
+        self.erasure_rate = erasure_rate
+        self.recovery = recovery
+        self.mmse_fn = mmse_fn or make_mmse_interp(prob.prior)
+        budget_f, boost, _ = erasure_rate_factors(erasure_rate, recovery)
+        # delivered-rate cap under the recovery policy (== r_max lossless)
+        eff_r_max = r_max * budget_f * boost
+
+        grid_v = np.geomspace(1e-9, 1e3, 400)
+        grid_m = np.maximum(np.asarray(self.mmse_fn(grid_v), np.float64),
+                            1e-300)
+        tau_c, _ = se_trajectory_col(prob, n_proc, n_iter, n_inner,
+                                     mmse_fn=self.mmse_fn,
+                                     erasure_rate=erasure_rate)
+        log2u_grid = np.linspace(-12.0, 5.0, n_u_grid)
+        unit = GaussMixture(w=(1.0,), mu=(0.0,), var=(1.0,))
+        hq = ecsq_entropy(2.0 ** log2u_grid, unit)
+        # H_Q(u) is strictly decreasing: invert for the cap-rate bin
+        u_cap = float(np.interp(eff_r_max, hq[::-1], log2u_grid[::-1]))
+
+        f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32))
+        self.tables = ColBTTables(
+            log_v=f32(np.log(grid_v)), log_m=f32(np.log(grid_m)),
+            targets=f32(c_ratio * tau_c),
+            log2u_grid=f32(log2u_grid), hq_tab=f32(hq), u_cap=f32(u_cap),
+            sigma_e2=f32(prob.sigma_e2), inv_kappa=f32(1.0 / prob.kappa),
+            n_proc=f32(float(n_proc)), eps=f32(prob.prior.eps),
+            mu_s=f32(prob.prior.mu_s), sigma_s2=f32(prob.prior.sigma_s**2),
+            r_max=f32(eff_r_max), surv=f32(1.0 - erasure_rate),
+        )
+        self._on_device: dict = {}
+
+    @classmethod
+    def from_tables(cls, tables: ColBTTables) -> "ColumnBTRateControl":
+        """A controller around finished tables (``convert.py``)."""
+        self = cls.__new__(cls)
+        self.tables = tables.to("cpu")
+        self.n_iter = int(tables.targets.shape[0])
+        self.n_proc = int(round(float(tables.n_proc)))
+        self._on_device = {}
+        return self
+
+    def delta_for(self, t, v_prev):
+        return col_bt_delta_for(self.tables_on(v_prev.device), t, v_prev)
+
+
+class ColDPSchedule(FixedSchedule):
+    """``dp_allocate_col`` result realized as per-round ECSQ bin sizes for
+    the column layout (the column counterpart of ``DPSchedule``). Round 0
+    is lossless (inf): its contributions are all zero."""
+
+    def __init__(self, dp_result, prob: CSProblem, n_proc: int,
+                 ecsq_gap: bool = True):
+        sq2 = np.atleast_1d(col_sigma_q2_for_rate(
+            dp_result.rates[1:], dp_result.sigma2_d[1:-1], prob, n_proc,
+            ecsq_gap))
+        super().__init__(np.concatenate([[np.inf], np.sqrt(12.0 * sq2)]))
+        self.rates = np.asarray(dp_result.rates)
+        self.d_traj = np.asarray(dp_result.sigma2_d)
+
+    @classmethod
+    def from_arrays(cls, deltas, rates, d_traj) -> "ColDPSchedule":
+        """Rebuild from a finished schedule's arrays (``convert.py``)."""
+        self = cls.__new__(cls)
+        FixedSchedule.__init__(self, deltas)
+        self.rates = np.asarray(rates)
+        self.d_traj = np.asarray(d_traj)
+        return self
 
 
 # ---------------------------------------------------------------------------
@@ -473,10 +730,10 @@ class BTRateControl:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     n_proc: int = 30
-    n_iter: int = 10                  # iterations
-    collect_symbols: bool = True      # trace quantizer indices (T, P, N)
+    n_iter: int = 10                  # iterations (row) / outer rounds (col)
+    collect_symbols: bool = True      # trace quantizer indices (T, P, N|M)
     collect_xs: bool = True           # trace per-iteration estimates (T, N)
-    layout: RowPartition = RowPartition()
+    layout: RowPartition | ColumnPartition = RowPartition()
     a_dtype: str = "float32"          # A storage/streaming dtype:
                                       # "bfloat16" halves the bytes of the
                                       # dominant operand, sums stay float32
@@ -484,6 +741,10 @@ class EngineConfig:
                                       # the card; without one the engine
                                       # raises, it never carries on on the
                                       # CPU. Tests pass "cpu".
+
+    @property
+    def is_col(self) -> bool:
+        return isinstance(self.layout, ColumnPartition)
 
     @property
     def a_tdtype(self) -> torch.dtype:
@@ -509,7 +770,7 @@ class EngineTrace:
     deltas: np.ndarray            # realized bin sizes (T,)
     extra_var: np.ndarray         # transport-injected variance P*sigma_Q^2 (T,)
     rates: np.ndarray             # controller-chosen rate (T,), inf = untracked
-    symbols: np.ndarray | None    # quantizer indices (T, P, N)
+    symbols: np.ndarray | None    # quantizer indices (T, P, N) row / (T, P, M) col
     xs: np.ndarray | None         # per-iteration estimates (T, N)
 
     def mse(self, s0: np.ndarray) -> np.ndarray:
@@ -520,7 +781,8 @@ class EngineTrace:
 
 class _Outs(NamedTuple):
     """Device-side record of a solve, preallocated and filled in place.
-    Scalars are (..., T); xs (..., T, N); symbols (..., T, P, N)."""
+    Scalars are (..., T); xs (..., T, N); symbols (..., T, P, L) with L the
+    message length: N in the row layout, M in the column layout."""
 
     s2: torch.Tensor
     deltas: torch.Tensor
@@ -573,15 +835,13 @@ class AmpEngine:
         x, z_p, onsager = carry
         z_p, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, m)
         if isinstance(self.controller, FixedSchedule):
-            # fixed schedules arrive as a device operand
-            delta, rate = sched_delta.expand(s2.shape), math.inf
+            # fixed schedules arrive as a device operand; their rate is not
+            # tracked (the record holds inf from allocation)
+            delta, rate = sched_delta.expand(s2.shape), None
         else:
             delta, rate = self.controller.delta_for(t, s2)
         x_new, onsager_new, extra, syms = self._gc(f_p, s2, delta, kappa)
-        outs.s2[..., t] = s2
-        outs.deltas[..., t] = delta
-        outs.extra[..., t] = extra
-        outs.rates[..., t] = rate
+        self._record(outs, t, s2, delta, extra, rate)
         if outs.xs is not None:
             outs.xs[..., t, :] = x_new
         if outs.symbols is not None:
@@ -597,14 +857,28 @@ class AmpEngine:
             return np.asarray(deltas, np.float32)
         return np.zeros(self.cfg.n_iter, np.float32)
 
-    def _alloc_outs(self, lead, n) -> _Outs:
+    def _alloc_outs(self, lead, n, msg_len) -> _Outs:
         cfg, dev = self.cfg, self.device
         t, p = cfg.n_iter, cfg.n_proc
         new = lambda *shape: torch.empty(lead + shape, dtype=torch.float32,
                                          device=dev)
-        return _Outs(new(t), new(t), new(t), new(t),
+        rates = torch.full(lead + (t,), math.inf, dtype=torch.float32,
+                           device=dev)
+        return _Outs(new(t), new(t), new(t), rates,
                      new(t, n) if cfg.collect_xs else None,
-                     new(t, p, n) if cfg.collect_symbols else None)
+                     new(t, p, msg_len) if cfg.collect_symbols else None)
+
+    @staticmethod
+    def _record(outs: _Outs, t: int, s2, delta, extra, rate) -> None:
+        """Write iteration t's scalars into the device record. Every value
+        is a device tensor: writing a Python number into a CUDA tensor
+        copies it from the host, and that copy waits for the device.
+        ``rate`` None (untracked) leaves the inf the record starts with."""
+        outs.s2[..., t] = s2
+        outs.deltas[..., t] = delta
+        outs.extra[..., t] = extra
+        if rate is not None:
+            outs.rates[..., t] = rate
 
     def _solve_core(self, a_p, y_p, sched, m: int, n: int):
         """The T-iteration loop on device operands. a_p (P, Mp, N) or
@@ -615,10 +889,114 @@ class AmpEngine:
                              device=self.device),
                  torch.zeros_like(y_p),
                  torch.zeros(lead, dtype=torch.float32, device=self.device))
-        outs = self._alloc_outs(lead, n)
+        outs = self._alloc_outs(lead, n, n)
         for t in range(cfg.n_iter):
             carry = self._body(t, carry, sched[t], a_p, y_p, kappa, m, outs)
         return carry[0], outs
+
+    # -- column layout (C-MP-AMP) ---------------------------------------------
+
+    def _check_col_controller(self):
+        if not isinstance(self.controller, (FixedSchedule,
+                                            ColumnBTRateControl)):
+            raise TypeError(
+                "the column layout takes a FixedSchedule/ColDPSchedule or a "
+                "ColumnBTRateControl (row-wise controllers predict through "
+                f"the wrong SE), got {type(self.controller).__name__}")
+
+    def _col_prior_params(self):
+        """(eps, mu_s, sigma_s^2) for the fused inner step, whose denoiser
+        is the Bernoulli-Gauss closed form."""
+        pr = self.prior
+        if not isinstance(pr, BernoulliGauss):
+            raise TypeError("the column layout's inner step denoises with "
+                            "the Bernoulli-Gauss closed form; got "
+                            f"{type(pr).__name__}")
+        return pr.eps, pr.mu_s, pr.sigma_s**2
+
+    def _col_inner(self, x, g, z_p, a_cp, m_eff):
+        """``layout.n_inner`` local AMP iterations at each processor on the
+        fused residual ``g``, each one fused inner step (``col_inner_step``):
+
+            sigma_p^2 = ||z_p||^2 / M,  f_p = x_p + A_p^T z_p,
+            x_p <- eta(f_p, sigma_p^2),
+            z_p <- g - A_p (x_p - x_p^0) + c_p z_p,  c_p = sum(eta') / M
+
+        (the last step skips the z update). ``z_p`` is the round's starting
+        residual stack (..., P, M). Returns ``(x, c_p, z_last)``, ``z_last``
+        the residual that fed the final denoise."""
+        n_inner = self.cfg.layout.n_inner
+        pp = self._col_prior_params()
+        x0, c_p = x, None
+        for t in range(n_inner):
+            x, c_p, z_p = col_inner_step(a_cp, x, x0, z_p, g, None, m_eff,
+                                         *pp, update_z=t + 1 < n_inner)
+        return x, c_p, z_p
+
+    def _col_round(self, x, mem, coef, delta, a_cp, y, m_eff):
+        """One round: residual contributions, fuse, the boundary Onsager
+        memory, the inner stage. Returns the new carry pieces and the
+        round's record ``(v_hat, extra, syms)``."""
+        r_p = col_residual(a_cp, x)
+        r, extra, syms = self._fuse(r_p, delta)
+        g = y - r
+        # boundary Onsager correction sum_q c_q z_q^last (ColumnPartition);
+        # a scalar times the previous g on the n_inner == 1 path
+        if self.cfg.layout.carry_fused:
+            g = g + coef[..., None] * mem
+        else:
+            g = g + torch.einsum("...p,...pm->...m", coef, mem)
+        v_hat = torch.sum(g * g, dim=-1) / m_eff
+        z0 = g.unsqueeze(-2).expand(x.shape[:-1] + g.shape[-1:]).contiguous()
+        x_new, c_p, z_last = self._col_inner(x, g, z0, a_cp, m_eff)
+        if self.cfg.layout.carry_fused:
+            return x_new, g, torch.sum(c_p, dim=-1), v_hat, extra, syms
+        return x_new, z_last, c_p, v_hat, extra, syms
+
+    def _col_body(self, t: int, carry, sched_delta, a_cp, y, m_eff,
+                  outs: _Outs):
+        """One outer round; writes its record into ``outs`` at index t.
+        The carry is ``(x (..., P, Np), mem, coef, v_prev)``: the signal
+        slices, the Onsager boundary memory (the previous g (..., M) and
+        the summed coefficient (...,) when ``carry_fused``, else the
+        per-processor residuals (..., P, M) and coefficients (..., P)) and
+        the previous round's plug-in ``||g||^2 / M``, the column
+        controller's input. No host sync."""
+        x, mem, coef, v_prev = carry
+        if isinstance(self.controller, FixedSchedule):
+            delta, rate = sched_delta.expand(v_prev.shape), None
+        else:
+            delta, rate = self.controller.delta_for(t, v_prev)
+        x_new, mem, coef, v_hat, extra, syms = self._col_round(
+            x, mem, coef, delta, a_cp, y, m_eff)
+        if t == 0:
+            # round 0 quantizes all-zero contributions exactly: no noise
+            # enters g, whatever bin the schedule names
+            extra = torch.zeros_like(extra)
+        self._record(outs, t, v_hat, delta, extra, rate)
+        if outs.xs is not None:
+            outs.xs[..., t, :] = x_new.reshape(x_new.shape[:-2] + (-1,))
+        if outs.symbols is not None:
+            outs.symbols[..., t, :, :] = syms
+        return x_new, mem, coef, v_hat
+
+    def _col_solve_core(self, a_cp, y, sched, m: int, n: int):
+        """The outer-round loop on device operands. a_cp (P, M, Np) or
+        (B, P, M, Np); y (M,) or (B, M); sched (T,)."""
+        cfg, p = self.cfg, self.cfg.n_proc
+        lead = tuple(y.shape[:-1])
+        zeros = lambda *shape: torch.zeros(lead + shape, dtype=torch.float32,
+                                           device=self.device)
+        x = zeros(p, a_cp.shape[-1])
+        if cfg.layout.carry_fused:
+            mem, coef = torch.zeros_like(y), zeros()
+        else:
+            mem, coef = zeros(p, m), zeros(p)
+        carry = (x, mem, coef, torch.sum(y * y, dim=-1) / m)
+        outs = self._alloc_outs(lead, n, m)
+        for t in range(cfg.n_iter):
+            carry = self._col_body(t, carry, sched[t], a_cp, y, m, outs)
+        return carry[0].reshape(lead + (n,)), outs
 
     # -- operands -------------------------------------------------------------
 
@@ -636,6 +1014,13 @@ class AmpEngine:
         a_p, y_p = pad_row_shards(a_p, y_p)
         return self._a_operand(a_p), y_p.contiguous()
 
+    def _split_col(self, y, a_mat):
+        """Column-split A (y is shared) into device operands."""
+        a_cp, y = pad_col_shards(
+            split_problem_cols(self._f32(a_mat), self.cfg.n_proc),
+            self._f32(y))
+        return self._a_operand(a_cp), y.contiguous()
+
     def _trace(self, x, outs: _Outs) -> EngineTrace:
         host = lambda v: None if v is None else v.cpu().numpy()
         return EngineTrace(
@@ -650,7 +1035,10 @@ class AmpEngine:
         device-side ``(x, outs)`` without waiting for the device.
         ``sched`` overrides the engine controller's schedule operand
         (lossless/fixed/DP deltas ride here); ``a_p`` may be a long-lived
-        device tensor already in ``cfg.a_dtype`` — it is used as it is."""
+        device tensor already in ``cfg.a_dtype`` — it is used as it is.
+        Row layout only, as in the reference."""
+        if self.cfg.is_col:
+            raise ValueError("dispatch_single is a row-layout entry point")
         if not isinstance(a_p, torch.Tensor):
             a_p = self._f32(a_p)
         a_p = self._a_operand(a_p)
@@ -665,8 +1053,16 @@ class AmpEngine:
 
     def solve(self, y, a_mat) -> EngineTrace:
         """Full T-iteration solve with no host sync between iteration 0
-        and T; the trace comes to the host once, at the end."""
+        and T; the trace comes to the host once, at the end. Under a
+        ``ColumnPartition`` layout it is the C-MP-AMP solve of ``n_iter``
+        outer rounds."""
         m, n = a_mat.shape
+        if self.cfg.is_col:
+            self._check_col_controller()
+            a_cp, y_d = self._split_col(y, a_mat)
+            self.dispatch_count += 1
+            return self._trace(*self._col_solve_core(
+                a_cp, y_d, self._f32(self._sched_operand()), m, n))
         a_p, y_p = self._split(y, a_mat)
         return self._trace(*self.dispatch_single(a_p, y_p, m, n))
 
@@ -681,13 +1077,18 @@ class AmpEngine:
         b = ys.shape[0]
         p = self.cfg.n_proc
         m, n = a_mats.shape[-2:]
+        if not shared_a:
+            assert a_mats.shape[0] == b
+        if self.cfg.is_col:
+            self._check_col_controller()
+            a_b, y_b = pad_col_shards(split_problem_cols(a_mats, p), ys)
+            self.dispatch_count += 1
+            return self._trace(*self._col_solve_core(
+                self._a_operand(a_b), y_b.contiguous(),
+                self._f32(self._sched_operand()), m, n))
         assert m % p == 0, f"M={m} not divisible by P={p}"
         mp_ = m // p
-        if shared_a:
-            a_b = a_mats.reshape(p, mp_, n)
-        else:
-            assert a_mats.shape[0] == b
-            a_b = a_mats.reshape(b, p, mp_, n)
+        a_b = a_mats.reshape(a_mats.shape[:-2] + (p, mp_, n))
         y_b = ys.reshape(b, p, mp_).contiguous()
         a_b, _ = pad_row_shards(a_b, None)
         self.dispatch_count += 1
@@ -702,8 +1103,11 @@ class AmpEngine:
         host-sync baseline). ``host_schedule`` is
         ``(t, sigma2_hat) -> delta``; defaults to the engine's controller
         evaluated on the host. Synchronises once per iteration, by design.
+        Row layout only, as in the reference.
         """
         cfg = self.cfg
+        if cfg.is_col:
+            raise ValueError("solve_host_loop is a row-layout entry point")
         m, n = a_mat.shape
         kappa = m / n
         a_p, y_p = self._split(y, a_mat)

@@ -16,7 +16,8 @@
 // 50 MB L2.
 //
 // What the design does about it:
-//   * A is row-major with N contiguous. The z-pass gives one warp to each
+//   * A is row-major with N contiguous (loads and the warp's row dot product
+//     live in amp_common.cuh, shared with amp_col.cu). The z-pass gives one warp to each
 //     output row and lets its lanes stride along N; the f-pass puts its
 //     threads along N and walks down the rows of the shard. Either way
 //     neighbouring threads read neighbouring addresses, 16 bytes a thread
@@ -44,43 +45,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "amp_common.cuh"
 
 namespace {
+
+using amp::load_a;
+using amp::Width;
 
 constexpr int kMaxWarps = 32;      // warps of a z-pass block, at most
 constexpr int kFChunk = 1024;      // rows of z' staged in shared memory at a time
 constexpr int kSsThreads = 256;    // threads of the second-stage block
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// V consecutive elements of A, widened to float32. V > 1 is one 16-byte load.
-template <typename TA, int V>
-__device__ __forceinline__ void load_a(const TA* p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = to_float(p[0]);
-  } else if constexpr (std::is_same<TA, float>::value) {
-    static_assert(V == 4, "float32 vectors hold 4 elements");
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-    static_assert(V == 8, "bfloat16 vectors hold 8 elements");
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-}
-
-template <typename TA, bool VEC>
-struct Width {
-  static constexpr int value = VEC ? 16 / static_cast<int>(sizeof(TA)) : 1;
-};
 
 // ---- z-pass: one warp per row (b, p*Mp + m) --------------------------------
 // grid (ceil(rows / warps), B), block warps*32. partial is (B, gridDim.x).
@@ -104,29 +78,8 @@ __global__ void amp_local_z_kernel(const TA* __restrict__ a, long long a_bstride
   if (r < rows) {  // r is the same for the whole warp
     const TA* arow = a + static_cast<long long>(b) * a_bstride +
                      static_cast<long long>(r) * n;
-    const float* xb = x + static_cast<long long>(b) * n;
-    float acc = 0.f;
-    const int nv = n / V;  // VEC implies n % V == 0
-#pragma unroll 4
-    for (int i = lane; i < nv; i += 32) {
-      float av[V];
-      load_a<TA, V>(arow + static_cast<long long>(i) * V, av);
-      if constexpr (V == 1) {
-        acc = fmaf(av[0], xb[i], acc);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; k += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(xb + i * V + k);
-          acc = fmaf(av[k], xv.x, acc);
-          acc = fmaf(av[k + 1], xv.y, acc);
-          acc = fmaf(av[k + 2], xv.z, acc);
-          acc = fmaf(av[k + 3], xv.w, acc);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    const float acc = amp::warp_row_dot<TA, V>(
+        arow, amp::VecX{x + static_cast<long long>(b) * n}, n, lane);
     if (lane == 0) {
       const long long idx = static_cast<long long>(b) * rows + r;
       const float zn = (y[idx] - acc) + ons[b] * z[idx];

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import check, load
 
 __all__ = ["amp_local_z_cuda", "amp_local_f_cuda", "amp_local_cuda_grid",
            "launch_counts", "reset_launch_counts", "vec_width",
@@ -52,16 +52,8 @@ def _library():
             vp, ci, ll, vp, vp, vp, ctypes.c_float, ci, ci, ci, ci, ci, ci,
             vp]
         lib.amp_local_f_launch.restype = ci
-        lib.amp_local_error_string.argtypes = [ci]
-        lib.amp_local_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def _check(code: int, what: str) -> None:
-    if code != 0:
-        msg = _library().amp_local_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
 def vec_width(n: int, dtype: torch.dtype) -> int:
@@ -81,26 +73,29 @@ def _f32(t: torch.Tensor, shape, name: str, dev) -> torch.Tensor:
     return t
 
 
-def _stack(a_p: torch.Tensor, x: torch.Tensor):
-    """Validate the A stack; returns (B, P, Mp, N, batch stride, batched)."""
-    if not a_p.is_cuda:
+def _stack(a: torch.Tensor, x: torch.Tensor, x_rank: int = 1,
+           dims: str = "(P, Mp, N)"):
+    """Validate an A stack ``dims`` or (B,) + ``dims`` against ``x``, whose
+    unbatched rank is ``x_rank``; returns (B, P, rows, cols, batch stride,
+    batched). The column kernels use it with ``x_rank=2``."""
+    if not a.is_cuda:
         raise ValueError("the CUDA LC kernels take CUDA tensors; CPU tensors "
                          "go through kernels.amp_fused.ops")
-    if a_p.dtype not in _A_DTYPES or not a_p.is_contiguous() \
-            or a_p.ndim not in (3, 4):
+    if a.dtype not in _A_DTYPES or not a.is_contiguous() \
+            or a.ndim not in (3, 4):
         raise ValueError(
-            "a_p: need a contiguous float32/bfloat16 (P, Mp, N) or "
-            f"(B, P, Mp, N) tensor, got {a_p.dtype} {tuple(a_p.shape)}, "
-            f"contiguous={a_p.is_contiguous()}")
-    batched = x.ndim == 2
-    if a_p.ndim == 4 and not batched:
-        raise ValueError("a batched a_p needs a batched x (B, N)")
-    p, mp, n = a_p.shape[-3:]
+            f"A: need a contiguous float32/bfloat16 {dims} or (B, "
+            f"{dims[1:]} tensor, got {a.dtype} {tuple(a.shape)}, "
+            f"contiguous={a.is_contiguous()}")
+    batched = x.ndim == x_rank + 1
+    if a.ndim == 4 and not batched:
+        raise ValueError("a batched A needs a batched x")
+    p, rows, cols = a.shape[-3:]
     b = x.shape[0] if batched else 1
-    if a_p.ndim == 4 and a_p.shape[0] != b:
-        raise ValueError(f"a_p batch {a_p.shape[0]} != x batch {b}")
-    stride = p * mp * n if a_p.ndim == 4 else 0
-    return b, p, mp, n, stride, batched
+    if a.ndim == 4 and a.shape[0] != b:
+        raise ValueError(f"A batch {a.shape[0]} != x batch {b}")
+    stride = p * rows * cols if a.ndim == 4 else 0
+    return b, p, rows, cols, stride, batched
 
 
 def _vec_flag(n: int, a_p: torch.Tensor, *others: torch.Tensor) -> int:
@@ -134,7 +129,7 @@ def amp_local_z_cuda(a_p, x, y_p, z_p, onsager):
             z_new.data_ptr(), partial.data_ptr(), ss.data_ptr(),
             b, rows, n, Z_WARPS, _vec_flag(n, a_p, x),
             torch.cuda.current_stream().cuda_stream)
-    _check(code, "amp_local_z_launch")
+    check("amp_local", code, "amp_local_z_launch")
     launch_counts["amp_local_z"] += 1
     return z_new, ss
 
@@ -153,7 +148,7 @@ def amp_local_f_cuda(a_p, z_new, x, n_proc: int):
             z_new.data_ptr(), x.data_ptr(), f_p.data_ptr(), float(n_proc),
             b, p, mp, n, F_THREADS, _vec_flag(n, a_p),
             torch.cuda.current_stream().cuda_stream)
-    _check(code, "amp_local_f_launch")
+    check("amp_local", code, "amp_local_f_launch")
     launch_counts["amp_local_f"] += 1
     return f_p
 

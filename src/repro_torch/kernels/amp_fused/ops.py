@@ -1,12 +1,14 @@
-"""Dispatch for the fused AMP LC step: the device of the tensors decides.
+"""Dispatch for the fused AMP LC steps of both layouts: the device of the
+tensors decides.
 
 A CUDA tensor goes to the hand-written kernels (``amp_fused.py``) and either
 launches or raises; a CPU tensor goes to the plain versions (``ref.py``).
 There is no switch and no fallback from one to the other.
 
 The CUDA kernels mask their own ragged edges, so unlike the TPU kernels they
-need no tile-aligned operands: ``pad_row_shards`` is kept as the public
-place where alignment would happen at solve entry, and is the identity.
+need no tile-aligned operands: ``pad_row_shards`` / ``pad_col_shards`` are
+kept as the public places where alignment would happen at solve entry, and
+are the identity.
 The invariant it stood for stays: the (M, N)-sized operand is never padded
 or copied inside the iteration loop.
 """
@@ -15,9 +17,12 @@ from __future__ import annotations
 import torch
 
 from .amp_fused import (F_THREADS, Z_WARPS, amp_local_cuda_grid, vec_width)
-from .ref import amp_local_ref, amp_local_ref_grid
+from .col import col_inner_cuda, col_residual_cuda
+from .ref import (amp_local_ref, amp_local_ref_grid, col_inner_step_ref,
+                  col_residual_ref)
 
-__all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards"]
+__all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards",
+           "col_residual", "col_inner_step", "col_tiles", "pad_col_shards"]
 
 
 def row_tiles(mp: int, n: int, a_dtype: torch.dtype = torch.float32):
@@ -35,6 +40,38 @@ def pad_row_shards(a_p, y_p):
     take scalar loads when N is not a multiple of the vector width), so the
     inputs come back unchanged."""
     return a_p, y_p
+
+
+def col_tiles(np_: int, a_dtype: torch.dtype = torch.float32):
+    """(bm, bn) of the CUDA column kernels for a (P, M, Np) stack: rows per
+    row-pass block (one warp a row) and columns per A^T z block (M is split
+    over blocks as well, ``col.row_chunk``). Ragged edges are masked."""
+    return Z_WARPS, F_THREADS * vec_width(np_, a_dtype)
+
+
+def pad_col_shards(a_cp, y):
+    """Alignment of a (..., P, M, Np) column-shard stack and its shared y at
+    solve entry: nothing needs aligning, the inputs come back unchanged."""
+    return a_cp, y
+
+
+def col_residual(a_cp, x):
+    """Column-layout residual contributions ``r_p = A_p x_p`` (..., P, M)."""
+    if a_cp.is_cuda:
+        return col_residual_cuda(a_cp, x)
+    return col_residual_ref(a_cp, x)
+
+
+def col_inner_step(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
+                   update_z: bool):
+    """One fused C-MP-AMP inner iteration (message + denoise + optional
+    residual update); ``ref.col_inner_step_ref`` states the function.
+    ``n_mask`` is a (Np,) 0/1 mask of real columns, or None."""
+    if a_cp.is_cuda:
+        return col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
+                              sigma_s2, update_z)
+    return col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
+                              sigma_s2, update_z)
 
 
 def amp_local_grid(a_p, x, y_p, z_p, onsager, n_proc: int):

@@ -4,8 +4,9 @@ Each ``<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries are built at first use, from
 the sources in the package and nothing else, into ``build/`` at the root of
-the checkout, under a name that carries a hash of the source, so an edited
-source is rebuilt and an unchanged one is not.
+the checkout, under a name that carries a hash of the source and of every
+header under ``csrc/`` (``*.cuh``), so an edited source or header is rebuilt
+and an unchanged one is not.
 Several sources are compiled side by side, one ``nvcc`` process each.
 
 Nothing here runs when a module is imported; a machine without ``nvcc``
@@ -22,7 +23,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "ensure_built", "load", "build_log"]
+__all__ = ["NVCC_FLAGS", "build_dir", "ensure_built", "load", "check",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,8 +50,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{key.hexdigest()[:12]}.so"
 
 
@@ -96,3 +100,12 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def check(name: str, code: int, what: str) -> None:
+    """Raise if an entry point of ``csrc/<name>.cu`` returned a CUDA error
+    (each source exports ``<name>_error_string``)."""
+    if code != 0:
+        fn = getattr(load(name), f"{name}_error_string")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {code} ({fn(code).decode()})")

@@ -37,12 +37,18 @@ def test_port_has_the_expected_modules():
                  "repro_torch.core.state_evolution",
                  "repro_torch.core.rate_alloc",
                  "repro_torch.core.rate_distortion",
+                 "repro_torch.core.compression",
                  "repro_torch.kernels.build",
                  "repro_torch.kernels.amp_fused.ops",
                  "repro_torch.kernels.amp_fused.ref",
-                 "repro_torch.kernels.amp_fused.amp_fused"):
+                 "repro_torch.kernels.amp_fused.amp_fused",
+                 "repro_torch.kernels.amp_fused.col",
+                 "repro_torch.kernels.quantize.ops",
+                 "repro_torch.kernels.quantize.ref",
+                 "repro_torch.kernels.quantize.quantize"):
         assert want in names, want
-    assert os.path.exists(os.path.join(PKG, "csrc", "amp_local.cu"))
+    for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
 def test_importing_the_port_imports_neither_jax_nor_repro():
@@ -112,22 +118,47 @@ def _small_problem():
     return prob, a, y
 
 
-@pytest.mark.parametrize("ctrl", ["fixed", "bt"])
+def _engine(layout, ctrl, prob, p, t):
+    """An engine of the layout with a fixed schedule, the layout's BT
+    controller, or int8 block transport."""
+    if layout == "row":
+        cfg = te.EngineConfig(n_proc=p, n_iter=t, device="cpu")
+        bt = lambda: te.BTRateControl(prob, p, t, n_s2_grid=4, n_u_grid=7)
+    else:
+        cfg = te.EngineConfig(n_proc=p, n_iter=t, device="cpu",
+                              layout=te.ColumnPartition())
+        bt = lambda: te.ColumnBTRateControl(prob, p, t, n_u_grid=16)
+    if ctrl == "block8":
+        return te.AmpEngine(prob.prior, cfg, te.BlockQuantTransport(8, 32))
+    controller = te.FixedSchedule([np.inf, 0.05, 0.02]) if ctrl == "fixed" \
+        else bt()
+    return te.AmpEngine(prob.prior, cfg, te.EcsqTransport(), controller)
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("ctrl", ["fixed", "bt", "block8"])
 @pytest.mark.parametrize("batched", [False, True], ids=["solve", "solve_many"])
-def test_no_host_sync_inside_the_solve_loop(ctrl, batched, monkeypatch):
+def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
+                                            monkeypatch):
     """Between iteration 0 and T nothing reads a tensor's value on the
     host: ``item``/``tolist``/``__bool__``/``__float__``/``cpu``/``numpy``
-    raise while ``_solve_core`` runs (on the CPU they would not block, but
-    the same calls on the card would each wait for the device)."""
+    raise while the loop (``_solve_core`` / ``_col_solve_core``) runs (on
+    the CPU they would not block, but the same calls on the card would each
+    wait for the device). Nor is a Python number written into a tensor: on
+    the card that is a copy from the host, which waits too."""
     prob, a, y = _small_problem()
     p, t = 4, 3
-    controller = te.FixedSchedule([np.inf, 0.05, 0.02]) if ctrl == "fixed" \
-        else te.BTRateControl(prob, p, t, n_s2_grid=4, n_u_grid=7)
-    eng = te.AmpEngine(prob.prior, te.EngineConfig(n_proc=p, n_iter=t,
-                                                   device="cpu"),
-                       te.EcsqTransport(), controller)
-    inner = eng._solve_core
+    eng = _engine(layout, ctrl, prob, p, t)
+    loop = "_solve_core" if layout == "row" else "_col_solve_core"
+    inner = getattr(eng, loop)
     calls = []
+    setitem = torch.Tensor.__setitem__
+
+    def checked_setitem(self, index, value):
+        if isinstance(value, (int, float)):
+            raise AssertionError("host sync inside the loop: a Python number "
+                                 "written into a tensor")
+        return setitem(self, index, value)
 
     def guarded(*args, **kw):
         def boom(name):
@@ -138,10 +169,11 @@ def test_no_host_sync_inside_the_solve_loop(ctrl, batched, monkeypatch):
             for name in ("item", "tolist", "__bool__", "__float__", "__int__",
                          "cpu", "numpy", "__index__"):
                 mp.setattr(torch.Tensor, name, boom(name))
+            mp.setattr(torch.Tensor, "__setitem__", checked_setitem)
             calls.append(1)
             return inner(*args, **kw)
 
-    monkeypatch.setattr(eng, "_solve_core", guarded)
+    monkeypatch.setattr(eng, loop, guarded)
     if batched:
         tr = eng.solve_many(np.stack([y, 1.1 * y]), a)
         assert tr.x.shape == (2, 256)
@@ -171,11 +203,15 @@ def test_loop_body_sources_hold_no_sync_calls():
     """Source check on the functions that make up the loop body."""
     import inspect
     fns = [te.AmpEngine._body, te.AmpEngine._local, te.AmpEngine._fuse,
-           te.AmpEngine._gc, te.AmpEngine._solve_core, te.amp_gc_step,
-           te.bt_delta_for, te.interp, te._bt_mmse, te._bt_predict_next,
-           te._bt_msg_sd, te._bt_rate_lookup, te._bt_cap_sq2,
+           te.AmpEngine._gc, te.AmpEngine._solve_core, te.AmpEngine._record,
+           te.AmpEngine._col_body, te.AmpEngine._col_round,
+           te.AmpEngine._col_inner, te.AmpEngine._col_solve_core,
+           te.amp_gc_step, te.bt_delta_for, te.interp, te._bt_mmse,
+           te._bt_predict_next, te._bt_msg_sd, te._bt_rate_lookup,
+           te._bt_cap_sq2, te.col_bt_delta_for,
            te.EcsqTransport.fuse, te.ExactFusion.fuse,
-           te.BTRateControl.delta_for]
+           te.BlockQuantTransport.fuse, te.BTRateControl.delta_for,
+           te.ColumnBTRateControl.delta_for]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
     for fn in fns:
         src = inspect.getsource(fn)
