@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the device time of one solve goes, on one NVIDIA GPU.
+"""Where the device time of one solve, or of one LM serving step, goes, on
+one NVIDIA GPU.
 
     python3 chip_profile.py
 
-Runs the PyTorch/CUDA port's row-layout MP-AMP solve at the paper's size
-(N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB; operands already on the
-card) under ``torch.profiler`` — lossless, DP-rated and BT-rated — and
-prints one JSON object per solve: the number of kernels launched, the span
-from the first kernel's start to the last one's end, the time the device was
-busy inside it, the share of the busy time spent in the hand-written LC
-kernels, and the ten heaviest kernels by name. The profiler slows the host
-down, so the span is longer than an unprofiled solve's (``chip_smoke.py``
-times that); the busy time and the kernel counts are not affected.
+Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
+solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
+operands already on the card) — lossless, DP-rated and BT-rated — and, at
+``chip_smoke.py``'s LM shapes (random init from seed 1234, prompts of 1000
+tokens), one gemma3-1b decode step (B=8), one rwkv6-3b prefill (B=4) and one
+rwkv6-3b decode step. It prints one JSON object per call: the number of
+kernels launched, the span from the first kernel's start to the last one's
+end, the time the device was busy inside it, the share of the busy time
+spent in the call's hand-written kernels, and the ten heaviest kernels by
+name. The profiler slows the host down, so the span is longer than an
+unprofiled call's (``chip_smoke.py`` times that); the busy time and the
+kernel counts are not affected.
 
 Informational: it checks nothing. Needs a CUDA device and nvcc (the kernels
 are built at first use); needs no network.
@@ -43,17 +47,23 @@ from repro_torch.core.engine import (AmpEngine, BTRateControl,  # noqa: E402
 from repro_torch.core.rate_alloc import dp_allocate  # noqa: E402
 from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import PAPER_T, CSProblem  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
 
 N, M, P, EPS, SNR_DB, SEED = 10_000, 3_000, 30, 0.05, 20.0, 1234
 T = PAPER_T[EPS]
+LM_PROMPT = 1000
 
 
-def profile_solve(eng: AmpEngine, a_p, y_p) -> dict:
-    eng.dispatch_single(a_p, y_p, M, N)          # warm
+def profile_call(fn, tag: str) -> dict:
+    """Profile one call of ``fn`` (after a warm one); ``tag`` names the
+    hand-written kernels whose share of the busy time is reported."""
+    fn()                                         # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.dispatch_single(a_p, y_p, M, N)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -65,12 +75,39 @@ def profile_solve(eng: AmpEngine, a_p, y_p) -> dict:
     busy = sum(by_name.values())
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
-    lc = sum(v for name, v in by_name.items() if "amp_local_" in name)
+    ours = sum(v for name, v in by_name.items() if tag in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"device_events": len(kernels), "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "busy_share_of_span": busy / span,
-            "lc_kernels_ms": lc / 1e3, "lc_share_of_busy": lc / busy,
+            "kernel_tag": tag, "tagged_kernels_ms": ours / 1e3,
+            "tagged_share_of_busy": ours / busy,
             "top": [{"ms": v / 1e3, "name": name[:100]} for name, v in top]}
+
+
+def profile_lm(smi: str) -> None:
+    """One gemma3-1b decode step (B=8, at position 1000 after a prefill of
+    1000 tokens), one rwkv6-3b prefill (B=4, 1000 tokens) and one rwkv6-3b
+    decode step."""
+    with torch.inference_mode():
+        for arch, batch in (("gemma3-1b", 8), ("rwkv6-3b", 4)):
+            cfg = get_config(arch)
+            model = get_model(cfg, seed=SEED)
+            prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+                0, cfg.vocab, (batch, LM_PROMPT)), device="cuda")
+            state = serve.prefill(model, prompts, LM_PROMPT + 1)
+            tok = prompts[:, -1:]
+            tag = "decode_attn" if cfg.family == "dense" else "wkv6_chunk"
+            calls = {"decode_step": lambda: model.decode_step(tok, state,
+                                                              LM_PROMPT)}
+            if cfg.family == "rwkv6":
+                calls = {"prefill": lambda: model(prompts, mode="prefill"),
+                         **calls}
+            for what, fn in calls.items():
+                print(json.dumps({"lm": arch, "call": what, "batch": batch,
+                                  "card": smi, **profile_call(fn, tag)}),
+                      flush=True)
+            del model, state
+            torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -95,8 +132,11 @@ def main() -> None:
         eng = AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
                         EcsqTransport(), ctrl)
         a_p, y_p = eng._split(y, a)
-        print(json.dumps({"solve": name, "card": smi, "T": T,
-                          **profile_solve(eng, a_p, y_p)}), flush=True)
+        print(json.dumps({"solve": name, "card": smi, "T": T, **profile_call(
+            lambda e=eng: e.dispatch_single(a_p, y_p, M, N), "amp_local_")}),
+            flush=True)
+    del a, y
+    profile_lm(smi)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,14 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     ColDPSchedule- and column-BT-rated ECSQ, int8 block-quantized, two
     inner iterations per round, a batch of 4, bfloat16 A; and a wide
     problem of the shape the solve service routes to columns (N=20000,
-    M=4000, P=20), BT-rated.
+    M=4000, P=20), BT-rated;
+  * LM serving (``repro_torch.launch.serve.generate``) at full width and
+    depth from a random init: gemma3-1b (B=8; decode attention, K5, in
+    every layer of every decode step) and rwkv6-3b (B=4; the WKV6
+    recurrence, K6, in every layer of prefill), prompts of 1000 tokens and
+    32 greedy steps; decode held against one prefill over the same tokens
+    (bf16, and float32 weights); the small config of each family on the
+    card against the CPU.
 
 It checks the results, that the paths launched the kernels and made no host
 sync inside their loops, and times the kernels against their bounds.
@@ -23,8 +30,8 @@ Prints one JSON object per phase, then the card's name and power limit,
 then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
-JSON file. Needs a CUDA device and nvcc; needs no network. Takes about 35
-seconds on an H100.
+JSON file. Needs a CUDA device and nvcc; needs no network. Takes about two
+minutes on an H100.
 """
 from __future__ import annotations
 
@@ -69,6 +76,14 @@ from repro_torch.kernels.amp_fused import col as kc  # noqa: E402
 from repro_torch.kernels.amp_fused import ref  # noqa: E402
 from repro_torch.kernels.quantize import ops as qops  # noqa: E402
 from repro_torch.kernels.quantize import quantize as kq  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attn import decode_attn as kd  # noqa: E402
+from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
+                                                 valid_rows)
+from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
+from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
 
 DEV = torch.device("cuda:0")
 SOURCES = {"amp_local_z": "src/repro_torch/csrc/amp_local.cu",
@@ -76,14 +91,19 @@ SOURCES = {"amp_local_z": "src/repro_torch/csrc/amp_local.cu",
            "col_residual": "src/repro_torch/csrc/amp_col.cu",
            "col_inner": "src/repro_torch/csrc/amp_col.cu",
            "quantize_blocks": "src/repro_torch/csrc/quantize.cu",
-           "dequantize_blocks": "src/repro_torch/csrc/quantize.cu"}
+           "dequantize_blocks": "src/repro_torch/csrc/quantize.cu",
+           "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
+           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 REPLACES = {"amp_local_z": "src/repro/kernels/amp_fused/amp_fused.py:102",
             "amp_local_f": "src/repro/kernels/amp_fused/amp_fused.py:123",
             "col_residual": "src/repro/kernels/amp_fused/col.py:67",
             "col_inner": "src/repro/kernels/amp_fused/col.py:175",
             "quantize_blocks": "src/repro/kernels/quantize/quantize.py:44",
-            "dequantize_blocks": "src/repro/kernels/quantize/quantize.py:72"}
-COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts)
+            "dequantize_blocks": "src/repro/kernels/quantize/quantize.py:72",
+            "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:85",
+            "wkv6": "src/repro/kernels/wkv6/wkv6.py:80"}
+COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
+            kd.launch_counts, kw.launch_counts)
 
 # NVIDIA H100 SXM data sheet: device memory rate and float32 rate outside
 # the tensor cores (the kernels do float32 FMAs on CUDA cores).
@@ -108,6 +128,25 @@ KERNEL_RTOL = 1e-5      # max |kernel - plain| / max |plain|, float32 sums in
                         # quantizer is held to bit-identity instead.
 SEED = 1234
 
+# LM serving (random init from SEED, full width and depth): gemma3-1b, B=8
+# (26 layers: K5 26 times a decode step), and rwkv6-3b, B=4 (32 layers: K6
+# once a layer in prefill); prompts of 1000 tokens, 32 greedy steps, so the
+# cache holds 1032 rows (ragged against K5's tiles of 32 and the TPU's 512)
+# and pos > 512, where gemma3's window of 512 bites.
+LM_DENSE, LM_DENSE_BATCH = "gemma3-1b", 8
+LM_RWKV, LM_RWKV_BATCH = "rwkv6-3b", 4
+LM_PROMPT, LM_GEN = 1000, 32
+# the reference's own prefill/decode tolerance (tests/test_models.py:66)
+LM_RTOL, LM_ATOL = 0.05, 0.15
+# card against CPU, small configs: the CPU tests' port-vs-reference bound
+# (tests/test_torch_models.py), 2 % of the logits' scale
+LM_SMALL_TOL = 0.02
+# decode against prefill with float32 weights: rounding of float32 sums in
+# another order, amplified through the layers (6e-5 of the logits' scale
+# seen at 32 layers in a CPU probe of a narrower rwkv6)
+LM_F32_TOL = 1e-3
+WKV_TOL = 3e-4          # rtol = atol, the reference's (tests/test_models.py:108)
+
 RESULT: dict = {}
 
 
@@ -115,6 +154,8 @@ def reset_all_counts() -> None:
     k.reset_launch_counts()
     kc.reset_launch_counts()
     kq.reset_launch_counts()
+    kd.reset_launch_counts()
+    kw.reset_launch_counts()
 
 
 def all_counts() -> dict:
@@ -973,6 +1014,349 @@ def time_col_solves(ctx, col_ctx) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM serving: K5 (decode attention) and K6 (WKV6), gemma3-1b and rwkv6-3b
+# ---------------------------------------------------------------------------
+
+DA_CASES = [
+    # name, B, H, KV, Dh, S, pos, window, dtype of q and caches
+    ("gemma3_global", 8, 4, 1, 256, 1032, 1031, 0, torch.bfloat16),
+    ("gemma3_local", 8, 4, 1, 256, 1032, 1031, 512, torch.bfloat16),
+    ("gemma3_local_pos_lt_window", 8, 4, 1, 256, 1032, 300, 512, torch.bfloat16),
+    ("pos0_global", 8, 4, 1, 256, 1032, 0, 0, torch.bfloat16),
+    ("pos0_local", 8, 4, 1, 256, 1032, 0, 512, torch.bfloat16),
+    ("ragged_f32_global", 8, 4, 1, 256, 1001, 1000, 0, torch.float32),
+    ("ragged_f32_local", 8, 4, 1, 256, 1001, 777, 512, torch.float32),
+    ("glm4_gqa_G16", 2, 32, 2, 128, 600, 599, 0, torch.bfloat16),
+    ("smoke_Dh16", 2, 4, 2, 16, 40, 20, 32, torch.bfloat16),
+    ("long_B8_S32768", 8, 4, 1, 256, 32768, 32767, 0, torch.bfloat16),
+]
+
+
+def da_inputs(b, h, kv, dh, s, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=DEV).to(dtype)
+    return rnd(b, h, dh), rnd(b, s, kv, dh), rnd(b, s, kv, dh)
+
+
+def check_decode_attn_kernel() -> dict:
+    """K5 against its plain version on the card. float32: 1e-5 of the
+    output's scale (softmax sums in another order). bfloat16: both round a
+    float32 result to bf16 once, so they may differ by one bf16 ulp (2^-7
+    relative, plus 1e-6 for values near zero). Bit-identical over two
+    runs."""
+    rows = []
+    for name, b, h, kv, dh, s, pos, win, dtype in DA_CASES:
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, SEED)
+        out = kd.decode_attn_cuda(q, kc_, vc_, pos, win)
+        again = kd.decode_attn_cuda(q, kc_, vc_, pos, win)
+        torch.cuda.synchronize()
+        want = decode_attn_ref(q, kc_, vc_, pos, win)
+        diff = (out.float() - want.float()).abs()
+        lo, hi = valid_rows(s, pos, win)
+        row = {"case": name, "B": b, "H": h, "KV": kv, "Dh": dh, "S": s,
+               "pos": pos, "window": win, "dtype": str(dtype).split(".")[-1],
+               "rows_read": hi - lo + 1,
+               "split": kd.split_plan(b * kv, lo, hi, kd._sms(DEV)),
+               "max_abs_err": float(diff.max()),
+               "rel_err": float(diff.max() / want.float().abs().max()),
+               "bit_identical": bool(torch.equal(out, again))}
+        rows.append(row)
+        assert out.shape == q.shape and out.dtype == q.dtype, row
+        assert bool(torch.isfinite(out).all()), row
+        if dtype == torch.float32:
+            assert row["rel_err"] <= KERNEL_RTOL, row
+        else:
+            assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-6).all()), row
+        assert row["bit_identical"], row
+        del q, kc_, vc_, out, again, want
+    emit("kernel_check_decode_attn", f32_rtol=KERNEL_RTOL,
+         bf16_limit="1 bf16 ulp", cases=rows)
+    return {r["case"]: r for r in rows}
+
+
+WKV_CASES = [
+    # name, B, T, H, Dh, dtype of r/k/v, non-zero state0
+    ("rwkv6_3b_prefill", 4, 1000, 40, 64, torch.bfloat16, False),
+    ("rwkv6_3b_state0", 4, 1000, 40, 64, torch.bfloat16, True),
+    ("ragged_T70_f32", 2, 70, 3, 64, torch.float32, True),
+    ("smoke_Dh16", 2, 45, 4, 16, torch.bfloat16, True),
+]
+
+
+def wkv_inputs(b, t, h, dh, dtype, state, seed):
+    """As the CPU tests draw them: log-decay clamped at -2, as the model
+    clamps it."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=DEV)
+    r, k_, v = (0.5 * rnd(b, t, h, dh) for _ in range(3))
+    logw = torch.clamp(-torch.exp(0.5 * rnd(b, t, h, dh) - 1.0), min=-2.0)
+    u = 0.3 * rnd(h, dh)
+    s0 = 0.3 * rnd(b, h, dh, dh) if state else None
+    return r.to(dtype), k_.to(dtype), v.to(dtype), logw, u, s0
+
+
+def check_wkv6_kernel() -> dict:
+    """K6 against its plain version (``wkv_chunked``) on the card, y and the
+    final state: the reference's tolerance, 3e-4 relative and absolute.
+    Bit-identical over two runs."""
+    rows = []
+    for name, b, t, h, dh, dtype, state in WKV_CASES:
+        args = wkv_inputs(b, t, h, dh, dtype, state, SEED)
+        y, s_fin = kw.wkv6_cuda(*args)
+        y2, s2 = kw.wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        y_r, s_r = wkv_chunked(*args)
+        row = {"case": name, "B": b, "T": t, "H": h, "Dh": dh,
+               "dtype": str(dtype).split(".")[-1], "state0": state,
+               "y_max_abs_err": float((y - y_r).abs().max()),
+               "y_rel_err": rel_err(y, y_r),
+               "state_max_abs_err": float((s_fin - s_r).abs().max()),
+               "state_rel_err": rel_err(s_fin, s_r),
+               "bit_identical": bool(torch.equal(y, y2) and torch.equal(s_fin, s2))}
+        rows.append(row)
+        assert y.shape == (b, t, h, dh) and s_fin.shape == (b, h, dh, dh)
+        assert torch.allclose(y, y_r, rtol=WKV_TOL, atol=WKV_TOL), row
+        assert torch.allclose(s_fin, s_r, rtol=WKV_TOL, atol=WKV_TOL), row
+        assert row["bit_identical"], row
+        del args, y, y2, s_fin, s2, y_r, s_r
+    emit("kernel_check_wkv6", rtol=WKV_TOL, atol=WKV_TOL, cases=rows)
+    return {r["case"]: r for r in rows}
+
+
+def teacher_forced_logits(model, prompts, fed):
+    """Prefill ``prompts``, then one decode step per column of ``fed``:
+    float32 logits (B, steps, V) of every step."""
+    p, n = prompts.shape[1], fed.shape[1]
+    state = serve.prefill(model, prompts, p + n)
+    out = []
+    for i in range(n):
+        h, state = model.decode_step(fed[:, i:i + 1], state, p + i)
+        out.append(model.logits(h)[:, -1])
+    return torch.stack(out, 1)
+
+
+def check_lm_small() -> dict:
+    """The smoke config of each family on the card (K5 / K6) against the CPU
+    (plain versions), with the same weights: prefill hidden and 8
+    teacher-forced decode steps' logits within 2 % of their scale."""
+    out = {}
+    for arch in (LM_DENSE, "granite-3-8b", LM_RWKV):
+        cfg = get_config(arch).smoke_config()
+        cpu = get_model(cfg, device="cpu", seed=SEED)
+        gpu = get_model(cfg, state={n: p.detach() for n, p in
+                                    cpu.named_parameters()})
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (2, 48)))
+        prompts, fed = toks[:, :40], toks[:, 40:]
+        reset_all_counts()
+        h_g, _ = gpu(prompts.to(DEV), mode="prefill")
+        l_g = teacher_forced_logits(gpu, prompts.to(DEV), fed.to(DEV))
+        torch.cuda.synchronize()
+        launches = all_counts()
+        h_c, _ = cpu(prompts, mode="prefill")
+        l_c = teacher_forced_logits(cpu, prompts, fed)
+        h_err = float((h_g.float().cpu() - h_c.float()).abs().max()
+                      / h_c.float().abs().max())
+        l_err = float((l_g.cpu() - l_c).abs().max() / l_c.abs().max())
+        want = ({"decode_attn": cfg.n_layers * 8, "wkv6": 0}
+                if cfg.family == "dense" else
+                {"decode_attn": 0, "wkv6": 2 * cfg.n_layers})
+        got = {key: launches[key] for key in want}
+        out[arch] = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                                "n_heads": cfg.n_heads,
+                                "n_kv_heads": cfg.n_kv_heads,
+                                "d_head": cfg.d_head, "vocab": cfg.vocab},
+                     "hidden_err_of_scale": h_err,
+                     "logits_err_of_scale": l_err, "launches": got}
+        assert got == want, (arch, got, want)
+        assert h_err <= LM_SMALL_TOL and l_err <= LM_SMALL_TOL, out[arch]
+        del cpu, gpu
+    emit("lm_small_card_vs_cpu", limit_of_scale=LM_SMALL_TOL, models=out)
+    return out
+
+
+def lm_decode_sync_sites(model, prompts) -> list:
+    """``sync_sites`` over the greedy decode loop alone (prefill before)."""
+    state = serve.prefill(model, prompts, LM_PROMPT + LM_GEN)
+    run = lambda: (serve.decode(model, state, prompts[:, -1:], LM_PROMPT,
+                                LM_GEN).float(), None)
+    run()                                           # warm: allocator, cuBLAS
+    return sync_sites(run)
+
+
+def lm_consistency(model, prompts) -> tuple:
+    """``serve.generate`` with the logits kept, then one prefill over the
+    prompt and the tokens the loop was fed (prompt[-1], then the generated
+    ids but the last): the decode logits of every generated position
+    against that prefill's. Returns (the generation, the kernel launches of
+    the generate call alone, the comparison)."""
+    reset_all_counts()
+    out = serve.generate(model, prompts, LM_GEN, keep_logits=True)
+    launches = all_counts()                          # read just after the path
+    p_dev = torch.as_tensor(prompts, device=DEV)
+    ids = torch.as_tensor(out.tokens, device=DEV)
+    seq = torch.cat([p_dev, p_dev[:, -1:], ids[:, :-1]], dim=1)
+    with torch.inference_mode():
+        h, _ = model(seq, mode="prefill")
+        want = model.logits(h[:, LM_PROMPT:])
+    dec, out.logits = out.logits, None
+    err = (dec - want).abs()
+    scale = float(want.abs().max())
+    cmp = {"max_abs_err": float(err.max()), "logits_scale": scale,
+           "err_of_scale": float(err.max()) / scale,
+           "within_rtol_atol": bool((err <= LM_ATOL + LM_RTOL * want.abs()).all()),
+           "argmax_agree": float((want.argmax(-1) == ids).float().mean()),
+           "finite": bool(torch.isfinite(dec).all())}
+    return out, launches, cmp
+
+
+def run_lm(arch: str, batch: int) -> dict:
+    """``serve.generate`` at full width and depth (random init from SEED):
+    the kernel launches of the path, zero host syncs inside the decode loop,
+    warm prefill and decode times, and decode against prefill
+    (``lm_consistency``) — in bf16, the model as served, and again with the
+    same weights in float32, where bf16 rounding cannot hide a fault of the
+    cache or state handoff. The dense model is held to the reference's
+    tolerance in bf16 too; rwkv6-3b's bf16 numbers are recorded only: its
+    random init amplifies bf16 rounding through the layers (the reference's
+    own prefill and decode differ by a quarter of the logits' scale at 32
+    layers in bf16, ROADMAP Queue 3)."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg, seed=SEED)               # the default device: the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                   (batch, LM_PROMPT))
+    first, launches, cmp16 = lm_consistency(model, prompts)
+    with torch.inference_mode():
+        sites = lm_decode_sync_sites(model, torch.as_tensor(prompts, device=DEV))
+    warm = [serve.generate(model, prompts, LM_GEN) for _ in range(2)][-1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    state32 = {n: p.detach().float() for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    model32 = get_model(cfg, state=state32)
+    del state32
+    first32, launches32, cmp32 = lm_consistency(model32, prompts)
+    del model32
+    torch.cuda.empty_cache()
+
+    want_launch = ({"decode_attn": cfg.n_layers * LM_GEN, "wkv6": 0}
+                   if cfg.family == "dense" else
+                   {"decode_attn": 0, "wkv6": cfg.n_layers})
+    got = {key: launches[key] for key in want_launch}
+    got32 = {key: launches32[key] for key in want_launch}
+    result = {
+        "arch": arch, "batch": batch, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "seed": SEED, "n_params": n_params, "init_s": init_s,
+        "first_ids": first.tokens[0].tolist(),
+        "decode_vs_prefill_bf16": cmp16, "decode_vs_prefill_f32": cmp32,
+        "launches": got, "launches_f32": got32,
+        "synchronizing_calls_in_decode_loop": len(sites),
+        "ids_same_on_rerun": bool(np.array_equal(first.tokens, warm.tokens)),
+        "first_call_prefill_s": first.prefill_s,
+        "first_call_decode_s": first.decode_s,
+        "prefill_ms": 1e3 * warm.prefill_s,
+        "prefill_tok_per_s": batch * LM_PROMPT / warm.prefill_s,
+        "decode_ms_per_step": 1e3 * warm.decode_s / LM_GEN,
+        "decode_tok_per_s": batch * LM_GEN / warm.decode_s,
+        "peak_memory_gb_bf16": peak_gb,
+    }
+    assert first.tokens.shape == (batch, LM_GEN), first.tokens.shape
+    assert cmp16["finite"] and cmp32["finite"], result
+    assert cmp32["within_rtol_atol"] and cmp32["err_of_scale"] <= LM_F32_TOL, result
+    if cfg.family == "dense":
+        assert cmp16["within_rtol_atol"], result
+    assert got == want_launch and got32 == want_launch, (got, got32, want_launch)
+    assert not sites, f"host syncs inside the decode loop: {sorted(set(sites))}"
+    emit(f"lm_{cfg.family}", limits={"rtol": LM_RTOL, "atol": LM_ATOL,
+                                     "f32_err_of_scale": LM_F32_TOL},
+         **result)
+    return result
+
+
+def decode_attn_bound(b, h, kv, dh, rows, dtype) -> dict:
+    """K5's least time: q read and the output written once, and K and V of
+    the rows the position attends to (the only ones needed) read once; two
+    float32 FMAs per head, row and channel (scores and PV) plus ~5
+    operations per head and row for the softmax."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 2 * b * h * dh * e + 2 * rows * b * kv * dh * e
+    return bound(nbytes, 4.0 * b * h * dh * rows + 5.0 * b * h * rows)
+
+
+def wkv6_bound(b, t, h, dh, dtype, state) -> dict:
+    """K6's least time: r, k, v, logw, u and the initial state read once, y
+    and the final state written once; the float32 operations of the chunked
+    form over the T real steps (per chunk of c steps and head: r'k'^T and
+    its product with v over the lower triangle, r'S, the state update, the
+    u-bonus and the rebasing). The ragged last chunk counts its real steps,
+    not the padded ones."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    n = b * t * h * dh
+    st = b * h * dh * dh * 4
+    nbytes = 3 * n * e + 4 * n + 4 * h * dh + (st if state else 0) + 4 * n + st
+
+    def chunk_ops(c):
+        return (2 * c * (c - 1) * dh                 # A and A v, lower triangle
+                + 2 * c * dh                         # diag v
+                + 3 * c * dh + 4 * c * dh            # u-bonus, rebasing
+                + 2 * c * dh * dh                    # r' S
+                + 2 * dh * dh * c                    # (k' e^{l_tot})^T v
+                + c * dh                             # k' scaled by e^{l_tot}
+                + 2 * dh * dh)                       # decay of S, and the sum
+    full, rest = divmod(t, CHUNK)
+    ops = full * chunk_ops(CHUNK) + (chunk_ops(rest) if rest else 0)
+    return bound(nbytes, float(ops * b * h))
+
+
+def time_lm_kernels() -> dict:
+    """K5 at gemma3-1b's decode shapes (a global and a local layer at the
+    path's last step; and one layer at B=8, S=32768) and K6 at rwkv6-3b's
+    prefill shape. Library yardstick for K5: ``scaled_dot_product_attention``
+    with GQA and the boolean mask over the whole cache; for K6 none (no one
+    PyTorch call computes the recurrence)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    table = {}
+    pos = LM_PROMPT + LM_GEN - 1
+    for name, s, p_, win in (("gemma3_global", LM_PROMPT + LM_GEN, pos, 0),
+                             ("gemma3_local", LM_PROMPT + LM_GEN, pos, 512),
+                             ("long_B8_S32768", 32768, 32767, 0)):
+        b, h, kv, dh, dtype = LM_DENSE_BATCH, 4, 1, 256, torch.bfloat16
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, SEED)
+        k_t = kc_.transpose(1, 2).contiguous()          # (B, KV, S, Dh)
+        v_t = vc_.transpose(1, 2).contiguous()
+        t_idx = torch.arange(s, device=DEV)
+        mask = t_idx <= p_
+        if win:
+            mask &= t_idx > p_ - win
+        q4 = q[:, :, None]
+        mask = mask[None, None, None]
+        lo, hi = valid_rows(s, p_, win)
+        calls = {"decode_attn": {
+            "ms": lambda: kd.decode_attn_cuda(q, kc_, vc_, p_, win),
+            "plain_ms": lambda: decode_attn_ref(q, kc_, vc_, p_, win),
+            "library_ms": lambda: sdpa(q4, k_t, v_t, attn_mask=mask,
+                                       enable_gqa=True)}}
+        bounds = {"decode_attn": decode_attn_bound(b, h, kv, dh, hi - lo + 1,
+                                                   dtype)}
+        table[name] = _time_calls(calls, bounds)["decode_attn"]
+        table[name].update(S=s, pos=p_, window=win, rows_read=hi - lo + 1)
+        del q, kc_, vc_, k_t, v_t
+    b, t, h, dh = LM_RWKV_BATCH, LM_PROMPT, 40, 64
+    args = wkv_inputs(b, t, h, dh, torch.bfloat16, True, SEED)
+    calls = {"wkv6": {"ms": lambda: kw.wkv6_cuda(*args),
+                      "plain_ms": lambda: wkv_chunked(*args)}}
+    table["rwkv6_3b_prefill"] = _time_calls(
+        calls, {"wkv6": wkv6_bound(b, t, h, dh, torch.bfloat16, True)})["wkv6"]
+    return table
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every phase's result to "
@@ -986,10 +1370,13 @@ def main() -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    paths = build.ensure_built(["amp_local", "amp_col", "quantize"])
+    paths = build.ensure_built(["amp_local", "amp_col", "quantize",
+                                "decode_attn", "wkv6"])
     k._library()
     kc._library()
     kq._library()
+    kd._library()
+    kw._library()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(str(p), ROOT) for n, p in paths.items()},
          nvcc=[{key: rec[key] for key in ("name", "command", "seconds")}
@@ -1006,6 +1393,11 @@ def main() -> None:
     col_ctx = run_col_path(ctx)
     bq_ctx = run_block_quant_row(ctx)
     check_no_host_sync(ctx, col_ctx)
+    errs_da = check_decode_attn_kernel()
+    errs_wkv = check_wkv6_kernel()
+    check_lm_small()
+    lm_dense = run_lm(LM_DENSE, LM_DENSE_BATCH)
+    lm_rwkv = run_lm(LM_RWKV, LM_RWKV_BATCH)
 
     kernel_times = time_kernels()
     col_times = time_col_kernels()
@@ -1019,6 +1411,16 @@ def main() -> None:
          lc_step=kernel_times, col_kernels=col_times,
          quantize_kernels=quant_times, solve=solve_times,
          col_solve=col_solve_times)
+    lm_times = time_lm_kernels()
+    emit("timing_lm", card=smi,
+         method="kernels as above (device time, queued behind a busy "
+                "device); prefill and decode from serve.generate, host "
+                "clock, device synchronised at both ends, warm",
+         kernels=lm_times,
+         serve={arch: {key: r[key] for key in (
+             "batch", "prompt", "gen", "prefill_ms", "prefill_tok_per_s",
+             "decode_ms_per_step", "decode_tok_per_s", "peak_memory_gb_bf16")}
+             for arch, r in ((LM_DENSE, lm_dense), (LM_RWKV, lm_rwkv))})
 
     # each kernel: its time at the shape its main path gives it, its
     # launches on the path(s) that drove it (counts reset just before each)
@@ -1047,6 +1449,12 @@ def main() -> None:
         "dequantize_blocks": (quant_times["row_messages"]["dequantize_blocks"],
                               col_launches["dequantize_blocks"]
                               + bq_launches["dequantize_blocks"], d_err),
+        "decode_attn": (lm_times["gemma3_global"],
+                        lm_dense["launches"]["decode_attn"],
+                        errs_da["gemma3_global"]["max_abs_err"]),
+        "wkv6": (lm_times["rwkv6_3b_prefill"], lm_rwkv["launches"]["wkv6"],
+                 max(errs_wkv["rwkv6_3b_prefill"]["y_max_abs_err"],
+                     errs_wkv["rwkv6_3b_state0"]["y_max_abs_err"])),
     }
     kernels = []
     for name, (tm, launches, err) in rows.items():

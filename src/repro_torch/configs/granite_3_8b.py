@@ -1,0 +1,9 @@
+"""Granite-3 8B — GQA kv=8 [hf:ibm-granite/granite-3.0 family]."""
+from .base import ModelConfig, register
+
+register(ModelConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=12800, vocab=49155,
+))

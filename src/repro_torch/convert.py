@@ -1,7 +1,8 @@
 """State carried across from the JAX package to this one.
 
-There are no weights; what the two packages must share to be compared is
-the problem and the controller state. These functions take the JAX
+What the two packages must share to be compared is, for the solver, the
+problem and the controller state and, for the LM models, the parameters
+(a random init, no weights are on disk). These functions take the JAX
 package's objects **as numpy arrays and plain Python values** — the caller
 does the ``np.asarray``; nothing here imports or sees a jax type — and
 build this package's objects from them:
@@ -13,21 +14,24 @@ build this package's objects from them:
     bt_tables_from_arrays      the 16 arrays of a BTTables tuple -> BTTables
     col_bt_tables_from_arrays  the 14 arrays of a ColBTTables tuple -> ColBTTables
     prior_from_fields / problem_from_fields   dataclasses by their fields
+    lm_params_from_arrays  an LM's flat parameter dict -> the module state
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.denoisers import BernoulliGauss
 from .core.engine import (BTTables, ColBTTables, ColDPSchedule, DPSchedule,
                           EngineConfig, FixedSchedule)
 from .core.engine import to_f32 as _f32
 from .core.state_evolution import CSProblem
+from .models.model_api import state_from_flat
 
 __all__ = ["problem_to_torch", "shards_to_torch", "schedule_from_deltas",
            "col_dp_schedule_from_arrays", "bt_tables_from_arrays",
            "col_bt_tables_from_arrays", "prior_from_fields",
-           "problem_from_fields"]
+           "problem_from_fields", "lm_params_from_arrays"]
 
 
 def problem_to_torch(a_mat, y, device="cuda"):
@@ -86,3 +90,24 @@ def problem_from_fields(n: int, m: int, eps: float, mu_s: float,
     return CSProblem(n=int(n), m=int(m),
                      prior=prior_from_fields(eps, mu_s, sigma_s),
                      snr_db=float(snr_db))
+
+
+def _array_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, bf16 included: an array of
+    the ``ml_dtypes`` "bfloat16" dtype (what ``np.asarray`` gives of a jax
+    bf16 array) is taken by its bits, since ``torch.from_numpy`` rejects
+    that dtype — without importing ``ml_dtypes``."""
+    a = np.array(a, copy=True, order="C")   # writable, owned by the tensor
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_arrays(params: dict, cfg, device="cpu") -> dict:
+    """The port's module state of an LM from the reference's flat parameter
+    dict (path -> numpy array, per-layer weights stacked on a leading
+    ``layers`` axis): give it to ``models.get_model(cfg, device,
+    state=...)``. Values and dtypes are kept bit for bit; stacked arrays are
+    split per layer."""
+    return state_from_flat({path: _array_to_torch(a, device)
+                            for path, a in params.items()}, cfg)

@@ -18,6 +18,9 @@ import repro_torch.core.denoisers as td
 import repro_torch.core.engine as te
 import repro_torch.core.mp_amp as tmp
 import repro_torch.core.state_evolution as tse
+import repro_torch.launch.serve as tserve
+from repro_torch.configs import get_config
+from repro_torch.models import get_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
@@ -45,9 +48,24 @@ def test_port_has_the_expected_modules():
                  "repro_torch.kernels.amp_fused.col",
                  "repro_torch.kernels.quantize.ops",
                  "repro_torch.kernels.quantize.ref",
-                 "repro_torch.kernels.quantize.quantize"):
+                 "repro_torch.kernels.quantize.quantize",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.gemma3_1b", "repro_torch.configs.rwkv6_3b",
+                 "repro_torch.configs.glm4_9b",
+                 "repro_torch.configs.granite_3_8b",
+                 "repro_torch.configs.yi_34b",
+                 "repro_torch.models.layers", "repro_torch.models.transformer",
+                 "repro_torch.models.rwkv6", "repro_torch.models.model_api",
+                 "repro_torch.kernels.decode_attn.ops",
+                 "repro_torch.kernels.decode_attn.ref",
+                 "repro_torch.kernels.decode_attn.decode_attn",
+                 "repro_torch.kernels.wkv6.ops",
+                 "repro_torch.kernels.wkv6.ref",
+                 "repro_torch.kernels.wkv6.wkv6",
+                 "repro_torch.launch.serve"):
         assert want in names, want
-    for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh"):
+    for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh",
+                "decode_attn.cu", "wkv6.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
@@ -104,8 +122,17 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
         tamp.amp_solve(y, a, prior, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmp.mp_amp_solve(y, a, prior, tmp.MPAMPConfig(2, 2), [np.inf, np.inf])
-    # asked for the CPU, it runs there
+    # the LM entry points: get_model and the serve launcher
+    cfg = get_config("gemma3-1b").smoke_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", "gemma3-1b", "--smoke"])
+    # asked for the CPU, they run there
     te.AmpEngine(prior, te.EngineConfig(n_proc=2, n_iter=2, device="cpu"))
+    out = tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    assert out.tokens.shape == (2, 3)
 
 
 def _small_problem():
