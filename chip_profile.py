@@ -11,11 +11,12 @@ operands already on the card) — lossless, DP-rated and BT-rated — and, at
 tokens), one gemma3-1b decode step (B=8), one rwkv6-3b prefill (B=4) and one
 rwkv6-3b decode step. It prints one JSON object per call: the number of
 kernels launched, the span from the first kernel's start to the last one's
-end, the time the device was busy inside it, the share of the busy time
-spent in the call's hand-written kernels, and the ten heaviest kernels by
-name. The profiler slows the host down, so the span is longer than an
-unprofiled call's (``chip_smoke.py`` times that); the busy time and the
-kernel counts are not affected.
+end, the time the device was busy inside it, the launches of the call's
+hand-written kernels (for a solve also per iteration: K1's band kernel and
+its combine, two a step) and their share of the busy time, and the ten
+heaviest kernels by name. The profiler slows the host down, so the span is
+longer than an unprofiled call's (``chip_smoke.py`` times that); the busy
+time and the kernel counts are not affected.
 
 Informational: it checks nothing. Needs a CUDA device and nvcc (the kernels
 are built at first use); needs no network.
@@ -80,6 +81,7 @@ def profile_call(fn, tag: str) -> dict:
     return {"device_events": len(kernels), "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "busy_share_of_span": busy / span,
             "kernel_tag": tag, "tagged_kernels_ms": ours / 1e3,
+            "tagged_launches": sum(tag in e.name for e in kernels),
             "tagged_share_of_busy": ours / busy,
             "top": [{"ms": v / 1e3, "name": name[:100]} for name, v in top]}
 
@@ -132,9 +134,12 @@ def main() -> None:
         eng = AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
                         EcsqTransport(), ctrl)
         a_p, y_p = eng._split(y, a)
-        print(json.dumps({"solve": name, "card": smi, "T": T, **profile_call(
-            lambda e=eng: e.dispatch_single(a_p, y_p, M, N), "amp_local_")}),
-            flush=True)
+        row = profile_call(lambda e=eng: e.dispatch_single(a_p, y_p, M, N),
+                           "amp_local_")
+        row["tagged_launches_per_iteration"] = row.get("tagged_launches",
+                                                       0) / T
+        print(json.dumps({"solve": name, "card": smi, "T": T, **row}),
+              flush=True)
     del a, y
     profile_lm(smi)
 

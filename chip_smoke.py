@@ -14,7 +14,8 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     ColDPSchedule- and column-BT-rated ECSQ, int8 block-quantized, two
     inner iterations per round, a batch of 4, bfloat16 A; and a wide
     problem of the shape the solve service routes to columns (N=20000,
-    M=4000, P=20), BT-rated;
+    M=4000, P=20), BT-rated, and the same problem by centralized AMP,
+    whose rows of 20000 take K1's two-pass kernels;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -86,16 +87,18 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
 DEV = torch.device("cuda:0")
-SOURCES = {"amp_local_z": "src/repro_torch/csrc/amp_local.cu",
-           "amp_local_f": "src/repro_torch/csrc/amp_local.cu",
+SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
+           "amp_local_two_pass": "src/repro_torch/csrc/amp_local.cu",
            "col_residual": "src/repro_torch/csrc/amp_col.cu",
            "col_inner": "src/repro_torch/csrc/amp_col.cu",
            "quantize_blocks": "src/repro_torch/csrc/quantize.cu",
            "dequantize_blocks": "src/repro_torch/csrc/quantize.cu",
            "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu"}
-REPLACES = {"amp_local_z": "src/repro/kernels/amp_fused/amp_fused.py:102",
-            "amp_local_f": "src/repro/kernels/amp_fused/amp_fused.py:123",
+K1_SITES = ("src/repro/kernels/amp_fused/amp_fused.py:102, "
+            "src/repro/kernels/amp_fused/amp_fused.py:123")
+REPLACES = {"amp_local": K1_SITES,
+            "amp_local_two_pass": K1_SITES,
             "col_residual": "src/repro/kernels/amp_fused/col.py:67",
             "col_inner": "src/repro/kernels/amp_fused/col.py:175",
             "quantize_blocks": "src/repro/kernels/quantize/quantize.py:44",
@@ -243,7 +246,14 @@ SHAPES = [
     ("ragged_odd_N", None, False, 7, 33, 1001),
     ("batch8_per_instance_A", BATCH, False, P, M // P, N),
     ("batch8_shared_A", BATCH, True, P, M // P, N),
+    # four rows a stage through the ring (N <= 4096, aligned)
+    ("short_rows_N1000", None, False, 6, 50, 1000),
+    # the widest rows the single read takes: every register of a thread's share
+    ("single_read_max_N", None, False, 4, 50, k.SINGLE_READ_MAX_N),
+    # past it: the two-pass kernels, at the wide problem's centralized shape
+    ("wide_rows_P1", None, False, 1, WIDE_M, WIDE_N),
 ]
+WIDE_CASE = "wide_rows_P1"
 
 
 def lc_inputs(b, shared, p, mp, n, dtype, seed):
@@ -270,49 +280,64 @@ def bound(nbytes: float, flops: float) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def lc_route(n, dtype) -> str:
+    """The launch-count key of the kernels K1 takes for rows of N."""
+    return "amp_local" if k.single_read(n, dtype) else "amp_local_two_pass"
+
+
 def lc_bounds(b, shared, p, mp, n, dtype):
-    """Least time for the z-pass and the f-pass: every input read once,
-    every output written once, over the memory rate; against the float32
-    operations over the CUDA-core rate. Returns ms and which one binds."""
+    """Least time of one LC step: A read once, x, y, z and the Onsager
+    scalar read once, z', f and ss written once, over the memory rate;
+    against its float32 operations (two multiply-adds an element of A) over
+    the CUDA-core rate. Returns ms and which one binds."""
     bb = 1 if b is None else b
     a_bytes = (1 if shared else bb) * p * mp * n * (2 if dtype == torch.bfloat16 else 4)
-    z_bytes = a_bytes + 4 * bb * (n + 3 * p * mp + 2)       # x, y, z, z', ons, ss
-    f_bytes = a_bytes + 4 * bb * (p * mp + n + p * n)       # z', x, f
-    flops = 2.0 * bb * p * mp * n
-    return {"amp_local_z": bound(z_bytes, flops),
-            "amp_local_f": bound(f_bytes, flops)}
+    # x, y, z, ons; z', f, ss
+    nbytes = a_bytes + 4 * bb * (n + 2 * p * mp + 1 + p * mp + p * n + 1)
+    return bound(nbytes, 4.0 * bb * p * mp * n)
 
 
 def check_kernels() -> dict:
+    """K1 (``amp_local_cuda_grid``) against the plain step at every SHAPES
+    case, float32 and bfloat16 A: the route each case must take (single
+    read, or two-pass past the row limit), the results within KERNEL_RTOL,
+    and z', f and ss the same bits over two calls."""
     rows = []
     for name, b, shared, p, mp, n in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             a, x, y, z, ons = lc_inputs(b, shared, p, mp, n, dtype, SEED)
-            z_k, ss_k = k.amp_local_z_cuda(a, x, y, z, ons)
+            route = lc_route(n, dtype)
+            before = dict(k.launch_counts)
+            got = k.amp_local_cuda_grid(a, x, y, z, ons, P)
             torch.cuda.synchronize()
-            f_k = k.amp_local_f_cuda(a, z_k, x, P)
+            launched = {key: k.launch_counts[key] - before[key]
+                        for key in before}
+            again = k.amp_local_cuda_grid(a, x, y, z, ons, P)
+            want = ref.amp_local_ref_grid(a, x, y, z, ons, P)
             torch.cuda.synchronize()
-            z_r, ss_r = ref.amp_local_z_ref(a, x, y, z, ons)
-            f_r = ref.amp_local_f_ref(a, z_k, x, P)     # same z' into both
-            torch.cuda.synchronize()
-            _, ss_again = k.amp_local_z_cuda(a, x, y, z, ons)
-            torch.cuda.synchronize()
+            (z_k, f_k, ss_k), (z_r, f_r, ss_r) = got, want
             row = {"shape": name, "a_dtype": str(dtype).split(".")[-1],
                    "B": b, "shared_a": shared, "P": p, "Mp": mp, "N": n,
-                   "vec": k.vec_width(n, dtype),
+                   "vec": k.vec_width(n, dtype), "route": route,
+                   "split_plan": (k.split_plan(b or 1, p, mp, n, dtype,
+                                               k.sm_count(DEV))
+                                  if route == "amp_local" else None),
                    "z_rel_err": rel_err(z_k, z_r),
                    "ss_rel_err": rel_err(ss_k, ss_r),
                    "f_rel_err": rel_err(f_k, f_r),
                    "z_max_abs_err": float((z_k - z_r).abs().max()),
                    "f_max_abs_err": float((f_k - f_r).abs().max()),
-                   "ss_bit_identical": bool(torch.equal(ss_k, ss_again))}
+                   "bit_identical": all(bool(torch.equal(u, v))
+                                        for u, v in zip(got, again))}
             rows.append(row)
+            assert launched == {key: int(key == route) for key in before}, \
+                (row, launched)
             assert z_k.shape == y.shape and f_k.shape == y.shape[:-1] + (n,)
             assert ss_k.shape == y.shape[:-2]
             for key in ("z_rel_err", "ss_rel_err", "f_rel_err"):
                 assert row[key] <= KERNEL_RTOL, (row, key)
-            assert row["ss_bit_identical"], row
-            del a, x, y, z, z_k, f_k, z_r, f_r
+            assert row["bit_identical"], row
+            del a, x, y, z, got, again, want, z_k, f_k, z_r, f_r
     emit("kernel_check", rtol=KERNEL_RTOL, cases=rows)
     return {(r["shape"], r["a_dtype"]): r for r in rows}
 
@@ -570,8 +595,8 @@ def run_main_path() -> dict:
     for key in ("dp_analytic", "dp_empirical", "bt_analytic", "bt_empirical"):
         assert 0 < bits[key] < 0.3 * 32 * T, bits
     for name, c in counts.items():
-        assert c == {"amp_local_z": T, "amp_local_f": T}, (name, c)
-    assert all(v > 0 for v in main_path_launches.values())
+        assert c == {"amp_local": T, "amp_local_two_pass": 0}, (name, c)
+    assert main_path_launches["amp_local"] > 0
     # batch: every instance solved, and instance 0 like a solve of its own
     assert many.x.shape == (BATCH, N) and np.all(np.isfinite(many.x))
     mse_b = np.mean((many.x - s0_b) ** 2, axis=-1)
@@ -661,6 +686,10 @@ def run_col_path(ctx) -> dict:
         prior, ExactFusion(), p=WIDE_P).solve(y_w, a_w))
     bt_wr = counted("wide_bt", lambda: col_engine(
         prior, EcsqTransport(), bt_w, p=WIDE_P).solve(y_w, a_w))
+    # the same wide problem solved by centralized AMP: rows of N=20000,
+    # past the single read, so K1 takes its two-pass kernels
+    cen_w = counted("wide_centralized", lambda: amp_solve(
+        y_w, a_w, prior, T, s0=s0_w))
     launches = all_counts()                    # read just after the path
     singles = [col_engine(prior, ExactFusion(), collect_symbols=False)
                .solve(y_b[i], a_b[i]) for i in range(COL_BATCH)]
@@ -677,6 +706,9 @@ def run_col_path(ctx) -> dict:
     assert ll.symbols.shape == (T, P_COL, M), ll.symbols.shape
     dx = float(np.abs(ll.x - ctx["cen_x"]).max())
     assert dx <= 1e-4, f"lossless C-MP-AMP != centralized AMP: max|dx|={dx}"
+    dx_w = float(np.abs(ll_w.x - cen_w.x).max())
+    assert np.all(np.isfinite(cen_w.x)) and cen_w.x.shape == (WIDE_N,)
+    assert dx_w <= 1e-4, f"wide: lossless C-MP-AMP != centralized AMP: {dx_w}"
     ratio = {name: mse[name] / mse["lossless"]
              for name in ("dp", "bt", "block8", "n_inner2", "bf16_a")}
     ratio["wide_bt"] = mse["wide_bt"] / mse["wide_lossless"]
@@ -699,7 +731,10 @@ def run_col_path(ctx) -> dict:
     many_dx = [float(np.abs(many.x[i] - one.x).max() / np.abs(one.x).max())
                for i, one in enumerate(singles)]
     assert max(many_dx) <= 1e-5, many_dx
+    assert counts["wide_centralized"] == {"amp_local_two_pass": T}, counts
     for name, c in counts.items():
+        if name == "wide_centralized":
+            continue
         n_rounds = T // 2 if name == "n_inner2" else T
         n_inner = 2 if name == "n_inner2" else 1
         want = {"col_residual": n_rounds, "col_inner": n_rounds * n_inner}
@@ -722,6 +757,7 @@ def run_col_path(ctx) -> dict:
          sdr_db={name: sdr_db(prior, v) for name, v in mse.items()},
          mse_ratio_to_lossless=ratio, limits=limits,
          max_abs_dx_lossless_vs_centralized=dx,
+         wide_max_abs_dx_lossless_vs_centralized=dx_w,
          n_inner2_mse_per_round=[float(v) for v in mse_two],
          batch_vs_single_rel_dx=many_dx,
          bits_per_residual_entry=bits,
@@ -748,7 +784,7 @@ def run_block_quant_row(ctx) -> dict:
         assert tr.symbols.shape == (T, P, N) and np.all(tr.extra_var > 0)
     assert np.abs(runs[4].symbols).max() <= 7
     assert ratio["int8"] < 1.3, ratio
-    want = {"amp_local_z": 2 * T, "amp_local_f": 2 * T,
+    want = {"amp_local": 2 * T, "amp_local_two_pass": 0,
             "quantize_blocks": 2 * T, "dequantize_blocks": 2 * T}
     assert {key: launches[key] for key in want} == want, launches
     emit("block_quant_row", P=P, mse_ratio_to_lossless=ratio,
@@ -848,28 +884,25 @@ def _time_calls(calls: dict, bounds: dict) -> dict:
 
 
 def time_kernels() -> dict:
+    """K1 at every SHAPES case under the name of the route it takes. The
+    library yardstick is the step's two contractions, one einsum each, in
+    one call (z' for the second is the kernel's, made beforehand)."""
     table = {}
     for name, b, shared, p, mp, n in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             a, x, y, z, ons = lc_inputs(b, shared, p, mp, n, dtype, SEED)
-            z_new, _ = k.amp_local_z_cuda(a, x, y, z, ons)
+            z_new, _, _ = k.amp_local_cuda_grid(a, x, y, z, ons, P)
             a32 = a.float()     # the library yardstick gets float32 A ready-made
-            bounds = lc_bounds(b, shared, p, mp, n, dtype)
-            calls = {
-                "amp_local_z": {
-                    "ms": lambda: k.amp_local_z_cuda(a, x, y, z, ons),
-                    "plain_ms": lambda: ref.amp_local_z_ref(a, x, y, z, ons),
-                    "library_ms": lambda: torch.einsum(
-                        "...pmn,...n->...pm", a32, x)},
-                "amp_local_f": {
-                    "ms": lambda: k.amp_local_f_cuda(a, z_new, x, P),
-                    "plain_ms": lambda: ref.amp_local_f_ref(a, z_new, x, P),
-                    "library_ms": lambda: torch.einsum(
-                        "...pmn,...pm->...pn", a32, z_new)},
-            }
-            row = _time_calls(calls, bounds)
-            key = f"{name}/{str(dtype).split('.')[-1]}"
-            table[key] = row
+            route = lc_route(n, dtype)
+            calls = {route: {
+                "ms": lambda: k.amp_local_cuda_grid(a, x, y, z, ons, P),
+                "plain_ms": lambda: ref.amp_local_ref_grid(a, x, y, z, ons, P),
+                "library_ms": lambda: (
+                    torch.einsum("...pmn,...n->...pm", a32, x),
+                    torch.einsum("...pmn,...pm->...pn", a32, z_new))}}
+            row = _time_calls(calls, {route: lc_bounds(b, shared, p, mp, n,
+                                                       dtype)})
+            table[f"{name}/{str(dtype).split('.')[-1]}"] = row
             del a, a32, x, y, z, z_new
     return table
 
@@ -1383,7 +1416,8 @@ def main() -> None:
                for rec in build.build_log],
          ptxas=[line for rec in build.build_log
                 for line in rec["stderr"].splitlines()
-                if "registers" in line or "spill" in line])
+                if "registers" in line or "spill" in line
+                or "Function properties" in line])
 
     errs = check_kernels()
     errs_col = check_col_kernels()
@@ -1428,13 +1462,14 @@ def main() -> None:
     q_err = max(r["q_max_abs_err"] for r in errs_q.values())
     d_err = max(r["dequantized_max_abs_err"] for r in errs_q.values())
     paper_col = errs_col[("paper_P25", "float32")]
+    lc_err = lambda case: max(errs[(case, "float32")]["z_max_abs_err"],
+                              errs[(case, "float32")]["f_max_abs_err"])
     rows = {
-        "amp_local_z": (kernel_times["paper_P30/float32"]["amp_local_z"],
-                        ctx["launches"]["amp_local_z"],
-                        errs[("paper_P30", "float32")]["z_max_abs_err"]),
-        "amp_local_f": (kernel_times["paper_P30/float32"]["amp_local_f"],
-                        ctx["launches"]["amp_local_f"],
-                        errs[("paper_P30", "float32")]["f_max_abs_err"]),
+        "amp_local": (kernel_times["paper_P30/float32"]["amp_local"],
+                      ctx["launches"]["amp_local"], lc_err("paper_P30")),
+        "amp_local_two_pass": (
+            kernel_times[f"{WIDE_CASE}/float32"]["amp_local_two_pass"],
+            col_launches["amp_local_two_pass"], lc_err(WIDE_CASE)),
         "col_residual": (col_times["paper_P25/float32"]["col_residual"],
                          col_launches["col_residual"],
                          paper_col["r_max_abs_err"]),

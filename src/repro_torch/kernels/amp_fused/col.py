@@ -25,17 +25,19 @@ import math
 import torch
 
 from ..build import check, load
-from .amp_fused import Z_WARPS, _f32, _stack, _vec_flag, vec_width
+from .amp_fused import (Z_WARPS, _f32, _stack, _vec_flag, sm_count,
+                        vec_width)
 
 __all__ = ["col_residual_cuda", "col_inner_cuda", "launch_counts",
-           "reset_launch_counts", "row_chunk", "F_THREADS"]
+           "reset_launch_counts", "row_chunk", "col_stage_rows",
+           "col_band_plan", "F_THREADS"]
 
 F_THREADS = 128    # threads of an A^T z block (kFThreads in amp_col.cu)
+STAGE_BYTES = 16 * 1024   # a stage of the row pass's ring (kColStageBytes)
 
 launch_counts = {"col_residual": 0, "col_inner": 0}
 
 _lib = None
-_sm_count: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -50,24 +52,54 @@ def _library():
         vp, ci, ll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
         lib.col_residual_launch.argtypes = [vp, ci, ll, vp, vp, ci, ci, ci,
-                                            ci, ci, ci, vp]
+                                            ci, ci, ci, ci, ci, ci, vp]
         lib.col_residual_launch.restype = ci
         lib.col_inner_launch.argtypes = [
             vp, ci, ll, vp, vp, vp, vp, vp, cf, cf, cf, cf, vp, vp, vp, vp,
-            vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+            vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.col_inner_launch.restype = ci
         _lib = lib
     return _lib
+
+
+def col_stage_rows(np_: int, dtype) -> int:
+    """Rows of A_p one stage of the row pass's ring holds: as many whole
+    rows as fit ``STAGE_BYTES``. 0 when the ring cannot take the rows: a bulk
+    copy needs rows of a multiple of 16 bytes (``vec_width`` > 1), and a
+    stage at least one row. Rows the ring does not take are read by one warp
+    a row from device memory."""
+    row_bytes = np_ * torch.empty((), dtype=dtype).element_size()
+    if vec_width(np_, dtype) == 1 or row_bytes > STAGE_BYTES:
+        return 0
+    return STAGE_BYTES // row_bytes
+
+
+def col_band_plan(n_stack: int, m: int, n_sm: int = 132) -> tuple[int, int]:
+    """``(band_rows, n_bands)`` of the row pass's ring: the M rows of each
+    of the ``n_stack`` (b, p) shards cut into contiguous bands (the last one
+    ragged, none empty), one block each, about two blocks an SM over the
+    grid (a block's ring and x take ~82 KB of shared memory). The rows are
+    independent, so nothing is reduced across bands."""
+    want = max(1, min(m, 2 * n_sm // n_stack))
+    rows = -(-m // want)
+    return rows, -(-m // rows)
+
+
+def _ring_plan(dev, b: int, p: int, m: int, np_: int, dtype,
+               vec: int) -> tuple[int, int, int]:
+    """(band_rows, n_bands, stage_rows) for the C entry points; all 0 when
+    the row pass reads device memory directly (no ring)."""
+    stage_rows = col_stage_rows(np_, dtype) if vec else 0
+    if stage_rows == 0:
+        return 0, 0, 0
+    return (*col_band_plan(b * p, m, sm_count(dev)), stage_rows)
 
 
 def row_chunk(dev, n_stack: int, m: int, np_: int, dtype) -> int:
     """Rows of A_p one A^T z block sums over: M is split so that the grid
     holds about eight blocks per SM (never chunks under 32 rows). Fixed for
     a given shape and card, so the sums' order, and their bits, are too."""
-    sms = _sm_count.get(dev)
-    if sms is None:
-        sms = _sm_count[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
+    sms = sm_count(dev)
     tiles = -(-np_ // (F_THREADS * vec_width(np_, dtype)))
     n_chunks = max(1, min(-(-m // 32), -(-8 * sms // (n_stack * tiles))))
     return -(-m // n_chunks)
@@ -81,11 +113,13 @@ def col_residual_cuda(a_cp, x):
     lead = (b,) if batched else ()
     _f32(x, lead + (p, np_), "x", dev)
     r = torch.empty(lead + (p, m), dtype=torch.float32, device=dev)
+    vec = _vec_flag(np_, a_cp, x)
+    plan = _ring_plan(dev, b, p, m, np_, a_cp.dtype, vec)
     with torch.cuda.device(dev):
         code = _library().col_residual_launch(
             a_cp.data_ptr(), int(a_cp.dtype == torch.bfloat16), stride,
-            x.data_ptr(), r.data_ptr(), b, p, m, np_, Z_WARPS,
-            _vec_flag(np_, a_cp, x), torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), r.data_ptr(), b, p, m, np_, Z_WARPS, vec, *plan,
+            torch.cuda.current_stream().cuda_stream)
     check("amp_col", code, "col_residual_launch")
     launch_counts["col_residual"] += 1
     return r
@@ -116,6 +150,8 @@ def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
     c_p = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
     z_new = torch.empty_like(z_p) if update_z else z_p
     logit_eps = math.log(eps) - math.log1p(-eps)
+    vec = _vec_flag(np_, a_cp, x0, x_new)
+    plan = _ring_plan(dev, b, p, m, np_, a_cp.dtype, vec)
     with torch.cuda.device(dev):
         code = _library().col_inner_launch(
             a_cp.data_ptr(), int(a_cp.dtype == torch.bfloat16), stride,
@@ -124,8 +160,7 @@ def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
             float(m_eff), logit_eps, float(mu_s), float(sigma_s2),
             fpart.data_ptr(), sspart.data_ptr(), x_new.data_ptr(),
             c_p.data_ptr(), z_new.data_ptr(), b, p, m, np_, chunk, Z_WARPS,
-            int(update_z), _vec_flag(np_, a_cp, x0, x_new),
-            torch.cuda.current_stream().cuda_stream)
+            int(update_z), vec, *plan, torch.cuda.current_stream().cuda_stream)
     check("amp_col", code, "col_inner_launch")
     launch_counts["col_inner"] += 1
     return x_new, c_p, z_new

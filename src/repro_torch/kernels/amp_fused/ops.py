@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from .amp_fused import (F_THREADS, Z_WARPS, amp_local_cuda_grid, vec_width)
-from .col import col_inner_cuda, col_residual_cuda
+from .amp_fused import (BAND_THREADS, F_THREADS, Z_WARPS, amp_local_cuda_grid,
+                        rows_per_stage, single_read, vec_width)
+from .col import col_inner_cuda, col_residual_cuda, col_stage_rows
 from .ref import (amp_local_ref, amp_local_ref_grid, col_inner_step_ref,
                   col_residual_ref)
 
@@ -26,10 +27,14 @@ __all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards",
 
 
 def row_tiles(mp: int, n: int, a_dtype: torch.dtype = torch.float32):
-    """(bm, bn) of the CUDA kernels for a (P, Mp, N) row-shard stack: rows
-    per z-pass block (one warp a row) and columns per f-pass block (threads
-    times the vector width N allows). Ragged edges are masked, so neither
+    """(bm, bn) of the CUDA kernels for a (P, Mp, N) row-shard stack. Single
+    read (``single_read``): rows of A a stage of the band kernel holds, and
+    the columns one sweep of its threads covers (threads times the vector
+    width N allows). Two-pass (wider N): rows per z-pass block (one warp a
+    row) and columns per f-pass block. Ragged edges are masked, so neither
     has to divide its dimension."""
+    if single_read(n, a_dtype):
+        return rows_per_stage(n), BAND_THREADS * vec_width(n, a_dtype)
     return Z_WARPS, F_THREADS * vec_width(n, a_dtype)
 
 
@@ -43,10 +48,13 @@ def pad_row_shards(a_p, y_p):
 
 
 def col_tiles(np_: int, a_dtype: torch.dtype = torch.float32):
-    """(bm, bn) of the CUDA column kernels for a (P, M, Np) stack: rows per
-    row-pass block (one warp a row) and columns per A^T z block (M is split
-    over blocks as well, ``col.row_chunk``). Ragged edges are masked."""
-    return Z_WARPS, F_THREADS * vec_width(np_, a_dtype)
+    """(bm, bn) of the CUDA column kernels for a (P, M, Np) stack: rows of A
+    a stage of the row pass's ring holds (``col.col_stage_rows``; without a
+    ring, one warp a row, ``Z_WARPS`` rows a block) and columns per A^T z
+    block (M is split over blocks as well, ``col.row_chunk``). Ragged edges
+    are masked."""
+    return (col_stage_rows(np_, a_dtype) or Z_WARPS,
+            F_THREADS * vec_width(np_, a_dtype))
 
 
 def pad_col_shards(a_cp, y):

@@ -117,8 +117,8 @@ def test_batched_matches_per_instance_jax(shared, a_dtype):
 
 
 def test_z_and_f_passes_compose():
-    """The two plain passes, which are what the two CUDA kernels are held
-    against one by one, compose to the grid function exactly."""
+    """The two plain passes compose to the grid function exactly (the CUDA
+    step is held against the grid function on the card)."""
     _, a_t, x, y, z, ons = _inputs(4, 25, 1000, "float32")
     x, y, z = map(torch.from_numpy, (x, y, z))
     z1, ss1 = amp_local_z_ref(a_t, x, y, z, ons)
@@ -145,7 +145,9 @@ def test_amp_local_step_v1_signature(m, n):
 def test_alignment_helpers():
     """Nothing is padded for the CUDA kernels: ``pad_row_shards`` returns
     its inputs; the vector width falls back to 1 when N does not allow
-    16-byte loads (odd N), and ``row_tiles`` follows it."""
+    16-byte loads (odd N), and ``row_tiles`` follows it: rows a stage of the
+    band kernel holds (1, or 4 for N <= 4096), columns one sweep of its 512
+    threads covers."""
     a = torch.zeros(3, 25, 1001)
     y = torch.zeros(3, 25)
     a2, y2 = tops.pad_row_shards(a, y)
@@ -156,9 +158,9 @@ def test_alignment_helpers():
     assert vec_width(1000, torch.bfloat16) == 8
     assert vec_width(1004, torch.bfloat16) == 1
     bm, bn = tops.row_tiles(100, 10000)
-    assert (bm, bn) == (8, 512)
-    assert tops.row_tiles(100, 10000, torch.bfloat16) == (8, 1024)
-    assert tops.row_tiles(25, 1001) == (8, 128)
+    assert (bm, bn) == (1, 2048)
+    assert tops.row_tiles(100, 10000, torch.bfloat16) == (1, 4096)
+    assert tops.row_tiles(25, 1001) == (4, 512)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

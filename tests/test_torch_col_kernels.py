@@ -192,14 +192,18 @@ def test_plain_versions_compose_as_documented():
 
 def test_alignment_helpers():
     """Nothing is padded for the CUDA kernels: ``pad_col_shards`` returns
-    its inputs; ``col_tiles`` follows the vector width Np allows."""
+    its inputs; ``col_tiles`` follows the vector width Np allows: whole rows
+    of 16 KB a stage of the row pass's ring (one warp a row, 8 rows a
+    block, where the ring cannot take the rows), and the A^T z tile."""
     a = torch.zeros(3, 101, 77)
     y = torch.zeros(101)
     a2, y2 = tops.pad_col_shards(a, y)
     assert a2 is a and y2 is y
-    assert tops.col_tiles(400) == (8, 512)
-    assert tops.col_tiles(400, torch.bfloat16) == (8, 1024)
+    assert tops.col_tiles(400) == (10, 512)
+    assert tops.col_tiles(400, torch.bfloat16) == (20, 1024)
     assert tops.col_tiles(77) == (8, 128)
+    assert tops.col_tiles(8192) == (8, 512)       # a row over 16 KB
+    assert tops.col_tiles(8192, torch.bfloat16) == (1, 1024)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
