@@ -2,27 +2,31 @@
 """Where the device time of one solve, or of one LM serving step, goes, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--amp-only]
 
 Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
 solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
-operands already on the card) — lossless, DP-rated and BT-rated — and, at
-``chip_smoke.py``'s LM shapes (random init from seed 1234, prompts of 1000
-tokens), one gemma3-1b decode step (B=8), one rwkv6-3b prefill (B=4) and one
-rwkv6-3b decode step. It prints one JSON object per call: the number of
-kernels launched, the span from the first kernel's start to the last one's
-end, the time the device was busy inside it, the launches of the call's
-hand-written kernels (for a solve also per iteration: K1's band kernel and
-its combine, two a step) and their share of the busy time, and the ten
-heaviest kernels by name. The profiler slows the host down, so the span is
-longer than an unprofiled call's (``chip_smoke.py`` times that); the busy
-time and the kernel counts are not affected.
+operands already on the card) — lossless, DP-rated and BT-rated — and the
+centralized AMP solve of ``chip_smoke.py``'s wide problem (N=20000, M=4000,
+T=10: one shard of rows of 20000, K1's widest driven rows); then, unless
+``--amp-only``, at ``chip_smoke.py``'s LM shapes (random init from seed
+1234, prompts of 1000 tokens), one gemma3-1b decode step (B=8), one rwkv6-3b
+prefill (B=4) and one rwkv6-3b decode step. It prints one JSON object per
+call: the number of kernels launched, the span from the first kernel's start
+to the last one's end, the time the device was busy inside it, the launches
+of the call's hand-written kernels (for a solve also per iteration: K1's
+band kernel and its combine, two a step; beside them the steps K1's wrapper
+counted, which tell whether the trace dropped events) and their share of the
+busy time, and the ten heaviest kernels by name. The profiler slows the host
+down, so the span is longer than an unprofiled call's (``chip_smoke.py``
+times that); the busy time and the kernel counts are not affected.
 
 Informational: it checks nothing. Needs a CUDA device and nvcc (the kernels
 are built at first use); needs no network.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -44,16 +48,18 @@ from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
                                         make_mmse_interp)
 from repro_torch.core.engine import (AmpEngine, BTRateControl,  # noqa: E402
                                      DPSchedule, EcsqTransport, EngineConfig,
-                                     FixedSchedule)
+                                     ExactFusion, FixedSchedule)
 from repro_torch.core.rate_alloc import dp_allocate  # noqa: E402
 from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import PAPER_T, CSProblem  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.amp_fused import amp_fused as k1  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
 N, M, P, EPS, SNR_DB, SEED = 10_000, 3_000, 30, 0.05, 20.0, 1234
 T = PAPER_T[EPS]
+WIDE_N, WIDE_M = 20_000, 4_000
 LM_PROMPT = 1000
 
 
@@ -62,10 +68,15 @@ def profile_call(fn, tag: str) -> dict:
     hand-written kernels whose share of the busy time is reported."""
     fn()                                         # warm
     torch.cuda.synchronize()
+    before = dict(k1.launch_counts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # K1's wrapper counts its own launches: a trace that holds fewer of its
+    # kernels than that (two a single-read step) has dropped events
+    k1_counted = {key: v - before[key] for key, v in k1.launch_counts.items()
+                  if v != before[key]}
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not kernels:
@@ -79,6 +90,7 @@ def profile_call(fn, tag: str) -> dict:
     ours = sum(v for name, v in by_name.items() if tag in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"device_events": len(kernels), "span_ms": span / 1e3,
+            "k1_wrapper_launches": k1_counted,
             "busy_ms": busy / 1e3, "busy_share_of_span": busy / span,
             "kernel_tag": tag, "tagged_kernels_ms": ours / 1e3,
             "tagged_launches": sum(tag in e.name for e in kernels),
@@ -113,6 +125,10 @@ def profile_lm(smi: str) -> None:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--amp-only", action="store_true",
+                        help="profile the AMP solves only, not LM serving")
+    args = parser.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
@@ -141,7 +157,21 @@ def main() -> None:
         print(json.dumps({"solve": name, "card": smi, "T": T, **row}),
               flush=True)
     del a, y
-    profile_lm(smi)
+    # centralized AMP (amp_solve's engine: one shard, lossless) of the wide
+    # problem
+    prob_w = CSProblem(n=WIDE_N, m=WIDE_M, prior=prior, snr_db=SNR_DB)
+    _, a, y = sample_problem(SEED + 2, WIDE_N, WIDE_M, prior, prob_w.sigma_e2)
+    eng = AmpEngine(prior, EngineConfig(n_proc=1, n_iter=T,
+                                        collect_symbols=False), ExactFusion())
+    a_p, y_p = eng._split(y, a)
+    row = profile_call(lambda: eng.dispatch_single(a_p, y_p, WIDE_M, WIDE_N),
+                       "amp_local_")
+    row["tagged_launches_per_iteration"] = row.get("tagged_launches", 0) / T
+    print(json.dumps({"solve": "wide_centralized", "card": smi, "T": T,
+                      "N": WIDE_N, "M": WIDE_M, **row}), flush=True)
+    del a, y, a_p, y_p
+    if not args.amp_only:
+        profile_lm(smi)
 
 
 if __name__ == "__main__":

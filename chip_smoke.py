@@ -15,7 +15,7 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     inner iterations per round, a batch of 4, bfloat16 A; and a wide
     problem of the shape the solve service routes to columns (N=20000,
     M=4000, P=20), BT-rated, and the same problem by centralized AMP,
-    whose rows of 20000 take K1's two-pass kernels;
+    whose rows of 20000 K1 takes in clusters of two blocks;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -248,12 +248,19 @@ SHAPES = [
     ("batch8_shared_A", BATCH, True, P, M // P, N),
     # four rows a stage through the ring (N <= 4096, aligned)
     ("short_rows_N1000", None, False, 6, 50, 1000),
-    # the widest rows the single read takes: every register of a thread's share
+    # the widest rows one block takes: every register of a thread's share
     ("single_read_max_N", None, False, 4, 50, k.SINGLE_READ_MAX_N),
-    # past it: the two-pass kernels, at the wide problem's centralized shape
+    # past it a cluster of C blocks a band: C = 2 at the wide problem's
+    # centralized shape; C = 3 without 16-byte rows (no ring); C = 8 at the
+    # widest rows one read takes
     ("wide_rows_P1", None, False, 1, WIDE_M, WIDE_N),
+    ("cluster_C3_odd_N", None, False, 3, 40, 40_001),
+    ("cluster_max_N", None, False, 1, 64, k.CLUSTER_MAX_N),
+    # past that: the two-pass kernels
+    ("two_pass_past_cluster", None, False, 1, 32, k.CLUSTER_MAX_N + 8),
 ]
 WIDE_CASE = "wide_rows_P1"
+TWO_PASS_CASE = "two_pass_past_cluster"
 
 
 def lc_inputs(b, shared, p, mp, n, dtype, seed):
@@ -281,8 +288,40 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def lc_route(n, dtype) -> str:
-    """The launch-count key of the kernels K1 takes for rows of N."""
+    """The launch-count key of the kernels K1 takes for rows of N: the
+    single read (one block, or a cluster of up to 8, a band) up to
+    ``CLUSTER_MAX_N``, the two-pass kernels past it."""
     return "amp_local" if k.single_read(n, dtype) else "amp_local_two_pass"
+
+
+def lc_plan(b, p, mp, n, dtype, vec) -> dict | None:
+    """The single read's plan for a case, as the wrapper makes it: cluster
+    size, column slice width, the slots its bands aim at (SMs, or the
+    card's active clusters) and the bands."""
+    if not k.single_read(n, dtype):
+        return None
+    c = k.cluster_size(n, dtype)
+    w = k.cluster_slices(n, dtype)[0][1]
+    slots = (k.sm_count(DEV) if c == 1
+             else k.max_active_clusters(DEV, c, dtype, vec, w))
+    return {"cluster": c, "slice_w": w, "n_slots": slots,
+            "split_plan": k.split_plan(b or 1, p, mp, n, dtype, slots)}
+
+
+def check_clusters() -> dict:
+    """cudaOccupancyMaxActiveClusters of the band kernel's cluster instance
+    for clusters of 2 and 8 blocks (slices of 10000 and 16384 columns,
+    through the ring and without it), float32 and bf16: the slots the
+    wrapper plans its bands for. Raises if any is 0."""
+    out = {}
+    for c, w in ((2, WIDE_N // 2), (8, k.SINGLE_READ_MAX_N)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for vec in (1, 0):
+                key = f"C{c}/W{w}/{str(dtype).split('.')[-1]}/vec{vec}"
+                out[key] = k.max_active_clusters(DEV, c, dtype, vec, w)
+    emit("clusters", sm_count=k.sm_count(DEV),
+         max_active_clusters=out)
+    return out
 
 
 def lc_bounds(b, shared, p, mp, n, dtype):
@@ -300,8 +339,9 @@ def lc_bounds(b, shared, p, mp, n, dtype):
 def check_kernels() -> dict:
     """K1 (``amp_local_cuda_grid``) against the plain step at every SHAPES
     case, float32 and bfloat16 A: the route each case must take (single
-    read, or two-pass past the row limit), the results within KERNEL_RTOL,
-    and z', f and ss the same bits over two calls."""
+    read in one block or a cluster, or two-pass past the row limit), the
+    results within KERNEL_RTOL, and z', f and ss the same bits over two
+    calls."""
     rows = []
     for name, b, shared, p, mp, n in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -319,9 +359,8 @@ def check_kernels() -> dict:
             row = {"shape": name, "a_dtype": str(dtype).split(".")[-1],
                    "B": b, "shared_a": shared, "P": p, "Mp": mp, "N": n,
                    "vec": k.vec_width(n, dtype), "route": route,
-                   "split_plan": (k.split_plan(b or 1, p, mp, n, dtype,
-                                               k.sm_count(DEV))
-                                  if route == "amp_local" else None),
+                   "plan": lc_plan(b, p, mp, n, dtype,
+                                   k._vec_flag(n, a, x)),
                    "z_rel_err": rel_err(z_k, z_r),
                    "ss_rel_err": rel_err(ss_k, ss_r),
                    "f_rel_err": rel_err(f_k, f_r),
@@ -687,7 +726,7 @@ def run_col_path(ctx) -> dict:
     bt_wr = counted("wide_bt", lambda: col_engine(
         prior, EcsqTransport(), bt_w, p=WIDE_P).solve(y_w, a_w))
     # the same wide problem solved by centralized AMP: rows of N=20000,
-    # past the single read, so K1 takes its two-pass kernels
+    # wider than one block takes, so K1 takes a cluster of two a band
     cen_w = counted("wide_centralized", lambda: amp_solve(
         y_w, a_w, prior, T, s0=s0_w))
     launches = all_counts()                    # read just after the path
@@ -731,7 +770,7 @@ def run_col_path(ctx) -> dict:
     many_dx = [float(np.abs(many.x[i] - one.x).max() / np.abs(one.x).max())
                for i, one in enumerate(singles)]
     assert max(many_dx) <= 1e-5, many_dx
-    assert counts["wide_centralized"] == {"amp_local_two_pass": T}, counts
+    assert counts["wide_centralized"] == {"amp_local": T}, counts
     for name, c in counts.items():
         if name == "wide_centralized":
             continue
@@ -1419,6 +1458,7 @@ def main() -> None:
                 if "registers" in line or "spill" in line
                 or "Function properties" in line])
 
+    check_clusters()
     errs = check_kernels()
     errs_col = check_col_kernels()
     errs_q = check_quantize_kernels()
@@ -1467,9 +1507,13 @@ def main() -> None:
     rows = {
         "amp_local": (kernel_times["paper_P30/float32"]["amp_local"],
                       ctx["launches"]["amp_local"], lc_err("paper_P30")),
+        # no driven path takes it any more (N <= 131072 everywhere); timed
+        # and checked past the cluster's reach
         "amp_local_two_pass": (
-            kernel_times[f"{WIDE_CASE}/float32"]["amp_local_two_pass"],
-            col_launches["amp_local_two_pass"], lc_err(WIDE_CASE)),
+            kernel_times[f"{TWO_PASS_CASE}/float32"]["amp_local_two_pass"],
+            ctx["launches"]["amp_local_two_pass"]
+            + col_launches["amp_local_two_pass"]
+            + bq_launches["amp_local_two_pass"], lc_err(TWO_PASS_CASE)),
         "col_residual": (col_times["paper_P25/float32"]["col_residual"],
                          col_launches["col_residual"],
                          paper_col["r_max_abs_err"]),
@@ -1493,7 +1537,7 @@ def main() -> None:
     }
     kernels = []
     for name, (tm, launches, err) in rows.items():
-        assert launches > 0, (name, launches)
+        assert launches > 0 or name == "amp_local_two_pass", (name, launches)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,

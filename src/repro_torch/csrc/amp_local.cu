@@ -30,12 +30,34 @@
 //     stage every thread has the same z'_i and updates f_acc from the same
 //     registers. That barrier also frees the slot: thread 0 refills it with
 //     the stage `stages` ahead, so no empty-barrier is needed.
-//   * R = 4 rows a stage for N <= 4096, 1 above (rows_per_stage), so a
-//     stage carries at least ~16 KB per barrier; a thread holds 32 / R
-//     elements of a row, which caps N at 512 * 32 = 16384 (float32 x and
-//     f_acc take two registers per owned column). Wider rows take the
-//     two-pass kernels below; amp_fused.py::single_read decides from (N,
-//     dtype) alone.
+//   * R = 4 rows a stage for a row (slice) of at most 4096 elements, 1
+//     above (rows_per_stage), so a stage carries at least ~16 KB per
+//     barrier; a thread holds 32 / R elements of a row, which caps what one
+//     block can take at 512 * 32 = 16384 columns (float32 x and f_acc take
+//     two registers per owned column).
+//   * Wider rows, up to 8 * 16384 = 131072: a thread-block cluster of C
+//     = ceil(N / 16384) blocks (on C SMs of one GPC) takes each band.
+//     Rank r owns the columns [r W, min((r + 1) W, N)), W = ceil(N / C)
+//     rounded up to the vector width (amp_fused.py::cluster_slices),
+//     keeps x and f_acc for them in registers and streams only its slice
+//     of each row through its own ring (one bulk copy a row). The dot
+//     products go through distributed shared memory (DSMEM) without a
+//     cluster barrier a row: lane q of each warp stores the warp's sum
+//     straight into rank q's exchange buffer (st.async), which counts
+//     the bytes off rank q's exchange mbarrier; a rank waits on its own
+//     mbarrier for the C x 16 sums and adds them in (rank, warp) order,
+//     so all ranks form the same z'_i, bit for bit. A cluster barrier a
+//     row instead costs its release fence a row (measured in PERF.md).
+//     The buffer is double-buffered: rank q stores stage k + 2 only
+//     after its stage k + 1 completed, i.e. after every warp of every
+//     rank stored k + 1, which each does after reading stage k. The
+//     exchange's completion also frees the ring slot: every warp stores
+//     its sum after reading its part of the row. Two cluster barriers a
+//     kernel: after the mbarriers are set up, and at the end, so that no
+//     rank leaves while a peer may still store into it. With C = 1 there
+//     is no cluster: the kernel is the plain block instance, with
+//     __syncthreads as the stage's barrier. amp_fused.py::single_read
+//     and cluster_size decide from (N, dtype) alone.
 //   * Without 16-byte aligned rows (N * sizeof A % 16 != 0: `vec` = 0) no
 //     bulk copy is possible: the same kernel then loads each thread's
 //     elements of a stage straight from device memory into registers; A is
@@ -48,7 +70,7 @@
 //     (read once per instance). Ragged edges are masked; nothing is padded.
 //
 // The two-pass kernels (amp_local_z_kernel + amp_local_ss_kernel, then
-// amp_local_f_kernel) read A twice; they run only for N > 16384.
+// amp_local_f_kernel) read A twice; they run only for N > 131072.
 //
 // Known weak spots, left for later work: at the paper's shape the band
 // kernel is bound by its own stream of bulk copies, not by the consumers,
@@ -58,8 +80,13 @@
 // B > 1 is read B times where a matrix-matrix product would read it once;
 // with B * P >= the SM count a shard is one band, so B * P not a multiple
 // of the SM count leaves a partly empty last wave; the second launch costs
-// a few microseconds a step; the two-pass kernels underfill the card at
-// P = 1 (the f-pass has ceil(N / 512) blocks).
+// a few microseconds a step. In a cluster every row waits for the
+// exchange (a store into each peer's shared memory and its mbarrier)
+// between the dot product and the f update, with nothing else to do; a
+// cluster needs C free SMs of one GPC, so the active clusters
+// (cudaOccupancyMaxActiveClusters, asked by the wrapper) can leave SMs idle.
+// The two-pass kernels underfill the card at P = 1 (the f-pass has
+// ceil(N / 512) blocks).
 //
 // Plain C interface, loaded with ctypes. The entry points launch on the
 // stream they are given, do not synchronise, allocate nothing and return
@@ -82,6 +109,9 @@ constexpr int kRegElems = 32;                     // elements of a stage a threa
 constexpr int kMaxStages = 16;                    // slots of the ring, at most
 constexpr int kRingBytes = 192 * 1024;            // shared memory of the ring, at most
 constexpr int kHeaderBytes = 1024;                // mbarriers and the reduction buffer
+constexpr int kMaxCluster = 8;                    // blocks of a cluster, at most
+constexpr int kClusterHeaderBytes = 2048;         // the same, with the cluster's exchange
+constexpr int kSumsOffset = 256;                  // of the exchange's warp sums
 constexpr int kCombineThreads = 256;              // columns x band groups
 constexpr int kMaxCombineGroups = 8;
 
@@ -91,6 +121,9 @@ constexpr int kSsThreads = 256;    // threads of the second-stage block
 
 static_assert(kMaxStages * 8 + 2 * 4 * kBandWarps * 4 <= kHeaderBytes,
               "mbarriers and the reduction buffer fit the header");
+static_assert((kMaxStages + 2) * 8 <= kSumsOffset &&
+                  kSumsOffset + 2 * kMaxCluster * kBandWarps * 4 <= kClusterHeaderBytes,
+              "mbarriers and the exchange's sums fit the cluster's header");
 
 struct BandArgs {
   const void* a;         // (B or 1, P, mp, n), float32 or bfloat16
@@ -105,64 +138,156 @@ struct BandArgs {
   float* f;              // (B, P, n), written here when there is one band
   float n_proc;
   int mp, n, band_rows, stages;
+  int slice_w;           // columns of a cluster rank's slice (n without a cluster)
 };
 
-// ---- single read: one block per (band, p, b) ---------------------------------
-// grid (n_bands, P, B), block kBandThreads. Thread t owns the V-wide chunks
-// t, t + kBandThreads, ... of a row: CH of them at most, ch_live for this N
-// (loops leave at ch_live, the same for the whole block).
-template <typename TA, bool VEC, int R>
+// ---- the cluster: rank, barrier, stores into a peer's shared memory -------
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_ranks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every block of the cluster: the writes to shared memory
+// before it are seen by the reads after it, in any rank. Twice a kernel:
+// once the mbarriers are set up, and before a block leaves.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the shared::cluster address, in block `rank`, of this block's shared
+// memory at `addr` (a shared::cta address)
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// v into the shared memory of a block of the cluster at `addr`, counted
+// (4 bytes) off that block's mbarrier at `bar` as it lands (both
+// shared::cluster addresses): no fence is needed, the mbarrier's phase
+// completes only when the data is there
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+      ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+// spin until the phase of parity `parity` of this block's mbarrier `bar`
+// has completed, with acquire at cluster scope: the peers' st_async data
+// is then seen
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = amp::smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- single read: one block, or one cluster, per (band, p, b) --------------
+// grid (C * n_bands, P, B), block kBandThreads; CLUSTER: clusters of (C, 1,
+// 1), rank r of band s being block C s + r; else C = 1. Rank r owns columns
+// [r slice_w, r slice_w + sw) of every row. Thread t owns the V-wide chunks
+// t, t + kBandThreads, ... of its slice: CH of them at most, ch_live for this
+// slice (loops leave at ch_live, the same for the whole block).
+template <typename TA, bool VEC, int R, bool CLUSTER>
 __global__ void __launch_bounds__(kBandThreads, 1)
     amp_local_band_kernel(const BandArgs args) {
   constexpr int V = Width<TA, VEC>::value;
   constexpr int E = kRegElems / R;
   constexpr int CH = E / V;
   static_assert(CH * V == E, "a thread owns whole chunks");
+  static_assert(!CLUSTER || R == 1, "a cluster's slices are wider than 4096");
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   float* red = reinterpret_cast<float*>(smem + kMaxStages * sizeof(uint64_t));
-  TA* ring = reinterpret_cast<TA*>(smem + kHeaderBytes);
+  // a cluster: one mbarrier a buffer of the exchange, and the buffers, each
+  // of the 16 warp sums of every rank
+  uint64_t* xbar = full + kMaxStages;
+  float* sums = reinterpret_cast<float*>(smem + kSumsOffset);
+  TA* ring = reinterpret_cast<TA*>(
+      smem + (CLUSTER ? kClusterHeaderBytes : kHeaderBytes));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int band = blockIdx.x, n_bands = gridDim.x;
+  const int rank = CLUSTER ? cluster_rank() : 0;
+  const int ranks = CLUSTER ? cluster_ranks() : 1;
+  const int band = blockIdx.x / ranks, n_bands = gridDim.x / ranks;
   const int p = blockIdx.y, b = blockIdx.z;
   const int mp = args.mp, n = args.n, stages = args.stages;
+  const int c0 = rank * args.slice_w;                   // the slice's first column
+  const int sw = CLUSTER ? min(args.slice_w, n - c0) : n;  // and its width, >= 1
+  const int rs = VEC ? sw : n;                  // elements between rows of a stage
   const long long bp = static_cast<long long>(b) * gridDim.y + p;
   const int r0 = band * args.band_rows;
   const int nrows = min(args.band_rows, mp - r0);  // >= 1: the plan leaves no band empty
   const int n_stage = (nrows + R - 1) / R;
-  const long long stage_elems = static_cast<long long>(R) * n;
-  const int ch_live = (n / V + kBandThreads - 1) / kBandThreads;  // VEC: n % V == 0
+  const long long stage_elems = static_cast<long long>(R) * rs;
+  const int ch_live = (sw / V + kBandThreads - 1) / kBandThreads;  // VEC: sw % V == 0
   const TA* src = static_cast<const TA*>(args.a) + b * args.a_bstride +
-                  (static_cast<long long>(p) * mp + r0) * n;
+                  (static_cast<long long>(p) * mp + r0) * n + c0;
 
-  // stage k's rows into its slot: one bulk copy of nr whole rows
+  // stage k's rows into its slot: one bulk copy of nr whole rows, or in a
+  // cluster one of each row's slice
   auto fill = [&](int k) {
     const int slot = k % stages;
     const int nr = min(R, nrows - k * R);
-    const uint32_t bytes = static_cast<uint32_t>(nr) * n * sizeof(TA);
+    const uint32_t bytes = static_cast<uint32_t>(nr) * sw * sizeof(TA);
     amp::mbar_expect_tx(&full[slot], bytes);
-    amp::bulk_load(ring + slot * stage_elems, src + k * stage_elems, bytes,
-                   &full[slot]);
+    if constexpr (CLUSTER) {
+      for (int r = 0; r < nr; ++r)
+        amp::bulk_load(ring + slot * stage_elems + r * sw,
+                       src + (static_cast<long long>(k) * R + r) * n,
+                       static_cast<uint32_t>(sw) * sizeof(TA), &full[slot]);
+    } else {
+      amp::bulk_load(ring + slot * stage_elems, src + k * stage_elems, bytes,
+                     &full[slot]);
+    }
   };
-  if constexpr (VEC) {
+  if constexpr (VEC || CLUSTER) {
     if (tid == 0) {
-      for (int i = 0; i < stages; ++i) amp::mbar_init(&full[i], 1);
+      if constexpr (VEC)
+        for (int i = 0; i < stages; ++i) amp::mbar_init(&full[i], 1);
+      if constexpr (CLUSTER) {
+        amp::mbar_init(&xbar[0], 1);
+        amp::mbar_init(&xbar[1], 1);
+      }
       amp::fence_mbar_init();
     }
-    __syncthreads();
-    if (tid == 0)
-      for (int k = 0; k < min(stages, n_stage); ++k) fill(k);
+    // a cluster: every rank's mbarriers are set up before any peer stores
+    if constexpr (CLUSTER) cluster_sync(); else __syncthreads();
+    if constexpr (VEC) {
+      if (tid == 0)
+        for (int k = 0; k < min(stages, n_stage); ++k) fill(k);
+    }
   }
 
   float xr[CH][V], fa[CH][V];
-  const float* xb = args.x + static_cast<long long>(b) * n;
+  const float* xb = args.x + static_cast<long long>(b) * n + c0;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    const int col = (tid + c * kBandThreads) * V;
+    const int col = (tid + c * kBandThreads) * V;  // within the slice
 #pragma unroll
     for (int v = 0; v < V; ++v) xr[c][v] = fa[c][v] = 0.f;
-    if (col < n) {  // a live chunk is whole
+    if (col < sw) {  // a live chunk is whole
 #pragma unroll
       for (int v = 0; v < V; ++v) xr[c][v] = __ldg(xb + col + v);
     }
@@ -178,6 +303,11 @@ __global__ void __launch_bounds__(kBandThreads, 1)
     for (int r = 0; r < R; ++r) {
       yv[r] = r < nr ? __ldg(args.y + row0 + r) : 0.f;
       zv[r] = r < nr ? __ldg(args.z + row0 + r) : 0.f;
+    }
+    // a cluster: this stage's exchange expects the 16 warp sums of each rank
+    if constexpr (CLUSTER) {
+      if (tid == 0)
+        amp::mbar_expect_tx(&xbar[k & 1], ranks * kBandWarps * sizeof(float));
     }
     const TA* st;
     if constexpr (VEC) {
@@ -198,8 +328,8 @@ __global__ void __launch_bounds__(kBandThreads, 1)
       for (int c = 0; c < CH; ++c) {
         if (c >= ch_live) break;
         const int col = (tid + c * kBandThreads) * V;
-        if (r < nr && col < n) {
-          load_a<TA, V, VEC>(st + static_cast<long long>(r) * n + col, av[r][c]);
+        if (r < nr && col < sw) {
+          load_a<TA, V, VEC>(st + static_cast<long long>(r) * rs + col, av[r][c]);
         } else {
 #pragma unroll
           for (int v = 0; v < V; ++v) av[r][c][v] = 0.f;
@@ -218,12 +348,30 @@ __global__ void __launch_bounds__(kBandThreads, 1)
       for (int off = 16; off > 0; off >>= 1)
         d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
     }
-    float* rb = red + (k & 1) * R * kBandWarps;  // double-buffered
-    if (lane == 0) {
+    // double-buffered: without a cluster, this block's sums of the stage's
+    // R rows; in a cluster, every rank's sums of its one row, [rank][warp]
+    float* rb = CLUSTER ? sums + (k & 1) * kMaxCluster * kBandWarps
+                        : red + (k & 1) * R * kBandWarps;
+    if constexpr (CLUSTER) {
+      // lane q stores the warp's sum into rank q's buffer k & 1. The
+      // exchange's mbarrier completes when all ranks' sums are in, so after
+      // every warp of every rank has read its part of the slot (its sum
+      // needs it). No store overwrites sums a peer still reads: a warp
+      // stores stage k after its rank's stage k - 1 completed, i.e. after
+      // every warp of every rank stored stage k - 1, which each did after
+      // adding up stage k - 2, the buffer's previous use.
+      if (lane < ranks) {
+        st_async(map_rank(amp::smem_u32(rb + rank * kBandWarps + warp), lane),
+                 d[0], map_rank(amp::smem_u32(&xbar[k & 1]), lane));
+      }
+      mbar_wait_cluster(&xbar[k & 1], (k >> 1) & 1);
+    } else {
+      if (lane == 0) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) rb[r * kBandWarps + warp] = d[r];
+        for (int r = 0; r < R; ++r) rb[r * kBandWarps + warp] = d[r];
+      }
+      __syncthreads();  // the stage's sums are in; its slot has been read
     }
-    __syncthreads();  // the stage's sums are in; its slot has been read
     if constexpr (VEC) {
       if (tid == 0 && k + stages < n_stage) {
         amp::fence_proxy_async();
@@ -233,15 +381,17 @@ __global__ void __launch_bounds__(kBandThreads, 1)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r < nr) {
-        float tot = 0.f;  // the warps' sums in a fixed order
+        float tot = 0.f;  // the warps' sums in a fixed order: (rank, warp)
         const float4* rw = reinterpret_cast<const float4*>(rb + r * kBandWarps);
+        for (int q = 0; q < ranks; ++q) {
 #pragma unroll
-        for (int w = 0; w < kBandWarps / 4; ++w) {
-          const float4 q = rw[w];
-          tot += q.x; tot += q.y; tot += q.z; tot += q.w;
+          for (int w = 0; w < kBandWarps / 4; ++w) {
+            const float4 u = rw[q * (kBandWarps / 4) + w];
+            tot += u.x; tot += u.y; tot += u.z; tot += u.w;
+          }
         }
         const float zn = (yv[r] - tot) + on * zv[r];
-        if (tid == 0) {
+        if (tid == 0 && rank == 0) {
           args.z_out[row0 + r] = zn;
           ss = fmaf(zn, zn, ss);
         }
@@ -255,20 +405,23 @@ __global__ void __launch_bounds__(kBandThreads, 1)
     }
   }
 
-  // one band: f itself; else this band's partial, for the combine
+  // one band: f itself; else this band's partial, for the combine; each
+  // rank its slice
   const long long slot_out = bp * n_bands + band;
   const bool whole = n_bands == 1;
-  float* fo = whole ? args.f + bp * n : args.fpart + slot_out * n;
+  float* fo = (whole ? args.f + bp * n : args.fpart + slot_out * n) + c0;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     const int col = (tid + c * kBandThreads) * V;
-    if (col < n) {
+    if (col < sw) {
 #pragma unroll
       for (int v = 0; v < V; ++v)
         fo[col + v] = whole ? xr[c][v] / args.n_proc + fa[c][v] : fa[c][v];
     }
   }
-  if (tid == 0) args.sspart[slot_out] = ss;
+  if (tid == 0 && rank == 0) args.sspart[slot_out] = ss;
+  // no rank leaves while a peer may still store into its shared memory
+  if constexpr (CLUSTER) cluster_sync();
 }
 
 // ---- second stage of the single read: fixed-order sums ----------------------
@@ -317,32 +470,68 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-template <typename TA, bool VEC, int R>
-cudaError_t launch_band(BandArgs args, int batch, int n_shards, int n_bands,
-                        cudaStream_t stream) {
-  size_t smem = kHeaderBytes;
-  args.stages = 0;
+// The band kernel for (TA, VEC, R, CLUSTER) on a grid (C * n_bands, P, B):
+// launched, or, with `max_clusters`, only asked how many clusters of C blocks
+// (at its shared memory) the card runs at once. The ring holds args.stages
+// slots of R rows of args.slice_w elements.
+template <typename TA, bool VEC, int R, bool CLUSTER>
+cudaError_t run_band(const BandArgs& args, int cluster, dim3 grid,
+                     cudaStream_t stream, int* max_clusters) {
+  size_t smem = CLUSTER ? kClusterHeaderBytes : kHeaderBytes;
   if (VEC) {
-    const size_t stage_bytes = static_cast<size_t>(R) * args.n * sizeof(TA);
-    args.stages = static_cast<int>(
-        stage_bytes * kMaxStages <= kRingBytes ? kMaxStages : kRingBytes / stage_bytes);
-    if (args.stages < 2) return cudaErrorInvalidValue;
+    const size_t stage_bytes = static_cast<size_t>(R) * args.slice_w * sizeof(TA);
+    if (args.stages < 2 || args.stages > kMaxStages ||
+        args.stages * stage_bytes > kRingBytes)
+      return cudaErrorInvalidValue;
     smem += args.stages * stage_bytes;
   }
-  auto kernel = amp_local_band_kernel<TA, VEC, R>;
+  auto kernel = amp_local_band_kernel<TA, VEC, R, CLUSTER>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n_bands, n_shards, batch), kBandThreads, smem, stream>>>(args);
+  if (!CLUSTER) {
+    kernel<<<grid, kBandThreads, smem, stream>>>(args);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kBandThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// cluster > 1 takes the cluster instance, whose slices are wider than 4096
+// columns (R = 1: the caller checks); else R = rows_per_stage.
 template <typename TA, bool VEC>
-cudaError_t dispatch_band(int rows_per_stage, const BandArgs& args, int batch,
-                          int n_shards, int n_bands, cudaStream_t stream) {
+cudaError_t dispatch_band(int rows_per_stage, const BandArgs& args, int cluster,
+                          dim3 grid, cudaStream_t stream, int* max_clusters) {
+  if (cluster > 1)
+    return run_band<TA, VEC, 1, true>(args, cluster, grid, stream, max_clusters);
   if (rows_per_stage == 4)
-    return launch_band<TA, VEC, 4>(args, batch, n_shards, n_bands, stream);
-  return launch_band<TA, VEC, 1>(args, batch, n_shards, n_bands, stream);
+    return run_band<TA, VEC, 4, false>(args, 1, grid, stream, max_clusters);
+  return run_band<TA, VEC, 1, false>(args, 1, grid, stream, max_clusters);
+}
+
+cudaError_t dispatch_band(int a_bf16, int vec, int rows_per_stage,
+                          const BandArgs& args, int cluster, dim3 grid,
+                          cudaStream_t stream, int* max_clusters) {
+  if (a_bf16)
+    return vec ? dispatch_band<__nv_bfloat16, true>(rows_per_stage, args, cluster, grid, stream, max_clusters)
+               : dispatch_band<__nv_bfloat16, false>(rows_per_stage, args, cluster, grid, stream, max_clusters);
+  return vec ? dispatch_band<float, true>(rows_per_stage, args, cluster, grid, stream, max_clusters)
+             : dispatch_band<float, false>(rows_per_stage, args, cluster, grid, stream, max_clusters);
 }
 
 // ---- two-pass form (N > 16384): z-pass, one warp per row (b, p*Mp + m) ------
@@ -487,17 +676,22 @@ extern "C" {
 // (1), a_bstride elements between batch entries (0 = shared). x (B, n); y, z,
 // z_out (B, n_shards, mp); ons, ss (B,); f (B, n_shards, n). Scratch: fpart
 // (B, n_shards, n_bands, n; not touched when n_bands = 1), sspart
-// (B, n_shards, n_bands). Bands of
-// band_rows rows, the last one ragged, none empty; rows_per_stage 1 or 4,
-// and n <= 512 * 32 / rows_per_stage; combine_groups 1, 2, 4 or 8. vec = 1 promises
-// n % (16 / sizeof A) == 0 and 16-byte aligned a, x.
+// (B, n_shards, n_bands). Bands of band_rows rows, the last one ragged, none
+// empty; each band taken by a cluster of `cluster` blocks (1..8), rank r
+// owning columns [r slice_w, min((r + 1) slice_w, n)), none empty
+// (slice_w = n for cluster = 1); rows_per_stage 1 or 4 (1 for cluster > 1),
+// and slice_w <= 512 * 32 / rows_per_stage; the ring has `stages` slots of
+// rows_per_stage rows of slice_w elements (2..16, at most 192 KB; vec only);
+// combine_groups 1, 2, 4 or 8. vec = 1 promises n % (16 / sizeof A) == 0,
+// slice_w a multiple of it, and 16-byte aligned a, x.
 int amp_local_launch(const void* a, int a_bf16, long long a_bstride,
                      const float* x, const float* y, const float* z,
                      const float* ons, float* z_out, float* fpart,
                      float* sspart, float* f, float* ss, float n_proc,
                      int batch, int n_shards, int mp, int n, int band_rows,
                      int n_bands, int rows_per_stage, int combine_groups,
-                     int vec, void* stream) {
+                     int vec, int cluster, int slice_w, int stages,
+                     void* stream) {
   if (batch < 1 || batch > 65535 || n_shards < 1 || n_shards > 65535 ||
       mp < 1 || n < 1 || band_rows < 1 || n_bands < 1 ||
       static_cast<long long>(n_bands - 1) * band_rows >= mp ||
@@ -505,18 +699,19 @@ int amp_local_launch(const void* a, int a_bf16, long long a_bstride,
       (rows_per_stage != 1 && rows_per_stage != 4) ||
       combine_groups < 1 || combine_groups > kMaxCombineGroups ||
       (combine_groups & (combine_groups - 1)) != 0 ||
-      n > kBandThreads * (kRegElems / rows_per_stage))
+      cluster < 1 || cluster > kMaxCluster || (cluster > 1 && rows_per_stage != 1) ||
+      slice_w < 1 || (cluster == 1 && slice_w != n) ||
+      static_cast<long long>(cluster - 1) * slice_w >= n ||
+      static_cast<long long>(cluster) * slice_w < n ||
+      (vec && slice_w % (a_bf16 ? 8 : 4) != 0) ||
+      slice_w > kBandThreads * (kRegElems / rows_per_stage))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BandArgs args{a, a_bstride, x, y, z, ons, z_out, fpart, sspart,
-                      f, n_proc, mp, n, band_rows, 0};
-  cudaError_t e;
-  if (a_bf16)
-    e = vec ? dispatch_band<__nv_bfloat16, true>(rows_per_stage, args, batch, n_shards, n_bands, s)
-            : dispatch_band<__nv_bfloat16, false>(rows_per_stage, args, batch, n_shards, n_bands, s);
-  else
-    e = vec ? dispatch_band<float, true>(rows_per_stage, args, batch, n_shards, n_bands, s)
-            : dispatch_band<float, false>(rows_per_stage, args, batch, n_shards, n_bands, s);
+                      f, n_proc, mp, n, band_rows, vec ? stages : 0, slice_w};
+  cudaError_t e = dispatch_band(a_bf16, vec, rows_per_stage, args, cluster,
+                                dim3(cluster * n_bands, n_shards, batch), s,
+                                nullptr);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int cols = kCombineThreads / combine_groups;
   const dim3 grid(n_bands > 1 ? (n + cols - 1) / cols : 1,
@@ -524,6 +719,20 @@ int amp_local_launch(const void* a, int a_bf16, long long a_bstride,
   amp_local_combine_kernel<<<grid, dim3(cols, combine_groups), 0, s>>>(
       fpart, sspart, x, f, ss, n_proc, n_shards, n_bands, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `cluster` (2..8) band blocks, each with a ring of
+// `stages` slots of one row of slice_w elements (vec = 1; none with vec =
+// 0), the card runs at once: cudaOccupancyMaxActiveClusters, into *out.
+int amp_local_max_active_clusters(int a_bf16, int vec, int cluster,
+                                  int slice_w, int stages, int* out) {
+  if (cluster < 2 || cluster > kMaxCluster || slice_w < 1 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BandArgs args{};
+  args.slice_w = slice_w;
+  args.stages = vec ? stages : 0;
+  return static_cast<int>(dispatch_band(a_bf16, vec, 1, args, cluster,
+                                        dim3(cluster, 1, 1), nullptr, out));
 }
 
 // The two-pass form, for rows wider than the single read takes.

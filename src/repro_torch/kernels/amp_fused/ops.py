@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from .amp_fused import (BAND_THREADS, F_THREADS, Z_WARPS, amp_local_cuda_grid,
-                        rows_per_stage, single_read, vec_width)
+                        cluster_slices, rows_per_stage, single_read,
+                        vec_width)
 from .col import col_inner_cuda, col_residual_cuda, col_stage_rows
 from .ref import (amp_local_ref, amp_local_ref_grid, col_inner_step_ref,
                   col_residual_ref)
@@ -28,13 +29,15 @@ __all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards",
 
 def row_tiles(mp: int, n: int, a_dtype: torch.dtype = torch.float32):
     """(bm, bn) of the CUDA kernels for a (P, Mp, N) row-shard stack. Single
-    read (``single_read``): rows of A a stage of the band kernel holds, and
-    the columns one sweep of its threads covers (threads times the vector
-    width N allows). Two-pass (wider N): rows per z-pass block (one warp a
-    row) and columns per f-pass block. Ragged edges are masked, so neither
-    has to divide its dimension."""
+    read (``single_read``): rows of A a stage of the band kernel holds (for
+    a cluster rank's column slice where N is wider than one block takes),
+    and the columns one sweep of a block's threads covers (threads times the
+    vector width N allows). Two-pass (N > 131072): rows per z-pass block
+    (one warp a row) and columns per f-pass block. Ragged edges are masked,
+    so neither has to divide its dimension."""
     if single_read(n, a_dtype):
-        return rows_per_stage(n), BAND_THREADS * vec_width(n, a_dtype)
+        lo, hi = cluster_slices(n, a_dtype)[0]
+        return rows_per_stage(hi - lo), BAND_THREADS * vec_width(n, a_dtype)
     return Z_WARPS, F_THREADS * vec_width(n, a_dtype)
 
 
