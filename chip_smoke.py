@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--k6-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -32,13 +32,17 @@ then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
 JSON file. Needs a CUDA device and nvcc; needs no network. Takes about two
-minutes on an H100.
+minutes on an H100. ``--k6-only`` builds the WKV6 kernel alone, holds it
+against its plain version at every ``WKV_CASES`` case and times it at
+rwkv6-3b's prefill shape for the plan's NV and NV = 1, 2, 4, then stops
+(no other phase, no last line): the quick check of K6.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,10 +112,11 @@ REPLACES = {"amp_local": K1_SITES,
 COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
             kd.launch_counts, kw.launch_counts)
 
-# NVIDIA H100 SXM data sheet: device memory rate and float32 rate outside
-# the tensor cores (the kernels do float32 FMAs on CUDA cores).
+# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
+# tensor cores and the dense TF32 tensor-core rate (K6's products).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # The paper's operating point (Sec. 4) at full width.
 N, M, P, EPS, SNR_DB = 10_000, 3_000, 30, 0.05, 20.0
@@ -168,6 +173,19 @@ def all_counts() -> dict:
 def emit(phase: str, **fields) -> None:
     RESULT[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def tensor_core_ops(lib_path) -> dict:
+    """Tensor-core instructions in a built library's SASS (``cuobjdump
+    -sass``, from the toolkit beside nvcc), counted by opcode."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    counts: dict = {}
+    for op in re.findall(r"\b(?:HMMA|HGMMA)\.[\w.]+", out):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -1153,6 +1171,10 @@ WKV_CASES = [
     ("rwkv6_3b_state0", 4, 1000, 40, 64, torch.bfloat16, True),
     ("ragged_T70_f32", 2, 70, 3, 64, torch.float32, True),
     ("smoke_Dh16", 2, 45, 4, 16, torch.bfloat16, True),
+    # two (b, h): the plan takes the largest NV (slices of 8 columns)
+    ("max_nv_T70_f32", 1, 70, 2, 64, torch.float32, True),
+    # rows of 8 bytes, under the 16-byte copies: plain loads; NV = 1
+    ("rows_8B_Dh4_bf16", 2, 45, 3, 4, torch.bfloat16, True),
 ]
 
 
@@ -1168,10 +1190,20 @@ def wkv_inputs(b, t, h, dh, dtype, state, seed):
     return r.to(dtype), k_.to(dtype), v.to(dtype), logw, u, s0
 
 
+def wkv_plan_of(b, h, dh, dtype) -> dict:
+    """The wrapper's plan for a case: NV value slices of VB columns, and the
+    blocks the card holds at once for each slice width."""
+    slots = {dh // nv: kw.max_active_blocks(DEV, dtype, dh, dh // nv)
+             for nv in kw.value_splits(dh)}
+    nv = kw.wkv_plan(b, h, dh, slots.__getitem__)
+    return {"nv": nv, "vb": dh // nv, "blocks": b * h * nv,
+            "slots_by_vb": slots}
+
+
 def check_wkv6_kernel() -> dict:
     """K6 against its plain version (``wkv_chunked``) on the card, y and the
     final state: the reference's tolerance, 3e-4 relative and absolute.
-    Bit-identical over two runs."""
+    Bit-identical over two runs. Each case records its plan."""
     rows = []
     for name, b, t, h, dh, dtype, state in WKV_CASES:
         args = wkv_inputs(b, t, h, dh, dtype, state, SEED)
@@ -1181,6 +1213,7 @@ def check_wkv6_kernel() -> dict:
         y_r, s_r = wkv_chunked(*args)
         row = {"case": name, "B": b, "T": t, "H": h, "Dh": dh,
                "dtype": str(dtype).split(".")[-1], "state0": state,
+               "plan": wkv_plan_of(b, h, dh, dtype),
                "y_max_abs_err": float((y - y_r).abs().max()),
                "y_rel_err": rel_err(y, y_r),
                "state_max_abs_err": float((s_fin - s_r).abs().max()),
@@ -1364,27 +1397,61 @@ def decode_attn_bound(b, h, kv, dh, rows, dtype) -> dict:
 
 def wkv6_bound(b, t, h, dh, dtype, state) -> dict:
     """K6's least time: r, k, v, logw, u and the initial state read once, y
-    and the final state written once; the float32 operations of the chunked
-    form over the T real steps (per chunk of c steps and head: r'k'^T and
-    its product with v over the lower triangle, r'S, the state update, the
-    u-bonus and the rebasing). The ragged last chunk counts its real steps,
-    not the padded ones."""
+    and the final state written once; the operations of the chunked form
+    over the T real steps, the four products (per chunk of c steps and head:
+    r'k'^T and its product with v over the lower triangle, r'S, the state
+    update) at the dense TF32 tensor-core rate, the rest (u-bonus,
+    rebasing, decay of S) at the float32 CUDA-core rate. The ragged last
+    chunk counts its real steps, not the padded ones.
+    ``bound_ms_cuda_cores`` keeps the earlier figure, every operation at
+    the CUDA-core rate."""
     e = 2 if dtype == torch.bfloat16 else 4
     n = b * t * h * dh
     st = b * h * dh * dh * 4
     nbytes = 3 * n * e + 4 * n + 4 * h * dh + (st if state else 0) + 4 * n + st
 
-    def chunk_ops(c):
+    def products(c):
         return (2 * c * (c - 1) * dh                 # A and A v, lower triangle
-                + 2 * c * dh                         # diag v
-                + 3 * c * dh + 4 * c * dh            # u-bonus, rebasing
                 + 2 * c * dh * dh                    # r' S
-                + 2 * dh * dh * c                    # (k' e^{l_tot})^T v
+                + 2 * dh * dh * c)                   # (k' e^{l_tot})^T v
+
+    def rest_ops(c):
+        return (2 * c * dh                           # diag v
+                + 3 * c * dh + 4 * c * dh            # u-bonus, rebasing
                 + c * dh                             # k' scaled by e^{l_tot}
                 + 2 * dh * dh)                       # decay of S, and the sum
     full, rest = divmod(t, CHUNK)
-    ops = full * chunk_ops(CHUNK) + (chunk_ops(rest) if rest else 0)
-    return bound(nbytes, float(ops * b * h))
+    prod = b * h * (full * products(CHUNK) + (products(rest) if rest else 0))
+    other = b * h * (full * rest_ops(CHUNK) + (rest_ops(rest) if rest else 0))
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = prod / TF32_FLOP_PER_S + other / FP32_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": float(prod + other),
+            "tensor_core_flops": float(prod), "cuda_core_flops": float(other),
+            "bound_ms_cuda_cores": bound(nbytes, float(prod + other))["bound_ms"]}
+
+
+def time_wkv6() -> dict:
+    """K6 at rwkv6-3b's prefill shape (bf16, a state in): the plan's NV
+    with its plain version beside it, and NV = 1, 2 and 4 given to the
+    wrapper. No one PyTorch call computes the recurrence."""
+    b, t, h, dh = LM_RWKV_BATCH, LM_PROMPT, 40, 64
+    args = wkv_inputs(b, t, h, dh, torch.bfloat16, True, SEED)
+    bnd = {"wkv6": wkv6_bound(b, t, h, dh, torch.bfloat16, True)}
+    plan = wkv_plan_of(b, h, dh, torch.bfloat16)
+    table = {"rwkv6_3b_prefill": {**_time_calls(
+        {"wkv6": {"ms": lambda: kw.wkv6_cuda(*args),
+                  "plain_ms": lambda: wkv_chunked(*args)}}, bnd)["wkv6"],
+        "plan": plan}}
+    for nv in (1, 2, 4):
+        row = _time_calls({"wkv6": {"ms": lambda: kw.wkv6_cuda(*args, nv=nv)}},
+                          bnd)["wkv6"]
+        table[f"rwkv6_3b_prefill_nv{nv}"] = {
+            key: row[key] for key in ("ms", "bound_ms", "share_of_bound",
+                                      "wrapper_call_ms")}
+        table[f"rwkv6_3b_prefill_nv{nv}"]["blocks"] = b * h * nv
+    return table
 
 
 def time_lm_kernels() -> dict:
@@ -1420,12 +1487,7 @@ def time_lm_kernels() -> dict:
         table[name] = _time_calls(calls, bounds)["decode_attn"]
         table[name].update(S=s, pos=p_, window=win, rows_read=hi - lo + 1)
         del q, kc_, vc_, k_t, v_t
-    b, t, h, dh = LM_RWKV_BATCH, LM_PROMPT, 40, 64
-    args = wkv_inputs(b, t, h, dh, torch.bfloat16, True, SEED)
-    calls = {"wkv6": {"ms": lambda: kw.wkv6_cuda(*args),
-                      "plain_ms": lambda: wkv_chunked(*args)}}
-    table["rwkv6_3b_prefill"] = _time_calls(
-        calls, {"wkv6": wkv6_bound(b, t, h, dh, torch.bfloat16, True)})["wkv6"]
+    table.update(time_wkv6())
     return table
 
 
@@ -1433,6 +1495,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every phase's result to "
                                       "this JSON file")
+    parser.add_argument("--k6-only", action="store_true",
+                        help="build the WKV6 kernel, check it and time it "
+                             "(kernel_check_wkv6, timing_wkv6), and stop: no "
+                             "other phase and no last line")
     args = parser.parse_args()
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1442,13 +1508,14 @@ def main() -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    paths = build.ensure_built(["amp_local", "amp_col", "quantize",
-                                "decode_attn", "wkv6"])
-    k._library()
-    kc._library()
-    kq._library()
-    kd._library()
+    paths = build.ensure_built(["wkv6"] if args.k6_only else [
+        "amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     kw._library()
+    if not args.k6_only:
+        k._library()
+        kc._library()
+        kq._library()
+        kd._library()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(str(p), ROOT) for n, p in paths.items()},
          nvcc=[{key: rec[key] for key in ("name", "command", "seconds")}
@@ -1456,7 +1523,20 @@ def main() -> None:
          ptxas=[line for rec in build.build_log
                 for line in rec["stderr"].splitlines()
                 if "registers" in line or "spill" in line
-                or "Function properties" in line])
+                or "Function properties" in line],
+         # K6's four products run on tensor cores: mma.sync TF32 is HMMA
+         wkv6_sass_tensor_ops=tensor_core_ops(paths["wkv6"]))
+    assert any(op.startswith("HMMA") for op in
+               RESULT["build"]["wkv6_sass_tensor_ops"]), RESULT["build"]
+    if args.k6_only:
+        check_wkv6_kernel()
+        emit("timing_wkv6", card=smi, kernels=time_wkv6())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(RESULT, fh, indent=1)
+        return
 
     check_clusters()
     errs = check_kernels()

@@ -1,48 +1,81 @@
 // The RWKV-6 WKV recurrence in chunks of 32 steps, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of src/repro/kernels/wkv6/wkv6.py, `wkv6_pallas`
-// (`_kernel`): for r, k, v, logw (B, T, H, Dh) and a bonus u (H, Dh),
+// (`_kernel`, l.27; its pallas_call, l.80): for r, k, v, logw (B, T, H, Dh)
+// and a bonus u (H, Dh),
 //     S_t = diag(e^{logw_t}) S_{t-1} + k_t v_t^T,
 //     y_t = r_t (S_{t-1} + diag(u) k_t v_t^T),
-// computed a chunk of C = 32 steps at a time in the decay-rebased basis: with
-// l_inc the inclusive cumulative log-decay of a channel inside the chunk and
-// l_exc = l_inc - logw, r' = r e^{l_exc}, k' = k e^{-l_inc};
-//     y     = tril_strict(r' k'^T) v + (sum_d r u k) v + r' S,
-//     S    <- diag(e^{l_tot}) S + (k' e^{l_tot})^T v.
-// It also takes an initial state and writes the final one: the model's call
-// (prefill hands the state to decode) needs both. The TPU kernel holds the
-// same state in its scratch after its last chunk.
-//
-// Contract kept from the TPU kernel: the caller clamps logw >= -2 (the model
-// does, `_LOGW_MIN`), so over 32 steps the rebased factors stay within
-// e^{+-64}, inside float32. Nothing here clamps.
+// a chunk of C = 32 steps at a time. With l_inc the inclusive cumulative
+// log-decay of a channel inside the chunk, l_exc = l_inc - logw and l_tot
+// its value at the chunk's last step, the kernel rebases
+//     r'' = r e^{l_exc - l_tot},  kk = k e^{l_tot - l_inc},  S_dec = diag(e^{l_tot}) S,
+// and a chunk is four products:
+//     A  = tril_strict(r'' kk^T) + diag(sum_d r u k)     32 x 32 x Dh
+//     y  = r'' S_dec + A v                               32 x VB x Dh, 32 x VB x 32
+//     S <- S_dec + kk^T v                                Dh x VB x 32
+// These are the reference's r' k'^T, r' S and diag(e^{l_tot}) S + (k'
+// e^{l_tot})^T v (r' = r e^{l_exc}, k' = k e^{-l_inc}) with the factors
+// e^{+-l_tot} moved between the operands: the same values, and every
+// operand stays inside float32's range, because the caller keeps logw >= -2
+// (the model clamps it, `_LOGW_MIN`), so |l_tot| <= 64. Nothing here clamps.
+// The kernel also takes an initial state and writes the final one (prefill
+// hands it to decode); the TPU kernel holds the state in its scratch.
 //
 // What bounds it on this card: at rwkv6-3b's prefill shape (B=4, T=1000,
-// H=40, Dh=64, bf16 r/k/v, float32 logw and y) it moves about 148 MB and does
-// about 4 GFLOP of float32 work, so the two bounds are close (~44 us of
-// memory time against ~60 us of CUDA-core time).
+// H=40, Dh=64, bf16 r/k/v, float32 logw, state and y) the function must move
+// 149 MB, 0.0444 ms at 3.35 TB/s; its 3.25 GFLOP of products take ~7 us at
+// the TF32 tensor-core rate and the other 0.14 GFLOP ~2 us on CUDA cores.
+// Bytes bound it.
 //
-// Design. One block per (b, h) walks the chunks in order, as the TPU's
-// sequential grid axis did; the Dh x Dh float32 state stays in shared memory
-// for the whole sequence. A chunk's r, k, v, logw are read with strided,
-// coalesced loads straight from the (B, T, H, Dh) layout (no transposed
-// copy). Steps past T are read as r = k = v = 0, logw = 0: they neither add
-// to the state nor decay it, the reference's padding, and their y is not
-// written. The cumulative sum runs in step order, one thread per channel.
-// The four small products of a chunk (A = r' k'^T, A v, r' S and the state
-// update k'^T v) are float32 FMAs on the CUDA cores, each thread holding a
-// small tile of outputs in registers (2 x 2 of A, 2 x 4 of y, 4 x 4 of S) so
-// that one shared-memory load feeds several FMAs; a tile's rows and columns
-// are strided (t, t + 16; e, e + Dh/4, ...) so a warp's loads are
-// conflict-free or broadcasts, and the rows of r', k' and A are padded by
-// one float for the same reason. Sums run in a fixed order: the result is
-// the same bits run to run. At B=4, H=40 there are 160 blocks for 132 SMs.
+// Design.
+// * Blocks: one per (b, h) and slice of VB = Dh / NV value columns, grid
+//   (B * H, NV) (`wkv_plan` in kernels/wkv6/wkv6.py: the largest NV whose
+//   blocks are all resident at once, since each block walks the whole
+//   sequence). Columns of y and S depend only on the same columns of v, so
+//   a block keeps only its (Dh, VB) slice of S, in shared memory, for the
+//   whole sequence. Every block recomputes the chunk's scan, rebasing and A
+//   from all Dh channels, in the same order: the NV blocks agree bit for bit.
+// * Loads: a chunk's rows of r, k, logw and of the block's v slice stream
+//   into a raw buffer by 16-byte cp.async copies, straight from the
+//   (B, T, H, Dh) layout; steps past T are zero-filled through the copy's
+//   source size, so they neither add to the state nor decay it (the
+//   reference's padding), and their y is not written. As soon as the scan
+//   has turned chunk c into the float32 working set, chunk c + 1's copies
+//   are issued: they land while chunk c's products run. Rows that are not
+//   whole 16-byte pieces (bf16 with Dh % 8 != 0) take plain loads.
+// * Scan: a warp takes four channels at a time, lane t holding step t. An
+//   inclusive shuffle scan (5 steps) gives l_inc, lane 31 l_tot; all 256
+//   threads work and the exponentials (__expf) run side by side. r'' and kk
+//   leave the scan split into TF32 halves (below), once for every product
+//   that reads them; the u-bonus diagonal sums in the same pass (a partial
+//   a warp, added in warp order).
+// * Products: mma.sync m16n8k8, TF32 in and float32 sums (wgmma wants
+//   64-row tiles; a chunk has 32 rows). TF32 keeps float32's exponent but 10
+//   mantissa bits, so every operand x is split x = hi + lo (cvt.rna) and a
+//   product is lo*hi + hi*lo + hi*hi: about float32's precision, inside the
+//   reference's tolerance (one-term TF32 is not). A bf16 v is a TF32 number:
+//   its lo is zero and that term is skipped. Depths and widths under 8 are
+//   padded with zeros in shared memory. Three barriers a chunk: after the
+//   copies land, after the scan, and between phase A (A; r'' S_dec into each
+//   warp's y tiles) and phase B (y += A v, written out; S updated in place).
+// * Sums run in a fixed order: y and the state are the same bits run to run.
+//   No intermediate state goes to device memory.
+//
+// Weak spots (measured at rwkv6-3b prefill, PERF.md): the SMs' instruction
+// issue bounds it, not bytes. Each block repeats its (b, h)'s scan, A and
+// copies of r, k, logw, so the plan's NV = 2 adds half again to that work;
+// 320 blocks on 132 SMs leave the SMs that hold 3 blocks to finish last;
+// within a block the phases of a chunk run one after the other (only the
+// copies overlap them); S_dec is split anew for each tile that reads it.
+// The one-wave plan ties NV to residency: 3 blocks an SM need <= 85
+// registers and the ~75 KB of shared memory of a 32-column slice; a build
+// over either falls to 2 blocks and the plan to NV = 1.
 //
 // Limits: Dh a multiple of 4 up to 128; r, k, v bf16 or float32 (one
 // dtype); logw, u, the states and y float32.
 //
-// Plain C interface, loaded with ctypes. The entry point launches on the
-// stream it is given, does not synchronise, allocates nothing and returns
+// Plain C interface, loaded with ctypes. The entry points launch on the
+// stream they are given, do not synchronise, allocate nothing and return
 // cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -55,203 +88,481 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;
-constexpr int kHalf = kChunk / 2;
-constexpr int kLdA = kChunk + 1;
+constexpr int kLdA = 36;          // row of A (floats): 4 mod 8
 constexpr int kMaxDh = 128;
+// y tiles (16 x 8) a warp holds across the chunk's middle barrier: 2 x 16 at
+// the widest slice (128 columns), over the block's warps
+constexpr int kMaxYTiles = 2 * (kMaxDh / 8) / kWarps;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__host__ __device__ __forceinline__ size_t smem_floats(int dh) {
-  return static_cast<size_t>(dh) * dh      // state S
-         + 2 * kChunk * (dh + 1)           // r', k' (rows padded by one)
-         + 2 * kChunk * dh                 // v, logw
-         + kChunk * kLdA                   // A (rows padded by one)
-         + kChunk                          // u-bonus diagonal
-         + 2 * dh;                         // e^{l_tot}, u
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared-memory layout of a block, for head size dh, value slice vb and
+// elements of esize bytes (r, k, v). Offsets in bytes. Row strides are
+// chosen for conflict-free fragment loads: rows of r'' and kk (A operands,
+// lanes g * ld + q) are 4 mod 8 floats, rows of v and S (B operands, lanes
+// q * ld + g) 8 or 24 mod 32; raw rows carry 16 bytes of padding, so the
+// scan's 32 lanes, one step (row) each, do not all hit one bank.
+struct Layout {
+  int dhp, dhm, vbp;          // dh up to 8, dh up to 16, vb up to 8
+  int ld_rk, ld_v;            // rows of r'', kk and of v, S (floats)
+  int raw_rk, raw_l, raw_v;   // rows of the raw r / k, logw, v (bytes)
+  int o_r, o_k, o_l, o_v;     // raw chunk: r, k, logw, v slice
+  int o_rp, o_rpl, o_kp, o_kpl, o_v32, o_a, o_s, o_dpart, o_etot, o_u;
+  int bytes;
+  __host__ __device__ Layout(int dh, int vb, int esize) {
+    dhp = round_up(dh, 8);
+    dhm = round_up(dh, 16);
+    vbp = round_up(vb, 8);
+    ld_rk = dhm + 4;
+    ld_v = (vbp % 32 == 8 || vbp % 32 == 24) ? vbp : vbp + 8;
+    raw_rk = round_up(dh * esize, 16) + 16;
+    raw_l = round_up(dh * 4, 16) + 16;
+    raw_v = round_up(vb * esize, 16) + 16;
+    int o = 0;
+    o_r = o;  o += kChunk * raw_rk;
+    o_k = o;  o += kChunk * raw_rk;
+    o_l = o;  o += kChunk * raw_l;
+    o_v = o;  o += kChunk * raw_v;
+    o_rp = o; o += 4 * kChunk * ld_rk;
+    o_rpl = o; o += 4 * kChunk * ld_rk;
+    o_kp = o; o += 4 * kChunk * ld_rk;
+    o_kpl = o; o += 4 * kChunk * ld_rk;
+    o_v32 = o; o += 4 * kChunk * ld_v;
+    o_a = o;  o += 4 * kChunk * kLdA;
+    o_s = o;  o += 4 * dhm * ld_v;
+    o_dpart = o; o += 4 * kWarps * kChunk;
+    o_etot = o;  o += 4 * dhm;
+    o_u = o;  o += 4 * dhp;
+    bytes = o;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four consecutive elements of a raw row as float32 (8- or 16-byte load).
+__device__ __forceinline__ void load4(const float* p, float out[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  out[0] = __uint_as_float(x.x << 16);
+  out[1] = __uint_as_float(x.x & 0xffff0000u);
+  out[2] = __uint_as_float(x.y << 16);
+  out[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+// 16 bytes of raw elements to float32 (four floats, or eight from bf16).
+template <typename T>
+__device__ __forceinline__ void to_f32x16(const char* src, float* dst);
+template <>
+__device__ __forceinline__ void to_f32x16<float>(const char* src, float* dst) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+template <>
+__device__ __forceinline__ void to_f32x16<__nv_bfloat16>(const char* src, float* dst) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                                                __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(__uint_as_float(x.z << 16), __uint_as_float(x.z & 0xffff0000u),
+                                                    __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xffff0000u));
+}
+
+// Tensor cores: mma.sync m16n8k8 with TF32 inputs and float32 sums. Each
+// float32 operand x is split as x = hi + lo, hi = tf32(x), lo = tf32(x - hi)
+// (cvt.rna: round to nearest, ties away), and a product is hi*hi + hi*lo +
+// lo*hi (the 3xTF32 split: about float32's precision, float32's range).
+// Fragments (PTX ISA, m16n8k8 .tf32), g = lane / 4, q = lane % 4:
+// a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4);
+// b0 (k = q, n = g), b1 (k = q + 4, n = g); c0, c1 (g, 2q, 2q + 1), c2, c3
+// (g + 8, 2q, 2q + 1).
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two small terms first, then hi*hi. b_exact: b is
+// a TF32 number already (v from bf16), its lo is zero and hi*lo is skipped.
+__device__ __forceinline__ void mma3(float c[4], const Frag& a, const Frag& b, bool b_exact) {
+  mma(c, a.lo, b.hi);
+  if (!b_exact) mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+// A operand: rows m0.. m0 + 15, columns k0.. k0 + 7 of a row-major matrix.
+__device__ __forceinline__ void load_a(const float* p, int ld, int m0, int k0, int g, int q,
+                                       Frag& f) {
+  const float* r0 = p + (m0 + g) * ld + k0 + q;
+  const float* r1 = r0 + 8 * ld;
+  split(r0[0], f.hi[0], f.lo[0]);
+  split(r1[0], f.hi[1], f.lo[1]);
+  split(r0[4], f.hi[2], f.lo[2]);
+  split(r1[4], f.hi[3], f.lo[3]);
+}
+
+// B operand (k0.. k0 + 7, n0.. n0 + 7) of a matrix stored row-major by k.
+__device__ __forceinline__ void load_b_kn(const float* p, int ld, int k0, int n0, int g, int q,
+                                          Frag& f) {
+  const float* c = p + (k0 + q) * ld + n0 + g;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[4 * ld], f.hi[1], f.lo[1]);
+}
+
+// A and B operands from their TF32 halves, split once when they were made;
+// B stored row-major by n (B = M^T: kk for r'' kk^T).
+__device__ __forceinline__ void load_a(const uint32_t* hi, const uint32_t* lo, int ld, int m0,
+                                       int k0, int g, int q, Frag& f) {
+  const int i0 = (m0 + g) * ld + k0 + q, i1 = i0 + 8 * ld;
+  f.hi[0] = hi[i0]; f.lo[0] = lo[i0];
+  f.hi[1] = hi[i1]; f.lo[1] = lo[i1];
+  f.hi[2] = hi[i0 + 4]; f.lo[2] = lo[i0 + 4];
+  f.hi[3] = hi[i1 + 4]; f.lo[3] = lo[i1 + 4];
+}
+__device__ __forceinline__ void load_b_nk(const uint32_t* hi, const uint32_t* lo, int ld, int n0,
+                                          int k0, int g, int q, Frag& f) {
+  const int i = (n0 + g) * ld + k0 + q;
+  f.hi[0] = hi[i]; f.lo[0] = lo[i];
+  f.hi[1] = hi[i + 4]; f.lo[1] = lo[i + 4];
+}
+// B operand that is a TF32 number already (v from bf16): hi is its bits, lo
+// is zero and never read (mma3 with b_exact).
+__device__ __forceinline__ void load_b_kn_exact(const float* p, int ld, int k0, int n0, int g,
+                                                int q, Frag& f) {
+  const float* c = p + (k0 + q) * ld + n0 + g;
+  f.hi[0] = __float_as_uint(c[0]);
+  f.hi[1] = __float_as_uint(c[4 * ld]);
+}
+
+// B operand of diag(w) M, M stored row-major by k: rows scaled, then split
+// (S_dec for r'' S_dec).
+__device__ __forceinline__ void load_b_kn(const float* p, const float* w, int ld, int k0, int n0,
+                                          int g, int q, Frag& f) {
+  const float* c = p + (k0 + q) * ld + n0 + g;
+  split(w[k0 + q] * c[0], f.hi[0], f.lo[0]);
+  split(w[k0 + q + 4] * c[4 * ld], f.hi[1], f.lo[1]);
+}
+
+struct Args {
+  const void* r; const void* k; const void* v; const float* logw;
+  const float* u; const float* state0; float* y; float* state_out;
+  int T_len, H, Dh, VB, vec;
+};
+
+// Chunk c's steps of r, k, logw (all Dh channels) and v (the block's value
+// slice) into the raw buffer: 16-byte cp.async copies (steps past T
+// zero-filled by a source size of 0), or plain loads where a row is not a
+// whole number of 16-byte pieces.
+template <typename T>
+__device__ void load_chunk(const Args& a, const Layout& L, char* smem, int b, int h,
+                           int j, int c) {
+  const int tid = threadIdx.x;
+  const int t0 = c * kChunk;
+  const T* r = static_cast<const T*>(a.r);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const int Dh = a.Dh, VB = a.VB;
+  if (a.vec) {
+    // step t's row starts rs elements after step t - 1's; a step past T
+    // copies nothing (from step t0's row) and zero-fills
+    const size_t rs = static_cast<size_t>(a.H) * Dh;
+    const size_t base = (static_cast<size_t>(b) * a.T_len + t0) * rs + static_cast<size_t>(h) * Dh;
+    const int n_ok = min(kChunk, a.T_len - t0);
+    const int pr = Dh * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < kChunk * pr; i += kThreads) {
+      const int t = i / pr, p = i - t * pr;
+      const size_t off = base + (t < n_ok ? t : 0) * rs;
+      const int n = t < n_ok ? 16 : 0;
+      cp_async16(smem + L.o_r + t * L.raw_rk + 16 * p, reinterpret_cast<const char*>(r + off) + 16 * p, n);
+      cp_async16(smem + L.o_k + t * L.raw_rk + 16 * p, reinterpret_cast<const char*>(k + off) + 16 * p, n);
+    }
+    const int pl = Dh / 4;
+    for (int i = tid; i < kChunk * pl; i += kThreads) {
+      const int t = i / pl, p = i - t * pl;
+      const size_t off = base + (t < n_ok ? t : 0) * rs;
+      cp_async16(smem + L.o_l + t * L.raw_l + 16 * p, reinterpret_cast<const char*>(a.logw + off) + 16 * p,
+                 t < n_ok ? 16 : 0);
+    }
+    const int pv = VB * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < kChunk * pv; i += kThreads) {
+      const int t = i / pv, p = i - t * pv;
+      const size_t off = base + (t < n_ok ? t : 0) * rs + j * VB;
+      cp_async16(smem + L.o_v + t * L.raw_v + 16 * p, reinterpret_cast<const char*>(v + off) + 16 * p,
+                 t < n_ok ? 16 : 0);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < kChunk * Dh; i += kThreads) {
+      const int t = i / Dh, d = i - t * Dh;
+      const bool ok = t0 + t < a.T_len;
+      const size_t off = ((static_cast<size_t>(b) * a.T_len + t0 + t) * a.H + h) * Dh + d;
+      reinterpret_cast<T*>(smem + L.o_r + t * L.raw_rk)[d] = ok ? r[off] : T(0.f);
+      reinterpret_cast<T*>(smem + L.o_k + t * L.raw_rk)[d] = ok ? k[off] : T(0.f);
+      reinterpret_cast<float*>(smem + L.o_l + t * L.raw_l)[d] = ok ? a.logw[off] : 0.f;
+    }
+    for (int i = tid; i < kChunk * VB; i += kThreads) {
+      const int t = i / VB, e = i - t * VB;
+      const bool ok = t0 + t < a.T_len;
+      const size_t off = ((static_cast<size_t>(b) * a.T_len + t0 + t) * a.H + h) * Dh + j * VB + e;
+      reinterpret_cast<T*>(smem + L.o_v + t * L.raw_v)[e] = ok ? v[off] : T(0.f);
+    }
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ logw,
-                  const float* __restrict__ u, const float* __restrict__ state0,
-                  float* __restrict__ y, float* __restrict__ state_out,
-                  int T_len, int H, int Dh) {
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H;
+wkv6_chunk_kernel(const Args a) {
+  const int bh = blockIdx.x, j = blockIdx.y;
+  const int b = bh / a.H, h = bh - (bh / a.H) * a.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ld = Dh + 1;   // padded row of r' and k'
-  const int q = Dh / 4;    // column stride inside a thread's tile
+  const int g = lane >> 2, tq = lane & 3;
+  const int Dh = a.Dh, VB = a.VB;
+  const Layout L(Dh, VB, static_cast<int>(sizeof(T)));
+  const int n_ytiles = 2 * (L.vbp / 8);
+  constexpr bool kVExact = sizeof(T) == 2;   // bf16 v is a TF32 number
 
-  extern __shared__ float smem[];
-  float* s_s = smem;                  // (Dh, Dh) state, row = k channel
-  float* r_s = s_s + Dh * Dh;         // (C, Dh + 1) r, then r'
-  float* k_s = r_s + kChunk * ld;     // (C, Dh + 1) k, then k'
-  float* v_s = k_s + kChunk * ld;     // (C, Dh)
-  float* l_s = v_s + kChunk * Dh;     // (C, Dh)  logw
-  float* a_s = l_s + kChunk * Dh;     // (C, C + 1)
-  float* diag_s = a_s + kChunk * kLdA;  // (C)
-  float* etot_s = diag_s + kChunk;    // (Dh) e^{l_tot}
-  float* u_s = etot_s + Dh;           // (Dh)
+  extern __shared__ __align__(16) char smem[];
+  uint32_t* rph_s = reinterpret_cast<uint32_t*>(smem + L.o_rp);   // (C, ld_rk) r'' hi
+  uint32_t* rpl_s = reinterpret_cast<uint32_t*>(smem + L.o_rpl);  // r'' lo
+  uint32_t* kph_s = reinterpret_cast<uint32_t*>(smem + L.o_kp);   // (C, ld_rk) kk hi
+  uint32_t* kpl_s = reinterpret_cast<uint32_t*>(smem + L.o_kpl);  // kk lo
+  float* v_s = reinterpret_cast<float*>(smem + L.o_v32);    // (C, ld_v) v slice
+  float* a_s = reinterpret_cast<float*>(smem + L.o_a);      // (C, kLdA)
+  float* s_s = reinterpret_cast<float*>(smem + L.o_s);      // (dhm, ld_v) S slice
+  float* dpart_s = reinterpret_cast<float*>(smem + L.o_dpart);  // (warps, C)
+  float* etot_s = reinterpret_cast<float*>(smem + L.o_etot);    // (dhm)
+  float* u_s = reinterpret_cast<float*>(smem + L.o_u);          // (dhp)
 
-  const size_t state_base = static_cast<size_t>(bh) * Dh * Dh;
-  for (int i = tid; i < Dh * Dh; i += kThreads)
-    s_s[i] = state0 != nullptr ? state0[state_base + i] : 0.f;
-  for (int d = tid; d < Dh; d += kThreads) u_s[d] = u[h * Dh + d];
+  // the working set starts at zero: padded channels and columns stay zero
+  for (int i = L.o_rp / 4 + tid; i < L.bytes / 4; i += kThreads)
+    reinterpret_cast<float*>(smem)[i] = 0.f;
+  __syncthreads();
+  const size_t state_base = static_cast<size_t>(bh) * Dh * Dh + j * VB;
+  if (a.state0 != nullptr)
+    for (int i = tid; i < Dh * VB; i += kThreads) {
+      const int d = i / VB, e = i - d * VB;
+      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dh + e];
+    }
+  for (int d = tid; d < Dh; d += kThreads) u_s[d] = a.u[h * Dh + d];
 
-  const int n_chunks = (T_len + kChunk - 1) / kChunk;
+  const int n_chunks = (a.T_len + kChunk - 1) / kChunk;
+  load_chunk<T>(a, L, smem, b, h, j, 0);
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * kChunk;
-    __syncthreads();  // the previous chunk's readers of the buffers are done
-    for (int i = tid; i < kChunk * Dh; i += kThreads) {
-      const int t = i / Dh, d = i - t * Dh;
-      const bool ok = t0 + t < T_len;
-      const size_t off = ((static_cast<size_t>(b) * T_len + t0 + t) * H + h) * Dh + d;
-      r_s[t * ld + d] = ok ? to_f32(r[off]) : 0.f;
-      k_s[t * ld + d] = ok ? to_f32(k[off]) : 0.f;
-      v_s[i] = ok ? to_f32(v[off]) : 0.f;
-      l_s[i] = ok ? logw[off] : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is in the raw buffer; chunk c - 1 is done
 
-    // u-bonus diagonal sum_d r u k, on the raw r and k: a warp per step
-    for (int t = warp; t < kChunk; t += kWarps) {
-      float s = 0.f;
-      for (int d = lane; d < Dh; d += 32)
-        s = fmaf(r_s[t * ld + d] * u_s[d], k_s[t * ld + d], s);
+    // Scan: a warp a group of four channels at a time, lane t = step t.
+    // Inclusive scan of logw over the lanes (5 shuffle steps); r'' and kk
+    // split into TF32 halves; e^{l_tot}; the u-bonus diagonal sum_d r u k
+    // (a partial a warp).
+    float dacc = 0.f;
+    for (int g4 = warp; g4 < Dh / 4; g4 += kWarps) {
+      const int d = 4 * g4;
+      float lw[4], r4[4], k4[4];
+      load4(reinterpret_cast<const float*>(smem + L.o_l + lane * L.raw_l) + d, lw);
+      load4(reinterpret_cast<const T*>(smem + L.o_r + lane * L.raw_rk) + d, r4);
+      load4(reinterpret_cast<const T*>(smem + L.o_k + lane * L.raw_rk) + d, k4);
+      float inc[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) diag_s[t] = s;
-    }
-    __syncthreads();
-
-    // cumulative log-decay in step order, one thread per channel; rebase
-    for (int d = tid; d < Dh; d += kThreads) {
-      float inc = 0.f;
-      for (int t = 0; t < kChunk; ++t) {
-        const float lw = l_s[t * Dh + d];
-        inc += lw;
-        const float exc = inc - lw;
-        r_s[t * ld + d] *= expf(exc);
-        k_s[t * ld + d] *= expf(-inc);
+      for (int q = 0; q < 4; ++q) {
+        dacc = fmaf(r4[q] * u_s[d + q], k4[q], dacc);
+        inc[q] = lw[q];
       }
-      etot_s[d] = expf(inc);
-    }
-    __syncthreads();
-
-    // A[t][j] = r'_t . k'_j for j < t, else 0: rows t, t + 16, columns
-    // j, j + 16 per thread
-    for (int i = tid; i < kHalf * kHalf; i += kThreads) {
-      const int ta = i / kHalf, ja = i - ta * kHalf;
-      const float* r0 = r_s + ta * ld;
-      const float* r1 = r_s + (ta + kHalf) * ld;
-      const float* k0 = k_s + ja * ld;
-      const float* k1 = k_s + (ja + kHalf) * ld;
-      float s00 = 0.f, s10 = 0.f, s11 = 0.f;   // (t, j + 16) is never below
-      for (int d = 0; d < Dh; ++d) {            // the diagonal: no s01
-        const float a0 = r0[d], a1 = r1[d], b0 = k0[d], b1 = k1[d];
-        s00 = fmaf(a0, b0, s00);
-        s10 = fmaf(a1, b0, s10);
-        s11 = fmaf(a1, b1, s11);
-      }
-      a_s[ta * kLdA + ja] = ja < ta ? s00 : 0.f;
-      a_s[ta * kLdA + ja + kHalf] = 0.f;
-      a_s[(ta + kHalf) * kLdA + ja] = s10;
-      a_s[(ta + kHalf) * kLdA + ja + kHalf] = ja < ta ? s11 : 0.f;
-    }
-    __syncthreads();
-
-    // y_t = sum_{j<t} A[t][j] v_j + diag_t v_t + r'_t S: rows t, t + 16,
-    // columns e, e + Dh/4, e + Dh/2, e + 3Dh/4 per thread
-    for (int i = tid; i < kHalf * q; i += kThreads) {
-      const int tt = i / q, te = i - tt * q;
-      const int ta = tt, tb = tt + kHalf;
-      float in_a[4] = {0.f, 0.f, 0.f, 0.f}, in_b[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < tb; ++j) {   // A[ta][j] is 0 for j >= ta
-        const float wa = a_s[ta * kLdA + j], wb = a_s[tb * kLdA + j];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float vv = v_s[j * Dh + te + e * q];
-          in_a[e] = fmaf(wa, vv, in_a[e]);
-          in_b[e] = fmaf(wb, vv, in_b[e]);
+      for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float n = __shfl_up_sync(0xffffffffu, inc[q], off);
+          if (lane >= off) inc[q] += n;
+        }
+      uint4 rh, rl, kh, kl;
+      uint32_t* rhp = &rh.x;
+      uint32_t* rlp = &rl.x;
+      uint32_t* khp = &kh.x;
+      uint32_t* klp = &kl.x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float tot = __shfl_sync(0xffffffffu, inc[q], 31);
+        split(r4[q] * __expf((inc[q] - lw[q]) - tot), rhp[q], rlp[q]);
+        split(k4[q] * __expf(tot - inc[q]), khp[q], klp[q]);
+        if (lane == 0) etot_s[d + q] = __expf(tot);
+      }
+      const int o = lane * L.ld_rk + d;
+      *reinterpret_cast<uint4*>(rph_s + o) = rh;
+      *reinterpret_cast<uint4*>(rpl_s + o) = rl;
+      *reinterpret_cast<uint4*>(kph_s + o) = kh;
+      *reinterpret_cast<uint4*>(kpl_s + o) = kl;
+    }
+    dpart_s[warp * kChunk + lane] = dacc;
+    if (a.vec) {   // the v slice to float32, 16 bytes at a time
+      const int pv = VB * static_cast<int>(sizeof(T)) / 16;
+      for (int i = tid; i < kChunk * pv; i += kThreads) {
+        const int t = i / pv, p = i - t * pv;
+        to_f32x16<T>(smem + L.o_v + t * L.raw_v + 16 * p, v_s + t * L.ld_v + p * (16 / sizeof(T)));
+      }
+    } else {
+      for (int i = tid; i < kChunk * VB; i += kThreads) {
+        const int t = i / VB, e = i - t * VB;
+        v_s[t * L.ld_v + e] = to_f32(reinterpret_cast<const T*>(smem + L.o_v + t * L.raw_v)[e]);
+      }
+    }
+    __syncthreads();  // the raw buffer is free: chunk c + 1 streams in
+    if (c + 1 < n_chunks) load_chunk<T>(a, L, smem, b, h, j, c + 1);
+
+    // Phase A. A = tril_strict(r'' kk^T) + diag(sum_d r u k) into shared
+    // memory (six 16 x 8 tiles of the 32 x 32 lower half, from the last warp
+    // down), and r'' S_dec into the y tiles' accumulators (from warp 0 up).
+    for (int p = kWarps - 1 - warp; p < 6; p += kWarps) {
+      const int ti = p < 2 ? 0 : 1, tj = p < 2 ? p : p - 2;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int s = 0; s < L.dhp / 8; ++s) {
+        Frag fa, fb;
+        load_a(rph_s, rpl_s, L.ld_rk, 16 * ti, 8 * s, g, tq, fa);
+        load_b_nk(kph_s, kpl_s, L.ld_rk, 8 * tj, 8 * s, g, tq, fb);
+        mma3(acc, fa, fb, false);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int row = 16 * ti + g + (x >> 1) * 8, col = 8 * tj + 2 * tq + (x & 1);
+        float val = 0.f;
+        if (col < row) {
+          val = acc[x];
+        } else if (col == row) {
+          for (int w = 0; w < kWarps; ++w) val += dpart_s[w * kChunk + row];
+        }
+        a_s[row * kLdA + col] = val;
+      }
+    }
+    float yacc[kMaxYTiles][4];
+#pragma unroll
+    for (int i = 0; i < kMaxYTiles; ++i) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) yacc[i][x] = 0.f;
+      const int tile = warp + i * kWarps;
+      if (tile < n_ytiles) {
+        const int ti = tile & 1, tn = tile >> 1;
+  #pragma unroll 4
+      for (int s = 0; s < L.dhp / 8; ++s) {
+          Frag fa, fb;
+          load_a(rph_s, rpl_s, L.ld_rk, 16 * ti, 8 * s, g, tq, fa);
+          load_b_kn(s_s, etot_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+          mma3(yacc[i], fa, fb, false);
         }
       }
+    }
+    __syncthreads();  // A is written; every reader of S is done
+
+    // Phase B. y += A v (steps j <= t: the first 16 rows need only the
+    // first two k-steps), written out; S <- S_dec + kk^T v in place, a
+    // 16 x 8 tile at a time.
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        in_a[e] = fmaf(diag_s[ta], v_s[ta * Dh + te + e * q], in_a[e]);
-        in_b[e] = fmaf(diag_s[tb], v_s[tb * Dh + te + e * q], in_b[e]);
-      }
-      float x_a[4] = {0.f, 0.f, 0.f, 0.f}, x_b[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d = 0; d < Dh; ++d) {
-        const float ra = r_s[ta * ld + d], rb = r_s[tb * ld + d];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sv = s_s[d * Dh + te + e * q];
-          x_a[e] = fmaf(ra, sv, x_a[e]);
-          x_b[e] = fmaf(rb, sv, x_b[e]);
+    for (int i = 0; i < kMaxYTiles; ++i) {
+      const int tile = warp + i * kWarps;
+      if (tile < n_ytiles) {
+        const int ti = tile & 1, tn = tile >> 1;
+#pragma unroll 4
+        for (int s = 0; s < 2 * ti + 2; ++s) {
+          Frag fa, fb;
+          load_a(a_s, kLdA, 16 * ti, 8 * s, g, tq, fa);
+          if constexpr (kVExact)
+            load_b_kn_exact(v_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+          else
+            load_b_kn(v_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+          mma3(yacc[i], fa, fb, kVExact);
         }
-      }
-      const size_t row = static_cast<size_t>(H) * Dh;
-      float* ya = y + ((static_cast<size_t>(b) * T_len + t0 + ta) * H + h) * Dh + te;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (t0 + ta < T_len) ya[e * q] = in_a[e] + x_a[e];
-        if (t0 + tb < T_len) ya[kHalf * row + e * q] = in_b[e] + x_b[e];
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * ti + g + 8 * half, col = 8 * tn + 2 * tq;
+          if (t0 + row < a.T_len && col < VB) {
+            float* yp = a.y + ((static_cast<size_t>(b) * a.T_len + t0 + row) * a.H + h) * Dh +
+                        j * VB + col;
+            if (col + 1 < VB)
+              *reinterpret_cast<float2*>(yp) = make_float2(yacc[i][2 * half], yacc[i][2 * half + 1]);
+            else
+              *yp = yacc[i][2 * half];
+          }
+        }
       }
     }
-    __syncthreads();
-
-    // S <- diag(e^{l_tot}) S + (k' e^{l_tot})^T v: rows d, d + Dh/4, ...,
-    // columns e, e + Dh/4, ... per thread
-    for (int i = tid; i < q * q; i += kThreads) {
-      const int td = i / q, te = i - td * q;
-      float dec[4], acc[4][4];
+    const int n_stiles = (L.dhm / 16) * (L.vbp / 8);
+    for (int tile = kWarps - 1 - warp; tile < n_stiles; tile += kWarps) {
+      const int tm = tile / (L.vbp / 8), tn = tile - tm * (L.vbp / 8);
+      const int d0 = 16 * tm + g, d1 = d0 + 8, e0 = 8 * tn + 2 * tq;
+      const float dec0 = etot_s[d0], dec1 = etot_s[d1];
+      float* s0 = s_s + d0 * L.ld_v + e0;
+      float* s1 = s_s + d1 * L.ld_v + e0;
+      float acc[4] = {dec0 * s0[0], dec0 * s0[1], dec1 * s1[0], dec1 * s1[1]};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        dec[a] = etot_s[td + a * q];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+      for (int s = 0; s < kChunk / 8; ++s) {
+        const int k0 = (8 * s + tq) * L.ld_rk, k1 = k0 + 4 * L.ld_rk;
+        Frag fa, fb;
+        fa.hi[0] = kph_s[k0 + d0]; fa.lo[0] = kpl_s[k0 + d0];
+        fa.hi[1] = kph_s[k0 + d1]; fa.lo[1] = kpl_s[k0 + d1];
+        fa.hi[2] = kph_s[k1 + d0]; fa.lo[2] = kpl_s[k1 + d0];
+        fa.hi[3] = kph_s[k1 + d1]; fa.lo[3] = kpl_s[k1 + d1];
+        if constexpr (kVExact)
+          load_b_kn_exact(v_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+        else
+          load_b_kn(v_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+        mma3(acc, fa, fb, kVExact);
       }
-      for (int t = 0; t < kChunk; ++t) {
-        float kf[4], vv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) kf[a] = k_s[t * ld + td + a * q] * dec[a];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) vv[e] = v_s[t * Dh + te + e * q];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[a][e] = fmaf(kf[a], vv[e], acc[a][e]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float* sp = s_s + (td + a * q) * Dh + te + e * q;
-          *sp = fmaf(dec[a], *sp, acc[a][e]);
-        }
+      s0[0] = acc[0]; s0[1] = acc[1];
+      s1[0] = acc[2]; s1[1] = acc[3];
     }
   }
   __syncthreads();
-  for (int i = tid; i < Dh * Dh; i += kThreads) state_out[state_base + i] = s_s[i];
+  for (int i = tid; i < Dh * VB; i += kThreads) {
+    const int d = i / VB, e = i - d * VB;
+    a.state_out[state_base + static_cast<size_t>(d) * Dh + e] = s_s[d * L.ld_v + e];
+  }
 }
 
 template <typename T>
-cudaError_t launch(const void* r, const void* k, const void* v, const float* logw,
-                   const float* u, const float* state0, float* y, float* state_out,
-                   int B, int T_len, int H, int Dh, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(Dh);
-  auto kernel = wkv6_chunk_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), logw, u,
-      state0, y, state_out, T_len, H, Dh);
+cudaError_t prepare(int Dh, int VB, size_t* smem) {
+  *smem = static_cast<size_t>(Layout(Dh, VB, static_cast<int>(sizeof(T))).bytes);
+  if (*smem > 48 * 1024)
+    return cudaFuncSetAttribute(wkv6_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, int B, int NV, cudaStream_t stream) {
+  size_t smem = 0;
+  const cudaError_t e = prepare<T>(a.Dh, a.VB, &smem);
+  if (e != cudaSuccess) return e;
+  wkv6_chunk_kernel<T><<<dim3(B * a.H, NV), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+bool valid_split(int Dh, int NV) {
+  return NV >= 1 && Dh % NV == 0 && (NV == 1 || (Dh / NV) % 8 == 0);
 }
 
 }  // namespace
@@ -260,17 +571,34 @@ extern "C" {
 
 // r, k, v (B, T, H, Dh) bf16 (in_bf16 = 1) or float32; logw (B, T, H, Dh),
 // u (H, Dh), state0 (B, H, Dh, Dh) or null (zeros), y (B, T, H, Dh) and
-// state_out (B, H, Dh, Dh) float32, not aliasing state0.
+// state_out (B, H, Dh, Dh) float32, not aliasing state0. NV value slices of
+// Dh / NV columns (a multiple of 8, or NV = 1); vec = 1 when every row of r,
+// k, logw and of a v slice is a whole number of 16-byte pieces on 16-byte
+// boundaries.
 int wkv6_launch(const void* r, const void* k, const void* v, const float* logw,
                 const float* u, const float* state0, float* y, float* state_out,
-                int B, int T_len, int H, int Dh, int in_bf16, void* stream) {
+                int B, int T_len, int H, int Dh, int NV, int vec, int in_bf16,
+                void* stream) {
   if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh % 4 != 0 || Dh > kMaxDh ||
-      static_cast<long long>(B) * H > 0x7fffffffLL)
+      !valid_split(Dh, NV) || static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{r, k, v, logw, u, state0, y, state_out, T_len, H, Dh, Dh / NV, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      in_bf16 ? launch<__nv_bfloat16>(r, k, v, logw, u, state0, y, state_out, B, T_len, H, Dh, st)
-              : launch<float>(r, k, v, logw, u, state0, y, state_out, B, T_len, H, Dh, st);
+  const cudaError_t e = in_bf16 ? launch<__nv_bfloat16>(a, B, NV, st) : launch<float>(a, B, NV, st);
+  return static_cast<int>(e);
+}
+
+// Blocks of the kernel for head size Dh and value slices of VB columns that
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *out.
+int wkv6_max_active_blocks(int in_bf16, int Dh, int VB, int* out) {
+  size_t smem = 0;
+  cudaError_t e = in_bf16 ? prepare<__nv_bfloat16>(Dh, VB, &smem) : prepare<float>(Dh, VB, &smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = in_bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    out, wkv6_chunk_kernel<__nv_bfloat16>, kThreads, smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, wkv6_chunk_kernel<float>,
+                                                              kThreads, smem);
   return static_cast<int>(e);
 }
 

@@ -4,6 +4,14 @@ in chunks of 32 steps, written by hand for Hopper.
     wkv6_cuda   r, k, v, logw (B, T, H, Dh), u (H, Dh), state0 (B, H, Dh, Dh)
                 -> y (B, T, H, Dh) float32, final state (B, H, Dh, Dh) float32
 
+The kernel runs one block per (b, h) and slice of value columns: column
+block j of y and of the state depends only on the same columns of v, so
+``wkv_plan`` splits the Dh value columns into NV slices and the grid is
+(B * H, NV). Every block walks the whole sequence, so a second wave of
+blocks would double the kernel's time: the plan takes the largest NV whose
+B * H * NV blocks the card holds at once (``max_active_blocks``, asked once
+per card, dtype and slice width).
+
 It takes CUDA tensors only and either launches or raises: the plain version
 (``ref.py::wkv_chunked``, the same function) is chosen one level up
 (``ops.py``) and only for CPU tensors. The caller keeps ``logw >= -2``.
@@ -19,13 +27,15 @@ import torch
 
 from ..build import check, load
 
-__all__ = ["wkv6_cuda", "launch_counts", "reset_launch_counts", "MAX_DH"]
+__all__ = ["wkv6_cuda", "launch_counts", "reset_launch_counts", "MAX_DH",
+           "value_splits", "value_slices", "wkv_plan", "max_active_blocks"]
 
 launch_counts = {"wkv6": 0}
 
 MAX_DH = 128
 
 _lib = None
+_active: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -38,10 +48,68 @@ def _library():
     if _lib is None:
         lib = load("wkv6")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_launch.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+        lib.wkv6_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.wkv6_launch.restype = ci
+        lib.wkv6_max_active_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.wkv6_max_active_blocks.restype = ci
         _lib = lib
     return _lib
+
+
+def value_splits(dh: int) -> list[int]:
+    """The NV the kernel takes for head size ``dh``, ascending: NV divides
+    Dh into slices of Dh / NV columns, each a multiple of 8 (the tensor
+    cores' step), or NV = 1 (the whole Dh, padded to 8 in shared memory)."""
+    return [nv for nv in range(1, dh + 1)
+            if dh % nv == 0 and (nv == 1 or (dh // nv) % 8 == 0)]
+
+
+def value_slices(dh: int, nv: int) -> list[tuple[int, int]]:
+    """The value columns ``[lo, hi)`` block j of an (b, h) owns."""
+    if nv not in value_splits(dh):
+        raise ValueError(f"NV={nv} does not split Dh={dh} into slices of a "
+                         "multiple of 8 columns")
+    vb = dh // nv
+    return [(j * vb, (j + 1) * vb) for j in range(nv)]
+
+
+def wkv_plan(b: int, h: int, dh: int, n_slots) -> int:
+    """NV, the value slices of each (b, h): the largest of
+    ``value_splits(dh)`` whose ``b * h * NV`` blocks all fit the
+    ``n_slots`` the card holds at once (1 when even NV = 1 does not).
+    ``n_slots`` is a number, or a function of the slice width Dh / NV (the
+    blocks an SM holds depend on the shared memory a slice needs)."""
+    slots = n_slots if callable(n_slots) else (lambda vb: n_slots)
+    best = 1
+    for nv in value_splits(dh):
+        if b * h * nv <= slots(dh // nv):
+            best = nv
+    return best
+
+
+def max_active_blocks(dev: torch.device, dtype: torch.dtype, dh: int,
+                      vb: int) -> int:
+    """Blocks of the kernel for head size ``dh`` and slices of ``vb``
+    columns that the card ``dev`` holds at once: its SM count times
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (asked once per card,
+    dtype, dh and vb). Raises if it is 0: such a block cannot run, and
+    nothing takes its place."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, dtype, dh, vb)
+    if key not in _active:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            code = _library().wkv6_max_active_blocks(
+                int(dtype == torch.bfloat16), dh, vb, ctypes.byref(out))
+        check("wkv6", code, "wkv6_max_active_blocks")
+        if out.value < 1:
+            raise RuntimeError(
+                f"a WKV6 block for Dh={dh}, slices of {vb} columns in "
+                f"{dtype} cannot run on {torch.cuda.get_device_name(idx)}: "
+                f"cudaOccupancyMaxActiveBlocksPerMultiprocessor = {out.value}")
+        _active[key] = out.value * torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _active[key]
 
 
 def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
@@ -53,10 +121,11 @@ def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
             f"{tuple(t.shape)} on {t.device}, contiguous={t.is_contiguous()}")
 
 
-def wkv6_cuda(r, k, v, logw, u, state0=None):
+def wkv6_cuda(r, k, v, logw, u, state0=None, nv=None):
     """The recurrence on the card: r, k, v bf16 or float32 (one dtype),
     logw float32, u any float dtype (widened to float32 here, (H, Dh) is
-    small), state0 float32 or None for zeros."""
+    small), state0 float32 or None for zeros. ``nv`` (value slices) is
+    ``wkv_plan``'s unless given; the model never gives it."""
     if r.ndim != 4:
         raise ValueError(f"r: need (B, T, H, Dh), got {tuple(r.shape)}")
     b, t, h, dh = r.shape
@@ -75,6 +144,13 @@ def wkv6_cuda(r, k, v, logw, u, state0=None):
     if len({x.device for x in (r, k, v, logw, u)}) != 1 or (
             state0 is not None and state0.device != r.device):
         raise ValueError("all inputs must be on one device")
+    if nv is None:
+        nv = wkv_plan(b, h, dh, lambda vb: max_active_blocks(
+            r.device, r.dtype, dh, vb))
+    vb = value_slices(dh, nv)[0][1]
+    esize = r.element_size()
+    vec = int(dh * esize % 16 == 0 and vb * esize % 16 == 0
+              and all(x.data_ptr() % 16 == 0 for x in (r, k, v, logw)))
     u32 = u.float().contiguous()
     y = torch.empty((b, t, h, dh), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
@@ -82,7 +158,7 @@ def wkv6_cuda(r, k, v, logw, u, state0=None):
         code = _library().wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u32.data_ptr(), None if state0 is None else state0.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, t, h, dh,
+            y.data_ptr(), state.data_ptr(), b, t, h, dh, nv, vec,
             int(r.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check("wkv6", code, "wkv6_launch")
