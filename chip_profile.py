@@ -15,9 +15,10 @@ prefill (B=4) and one rwkv6-3b decode step. It prints one JSON object per
 call: the number of kernels launched, the span from the first kernel's start
 to the last one's end, the time the device was busy inside it, the launches
 of the call's hand-written kernels (for a solve also per iteration: K1's
-band kernel and its combine, two a step; beside them the steps K1's wrapper
-counted, which tell whether the trace dropped events) and their share of the
-busy time, and the ten heaviest kernels by name. The profiler slows the host
+band kernel and its combine, two a step; for a gemma3-1b decode step K5,
+one a layer) and their share of the busy time, beside the launches the
+kernels' wrappers counted (which tell whether the trace dropped events),
+and the ten heaviest kernels by name. The profiler slows the host
 down, so the span is longer than an unprofiled call's (``chip_smoke.py``
 times that); the busy time and the kernel counts are not affected.
 
@@ -54,6 +55,8 @@ from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import PAPER_T, CSProblem  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k1  # noqa: E402
+from repro_torch.kernels.decode_attn import decode_attn as k5  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6 as k6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
@@ -68,15 +71,16 @@ def profile_call(fn, tag: str) -> dict:
     hand-written kernels whose share of the busy time is reported."""
     fn()                                         # warm
     torch.cuda.synchronize()
-    before = dict(k1.launch_counts)
+    counts = (k1.launch_counts, k5.launch_counts, k6.launch_counts)
+    before = {key: v for c in counts for key, v in c.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # K1's wrapper counts its own launches: a trace that holds fewer of its
-    # kernels than that (two a single-read step) has dropped events
-    k1_counted = {key: v - before[key] for key, v in k1.launch_counts.items()
-                  if v != before[key]}
+    # the wrappers count their own launches: a trace that holds fewer of
+    # their kernels than that (K1: two a single-read step) has dropped events
+    counted = {key: v - before[key] for c in counts for key, v in c.items()
+               if v != before[key]}
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not kernels:
@@ -90,7 +94,7 @@ def profile_call(fn, tag: str) -> dict:
     ours = sum(v for name, v in by_name.items() if tag in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"device_events": len(kernels), "span_ms": span / 1e3,
-            "k1_wrapper_launches": k1_counted,
+            "wrapper_launches": counted,
             "busy_ms": busy / 1e3, "busy_share_of_span": busy / span,
             "kernel_tag": tag, "tagged_kernels_ms": ours / 1e3,
             "tagged_launches": sum(tag in e.name for e in kernels),

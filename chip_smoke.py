@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
-    python3 chip_smoke.py [--out results.json] [--k6-only]
+    python3 chip_smoke.py [--out results.json] [--k6-only | --k5-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -35,11 +35,17 @@ JSON file. Needs a CUDA device and nvcc; needs no network. Takes about two
 minutes on an H100. ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
 rwkv6-3b's prefill shape for the plan's NV and NV = 1, 2, 4, then stops
-(no other phase, no last line): the quick check of K6.
+(no other phase, no last line): the quick check of K6. ``--k5-only`` does
+the same for decode attention: it builds K5 alone, holds it against its
+plain version at every ``DA_CASES`` case and over calls of two plans in
+turns, times it at gemma3-1b's decode shapes L2-hot and L2-cold and at
+B=8, S=32768, and stops, with the card's line and the last line of a full
+run.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -139,7 +145,7 @@ SEED = 1234
 # LM serving (random init from SEED, full width and depth): gemma3-1b, B=8
 # (26 layers: K5 26 times a decode step), and rwkv6-3b, B=4 (32 layers: K6
 # once a layer in prefill); prompts of 1000 tokens, 32 greedy steps, so the
-# cache holds 1032 rows (ragged against K5's tiles of 32 and the TPU's 512)
+# cache holds 1032 rows (ragged against K5's stages of 32 rows and the TPU's 512)
 # and pos > 512, where gemma3's window of 512 bites.
 LM_DENSE, LM_DENSE_BATCH = "gemma3-1b", 8
 LM_RWKV, LM_RWKV_BATCH = "rwkv6-3b", 4
@@ -214,9 +220,13 @@ def time_ms(fn, repeats: int = 7, inner: int = 5, warmup: int = 2) -> dict:
     queued behind a busy device, median over ``repeats``. ``host_paced`` is
     true when, in any repeat, the device had already drained the queue
     when the last call was enqueued — the time is then the host's, not
-    the kernels'. The A operands exceed (float32) or about equal
-    (bfloat16) the 50 MB L2, so calls find A mostly cold, as the solve
-    loop does."""
+    the kernels'. The busy work before each repeat leaves the L2 full of
+    other data, so the first of the ``inner`` calls finds its operands in
+    device memory and the later ones find what of them the 50 MB L2 kept.
+    K1's and K2's A exceed (float32) or about equal (bfloat16) the L2, so
+    those calls find A mostly cold, as the solve loop does; K5's caches at
+    the decode shape (8.4 MB) stay in it, so its hot rows are L2-hot, and
+    its cold rows rotate over copies (``time_decode_attn``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1109,59 +1119,113 @@ def time_col_solves(ctx, col_ctx) -> dict:
 # ---------------------------------------------------------------------------
 
 DA_CASES = [
-    # name, B, H, KV, Dh, S, pos, window, dtype of q and caches
-    ("gemma3_global", 8, 4, 1, 256, 1032, 1031, 0, torch.bfloat16),
-    ("gemma3_local", 8, 4, 1, 256, 1032, 1031, 512, torch.bfloat16),
-    ("gemma3_local_pos_lt_window", 8, 4, 1, 256, 1032, 300, 512, torch.bfloat16),
-    ("pos0_global", 8, 4, 1, 256, 1032, 0, 0, torch.bfloat16),
-    ("pos0_local", 8, 4, 1, 256, 1032, 0, 512, torch.bfloat16),
-    ("ragged_f32_global", 8, 4, 1, 256, 1001, 1000, 0, torch.float32),
-    ("ragged_f32_local", 8, 4, 1, 256, 1001, 777, 512, torch.float32),
-    ("glm4_gqa_G16", 2, 32, 2, 128, 600, 599, 0, torch.bfloat16),
-    ("smoke_Dh16", 2, 4, 2, 16, 40, 20, 32, torch.bfloat16),
-    ("long_B8_S32768", 8, 4, 1, 256, 32768, 32767, 0, torch.bfloat16),
+    # name, B, H, KV, Dh, S, pos, window, dtype of q, dtype of the caches,
+    # NaN in every cache row outside lo..hi (which must never be read)
+    ("gemma3_global", 8, 4, 1, 256, 1032, 1031, 0, torch.bfloat16, torch.bfloat16, False),
+    ("gemma3_local", 8, 4, 1, 256, 1032, 1031, 512, torch.bfloat16, torch.bfloat16, False),
+    ("gemma3_local_pos_lt_window", 8, 4, 1, 256, 1032, 300, 512, torch.bfloat16,
+     torch.bfloat16, False),
+    ("pos0_global", 8, 4, 1, 256, 1032, 0, 0, torch.bfloat16, torch.bfloat16, False),
+    ("pos0_local", 8, 4, 1, 256, 1032, 0, 512, torch.bfloat16, torch.bfloat16, False),
+    ("ragged_f32_global", 8, 4, 1, 256, 1001, 1000, 0, torch.float32, torch.float32, False),
+    ("ragged_f32_local", 8, 4, 1, 256, 1001, 777, 512, torch.float32, torch.float32, False),
+    ("glm4_gqa_G16", 2, 32, 2, 128, 600, 599, 0, torch.bfloat16, torch.bfloat16, False),
+    ("smoke_Dh16", 2, 4, 2, 16, 40, 20, 32, torch.bfloat16, torch.bfloat16, False),
+    ("long_B8_S32768", 8, 4, 1, 256, 32768, 32767, 0, torch.bfloat16, torch.bfloat16, False),
+    # rows 389..900 of 1032: 0 < lo and hi < S - 1, the rest NaN; one bulk
+    # copy a stage (KV = 1) and one a row (KV = 2, float32)
+    ("nan_outside_rows", 8, 4, 1, 256, 1032, 900, 512, torch.bfloat16, torch.bfloat16, True),
+    ("nan_outside_rows_kv2_f32", 2, 8, 2, 128, 700, 500, 300, torch.float32,
+     torch.float32, True),
+    # yi-34b's heads: 64 (b, kv head) groups of G = 7, two head slices each
+    ("yi34b_G7", 8, 56, 8, 128, 1032, 1031, 0, torch.bfloat16, torch.bfloat16, False),
+    # 21 rows: one split a group
+    ("one_split_per_group", 8, 4, 1, 256, 1032, 20, 0, torch.bfloat16, torch.bfloat16,
+     False),
+    # bf16 caches, float32 q (and output)
+    ("f32_q_bf16_cache", 8, 4, 1, 256, 1032, 1031, 512, torch.float32, torch.bfloat16,
+     False),
 ]
+# two shapes of different plans, called in turns: each call must give the
+# bits of its shape's first call (the last block of a group resets its
+# counter; a counter left behind would change the next launch)
+DA_ALTERNATE = ("gemma3_global", "b2_global")
+DA_B2 = ("b2_global", 2, 4, 1, 256, 1032, 1031, 0, torch.bfloat16,
+         torch.bfloat16, False)
 
 
-def da_inputs(b, h, kv, dh, s, dtype, seed):
+def da_inputs(b, h, kv, dh, s, q_dtype, c_dtype, seed):
     g = torch.Generator(device=DEV).manual_seed(seed)
-    rnd = lambda *shape: torch.randn(*shape, generator=g, device=DEV).to(dtype)
-    return rnd(b, h, dh), rnd(b, s, kv, dh), rnd(b, s, kv, dh)
+    rnd = lambda dt, *shape: torch.randn(*shape, generator=g, device=DEV).to(dt)
+    return rnd(q_dtype, b, h, dh), rnd(c_dtype, b, s, kv, dh), rnd(c_dtype, b, s, kv, dh)
+
+
+def da_plan(b, h, kv, dh, lo, hi, c_dtype) -> dict | None:
+    """The wrapper's launch plan for these shapes: (b, kv head, head slice)
+    units, runs of rows and the resident blocks it planned for. None for a
+    wrapper without the occupancy query (the two-kernel version before it,
+    timed by ``--k5-only`` beside this one)."""
+    if not hasattr(kd, "resident_blocks"):
+        return None
+    units = b * kv * kd.head_slices(h // kv)
+    slots = kd.resident_blocks(DEV, c_dtype, dh)
+    rows, nsplit = kd.split_plan(units, lo, hi, slots)
+    return {"units": units, "rows_per_split": rows, "nsplit": nsplit,
+            "blocks": units * nsplit, "resident_blocks": slots,
+            "layout": kd.layout(dh, torch.empty((), dtype=c_dtype).element_size())}
 
 
 def check_decode_attn_kernel() -> dict:
-    """K5 against its plain version on the card. float32: 1e-5 of the
-    output's scale (softmax sums in another order). bfloat16: both round a
-    float32 result to bf16 once, so they may differ by one bf16 ulp (2^-7
-    relative, plus 1e-6 for values near zero). Bit-identical over two
-    runs."""
-    rows = []
-    for name, b, h, kv, dh, s, pos, win, dtype in DA_CASES:
-        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, SEED)
+    """K5 against its plain version on the card. float32 output: 1e-5 of
+    the output's scale (softmax sums in another order). bfloat16 output:
+    both round a float32 result to bf16 once, so they may differ by one
+    bf16 ulp (2^-7 relative, plus 1e-6 for values near zero). Bit-identical
+    over two calls, and over calls of two plans in turns (``DA_ALTERNATE``).
+    In the NaN cases the plain version gets the caches before the NaN is
+    written."""
+    rows, firsts = [], {}
+    for name, b, h, kv, dh, s, pos, win, q_dt, c_dt, nan in DA_CASES + [DA_B2]:
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, q_dt, c_dt, SEED)
+        lo, hi = valid_rows(s, pos, win)
+        want = decode_attn_ref(q, kc_, vc_, pos, win)
+        if nan:
+            outside = torch.ones(s, dtype=torch.bool, device=DEV)
+            outside[lo:hi + 1] = False
+            kc_[:, outside] = float("nan")
+            vc_[:, outside] = float("nan")
         out = kd.decode_attn_cuda(q, kc_, vc_, pos, win)
         again = kd.decode_attn_cuda(q, kc_, vc_, pos, win)
         torch.cuda.synchronize()
-        want = decode_attn_ref(q, kc_, vc_, pos, win)
         diff = (out.float() - want.float()).abs()
-        lo, hi = valid_rows(s, pos, win)
         row = {"case": name, "B": b, "H": h, "KV": kv, "Dh": dh, "S": s,
-               "pos": pos, "window": win, "dtype": str(dtype).split(".")[-1],
-               "rows_read": hi - lo + 1,
-               "split": kd.split_plan(b * kv, lo, hi, kd._sms(DEV)),
+               "pos": pos, "window": win, "q_dtype": str(q_dt).split(".")[-1],
+               "cache_dtype": str(c_dt).split(".")[-1], "nan_outside": nan,
+               "lo": lo, "hi": hi, "rows_read": hi - lo + 1,
+               "plan": da_plan(b, h, kv, dh, lo, hi, c_dt),
                "max_abs_err": float(diff.max()),
                "rel_err": float(diff.max() / want.float().abs().max()),
                "bit_identical": bool(torch.equal(out, again))}
         rows.append(row)
         assert out.shape == q.shape and out.dtype == q.dtype, row
         assert bool(torch.isfinite(out).all()), row
-        if dtype == torch.float32:
+        if q_dt == torch.float32:
             assert row["rel_err"] <= KERNEL_RTOL, row
         else:
             assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-6).all()), row
         assert row["bit_identical"], row
+        if name in DA_ALTERNATE:
+            firsts[name] = ((q, kc_, vc_, pos, win), out)
         del q, kc_, vc_, out, again, want
+    turns = []
+    for _ in range(3):
+        for name in DA_ALTERNATE:
+            args, first = firsts[name]
+            turns.append(bool(torch.equal(kd.decode_attn_cuda(*args), first)))
+    torch.cuda.synchronize()
+    assert all(turns), turns
     emit("kernel_check_decode_attn", f32_rtol=KERNEL_RTOL,
-         bf16_limit="1 bf16 ulp", cases=rows)
+         bf16_limit="1 bf16 ulp", cases=rows,
+         alternating={"shapes": DA_ALTERNATE, "calls_bit_identical": turns})
     return {r["case"]: r for r in rows}
 
 
@@ -1454,51 +1518,83 @@ def time_wkv6() -> dict:
     return table
 
 
-def time_lm_kernels() -> dict:
+# copies of the caches a cold row rotates over: at gemma3-1b's decode shape
+# 8 x 8.4 MB, more than the 50 MB L2, so each call finds its rows in device
+# memory, as the decode path does (a step reads the rest of the model's
+# weights between two uses of one layer's cache)
+DA_COLD_COPIES = 8
+
+
+def _rotating(fn, args_list):
+    """``fn`` over ``args_list`` in turns, one set of arguments a call."""
+    it = itertools.cycle(args_list)
+    return lambda: fn(*next(it))
+
+
+def time_decode_attn() -> dict:
     """K5 at gemma3-1b's decode shapes (a global and a local layer at the
-    path's last step; and one layer at B=8, S=32768) and K6 at rwkv6-3b's
-    prefill shape. Library yardstick for K5: ``scaled_dot_product_attention``
-    with GQA and the boolean mask over the whole cache; for K6 none (no one
-    PyTorch call computes the recurrence)."""
+    path's last step), L2-hot (one set of caches, as ``time_ms`` leaves
+    them) and L2-cold (``DA_COLD_COPIES`` sets in turns), and one layer at
+    B=8, S=32768 (268 MB: cold by itself). Library yardstick:
+    ``scaled_dot_product_attention`` with GQA and the boolean mask over the
+    whole cache, timed the same way."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     table = {}
     pos = LM_PROMPT + LM_GEN - 1
-    for name, s, p_, win in (("gemma3_global", LM_PROMPT + LM_GEN, pos, 0),
-                             ("gemma3_local", LM_PROMPT + LM_GEN, pos, 512),
-                             ("long_B8_S32768", 32768, 32767, 0)):
-        b, h, kv, dh, dtype = LM_DENSE_BATCH, 4, 1, 256, torch.bfloat16
-        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, SEED)
-        k_t = kc_.transpose(1, 2).contiguous()          # (B, KV, S, Dh)
-        v_t = vc_.transpose(1, 2).contiguous()
+    b, h, kv, dh, dtype = LM_DENSE_BATCH, 4, 1, 256, torch.bfloat16
+    for name, s, p_, win, copies in (
+            ("gemma3_global", LM_PROMPT + LM_GEN, pos, 0, 1),
+            ("gemma3_local", LM_PROMPT + LM_GEN, pos, 512, 1),
+            ("gemma3_global_cold", LM_PROMPT + LM_GEN, pos, 0, DA_COLD_COPIES),
+            ("gemma3_local_cold", LM_PROMPT + LM_GEN, pos, 512, DA_COLD_COPIES),
+            ("long_B8_S32768", 32768, 32767, 0, 1)):
         t_idx = torch.arange(s, device=DEV)
         mask = t_idx <= p_
         if win:
             mask &= t_idx > p_ - win
-        q4 = q[:, :, None]
         mask = mask[None, None, None]
-        lo, hi = valid_rows(s, p_, win)
+        ours, lib = [], []
+        for i in range(copies):
+            q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, dtype, SEED + i)
+            ours.append((q, kc_, vc_, p_, win))
+            lib.append((q[:, :, None], kc_.transpose(1, 2).contiguous(),
+                        vc_.transpose(1, 2).contiguous()))
         calls = {"decode_attn": {
-            "ms": lambda: kd.decode_attn_cuda(q, kc_, vc_, p_, win),
-            "plain_ms": lambda: decode_attn_ref(q, kc_, vc_, p_, win),
-            "library_ms": lambda: sdpa(q4, k_t, v_t, attn_mask=mask,
-                                       enable_gqa=True)}}
+            "ms": _rotating(kd.decode_attn_cuda, ours),
+            "plain_ms": _rotating(decode_attn_ref, ours),
+            "library_ms": _rotating(lambda q4, k_t, v_t: sdpa(
+                q4, k_t, v_t, attn_mask=mask, enable_gqa=True), lib)}}
+        lo, hi = valid_rows(s, p_, win)
         bounds = {"decode_attn": decode_attn_bound(b, h, kv, dh, hi - lo + 1,
                                                    dtype)}
         table[name] = _time_calls(calls, bounds)["decode_attn"]
-        table[name].update(S=s, pos=p_, window=win, rows_read=hi - lo + 1)
-        del q, kc_, vc_, k_t, v_t
-    table.update(time_wkv6())
+        table[name].update(S=s, pos=p_, window=win, rows_read=hi - lo + 1,
+                           cache_copies=copies,
+                           plan=da_plan(b, h, kv, dh, lo, hi, dtype))
+        del ours, lib
     return table
+
+
+def time_lm_kernels() -> dict:
+    """K5 (``time_decode_attn``) and K6 at rwkv6-3b's prefill shape
+    (``time_wkv6``; no one PyTorch call computes the recurrence)."""
+    return {**time_decode_attn(), **time_wkv6()}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every phase's result to "
                                       "this JSON file")
-    parser.add_argument("--k6-only", action="store_true",
-                        help="build the WKV6 kernel, check it and time it "
-                             "(kernel_check_wkv6, timing_wkv6), and stop: no "
-                             "other phase and no last line")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--k6-only", action="store_true",
+                      help="build the WKV6 kernel, check it and time it "
+                           "(kernel_check_wkv6, timing_wkv6), and stop: no "
+                           "other phase and no last line")
+    only.add_argument("--k5-only", action="store_true",
+                      help="build the decode-attention kernel, check it and "
+                           "time it hot and cold (kernel_check_decode_attn, "
+                           "timing_k5), and stop: no other phase; the last "
+                           "line as in a full run")
     args = parser.parse_args()
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1508,14 +1604,13 @@ def main() -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    paths = build.ensure_built(["wkv6"] if args.k6_only else [
-        "amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
-    kw._library()
-    if not args.k6_only:
-        k._library()
-        kc._library()
-        kq._library()
-        kd._library()
+    names = (["wkv6"] if args.k6_only else ["decode_attn"] if args.k5_only
+             else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
+    paths = build.ensure_built(names)
+    libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
+                 "decode_attn": kd, "wkv6": kw}
+    for name in names:
+        libraries[name]._library()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(str(p), ROOT) for n, p in paths.items()},
          nvcc=[{key: rec[key] for key in ("name", "command", "seconds")}
@@ -1525,17 +1620,26 @@ def main() -> None:
                 if "registers" in line or "spill" in line
                 or "Function properties" in line],
          # K6's four products run on tensor cores: mma.sync TF32 is HMMA
-         wkv6_sass_tensor_ops=tensor_core_ops(paths["wkv6"]))
-    assert any(op.startswith("HMMA") for op in
-               RESULT["build"]["wkv6_sass_tensor_ops"]), RESULT["build"]
-    if args.k6_only:
-        check_wkv6_kernel()
-        emit("timing_wkv6", card=smi, kernels=time_wkv6())
+         wkv6_sass_tensor_ops=(tensor_core_ops(paths["wkv6"])
+                               if "wkv6" in paths else None))
+    if "wkv6" in paths:
+        assert any(op.startswith("HMMA") for op in
+                   RESULT["build"]["wkv6_sass_tensor_ops"]), RESULT["build"]
+    if args.k6_only or args.k5_only:
+        if args.k6_only:
+            check_wkv6_kernel()
+            emit("timing_wkv6", card=smi, kernels=time_wkv6())
+        else:
+            check_decode_attn_kernel()
+            emit("timing_k5", card=smi, kernels=time_decode_attn())
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(RESULT, fh, indent=1)
+        if args.k5_only:
+            print(smi, flush=True)
+            print_last_line()
         return
 
     check_clusters()
@@ -1632,6 +1736,10 @@ def main() -> None:
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print_last_line()
+
+
+def print_last_line() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
