@@ -2,23 +2,28 @@
 """Where the device time of one solve, or of one LM serving step, goes, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--amp-only]
+    python3 chip_profile.py [--amp-only | --fuse-only]
 
 Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
 solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
 operands already on the card) — lossless, DP-rated and BT-rated — and the
 centralized AMP solve of ``chip_smoke.py``'s wide problem (N=20000, M=4000,
-T=10: one shard of rows of 20000, K1's widest driven rows); then, unless
+T=10: one shard of rows of 20000, K1's widest driven rows); then the
+block-quantized transport: one ``BlockQuantTransport(8).fuse`` call on the
+row messages (P=30, N) and on the column contributions (P=25, M), each
+also timed on the device, and one row int8 solve; then, unless
 ``--amp-only``, at ``chip_smoke.py``'s LM shapes (random init from seed
 1234, prompts of 1000 tokens), one gemma3-1b decode step (B=8), one rwkv6-3b
-prefill (B=4) and one rwkv6-3b decode step. It prints one JSON object per
-call: the number of kernels launched, the span from the first kernel's start
-to the last one's end, the time the device was busy inside it, the launches
-of the call's hand-written kernels (for a solve also per iteration: K1's
-band kernel and its combine, two a step; for a gemma3-1b decode step K5,
-one a layer) and their share of the busy time, beside the launches the
-kernels' wrappers counted (which tell whether the trace dropped events),
-and the ten heaviest kernels by name. The profiler slows the host
+prefill (B=4) and one rwkv6-3b decode step. ``--fuse-only`` runs the
+block-quantized part alone. It prints one JSON object per call: the number
+of kernels launched (for a solve also per iteration), the span from the
+first kernel's start to the last one's end, the time the device was busy
+inside it, the launches of the call's hand-written kernels (for a solve
+also per iteration: K1's band kernel and its combine, two a step; the
+block-quantized fusion, one a step; for a gemma3-1b decode step K5, one a
+layer) and their share of the busy time, beside the launches the kernels'
+wrappers counted (which tell whether the trace dropped events), and the ten
+heaviest kernels by name. The profiler slows the host
 down, so the span is longer than an unprofiled call's (``chip_smoke.py``
 times that); the busy time and the kernel counts are not affected.
 
@@ -47,7 +52,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.core.amp import sample_problem  # noqa: E402
 from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
                                         make_mmse_interp)
-from repro_torch.core.engine import (AmpEngine, BTRateControl,  # noqa: E402
+from repro_torch.core.engine import (AmpEngine,  # noqa: E402
+                                     BlockQuantTransport, BTRateControl,
                                      DPSchedule, EcsqTransport, EngineConfig,
                                      ExactFusion, FixedSchedule)
 from repro_torch.core.rate_alloc import dp_allocate  # noqa: E402
@@ -56,11 +62,13 @@ from repro_torch.core.state_evolution import PAPER_T, CSProblem  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k1  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn as k5  # noqa: E402
+from repro_torch.kernels.quantize import quantize as k4  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as k6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
 N, M, P, EPS, SNR_DB, SEED = 10_000, 3_000, 30, 0.05, 20.0, 1234
+P_COL = 25
 T = PAPER_T[EPS]
 WIDE_N, WIDE_M = 20_000, 4_000
 LM_PROMPT = 1000
@@ -71,7 +79,8 @@ def profile_call(fn, tag: str) -> dict:
     hand-written kernels whose share of the busy time is reported."""
     fn()                                         # warm
     torch.cuda.synchronize()
-    counts = (k1.launch_counts, k5.launch_counts, k6.launch_counts)
+    counts = (k1.launch_counts, k4.launch_counts, k5.launch_counts,
+              k6.launch_counts)
     before = {key: v for c in counts for key, v in c.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -102,6 +111,48 @@ def profile_call(fn, tag: str) -> dict:
             "top": [{"ms": v / 1e3, "name": name[:100]} for name, v in top]}
 
 
+def device_ms(fn, repeats: int = 7, inner: int = 5) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``inner``
+    calls queued behind a few milliseconds of other work (so that the host's
+    pace of launching is hidden), median of ``repeats`` (as
+    ``chip_smoke.py::time_ms``)."""
+    busy = torch.randn(6144, 6144, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.mm(busy, busy)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def profile_block_quant(smi: str, prior, a, y) -> None:
+    """One ``BlockQuantTransport(8).fuse`` call at the two transports'
+    shapes (kernels a call, device ms), then one row int8 solve."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    transport = BlockQuantTransport(8)
+    for name, p, n in (("row_messages", P, N), ("col_contributions", P_COL, M)):
+        f_p = torch.randn(p, n, generator=gen, device="cuda")
+        row = profile_call(lambda: transport.fuse(f_p, None), "quant")
+        row["device_ms"] = device_ms(lambda: transport.fuse(f_p, None))
+        print(json.dumps({"fuse": name, "P": p, "L": n, "card": smi, **row}),
+              flush=True)
+    eng = AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T), transport)
+    a_p, y_p = eng._split(y, a)
+    row = profile_call(lambda: eng.dispatch_single(a_p, y_p, M, N), "quant")
+    row["kernels_per_iteration"] = row.get("device_events", 0) / T
+    row["tagged_launches_per_iteration"] = row.get("tagged_launches", 0) / T
+    print(json.dumps({"solve": "int8", "card": smi, "T": T, **row}),
+          flush=True)
+
+
 def profile_lm(smi: str) -> None:
     """One gemma3-1b decode step (B=8, at position 1000 after a prefill of
     1000 tokens), one rwkv6-3b prefill (B=4, 1000 tokens) and one rwkv6-3b
@@ -130,8 +181,12 @@ def profile_lm(smi: str) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--amp-only", action="store_true",
-                        help="profile the AMP solves only, not LM serving")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--amp-only", action="store_true",
+                      help="profile the AMP solves only, not LM serving")
+    only.add_argument("--fuse-only", action="store_true",
+                      help="profile the block-quantized transport only: "
+                           "two fuse calls and one row int8 solve")
     args = parser.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -140,6 +195,10 @@ def main() -> None:
     print(smi, flush=True)
     prior = BernoulliGauss(eps=EPS)
     prob = CSProblem(n=N, m=M, prior=prior, snr_db=SNR_DB)
+    _, a, y = sample_problem(SEED, N, M, prior, prob.sigma_e2)
+    if args.fuse_only:
+        profile_block_quant(smi, prior, a, y)
+        return
     mm = make_mmse_interp(prior)
     rd = RDModel(prior)
     controllers = {
@@ -149,7 +208,6 @@ def main() -> None:
         "bt": BTRateControl(prob, P, T, c_ratio=1.005, r_max=6.0,
                             mmse_fn=mm),
     }
-    _, a, y = sample_problem(SEED, N, M, prior, prob.sigma_e2)
     for name, ctrl in controllers.items():
         eng = AmpEngine(prior, EngineConfig(n_proc=P, n_iter=T),
                         EcsqTransport(), ctrl)
@@ -160,6 +218,7 @@ def main() -> None:
                                                        0) / T
         print(json.dumps({"solve": name, "card": smi, "T": T, **row}),
               flush=True)
+    profile_block_quant(smi, prior, a, y)
     del a, y
     # centralized AMP (amp_solve's engine: one shard, lossless) of the wide
     # problem

@@ -52,8 +52,8 @@ import torch
 from ..kernels.amp_fused.ops import (amp_local_grid, col_inner_step,
                                      col_residual, pad_col_shards,
                                      pad_row_shards)
-from ..kernels.quantize.ops import dequantize, quantize
-from .compression import QuantConfig, quant_noise_var
+from ..kernels.quantize.ops import block_quant_fuse
+from .compression import QuantConfig
 from .denoisers import BernoulliGauss, eta_and_deriv, make_mmse_interp
 from .quantize import (GaussMixture, dequantize_midtread, ecsq_entropy,
                        message_mixture, quantize_midtread)
@@ -167,19 +167,22 @@ class Transport(Protocol):
     denoiser variance injected by compression (the paper's P*sigma_Q^2
     accounting) and ``symbols`` the per-processor quantizer indices for
     empirical-rate accounting (all-zeros when not applicable). ``delta``
-    (...,) is the bin size, one per batch entry.
+    (...,) is the bin size, one per batch entry. ``symbols=False`` says
+    that the caller will not read the symbols: a transport may then return
+    None in their place and skip making them.
     """
 
-    def fuse(self, f_p, delta): ...  # pragma: no cover - protocol
+    def fuse(self, f_p, delta, symbols=True): ...  # pragma: no cover - protocol
 
 
 @dataclasses.dataclass(frozen=True)
 class ExactFusion:
     """Lossless fusion (centralized AMP / the paper's 32-bit baseline)."""
 
-    def fuse(self, f_p, delta):
+    def fuse(self, f_p, delta, symbols=True):
         f = torch.sum(f_p, dim=-2)
-        return f, f.new_zeros(f.shape[:-1]), torch.zeros_like(f_p)
+        return (f, f.new_zeros(f.shape[:-1]),
+                torch.zeros_like(f_p) if symbols else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +195,7 @@ class EcsqTransport:
     — both computed by the frontends from the returned trace.
     """
 
-    def fuse(self, f_p, delta):
+    def fuse(self, f_p, delta, symbols=True):
         n_proc = f_p.shape[-2]
         lossless = ~torch.isfinite(delta)
         safe_delta = torch.where(lossless, 1.0, delta)
@@ -208,14 +211,17 @@ class EcsqTransport:
 @dataclasses.dataclass(frozen=True)
 class BlockQuantTransport:
     """Per-block max-abs int8/int4 quantization of each message (the wire
-    format of ``core/compression.py``), through the block-quantize kernels.
+    format of ``core/compression.py``), dequantized and summed over P: on
+    the card one launch of the fused block-quantize kernel
+    (``kernels/quantize/ops.py::block_quant_fuse``) and nothing else.
 
     The rate is fixed by the wire width (``bits`` + a bf16 scale per block)
     instead of a controller, so ``delta`` is ignored; the noise accounting
     uses the realized per-block bin sizes: ``extra = P * mean(Delta^2)/12``,
     the mean over the P x blocks of each batch entry. Symbols are the int
-    codes as float32, shaped like the messages. The int4 codes travel
-    unpacked here: this transport emulates the wire, it does not pack.
+    codes as float32, shaped like the messages (None with
+    ``symbols=False``). The int4 codes travel unpacked here: this transport
+    emulates the wire, it does not pack.
     """
 
     bits: int = 8
@@ -225,15 +231,12 @@ class BlockQuantTransport:
     def qc(self) -> QuantConfig:
         return QuantConfig(bits=self.bits, block=self.block)
 
-    def fuse(self, f_p, delta):
-        n_proc, length = f_p.shape[-2:]
-        qc = self.qc
-        q, scale = quantize(f_p.reshape(-1, length), qc.qmax, qc.block)
-        deq = dequantize(q, scale, qc.block).reshape(f_p.shape)
-        f = torch.sum(deq, dim=-2)
-        scale = scale.reshape(f_p.shape[:-1] + scale.shape[-1:])
-        extra = quant_noise_var(scale, qc, batch_dims=f_p.ndim - 2) * n_proc
-        return f, extra, q.reshape(f_p.shape).to(torch.float32)
+    def fuse(self, f_p, delta, symbols=True):
+        lead, (n_proc, length) = f_p.shape[:-2], f_p.shape[-2:]
+        f, extra, syms = block_quant_fuse(f_p.reshape(-1, n_proc, length),
+                                          self.qc.qmax, self.block, symbols)
+        return (f.reshape(lead + (length,)), extra.reshape(lead),
+                None if syms is None else syms.reshape(f_p.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -819,7 +822,8 @@ class AmpEngine:
         return z_new, f_p, ss / m
 
     def _fuse(self, f_p, delta):
-        return self.transport.fuse(f_p, delta)
+        return self.transport.fuse(f_p, delta,
+                                   symbols=self.cfg.collect_symbols)
 
     def _gc(self, f_p, sigma2_hat, delta, kappa):
         """GC: compress + fuse + denoise. Returns (x, onsager, extra, syms)."""

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..build import check, load
+from ..device import sm_count
 
 __all__ = ["amp_local_cuda_grid", "launch_counts", "reset_launch_counts",
            "vec_width", "single_read", "cluster_size", "cluster_slices",
@@ -52,7 +53,6 @@ launch_counts = {"amp_local": 0, "amp_local_two_pass": 0}
 
 _A_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
-_sm_count: dict = {}
 _clusters: dict = {}
 
 
@@ -167,15 +167,6 @@ def combine_groups(batch: int, p: int, n: int, n_bands: int,
     the band count) only to make up the shortfall, as at P = 1."""
     want = min(8, n_bands, max(1, n_sm * 2048 // (batch * p * n)))
     return 1 << (want.bit_length() - 1)
-
-
-def sm_count(dev: torch.device) -> int:
-    """Streaming multiprocessors of the card ``dev`` (asked once a card)."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_count[idx]
 
 
 def max_active_clusters(dev: torch.device, c: int, dtype: torch.dtype,

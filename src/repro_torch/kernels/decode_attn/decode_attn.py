@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..build import check, load
+from ..device import counters_for
 from .ref import valid_rows
 
 __all__ = ["decode_attn_cuda", "split_plan", "layout", "shared_bytes",
@@ -59,7 +60,6 @@ MIN_ROWS = 16
 
 _lib = None
 _active: dict = {}
-_counters: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -148,19 +148,6 @@ def resident_blocks(dev: torch.device, dtype: torch.dtype, dh: int) -> int:
     return _active[key]
 
 
-def _counters_for(dev: torch.device, n: int) -> torch.Tensor:
-    """The int32 counters of the current stream on ``dev``, at least ``n``:
-    zeroed when allocated; the kernel leaves them zero."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    key = (dev.index, stream)
-    cnt = _counters.get(key)
-    if cnt is None or cnt.numel() < n:
-        size = n if cnt is None else max(n, 2 * cnt.numel())
-        cnt = _counters[key] = torch.zeros(size, dtype=torch.int32,
-                                           device=dev)
-    return cnt
-
-
 def _need(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
     if not t.is_cuda or t.dtype not in dtypes or t.ndim != ndim \
             or not t.is_contiguous() or t.data_ptr() % 16:
@@ -205,7 +192,7 @@ def decode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if nsplit > 1:
         part = torch.empty(units * nsplit * HEADS * (dh + 2),
                            dtype=torch.float32, device=q.device)
-        cnt = _counters_for(q.device, units)
+        cnt = counters_for(q.device, units)
     with torch.cuda.device(q.device):
         code = _library().decode_attn_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

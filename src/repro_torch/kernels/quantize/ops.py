@@ -4,6 +4,8 @@ A CUDA tensor goes to the hand-written kernels (``quantize.py``) and either
 launches or raises; a CPU tensor goes to the plain versions (``ref.py``),
 with the ragged row tail padded here (the kernels read it as zeros, so on
 the card no padded copy is made). There is no switch and no fallback.
+``block_quant_fuse`` is the whole of the block-quantized transport's fusion
+(``core/engine.py::BlockQuantTransport``), one launch on the card.
 
 Unlike the reference's ``ops.quantize``, which pads to its TPU tiles and
 returns the original shape beside the padded arrays, these return the
@@ -13,11 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from .quantize import dequantize_cuda, quantize_cuda
-from .ref import dequantize_ref, quantize_ref
+from .quantize import block_quant_fuse_cuda, dequantize_cuda, quantize_cuda
+from .ref import block_quant_fuse_ref, dequantize_ref, quantize_ref
 
 __all__ = ["quantize", "dequantize", "quantize_plain", "dequantize_plain",
-           "BLOCK"]
+           "block_quant_fuse", "BLOCK"]
 
 BLOCK = 512           # elements per scale block (QuantConfig.block default)
 
@@ -52,3 +54,13 @@ def dequantize(q, scale, block: int = BLOCK):
     if q.is_cuda:
         return dequantize_cuda(q, scale, block)
     return dequantize_plain(q, scale, block)
+
+
+def block_quant_fuse(f_p, qmax: int = 127, block: int = BLOCK,
+                     symbols: bool = True):
+    """Quantize each message of ``f_p`` (B, P, L), dequantize and sum over
+    P: ``(f (B, L), extra (B,), symbols float32 (B, P, L) or None)``, with
+    ``extra = P * mean(Delta^2) / 12`` per batch entry."""
+    if f_p.is_cuda:
+        return block_quant_fuse_cuda(f_p, qmax, block, symbols)
+    return block_quant_fuse_ref(f_p, qmax, block, symbols)

@@ -1,28 +1,43 @@
 """Wrappers of the CUDA kernels in ``csrc/quantize.cu``: block-wise max-abs
-quantization (int8 symbols, bf16 scales) and its inverse, written by hand
-for Hopper.
+quantization (int8 symbols, bf16 scales), its inverse, and the two fused
+with the sum over processors and the noise accounting of the block-quantized
+transport, written by hand for Hopper.
 
-    quantize_cuda      x (R, N) float32 -> q (R, N) int8, scale (R, ceil(N/block)) bf16
-    dequantize_cuda    (q, scale) -> (R, N) float32
+    quantize_cuda         x (R, N) float32 -> q (R, N) int8, scale (R, ceil(N/block)) bf16
+    dequantize_cuda       (q, scale) -> (R, N) float32
+    block_quant_fuse_cuda f_p (B, P, L) float32 -> f (B, L), extra (B,),
+                          symbols (B, P, L) float32 or None; one launch
 
 They take CUDA tensors only and either launch or raise: the plain versions
 in ``ref.py`` are chosen one level up (``ops.py``) and only for CPU tensors.
-Outputs come from ``torch.empty``; launches go to PyTorch's current stream
-and nothing synchronises. ``launch_counts`` adds one per wrapper call that
-launched its kernel.
+Outputs and scratch come from ``torch.empty``; launches go to PyTorch's
+current stream and nothing synchronises. ``launch_counts`` adds one per
+wrapper call that launched its kernel. ``fuse_plan`` is the fusion's grid,
+in plain Python.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..build import check, load
+from ..device import counters_for, sm_count
 
-__all__ = ["quantize_cuda", "dequantize_cuda", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["quantize_cuda", "dequantize_cuda", "block_quant_fuse_cuda",
+           "empty_launch_cuda", "fuse_plan", "fuse_cluster", "FusePlan",
+           "launch_counts", "reset_launch_counts", "MAX_WARPS", "MAX_CLUSTER",
+           "SMEM_LIMIT"]
 
-launch_counts = {"quantize_blocks": 0, "dequantize_blocks": 0}
+launch_counts = {"quantize_blocks": 0, "dequantize_blocks": 0,
+                 "block_quant_fuse": 0}
+
+# the fusion kernel's constants (csrc/quantize.cu)
+MAX_WARPS = 31        # quantizing warps a block (kMaxWarps), and one more
+MAX_CLUSTER = 8       # blocks a cluster (kMaxCluster)
+SMS = 132             # an H100's SMs: fuse_plan's default
+SMEM_LIMIT = 232448   # shared memory a block may take on an H100 (kSmemLimit)
 
 _lib = None
 
@@ -41,6 +56,10 @@ def _library():
         lib.quantize_blocks_launch.restype = ci
         lib.dequantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, vp]
         lib.dequantize_blocks_launch.restype = ci
+        lib.block_quant_fuse_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+        lib.block_quant_fuse_launch.restype = ci
+        lib.block_quant_empty_launch.argtypes = [ci] * 5 + [vp]
+        lib.block_quant_empty_launch.restype = ci
         _lib = lib
     return _lib
 
@@ -98,3 +117,117 @@ def dequantize_cuda(q: torch.Tensor, scale: torch.Tensor, block: int):
     check("quantize", code, "dequantize_blocks_launch")
     launch_counts["dequantize_blocks"] += 1
     return out
+
+
+class FusePlan(NamedTuple):
+    """The fusion's launch: a cluster of ``cluster`` blocks per (column of
+    scale blocks j, batch entry b), ``grid = (nbj * cluster, B)``; rank r
+    of a cluster takes the columns ``[r * slice, (r + 1) * slice)`` of the
+    scale block. A block has ``warps`` quantizing warps and one that keeps
+    the noise accounts; warp w < ``warps`` quantizes processors w,
+    w + warps, ... (``groups`` of them), and ``smem_bytes`` of shared memory
+    hold a group's rows, the running sum, every processor's squared scale
+    and the amax exchange."""
+    grid: tuple
+    cluster: int
+    warps: int
+    groups: int
+    slice: int
+    smem_bytes: int
+
+    def work(self, bx: int, by: int, warp: int, n_proc: int):
+        """The (b, p, j, first column, end column) that warp ``warp`` of
+        block ``(bx, by)`` quantizes, in the kernel's order (columns of the
+        scale block j)."""
+        j, r = divmod(bx, self.cluster)
+        return [(by, g * self.warps + warp, j, r * self.slice,
+                 (r + 1) * self.slice) for g in range(self.groups)
+                if g * self.warps + warp < n_proc]
+
+
+def fuse_cluster(block: int, columns: int = 1, sms: int = SMS) -> int:
+    """Blocks a cluster for ``columns`` clusters (B x scale-block columns)
+    of scale blocks of ``block``: slices of 128 columns (one 16-byte load a
+    lane), at most ``MAX_CLUSTER`` of them, each a multiple of 32 columns,
+    and no more than keep the grid in one wave of one block an SM (a
+    second wave costs more than a slice of 128 saves)."""
+    c = max(1, min(MAX_CLUSTER, block // 128))
+    while c > 1 and (block % c or (block // c) % 32 or columns * c > sms):
+        c -= 1
+    return c
+
+
+def fuse_plan(b: int, p: int, length: int, block: int,
+              cluster: int | None = None, sms: int = SMS) -> FusePlan:
+    """The plan of ``block_quant_fuse_cuda`` for messages (B, P, L) cut into
+    scale blocks of ``block`` on a card of ``sms`` SMs: ``fuse_cluster``
+    blocks a cluster (or ``cluster``, which must divide ``block`` into
+    slices of a multiple of 32 columns: timing only), min(P, 31)
+    quantizing warps a block, fewer where their rows of shared memory would
+    exceed what a block may take."""
+    _check_block(block)
+    if b < 1 or p < 1 or length < 1:
+        raise ValueError(f"(B, P, L) = {(b, p, length)}: all must be >= 1")
+    nbj = -(-length // block)
+    c = fuse_cluster(block, b * nbj, sms) if cluster is None else cluster
+    if not 1 <= c <= MAX_CLUSTER or block % c or (block // c) % 32:
+        raise ValueError(f"cluster={c}: need 1..{MAX_CLUSTER} blocks, each "
+                         f"a slice of a multiple of 32 of the {block} columns")
+    sl = block // c
+    smem = lambda w: ((w + 1) * sl + p + 2 * c * w) * 4
+    warps = min(p, MAX_WARPS)
+    while warps > 1 and smem(warps) > SMEM_LIMIT:
+        warps -= 1
+    if smem(warps) > SMEM_LIMIT:
+        raise ValueError(f"block={block}, P={p}: one warp's row of shared "
+                         f"memory and the scales exceed {SMEM_LIMIT} bytes")
+    return FusePlan((nbj * c, b), c, warps, -(-p // warps), sl, smem(warps))
+
+
+def block_quant_fuse_cuda(f_p: torch.Tensor, qmax: int, block: int,
+                          symbols: bool = True, cluster: int | None = None):
+    """``BlockQuantTransport.fuse`` of messages ``f_p`` (B, P, L) in one
+    launch: ``f = sum_p dequantize(quantize(f_p[:, p]))`` (B, L), summed in p
+    order; ``extra = P * mean(Delta^2) / 12`` (B,), the mean over the P x
+    ceil(L / block) scale blocks of each batch entry; and, with
+    ``symbols``, the symbols q as float32 (B, P, L), else None.
+    ``cluster`` forces the blocks a cluster (``fuse_plan``; timing
+    only)."""
+    if f_p.ndim != 3:
+        raise ValueError(f"f_p: need (B, P, L), got {tuple(f_p.shape)}")
+    _need(f_p, torch.float32, f_p.shape, "f_p")
+    if not 1 <= qmax <= 127:
+        raise ValueError(f"qmax={qmax}: int8 symbols need 1 <= qmax <= 127")
+    b, p, length = f_p.shape
+    dev = f_p.device
+    plan = fuse_plan(b, p, length, block, cluster, sm_count(dev))
+    if b > 65535:
+        raise ValueError(f"B={b}: the grid takes at most 65535 batch entries")
+    f = torch.empty((b, length), dtype=torch.float32, device=dev)
+    extra = torch.empty((b,), dtype=torch.float32, device=dev)
+    sym = (torch.empty((b, p, length), dtype=torch.float32, device=dev)
+           if symbols else None)
+    nbj = plan.grid[0] // plan.cluster
+    # b's counter and its nbj slots of partials, zero between launches
+    cnt = counters_for(dev, b * (1 + nbj)) if nbj > 1 else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = _library().block_quant_fuse_launch(
+            f_p.data_ptr(), f.data_ptr(), extra.data_ptr(), ptr(sym),
+            ptr(cnt), b, p, length, block, qmax, plan.cluster,
+            plan.warps, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    check("quantize", code, "block_quant_fuse_launch")
+    launch_counts["block_quant_fuse"] += 1
+    return f, extra, sym
+
+
+def empty_launch_cuda(plan: FusePlan, device) -> None:
+    """Launch an empty kernel with ``plan``'s grid, clusters, threads and
+    shared memory on ``device``: the floor under the fusion's time (timing
+    only; counted nowhere)."""
+    with torch.cuda.device(device):
+        code = _library().block_quant_empty_launch(
+            *plan.grid, plan.cluster, plan.warps, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    check("quantize", code, "block_quant_empty_launch")

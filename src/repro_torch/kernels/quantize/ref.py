@@ -2,15 +2,18 @@
 
 It computes what the JAX package's ``quantize_pallas`` / ``dequantize_pallas``
 and ``core.compression.quantize_blocks`` compute, bit for bit: the bf16-
-rounded scale with the 1.004 no-clip nudge, round half to even, clip.
-The CUDA kernels are held against these functions on the card, and they are
-what runs when the tensors lie on the CPU.
+rounded scale with the 1.004 no-clip nudge, round half to even, clip; and
+``block_quant_fuse_ref`` what its ``BlockQuantTransport.fuse`` computes, with
+the sums in the fused kernel's order, so that the kernel's f and symbols are
+the same bits. The CUDA kernels are held against these functions on the
+card, and they are what runs when the tensors lie on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["block_scale", "quantize_ref", "dequantize_ref"]
+__all__ = ["block_scale", "quantize_ref", "dequantize_ref",
+           "block_quant_fuse_ref"]
 
 
 def block_scale(amax, qmax: int):
@@ -41,3 +44,38 @@ def dequantize_ref(q, scale, block: int):
     r, n = q.shape
     qb = q.reshape(r, n // block, block).to(torch.float32)
     return (qb * scale.to(torch.float32)[..., None]).reshape(r, n)
+
+
+def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True):
+    """f_p (B, P, L) -> (f (B, L), extra (B,), symbols float32 (B, P, L) or
+    None): each row quantized in scale blocks (the ragged tail as zeros),
+    ``f`` the sum over p of q * Delta, taken p = 0, 1, ... in turn;
+    ``extra = P * mean(Delta^2) / 12`` over the P x ceil(L / block) blocks
+    of each batch entry, its squares summed over p for each column of
+    blocks, then over the columns in turn, as the kernel sums them. No
+    product meets a sum in one operation, so nothing can be contracted."""
+    b, p, length = f_p.shape
+    nb = -(-length // block)
+    x = torch.nn.functional.pad(f_p.to(torch.float32),
+                                (0, nb * block - length))
+    xb = x.reshape(b, p, nb, block)
+    delta = block_scale(torch.amax(torch.abs(xb), dim=-1, keepdim=True), qmax)
+    q = torch.clamp(torch.round(xb / delta), -qmax, qmax)
+    q = q.to(torch.int8).to(torch.float32)         # -0 becomes +0, as an int
+    deq = q * delta
+    f = torch.zeros_like(deq[:, 0])
+    dd = delta[..., 0] * delta[..., 0]             # (B, P, nb)
+    col = torch.zeros_like(dd[:, 0])
+    for i in range(p):
+        f = f + deq[:, i]
+        col = col + dd[:, i]
+    total = torch.zeros_like(col[:, 0])
+    for j in range(nb):
+        total = total + col[:, j]
+    # divided by tensors: on the card, PyTorch multiplies by the reciprocal
+    # of a Python number, where the kernel divides
+    mean = total / torch.full_like(total, p * nb)
+    extra = mean / torch.full_like(mean, 12) * p
+    f = f.reshape(b, nb * block)[:, :length]
+    sym = q.reshape(b, p, nb * block)[..., :length] if symbols else None
+    return f, extra, sym

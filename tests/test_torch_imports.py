@@ -19,6 +19,8 @@ import repro_torch.core.engine as te
 import repro_torch.core.mp_amp as tmp
 import repro_torch.core.state_evolution as tse
 import repro_torch.launch.serve as tserve
+import repro_torch.kernels.quantize.ops as tqops
+import repro_torch.kernels.quantize.ref as tqref
 from repro_torch.configs import get_config
 from repro_torch.models import get_model
 
@@ -238,7 +240,8 @@ def test_loop_body_sources_hold_no_sync_calls():
            te._bt_cap_sq2, te.col_bt_delta_for,
            te.EcsqTransport.fuse, te.ExactFusion.fuse,
            te.BlockQuantTransport.fuse, te.BTRateControl.delta_for,
-           te.ColumnBTRateControl.delta_for]
+           te.ColumnBTRateControl.delta_for, tqops.block_quant_fuse,
+           tqref.block_quant_fuse_ref]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
     for fn in fns:
         src = inspect.getsource(fn)
