@@ -11,7 +11,10 @@ centralized AMP solve of ``chip_smoke.py``'s wide problem (N=20000, M=4000,
 T=10: one shard of rows of 20000, K1's widest driven rows); then the
 block-quantized transport: one ``BlockQuantTransport(8).fuse`` call on the
 row messages (P=30, N) and on the column contributions (P=25, M), each
-also timed on the device, and one row int8 solve; then, unless
+also timed on the device, and one row int8 solve; then the heterogeneous
+batch solve (``AmpEngine.dispatch_het``, the solve service's call) of a
+row bucket of 8 at the paper's size and a column bucket of 4 at the wide
+problem (P=20), each without and with BT-rated instances; then, unless
 ``--amp-only``, at ``chip_smoke.py``'s LM shapes (random init from seed
 1234, prompts of 1000 tokens), one gemma3-1b decode step (B=8), one rwkv6-3b
 prefill (B=4) and one rwkv6-3b decode step. ``--fuse-only`` runs the
@@ -54,13 +57,18 @@ from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
                                         make_mmse_interp)
 from repro_torch.core.engine import (AmpEngine,  # noqa: E402
                                      BlockQuantTransport, BTRateControl,
+                                     BTTables, ColBTTables,
+                                     ColumnBTRateControl, ColumnPartition,
                                      DPSchedule, EcsqTransport, EngineConfig,
-                                     ExactFusion, FixedSchedule)
+                                     ExactFusion, FixedSchedule, HetParams,
+                                     pad_bt_tables, split_problem_cols,
+                                     stack_bt_tables)
 from repro_torch.core.rate_alloc import dp_allocate  # noqa: E402
 from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import PAPER_T, CSProblem  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k1  # noqa: E402
+from repro_torch.kernels.amp_fused import col as k23  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn as k5  # noqa: E402
 from repro_torch.kernels.quantize import quantize as k4  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as k6  # noqa: E402
@@ -79,8 +87,8 @@ def profile_call(fn, tag: str) -> dict:
     hand-written kernels whose share of the busy time is reported."""
     fn()                                         # warm
     torch.cuda.synchronize()
-    counts = (k1.launch_counts, k4.launch_counts, k5.launch_counts,
-              k6.launch_counts)
+    counts = (k1.launch_counts, k23.launch_counts, k4.launch_counts,
+              k5.launch_counts, k6.launch_counts)
     before = {key: v for c in counts for key, v in c.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -151,6 +159,62 @@ def profile_block_quant(smi: str, prior, a, y) -> None:
     row["tagged_launches_per_iteration"] = row.get("tagged_launches", 0) / T
     print(json.dumps({"solve": "int8", "card": smi, "T": T, **row}),
           flush=True)
+
+
+def _het_params(b, n, m, p, t, eps, use_bt, tables, dummy):
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device="cuda")
+    return HetParams(
+        sched=torch.full((b, t), float("inf"), device="cuda"),
+        t_active=torch.full((b,), t, device="cuda"),
+        m_real=f32([float(m)] * b), n_real=torch.full((b,), n, device="cuda"),
+        eps=f32(eps), mu_s=f32([0.0] * b), sigma_s=f32([1.0] * b),
+        use_bt=torch.tensor(use_bt, device="cuda"),
+        bt=stack_bt_tables([tables if u else dummy for u in use_bt]))
+
+
+def profile_het(smi: str) -> None:
+    """The heterogeneous batch solve: a row bucket of B=8 at the paper's
+    size (P=30; eps 0.05 and 0.10 in turns, lossless) and a column bucket
+    of B=4 at the wide problem (P=20), each with no BT instance and with
+    every other instance BT-rated (the per-instance tables' controller:
+    ``bt_delta_for`` / ``col_bt_delta_for`` run for the whole batch)."""
+    for layout, b, n, m, p, tag in (("row", 8, N, M, P, "amp_local_"),
+                                    ("col", 4, WIDE_N, WIDE_M, 20, "col_")):
+        eps = [0.05, 0.10] * (b // 2)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+        prob = CSProblem(n=n, m=m, prior=BernoulliGauss(0.05), snr_db=SNR_DB)
+        probs = [sample_problem(gen, n, m, BernoulliGauss(e), prob.sigma_e2)
+                 for e in eps]
+        if layout == "col":
+            a_b = torch.stack([split_problem_cols(q[1], p) for q in probs])
+            y_b = torch.stack([q[2] for q in probs])
+            tables = ColumnBTRateControl(prob, p, T, 1.005, 6.0).tables
+            dummy = ColBTTables.dummy(T)
+            cfg = dict(layout=ColumnPartition(1))
+        else:
+            a_b = torch.stack([q[1].reshape(p, m // p, n) for q in probs])
+            y_b = torch.stack([q[2].reshape(p, m // p) for q in probs])
+            tables = BTRateControl(prob, p, T, 1.005, 6.0).tables
+            dummy = BTTables.dummy(T)
+            cfg = {}
+        del probs
+        eng = AmpEngine(BernoulliGauss(), EngineConfig(
+            n_proc=p, n_iter=T, collect_symbols=False, collect_xs=False,
+            **cfg), EcsqTransport())
+        tables, dummy = pad_bt_tables(tables, T).to("cuda"), dummy.to("cuda")
+        for with_bt in (False, True):
+            use_bt = [with_bt and i % 2 == 1 for i in range(b)]
+            hp = _het_params(b, n, m, p, T, eps, use_bt, tables, dummy)
+            run = lambda h=hp, w=with_bt: eng.dispatch_het(a_b, y_b, h, w)
+            row = profile_call(run, tag)
+            row["kernels_per_iteration"] = row.get("device_events", 0) / T
+            row["tagged_launches_per_iteration"] = \
+                row.get("tagged_launches", 0) / T
+            row["device_ms"] = device_ms(run, repeats=3, inner=2)
+            print(json.dumps({"het": layout, "B": b, "N": n, "M": m, "P": p,
+                              "with_bt": with_bt, "card": smi, "T": T,
+                              **row}), flush=True)
+        del a_b, y_b
 
 
 def profile_lm(smi: str) -> None:
@@ -233,6 +297,7 @@ def main() -> None:
     print(json.dumps({"solve": "wide_centralized", "card": smi, "T": T,
                       "N": WIDE_N, "M": WIDE_M, **row}), flush=True)
     del a, y, a_p, y_p
+    profile_het(smi)
     if not args.amp_only:
         profile_lm(smi)
 

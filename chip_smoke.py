@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
-    python3 chip_smoke.py [--out results.json] [--k6-only | --k5-only | --k4-only]
+    python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
+                          [--k6-only | --k5-only | --k4-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -16,6 +17,13 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     problem of the shape the solve service routes to columns (N=20000,
     M=4000, P=20), BT-rated, and the same problem by centralized AMP,
     whose rows of 20000 K1 takes in clusters of two blocks;
+  * the solve service (``repro_torch.serving.SolveService``, phase
+    ``serve``): prewarm, then a row bucket of 8 (the paper's point and
+    N=9000, M=2700, T=8 beside it; lossless, fixed, DP and BT) and a column
+    bucket of 4 at the wide problem in one ``solve``, a block8 pair and a
+    lone lossless request; every result against the port's own single
+    solve, the early exit, drift, rates, launches, no host sync in the
+    heterogeneous loops; and K3 with per-instance operands on the card;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -31,8 +39,10 @@ Prints one JSON object per phase, then the card's name and power limit,
 then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
-JSON file. Needs a CUDA device and nvcc; needs no network. Takes about two
-minutes on an H100. ``--k6-only`` builds the WKV6 kernel alone, holds it
+JSON file. Needs a CUDA device and nvcc; needs no network. Takes about
+three minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
+``src/repro_torch/csrc``) also times that tree's K3 in turns with this
+one's (phase ``k3_operands``). ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
 rwkv6-3b's prefill shape for the plan's NV and NV = 1, 2, 4, then stops
 (no other phase, no last line): the quick check of K6. ``--k5-only`` does
@@ -50,6 +60,7 @@ with the card's line and the last line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -75,10 +86,10 @@ from repro_torch.core.amp import amp_solve, sample_problem  # noqa: E402
 from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
                                         make_mmse_interp)
 from repro_torch.core.engine import (AmpEngine, BlockQuantTransport,  # noqa: E402
-                                     ColDPSchedule, ColumnBTRateControl,
-                                     ColumnPartition, DPSchedule,
-                                     EcsqTransport, EngineConfig, ExactFusion,
-                                     FixedSchedule, bt_delta_for,
+                                     BTRateControl, ColDPSchedule,
+                                     ColumnBTRateControl, ColumnPartition,
+                                     DPSchedule, EcsqTransport, EngineConfig,
+                                     ExactFusion, FixedSchedule, bt_delta_for,
                                      col_bt_delta_for)
 from repro_torch.core.mp_amp import MPAMPConfig, mp_amp_solve  # noqa: E402
 from repro_torch.core.rate_alloc import (BTController, dp_allocate,  # noqa: E402
@@ -101,6 +112,8 @@ from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serving import (BucketPolicy, PrewarmSpec,  # noqa: E402
+                                 SolveRequest, SolveService)
 
 DEV = torch.device("cuda:0")
 SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
@@ -181,6 +194,30 @@ LM_SMALL_TOL = 0.02
 # seen at 32 layers in a CPU probe of a narrower rwkv6)
 LM_F32_TOL = 1e-3
 WKV_TOL = 3e-4          # rtol = atol, the reference's (tests/test_models.py:108)
+
+# The serve phase: SolveService at the paper's width. One row bucket of 8
+# (the paper's point and N=9000, M=2700, T=8 beside it, in one bucket of
+# n_pad 10240, mp_pad 112, T_max 12 under these quanta), one column bucket
+# of 4 at the wide problem, a block8 pair and a lone lossless request.
+SERVE_POLICY = BucketPolicy(max_batch=BATCH, n_quantum=2048, mp_quantum=112,
+                            t_quantum=6)
+# (n, m, T, eps, snr_db, policy)
+SERVE_ROW = [(N, M, T, 0.05, 20.0, "lossless"), (9000, 2700, 8, 0.10, 15.0, "lossless"),
+             (N, M, T, 0.10, 20.0, "fixed"), (9000, 2700, 8, 0.05, 20.0, "fixed"),
+             (N, M, T, 0.05, 20.0, "dp"), (9000, 2700, 8, 0.10, 20.0, "dp"),
+             (N, M, T, 0.10, 15.0, "bt"), (9000, 2700, 8, 0.05, 20.0, "bt")]
+SERVE_COL = [(WIDE_N, WIDE_M, T, 0.05, 20.0, "lossless"),
+             (WIDE_N, WIDE_M, T, 0.02, 20.0, "lossless"),
+             (WIDE_N, WIDE_M, T, 0.05, 20.0, "bt"),
+             (WIDE_N, WIDE_M, T, 0.02, 15.0, "bt")]
+SERVE_CACHE_BYTES = 4 << 30     # every A slice of both buckets stays resident
+SERVE_RTOL = 1e-4               # batched vs single: sigma2_hat and bins
+SERVE_MSE = 1e-5                # batched vs single: mean (x_b - x_1)^2
+# K3 with per-instance operands: B instances of the paper's column shape,
+# each with its own [m_eff, eps, mu_s, sigma_s^2] and real columns
+K3_PAR = [(3000.0, 0.05, 0.0, 1.0), (2800.0, 0.10, 0.1, 0.5),
+          (2600.0, 0.02, -0.2, 2.0), (3000.0, 0.20, 0.0, 1.0)]
+K3_NREAL = [400, 384, 250, 17]
 
 RESULT: dict = {}
 
@@ -469,8 +506,9 @@ def check_col_kernels() -> dict:
                    "r_rel_err": rel_err(r_k, r_r),
                    "r_max_abs_err": float((r_k - r_r).abs().max())}
             assert r_k.shape == x.shape[:-1] + (m,)
+            par = ref.col_params(float(m), *PRIOR_SCALARS, device=DEV)
             for upd in (False, True):
-                args = (a, x, x0, z, g, mask, float(m), *PRIOR_SCALARS, upd)
+                args = (a, x, x0, z, g, mask, par, upd)
                 x_k, c_k, z_k = kc.col_inner_cuda(*args)
                 torch.cuda.synchronize()
                 x_r, c_r, z_r = ref.col_inner_step_ref(*args)
@@ -975,6 +1013,368 @@ def run_block_quant_row(ctx) -> dict:
 
 
 
+def check_k3_per_instance() -> dict:
+    """K3 with a (B, 4) ``par`` and (B, Np) masks, distinct per instance,
+    at the paper's column shape (B=4, ragged real columns), both
+    ``update_z``: against its plain version, the same bits over two calls,
+    and under a batch of one the (4,) and (1, 4) forms the same bits."""
+    b, p, m, np_ = len(K3_PAR), P_COL, M, N // P_COL
+    a, x, x0, z, g = col_inputs(b, False, p, m, np_, torch.float32, SEED + 7)
+    par = torch.tensor(K3_PAR, dtype=torch.float32, device=DEV)
+    mask = (torch.arange(np_, device=DEV)[None, :]
+            < torch.tensor(K3_NREAL, device=DEV)[:, None]).float()
+    rows = {}
+    for upd in (False, True):
+        args = (a, x, x0, z, g, mask, par, upd)
+        got = kc.col_inner_cuda(*args)
+        again = kc.col_inner_cuda(*args)
+        want = ref.col_inner_step_ref(*args)
+        torch.cuda.synchronize()
+        one = [v[:1] for v in (a, x, x0, z, g)]
+        shared = kc.col_inner_cuda(*one, mask[0], par[0], upd)
+        per = kc.col_inner_cuda(*one, mask[:1], par[:1], upd)
+        torch.cuda.synchronize()
+        tag = "upd" if upd else "final"
+        row = {"x_rel_err": rel_err(got[0], want[0]),
+               "c_rel_err": rel_err(got[1], want[1]),
+               "x_max_abs_err": float((got[0] - want[0]).abs().max()),
+               "bit_identical": all(bool(torch.equal(u, v))
+                                    for u, v in zip(got, again)),
+               "b1_shared_equals_per_instance": all(
+                   bool(torch.equal(u, v)) for u, v in zip(shared, per)),
+               "masked_columns_zero": bool(
+                   (got[0][3, :, K3_NREAL[3]:] == 0).all())}
+        if upd:
+            row["z_rel_err"] = rel_err(got[2], want[2])
+        rows[tag] = row
+        for key in [key for key in row if "rel_err" in key]:
+            assert row[key] <= KERNEL_RTOL, (tag, row)
+        assert row["bit_identical"] and row["b1_shared_equals_per_instance"], row
+        assert row["masked_columns_zero"], row
+    emit("kernel_check_k3_per_instance", B=b, P=p, M=m, Np=np_, par=K3_PAR,
+         n_real=K3_NREAL, rtol=KERNEL_RTOL, cases=rows)
+    return rows
+
+
+def _parent_k3(parent: str):
+    """The parent tree's K3, its prior taken as host numbers: ``amp_col.cu``
+    of ``parent`` built beside this tree's (one nvcc) and a call of its
+    ``col_inner_launch`` as the parent's wrapper made it."""
+    import ctypes
+    import math
+    src = os.path.join(parent, "src", "repro_torch", "csrc", "amp_col.cu")
+    out = build.build_dir() / "libamp_col_parent.so"
+    build.build_dir().mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    vp, ci, ll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+    lib.col_inner_launch.argtypes = [
+        vp, ci, ll, vp, vp, vp, vp, vp, cf, cf, cf, cf, vp, vp, vp, vp,
+        vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.col_inner_launch.restype = ci
+
+    def call(a, x, x0, z, g, m_eff, eps, mu_s, sigma_s2, upd):
+        p, m, np_ = a.shape
+        chunk = kc.row_chunk(DEV, p, m, np_, a.dtype)
+        n_chunks = -(-m // chunk)
+        fpart = torch.empty((p, n_chunks, np_), device=DEV)
+        sspart = torch.empty((p, n_chunks), device=DEV)
+        x_new, c_p = torch.empty_like(x), torch.empty(p, device=DEV)
+        z_new = torch.empty_like(z) if upd else z
+        vec = k._vec_flag(np_, a, x0, x_new)
+        plan = kc._ring_plan(DEV, 1, p, m, np_, a.dtype, vec)
+        code = lib.col_inner_launch(
+            a.data_ptr(), 0, 0, x.data_ptr(), x0.data_ptr(), z.data_ptr(),
+            g.data_ptr(), None, m_eff, math.log(eps) - math.log1p(-eps),
+            mu_s, sigma_s2, fpart.data_ptr(), sspart.data_ptr(),
+            x_new.data_ptr(), c_p.data_ptr(), z_new.data_ptr(), 1, p, m, np_,
+            chunk, k.Z_WARPS, int(upd), vec, *plan,
+            torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return x_new, c_p, z_new
+    return call
+
+
+def time_k3_operands(parent: str | None) -> dict:
+    """K3 at the paper's column shape (P=25, M=3000, Np=400, float32) with
+    its operands on the card (``par``), in turns with the parent's K3 with
+    host-number operands when ``parent`` names the parent's tree (parent,
+    change, change, parent; the parent's bits checked equal first)."""
+    p, m, np_ = P_COL, M, N // P_COL
+    a, x, x0, z, g = col_inputs(None, False, p, m, np_, torch.float32, SEED)
+    par = ref.col_params(float(m), *PRIOR_SCALARS, device=DEV)
+    new = {upd: (lambda u=upd: kc.col_inner_cuda(a, x, x0, z, g, None, par, u))
+           for upd in (False, True)}
+    out = {"shape": {"P": p, "M": m, "Np": np_, "a_dtype": "float32"}}
+    if parent is None:
+        for upd in (False, True):
+            out[f"after_ms_update_z_{upd}"] = time_ms(new[upd])["ms"]
+        out["before_ms"] = "not measured (pass --k3-parent)"
+        return out
+    old_fn = _parent_k3(parent)
+    old = {upd: (lambda u=upd: old_fn(a, x, x0, z, g, float(m), *PRIOR_SCALARS, u))
+           for upd in (False, True)}
+    for upd in (False, True):
+        xo, co, _ = old[upd]()
+        xn, cn, _ = new[upd]()
+        torch.cuda.synchronize()
+        out[f"max_abs_dx_vs_parent_update_z_{upd}"] = float((xo - xn).abs().max())
+        assert rel_err(xn, xo) <= KERNEL_RTOL and rel_err(cn, co) <= KERNEL_RTOL
+        runs = [time_ms(f)["ms"] for f in (old[upd], new[upd], new[upd], old[upd])]
+        out[f"before_ms_update_z_{upd}"] = [runs[0], runs[3]]
+        out[f"after_ms_update_z_{upd}"] = [runs[1], runs[2]]
+        out[f"after_over_before_update_z_{upd}"] = \
+            (runs[1] + runs[2]) / (runs[0] + runs[3])
+    return out
+
+
+def _serve_requests(rng, specs, p, prior_cache, tag):
+    """SolveRequests of the serve phase, drawn with numpy, with their
+    ground truth: fixed and DP bins from the DP allocation (fixed: 3 bits
+    an iteration, DP: 2), so that the single solves take the same bins."""
+    reqs, s0s = [], []
+    for i, (n, m, t, eps, snr, policy) in enumerate(specs):
+        prior = BernoulliGauss(eps)
+        prob = CSProblem(n=n, m=m, prior=prior, snr_db=snr)
+        s0 = np.where(rng.random(n) < eps, rng.standard_normal(n),
+                      0.0).astype(np.float32)
+        a = rng.standard_normal((m, n), dtype=np.float32) / np.float32(m ** 0.5)
+        y = (a @ s0 + np.float32(prob.sigma_e2 ** 0.5)
+             * rng.standard_normal(m, dtype=np.float32)).astype(np.float32)
+        deltas = None
+        if policy in ("fixed", "dp"):
+            if eps not in prior_cache:
+                prior_cache[eps] = RDModel(prior)
+            rd = prior_cache[eps]
+            dp = dp_allocate(prob, p, t, (3.0 if policy == "fixed" else 2.0) * t,
+                             rd=rd)
+            deltas = DPSchedule(dp, rd, p).deltas
+        reqs.append(SolveRequest(y=y, a=a, prior=prior, snr_db=snr, n_proc=p,
+                                 n_iter=t, policy=policy, deltas=deltas,
+                                 a_id=f"{tag}{i}"))
+        s0s.append(s0)
+    return reqs, s0s
+
+
+def _serve_single(req, col: bool, transport=None):
+    """The port's own single solve of a served request, on the card."""
+    prob = req.problem()
+    if req.policy == "bt":
+        ctrl = (ColumnBTRateControl(prob, req.n_proc, req.n_iter,
+                                    req.bt_c_ratio, req.bt_r_max) if col
+                else BTRateControl(prob, req.n_proc, req.n_iter,
+                                   req.bt_c_ratio, req.bt_r_max, "ecsq"))
+    else:
+        ctrl = FixedSchedule(req.deltas if req.deltas is not None
+                             else np.full(req.n_iter, np.inf))
+    cfg = dict(layout=ColumnPartition(1)) if col else {}
+    eng = AmpEngine(req.prior, EngineConfig(n_proc=req.n_proc,
+                                            n_iter=req.n_iter,
+                                            collect_symbols=False, **cfg),
+                    transport or EcsqTransport(), ctrl)
+    return eng.solve(req.y, req.a)
+
+
+def _serve_agree(req, res, one, s0) -> dict:
+    """A served result against its single solve on the card. A lossless
+    request: SERVE_RTOL on sigma2_hat and SERVE_MSE between the estimates.
+    A quantized one (fixed, DP, BT, block transports) by
+    assert_traces_agree's rule (tests/test_torch_engine.py): SERVE_RTOL on
+    sigma2_hat and the bins until the first iteration where the plug-ins
+    part, sigma2_hat within 10 % and the final MSE within 1 dB after, and a
+    fixed or DP request's bins are its schedule on both sides. The batch and
+    the single solve sum in other orders, and at the paper's size (300 000
+    quantized entries an iteration) some entry lands across a cell edge:
+    the single solve on the card and on the CPU part the same way (the
+    serve phase's record, PERF.md PR 20)."""
+    mse_dx = float(np.mean((res.x - one.x) ** 2))
+    mse_res, mse_one = res.mse(s0), float(np.mean((one.x - s0) ** 2))
+    rel = np.abs(res.sigma2_hat / one.sigma2_hat - 1)
+    row = {"policy": req.policy, "transport": req.transport, "N": req.n,
+           "T": req.n_iter, "mse_between": mse_dx,
+           "sdr_db": sdr_db(req.prior, mse_res),
+           "sdr_db_single": sdr_db(req.prior, mse_one),
+           "max_rel_dsigma2": float(rel.max())}
+    if req.policy == "lossless" and req.transport == "ecsq":
+        np.testing.assert_allclose(res.sigma2_hat, one.sigma2_hat,
+                                   rtol=SERVE_RTOL)
+        assert mse_dx <= SERVE_MSE, row
+        return row
+    if req.policy in ("fixed", "dp"):
+        assert np.array_equal(res.deltas, np.asarray(req.deltas, np.float32)) \
+            and np.array_equal(one.deltas, res.deltas), row
+    close = (rel <= SERVE_RTOL) & \
+        np.isclose(res.deltas, one.deltas, rtol=SERVE_RTOL)
+    first = int(np.argmin(close)) if not close.all() else len(close)
+    row["first_parting_iteration"] = first
+    assert first >= 1, row
+    if req.policy == "bt":     # the controller's rates; block: the wire's
+        np.testing.assert_allclose(res.rates[:first], one.rates[:first],
+                                   rtol=SERVE_RTOL)
+    np.testing.assert_allclose(res.sigma2_hat, one.sigma2_hat, rtol=0.10)
+    assert abs(10 * np.log10(mse_res / mse_one)) < 1.0, row
+    if first == len(close):
+        assert mse_dx <= SERVE_MSE, row
+    return row
+
+
+def _het_timing(eng, key, batch, svc) -> dict:
+    """One bucket's batch solve with its operands resident: device time
+    (queued behind a busy device; host_paced when the host could not keep
+    it fed) and the host-paced time of one call on an idle card."""
+    a_b, y_b, params, has_bt = svc._het_operands(key, batch)
+    y_b = y_b.to(DEV)
+    run = lambda: eng.dispatch_het(a_b, y_b, params, has_bt=has_bt)
+    dev = time_ms(run, repeats=3, inner=2, warmup=1)
+    call = time_call_ms(run, repeats=3)
+    return {"B": len(batch), "has_bt": has_bt, "device_ms": dev["ms"],
+            "host_paced": dev["host_paced"], "call_ms": call,
+            "solves_per_s": len(batch) / (call / 1e3)}
+
+
+def run_serve() -> dict:
+    """The solve service (``repro_torch.serving.SolveService``) on the card
+    at the paper's width, through the entry points a user calls: prewarm,
+    then one row bucket of 8 and one column bucket of 4 in one ``solve``
+    (SERVE_ROW, SERVE_COL), a block8 pair and a lone lossless request on a
+    second service with the default policy. Checks every result against
+    the port's own single solve, the early exit, SE drift, rate accounting,
+    launches, no new programs after prewarm and no host sync in the het
+    loops."""
+    rng = np.random.default_rng(SEED + 20)
+    rds: dict = {}
+    t0 = time.perf_counter()
+    row_reqs, row_s0 = _serve_requests(rng, SERVE_ROW, P, rds, "row")
+    col_reqs, col_s0 = _serve_requests(rng, SERVE_COL, WIDE_P, rds, "col")
+    svc = SolveService(policy=SERVE_POLICY,
+                       operand_cache_bytes=SERVE_CACHE_BYTES)
+    menu = [PrewarmSpec(n=r.n, m=r.m, n_proc=r.n_proc, n_iter=r.n_iter,
+                        policy=r.policy, prior=r.prior, snr_db=r.snr_db,
+                        layout=layout, batch_widths=(width,))
+            for reqs, layout, width in ((row_reqs, "row", BATCH),
+                                        (col_reqs, "col", len(col_reqs)))
+            for r in reqs if r.policy in ("lossless", "bt")]
+    setup_s = time.perf_counter() - t0
+    prewarm = svc.prewarm(menu)
+    warmed = svc.compile_count()
+
+    reset_all_counts()
+    (results, wall_ms) = timed(lambda: svc.solve(row_reqs + col_reqs))
+    launches = all_counts()                       # read just after the path
+    assert svc.compile_count() == warmed, (svc.compile_count(), warmed)
+    row_res, col_res = results[:len(row_reqs)], results[len(row_reqs):]
+    key_row, key_col = row_res[0].bucket, col_res[0].bucket
+    assert {r.bucket for r in row_res} == {key_row} and \
+        {r.bucket for r in col_res} == {key_col}
+    assert (key_row.n_pad, key_row.mp_pad, key_row.t_max) == (10240, 112, 12)
+    assert key_col.layout == "col" and key_col.t_max == 12
+    t_max = key_row.t_max
+    want = {"amp_local": t_max, "col_residual": t_max, "col_inner": t_max}
+    assert {key: launches[key] for key in want} == want, launches
+    assert launches["block_quant_fuse"] == 0 and \
+        launches["amp_local_two_pass"] == 0, launches
+
+    # the block8 pair (a batch of two: the het path) and the lone lossless
+    # request (the singleton path), on the default bucket policy
+    svc2 = SolveService(policy=BucketPolicy(max_batch=BATCH))
+    b8_req, lone = row_reqs[0], row_reqs[0]
+    b8_req = SolveRequest(y=b8_req.y, a=b8_req.a, prior=b8_req.prior,
+                          n_proc=P, n_iter=T, transport="block8", a_id="row0")
+    lone = SolveRequest(y=lone.y, a=lone.a, prior=lone.prior, n_proc=P,
+                        n_iter=T, a_id="row0")
+    reset_all_counts()
+    b8_res = svc2.solve([b8_req, b8_req])
+    b8_launches = all_counts()
+    reset_all_counts()
+    (lone_res,) = svc2.solve([lone])
+    lone_launches = all_counts()
+    t_b8 = b8_res[0].bucket.t_max
+    assert b8_launches["block_quant_fuse"] == t_b8 and \
+        b8_launches["amp_local"] == t_b8, b8_launches
+    assert lone_launches["amp_local"] == T and \
+        svc2.stats()["singleton_dispatches"] == 1, lone_launches
+    serve_launches = {key: launches[key] + b8_launches[key] + lone_launches[key]
+                      for key in launches}
+
+    # ---- checks -----------------------------------------------------------
+    agree = []
+    for req, res, s0 in zip(row_reqs, row_res, row_s0):
+        agree.append(_serve_agree(req, res, _serve_single(req, False), s0))
+    for req, res, s0 in zip(col_reqs, col_res, col_s0):
+        agree.append(_serve_agree(req, res, _serve_single(req, True), s0))
+    one_b8 = _serve_single(b8_req, False, BlockQuantTransport(8, 512))
+    b8_agree = _serve_agree(b8_req, b8_res[0], one_b8, row_s0[0])
+    assert b8_agree["mse_between"] <= SERVE_MSE, b8_agree
+    np.testing.assert_allclose(b8_res[0].rates, 8.0 + 16.0 / 512)
+    one_lone = _serve_single(lone, False)
+    lone_dx = float(np.abs(lone_res.x - one_lone.x).max())
+    assert lone_dx <= 1e-6, lone_dx
+    for req, res in zip(row_reqs + col_reqs + [lone], results + [lone_res]):
+        assert res.x.shape == (req.n,) and np.all(np.isfinite(res.x))
+        assert res.sigma2_hat.shape == (req.n_iter,)
+        assert res.se_drift is not None and np.isfinite(res.se_drift), res
+        if req.policy == "lossless":
+            assert res.total_bits == 0.0 and not res.tracked
+        else:
+            assert res.tracked and np.isfinite(res.total_bits)
+
+    # early exit: the T=8 instances of the T_max=12 row bucket carry the
+    # bits of the same batch solved with T_max=8
+    prepared = [svc._prepare(r, assign_id=False) for r in row_reqs]
+    a_b, y_b, params, has_bt = svc._het_operands(key_row, prepared)
+    eng8 = AmpEngine(BernoulliGauss(), EngineConfig(
+        n_proc=P, n_iter=8, collect_symbols=False, collect_xs=False),
+        EcsqTransport())
+    p8 = params._replace(sched=params.sched[:, :8],
+                         t_active=params.t_active.clamp(max=8),
+                         bt=params.bt._replace(targets=params.bt.targets[:, :8]))
+    tr8 = eng8.solve_het(a_b, y_b, p8, has_bt=has_bt)
+    short = [i for i, r in enumerate(row_reqs) if r.n_iter == 8]
+    for i in short:
+        assert np.array_equal(row_res[i].x, tr8.x[i, :row_reqs[i].n]), i
+        assert np.array_equal(row_res[i].sigma2_hat, tr8.sigma2_hat[i]), i
+
+    # no host sync inside the het loops (BT in both batches)
+    sync = {}
+    for key, reqs in ((key_row, prepared),
+                      (key_col, [svc._prepare(r, assign_id=False)
+                                 for r in col_reqs])):
+        eng = svc._engines[key]
+        a_d, y_d, hp, bt_on = svc._het_operands(key, reqs)
+        y_d = y_d.to(DEV)
+        core = eng._col_het_core if key.layout == "col" else eng._het_core
+        run = lambda c=core, a_=a_d, y_=y_d, h=hp, b=bt_on: c(a_, y_, h, b)
+        run()
+        sync[key.layout] = sync_sites(run)
+    bad = {name: sorted(set(v)) for name, v in sync.items() if v}
+    assert not bad, f"host syncs inside the het solve loop: {bad}"
+
+    timing = {"row": _het_timing(svc._engines[key_row], key_row, prepared,
+                                 svc),
+              "col": _het_timing(svc._engines[key_col], key_col,
+                                 [svc._prepare(r, assign_id=False)
+                                  for r in col_reqs], svc)}
+    (_, warm_wall_ms) = timed(lambda: svc.solve(row_reqs + col_reqs))
+    timing["service_solve_wall_ms_warm"] = warm_wall_ms
+    timing["service_solves_per_s_warm"] = \
+        (len(row_reqs) + len(col_reqs)) / (warm_wall_ms / 1e3)
+    emit("serve", row_bucket=str(key_row), col_bucket=str(key_col),
+         policy=dataclasses.asdict(SERVE_POLICY), host_setup_s=setup_s,
+         prewarm=prewarm, programs_after_prewarm=svc.compile_count() - warmed,
+         first_solve_wall_ms=wall_ms, agreement=agree,
+         block8={"rates": [float(v) for v in b8_res[0].rates], **b8_agree},
+         singleton_max_abs_dx=lone_dx,
+         early_exit_exact=[row_reqs[i].n_iter for i in short],
+         se_drift=[r.se_drift for r in results],
+         launches={"buckets": launches, "block8": b8_launches,
+                   "singleton": lone_launches},
+         synchronizing_calls_in_het_loops={k_: len(v) for k_, v in sync.items()},
+         timing=timing, limits={"rtol": SERVE_RTOL, "mse": SERVE_MSE})
+    return {"launches": serve_launches, "timing": timing}
+
+
 def sync_sites(fn) -> list:
     """Run ``fn`` with PyTorch's sync debug mode on: every call that makes
     the host wait for the device is reported with the lines of this
@@ -1032,7 +1432,9 @@ def check_no_host_sync(ctx, col_ctx) -> None:
     a_cp, y_d = col["col_lossless"]._split_col(ctx["y"], ctx["a"])
     for name, ceng in col.items():
         sched_c = ceng._f32(ceng._sched_operand())
-        run = lambda e=ceng, s=sched_c: e._col_solve_core(a_cp, y_d, s, M, N)
+        par = ceng._col_prior_params(M)
+        run = lambda e=ceng, s=sched_c, q=par: e._col_solve_core(
+            a_cp, y_d, s, q, M, N)
         run()
         found[name] = sync_sites(run)
     bad = {name: sorted(set(v)) for name, v in found.items() if v}
@@ -1133,8 +1535,8 @@ def time_col_kernels() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             a, x, x0, z, g = col_inputs(b, shared, p, m, np_, dtype, SEED)
             a32 = a.float()   # the library yardstick gets float32 A ready-made
-            inner = lambda upd: (a, x, x0, z, g, None, float(m),
-                                 *PRIOR_SCALARS, upd)
+            par = ref.col_params(float(m), *PRIOR_SCALARS, device=DEV)
+            inner = lambda upd: (a, x, x0, z, g, None, par, upd)
             stage0 = lambda: torch.einsum("...pmn,...pm->...pn", a32, z)
             calls = {
                 "col_residual": {
@@ -1262,8 +1664,10 @@ def time_col_solves(ctx, col_ctx) -> dict:
     a_cp, y_d = engines["lossless"]._split_col(ctx["y"], ctx["a"])
     for name, eng in engines.items():
         sched = eng._f32(eng._sched_operand())
+        par = eng._col_prior_params(M)
         out[f"{name}_solve_ms"] = time_call_ms(
-            lambda e=eng, s=sched: e._col_solve_core(a_cp, y_d, s, M, N))
+            lambda e=eng, s=sched, q=par: e._col_solve_core(a_cp, y_d, s, q,
+                                                            M, N))
     tables = col_ctx["bt"].tables_on(DEV)
     v = torch.tensor(0.01, device=DEV)
 
@@ -1763,6 +2167,10 @@ def main() -> None:
                            "kernel_check_block_quant_fuse) and time them "
                            "(timing_k4), and stop: no other phase; the last "
                            "line as in a full run")
+    parser.add_argument("--k3-parent", metavar="DIR",
+                        help="a checkout of the parent tree: time its K3 "
+                             "(prior as host numbers) in turns with this "
+                             "one's (k3_operands phase)")
     args = parser.parse_args()
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1818,6 +2226,7 @@ def main() -> None:
     check_clusters()
     errs = check_kernels()
     errs_col = check_col_kernels()
+    check_k3_per_instance()
     errs_q = check_quantize_kernels()
     errs_fuse = check_block_quant_fuse()
     check_against_cpu_reference()
@@ -1825,6 +2234,7 @@ def main() -> None:
     col_ctx = run_col_path(ctx)
     bq_ctx = run_block_quant_row(ctx)
     check_no_host_sync(ctx, col_ctx)
+    serve_ctx = run_serve()
     errs_da = check_decode_attn_kernel()
     errs_wkv = check_wkv6_kernel()
     check_lm_small()
@@ -1836,13 +2246,14 @@ def main() -> None:
     quant_times = time_quantize_kernels()
     solve_times = time_solves(ctx)
     col_solve_times = time_col_solves(ctx, col_ctx)
+    emit("k3_operands", card=smi, **time_k3_operands(args.k3_parent))
     emit("timing", card=smi,
          method="CUDA events, warm, median; kernels queued behind a busy "
                 "device (device time), solves on an idle one (host pace "
                 "included)",
          lc_step=kernel_times, col_kernels=col_times,
          quantize_kernels=quant_times, solve=solve_times,
-         col_solve=col_solve_times)
+         col_solve=col_solve_times, serve=serve_ctx["timing"])
     lm_times = time_lm_kernels()
     emit("timing_lm", card=smi,
          method="kernels as above (device time, queued behind a busy "
@@ -1857,6 +2268,7 @@ def main() -> None:
     # each kernel: its time at the shape its main path gives it, its
     # launches on the path(s) that drove it (counts reset just before each)
     col_launches, bq_launches = col_ctx["launches"], bq_ctx["launches"]
+    sv_launches = serve_ctx["launches"]
     q_err = max(r["q_max_abs_err"] for r in errs_q.values())
     d_err = max(r["dequantized_max_abs_err"] for r in errs_q.values())
     fuse_err = max(r["f_max_abs_err"] for r in errs_fuse.values())
@@ -1865,19 +2277,22 @@ def main() -> None:
                               errs[(case, "float32")]["f_max_abs_err"])
     rows = {
         "amp_local": (kernel_times["paper_P30/float32"]["amp_local"],
-                      ctx["launches"]["amp_local"], lc_err("paper_P30")),
+                      ctx["launches"]["amp_local"] + sv_launches["amp_local"],
+                      lc_err("paper_P30")),
         # no driven path takes it any more (N <= 131072 everywhere); timed
         # and checked past the cluster's reach
         "amp_local_two_pass": (
             kernel_times[f"{TWO_PASS_CASE}/float32"]["amp_local_two_pass"],
             ctx["launches"]["amp_local_two_pass"]
             + col_launches["amp_local_two_pass"]
-            + bq_launches["amp_local_two_pass"], lc_err(TWO_PASS_CASE)),
+            + bq_launches["amp_local_two_pass"]
+            + sv_launches["amp_local_two_pass"], lc_err(TWO_PASS_CASE)),
         "col_residual": (col_times["paper_P25/float32"]["col_residual"],
-                         col_launches["col_residual"],
+                         col_launches["col_residual"]
+                         + sv_launches["col_residual"],
                          paper_col["r_max_abs_err"]),
         "col_inner": (col_times["paper_P25/float32"]["col_inner_final"],
-                      col_launches["col_inner"],
+                      col_launches["col_inner"] + sv_launches["col_inner"],
                       max(paper_col["x_max_abs_err_final"],
                           paper_col["x_max_abs_err_upd"],
                           paper_col["z_max_abs_err_upd"])),
@@ -1889,7 +2304,8 @@ def main() -> None:
                               + bq_launches["dequantize_blocks"], d_err),
         "block_quant_fuse": (quant_times["row_messages"]["block_quant_fuse"],
                              col_launches["block_quant_fuse"]
-                             + bq_launches["block_quant_fuse"], fuse_err),
+                             + bq_launches["block_quant_fuse"]
+                             + sv_launches["block_quant_fuse"], fuse_err),
         "decode_attn": (lm_times["gemma3_global"],
                         lm_dense["launches"]["decode_attn"],
                         errs_da["gemma3_global"]["max_abs_err"]),

@@ -13,6 +13,7 @@ build this package's objects from them:
     col_dp_schedule_from_arrays  a ColDPSchedule's ``deltas``, ``rates``, ``d_traj``
     bt_tables_from_arrays      the 16 arrays of a BTTables tuple -> BTTables
     col_bt_tables_from_arrays  the 14 arrays of a ColBTTables tuple -> ColBTTables
+    het_params_from_arrays     a HetParams tuple's arrays (bt: stacked tables) -> HetParams
     prior_from_fields / problem_from_fields   dataclasses by their fields
     lm_params_from_arrays  an LM's flat parameter dict -> the module state
 """
@@ -23,14 +24,15 @@ import torch
 
 from .core.denoisers import BernoulliGauss
 from .core.engine import (BTTables, ColBTTables, ColDPSchedule, DPSchedule,
-                          EngineConfig, FixedSchedule)
+                          EngineConfig, FixedSchedule, HetParams)
 from .core.engine import to_f32 as _f32
 from .core.state_evolution import CSProblem
 from .models.model_api import state_from_flat
 
 __all__ = ["problem_to_torch", "shards_to_torch", "schedule_from_deltas",
            "col_dp_schedule_from_arrays", "bt_tables_from_arrays",
-           "col_bt_tables_from_arrays", "prior_from_fields",
+           "col_bt_tables_from_arrays", "het_params_from_arrays",
+           "prior_from_fields",
            "problem_from_fields", "lm_params_from_arrays"]
 
 
@@ -79,6 +81,32 @@ def col_bt_tables_from_arrays(fields, device="cpu") -> ColBTTables:
     """``ColBTTables`` from the reference tuple's 14 arrays, given in field
     order or as a mapping by field name."""
     return _tables_from_arrays(ColBTTables, fields, device)
+
+
+def het_params_from_arrays(fields, device="cpu") -> HetParams:
+    """``HetParams`` from the reference tuple's arrays, in field order or as
+    a mapping by field name, each with its leading batch axis. ``bt`` is the
+    stacked tables' arrays (16: ``BTTables`` of a row bucket; 14:
+    ``ColBTTables`` of a column bucket), again in order or by name;
+    ``drop`` must be None (erasure is not ported yet)."""
+    if isinstance(fields, dict):
+        fields = [fields.get(name) for name in HetParams._fields]
+    fields = list(fields) + [None] * (len(HetParams._fields) - len(fields))
+    hp = dict(zip(HetParams._fields, fields))
+    if hp["drop"] is not None:
+        raise NotImplementedError(
+            "erasure (HetParams.drop) is not ported yet: ROADMAP.md Queue 1 "
+            "item 4")
+    bt = hp["bt"]
+    cls = BTTables if len(bt) == len(BTTables._fields) else ColBTTables
+    as_int = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    return HetParams(
+        sched=_f32(hp["sched"], device), t_active=as_int(hp["t_active"]),
+        m_real=_f32(hp["m_real"], device), n_real=as_int(hp["n_real"]),
+        eps=_f32(hp["eps"], device), mu_s=_f32(hp["mu_s"], device),
+        sigma_s=_f32(hp["sigma_s"], device),
+        use_bt=torch.as_tensor(np.asarray(hp["use_bt"], bool), device=device),
+        bt=_tables_from_arrays(cls, bt, device))
 
 
 def prior_from_fields(eps: float, mu_s: float, sigma_s: float) -> BernoulliGauss:

@@ -34,27 +34,36 @@ decides. ``solve_host_loop`` (row layout only) is the one entry point that
 synchronises every iteration, by design: it serves arbitrary Python
 rate-controller callables.
 
+``solve_het`` solves a heterogeneous batch (the solve service's path): B
+padded instances with their own prior, measurement count, real columns,
+iteration budget and rate policy (``HetParams``, tensors with a leading B
+axis), each frozen once its own budget is spent, with no host sync in the
+loop either.
+
 What the JAX engine has and this one does not: an ahead-of-time executable
-cache (``_run``, ``compile_count``) — eager PyTorch compiles nothing, only
-``dispatch_count`` is kept — the ``use_kernel`` / ``kernel_interpret`` /
-``donate`` switches, and (for now) erasure (``drop=``), the heterogeneous
-batch path and device-sharded solves.
+cache (``_run``, ``lower_het``, ``compile_het``) — eager PyTorch compiles
+nothing; ``compile_count`` counts the distinct programs (entry point,
+operand shapes, BT or not) an engine has run, the serving layer's
+warm-start signal — the ``use_kernel`` / ``kernel_interpret`` / ``donate``
+switches, and (for now) erasure (``drop=``) and device-sharded solves.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import NamedTuple, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from ..kernels.amp_fused.ops import (amp_local_grid, col_inner_step,
-                                     col_residual, pad_col_shards,
-                                     pad_row_shards)
+                                     col_params, col_residual,
+                                     pad_col_shards, pad_row_shards)
 from ..kernels.quantize.ops import block_quant_fuse
 from .compression import QuantConfig
-from .denoisers import BernoulliGauss, eta_and_deriv, make_mmse_interp
+from .denoisers import (BernoulliGauss, eta_and_deriv, eta_bg_and_deriv,
+                        make_mmse_interp)
 from .quantize import (GaussMixture, dequantize_midtread, ecsq_entropy,
                        message_mixture, quantize_midtread)
 from .rate_alloc import (BTController, col_sigma_q2_for_rate,
@@ -69,6 +78,7 @@ __all__ = [
     "BTRateControl", "BTTables", "bt_delta_for", "ColBTTables",
     "col_bt_delta_for", "ColumnBTRateControl", "ColDPSchedule", "interp",
     "amp_gc_step", "split_problem", "split_problem_cols", "to_f32",
+    "HetParams", "stack_bt_tables", "pad_bt_tables",
 ]
 
 
@@ -327,24 +337,76 @@ class BTTables(NamedTuple):
     def to(self, device) -> "BTTables":
         return BTTables(*(f.to(device) for f in self))
 
+    @classmethod
+    def dummy(cls, n_iter: int, n_s2: int = 25, n_u: int = 61) -> "BTTables":
+        """Benign finite tables for the non-BT instances of a mixed batch:
+        where any instance uses BT, ``bt_delta_for`` runs for every
+        instance and the non-BT ones' decisions are discarded through
+        ``torch.where``, so their tables only have to give finite values.
+        CPU tensors; the caller keeps them."""
+        f = lambda v: torch.as_tensor(np.asarray(v, np.float32))
+        lin = np.linspace(-20.0, 7.0, 400)
+        return cls(
+            log_v=f(lin), log_m=f(lin), targets=f(np.ones(n_iter)),
+            log_s2_grid=f(np.linspace(-20.0, 2.0, n_s2)),
+            log2u_grid=f(np.linspace(-12.0, 5.0, n_u)),
+            gap_tab=f(np.ones((n_s2, n_u))),
+            cap_ls2=f(np.linspace(-20.0, 2.0, 512)), cap_lsq2=f(np.zeros(512)),
+            sigma_e2=f(1e-3), inv_kappa=f(1.0), n_proc=f(1.0), eps=f(0.1),
+            mu_s=f(0.0), sigma_s2=f(1.0), r_max=f(6.0), amp=f(1.0))
+
+
+def _search(knots, v, right: bool = False):
+    """``torch.searchsorted`` over shared 1-D knots, or over (B, K) knots,
+    one row per instance, with ``v`` (B, ...)."""
+    if knots.ndim == 1:
+        return torch.searchsorted(knots, v, right=right)
+    lead = knots.shape[:-1]
+    return torch.searchsorted(knots, v.reshape(lead + (-1,)),
+                              right=right).reshape(v.shape)
+
+
+def _take(table, i, batched: bool):
+    """``table[i]`` without reading the index on the host: ``torch.take``
+    on a shared table (flat offsets), ``take_along_dim`` on a stacked one
+    (B, ...) with ``i`` (B, ...) offsets into each instance's own table.
+    (Indexing with a 0-dim index tensor reads the index on the host, which
+    would stall the solve loop.)"""
+    if not batched:
+        return torch.take(table, i)
+    b = table.shape[0]
+    return torch.take_along_dim(table.reshape(b, -1), i.reshape(b, -1),
+                                dim=-1).reshape(i.shape)
+
 
 def interp(x, xp, fp):
-    """``numpy.interp`` on tensors: piecewise-linear through the 1-D knots
-    (xp increasing, fp), constant beyond the ends. ``x`` has any shape."""
-    x = torch.clamp(x, min=xp[0], max=xp[-1])
-    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1,
-                    xp.shape[0] - 1)
-    # torch.take, not fp[i]: indexing with a 0-dim index tensor reads the
-    # index on the host, which would stall the solve loop
-    x0, f0 = torch.take(xp, i - 1), torch.take(fp, i - 1)
-    df = torch.take(fp, i) - f0
-    dx = torch.take(xp, i) - x0
+    """``numpy.interp`` on tensors: piecewise-linear through the knots
+    (xp increasing, fp), constant beyond the ends. Shared 1-D knots take
+    ``x`` of any shape; stacked (B, K) knots (one table per instance of a
+    heterogeneous batch) take ``x`` (B, ...)."""
+    batched = xp.ndim > 1
+    x = torch.clamp(x, min=_first(xp, x), max=_last(xp, x))
+    i = torch.clamp(_search(xp, x, right=True), 1, xp.shape[-1] - 1)
+    x0, f0 = _take(xp, i - 1, batched), _take(fp, i - 1, batched)
+    df = _take(fp, i, batched) - f0
+    dx = _take(xp, i, batched) - x0
     return f0 + ((x - x0) / dx) * df
+
+
+def _first(knots, v):
+    """knots[0] (shared) or knots[:, 0] shaped against ``v`` (B, ...)."""
+    k = knots[..., 0]
+    return k.reshape(k.shape + (1,) * (v.ndim - k.ndim))
+
+
+def _last(knots, v):
+    k = knots[..., -1]
+    return k.reshape(k.shape + (1,) * (v.ndim - k.ndim))
 
 
 def _bt_mmse(tb: BTTables, v):
     lv = torch.clamp(torch.log(torch.clamp(v, min=1e-30)),
-                     min=tb.log_v[0], max=tb.log_v[-1])
+                     min=_first(tb.log_v, v), max=_last(tb.log_v, v))
     return torch.exp(interp(lv, tb.log_v, tb.log_m))
 
 
@@ -373,26 +435,28 @@ def _bt_rate_lookup(tb: BTTables, sigma2_hat, sigma_q2):
     lu = torch.log2(delta / _bt_msg_sd(tb, sigma2_hat))
     ls = torch.log(sigma2_hat)
     gi, gj = tb.log_s2_grid, tb.log2u_grid
-    i = torch.clamp(torch.searchsorted(gi, ls) - 1, 0, gi.shape[0] - 2)
-    j = torch.clamp(torch.searchsorted(gj, lu) - 1, 0, gj.shape[0] - 2)
-    gi0, gj0 = torch.take(gi, i), torch.take(gj, j)
-    wi = torch.clamp((ls - gi0) / (torch.take(gi, i + 1) - gi0), 0.0, 1.0)
-    wj = torch.clamp((lu - gj0) / (torch.take(gj, j + 1) - gj0), 0.0, 1.0)
-    # flat offsets into the (n_s2, n_u) table (torch.take: see interp)
-    flat = i * gj.shape[0] + j
-    t00 = torch.take(tb.gap_tab, flat)
-    t01 = torch.take(tb.gap_tab, flat + 1)
-    t10 = torch.take(tb.gap_tab, flat + gj.shape[0])
-    t11 = torch.take(tb.gap_tab, flat + gj.shape[0] + 1)
+    batched = gi.ndim > 1
+    i = torch.clamp(_search(gi, ls) - 1, 0, gi.shape[-1] - 2)
+    j = torch.clamp(_search(gj, lu) - 1, 0, gj.shape[-1] - 2)
+    gi0, gj0 = _take(gi, i, batched), _take(gj, j, batched)
+    wi = torch.clamp((ls - gi0) / (_take(gi, i + 1, batched) - gi0), 0.0, 1.0)
+    wj = torch.clamp((lu - gj0) / (_take(gj, j + 1, batched) - gj0), 0.0, 1.0)
+    # flat offsets into each (n_s2, n_u) table
+    n_u = gj.shape[-1]
+    flat = i * n_u + j
+    t00 = _take(tb.gap_tab, flat, batched)
+    t01 = _take(tb.gap_tab, flat + 1, batched)
+    t10 = _take(tb.gap_tab, flat + n_u, batched)
+    t11 = _take(tb.gap_tab, flat + n_u + 1, batched)
     gap = ((1 - wi) * ((1 - wj) * t00 + wj * t01)
            + wi * ((1 - wj) * t10 + wj * t11))
-    return gap - torch.clamp(lu, min=gj[0], max=gj[-1])
+    return gap - torch.clamp(lu, min=_first(gj, lu), max=_last(gj, lu))
 
 
 def _bt_cap_sq2(tb: BTTables, sigma2_hat):
     """sigma_Q^2 achieving rate r_max (dedicated dense 1D curve)."""
-    ls = torch.clamp(torch.log(sigma2_hat), min=tb.cap_ls2[0],
-                     max=tb.cap_ls2[-1])
+    ls = torch.clamp(torch.log(sigma2_hat), min=_first(tb.cap_ls2, sigma2_hat),
+                     max=_last(tb.cap_ls2, sigma2_hat))
     return torch.exp(interp(ls, tb.cap_ls2, tb.cap_lsq2))
 
 
@@ -405,11 +469,14 @@ def bt_delta_for(tb: BTTables, t: int, sigma2_hat):
 
     A fixed count of tensor ops — 30 bracket-growth steps and 80 bisection
     steps whatever the data — so nothing here reads a tensor's value on the
-    host. ``sigma2_hat`` is () or (B,): the table lookups are batched over
-    it, the tables are shared.
+    host. ``sigma2_hat`` is () or (B,). The tables are shared (1-D
+    knots, () scalars) or stacked, one set per instance of a heterogeneous
+    batch (``stack_bt_tables``: a leading B axis on every field, with
+    ``sigma2_hat`` (B,)); each instance then decides from its own tables,
+    the same bits as a call with its tables alone.
     """
     sigma2_hat = torch.clamp(sigma2_hat, min=1e-30)
-    target = tb.targets[t]
+    target = tb.targets[..., t]
     base = _bt_predict_next(tb, sigma2_hat, 0.0)
 
     hi = sigma2_hat / tb.n_proc + 1e-12
@@ -429,6 +496,25 @@ def bt_delta_for(tb: BTTables, t: int, sigma2_hat):
     sq2 = torch.where(use_cap, sq2_cap, lo)
     rate = torch.where(use_cap, tb.r_max, rate_bis)
     return torch.sqrt(12.0 * sq2), rate
+
+
+def stack_bt_tables(tables):
+    """Stack per-instance ``BTTables`` (or ``ColBTTables``) into one tuple
+    with a leading batch axis on every field, on the first one's device.
+    Every entry needs the same ``targets`` length (``pad_bt_tables``) and
+    grid sizes."""
+    return type(tables[0])(*(torch.stack(fields) for fields in zip(*tables)))
+
+
+def pad_bt_tables(tb, n_iter: int):
+    """Extend (or cut) the SE target vector to ``n_iter`` (a bucket's
+    T_max) by repeating the last target; iterations past the instance's
+    ``t_active`` are frozen out, so the padding is never acted on."""
+    cur = tb.targets.shape[0]
+    if cur >= n_iter:
+        return tb._replace(targets=tb.targets[:n_iter])
+    pad = tb.targets[-1:].expand(n_iter - cur)
+    return tb._replace(targets=torch.cat([tb.targets, pad]))
 
 
 class _TablesOnDevice:
@@ -597,6 +683,19 @@ class ColBTTables(NamedTuple):
     def to(self, device) -> "ColBTTables":
         return ColBTTables(*(f.to(device) for f in self))
 
+    @classmethod
+    def dummy(cls, n_iter: int, n_u: int = 256) -> "ColBTTables":
+        """Benign finite tables for the non-BT instances of a mixed column
+        batch (the contract of ``BTTables.dummy``)."""
+        f = lambda v: torch.as_tensor(np.asarray(v, np.float32))
+        lin = np.linspace(-20.0, 7.0, 400)
+        return cls(
+            log_v=f(lin), log_m=f(lin), targets=f(np.ones(n_iter)),
+            log2u_grid=f(np.linspace(-12.0, 5.0, n_u)), hq_tab=f(np.ones(n_u)),
+            u_cap=f(0.0), sigma_e2=f(1e-3), inv_kappa=f(1.0), n_proc=f(1.0),
+            eps=f(0.1), mu_s=f(0.0), sigma_s2=f(1.0), r_max=f(6.0),
+            surv=f(1.0))
+
 
 def col_bt_delta_for(tb: ColBTTables, t: int, v_prev):
     """One column-BT decision on the device: (tables, round, v_hat_{s-1}) ->
@@ -610,7 +709,8 @@ def col_bt_delta_for(tb: ColBTTables, t: int, v_prev):
     cap inverts the 1-D Gaussian H_Q table. Round 0 is lossless for free
     (its exchanged contributions are all zero): delta = inf, rate = 0 —
     ``t`` is a Python int, so that is a Python branch and reads nothing on
-    the host. ``v_prev`` is () or (B,).
+    the host. ``v_prev`` is () or (B,); the tables are shared or stacked
+    per instance, as in ``bt_delta_for``.
     """
     if t == 0:
         return torch.full_like(v_prev, math.inf), torch.zeros_like(v_prev)
@@ -622,12 +722,13 @@ def col_bt_delta_for(tb: ColBTTables, t: int, v_prev):
     # erasure reset semantics (tb.surv == 1.0 is a bit-exact no-op)
     d_in = tb.surv * d + (1.0 - tb.surv) * sm
     base = tb.sigma_e2 + d_in * tb.inv_kappa
-    sq2_adm = torch.clamp(tb.targets[t] - base, min=0.0) / (tb.n_proc * tb.surv)
+    sq2_adm = torch.clamp(tb.targets[..., t] - base, min=0.0) / (tb.n_proc * tb.surv)
     sq2_cap = (torch.exp2(tb.u_cap) * sd_r) ** 2 / 12.0
     # the cap binds when the admissible bin is finer than r_max affords
     sq2 = torch.minimum(torch.maximum(sq2_adm, sq2_cap), v_r)
     lu = 0.5 * torch.log2(12.0 * sq2 / v_r)
-    lu_c = torch.clamp(lu, min=tb.log2u_grid[0], max=tb.log2u_grid[-1])
+    lu_c = torch.clamp(lu, min=_first(tb.log2u_grid, lu),
+                       max=_last(tb.log2u_grid, lu))
     rate = torch.minimum(interp(lu_c, tb.log2u_grid, tb.hq_tab), tb.r_max)
     return torch.sqrt(12.0 * sq2), rate
 
@@ -764,6 +865,35 @@ class EngineConfig:
         return dev
 
 
+class HetParams(NamedTuple):
+    """Per-instance operands of a heterogeneous batch (``solve_het``), each
+    a tensor with a leading batch axis B (shapes below are per instance).
+    With the per-instance sensing shards, these are what the serving layer
+    varies inside one batched solve; everything structural (padded M and N,
+    P, T_max, transport) is the bucket's instead."""
+
+    sched: torch.Tensor     # (T,) fixed/DP bin sizes (inf = lossless)
+    t_active: torch.Tensor  # () int: iterations to run (masked early exit)
+    m_real: torch.Tensor    # () float32: true measurement count (plug-in norm)
+    n_real: torch.Tensor    # () int: true signal length (column mask)
+    eps: torch.Tensor       # () float32 prior sparsity
+    mu_s: torch.Tensor      # () float32 prior mean
+    sigma_s: torch.Tensor   # () float32 prior std
+    use_bt: torch.Tensor    # () bool: BT controller vs the schedule
+    bt: "BTTables | ColBTTables"   # stacked tables (dummy where !use_bt)
+    drop: torch.Tensor | None = None   # (T, P) erasure mask: not yet
+    #                                    (ROADMAP.md Queue 1 item 4)
+
+    def to(self, device) -> "HetParams":
+        """Every field on ``device`` (the schedule and priors as float32)."""
+        f32 = lambda v: v.to(device=device, dtype=torch.float32)
+        return self._replace(
+            sched=f32(self.sched), t_active=self.t_active.to(device),
+            m_real=f32(self.m_real), n_real=self.n_real.to(device),
+            eps=f32(self.eps), mu_s=f32(self.mu_s), sigma_s=f32(self.sigma_s),
+            use_bt=self.use_bt.to(device), bt=self.bt.to(device))
+
+
 @dataclasses.dataclass
 class EngineTrace:
     """Per-iteration record of one engine solve (arrays are numpy on exit)."""
@@ -809,8 +939,26 @@ class AmpEngine:
         if controller is None:
             controller = FixedSchedule(np.full(cfg.n_iter, np.inf))
         self.controller = controller
-        # executed solves: the per-engine load signal
+        # executed solves: the per-engine load signal; distinct programs
+        # run (entry point, operand shapes, BT or not): the counterpart of
+        # the reference's compile count, what a prewarm moves to start-up
         self.dispatch_count = 0
+        self.compile_count = 0
+        self._programs: set = set()
+        self._count_lock = threading.Lock()
+
+    def _dispatched(self, program: tuple) -> None:
+        with self._count_lock:
+            self.dispatch_count += 1
+            if program not in self._programs:
+                self._programs.add(program)
+                self.compile_count += 1
+
+    def counters(self) -> dict:
+        """A consistent ``{"compiles", "dispatches"}`` pair."""
+        with self._count_lock:
+            return {"compiles": self.compile_count,
+                    "dispatches": self.dispatch_count}
 
     # -- shared iteration body ----------------------------------------------
 
@@ -908,17 +1056,19 @@ class AmpEngine:
                 "ColumnBTRateControl (row-wise controllers predict through "
                 f"the wrong SE), got {type(self.controller).__name__}")
 
-    def _col_prior_params(self):
-        """(eps, mu_s, sigma_s^2) for the fused inner step, whose denoiser
-        is the Bernoulli-Gauss closed form."""
+    def _col_prior_params(self, m: int) -> torch.Tensor:
+        """The fused inner step's ``par``, ``[m_eff, eps, mu_s, sigma_s^2]``
+        (4,) on the solve's device, built once per solve before its loop
+        (the inner step's denoiser is the Bernoulli-Gauss closed form)."""
         pr = self.prior
         if not isinstance(pr, BernoulliGauss):
             raise TypeError("the column layout's inner step denoises with "
                             "the Bernoulli-Gauss closed form; got "
                             f"{type(pr).__name__}")
-        return pr.eps, pr.mu_s, pr.sigma_s**2
+        return col_params(float(m), pr.eps, pr.mu_s, pr.sigma_s**2,
+                          self.device)
 
-    def _col_inner(self, x, g, z_p, a_cp, m_eff):
+    def _col_inner(self, x, g, z_p, a_cp, par, n_mask=None):
         """``layout.n_inner`` local AMP iterations at each processor on the
         fused residual ``g``, each one fused inner step (``col_inner_step``):
 
@@ -927,20 +1077,23 @@ class AmpEngine:
             z_p <- g - A_p (x_p - x_p^0) + c_p z_p,  c_p = sum(eta') / M
 
         (the last step skips the z update). ``z_p`` is the round's starting
-        residual stack (..., P, M). Returns ``(x, c_p, z_last)``, ``z_last``
-        the residual that fed the final denoise."""
+        residual stack (..., P, M); ``par`` the step's ``[M, eps, mu_s,
+        sigma_s^2]``, (4,) or one row per instance; ``n_mask`` the real
+        columns of each slice, or None. Returns ``(x, c_p, z_last)``,
+        ``z_last`` the residual that fed the final denoise."""
         n_inner = self.cfg.layout.n_inner
-        pp = self._col_prior_params()
         x0, c_p = x, None
         for t in range(n_inner):
-            x, c_p, z_p = col_inner_step(a_cp, x, x0, z_p, g, None, m_eff,
-                                         *pp, update_z=t + 1 < n_inner)
+            x, c_p, z_p = col_inner_step(a_cp, x, x0, z_p, g, n_mask, par,
+                                         update_z=t + 1 < n_inner)
         return x, c_p, z_p
 
-    def _col_round(self, x, mem, coef, delta, a_cp, y, m_eff):
+    def _col_round(self, x, mem, coef, delta, a_cp, y, m_eff, par,
+                   n_mask=None):
         """One round: residual contributions, fuse, the boundary Onsager
         memory, the inner stage. Returns the new carry pieces and the
-        round's record ``(v_hat, extra, syms)``."""
+        round's record ``(v_hat, extra, syms)``. ``m_eff`` normalises the
+        plug-in (a number, or (B,) real measurement counts)."""
         r_p = col_residual(a_cp, x)
         r, extra, syms = self._fuse(r_p, delta)
         g = y - r
@@ -952,12 +1105,12 @@ class AmpEngine:
             g = g + torch.einsum("...p,...pm->...m", coef, mem)
         v_hat = torch.sum(g * g, dim=-1) / m_eff
         z0 = g.unsqueeze(-2).expand(x.shape[:-1] + g.shape[-1:]).contiguous()
-        x_new, c_p, z_last = self._col_inner(x, g, z0, a_cp, m_eff)
+        x_new, c_p, z_last = self._col_inner(x, g, z0, a_cp, par, n_mask)
         if self.cfg.layout.carry_fused:
             return x_new, g, torch.sum(c_p, dim=-1), v_hat, extra, syms
         return x_new, z_last, c_p, v_hat, extra, syms
 
-    def _col_body(self, t: int, carry, sched_delta, a_cp, y, m_eff,
+    def _col_body(self, t: int, carry, sched_delta, a_cp, y, m_eff, par,
                   outs: _Outs):
         """One outer round; writes its record into ``outs`` at index t.
         The carry is ``(x (..., P, Np), mem, coef, v_prev)``: the signal
@@ -972,7 +1125,7 @@ class AmpEngine:
         else:
             delta, rate = self.controller.delta_for(t, v_prev)
         x_new, mem, coef, v_hat, extra, syms = self._col_round(
-            x, mem, coef, delta, a_cp, y, m_eff)
+            x, mem, coef, delta, a_cp, y, m_eff, par)
         if t == 0:
             # round 0 quantizes all-zero contributions exactly: no noise
             # enters g, whatever bin the schedule names
@@ -984,9 +1137,10 @@ class AmpEngine:
             outs.symbols[..., t, :, :] = syms
         return x_new, mem, coef, v_hat
 
-    def _col_solve_core(self, a_cp, y, sched, m: int, n: int):
+    def _col_solve_core(self, a_cp, y, sched, par, m: int, n: int):
         """The outer-round loop on device operands. a_cp (P, M, Np) or
-        (B, P, M, Np); y (M,) or (B, M); sched (T,)."""
+        (B, P, M, Np); y (M,) or (B, M); sched (T,); par the inner step's
+        operand (``_col_prior_params``)."""
         cfg, p = self.cfg, self.cfg.n_proc
         lead = tuple(y.shape[:-1])
         zeros = lambda *shape: torch.zeros(lead + shape, dtype=torch.float32,
@@ -999,7 +1153,7 @@ class AmpEngine:
         carry = (x, mem, coef, torch.sum(y * y, dim=-1) / m)
         outs = self._alloc_outs(lead, n, m)
         for t in range(cfg.n_iter):
-            carry = self._col_body(t, carry, sched[t], a_cp, y, m, outs)
+            carry = self._col_body(t, carry, sched[t], a_cp, y, m, par, outs)
         return carry[0].reshape(lead + (n,)), outs
 
     # -- operands -------------------------------------------------------------
@@ -1052,7 +1206,7 @@ class AmpEngine:
         sched = self._f32(sched)
         assert sched.shape == (self.cfg.n_iter,), \
             (tuple(sched.shape), self.cfg.n_iter)
-        self.dispatch_count += 1
+        self._dispatched(("row", tuple(a_p.shape), m, n))
         return self._solve_core(a_p, y_p, sched, m, n)
 
     def solve(self, y, a_mat) -> EngineTrace:
@@ -1064,9 +1218,10 @@ class AmpEngine:
         if self.cfg.is_col:
             self._check_col_controller()
             a_cp, y_d = self._split_col(y, a_mat)
-            self.dispatch_count += 1
+            self._dispatched(("col", tuple(a_cp.shape), m, n))
             return self._trace(*self._col_solve_core(
-                a_cp, y_d, self._f32(self._sched_operand()), m, n))
+                a_cp, y_d, self._f32(self._sched_operand()),
+                self._col_prior_params(m), m, n))
         a_p, y_p = self._split(y, a_mat)
         return self._trace(*self.dispatch_single(a_p, y_p, m, n))
 
@@ -1086,19 +1241,188 @@ class AmpEngine:
         if self.cfg.is_col:
             self._check_col_controller()
             a_b, y_b = pad_col_shards(split_problem_cols(a_mats, p), ys)
-            self.dispatch_count += 1
+            self._dispatched(("col", tuple(a_b.shape), m, n))
             return self._trace(*self._col_solve_core(
                 self._a_operand(a_b), y_b.contiguous(),
-                self._f32(self._sched_operand()), m, n))
+                self._f32(self._sched_operand()), self._col_prior_params(m),
+                m, n))
         assert m % p == 0, f"M={m} not divisible by P={p}"
         mp_ = m // p
         a_b = a_mats.reshape(a_mats.shape[:-2] + (p, mp_, n))
         y_b = ys.reshape(b, p, mp_).contiguous()
         a_b, _ = pad_row_shards(a_b, None)
-        self.dispatch_count += 1
+        self._dispatched(("row", tuple(a_b.shape), m, n))
         x, outs = self._solve_core(self._a_operand(a_b), y_b,
                                    self._f32(self._sched_operand()), m, n)
         return self._trace(x, outs)
+
+    # -- heterogeneous batches (the serving path) -------------------------------
+
+    def _body_het(self, t: int, carry, a_p, y_p, hp: HetParams, prior,
+                  n_mask, has_bt: bool, outs: _Outs):
+        """One masked iteration of a row bucket with per-instance operands.
+
+        ``_body``'s LC/GC split; the differences: sigma2_hat normalises by
+        each instance's real M, the denoiser runs on each instance's prior
+        (``prior`` = its (eps, mu_s, sigma_s^2) as (B, 1) columns), the
+        Onsager sum covers only real columns, the bin comes from the
+        instance's schedule or its BT tables (``has_bt`` is a Python bool:
+        a batch without a BT request runs no controller), and an instance
+        freezes once ``t >= t_active``, its record 0 (inf for the rate)
+        from there on. ``torch.where`` on device tensors throughout: no
+        host sync."""
+        x, z_p, onsager = carry
+        z_new, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, hp.m_real)
+        sched_t = hp.sched[:, t]
+        rate = None
+        if has_bt:
+            bt_delta, bt_rate = bt_delta_for(hp.bt, t, s2)
+            delta = torch.where(hp.use_bt, bt_delta, sched_t)
+            rate = torch.where(hp.use_bt, bt_rate, math.inf)
+        else:
+            delta = sched_t
+        f, extra, syms = self._fuse(f_p, delta)
+        val, deriv = eta_bg_and_deriv(f, (s2 + extra)[:, None], *prior)
+        x_new = val * n_mask
+        onsager_new = torch.sum(deriv * n_mask, dim=-1) / hp.m_real
+        act = t < hp.t_active
+        x1 = torch.where(act[:, None], x_new, x)
+        z1 = torch.where(act[:, None, None], z_new, z_p)
+        ons1 = torch.where(act, onsager_new, onsager)
+        self._record(outs, t, torch.where(act, s2, 0.0),
+                     torch.where(act, delta, 0.0),
+                     torch.where(act, extra, 0.0),
+                     None if rate is None else torch.where(act, rate, math.inf))
+        if outs.xs is not None:
+            outs.xs[..., t, :] = x1
+        if outs.symbols is not None:
+            outs.symbols[..., t, :, :] = syms
+        return x1, z1, ons1
+
+    def _het_core(self, a_b, y_b, hp: HetParams, has_bt: bool):
+        """The row bucket's T_max-iteration loop on device operands: a_b
+        (B, P, mp_pad, n_pad), y_b (B, P, mp_pad), ``hp`` on the device."""
+        b, _, _, n = a_b.shape
+        dev = self.device
+        n_mask = (torch.arange(n, device=dev)[None, :]
+                  < hp.n_real[:, None]).to(torch.float32)
+        prior = (hp.eps[:, None], hp.mu_s[:, None], (hp.sigma_s**2)[:, None])
+        carry = (torch.zeros((b, n), dtype=torch.float32, device=dev),
+                 torch.zeros_like(y_b),
+                 torch.zeros(b, dtype=torch.float32, device=dev))
+        outs = self._alloc_outs((b,), n, n)
+        for t in range(self.cfg.n_iter):
+            carry = self._body_het(t, carry, a_b, y_b, hp, prior, n_mask,
+                                   has_bt, outs)
+        return carry[0], outs
+
+    def _col_body_het(self, t: int, carry, a_cp, y, hp: HetParams, par,
+                      n_mask, has_bt: bool, outs: _Outs):
+        """One masked C-MP-AMP round of a column bucket with per-instance
+        operands: ``_col_body``'s carry plus the ``t_active`` freeze; ``par``
+        (B, 4) and ``n_mask`` (B, Np) feed the inner step (K3) each
+        instance's own prior, real M and real columns."""
+        x, mem, coef, v_prev = carry
+        sched_t = hp.sched[:, t]
+        rate = None
+        if has_bt:
+            bt_delta, bt_rate = col_bt_delta_for(hp.bt, t, v_prev)
+            delta = torch.where(hp.use_bt, bt_delta, sched_t)
+            rate = torch.where(hp.use_bt, bt_rate, math.inf)
+        else:
+            delta = sched_t
+        x_new, mem_new, coef_new, v_hat, extra, syms = self._col_round(
+            x, mem, coef, delta, a_cp, y, hp.m_real, par, n_mask)
+        if t == 0:
+            extra = torch.zeros_like(extra)     # zero round-0 payload
+        act = t < hp.t_active
+        lead = lambda v: act.reshape(act.shape + (1,) * (v.ndim - 1))
+        x1 = torch.where(lead(x), x_new, x)
+        mem1 = torch.where(lead(mem), mem_new, mem)
+        coef1 = torch.where(lead(coef), coef_new, coef)
+        v1 = torch.where(act, v_hat, v_prev)
+        self._record(outs, t, torch.where(act, v_hat, 0.0),
+                     torch.where(act, delta, 0.0),
+                     torch.where(act, extra, 0.0),
+                     None if rate is None else torch.where(act, rate, math.inf))
+        if outs.xs is not None:
+            outs.xs[..., t, :] = x1.reshape(x1.shape[0], -1)
+        if outs.symbols is not None:
+            outs.symbols[..., t, :, :] = syms
+        return x1, mem1, coef1, v1
+
+    def _col_het_core(self, a_b, y_b, hp: HetParams, has_bt: bool):
+        """The column bucket's T_max-round loop: a_b (B, P, m_pad, np_pad),
+        y_b (B, m_pad); every processor owns n_real / P real columns at the
+        head of its slice."""
+        b, p, m_pad, np_pad = a_b.shape
+        dev = self.device
+        n_mask = (torch.arange(np_pad, device=dev)[None, :]
+                  < (hp.n_real // p)[:, None]).to(torch.float32)
+        par = col_params(hp.m_real, hp.eps, hp.mu_s, hp.sigma_s**2, dev)
+        zeros = lambda *shape: torch.zeros((b,) + shape, dtype=torch.float32,
+                                           device=dev)
+        if self.cfg.layout.carry_fused:
+            mem, coef = torch.zeros_like(y_b), zeros()
+        else:
+            mem, coef = zeros(p, m_pad), zeros(p)
+        carry = (zeros(p, np_pad), mem, coef,
+                 torch.sum(y_b * y_b, dim=-1) / hp.m_real)
+        outs = self._alloc_outs((b,), p * np_pad, m_pad)
+        for t in range(self.cfg.n_iter):
+            carry = self._col_body_het(t, carry, a_b, y_b, hp, par, n_mask,
+                                       has_bt, outs)
+        return carry[0].reshape(b, p * np_pad), outs
+
+    def dispatch_het(self, a_b, y_b, params: HetParams,
+                     has_bt: bool | None = None):
+        """Launch the heterogeneous solve of one padded batch, returning the
+        raw device-side ``(x, outs)`` without waiting for the device (build
+        the trace with ``trace_of``). Row buckets: a_b (B, P, mp_pad,
+        n_pad), y_b (B, P, mp_pad); column buckets: a_b (B, P, m_pad,
+        np_pad), y_b (B, m_pad). ``a_b`` may be a device tensor already in
+        ``cfg.a_dtype``: it is used as it is. ``has_bt`` None reads
+        ``params.use_bt`` (pass it to keep that read off the host path)."""
+        if params.drop is not None:
+            raise NotImplementedError(
+                "erasure (HetParams.drop) is not ported yet: ROADMAP.md "
+                "Queue 1 item 4")
+        if has_bt is None:
+            has_bt = bool(torch.as_tensor(params.use_bt).any())
+        a_b = self._a_operand(a_b if isinstance(a_b, torch.Tensor)
+                              else self._f32(a_b))
+        y_b = self._f32(y_b).contiguous()
+        hp = params.to(self.device)
+        b, p = a_b.shape[:2]
+        assert p == self.cfg.n_proc, (p, self.cfg.n_proc)
+        assert hp.sched.shape == (b, self.cfg.n_iter), \
+            (tuple(hp.sched.shape), b, self.cfg.n_iter)
+        if self.cfg.is_col:
+            assert tuple(y_b.shape) == (b, a_b.shape[2]), \
+                (tuple(y_b.shape), tuple(a_b.shape))
+            self._dispatched(("col_het", tuple(a_b.shape), has_bt))
+            return self._col_het_core(a_b, y_b, hp, has_bt)
+        assert tuple(y_b.shape) == tuple(a_b.shape[:3]), \
+            (tuple(y_b.shape), tuple(a_b.shape))
+        self._dispatched(("het", tuple(a_b.shape), has_bt))
+        return self._het_core(a_b, y_b, hp, has_bt)
+
+    def trace_of(self, x_outs) -> EngineTrace:
+        """Bring a ``dispatch_het`` / ``dispatch_single`` result to the host."""
+        return self._trace(*x_outs)
+
+    def solve_het(self, a_b, y_b, params: HetParams,
+                  has_bt: bool | None = None) -> EngineTrace:
+        """Solve a heterogeneous batch of B padded CS instances.
+
+        Row buckets pad each processor's rows with zero rows *within its
+        own shard* (so the row -> processor partition matches the unpadded
+        solve) and the columns with zero columns; column buckets pad each
+        processor's slice of columns and the shared rows. Results for
+        instance i are valid on its first ``n_real[i]`` columns (column
+        buckets: the first ``n_real[i] / P`` of each slice) and
+        ``t_active[i]`` iterations."""
+        return self.trace_of(self.dispatch_het(a_b, y_b, params, has_bt))
 
     def solve_host_loop(self, y, a_mat, host_schedule=None) -> EngineTrace:
         """Per-iteration host loop over the same LC/GC pieces.

@@ -8,7 +8,9 @@
 //                                f[b,p,n] = sum_m A[b,p,m,n] z[b,p,m] and of ||z[b,p]||^2
 //         col_denoise_kernel     f = x + sum of the partials, s2 = max(||z||^2/m_eff, 1e-30),
 //                                (x', eta') = Bernoulli-Gauss conditional mean and its
-//                                derivative, masked; c[b,p] = sum(eta' mask) / m_eff
+//                                derivative, masked; c[b,p] = sum(eta' mask) / m_eff;
+//                                m_eff and the prior are instance b's (par[b], the TPU
+//                                kernel's par_ref vmapped per instance), and so is the mask
 //         col_rows_ring_kernel<UPDATE=true>   (only when update_z; col_rows_kernel
 //                                without a ring)
 //                                z'[b,p,m] = g[b,m] - sum_n A[b,p,m,n] (x'-x0)[b,p,n] + c[b,p] z[b,p,m]
@@ -44,7 +46,14 @@
 //     atomics anywhere: the outputs, c included, are the same bits run to run.
 //   * The denoiser runs in float32 in that second kernel, the closed form of
 //     src/repro_torch/core/denoisers.py::eta_bg_and_deriv with its stable
-//     sigmoid; logit(eps) comes from the host in double and is rounded once.
+//     sigmoid. Its operands are device data, never host numbers: par
+//     (B or 1, 4) = [m_eff, eps, mu_s, sigma_s^2] per instance and a 0/1
+//     column mask (B or 1, np) (or none), each with a batch stride of 0 when
+//     one row serves the whole batch; the block of (b, p) reads row b of
+//     both and computes logit(eps) itself, in float32. So one solve serves
+//     a batch of instances with their own priors, measurement counts and
+//     real columns (the heterogeneous batch), and nothing is asked of the
+//     host between launches.
 //   * A may be stored in bfloat16 (half the bytes); it is widened in
 //     registers and every sum is float32.
 //   * Ragged edges are masked here, so no padded copy of A is ever made;
@@ -271,21 +280,30 @@ __global__ void col_f_partial_kernel(const TA* __restrict__ a, long long a_bstri
 }
 
 // ---- the rest of stage 0: fixed-order sums, denoise, c -----------------------
-// grid (B*P), block kDThreads. x, x_out (B*P, np); mask (np,) or null;
-// c_out (B*P).
+// grid (B*P), block kDThreads. x, x_out (B*P, np); mask (B or 1, np) rows
+// mask_bstride apart, or null; par (B or 1, 4) rows par_bstride apart;
+// c_out (B*P). The block's instance is b = bp / n_proc: the partials are
+// indexed by bp, the mask and the parameters by b.
 __global__ void col_denoise_kernel(const float* __restrict__ fpart,
                                    const float* __restrict__ sspart,
                                    const float* __restrict__ x,
                                    const float* __restrict__ mask,
+                                   long long mask_bstride,
+                                   const float* __restrict__ par,
+                                   long long par_bstride,
                                    float* __restrict__ x_out,
-                                   float* __restrict__ c_out, int np,
-                                   int n_chunks, float m_eff, float logit_eps,
-                                   float mu, float sigma_s2) {
+                                   float* __restrict__ c_out, int n_proc,
+                                   int np, int n_chunks) {
   __shared__ float red[kDThreads];
   __shared__ float ss_sh;
   const int tid = threadIdx.x;
   const long long bp = blockIdx.x;
+  const long long b = bp / n_proc;
   const float* fp = fpart + bp * n_chunks * np;
+  const float* pb = par + b * par_bstride;
+  const float m_eff = pb[0], eps = pb[1], mu = pb[2], sigma_s2 = pb[3];
+  const float logit_eps = logf(eps) - log1pf(-eps);
+  const float* mrow = mask ? mask + b * mask_bstride : nullptr;
   if (tid == 0) {
     float ss = 0.f;
     for (int k = 0; k < n_chunks; ++k) ss += sspart[bp * n_chunks + k];
@@ -310,7 +328,7 @@ __global__ void col_denoise_kernel(const float* __restrict__ fpart,
     const float cm = (mu * s2 + f * sigma_s2) / v1;
     const float d_lo = f / s2 - d1 / v1;
     const float deriv = pi * (1.f - pi) * d_lo * cm + pi * (sigma_s2 / v1);
-    const float mk = mask ? mask[col] : 1.f;
+    const float mk = mrow ? mrow[col] : 1.f;
     x_out[bp * np + col] = pi * cm * mk;
     dsum += deriv * mk;
   }
@@ -428,15 +446,18 @@ int col_residual_launch(const void* a, int a_bf16, long long a_bstride,
 }
 
 // One inner iteration. a as above; x, x0, x_out (B, P, np); z, z_out
-// (B, P, m); g (B, m); mask (np,) or null; c_out (B, P). Scratch: fpart
+// (B, P, m); g (B, m); mask (B, np) rows mask_bstride apart (0: one row for
+// all) or null; par (B, 4) = [m_eff, eps, mu_s, sigma_s^2] rows par_bstride
+// apart (0: one row for all); c_out (B, P). Scratch: fpart
 // (B*P, ceil(m / chunk), np), sspart (B*P, ceil(m / chunk)). z_out is
 // written only when update_z, by the row pass (ring plan as in
 // col_residual_launch). vec = 1 promises np % (16 / sizeof A) == 0 and
 // 16-byte aligned a, x_out, x0.
 int col_inner_launch(const void* a, int a_bf16, long long a_bstride,
                      const float* x, const float* x0, const float* z,
-                     const float* g, const float* mask, float m_eff,
-                     float logit_eps, float mu_s, float sigma_s2, float* fpart,
+                     const float* g, const float* mask,
+                     long long mask_bstride, const float* par,
+                     long long par_bstride, float* fpart,
                      float* sspart, float* x_out, float* c_out, float* z_out,
                      int batch, int n_proc, int m, int np, int chunk,
                      int warps, int update_z, int vec, int band_rows,
@@ -444,7 +465,8 @@ int col_inner_launch(const void* a, int a_bf16, long long a_bstride,
   const RingPlan plan{band_rows, n_bands, stage_rows};
   if (bad_grid(batch, n_proc, m, np) || chunk < 1 || warps < 1 ||
       warps > kMaxWarps || static_cast<long long>(batch) * n_proc > 65535 ||
-      bad_plan(plan, m) || (stage_rows > 0 && !vec))
+      bad_plan(plan, m) || (stage_rows > 0 && !vec) || par == nullptr ||
+      par_bstride < 0 || mask_bstride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -457,8 +479,8 @@ int col_inner_launch(const void* a, int a_bf16, long long a_bstride,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = (m + chunk - 1) / chunk;
   col_denoise_kernel<<<batch * n_proc, kDThreads, 0, s>>>(
-      fpart, sspart, x, mask, x_out, c_out, np, n_chunks, m_eff, logit_eps,
-      mu_s, sigma_s2);
+      fpart, sspart, x, mask, mask_bstride, par, par_bstride, x_out, c_out,
+      n_proc, np, n_chunks);
   e = cudaGetLastError();
   if (e != cudaSuccess || !update_z) return static_cast<int>(e);
   return static_cast<int>(dispatch_rows<true>(

@@ -10,7 +10,9 @@
 
 Shapes: ``a_cp`` (P, M, Np) shared by the batch or (B, P, M, Np); ``x``,
 ``x0`` (P, Np) or (B, P, Np); ``z_p`` (P, M) or (B, P, M); ``g`` (M,) or
-(B, M); ``n_mask`` (Np,) or None. A may be bfloat16. They take CUDA tensors
+(B, M); ``n_mask`` (Np,) shared, (B, Np) per instance, or None; ``par``
+(4,) shared or (B, 4) per instance, float32 ``[m_eff, eps, mu_s,
+sigma_s^2]`` on the card (``ref.col_params``). A may be bfloat16. They take CUDA tensors
 only and either launch or raise: the plain versions in ``ref.py`` are
 chosen one level up (``ops.py``) and only for CPU tensors. Outputs and
 scratch come from ``torch.empty``; launches go to PyTorch's current stream
@@ -20,7 +22,6 @@ launched its kernels.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -49,13 +50,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = load("amp_col")
-        vp, ci, ll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float)
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.col_residual_launch.argtypes = [vp, ci, ll, vp, vp, ci, ci, ci,
                                             ci, ci, ci, ci, ci, ci, vp]
         lib.col_residual_launch.restype = ci
         lib.col_inner_launch.argtypes = [
-            vp, ci, ll, vp, vp, vp, vp, vp, cf, cf, cf, cf, vp, vp, vp, vp,
+            vp, ci, ll, vp, vp, vp, vp, vp, ll, vp, ll, vp, vp, vp, vp,
             vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.col_inner_launch.restype = ci
         _lib = lib
@@ -125,12 +125,23 @@ def col_residual_cuda(a_cp, x):
     return r
 
 
-def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
-                   update_z: bool):
+def _per_instance(t, name: str, width: int, b: int, batched: bool, dev):
+    """Validate ``par`` or ``n_mask``: one row for the whole stack
+    (``(width,)``) or, for a batched stack, one per instance ``(B,
+    width)``. Returns the row stride the kernel steps by (0: shared)."""
+    if t.ndim == 2 and batched:
+        _f32(t, (b, width), name, dev)
+        return width
+    _f32(t, (width,), name, dev)
+    return 0
+
+
+def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, par, update_z: bool):
     """One fused C-MP-AMP inner iteration on the card. Returns ``(x_new,
     c_p, z_new)`` like ``ref.col_inner_step_ref``; ``z_new`` is ``z_p``
     itself when ``update_z`` is False. ``c_p`` is the same bits run to run.
-    The prior's scalars are host numbers here."""
+    ``par`` and ``n_mask`` are device tensors, read by the kernel: the
+    wrapper computes nothing from them on the host."""
     b, p, m, np_, stride, batched = _stack(a_cp, x, x_rank=2,
                                               dims="(P, M, Np)")
     dev = a_cp.device
@@ -139,8 +150,9 @@ def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
         _f32(t, lead + (p, np_), name, dev)
     _f32(z_p, lead + (p, m), "z_p", dev)
     _f32(g, lead + (m,), "g", dev)
-    if n_mask is not None:
-        _f32(n_mask, (np_,), "n_mask", dev)
+    par_stride = _per_instance(par, "par", 4, b, batched, dev)
+    mask_stride = 0 if n_mask is None else _per_instance(
+        n_mask, "n_mask", np_, b, batched, dev)
     chunk = row_chunk(dev, b * p, m, np_, a_cp.dtype)
     n_chunks = -(-m // chunk)
     fpart = torch.empty((b * p, n_chunks, np_), dtype=torch.float32,
@@ -149,15 +161,14 @@ def col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
     x_new = torch.empty_like(x)
     c_p = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
     z_new = torch.empty_like(z_p) if update_z else z_p
-    logit_eps = math.log(eps) - math.log1p(-eps)
     vec = _vec_flag(np_, a_cp, x0, x_new)
     plan = _ring_plan(dev, b, p, m, np_, a_cp.dtype, vec)
     with torch.cuda.device(dev):
         code = _library().col_inner_launch(
             a_cp.data_ptr(), int(a_cp.dtype == torch.bfloat16), stride,
             x.data_ptr(), x0.data_ptr(), z_p.data_ptr(), g.data_ptr(),
-            None if n_mask is None else n_mask.data_ptr(),
-            float(m_eff), logit_eps, float(mu_s), float(sigma_s2),
+            None if n_mask is None else n_mask.data_ptr(), mask_stride,
+            par.data_ptr(), par_stride,
             fpart.data_ptr(), sspart.data_ptr(), x_new.data_ptr(),
             c_p.data_ptr(), z_new.data_ptr(), b, p, m, np_, chunk, Z_WARPS,
             int(update_z), vec, *plan, torch.cuda.current_stream().cuda_stream)

@@ -21,10 +21,11 @@ from .amp_fused import (BAND_THREADS, F_THREADS, Z_WARPS, amp_local_cuda_grid,
                         vec_width)
 from .col import col_inner_cuda, col_residual_cuda, col_stage_rows
 from .ref import (amp_local_ref, amp_local_ref_grid, col_inner_step_ref,
-                  col_residual_ref)
+                  col_params, col_residual_ref)
 
 __all__ = ["amp_local_step", "amp_local_grid", "row_tiles", "pad_row_shards",
-           "col_residual", "col_inner_step", "col_tiles", "pad_col_shards"]
+           "col_residual", "col_inner_step", "col_params", "col_tiles",
+           "pad_col_shards"]
 
 
 def row_tiles(mp: int, n: int, a_dtype: torch.dtype = torch.float32):
@@ -73,16 +74,15 @@ def col_residual(a_cp, x):
     return col_residual_ref(a_cp, x)
 
 
-def col_inner_step(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s, sigma_s2,
-                   update_z: bool):
+def col_inner_step(a_cp, x, x0, z_p, g, n_mask, par, update_z: bool):
     """One fused C-MP-AMP inner iteration (message + denoise + optional
     residual update); ``ref.col_inner_step_ref`` states the function.
-    ``n_mask`` is a (Np,) 0/1 mask of real columns, or None."""
+    ``par`` holds ``[m_eff, eps, mu_s, sigma_s^2]``, (4,) or one row per
+    instance (B, 4) (``ref.col_params``); ``n_mask`` is a 0/1 mask of real
+    columns, (Np,) or (B, Np), or None. Both lie on the tensors' device."""
     if a_cp.is_cuda:
-        return col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
-                              sigma_s2, update_z)
-    return col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
-                              sigma_s2, update_z)
+        return col_inner_cuda(a_cp, x, x0, z_p, g, n_mask, par, update_z)
+    return col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, par, update_z)
 
 
 def amp_local_grid(a_p, x, y_p, z_p, onsager, n_proc: int):

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["amp_local_ref", "amp_local_ref_grid", "amp_local_z_ref",
-           "amp_local_f_ref", "col_residual_ref", "col_inner_step_ref"]
+           "amp_local_f_ref", "col_residual_ref", "col_params",
+           "col_inner_step_ref"]
 
 
 def amp_local_ref(a, x, y, z, onsager, n_proc: int):
@@ -70,18 +71,31 @@ def col_residual_ref(a_cp, x):
     return torch.einsum("...pmn,...pn->...pm", a_cp.float(), x)
 
 
-def col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
-                       sigma_s2, update_z: bool):
+def col_params(m_eff, eps, mu_s, sigma_s2, device="cpu") -> torch.Tensor:
+    """The inner step's per-instance operand ``par``: float32 ``[m_eff, eps,
+    mu_s, sigma_s^2]`` on ``device``, (4,) from numbers or (B, 4) from (B,)
+    tensors (numbers and tensors broadcast). Built once per solve, outside
+    its loop: from numbers it is a copy from the host."""
+    vals = [torch.as_tensor(v, dtype=torch.float32, device=device)
+            for v in (m_eff, eps, mu_s, sigma_s2)]
+    return torch.stack(torch.broadcast_tensors(*vals), dim=-1)
+
+
+def col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, par, update_z: bool):
     """One C-MP-AMP inner iteration (the engine's ``_col_inner`` body). Per
-    processor p:
+    processor p of instance b, with ``[m_eff, eps, mu_s, sigma_s2] =
+    par[b]``:
 
         s2_p = max(||z_p||^2 / m_eff, 1e-30)
         f_p  = x_p + A_p^T z_p
-        x'   = eta(f_p; s2_p) * mask,  c_p = sum(eta' * mask) / m_eff
+        x'   = eta(f_p; s2_p) * mask[b],  c_p = sum(eta' * mask[b]) / m_eff
         z'   = g - A_p (x' - x0) + c_p z_p        (only when ``update_z``)
 
-    ``eta`` is the closed-form Bernoulli-Gauss conditional mean with its
-    derivative (``core.denoisers.eta_bg_and_deriv``); the 1e-30 floor is
+    ``par`` is (4,) for the whole stack or (B, 4) per instance
+    (``col_params``); ``n_mask`` a 0/1 mask of real columns, (Np,) or
+    (B, Np), or None. ``eta`` is the closed-form Bernoulli-Gauss conditional
+    mean with its derivative (``core.denoisers.eta_bg_and_deriv``), logit(eps)
+    taken in float32 from ``par``, as the kernel does; the 1e-30 floor is
     the TPU kernel's. Returns ``(x_new, c_p, z_new)`` with ``z_new = z_p``
     when the update is skipped (the final inner iteration: ``z_p`` is the
     residual that fed the denoise, which the Onsager boundary carry needs).
@@ -91,14 +105,16 @@ def col_inner_step_ref(a_cp, x, x0, z_p, g, n_mask, m_eff, eps, mu_s,
     from ...core.denoisers import eta_bg_and_deriv
 
     a32 = a_cp.float()
+    m_eff, eps, mu_s, sigma_s2 = (par[..., i, None, None] for i in range(4))
     s2_p = torch.clamp(torch.sum(z_p * z_p, dim=-1, keepdim=True) / m_eff,
                        min=1e-30)
     f_p = x + torch.einsum("...pmn,...pm->...pn", a32, z_p)
     val, deriv = eta_bg_and_deriv(f_p, s2_p, eps, mu_s, sigma_s2)
     if n_mask is not None:
-        val = val * n_mask
-        deriv = deriv * n_mask
-    c_p = torch.sum(deriv, dim=-1) / m_eff
+        mask = n_mask[..., None, :]
+        val = val * mask
+        deriv = deriv * mask
+    c_p = torch.sum(deriv, dim=-1) / m_eff[..., 0]
     if not update_z:
         return val, c_p, z_p
     z_new = (g[..., None, :]

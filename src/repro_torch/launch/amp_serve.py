@@ -1,0 +1,192 @@
+"""AMP solve-service launcher: synthetic heterogeneous load -> SolveService,
+on one device (the port of the JAX package's ``launch/amp_serve.py``).
+
+Generates a stream of CS recovery requests with mixed shapes, priors, SNRs
+and rate policies, runs them through the shape-bucketed batching service,
+and reports per-request quality/rate plus end-to-end throughput.
+
+  PYTHONPATH=src python -m repro_torch.launch.amp_serve --smoke
+  PYTHONPATH=src python -m repro_torch.launch.amp_serve --requests 256 \\
+      --max-batch 64 --policies fixed,bt,lossless [--device cpu]
+
+The shape menu mixes wide (row-partitioned) and tall (column-partitioned
+C-MP-AMP) requests; the summary reports rate totals *per layout* — row
+rates are bits per signal element per processor, column rates bits per
+measurement per processor. Problems are drawn with numpy from ``--seed``
+(the reference draws them with ``jax.random``: the same model, other
+numbers). ``--mesh`` and ``--hosts`` > 1 (a device mesh, the cluster tier)
+are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from ..core.denoisers import BernoulliGauss
+from ..core.state_evolution import CSProblem
+from ..serving import BucketPolicy, PrewarmSpec, SolveRequest, SolveService
+
+__all__ = ["sample_problem_np", "make_request", "main"]
+
+# (N, M, P) menu — wide shapes (N/M ~ 3.2) route row, tall ones (N/M >=
+# 4) route column; P divides every M and every N
+SHAPES = [(512, 160, 4), (1024, 320, 8), (2048, 512, 8), (4096, 512, 8)]
+EPS_MENU = (0.05, 0.1)
+SNR_MENU = (15.0, 20.0, 25.0)
+
+
+def sample_problem_np(rng: np.random.Generator, n: int, m: int,
+                      prior: BernoulliGauss, sigma_e2: float):
+    """Draw (s0, A, y) per the paper's model with numpy: A_ij ~ N(0, 1/M),
+    e ~ N(0, sigma_e^2); float32 arrays."""
+    support = rng.random(n) < prior.eps
+    s0 = np.where(support, prior.mu_s + prior.sigma_s * rng.standard_normal(n),
+                  0.0).astype(np.float32)
+    a = (rng.standard_normal((m, n), dtype=np.float32)
+         / np.float32(np.sqrt(m)))
+    e = (np.sqrt(sigma_e2) * rng.standard_normal(m)).astype(np.float32)
+    return s0, a, (a @ s0 + e).astype(np.float32)
+
+
+def make_request(rng: np.random.Generator, policies) -> tuple:
+    n, m, p = SHAPES[rng.integers(len(SHAPES))]
+    # tall shapes undersample harder (kappa = M/N down to 1/8): keep their
+    # signals sparse enough to sit inside the AMP recovery region
+    eps_menu = (0.02, 0.05) if n >= 4 * m else EPS_MENU
+    prior = BernoulliGauss(eps=float(rng.choice(eps_menu)))
+    snr = float(rng.choice(SNR_MENU))
+    t = int(rng.choice((6, 8, 10)))
+    policy = str(rng.choice(policies))
+    prob = CSProblem(n=n, m=m, prior=prior, snr_db=snr)
+    s0, a, y = sample_problem_np(rng, n, m, prior, prob.sigma_e2)
+    kw = {}
+    if policy == "fixed":
+        deltas = np.full(t, 0.05, np.float32)
+        deltas[0] = np.inf
+        kw["deltas"] = deltas
+    req = SolveRequest(y=y, a=a, prior=prior, snr_db=snr, n_proc=p,
+                       n_iter=t, policy=policy, **kw)
+    return req, s0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--policies", default="lossless,fixed,bt",
+                    help="comma list from lossless,fixed,dp,bt")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the service solves (default: the card)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="16 requests, small batches, no rate accounting")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve over a device mesh (not ported yet)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="serve through the cluster tier with this many "
+                         "hosts (not ported yet: only 1)")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="build the kernels and run every program of the "
+                         "SHAPES bucket menu before streaming; the summary "
+                         "then reports the programs first run after it")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="dump per-request trace spans as Chrome "
+                         "trace-event JSONL")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the final metrics snapshot as Prometheus "
+                         "text exposition format")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh (a device mesh, the 'data' and 'proc' placements) is "
+            "not ported yet: ROADMAP.md Queue 1 item 7")
+    if args.hosts > 1:
+        raise NotImplementedError(
+            "--hosts > 1 (the cluster tier) is not ported yet: ROADMAP.md "
+            "Queue 1 item 6")
+
+    n_req = 16 if args.smoke else args.requests
+    policies = args.policies.split(",")
+    rng = np.random.default_rng(args.seed)
+    pairs = [make_request(rng, policies) for _ in range(n_req)]
+
+    svc = SolveService(policy=BucketPolicy(max_batch=args.max_batch),
+                       rate_accounting=not args.smoke, device=args.device)
+    prewarmed = 0
+    if args.prewarm:
+        # one spec per (shape, t-bucket, program family): T in {6,8} and
+        # {10} pad to distinct t_max buckets; BT solves run a different
+        # program (the per-instance table controller)
+        fams = [p for p in ("lossless", "bt") if p == "lossless"
+                or "bt" in policies]
+        menu = [PrewarmSpec(n=n, m=m, n_proc=p, n_iter=t, policy=fam)
+                for (n, m, p) in SHAPES for t in (8, 12) for fam in fams]
+        rep = svc.prewarm(menu)
+        prewarmed = rep["programs"]
+        print(f"prewarm: {rep['programs']} programs over "
+              f"{len(rep['buckets'])} buckets in {rep['seconds']:.1f}s")
+    t0 = time.time()
+    results = list(svc.stream(r for r, _ in pairs))
+    dt = time.time() - t0
+
+    # request ids are assigned in submission order, i.e. pairs[rid]
+    print(f"{'id':>4s} {'policy':>9s} {'T':>3s} {'bucket':>22s} {'B':>4s} "
+          f"{'mse':>10s} {'bits':>7s}")
+    for r in sorted(results, key=lambda res: res.request_id):
+        req, s0 = pairs[r.request_id]
+        bk = f"({r.bucket.n_pad},{r.bucket.m_pad},{r.bucket.n_proc}," \
+             f"{r.bucket.t_max}){r.bucket.placement[0]}" \
+             f"{r.bucket.layout[0]}"
+        # untracked (no finite per-iteration rate) shows "-"; a genuine
+        # 0.00-bit total from finite rates still prints as a number
+        bits = f"{r.total_bits:7.2f}" if r.tracked else "      -"
+        print(f"{r.request_id:4d} {req.policy:>9s} {req.n_iter:3d} "
+              f"{bk:>22s} {r.batch_size:4d} {r.mse(s0):10.3e} {bits}")
+
+    unit = {"row": "bits/elem", "col": "bits/meas"}
+    for layout in ("row", "col"):
+        in_layout = [r for r in results if r.bucket.layout == layout]
+        if not in_layout:
+            continue
+        tracked = [r for r in in_layout if r.tracked]
+        tot = sum(r.total_bits for r in tracked)
+        print(f"{layout}: {len(in_layout)} requests, "
+              f"{len(tracked)} rate-tracked, "
+              f"{tot:.1f} {unit[layout]} total"
+              + (f" ({tot / len(tracked):.2f} avg)" if tracked else ""))
+    st = svc.stats()
+    oc = st["operand_cache"]
+    print(f"\n{n_req} requests in {dt:.2f}s  "
+          f"({n_req / dt:.1f} req/s on {svc.device}, "
+          f"{len(svc._engines)} bucket engines)")
+    print(f"hot path: {st['compiles']['total']} programs run"
+          + (f" ({st['compiles']['total'] - prewarmed} after prewarm)"
+             if args.prewarm else "")
+          + f", operand cache {oc['hits']} hits / {oc['misses']} misses"
+          f" ({oc['bytes'] / (1 << 20):.1f} MiB), "
+          f"{st['singleton_dispatches']} singleton dispatches")
+
+    drifts = [r.se_drift for r in results
+              if r.se_drift is not None and np.isfinite(r.se_drift)]
+    if drifts:
+        from ..telemetry import DRIFT_ALERT
+        alerts = sum(1 for d in drifts if d > DRIFT_ALERT)
+        print(f"se drift: median {float(np.median(drifts)):.3f}, "
+              f"max {max(drifts):.3f}, {alerts} alert(s) over "
+              f"{len(drifts)} monitored requests")
+    if args.trace_out:
+        from ..telemetry import write_trace_jsonl
+        with open(args.trace_out, "w") as fp:
+            n_ev = write_trace_jsonl(fp, results)
+        print(f"trace: {n_ev} span events -> {args.trace_out}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fp:
+            fp.write(svc.metrics_text())
+        print(f"metrics: Prometheus snapshot -> {args.metrics_out}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

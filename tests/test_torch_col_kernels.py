@@ -23,7 +23,7 @@ from repro.kernels.amp_fused.ref import col_residual_ref as j_resid
 from repro_torch.kernels.amp_fused import ops as tops
 from repro_torch.kernels.amp_fused.col import col_inner_cuda, col_residual_cuda
 from repro_torch.kernels.amp_fused.ref import (col_inner_step_ref,
-                                               col_residual_ref)
+                                               col_params, col_residual_ref)
 
 RTOL = 1e-5
 PRIOR = (0.08, 0.1, 1.0)          # eps, mu_s, sigma_s^2
@@ -84,8 +84,8 @@ def test_col_inner_step_matches_jax_ref_and_pallas(p, m, np_, update_z,
     if masked:
         mask[np_ // 2:] = 0.0
     pri = (float(m),) + PRIOR
-    xt, ct, zt = tops.col_inner_step(a_t, *_t(x, x0, z, g, mask), *pri,
-                                     update_z=update_z)
+    xt, ct, zt = tops.col_inner_step(a_t, *_t(x, x0, z, g, mask),
+                                     col_params(*pri), update_z=update_z)
     assert xt.shape == (p, np_) and ct.shape == (p,) and zt.shape == (p, m)
     if not update_z:
         assert np.array_equal(zt.numpy(), z)
@@ -111,11 +111,11 @@ def test_two_chained_inner_steps_match_pallas():
     p, m, np_ = 4, 192, 256
     a_j, a_t, x, _, z, g = _operands(p, m, np_, seed=7)
     pri = (float(m), 0.08, 0.0, 1.0)
-    x1, _, z1 = tops.col_inner_step(a_t, *_t(x, x, z, g), None, *pri,
-                                    update_z=True)
+    x1, _, z1 = tops.col_inner_step(a_t, *_t(x, x, z, g), None,
+                                    col_params(*pri), update_z=True)
     x2, c2, z2 = tops.col_inner_step(a_t, x1, torch.from_numpy(x), z1,
-                                     torch.from_numpy(g), None, *pri,
-                                     update_z=False)
+                                     torch.from_numpy(g), None,
+                                     col_params(*pri), update_z=False)
     assert z2 is z1
     ap, gp = jops.pad_col_shards(a_j, jnp.asarray(g))
     zp = jnp.pad(jnp.asarray(z), ((0, 0), (0, ap.shape[1] - m)))
@@ -139,8 +139,8 @@ def test_batched_matches_per_instance_jax(shared):
     a_j, a_t, x, x0, z, g = _operands(p, m, np_, b=b, shared=shared)
     pri = (float(m),) + PRIOR
     r = tops.col_residual(a_t, torch.from_numpy(x))
-    xt, ct, zt = tops.col_inner_step(a_t, *_t(x, x0, z, g), None, *pri,
-                                     update_z=True)
+    xt, ct, zt = tops.col_inner_step(a_t, *_t(x, x0, z, g), None,
+                                     col_params(*pri), update_z=True)
     assert r.shape == (b, p, m) and ct.shape == (b, p) and zt.shape == (b, p, m)
     for i in range(b):
         a_i = a_j if shared else a_j[i]
@@ -159,8 +159,8 @@ def test_zero_residual_takes_the_variance_floor():
     a_j, a_t, x, x0, _, g = _operands(p, m, np_, seed=3)
     z = np.zeros((p, m), np.float32)
     pri = (float(m),) + PRIOR
-    xt, ct, _ = tops.col_inner_step(a_t, *_t(x, x0, z, g), None, *pri,
-                                    update_z=False)
+    xt, ct, _ = tops.col_inner_step(a_t, *_t(x, x0, z, g), None,
+                                    col_params(*pri), update_z=False)
     assert bool(torch.isfinite(xt).all() and torch.isfinite(ct).all())
     ap, gp = jops.pad_col_shards(a_j, jnp.asarray(g))
     xk, ck, _ = jops.col_inner_step(
@@ -174,18 +174,19 @@ def test_zero_residual_takes_the_variance_floor():
 
 def test_plain_versions_compose_as_documented():
     """``col_inner_step_ref`` is exactly the formula of its docstring, with
-    the same ``col_residual_ref`` contraction."""
+    the same ``col_residual_ref`` contraction; ``par`` holds the prior as
+    float32 tensors."""
     from repro_torch.core.denoisers import eta_bg_and_deriv
     p, m, np_ = 3, 50, 40
     _, a_t, x, x0, z, g = _operands(p, m, np_, seed=11)
     x, x0, z, g = _t(x, x0, z, g)
     s2 = torch.sum(z * z, -1, keepdim=True) / m
     f = x + torch.einsum("pmn,pm->pn", a_t, z)
-    val, der = eta_bg_and_deriv(f, s2, *PRIOR)
+    val, der = eta_bg_and_deriv(f, s2, *(torch.tensor(v) for v in PRIOR))
     c = der.sum(-1) / m
     z_new = g - col_residual_ref(a_t, val - x0) + c[:, None] * z
-    xn, cn, zn = col_inner_step_ref(a_t, x, x0, z, g, None, float(m), *PRIOR,
-                                    True)
+    xn, cn, zn = col_inner_step_ref(a_t, x, x0, z, g, None,
+                                    col_params(float(m), *PRIOR), True)
     assert torch.equal(xn, val) and torch.equal(cn, c)
     torch.testing.assert_close(zn, z_new, rtol=0, atol=1e-6)
 
@@ -211,4 +212,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         col_residual_cuda(a_t, torch.from_numpy(x))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        col_inner_cuda(a_t, *_t(x, x0, z, g), None, 16.0, *PRIOR, True)
+        col_inner_cuda(a_t, *_t(x, x0, z, g), None, col_params(16.0, *PRIOR),
+                       True)

@@ -18,7 +18,9 @@ import repro_torch.core.denoisers as td
 import repro_torch.core.engine as te
 import repro_torch.core.mp_amp as tmp
 import repro_torch.core.state_evolution as tse
+import repro_torch.launch.amp_serve as tamp_serve
 import repro_torch.launch.serve as tserve
+import repro_torch.serving as tserving
 import repro_torch.kernels.quantize.ops as tqops
 import repro_torch.kernels.quantize.ref as tqref
 from repro_torch.configs import get_config
@@ -64,7 +66,15 @@ def test_port_has_the_expected_modules():
                  "repro_torch.kernels.wkv6.ops",
                  "repro_torch.kernels.wkv6.ref",
                  "repro_torch.kernels.wkv6.wkv6",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.core.entropy_code",
+                 "repro_torch.telemetry", "repro_torch.telemetry.metrics",
+                 "repro_torch.telemetry.spans", "repro_torch.telemetry.drift",
+                 "repro_torch.serving", "repro_torch.serving.buckets",
+                 "repro_torch.serving.batcher",
+                 "repro_torch.serving.operand_cache",
+                 "repro_torch.serving.wire", "repro_torch.serving.service",
+                 "repro_torch.launch.amp_serve"):
         assert want in names, want
     for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh",
                 "decode_attn.cu", "wkv6.cu"):
@@ -130,6 +140,12 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
         get_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--arch", "gemma3-1b", "--smoke"])
+    # the solve service and its launcher
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserving.SolveService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tamp_serve.main(["--smoke"])
+    assert tserving.SolveService(device="cpu").device.type == "cpu"
     # asked for the CPU, they run there
     te.AmpEngine(prior, te.EngineConfig(n_proc=2, n_iter=2, device="cpu"))
     out = tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
@@ -164,21 +180,10 @@ def _engine(layout, ctrl, prob, p, t):
     return te.AmpEngine(prob.prior, cfg, te.EcsqTransport(), controller)
 
 
-@pytest.mark.parametrize("layout", ["row", "col"])
-@pytest.mark.parametrize("ctrl", ["fixed", "bt", "block8"])
-@pytest.mark.parametrize("batched", [False, True], ids=["solve", "solve_many"])
-def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
-                                            monkeypatch):
-    """Between iteration 0 and T nothing reads a tensor's value on the
-    host: ``item``/``tolist``/``__bool__``/``__float__``/``cpu``/``numpy``
-    raise while the loop (``_solve_core`` / ``_col_solve_core``) runs (on
-    the CPU they would not block, but the same calls on the card would each
-    wait for the device). Nor is a Python number written into a tensor: on
-    the card that is a copy from the host, which waits too."""
-    prob, a, y = _small_problem()
-    p, t = 4, 3
-    eng = _engine(layout, ctrl, prob, p, t)
-    loop = "_solve_core" if layout == "row" else "_col_solve_core"
+def _guard_loop(eng, loop, monkeypatch):
+    """Patch ``eng.<loop>`` so that any host read or Python-number write
+    into a tensor raises while it runs; returns the list its calls land
+    in."""
     inner = getattr(eng, loop)
     calls = []
     setitem = torch.Tensor.__setitem__
@@ -203,6 +208,25 @@ def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
             return inner(*args, **kw)
 
     monkeypatch.setattr(eng, loop, guarded)
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("ctrl", ["fixed", "bt", "block8"])
+@pytest.mark.parametrize("batched", [False, True], ids=["solve", "solve_many"])
+def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
+                                            monkeypatch):
+    """Between iteration 0 and T nothing reads a tensor's value on the
+    host: ``item``/``tolist``/``__bool__``/``__float__``/``cpu``/``numpy``
+    raise while the loop (``_solve_core`` / ``_col_solve_core``) runs (on
+    the CPU they would not block, but the same calls on the card would each
+    wait for the device). Nor is a Python number written into a tensor: on
+    the card that is a copy from the host, which waits too."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    eng = _engine(layout, ctrl, prob, p, t)
+    loop = "_solve_core" if layout == "row" else "_col_solve_core"
+    calls = _guard_loop(eng, loop, monkeypatch)
     if batched:
         tr = eng.solve_many(np.stack([y, 1.1 * y]), a)
         assert tr.x.shape == (2, 256)
@@ -210,6 +234,45 @@ def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
         tr = eng.solve(y, a)
         assert tr.x.shape == (256,)
     assert calls == [1] and np.all(np.isfinite(tr.x))
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("with_bt", [False, True], ids=["no_bt", "bt"])
+def test_no_host_sync_inside_the_het_loop(layout, with_bt, monkeypatch):
+    """``solve_het``'s loop (``_het_core`` / ``_col_het_core``) asks the host
+    nothing either: two instances of their own prior, budget and real size,
+    one of them BT-rated when ``with_bt``."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    col = layout == "col"
+    if col:
+        cfg = te.EngineConfig(n_proc=p, n_iter=t, device="cpu",
+                              layout=te.ColumnPartition())
+        a_b = np.stack([te.split_problem_cols(a, p)] * 2)
+        y_b = np.stack([y, 1.1 * y])
+        bt = te.ColumnBTRateControl(prob, p, t, n_u_grid=16).tables
+        dummy = te.ColBTTables.dummy(t, 16)
+        loop = "_col_het_core"
+    else:
+        cfg = te.EngineConfig(n_proc=p, n_iter=t, device="cpu")
+        a_p, y_p = te.split_problem(a, y, p)
+        a_b, y_b = np.stack([a_p] * 2), np.stack([y_p, 1.1 * y_p])
+        bt = te.BTRateControl(prob, p, t, n_s2_grid=4, n_u_grid=7).tables
+        dummy = te.BTTables.dummy(t, 4, 7)
+        loop = "_het_core"
+    eng = te.AmpEngine(prob.prior, cfg, te.EcsqTransport())
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    hp = te.HetParams(
+        sched=f32([[np.inf, 0.05, 0.02]] * 2),
+        t_active=torch.tensor([3, 2]), m_real=f32([96.0, 96.0]),
+        n_real=torch.tensor([256, 240]), eps=f32([0.1, 0.05]),
+        mu_s=f32([0.0, 0.0]), sigma_s=f32([1.0, 1.0]),
+        use_bt=torch.tensor([with_bt, False]),
+        bt=te.stack_bt_tables([bt if with_bt else dummy, dummy]))
+    calls = _guard_loop(eng, loop, monkeypatch)
+    tr = eng.solve_het(a_b, y_b, hp, has_bt=with_bt)
+    assert calls == [1] and tr.x.shape == (2, 256)
+    assert np.all(np.isfinite(tr.x)) and tr.sigma2_hat[1, 2] == 0.0
 
 
 def test_the_guard_itself_catches_a_sync(monkeypatch):
@@ -241,7 +304,10 @@ def test_loop_body_sources_hold_no_sync_calls():
            te.EcsqTransport.fuse, te.ExactFusion.fuse,
            te.BlockQuantTransport.fuse, te.BTRateControl.delta_for,
            te.ColumnBTRateControl.delta_for, tqops.block_quant_fuse,
-           tqref.block_quant_fuse_ref]
+           tqref.block_quant_fuse_ref, te.AmpEngine._body_het,
+           te.AmpEngine._het_core, te.AmpEngine._col_body_het,
+           te.AmpEngine._col_het_core, te._search, te._take, te._first,
+           te._last]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
     for fn in fns:
         src = inspect.getsource(fn)
