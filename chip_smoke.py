@@ -24,6 +24,25 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     lone lossless request; every result against the port's own single
     solve, the early exit, drift, rates, launches, no host sync in the
     heterogeneous loops; and K3 with per-instance operands on the card;
+  * erasure (phase ``erasure``, 10 % of the fusion packets lost, Bernoulli
+    and Gilbert bursts of 4): the row solves (lossless, fixed ECSQ, DP and
+    BT planned for the link, int8 blocks) and the column solves (lossless,
+    int8 blocks, under the reset), each held to its drop-free bits under
+    an all-zero mask, to the port's CPU solve on the same mask, to an MSE
+    above the lossless one and under 50x it, to the SE envelope, to no
+    host sync and to one K4 launch an int8 iteration; and two served row
+    buckets of 8 with erasure and lossless requests mixed, ECSQ and int8
+    blocks (K4 with each instance's keep row), each request against its
+    own single solve;
+  * the cluster plane (phase ``cluster``): a ``ClusterService`` over two
+    ``SolveService``s on the card against one ``SolveService`` on a stream
+    of a row bucket of 8 and a column bucket of 4 with erasure requests
+    (the same bits, every host serves, no program after prewarm), a host
+    killed at its first flush (nothing lost, the same bits), the same
+    stream through a ``TcpBackend`` to a ``BackendServer`` on loopback
+    (frames of 100-300 MiB: the same bits, the submit round trip by
+    layout), and ``launch/multihost.py --smoke`` (a child process behind
+    a ``BackendServer`` over TCP at its toy load: the same bits);
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -40,7 +59,7 @@ then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
 JSON file. Needs a CUDA device and nvcc; needs no network. Takes about
-three minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
+five minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
 ``src/repro_torch/csrc``) also times that tree's K3 in turns with this
 one's (phase ``k3_operands``). ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
@@ -53,7 +72,7 @@ B=8, S=32768, and stops, with the card's line and the last line of a full
 run. ``--k4-only`` does the same for block quantization: it builds
 ``quantize.cu`` alone, holds the standalone quantizer and its inverse and
 the fused block-quantized fusion against their plain versions (every
-``FUSE_CASES`` case), times them at the transports' shapes beside the
+``FUSE_CASES`` case, and its erasure form at ``FUSE_MASK_CASES``), times them at the transports' shapes beside the
 fusion composed of the standalone kernels and an empty launch, and stops,
 with the card's line and the last line.
 """
@@ -89,14 +108,16 @@ from repro_torch.core.engine import (AmpEngine, BlockQuantTransport,  # noqa: E4
                                      BTRateControl, ColDPSchedule,
                                      ColumnBTRateControl, ColumnPartition,
                                      DPSchedule, EcsqTransport, EngineConfig,
-                                     ExactFusion, FixedSchedule, bt_delta_for,
-                                     col_bt_delta_for)
+                                     ErasureSpec, ExactFusion, FixedSchedule,
+                                     bt_delta_for, col_bt_delta_for)
 from repro_torch.core.mp_amp import MPAMPConfig, mp_amp_solve  # noqa: E402
 from repro_torch.core.rate_alloc import (BTController, dp_allocate,  # noqa: E402
                                          dp_allocate_col)
 from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import (PAPER_T, CSProblem,  # noqa: E402
-                                              se_trajectory)
+                                              se_trajectory,
+                                              se_trajectory_col,
+                                              se_trajectory_erasure)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k  # noqa: E402
 from repro_torch.kernels.amp_fused import col as kc  # noqa: E402
@@ -112,8 +133,12 @@ from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.serving import (BucketPolicy, PrewarmSpec,  # noqa: E402
-                                 SolveRequest, SolveService)
+from repro_torch.serving import (BackendServer,  # noqa: E402
+                                 BucketPolicy, ChaosBackend,
+                                 ClusterService, FaultPlan, FaultSpec,
+                                 LocalBackend,
+                                 PrewarmSpec, RouterPolicy, SolveRequest,
+                                 SolveService, TcpBackend, encode_request)
 
 DEV = torch.device("cuda:0")
 SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
@@ -218,6 +243,46 @@ SERVE_MSE = 1e-5                # batched vs single: mean (x_b - x_1)^2
 K3_PAR = [(3000.0, 0.05, 0.0, 1.0), (2800.0, 0.10, 0.1, 0.5),
           (2600.0, 0.02, -0.2, 2.0), (3000.0, 0.20, 0.0, 1.0)]
 K3_NREAL = [400, 384, 250, 17]
+
+# Erasure (the lossy link, phase ``erasure``): 10 % of the fusion packets
+# lost, i.i.d. or in Gilbert-Elliott bursts of mean 4 rounds, masks drawn
+# from SEED. Each masked solve on the card equals the port's CPU solve on
+# the same mask (plain versions; tests/test_torch_erasure.py ties those to
+# the JAX reference): a lossless one to ERASURE_CPU_DX in x and
+# ERASURE_CPU_DS in sigma2_hat (the ``reference`` phase's limits), a
+# quantized one by assert_traces_agree's rule (``_traces_agree``). MSE
+# stays finite, above the lossless solve's and under 50x it (the
+# reference's own bound, tests/test_erasure.py). The realised plug-in
+# sigma2_hat stays within [1/2, 2] of the SE recursion of
+# se_trajectory_erasure (row) / se_trajectory_col (column, its reset) run
+# on the run's own mask: each round's survivors in place of the configured
+# rate's expectation (``se_on_mask``). The SE at the configured rate is
+# recorded beside it: it averages over masks, and a single realisation of
+# 25-30 packets a round (a burst, or a round of 6 losses) leaves it by up
+# to 3x in the column layout, where a reset costs a whole block's MSE.
+ERASURE_RATE, ERASURE_BURST = 0.1, 4.0
+ERASURE_MODELS = ("bernoulli", "gilbert")
+ERASURE_MSE_MAX = 50.0
+ERASURE_ENVELOPE = (0.5, 2.0)
+ERASURE_CPU_DX, ERASURE_CPU_DS = 1e-4, 1e-3
+# the served bucket of 8 with erasure and lossless requests mixed:
+# (n, m, T, eps, snr_db, policy, erasure_rate, erasure_model)
+ERASURE_SERVE = [(N, M, T, 0.05, 20.0, "lossless", 0.0, "bernoulli"),
+                 (N, M, T, 0.05, 20.0, "lossless", ERASURE_RATE, "bernoulli"),
+                 (9000, 2700, 8, 0.10, 15.0, "lossless", ERASURE_RATE,
+                  "gilbert"),
+                 (N, M, T, 0.10, 20.0, "fixed", 0.0, "bernoulli"),
+                 (N, M, T, 0.10, 20.0, "fixed", ERASURE_RATE, "bernoulli"),
+                 (9000, 2700, 8, 0.05, 20.0, "fixed", ERASURE_RATE, "gilbert"),
+                 (N, M, T, 0.05, 20.0, "dp", ERASURE_RATE, "bernoulli"),
+                 (9000, 2700, 8, 0.10, 15.0, "lossless", 0.0, "bernoulli")]
+# the cluster phase's column requests (the wide problem, P=20)
+CLUSTER_COL = [(WIDE_N, WIDE_M, T, 0.05, 20.0, "lossless", 0.0, "bernoulli"),
+               (WIDE_N, WIDE_M, T, 0.02, 20.0, "lossless", ERASURE_RATE,
+                "bernoulli"),
+               (WIDE_N, WIDE_M, T, 0.05, 15.0, "lossless", ERASURE_RATE,
+                "gilbert"),
+               (WIDE_N, WIDE_M, T, 0.02, 20.0, "fixed", 0.0, "bernoulli")]
 
 RESULT: dict = {}
 
@@ -664,11 +729,74 @@ def check_block_quant_fuse() -> dict:
         same_any_cluster[cluster] = all(
             bool(torch.equal(g, w)) for g, w in zip(got, want))
     assert all(same_any_cluster.values()), same_any_cluster
+    mask_rows = check_block_quant_fuse_masks()
     emit("kernel_check_block_quant_fuse", limit="f and symbols "
          "bit-identical, repeat bit-identical", extra_rtol=FUSE_RTOL,
          chain_f_rtol=FUSE_RTOL, chain_extra_rtol=FUSE_EXTRA_CHAIN_RTOL,
-         row_shape_identical_with_cluster=same_any_cluster, cases=rows)
-    return {(r["case"], r["qmax"], r["block"], r["symbols"]): r for r in rows}
+         row_shape_identical_with_cluster=same_any_cluster, cases=rows,
+         erasure_limit="f, symbols and extra bit-identical to the plain "
+         "version; every flag 1 == the drop-free launch",
+         erasure_cases=mask_rows)
+    out = {(r["case"], r["qmax"], r["block"], r["symbols"]): r for r in rows}
+    out.update({("keep", r["case"], r["mask"]): r for r in mask_rows})
+    return out
+
+
+# (case, B, P, L): the row and column messages, and a batch of 4 row
+# messages for the per-instance (B, P) keep rows
+FUSE_MASK_CASES = [("row_messages", 1, P, N), ("col_contributions", 1, P_COL, M),
+                   ("batch4", 4, P, N)]
+
+
+def fuse_keep_rows(b, p, seed) -> dict:
+    """The keep rows of the erasure form, float32 on the card: a random
+    row shared by every batch entry ((P,), stride 0) and one per entry
+    ((B, P)), one survivor, none, and all (which must give the drop-free
+    launch's bits)."""
+    g = np.random.default_rng(seed)
+    one = np.zeros(p, np.float32)
+    one[p // 2] = 1.0
+    rows = {"random_shared": (g.random(p) >= ERASURE_RATE * 2),
+            "random_per_instance": (g.random((b, p)) >= ERASURE_RATE * 2),
+            "one_survivor": one, "none": np.zeros(p), "all": np.ones(p)}
+    return {name: torch.as_tensor(np.asarray(v, np.float32), device=DEV)
+            for name, v in rows.items()}
+
+
+def check_block_quant_fuse_masks() -> list:
+    """K4's erasure form against ``block_quant_fuse_ref(keep=)`` at the
+    row (30, 10000) and column (25, 3000) messages and a batch of 4 row
+    messages, qmax 127, block 512: f, symbols and extra bit-identical, the
+    same bits over two calls, and an all-survivor row equal to the
+    drop-free launch bit for bit."""
+    rows = []
+    for name, b, p, n in FUSE_MASK_CASES:
+        x = fuse_inputs(b, p, n, SEED + 7)
+        plain = kq.block_quant_fuse_cuda(x, 127, 512)
+        for mask, keep in fuse_keep_rows(b, p, SEED + 8).items():
+            got = kq.block_quant_fuse_cuda(x, 127, 512, keep=keep)
+            again = kq.block_quant_fuse_cuda(x, 127, 512, keep=keep)
+            want = block_quant_fuse_ref(x, 127, 512, keep=keep)
+            torch.cuda.synchronize()
+            row = {"case": name, "B": b, "P": p, "L": n, "mask": mask,
+                   "survivors": [int(v) for v in
+                                 keep.reshape(-1, p).sum(-1).tolist()],
+                   "identical": all(bool(torch.equal(g_, w))
+                                    for g_, w in zip(got, want)),
+                   "repeat_identical": all(bool(torch.equal(g_, a_))
+                                           for g_, a_ in zip(got, again)),
+                   "f_max_abs_err": float((got[0] - want[0]).abs().max()),
+                   "extra": [float(v) for v in got[1].tolist()]}
+            if mask == "all":
+                row["drop_free_identical"] = all(
+                    bool(torch.equal(g_, d)) for g_, d in zip(got, plain))
+                assert row["drop_free_identical"], row
+            rows.append(row)
+            assert bool(torch.isfinite(got[0]).all()), row
+            assert row["identical"] and row["repeat_identical"], row
+            del got, again, want
+        del x, plain
+    return rows
 
 
 def check_against_cpu_reference() -> None:
@@ -1130,19 +1258,25 @@ def time_k3_operands(parent: str | None) -> dict:
     return out
 
 
+def _draw_problem(rng, n, m, eps, snr):
+    """(prior, prob, s0, A, y) of one served request, drawn with numpy."""
+    prior = BernoulliGauss(eps)
+    prob = CSProblem(n=n, m=m, prior=prior, snr_db=snr)
+    s0 = np.where(rng.random(n) < eps, rng.standard_normal(n),
+                  0.0).astype(np.float32)
+    a = rng.standard_normal((m, n), dtype=np.float32) / np.float32(m ** 0.5)
+    y = (a @ s0 + np.float32(prob.sigma_e2 ** 0.5)
+         * rng.standard_normal(m, dtype=np.float32)).astype(np.float32)
+    return prior, prob, s0, a, y
+
+
 def _serve_requests(rng, specs, p, prior_cache, tag):
     """SolveRequests of the serve phase, drawn with numpy, with their
     ground truth: fixed and DP bins from the DP allocation (fixed: 3 bits
     an iteration, DP: 2), so that the single solves take the same bins."""
     reqs, s0s = [], []
     for i, (n, m, t, eps, snr, policy) in enumerate(specs):
-        prior = BernoulliGauss(eps)
-        prob = CSProblem(n=n, m=m, prior=prior, snr_db=snr)
-        s0 = np.where(rng.random(n) < eps, rng.standard_normal(n),
-                      0.0).astype(np.float32)
-        a = rng.standard_normal((m, n), dtype=np.float32) / np.float32(m ** 0.5)
-        y = (a @ s0 + np.float32(prob.sigma_e2 ** 0.5)
-             * rng.standard_normal(m, dtype=np.float32)).astype(np.float32)
+        prior, prob, s0, a, y = _draw_problem(rng, n, m, eps, snr)
         deltas = None
         if policy in ("fixed", "dp"):
             if eps not in prior_cache:
@@ -1159,13 +1293,17 @@ def _serve_requests(rng, specs, p, prior_cache, tag):
 
 
 def _serve_single(req, col: bool, transport=None):
-    """The port's own single solve of a served request, on the card."""
+    """The port's own single solve of a served request, on the card; an
+    erasure request with its own mask (``SolveService._drop_mask``'s
+    draw)."""
     prob = req.problem()
+    er = dict(erasure_rate=req.erasure_rate, recovery=req.recovery)
     if req.policy == "bt":
         ctrl = (ColumnBTRateControl(prob, req.n_proc, req.n_iter,
-                                    req.bt_c_ratio, req.bt_r_max) if col
+                                    req.bt_c_ratio, req.bt_r_max, **er) if col
                 else BTRateControl(prob, req.n_proc, req.n_iter,
-                                   req.bt_c_ratio, req.bt_r_max, "ecsq"))
+                                   req.bt_c_ratio, req.bt_r_max, "ecsq",
+                                   **er))
     else:
         ctrl = FixedSchedule(req.deltas if req.deltas is not None
                              else np.full(req.n_iter, np.inf))
@@ -1174,7 +1312,12 @@ def _serve_single(req, col: bool, transport=None):
                                             n_iter=req.n_iter,
                                             collect_symbols=False, **cfg),
                     transport or EcsqTransport(), ctrl)
-    return eng.solve(req.y, req.a)
+    drop = None
+    if req.erasure_rate > 0.0:
+        drop = ErasureSpec(req.erasure_rate, req.erasure_model,
+                           req.erasure_burst, req.erasure_seed).sample_mask(
+                               req.n_iter, req.n_proc)
+    return eng.solve(req.y, req.a, drop_sched=drop)
 
 
 def _serve_agree(req, res, one, s0) -> dict:
@@ -1375,6 +1518,552 @@ def run_serve() -> dict:
     return {"launches": serve_launches, "timing": timing}
 
 
+def _erasure_mask(model: str, p: int, seed: int = SEED) -> np.ndarray:
+    return ErasureSpec(ERASURE_RATE, model, ERASURE_BURST, seed).sample_mask(
+        T, p)
+
+
+def _same_bits(a, b) -> bool:
+    """Two traces or two results: the same bits in every per-iteration
+    record and the estimate."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "x", "sigma2_hat", "deltas", "extra_var", "rates"))
+
+
+def se_on_mask(prob, sq2, mask: np.ndarray, layout: str, mm) -> np.ndarray:
+    """The SE of one erasure run, (T,), what its sigma2_hat estimates: the
+    recursion of ``se_trajectory_erasure`` (row: the denoiser input
+    amplified by the survivor rescale P / k) or of ``se_trajectory_col``
+    (column, one inner iteration: a lost block's MSE reset to E[S0^2],
+    only the survivors' quantization noise), with round t's realised
+    survivors k_t of ``mask`` (T, P) in place of the configured rate's
+    expectation. An all-zero mask gives their lossless-link values."""
+    p = mask.shape[1]
+    kappa = prob.kappa
+    mmse = lambda v: float(mm(np.asarray([v]))[0])
+    if layout == "row":
+        out = [prob.sigma0_2]
+        for t in range(mask.shape[0] - 1):
+            amp = p / max(float(p - mask[t].sum()), 1.0)
+            out.append(prob.sigma_e2 + mmse(amp * (out[-1] + p * sq2[t]))
+                       / kappa)
+        return np.asarray(out)
+    sm = prob.prior.second_moment
+    d, tau = sm, []
+    for t in range(mask.shape[0]):
+        lost = float(mask[t].mean())
+        d_in = (1.0 - lost) * d + lost * sm
+        tau.append(prob.sigma_e2 + (1.0 - lost) * p * sq2[t] + d_in / kappa)
+        d = mmse(tau[-1])
+    return np.asarray(tau)
+
+
+def _traces_agree(want, got, s0) -> int:
+    """assert_traces_agree's rule (tests/test_torch_engine.py): tight until
+    the first iteration whose symbols differ, there one cell on at most
+    1e-3 of the entries, statistical after it; returns that iteration."""
+    n_iter = len(want.sigma2_hat)
+    first = n_iter
+    if want.symbols is not None:
+        differs = [bool((want.symbols[t] != got.symbols[t]).any())
+                   for t in range(n_iter)]
+        if any(differs):
+            first = differs.index(True)
+            d = np.abs(want.symbols[first].astype(np.int64)
+                       - got.symbols[first].astype(np.int64))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, \
+                (first, int(d.max()), float((d > 0).mean()))
+    upto = min(first + 1, n_iter)
+    np.testing.assert_allclose(got.sigma2_hat[:upto], want.sigma2_hat[:upto],
+                               rtol=1e-3)
+    np.testing.assert_allclose(got.deltas[:upto], want.deltas[:upto],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got.rates[:upto], want.rates[:upto], rtol=1e-4)
+    mse_w, mse_g = want.mse(s0), got.mse(s0)
+    np.testing.assert_allclose(mse_g[:first], mse_w[:first], rtol=1e-3)
+    if first == n_iter:
+        np.testing.assert_allclose(got.x, want.x, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got.sigma2_hat, want.sigma2_hat, rtol=0.10)
+        assert abs(10 * np.log10(mse_g[-1] / mse_w[-1])) < 1.0
+    return first
+
+
+def _erasure_runs(engines: dict, twins: dict, a, y, s0, p: int, layout: str,
+                  prob, mm, ll_mse: float) -> dict:
+    """Each engine drop-free, with an all-zero mask and with each model's
+    mask: the checks of the ``erasure`` phase, the launches of the masked
+    solves (reset just before each) and their first-call wall time. Each
+    masked solve is held against its CPU twin of ``twins`` (the plain
+    versions) on the same mask."""
+    out = {}
+    lo, hi = ERASURE_ENVELOPE
+    for name, eng in engines.items():
+        base = eng.solve(y, a)
+        zero = eng.solve(y, a, drop_sched=np.zeros((T, p), np.float32))
+        row = {"zero_mask_bit_identical": _same_bits(base, zero),
+               "mse_drop_free": float(base.mse(s0)[-1])}
+        assert row["zero_mask_bit_identical"], (layout, name)
+        for model in ERASURE_MODELS:
+            mask = _erasure_mask(model, p)
+            reset_all_counts()
+            tr, wall = timed(lambda: eng.solve(y, a, drop_sched=mask))
+            launches = {key: v for key, v in all_counts().items() if v}
+            mse = float(tr.mse(s0)[-1])
+            # per-processor quantizer noise: the bins' (ECSQ), else the
+            # drop-free run's account (block transports; 0 when lossless)
+            sq2 = base.extra_var / p
+            if isinstance(eng.transport, EcsqTransport):
+                sq2 = np.where(np.isfinite(tr.deltas), tr.deltas, 0.0) ** 2 / 12
+            if layout == "row":
+                at_rate = se_trajectory_erasure(prob, sq2, p, ERASURE_RATE,
+                                                mmse_fn=mm)[:T]
+            else:
+                at_rate, _ = se_trajectory_col(prob, p, T, 1, sigma_q2=sq2,
+                                               mmse_fn=mm,
+                                               erasure_rate=ERASURE_RATE)
+            ratio = tr.sigma2_hat / se_on_mask(prob, sq2, mask, layout, mm)
+            cpu = twins[name].solve(y, a, drop_sched=mask)
+            vs_cpu = {"max_abs_dx": float(np.abs(tr.x - cpu.x).max()),
+                      "max_rel_dsigma2": float(np.abs(
+                          tr.sigma2_hat / cpu.sigma2_hat - 1).max())}
+            if name == "lossless":
+                assert vs_cpu["max_abs_dx"] <= ERASURE_CPU_DX and \
+                    vs_cpu["max_rel_dsigma2"] <= ERASURE_CPU_DS, \
+                    (layout, name, model, vs_cpu)
+            else:
+                vs_cpu["first_parting_iteration"] = _traces_agree(cpu, tr, s0)
+            rec = {"card_vs_cpu": vs_cpu,
+                   "mse": mse, "mse_over_lossless": mse / ll_mse,
+                   "sigma2_hat_over_se_on_mask": [float(v) for v in ratio],
+                   "sigma2_hat_over_se_at_rate": [
+                       float(v) for v in tr.sigma2_hat / at_rate],
+                   "packets_lost": int(mask.sum()),
+                   "fewest_survivors": int((1 - mask).sum(1).min()),
+                   "launches": launches, "first_call_wall_ms": wall}
+            row[model] = rec
+            assert tr.x.shape == (N,) and np.all(np.isfinite(tr.x)), rec
+            assert ll_mse < mse < ERASURE_MSE_MAX * ll_mse, (layout, name, rec)
+            assert np.all((ratio >= lo) & (ratio <= hi)), (layout, name, rec)
+            want = ({"amp_local": T} if layout == "row"
+                    else {"col_residual": T, "col_inner": T})
+            if isinstance(eng.transport, BlockQuantTransport):
+                want["block_quant_fuse"] = T      # K4 once an iteration
+            assert launches == want, (layout, name, launches, want)
+        out[name] = row
+    return out
+
+
+def _erasure_requests(rng, specs, p, rds, tag, col: bool):
+    """Served requests with their erasure fields (``ERASURE_SERVE`` /
+    ``CLUSTER_COL`` entries) and ground truth: fixed bins from a DP
+    allocation (3 bits an iteration; the column allocator for column
+    requests), DP bins planned for the link by the service."""
+    reqs, s0s = [], []
+    for i, (n, m, t, eps, snr, policy, rate, model) in enumerate(specs):
+        prior, prob, s0, a, y = _draw_problem(rng, n, m, eps, snr)
+        deltas = None
+        if policy == "fixed" and col:
+            deltas = ColDPSchedule(dp_allocate_col(prob, p, t, 3.0 * t),
+                                   prob, p).deltas
+        elif policy == "fixed":
+            if eps not in rds:
+                rds[eps] = RDModel(prior)
+            deltas = DPSchedule(dp_allocate(prob, p, t, 3.0 * t,
+                                            rd=rds[eps]), rds[eps], p).deltas
+        reqs.append(SolveRequest(
+            y=y, a=a, prior=prior, snr_db=snr, n_proc=p, n_iter=t,
+            policy=policy, deltas=deltas, layout="col" if col else "row",
+            erasure_rate=rate, erasure_model=model,
+            erasure_burst=ERASURE_BURST, erasure_seed=SEED + i,
+            a_id=f"{tag}{i}"))
+        s0s.append(s0)
+    return reqs, s0s
+
+
+def _erasure_menu(reqs, widths) -> list:
+    """One prewarm spec a (bucket, program family) of ``reqs``."""
+    seen, menu = set(), []
+    for r in reqs:
+        key = (r.n, r.m, r.n_proc, r.n_iter, r.layout, r.transport,
+               r.policy == "bt")
+        if key in seen:
+            continue
+        seen.add(key)
+        menu.append(PrewarmSpec(n=r.n, m=r.m, n_proc=r.n_proc,
+                                n_iter=r.n_iter,
+                                policy="bt" if r.policy == "bt" else "lossless",
+                                transport=r.transport,
+                                prior=r.prior, snr_db=r.snr_db,
+                                layout=r.layout,
+                                batch_widths=(widths[r.layout],)))
+    return menu
+
+
+def run_erasure(ctx, col_ctx) -> dict:
+    """The erasure phase at the paper's point: row solves (P=30: lossless,
+    ECSQ with a fixed schedule, DP planned for the link, BT planned for
+    it, int8 blocks) and column solves (P=25: lossless, int8 blocks, under
+    the reset), each drop-free, with an all-zero mask and under Bernoulli
+    and Gilbert masks, each masked solve against its CPU twin; no host
+    sync in the masked loops; two served row buckets of 8 (ECSQ and int8
+    blocks) with erasure and lossless requests mixed, each against its
+    own single solve."""
+    t_phase = time.perf_counter()
+    prior, prob, mm = ctx["prior"], ctx["prob"], ctx["mm"]
+    a, y, s0 = ctx["a"], ctx["y"], ctx["s0"]
+    t0 = time.perf_counter()
+    rd = RDModel(prior)
+    er = dict(erasure_rate=ERASURE_RATE, recovery="retransmit")
+    dp_e = DPSchedule(dp_allocate(prob, P, T, 2.0 * T, rd=rd, mmse_fn=mm,
+                                  **er), rd, P)
+    bt_e = BTRateControl(prob, P, T, 1.005, 6.0, "ecsq", mmse_fn=mm, **er)
+    setup_s = time.perf_counter() - t0
+
+    def row_set(dev):
+        eng = lambda tp, ctrl=None: AmpEngine(
+            prior, EngineConfig(n_proc=P, n_iter=T, device=dev), tp, ctrl)
+        return {"lossless": eng(EcsqTransport(), FixedSchedule([np.inf] * T)),
+                "fixed": eng(EcsqTransport(),
+                             FixedSchedule(ctx["dp_sched"].deltas)),
+                "dp": eng(EcsqTransport(), dp_e),
+                "bt": eng(EcsqTransport(), bt_e),
+                "block8": eng(BlockQuantTransport(8))}
+
+    def col_set(dev):
+        return {"lossless": col_engine(prior, ExactFusion(), device=dev),
+                "block8": col_engine(prior, BlockQuantTransport(8),
+                                     device=dev)}
+
+    rows, cols = row_set("cuda"), col_set("cuda")
+    ll_row = float(rows["lossless"].solve(y, a).mse(s0)[-1])
+    ll_col = float(cols["lossless"].solve(y, a).mse(s0)[-1])
+    t0 = time.perf_counter()
+    row_runs = _erasure_runs(rows, row_set("cpu"), a, y, s0, P, "row", prob,
+                             mm, ll_row)
+    col_runs = _erasure_runs(cols, col_set("cpu"), a, y, s0, P_COL, "col",
+                             prob, mm, ll_col)
+    runs_s = time.perf_counter() - t0
+    launches = {}
+    for layout, runs in (("row", row_runs), ("col", col_runs)):
+        for name, r in runs.items():
+            for model in ERASURE_MODELS:
+                for key, v in r[model]["launches"].items():
+                    launches[key] = launches.get(key, 0) + v
+
+    # no host sync inside the masked loops; each masked solve (Bernoulli)
+    # beside its drop-free solve, operands and mask already on the card:
+    # device time queued behind a busy device, and six single calls a side
+    # on an idle card (host pace included) in turns, ABBA, with their
+    # quartiles (host-paced times spread 20-80 % between calls)
+    a_p, y_p = rows["lossless"]._split(y, a)
+    a_cp, y_c = cols["lossless"]._split_col(y, a)
+    sync, solve_ms = {}, {}
+
+    def quartiles(v):
+        q = statistics.quantiles(v, n=4)
+        return {"median": statistics.median(v), "q1": q[0], "q3": q[2]}
+
+    def pair(label, run_masked, run_free):
+        run_masked()
+        run_free()
+        calls = {"masked": [], "drop_free": []}
+        for i in range(6):
+            order = [("masked", run_masked), ("drop_free", run_free)]
+            for side, fn in (order if i % 2 == 0 else order[::-1]):
+                calls[side].append(time_call_ms(fn, repeats=1, warmup=0))
+        solve_ms[label] = {
+            "device_ms": time_ms(run_masked, repeats=3, inner=2,
+                                 warmup=0)["ms"],
+            "device_ms_drop_free": time_ms(run_free, repeats=3, inner=2,
+                                           warmup=0)["ms"],
+            "call_ms": quartiles(calls["masked"]),
+            "call_ms_drop_free": quartiles(calls["drop_free"])}
+        return run_masked
+
+    for name, eng in rows.items():
+        sched = eng._f32(eng._sched_operand())
+        drop = eng._f32(_erasure_mask("bernoulli", P))
+        run = pair(f"row_{name}",
+                   lambda e=eng, s_=sched, d=drop: e.dispatch_single(
+                       a_p, y_p, M, N, s_, drop_sched=d),
+                   lambda e=eng, s_=sched: e.dispatch_single(a_p, y_p, M, N,
+                                                             s_))
+        if name in ("lossless", "block8", "bt"):
+            sync[f"row_{name}"] = sync_sites(run)
+    for name, eng in cols.items():
+        sched = eng._f32(eng._sched_operand())
+        par = eng._col_prior_params(M)
+        drop = eng._f32(_erasure_mask("bernoulli", P_COL))
+        run = pair(f"col_{name}",
+                   lambda e=eng, s_=sched, q=par, d=drop: e._col_solve_core(
+                       a_cp, y_c, s_, q, M, N, d),
+                   lambda e=eng, s_=sched, q=par: e._col_solve_core(
+                       a_cp, y_c, s_, q, M, N))
+        sync[f"col_{name}"] = sync_sites(run)
+    del a_p, y_p, a_cp, y_c
+
+    # served row buckets of 8, erasure and lossless requests mixed: the ECSQ
+    # one, and the paper-point problems of it over int8 blocks (K4 with each
+    # instance's keep row, (B, P), zero rows for the drop-free requests;
+    # five requests and three pad slots), on a service whose N quantum
+    # divides the scale block (buckets.py: pad-invariant noise accounting)
+    rng = np.random.default_rng(SEED + 30)
+    ecsq, s0s = _erasure_requests(rng, ERASURE_SERVE, P, {}, "er", False)
+    paper = [i for i, r in enumerate(ecsq) if (r.n, r.m) == (N, M)]
+    b8 = [dataclasses.replace(ecsq[i], policy="lossless", deltas=None,
+                              transport="block8", a_id=f"{ecsq[i].a_id}b8")
+          for i in paper]
+    streams = {"ecsq": (SERVE_POLICY, ecsq, s0s),
+               "block8": (dataclasses.replace(SERVE_POLICY, n_quantum=512),
+                          b8, [s0s[i] for i in paper])}
+    serve_wall, serve_launches, served, agree = {}, {}, {}, []
+    warm_after = {}
+    for tname, (pol, reqs, s0_list) in streams.items():
+        svc = SolveService(policy=pol, operand_cache_bytes=SERVE_CACHE_BYTES)
+        svc.prewarm(_erasure_menu(reqs, {"row": BATCH}))
+        warmed = svc.compile_count()
+        reset_all_counts()
+        results, serve_wall[tname] = timed(lambda: svc.solve(reqs))
+        counts = all_counts()
+        warm_after[tname] = svc.compile_count() - warmed
+        assert warm_after[tname] == 0, (tname, warm_after)
+        (key,) = {r.bucket for r in results}
+        assert key.layout == "row" and key.transport == tname, key
+        # K1 once an iteration, K4 once an iteration of the block8 batch
+        assert counts["amp_local"] == key.t_max, (tname, counts)
+        assert counts["block_quant_fuse"] == (
+            key.t_max if tname == "block8" else 0), (tname, counts)
+        for k_, v in counts.items():
+            serve_launches[k_] = serve_launches.get(k_, 0) + v
+        tp = BlockQuantTransport(8, 512) if tname == "block8" else None
+        for req, res, s0_ in zip(reqs, results, s0_list):
+            req = svc._prepare(req, assign_id=False)    # a DP request's bins
+            row = _serve_agree(req, res, _serve_single(req, False, tp), s0_)
+            row.update(erasure_rate=req.erasure_rate,
+                       erasure_model=req.erasure_model)
+            if req.erasure_rate > 0.0 and res.tracked:
+                # on-the-wire rates: the delivered rate times 1 / (1 - rate)
+                assert np.all(res.rates[np.isfinite(res.rates)] > 0), \
+                    res.rates
+            agree.append(row)
+        served[tname] = (svc, key, reqs)
+    het_device_ms = {}
+    for tname, (svc, key, reqs) in served.items():
+        prepared = [svc._prepare(r, assign_id=False) for r in reqs]
+        # the pad slots repeat real requests, as the service's dispatch does
+        prepared = [prepared[i % len(prepared)] for i in range(BATCH)]
+        eng = svc._engines[key]
+        a_d, y_d, hp, bt_on = svc._het_operands(key, prepared)
+        assert hp.drop is not None and \
+            tuple(hp.drop.shape) == (BATCH, key.t_max, P)
+        y_d = y_d.to(DEV)
+        run = lambda: eng._het_core(a_d, y_d, hp, bt_on)
+        run()
+        sync[f"row_het_{tname}"] = sync_sites(run)
+        het_device_ms[tname] = time_ms(run, repeats=3, inner=2,
+                                       warmup=1)["ms"]
+        del a_d, y_d, run
+    bad = {name: sorted(set(v)) for name, v in sync.items() if v}
+    assert not bad, f"host syncs inside the erasure loops: {bad}"
+
+    wall_ms = {f"{layout}_{name}": {m: r[m]["first_call_wall_ms"]
+                                    for m in ERASURE_MODELS}
+               for layout, runs in (("row", row_runs), ("col", col_runs))
+               for name, r in runs.items()}
+    emit("erasure", rate=ERASURE_RATE, models=list(ERASURE_MODELS),
+         burst=ERASURE_BURST, mask_seed=SEED, host_setup_s=setup_s,
+         limits={"mse_over_lossless": [1.0, ERASURE_MSE_MAX],
+                 "sigma2_hat_over_se_on_mask": ERASURE_ENVELOPE,
+                 "card_vs_cpu": {"lossless_max_abs_dx": ERASURE_CPU_DX,
+                                 "lossless_max_rel_dsigma2": ERASURE_CPU_DS,
+                                 "quantized": "assert_traces_agree's rule"}},
+         lossless_mse={"row": ll_row, "col": ll_col},
+         row=row_runs, col=col_runs,
+         served_buckets={t_: str(v[1]) for t_, v in served.items()},
+         served_agreement=agree,
+         served_wall_ms=serve_wall, served_launches=serve_launches,
+         served_programs_after_prewarm=warm_after,
+         synchronizing_calls_in_erasure_loops={n_: len(v)
+                                               for n_, v in sync.items()},
+         timing={"method": "first call: host clock, synchronised; "
+                           "device_ms: queued behind a busy device "
+                           "(time_ms); call_ms: single calls on an idle card "
+                           "(time_call_ms), six a side in turns, median and "
+                           "quartiles; Bernoulli mask on the card; each "
+                           "beside the same engine's drop-free solve",
+                 "wall_ms": wall_ms, "solves": solve_ms,
+                 "het_row_bucket_device_ms": het_device_ms,
+                 "masked_runs_with_cpu_twins_s": runs_s},
+         seconds=time.perf_counter() - t_phase)
+    launches = {k_: launches.get(k_, 0) + serve_launches.get(k_, 0)
+                for k_ in set(launches) | set(serve_launches)}
+    return {"launches": launches}
+
+
+def _cluster_stream():
+    """The cluster phase's stream: the served erasure row bucket of 8 and
+    a column bucket of 4 at the wide problem, erasure requests in both."""
+    rng = np.random.default_rng(SEED + 40)
+    row, row_s0 = _erasure_requests(rng, ERASURE_SERVE, P, {}, "cr", False)
+    col, col_s0 = _erasure_requests(rng, CLUSTER_COL, WIDE_P, {}, "cc", True)
+    return row + col, row_s0 + col_s0
+
+
+def run_cluster() -> dict:
+    """The cluster plane on the card: a ``ClusterService`` over two
+    ``LocalBackend``s (two ``SolveService``s on the one card) against one
+    ``SolveService`` on the same stream, request for request the same
+    bits; every host serves; no program first run after prewarm; a
+    ``ChaosBackend`` kill of one host at its first flush loses nothing
+    and replays the same bits; the same stream at full width through a
+    ``TcpBackend`` to a ``BackendServer`` on loopback, the same bits; and
+    ``launch/multihost.py --smoke``: a child process behind a
+    ``BackendServer``, reached by ``TcpBackend``, at its toy load."""
+    t_phase = time.perf_counter()
+    reqs, _ = _cluster_stream()
+    widths = {"row": BATCH, "col": len(CLUSTER_COL)}
+    menu = _erasure_menu(reqs, widths)
+    kw = dict(policy=SERVE_POLICY, operand_cache_bytes=SERVE_CACHE_BYTES)
+
+    single = SolveService(**kw)
+    single.prewarm(menu)
+    want, single_ms = timed(lambda: single.solve(reqs))
+    _, single_warm_ms = timed(lambda: single.solve(reqs))
+
+    cluster = ClusterService(n_hosts=2, **kw)
+    cluster.prewarm(menu)
+    warm = {hid: b.compile_count() for hid, b in cluster.backends.items()}
+    reset_all_counts()
+    got, cluster_ms = timed(lambda: cluster.solve(reqs))
+    launches = all_counts()
+    st = cluster.stats()
+    served = st["router"]["served"]
+    after = {hid: b.compile_count() - warm[hid]
+             for hid, b in cluster.backends.items()}
+    dx = max(float(np.abs(g.x - w.x).max()) for g, w in zip(got, want))
+    same = all(_same_bits(g, w) for g, w in zip(got, want))
+    assert dx == 0.0 and same, dx
+    assert all(v > 0 for v in served.values()), served
+    assert all(v == 0 for v in after.values()), after
+    _, warm_ms = timed(lambda: cluster.solve(reqs))
+    cluster.close()
+    del cluster
+
+    # a host killed at its first flush (whichever of its calls that is):
+    # its flights replay on the other
+    first_flush = FaultPlan(faults=tuple(
+        FaultSpec("kill", i, ops=("flush",)) for i in range(1, len(reqs) + 2)))
+    chaos = ClusterService(
+        backends=[LocalBackend("host0", SolveService(**kw)),
+                  ChaosBackend(LocalBackend("host1", SolveService(**kw)),
+                               first_flush)],
+        policy=SERVE_POLICY,
+        router_policy=RouterPolicy(min_replicas=1, suspect_after=1,
+                                   dead_after=1, retry_limit=2,
+                                   retry_backoff_s=0.0))
+    got_c = chaos.solve(reqs)
+    st_c = chaos.stats()
+    dx_c = max(float(np.abs(g.x - w.x).max()) for g, w in zip(got_c, want))
+    assert len(got_c) == len(reqs) and st_c["lost"] == 0, st_c
+    assert st_c["failovers"] == 1 and \
+        st_c["host_states"]["host1"] == "dead", st_c
+    assert dx_c == 0.0 and all(_same_bits(g, w)
+                               for g, w in zip(got_c, want)), dx_c
+    chaos.close()
+    del chaos, single
+
+    # the same stream over TCP at full width, every request through the
+    # codec and a loopback socket: a BackendServer (a serving thread of this
+    # process, its own SolveService on the card) behind a TcpBackend, the
+    # only host of a ClusterService; run twice, the submit round trips of
+    # the second split by layout (ClusterService.solve submits in order)
+    frame_mb = {r.layout: len(encode_request(r)) / 2 ** 20
+                for r in (reqs[0], reqs[-1])}
+    server = BackendServer(LocalBackend("host1", SolveService(**kw)),
+                           idle_timeout_s=600.0)
+    server.start()
+    try:
+        tcp = TcpBackend((server.host, server.port), "host1",
+                         connect_timeout_s=10.0, recv_timeout_s=600.0)
+        wire = ClusterService(backends=[tcp], policy=SERVE_POLICY)
+        wire.prewarm(menu)
+        warm_tcp = wire.compile_count()
+        got_t, tcp_first_ms = timed(lambda: wire.solve(reqs))
+        _, tcp_warm_ms = timed(lambda: wire.solve(reqs))
+        tcp_after = wire.compile_count() - warm_tcp
+        rtt_ops = wire.rtt_stats()["host1"]
+        submits = list(tcp._rtt[b"S"])[-len(reqs):]
+        wire.close(shutdown_remote=True)
+    finally:
+        server.stop()
+        assert server.join(30.0), "the backend server's thread did not end"
+    dx_t = max(float(np.abs(g.x - w.x).max()) for g, w in zip(got_t, want))
+    assert dx_t == 0.0 and all(_same_bits(g, w)
+                               for g, w in zip(got_t, want)), dx_t
+    assert tcp_after == 0, tcp_after
+    submit_ms = {}
+    for layout in frame_mb:
+        v = sorted(1e3 * t_ for t_, r in zip(submits, reqs)
+                   if r.layout == layout)
+        submit_ms[layout] = {"count": len(v), "median": statistics.median(v),
+                             "min": v[0], "max": v[-1]}
+    for layout, mb in frame_mb.items():
+        print(f"cluster tcp full width: {layout} request frame {mb:.1f} MiB, "
+              f"submit round trip median {submit_ms[layout]['median']:.1f} "
+              f"ms (n={submit_ms[layout]['count']})", flush=True)
+
+    # two processes on the one card: the frontend's LocalBackend and a
+    # child's BackendServer over TCP (the kernels are built: it loads),
+    # at the smoke load of multihost.py (N=128, M=64: frames of ~33 KB)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.multihost", "--smoke",
+         "--timeout", "240"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    mh_lines = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("multihost")]
+    assert proc.returncode == 0, (proc.returncode, mh_lines,
+                                  proc.stderr[-3000:])
+    rtt = [ln for ln in mh_lines if "frame rtt" in ln]
+    result = [ln for ln in mh_lines if "results in" in ln]
+    assert rtt and result and "max|dx| 0.0e+00" in result[0], mh_lines
+    for ln in rtt:
+        print(ln, flush=True)
+    n_req = len(reqs)
+    emit("cluster", hosts=2, requests=n_req,
+         buckets=sorted({str(r.bucket) for r in got}),
+         max_abs_dx_vs_single_host=dx, served=served,
+         programs_after_prewarm=after, launches=launches,
+         single_host_solve_ms=single_ms, cluster_first_solve_ms=cluster_ms,
+         single_host_warm_solve_ms=single_warm_ms,
+         cluster_warm_solve_ms=warm_ms,
+         single_host_solves_per_s_warm=n_req / (single_warm_ms / 1e3),
+         cluster_solves_per_s_warm=n_req / (warm_ms / 1e3),
+         note="two SolveServices on one card: oversubscription, not scaling",
+         chaos={"lost": st_c["lost"], "failovers": st_c["failovers"],
+                "retries": st_c["retries"], "host_states": st_c["host_states"],
+                "recovery": st_c["recovery"], "max_abs_dx_vs_single_host": dx_c},
+         tcp_full_width={
+             "hosts": 1, "requests": n_req, "max_abs_dx_vs_single_host": dx_t,
+             "programs_after_prewarm": tcp_after,
+             "request_frame_mib": frame_mb,
+             "first_solve_ms": tcp_first_ms, "warm_solve_ms": tcp_warm_ms,
+             "solves_per_s_warm": n_req / (tcp_warm_ms / 1e3),
+             "submit_round_trip_ms_warm": submit_ms,
+             "round_trip_ms_per_op": rtt_ops,
+             "note": "a BackendServer thread of this process on loopback; "
+                     "round trips from send to parsed reply, encoding "
+                     "excluded; both runs in the per-op window"},
+         multihost_smoke_load={"returncode": proc.returncode,
+                               "lines": mh_lines,
+                               "note": "N=128, M=64, P=4, T=8: frames of "
+                                       "~33 KB, a liveness check; its round "
+                                       "trips are that load's only"},
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
 def sync_sites(fn) -> list:
     """Run ``fn`` with PyTorch's sync debug mode on: every call that makes
     the host wait for the device is reported with the lines of this
@@ -1518,11 +2207,14 @@ def quant_bounds(r, n, block):
             "dequantize_blocks": bound(5 * r * n + scales, 2.0 * r * n)}
 
 
-def fuse_bound(b, p, n):
+def fuse_bound(b, p, n, keep: int = 0):
     """Least time of the fused call: the messages read once, the float32
-    symbols, f and extra written once; about 8 float32 operations an
-    element (abs, max, divide, round, two clamps, multiply, add)."""
-    return bound(4 * (2 * b * p * n + b * n + b), 8.0 * b * p * n)
+    symbols, f and extra written once (and ``keep`` flags read, the
+    erasure form); about 8 float32 operations an element (abs, max,
+    divide, round, two clamps, multiply, add; the erasure form's keep
+    product and rescale are 2 more an element of f_p and f)."""
+    ops = 8.0 * b * p * n + (2.0 * b * p * n if keep else 0.0)
+    return bound(4 * (2 * b * p * n + b * n + b + keep), ops)
 
 
 COL_TIMED = [s for s in COL_SHAPES if s[0] in ("paper_P25", "wide_P20",
@@ -1572,6 +2264,7 @@ def time_quantize_kernels() -> dict:
         x = quant_inputs(r, n, SEED)
         x3 = x.reshape(1, r, n)
         q, s = kq.quantize_cuda(x, 127, 512)
+        keep = fuse_keep_rows(1, r, SEED + 8)["random_shared"]
         plan = kq.fuse_plan(1, r, n, 512, sms=k.sm_count(DEV))
         calls = {
             "quantize_blocks": {
@@ -1585,10 +2278,18 @@ def time_quantize_kernels() -> dict:
                 "plain_ms": lambda: block_quant_fuse_ref(x3, 127, 512),
                 "chain_ms": lambda: chain_fuse(x3, 127, 512),
                 "empty_launch_ms": lambda: kq.empty_launch_cuda(plan, DEV)},
+            # the erasure form, in the same call as the drop-free one
+            "block_quant_fuse_erasure": {
+                "ms": lambda: kq.block_quant_fuse_cuda(x3, 127, 512,
+                                                       keep=keep),
+                "plain_ms": lambda: block_quant_fuse_ref(x3, 127, 512,
+                                                         keep=keep)},
         }
         table[name] = _time_calls(calls, {**quant_bounds(r, n, 512),
                                           "block_quant_fuse": fuse_bound(
-                                              1, r, n)})
+                                              1, r, n),
+                                          "block_quant_fuse_erasure":
+                                              fuse_bound(1, r, n, keep=r)})
         table[name]["block_quant_fuse"]["plan"] = plan._asdict()
     table["fuse_scaling"] = time_fuse_scaling()
     return table
@@ -2235,6 +2936,8 @@ def main() -> None:
     bq_ctx = run_block_quant_row(ctx)
     check_no_host_sync(ctx, col_ctx)
     serve_ctx = run_serve()
+    erasure_ctx = run_erasure(ctx, col_ctx)
+    cluster_ctx = run_cluster()
     errs_da = check_decode_attn_kernel()
     errs_wkv = check_wkv6_kernel()
     check_lm_small()
@@ -2268,7 +2971,12 @@ def main() -> None:
     # each kernel: its time at the shape its main path gives it, its
     # launches on the path(s) that drove it (counts reset just before each)
     col_launches, bq_launches = col_ctx["launches"], bq_ctx["launches"]
-    sv_launches = serve_ctx["launches"]
+    # the serve, erasure and cluster phases' launches, each read just after
+    # its own path
+    sv_launches = {key: serve_ctx["launches"].get(key, 0)
+                   + erasure_ctx["launches"].get(key, 0)
+                   + cluster_ctx["launches"].get(key, 0)
+                   for key in serve_ctx["launches"]}
     q_err = max(r["q_max_abs_err"] for r in errs_q.values())
     d_err = max(r["dequantized_max_abs_err"] for r in errs_q.values())
     fuse_err = max(r["f_max_abs_err"] for r in errs_fuse.values())

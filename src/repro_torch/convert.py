@@ -88,15 +88,11 @@ def het_params_from_arrays(fields, device="cpu") -> HetParams:
     a mapping by field name, each with its leading batch axis. ``bt`` is the
     stacked tables' arrays (16: ``BTTables`` of a row bucket; 14:
     ``ColBTTables`` of a column bucket), again in order or by name;
-    ``drop`` must be None (erasure is not ported yet)."""
+    ``drop`` is the (B, T, P) erasure mask or None."""
     if isinstance(fields, dict):
         fields = [fields.get(name) for name in HetParams._fields]
     fields = list(fields) + [None] * (len(HetParams._fields) - len(fields))
     hp = dict(zip(HetParams._fields, fields))
-    if hp["drop"] is not None:
-        raise NotImplementedError(
-            "erasure (HetParams.drop) is not ported yet: ROADMAP.md Queue 1 "
-            "item 4")
     bt = hp["bt"]
     cls = BTTables if len(bt) == len(BTTables._fields) else ColBTTables
     as_int = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
@@ -106,7 +102,8 @@ def het_params_from_arrays(fields, device="cpu") -> HetParams:
         eps=_f32(hp["eps"], device), mu_s=_f32(hp["mu_s"], device),
         sigma_s=_f32(hp["sigma_s"], device),
         use_bt=torch.as_tensor(np.asarray(hp["use_bt"], bool), device=device),
-        bt=_tables_from_arrays(cls, bt, device))
+        bt=_tables_from_arrays(cls, bt, device),
+        drop=None if hp["drop"] is None else _f32(hp["drop"], device))
 
 
 def prior_from_fields(eps: float, mu_s: float, sigma_s: float) -> BernoulliGauss:

@@ -45,7 +45,15 @@ cache (``_run``, ``lower_het``, ``compile_het``) — eager PyTorch compiles
 nothing; ``compile_count`` counts the distinct programs (entry point,
 operand shapes, BT or not) an engine has run, the serving layer's
 warm-start signal — the ``use_kernel`` / ``kernel_interpret`` / ``donate``
-switches, and (for now) erasure (``drop=``) and device-sharded solves.
+switches, and (for now) device-sharded solves.
+
+Erasure (the reference's DESIGN.md §10): ``solve(y, a, drop_sched=)`` and
+``HetParams.drop`` take a (T, P) mask of lost fusion packets (1 = lost,
+``ErasureSpec.sample_mask`` draws one). The row layout rescales the
+survivors (``_erasure_rescale``); the column layout resets the erased
+signal blocks instead. ``drop=None`` runs the drop-free code unchanged,
+and an all-zero mask gives its bits: every erasure factor is then an exact
+multiplication by 1.0.
 """
 from __future__ import annotations
 
@@ -72,7 +80,7 @@ from .rate_distortion import RDModel
 from .state_evolution import CSProblem, se_trajectory_col
 
 __all__ = [
-    "AmpEngine", "EngineConfig", "EngineTrace", "RowPartition",
+    "AmpEngine", "EngineConfig", "EngineTrace", "ErasureSpec", "RowPartition",
     "ColumnPartition", "Transport", "ExactFusion", "EcsqTransport",
     "BlockQuantTransport", "RateController", "FixedSchedule", "DPSchedule",
     "BTRateControl", "BTTables", "bt_delta_for", "ColBTTables",
@@ -165,6 +173,92 @@ def amp_gc_step(f, denoise_var, prior: BernoulliGauss, kappa):
 
 
 # ---------------------------------------------------------------------------
+# erasure (lossy-wire realism; the reference's DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ErasureSpec:
+    """Per-round, per-processor fusion-packet loss model.
+
+    ``sample_mask`` draws the concrete (T, P) 0/1 drop schedule on the host
+    with numpy, the reference's generator and draw order, so both packages
+    draw the same bits from one seed; the engine takes it as an operand.
+
+    ``bernoulli``: each packet lost i.i.d. with probability ``rate``.
+    ``gilbert``: a two-state Gilbert-Elliott channel per processor; the bad
+    state drops every packet, its mean sojourn is ``burst_len`` rounds, and
+    the transition probabilities make the stationary loss probability
+    ``rate`` (p_bg = 1/burst_len, p_gb = rate*p_bg/(1-rate), clipped to 1).
+    Chains start in their stationary distribution.
+    """
+
+    rate: float = 0.0
+    model: str = "bernoulli"          # "bernoulli" | "gilbert"
+    burst_len: float = 4.0            # gilbert: mean bad-state rounds
+    seed: int = 0
+
+    def __post_init__(self):
+        if not 0.0 <= self.rate < 1.0:
+            raise ValueError(f"erasure rate {self.rate} not in [0, 1)")
+        if self.model not in ("bernoulli", "gilbert"):
+            raise ValueError(f"unknown erasure model {self.model!r}")
+        if self.burst_len < 1.0:
+            raise ValueError(f"burst_len {self.burst_len} < 1")
+
+    def sample_mask(self, n_iter: int, n_proc: int,
+                    seed: int | None = None) -> np.ndarray:
+        """Draw a (n_iter, n_proc) float32 drop mask (1 = packet lost)."""
+        rng = np.random.default_rng(self.seed if seed is None else seed)
+        if self.rate == 0.0:
+            return np.zeros((n_iter, n_proc), np.float32)
+        if self.model == "bernoulli":
+            return (rng.random((n_iter, n_proc))
+                    < self.rate).astype(np.float32)
+        p_bg = 1.0 / self.burst_len
+        p_gb = min(self.rate * p_bg / (1.0 - self.rate), 1.0)
+        bad = rng.random(n_proc) < self.rate
+        mask = np.zeros((n_iter, n_proc), np.float32)
+        for t in range(n_iter):
+            mask[t] = bad
+            flip = rng.random(n_proc)
+            bad = np.where(bad, flip >= p_bg, flip < p_gb)
+        return mask
+
+
+def _per_proc(v, n_proc: int):
+    """``n_proc`` as a tensor like ``v``: dividing by a tensor is the IEEE
+    division (PyTorch on the card multiplies by the reciprocal of a Python
+    number, which can miss P / P == 1.0)."""
+    return torch.full_like(v, n_proc)
+
+
+def _survivors(drop, n_proc: int):
+    """``(keep, n_surv, scale)`` of a (..., P) 0/1 drop mask: keep =
+    1 - drop, n_surv = max(sum keep, 1) (a sum of 0s and 1s, exact in any
+    order) and the survivor rescale P / n_surv: exactly P and 1.0 when
+    nothing is lost."""
+    keep = 1.0 - drop
+    n_surv = torch.clamp(keep.sum(-1), min=1.0)
+    return keep, n_surv, _per_proc(n_surv, n_proc) / n_surv
+
+
+def _erasure_rescale(f_q, drop):
+    """Per-processor erasure of the row layout's fusion packets (the
+    reference's ``_erasure_rescale``): ``drop`` (..., P) marks the lost
+    packets of ``f_q`` (..., P, N); the survivors' sum is rescaled by
+    P / n_surv, so the fusion stays an unbiased estimate of the full sum.
+    Returns ``(f, amp)`` with ``amp = n_surv * scale^2 / P``, the factor on
+    the drop-free noise account ``P * sigma_Q^2``: the reference's
+    ``sigma_Q^2 * n_surv * scale^2`` with the factors arranged so that an
+    all-survivor mask multiplies by exactly 1.0."""
+    n_proc = f_q.shape[-2]
+    keep, n_surv, scale = _survivors(drop, n_proc)
+    f = torch.sum(f_q * keep[..., None], dim=-2) * scale[..., None]
+    amp = n_surv * (scale * scale) / _per_proc(n_surv, n_proc)
+    return f, amp
+
+
+# ---------------------------------------------------------------------------
 # transports
 # ---------------------------------------------------------------------------
 
@@ -179,18 +273,23 @@ class Transport(Protocol):
     empirical-rate accounting (all-zeros when not applicable). ``delta``
     (...,) is the bin size, one per batch entry. ``symbols=False`` says
     that the caller will not read the symbols: a transport may then return
-    None in their place and skip making them.
+    None in their place and skip making them. ``drop`` (..., P) is the
+    erasure mask of this round's packets (``_erasure_rescale``); None runs
+    the drop-free code.
     """
 
-    def fuse(self, f_p, delta, symbols=True): ...  # pragma: no cover - protocol
+    def fuse(self, f_p, delta, symbols=True, drop=None): ...  # pragma: no cover - protocol
 
 
 @dataclasses.dataclass(frozen=True)
 class ExactFusion:
     """Lossless fusion (centralized AMP / the paper's 32-bit baseline)."""
 
-    def fuse(self, f_p, delta, symbols=True):
-        f = torch.sum(f_p, dim=-2)
+    def fuse(self, f_p, delta, symbols=True, drop=None):
+        if drop is None:
+            f = torch.sum(f_p, dim=-2)
+        else:
+            f, _ = _erasure_rescale(f_p, drop)
         return (f, f.new_zeros(f.shape[:-1]),
                 torch.zeros_like(f_p) if symbols else None)
 
@@ -205,7 +304,7 @@ class EcsqTransport:
     — both computed by the frontends from the returned trace.
     """
 
-    def fuse(self, f_p, delta, symbols=True):
+    def fuse(self, f_p, delta, symbols=True, drop=None):
         n_proc = f_p.shape[-2]
         lossless = ~torch.isfinite(delta)
         safe_delta = torch.where(lossless, 1.0, delta)
@@ -213,9 +312,11 @@ class EcsqTransport:
         q = quantize_midtread(f_p, sd)
         f_q = torch.where(lossless[..., None, None], f_p,
                           dequantize_midtread(q, sd))
-        f = torch.sum(f_q, dim=-2)
         extra = torch.where(lossless, 0.0, n_proc * safe_delta**2 / 12.0)
-        return f, extra, q
+        if drop is None:
+            return torch.sum(f_q, dim=-2), extra, q
+        f, amp = _erasure_rescale(f_q, drop)
+        return f, extra * amp, q
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,7 +332,10 @@ class BlockQuantTransport:
     the mean over the P x blocks of each batch entry. Symbols are the int
     codes as float32, shaped like the messages (None with
     ``symbols=False``). The int4 codes travel unpacked here: this transport
-    emulates the wire, it does not pack.
+    emulates the wire, it does not pack. Under erasure the same launch
+    takes the keep row of each batch entry and returns the survivors' sum
+    rescaled by P / n_surv and ``extra = mean(Delta^2)/12 * n_surv *
+    scale^2``, the mean still over every processor's blocks.
     """
 
     bits: int = 8
@@ -241,10 +345,16 @@ class BlockQuantTransport:
     def qc(self) -> QuantConfig:
         return QuantConfig(bits=self.bits, block=self.block)
 
-    def fuse(self, f_p, delta, symbols=True):
+    def fuse(self, f_p, delta, symbols=True, drop=None):
         lead, (n_proc, length) = f_p.shape[:-2], f_p.shape[-2:]
+        keep = None
+        if drop is not None:
+            keep = (1.0 - drop).contiguous()
+            if keep.ndim > 1:
+                keep = keep.reshape(-1, n_proc)
         f, extra, syms = block_quant_fuse(f_p.reshape(-1, n_proc, length),
-                                          self.qc.qmax, self.block, symbols)
+                                          self.qc.qmax, self.block, symbols,
+                                          keep=keep)
         return (f.reshape(lead + (length,)), extra.reshape(lead),
                 None if syms is None else syms.reshape(f_p.shape))
 
@@ -881,8 +991,9 @@ class HetParams(NamedTuple):
     sigma_s: torch.Tensor   # () float32 prior std
     use_bt: torch.Tensor    # () bool: BT controller vs the schedule
     bt: "BTTables | ColBTTables"   # stacked tables (dummy where !use_bt)
-    drop: torch.Tensor | None = None   # (T, P) erasure mask: not yet
-    #                                    (ROADMAP.md Queue 1 item 4)
+    drop: torch.Tensor | None = None   # (T, P) erasure mask, 1 = packet
+    #                                    lost; None when no instance of the
+    #                                    batch loses packets
 
     def to(self, device) -> "HetParams":
         """Every field on ``device`` (the schedule and priors as float32)."""
@@ -891,7 +1002,14 @@ class HetParams(NamedTuple):
             sched=f32(self.sched), t_active=self.t_active.to(device),
             m_real=f32(self.m_real), n_real=self.n_real.to(device),
             eps=f32(self.eps), mu_s=f32(self.mu_s), sigma_s=f32(self.sigma_s),
-            use_bt=self.use_bt.to(device), bt=self.bt.to(device))
+            use_bt=self.use_bt.to(device), bt=self.bt.to(device),
+            drop=None if self.drop is None else f32(self.drop))
+
+
+def _drop_at(hp: HetParams, t: int):
+    """Round t's erasure rows (B, P) of a het batch, or None: a view by a
+    Python int, no index tensor."""
+    return None if hp.drop is None else hp.drop[:, t]
 
 
 @dataclasses.dataclass
@@ -969,21 +1087,25 @@ class AmpEngine:
                                         self.cfg.n_proc)
         return z_new, f_p, ss / m
 
-    def _fuse(self, f_p, delta):
+    def _fuse(self, f_p, delta, drop=None):
+        """Transport dispatch; ``drop`` (..., P) is this round's erasure
+        mask, None the drop-free code."""
         return self.transport.fuse(f_p, delta,
-                                   symbols=self.cfg.collect_symbols)
+                                   symbols=self.cfg.collect_symbols,
+                                   drop=drop)
 
-    def _gc(self, f_p, sigma2_hat, delta, kappa):
+    def _gc(self, f_p, sigma2_hat, delta, kappa, drop=None):
         """GC: compress + fuse + denoise. Returns (x, onsager, extra, syms)."""
-        f, extra, syms = self._fuse(f_p, delta)
+        f, extra, syms = self._fuse(f_p, delta, drop)
         x_new, onsager_new = amp_gc_step(f, sigma2_hat + extra, self.prior,
                                          kappa)
         return x_new, onsager_new, extra, syms
 
     def _body(self, t: int, carry, sched_delta, a_p, y_p, kappa, m,
-              outs: _Outs):
+              outs: _Outs, drop=None):
         """One iteration; writes its record into ``outs`` at index t.
-        No host sync: nothing here reads a tensor's value."""
+        ``drop`` (P,) is the iteration's erasure mask or None. No host
+        sync: nothing here reads a tensor's value."""
         x, z_p, onsager = carry
         z_p, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, m)
         if isinstance(self.controller, FixedSchedule):
@@ -992,7 +1114,8 @@ class AmpEngine:
             delta, rate = sched_delta.expand(s2.shape), None
         else:
             delta, rate = self.controller.delta_for(t, s2)
-        x_new, onsager_new, extra, syms = self._gc(f_p, s2, delta, kappa)
+        x_new, onsager_new, extra, syms = self._gc(f_p, s2, delta, kappa,
+                                                   drop)
         self._record(outs, t, s2, delta, extra, rate)
         if outs.xs is not None:
             outs.xs[..., t, :] = x_new
@@ -1032,9 +1155,11 @@ class AmpEngine:
         if rate is not None:
             outs.rates[..., t] = rate
 
-    def _solve_core(self, a_p, y_p, sched, m: int, n: int):
+    def _solve_core(self, a_p, y_p, sched, m: int, n: int, drop=None):
         """The T-iteration loop on device operands. a_p (P, Mp, N) or
-        (B, P, Mp, N); y_p (P, Mp) or (B, P, Mp); sched (T,)."""
+        (B, P, Mp, N); y_p (P, Mp) or (B, P, Mp); sched (T,); drop the
+        (T, P) erasure mask or None. ``drop[t]`` with a Python int t is a
+        view: no index tensor, no host read."""
         cfg, kappa = self.cfg, m / n
         lead = tuple(y_p.shape[:-2])
         carry = (torch.zeros(lead + (n,), dtype=torch.float32,
@@ -1043,7 +1168,8 @@ class AmpEngine:
                  torch.zeros(lead, dtype=torch.float32, device=self.device))
         outs = self._alloc_outs(lead, n, n)
         for t in range(cfg.n_iter):
-            carry = self._body(t, carry, sched[t], a_p, y_p, kappa, m, outs)
+            carry = self._body(t, carry, sched[t], a_p, y_p, kappa, m, outs,
+                               None if drop is None else drop[t])
         return carry[0], outs
 
     # -- column layout (C-MP-AMP) ---------------------------------------------
@@ -1089,13 +1215,36 @@ class AmpEngine:
         return x, c_p, z_p
 
     def _col_round(self, x, mem, coef, delta, a_cp, y, m_eff, par,
-                   n_mask=None):
+                   n_mask=None, drop=None):
         """One round: residual contributions, fuse, the boundary Onsager
         memory, the inner stage. Returns the new carry pieces and the
         round's record ``(v_hat, extra, syms)``. ``m_eff`` normalises the
-        plug-in (a number, or (B,) real measurement counts)."""
+        plug-in (a number, or (B,) real measurement counts).
+
+        ``drop`` (..., P), this round's erasure mask, is a *reset*, not a
+        rescale (the reference's DESIGN.md §10): an erased contribution
+        leaves its whole signal block unexplained in the fused residual, so
+        the block's estimate is zeroed before K2 forms r_p (which then
+        vanishes exactly) and the inner stage restarts it from 0 against
+        the fused residual. The boundary Onsager coefficient scales with
+        the survivors (their share when ``carry_fused``, else each
+        processor's keep flag): an erased block's correction never crossed
+        the wire. The transport runs drop-free (its survivor rescale must
+        not act on the zeroed contributions), and ``extra`` counts only the
+        delivered packets' noise (share of survivors). With nothing lost
+        every factor is an exact 1.0."""
+        p = self.cfg.n_proc
+        share = None
+        if drop is not None:
+            keep = 1.0 - drop
+            x = x * keep[..., None]
+            kept = keep.sum(-1)
+            share = kept / _per_proc(kept, p)
+            coef = coef * (share if self.cfg.layout.carry_fused else keep)
         r_p = col_residual(a_cp, x)
         r, extra, syms = self._fuse(r_p, delta)
+        if share is not None:
+            extra = extra * share
         g = y - r
         # boundary Onsager correction sum_q c_q z_q^last (ColumnPartition);
         # a scalar times the previous g on the n_inner == 1 path
@@ -1111,7 +1260,7 @@ class AmpEngine:
         return x_new, z_last, c_p, v_hat, extra, syms
 
     def _col_body(self, t: int, carry, sched_delta, a_cp, y, m_eff, par,
-                  outs: _Outs):
+                  outs: _Outs, drop=None):
         """One outer round; writes its record into ``outs`` at index t.
         The carry is ``(x (..., P, Np), mem, coef, v_prev)``: the signal
         slices, the Onsager boundary memory (the previous g (..., M) and
@@ -1125,7 +1274,7 @@ class AmpEngine:
         else:
             delta, rate = self.controller.delta_for(t, v_prev)
         x_new, mem, coef, v_hat, extra, syms = self._col_round(
-            x, mem, coef, delta, a_cp, y, m_eff, par)
+            x, mem, coef, delta, a_cp, y, m_eff, par, drop=drop)
         if t == 0:
             # round 0 quantizes all-zero contributions exactly: no noise
             # enters g, whatever bin the schedule names
@@ -1137,10 +1286,12 @@ class AmpEngine:
             outs.symbols[..., t, :, :] = syms
         return x_new, mem, coef, v_hat
 
-    def _col_solve_core(self, a_cp, y, sched, par, m: int, n: int):
+    def _col_solve_core(self, a_cp, y, sched, par, m: int, n: int,
+                        drop=None):
         """The outer-round loop on device operands. a_cp (P, M, Np) or
         (B, P, M, Np); y (M,) or (B, M); sched (T,); par the inner step's
-        operand (``_col_prior_params``)."""
+        operand (``_col_prior_params``); drop the (T, P) erasure mask or
+        None."""
         cfg, p = self.cfg, self.cfg.n_proc
         lead = tuple(y.shape[:-1])
         zeros = lambda *shape: torch.zeros(lead + shape, dtype=torch.float32,
@@ -1153,7 +1304,8 @@ class AmpEngine:
         carry = (x, mem, coef, torch.sum(y * y, dim=-1) / m)
         outs = self._alloc_outs(lead, n, m)
         for t in range(cfg.n_iter):
-            carry = self._col_body(t, carry, sched[t], a_cp, y, m, par, outs)
+            carry = self._col_body(t, carry, sched[t], a_cp, y, m, par, outs,
+                                   None if drop is None else drop[t])
         return carry[0].reshape(lead + (n,)), outs
 
     # -- operands -------------------------------------------------------------
@@ -1188,13 +1340,26 @@ class AmpEngine:
 
     # -- entry points -----------------------------------------------------------
 
-    def dispatch_single(self, a_p, y_p, m: int, n: int, sched=None):
+    def _drop_operand(self, drop_sched):
+        """A (T, P) erasure mask on the device, or None."""
+        if drop_sched is None:
+            return None
+        drop = self._f32(drop_sched)
+        want = (self.cfg.n_iter, self.cfg.n_proc)
+        if tuple(drop.shape) != want:
+            raise ValueError(f"drop_sched: need {want}, got "
+                             f"{tuple(drop.shape)}")
+        return drop
+
+    def dispatch_single(self, a_p, y_p, m: int, n: int, sched=None,
+                        drop_sched=None):
         """Launch one solve from pre-split operands, returning the raw
         device-side ``(x, outs)`` without waiting for the device.
         ``sched`` overrides the engine controller's schedule operand
-        (lossless/fixed/DP deltas ride here); ``a_p`` may be a long-lived
-        device tensor already in ``cfg.a_dtype`` — it is used as it is.
-        Row layout only, as in the reference."""
+        (lossless/fixed/DP deltas ride here); ``drop_sched`` is a (T, P)
+        erasure mask (``ErasureSpec.sample_mask``) or None; ``a_p`` may be
+        a long-lived device tensor already in ``cfg.a_dtype`` — it is used
+        as it is. Row layout only, as in the reference."""
         if self.cfg.is_col:
             raise ValueError("dispatch_single is a row-layout entry point")
         if not isinstance(a_p, torch.Tensor):
@@ -1206,24 +1371,30 @@ class AmpEngine:
         sched = self._f32(sched)
         assert sched.shape == (self.cfg.n_iter,), \
             (tuple(sched.shape), self.cfg.n_iter)
+        drop = self._drop_operand(drop_sched)
         self._dispatched(("row", tuple(a_p.shape), m, n))
-        return self._solve_core(a_p, y_p, sched, m, n)
+        return self._solve_core(a_p, y_p, sched, m, n, drop)
 
-    def solve(self, y, a_mat) -> EngineTrace:
+    def solve(self, y, a_mat, drop_sched=None) -> EngineTrace:
         """Full T-iteration solve with no host sync between iteration 0
         and T; the trace comes to the host once, at the end. Under a
         ``ColumnPartition`` layout it is the C-MP-AMP solve of ``n_iter``
-        outer rounds."""
+        outer rounds. ``drop_sched`` (T, P) marks erased fusion packets
+        (``ErasureSpec.sample_mask``): the row layout rescales the
+        survivors, the column layout resets the erased signal blocks;
+        None runs the drop-free solve."""
         m, n = a_mat.shape
         if self.cfg.is_col:
             self._check_col_controller()
             a_cp, y_d = self._split_col(y, a_mat)
+            drop = self._drop_operand(drop_sched)
             self._dispatched(("col", tuple(a_cp.shape), m, n))
             return self._trace(*self._col_solve_core(
                 a_cp, y_d, self._f32(self._sched_operand()),
-                self._col_prior_params(m), m, n))
+                self._col_prior_params(m), m, n, drop))
         a_p, y_p = self._split(y, a_mat)
-        return self._trace(*self.dispatch_single(a_p, y_p, m, n))
+        return self._trace(*self.dispatch_single(a_p, y_p, m, n,
+                                                 drop_sched=drop_sched))
 
     def solve_many(self, ys, a_mats) -> EngineTrace:
         """Batched solve of B independent CS instances.
@@ -1281,7 +1452,9 @@ class AmpEngine:
             rate = torch.where(hp.use_bt, bt_rate, math.inf)
         else:
             delta = sched_t
-        f, extra, syms = self._fuse(f_p, delta)
+        # each instance's erasure row (B, P); a lossless request of the
+        # batch has zeros there, an exact no-op
+        f, extra, syms = self._fuse(f_p, delta, _drop_at(hp, t))
         val, deriv = eta_bg_and_deriv(f, (s2 + extra)[:, None], *prior)
         x_new = val * n_mask
         onsager_new = torch.sum(deriv * n_mask, dim=-1) / hp.m_real
@@ -1332,7 +1505,8 @@ class AmpEngine:
         else:
             delta = sched_t
         x_new, mem_new, coef_new, v_hat, extra, syms = self._col_round(
-            x, mem, coef, delta, a_cp, y, hp.m_real, par, n_mask)
+            x, mem, coef, delta, a_cp, y, hp.m_real, par, n_mask,
+            _drop_at(hp, t))
         if t == 0:
             extra = torch.zeros_like(extra)     # zero round-0 payload
         act = t < hp.t_active
@@ -1383,10 +1557,6 @@ class AmpEngine:
         np_pad), y_b (B, m_pad). ``a_b`` may be a device tensor already in
         ``cfg.a_dtype``: it is used as it is. ``has_bt`` None reads
         ``params.use_bt`` (pass it to keep that read off the host path)."""
-        if params.drop is not None:
-            raise NotImplementedError(
-                "erasure (HetParams.drop) is not ported yet: ROADMAP.md "
-                "Queue 1 item 4")
         if has_bt is None:
             has_bt = bool(torch.as_tensor(params.use_bt).any())
         a_b = self._a_operand(a_b if isinstance(a_b, torch.Tensor)
@@ -1397,6 +1567,9 @@ class AmpEngine:
         assert p == self.cfg.n_proc, (p, self.cfg.n_proc)
         assert hp.sched.shape == (b, self.cfg.n_iter), \
             (tuple(hp.sched.shape), b, self.cfg.n_iter)
+        if hp.drop is not None and tuple(hp.drop.shape) != (b, self.cfg.n_iter, p):
+            raise ValueError(f"HetParams.drop: need {(b, self.cfg.n_iter, p)}"
+                             f", got {tuple(hp.drop.shape)}")
         if self.cfg.is_col:
             assert tuple(y_b.shape) == (b, a_b.shape[2]), \
                 (tuple(y_b.shape), tuple(a_b.shape))

@@ -17,6 +17,16 @@
 //         symbols[b, p, :]  = float(q)          (optional)
 //         extra[b]          = P * mean(Delta^2) / 12   over the P x
 //                             ceil(L / block) blocks of batch entry b
+//     and its erasure form (the same function with `drop`: the reference's
+//     `_erasure_rescale`), given keep[b, p] = 1 - drop (a row shared by
+//     every b, or one a batch entry), float32 0/1 on the card:
+//         n_surv = max(sum_p keep, 1),   scale = P / n_surv
+//         f[b, :]  = (sum_p (q * Delta) * keep[p]) * scale   (p in order)
+//         extra[b] = mean(Delta^2) / 12 * n_surv * (scale * scale)
+//     the mean still over every processor's blocks, dropped ones included
+//     (`quant_noise_var` of src/repro/core/compression.py), and every
+//     symbol written. With every flag 1 each new factor is an exact 1.0,
+//     so the bits are the drop-free form's.
 //
 // The contract is bit-exactness with the reference (`quantize_blocks` of
 // src/repro/core/compression.py) and with the plain PyTorch versions: IEEE
@@ -328,16 +338,26 @@ __device__ __forceinline__ float add_in_order(float s, int n, Load&& load) {
 }
 
 struct FuseArgs {
-  const float* fp;  // (B, P, L)
-  float* f;         // (B, L)
-  float* extra;     // (B,)
-  float* sym;       // (B, P, L) or null
-  int* counters;    // B counters, then B x nbj slots, zero between launches;
-                    // null if nbj == 1
+  const float* fp;    // (B, P, L)
+  float* f;           // (B, L)
+  float* extra;       // (B,)
+  float* sym;         // (B, P, L) or null
+  int* counters;      // B counters, then B x nbj slots, zero between
+                      // launches; null if nbj == 1
+  const float* keep;  // the erasure form's keep flags, row b at
+                      // b * keep_stride (0: one row for all); null: drop-free
+  int keep_stride;
   int P, L, block, nbj, cluster;
   float qmax;
   bool vec;
 };
+
+// n_surv = max(sum_p keep[b, p], 1), summed in p order (a sum of 0s and
+// 1s: the same in any order)
+__device__ __forceinline__ float survivors(const FuseArgs& a, int b) {
+  const float* kb = a.keep + static_cast<size_t>(b) * a.keep_stride;
+  return fmaxf(add_in_order(0.f, a.P, [&](int p) { return kb[p]; }), 1.f);
+}
 
 // The accounts of cluster (j, b), kept by rank 0's last warp while the
 // others quantize: the P Delta^2 summed in p order into the cluster's
@@ -374,7 +394,14 @@ __device__ __forceinline__ void keep_accounts(const FuseArgs& a, const float* dd
     a.counters[b] = 0;  // ready for the next launch on the stream
   }
   const float mean = __fdiv_rn(total, static_cast<float>(a.P * a.nbj));
-  a.extra[b] = __fmul_rn(__fdiv_rn(mean, 12.f), static_cast<float>(a.P));
+  const float per = __fdiv_rn(mean, 12.f);
+  if (a.keep) {
+    const float n_surv = survivors(a, b);
+    const float scale = __fdiv_rn(static_cast<float>(a.P), n_surv);
+    a.extra[b] = __fmul_rn(__fmul_rn(per, n_surv), __fmul_rn(scale, scale));
+  } else {
+    a.extra[b] = __fmul_rn(per, static_cast<float>(a.P));
+  }
 }
 
 // grid (nbj * C, B), clusters of (C, 1, 1), W + 1 warps a block. Shared
@@ -416,6 +443,12 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
       const size_t off = (static_cast<size_t>(b) * a.P + p) * a.L + col0;
       float* row = rows + warp * S;
       float* sb = a.sym ? a.sym + off : nullptr;
+      // q * Delta, times p's keep flag in the erasure form
+      const float kp = a.keep ? a.keep[static_cast<size_t>(b) * a.keep_stride + p] : 1.f;
+      auto deq = [&](float q, float d) {
+        const float m = __fmul_rn(q, d);
+        return a.keep ? __fmul_rn(m, kp) : m;
+      };
       quantize_block<NV>(
           a.fp + off, lim, S, a.vec, a.qmax, lane,
           [&](float m) {
@@ -438,8 +471,8 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
                 const int e = t0 + 4 * (lane + 32 * k);
                 if (e < lim) {
                   *reinterpret_cast<float4*>(row + e) =
-                      make_float4(__fmul_rn(v[4 * k], d), __fmul_rn(v[4 * k + 1], d),
-                                  __fmul_rn(v[4 * k + 2], d), __fmul_rn(v[4 * k + 3], d));
+                      make_float4(deq(v[4 * k], d), deq(v[4 * k + 1], d),
+                                  deq(v[4 * k + 2], d), deq(v[4 * k + 3], d));
                   if (sb)
                     *reinterpret_cast<float4*>(sb + e) =
                         make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
@@ -450,7 +483,7 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
               for (int i = 0; i < NV; ++i) {
                 const int e = t0 + lane + 32 * i;
                 if (e < lim) {
-                  row[e] = __fmul_rn(v[i], d);
+                  row[e] = deq(v[i], d);
                   if (sb) sb[e] = v[i];
                 }
               }
@@ -462,11 +495,17 @@ __global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
     }
     bar_sync(kGroupDone, W * 32);
     const int gw = min(W, a.P - g);
+    // the erasure form's survivor rescale P / n_surv of the sum, reckoned
+    // only now: the keep row is a line the warps' own flags brought into
+    // L1, where at the start its loads would stall the first tile's
+    const float fscale = last && a.keep
+                             ? __fdiv_rn(static_cast<float>(a.P), survivors(a, b))
+                             : 1.f;
     for (int c = threadIdx.x; c < lim; c += W * 32) {
       const float s = add_in_order(g == 0 ? 0.f : acc[c], gw,
                                    [&](int w) { return rows[w * S + c]; });
       if (last)
-        fb[c] = s;
+        fb[c] = a.keep ? __fmul_rn(s, fscale) : s;
       else
         acc[c] = s;
     }
@@ -557,11 +596,12 @@ int dequantize_blocks_launch(const int8_t* q, const void* scale, float* out,
 // `cluster` blocks, a cluster per (j, b), each block `warps` + 1 warps and
 // smem == fuse_smem_bytes(warps, block / cluster, P, cluster) bytes. With
 // ceil(L / block) > 1, counters holds B * (1 + ceil(L / block)) ints, zero
-// (they are zero again after the kernel).
+// (they are zero again after the kernel). keep (null: drop-free) holds the
+// erasure form's flags, row b at b * keep_stride, keep_stride 0 or P.
 int block_quant_fuse_launch(const float* fp, float* f, float* extra, float* sym,
-                            int* counters, int B, int P, int L,
-                            int block, int qmax, int cluster, int warps, int smem,
-                            void* stream) {
+                            int* counters, const float* keep, int keep_stride,
+                            int B, int P, int L, int block, int qmax, int cluster,
+                            int warps, int smem, void* stream) {
   const int slice = cluster > 0 ? block / cluster : 0;
   const int nbj = (L + block - 1) / block;
   if (B < 1 || B > 65535 || P < 1 || L < 1 || bad_block(block) || qmax < 1 ||
@@ -569,9 +609,10 @@ int block_quant_fuse_launch(const float* fp, float* f, float* extra, float* sym,
       slice % 32 != 0 || warps < 1 || warps > kMaxWarps || warps > P ||
       smem != fuse_smem_bytes(warps, slice, P, cluster) || smem > kSmemLimit ||
       static_cast<long long>(P) * nbj >= (1 << 24) ||
-      static_cast<long long>(nbj) * cluster > 0x7fffffffLL)
+      static_cast<long long>(nbj) * cluster > 0x7fffffffLL ||
+      (keep != nullptr && keep_stride != 0 && keep_stride != P))
     return static_cast<int>(cudaErrorInvalidValue);
-  FuseArgs a{fp, f, extra, sym, counters, P, L, block, nbj, cluster,
+  FuseArgs a{fp, f, extra, sym, counters, keep, keep_stride, P, L, block, nbj, cluster,
              static_cast<float>(qmax), false};
   if (nbj > 1 && counters == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);

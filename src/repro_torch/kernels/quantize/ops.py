@@ -57,10 +57,14 @@ def dequantize(q, scale, block: int = BLOCK):
 
 
 def block_quant_fuse(f_p, qmax: int = 127, block: int = BLOCK,
-                     symbols: bool = True):
+                     symbols: bool = True, keep=None):
     """Quantize each message of ``f_p`` (B, P, L), dequantize and sum over
     P: ``(f (B, L), extra (B,), symbols float32 (B, P, L) or None)``, with
-    ``extra = P * mean(Delta^2) / 12`` per batch entry."""
+    ``extra = P * mean(Delta^2) / 12`` per batch entry. ``keep`` (P,)
+    shared or (B, P), float32 0/1 on the same device, is the erasure form:
+    the sum of the delivered messages times P / n_surv and ``extra =
+    mean(Delta^2) / 12 * n_surv * (P / n_surv)^2``, n_surv = max(sum keep,
+    1)."""
     if f_p.is_cuda:
-        return block_quant_fuse_cuda(f_p, qmax, block, symbols)
-    return block_quant_fuse_ref(f_p, qmax, block, symbols)
+        return block_quant_fuse_cuda(f_p, qmax, block, symbols, keep=keep)
+    return block_quant_fuse_ref(f_p, qmax, block, symbols, keep=keep)

@@ -6,7 +6,8 @@ transport, written by hand for Hopper.
     quantize_cuda         x (R, N) float32 -> q (R, N) int8, scale (R, ceil(N/block)) bf16
     dequantize_cuda       (q, scale) -> (R, N) float32
     block_quant_fuse_cuda f_p (B, P, L) float32 -> f (B, L), extra (B,),
-                          symbols (B, P, L) float32 or None; one launch
+                          symbols (B, P, L) float32 or None; one launch;
+                          with keep (P,) or (B, P), the erasure form
 
 They take CUDA tensors only and either launch or raise: the plain versions
 in ``ref.py`` are chosen one level up (``ops.py``) and only for CPU tensors.
@@ -56,7 +57,7 @@ def _library():
         lib.quantize_blocks_launch.restype = ci
         lib.dequantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, vp]
         lib.dequantize_blocks_launch.restype = ci
-        lib.block_quant_fuse_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+        lib.block_quant_fuse_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
         lib.block_quant_fuse_launch.restype = ci
         lib.block_quant_empty_launch.argtypes = [ci] * 5 + [vp]
         lib.block_quant_empty_launch.restype = ci
@@ -185,14 +186,17 @@ def fuse_plan(b: int, p: int, length: int, block: int,
 
 
 def block_quant_fuse_cuda(f_p: torch.Tensor, qmax: int, block: int,
-                          symbols: bool = True, cluster: int | None = None):
+                          symbols: bool = True, cluster: int | None = None,
+                          keep: torch.Tensor | None = None):
     """``BlockQuantTransport.fuse`` of messages ``f_p`` (B, P, L) in one
     launch: ``f = sum_p dequantize(quantize(f_p[:, p]))`` (B, L), summed in p
     order; ``extra = P * mean(Delta^2) / 12`` (B,), the mean over the P x
     ceil(L / block) scale blocks of each batch entry; and, with
     ``symbols``, the symbols q as float32 (B, P, L), else None.
     ``cluster`` forces the blocks a cluster (``fuse_plan``; timing
-    only)."""
+    only). ``keep``, float32 (P,) for every batch entry or (B, P), is the
+    erasure form of the same launch (``ref.block_quant_fuse_ref``): the
+    kernel reads it on the card, the host never does."""
     if f_p.ndim != 3:
         raise ValueError(f"f_p: need (B, P, L), got {tuple(f_p.shape)}")
     _need(f_p, torch.float32, f_p.shape, "f_p")
@@ -207,6 +211,11 @@ def block_quant_fuse_cuda(f_p: torch.Tensor, qmax: int, block: int,
     extra = torch.empty((b,), dtype=torch.float32, device=dev)
     sym = (torch.empty((b, p, length), dtype=torch.float32, device=dev)
            if symbols else None)
+    keep_stride = 0
+    if keep is not None:
+        _need(keep, torch.float32, (p,) if keep.ndim == 1 else (b, p),
+              "keep")
+        keep_stride = 0 if keep.ndim == 1 else p
     nbj = plan.grid[0] // plan.cluster
     # b's counter and its nbj slots of partials, zero between launches
     cnt = counters_for(dev, b * (1 + nbj)) if nbj > 1 else None
@@ -214,8 +223,8 @@ def block_quant_fuse_cuda(f_p: torch.Tensor, qmax: int, block: int,
     with torch.cuda.device(dev):
         code = _library().block_quant_fuse_launch(
             f_p.data_ptr(), f.data_ptr(), extra.data_ptr(), ptr(sym),
-            ptr(cnt), b, p, length, block, qmax, plan.cluster,
-            plan.warps, plan.smem_bytes,
+            ptr(cnt), ptr(keep), keep_stride, b, p, length, block, qmax,
+            plan.cluster, plan.warps, plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     check("quantize", code, "block_quant_fuse_launch")
     launch_counts["block_quant_fuse"] += 1

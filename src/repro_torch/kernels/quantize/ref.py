@@ -46,14 +46,24 @@ def dequantize_ref(q, scale, block: int):
     return (qb * scale.to(torch.float32)[..., None]).reshape(r, n)
 
 
-def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True):
+def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True,
+                         keep=None):
     """f_p (B, P, L) -> (f (B, L), extra (B,), symbols float32 (B, P, L) or
     None): each row quantized in scale blocks (the ragged tail as zeros),
     ``f`` the sum over p of q * Delta, taken p = 0, 1, ... in turn;
     ``extra = P * mean(Delta^2) / 12`` over the P x ceil(L / block) blocks
     of each batch entry, its squares summed over p for each column of
     blocks, then over the columns in turn, as the kernel sums them. No
-    product meets a sum in one operation, so nothing can be contracted."""
+    product meets a sum in one operation, so nothing can be contracted.
+
+    ``keep`` (P,) or (B, P), the erasure form (the reference's
+    ``_erasure_rescale`` after ``BlockQuantTransport``'s quantizer): each
+    message's ``q * Delta`` times its keep flag enters the sum in p order,
+    the sum is multiplied by scale = P / n_surv, n_surv = max(sum keep, 1),
+    and ``extra = mean / 12 * n_surv * (scale * scale)``, the mean still
+    over every processor's blocks. Symbols are all written. With every
+    flag 1 each factor is an exact 1.0 and the bits are the drop-free
+    ones."""
     b, p, length = f_p.shape
     nb = -(-length // block)
     x = torch.nn.functional.pad(f_p.to(torch.float32),
@@ -63,6 +73,9 @@ def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True):
     q = torch.clamp(torch.round(xb / delta), -qmax, qmax)
     q = q.to(torch.int8).to(torch.float32)         # -0 becomes +0, as an int
     deq = q * delta
+    if keep is not None:
+        keep = keep.to(torch.float32).expand(b, p)
+        deq = deq * keep[:, :, None, None]
     f = torch.zeros_like(deq[:, 0])
     dd = delta[..., 0] * delta[..., 0]             # (B, P, nb)
     col = torch.zeros_like(dd[:, 0])
@@ -75,7 +88,13 @@ def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True):
     # divided by tensors: on the card, PyTorch multiplies by the reciprocal
     # of a Python number, where the kernel divides
     mean = total / torch.full_like(total, p * nb)
-    extra = mean / torch.full_like(mean, 12) * p
+    if keep is None:
+        extra = mean / torch.full_like(mean, 12) * p
+    else:
+        n_surv = torch.clamp(keep.sum(-1), min=1.0)   # 0/1: exact
+        scale = torch.full_like(n_surv, p) / n_surv
+        extra = mean / torch.full_like(mean, 12) * n_surv * (scale * scale)
+        f = f * scale[:, None, None]
     f = f.reshape(b, nb * block)[:, :length]
     sym = q.reshape(b, p, nb * block)[..., :length] if symbols else None
     return f, extra, sym

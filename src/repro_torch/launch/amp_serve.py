@@ -14,8 +14,11 @@ C-MP-AMP) requests; the summary reports rate totals *per layout* — row
 rates are bits per signal element per processor, column rates bits per
 measurement per processor. Problems are drawn with numpy from ``--seed``
 (the reference draws them with ``jax.random``: the same model, other
-numbers). ``--mesh`` and ``--hosts`` > 1 (a device mesh, the cluster tier)
-are not ported yet and raise.
+numbers). ``--hosts K`` serves through the cluster tier: a
+``ClusterService`` routes buckets across K in-process ``SolveService``s
+(all on ``--device``: on one card they share it) and autoscales per-bucket
+replicas from demand EWMAs on a scraper thread. ``--mesh`` (a device mesh)
+is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import numpy as np
 
 from ..core.denoisers import BernoulliGauss
 from ..core.state_evolution import CSProblem
-from ..serving import BucketPolicy, PrewarmSpec, SolveRequest, SolveService
+from ..serving import (BucketPolicy, ClusterService, PrewarmSpec,
+                       RouterPolicy, SolveRequest, SolveService)
 
 __all__ = ["sample_problem_np", "make_request", "main"]
 
@@ -86,7 +90,9 @@ def main(argv=None):
                     help="serve over a device mesh (not ported yet)")
     ap.add_argument("--hosts", type=int, default=1,
                     help="serve through the cluster tier with this many "
-                         "hosts (not ported yet: only 1)")
+                         "in-process hosts: a ClusterService routes "
+                         "buckets across per-host SolveServices and "
+                         "autoscales per-bucket replicas from demand EWMAs")
     ap.add_argument("--prewarm", action="store_true",
                     help="build the kernels and run every program of the "
                          "SHAPES bucket menu before streaming; the summary "
@@ -102,18 +108,23 @@ def main(argv=None):
         raise NotImplementedError(
             "--mesh (a device mesh, the 'data' and 'proc' placements) is "
             "not ported yet: ROADMAP.md Queue 1 item 7")
-    if args.hosts > 1:
-        raise NotImplementedError(
-            "--hosts > 1 (the cluster tier) is not ported yet: ROADMAP.md "
-            "Queue 1 item 6")
 
     n_req = 16 if args.smoke else args.requests
     policies = args.policies.split(",")
     rng = np.random.default_rng(args.seed)
     pairs = [make_request(rng, policies) for _ in range(n_req)]
 
-    svc = SolveService(policy=BucketPolicy(max_batch=args.max_batch),
-                       rate_accounting=not args.smoke, device=args.device)
+    cluster = args.hosts > 1
+    if cluster:
+        svc = ClusterService(
+            n_hosts=args.hosts, policy=BucketPolicy(max_batch=args.max_batch),
+            router_policy=RouterPolicy(scrape_every_s=0.25,
+                                       ewma_halflife_s=2.0),
+            rate_accounting=not args.smoke, device=args.device)
+    else:
+        svc = SolveService(policy=BucketPolicy(max_batch=args.max_batch),
+                           rate_accounting=not args.smoke,
+                           device=args.device)
     prewarmed = 0
     if args.prewarm:
         # one spec per (shape, t-bucket, program family): T in {6,8} and
@@ -124,11 +135,20 @@ def main(argv=None):
         menu = [PrewarmSpec(n=n, m=m, n_proc=p, n_iter=t, policy=fam)
                 for (n, m, p) in SHAPES for t in (8, 12) for fam in fams]
         rep = svc.prewarm(menu)
-        prewarmed = rep["programs"]
+        if cluster:
+            rep = next(iter(rep.values()))     # per-host reports are equal
+        prewarmed = rep["programs"] * (args.hosts if cluster else 1)
         print(f"prewarm: {rep['programs']} programs over "
               f"{len(rep['buckets'])} buckets in {rep['seconds']:.1f}s")
+    if cluster:
+        # the autoscaler's scrape loop runs on its own daemon thread
+        svc.start_scraper()
     t0 = time.time()
-    results = list(svc.stream(r for r, _ in pairs))
+    try:
+        results = list(svc.stream(r for r, _ in pairs))
+    finally:
+        if cluster:
+            svc.stop_scraper()
     dt = time.time() - t0
 
     # request ids are assigned in submission order, i.e. pairs[rid]
@@ -157,16 +177,20 @@ def main(argv=None):
               f"{tot:.1f} {unit[layout]} total"
               + (f" ({tot / len(tracked):.2f} avg)" if tracked else ""))
     st = svc.stats()
-    oc = st["operand_cache"]
-    print(f"\n{n_req} requests in {dt:.2f}s  "
-          f"({n_req / dt:.1f} req/s on {svc.device}, "
-          f"{len(svc._engines)} bucket engines)")
-    print(f"hot path: {st['compiles']['total']} programs run"
-          + (f" ({st['compiles']['total'] - prewarmed} after prewarm)"
-             if args.prewarm else "")
-          + f", operand cache {oc['hits']} hits / {oc['misses']} misses"
-          f" ({oc['bytes'] / (1 << 20):.1f} MiB), "
-          f"{st['singleton_dispatches']} singleton dispatches")
+    if cluster:
+        _cluster_summary(st, n_req, dt, args.device,
+                         prewarmed if args.prewarm else None)
+    else:
+        oc = st["operand_cache"]
+        print(f"\n{n_req} requests in {dt:.2f}s  "
+              f"({n_req / dt:.1f} req/s on {svc.device}, "
+              f"{len(svc._engines)} bucket engines)")
+        print(f"hot path: {st['compiles']['total']} programs run"
+              + (f" ({st['compiles']['total'] - prewarmed} after prewarm)"
+                 if args.prewarm else "")
+              + f", operand cache {oc['hits']} hits / {oc['misses']} "
+              f"misses ({oc['bytes'] / (1 << 20):.1f} MiB), "
+              f"{st['singleton_dispatches']} singleton dispatches")
 
     drifts = [r.se_drift for r in results
               if r.se_drift is not None and np.isfinite(r.se_drift)]
@@ -185,7 +209,41 @@ def main(argv=None):
         with open(args.metrics_out, "w") as fp:
             fp.write(svc.metrics_text())
         print(f"metrics: Prometheus snapshot -> {args.metrics_out}")
+    if cluster:
+        svc.close()
     return results
+
+
+def _cluster_summary(st: dict, n_req: int, dt: float, device: str,
+                     prewarmed: int | None) -> None:
+    """The cluster tier's summary: per-host hot-path stats rolled up, the
+    scheduler's routing and autoscaling view, and the fault counters when
+    any fired."""
+    hosts = st["hosts"]
+    programs = sum(h["compiles"]["total"] for h in hosts.values())
+    hits = sum(h["operand_cache"]["hits"] for h in hosts.values())
+    misses = sum(h["operand_cache"]["misses"] for h in hosts.values())
+    rt = st["router"]
+    print(f"\n{n_req} requests in {dt:.2f}s  ({n_req / dt:.1f} req/s, "
+          f"{len(hosts)} hosts on {device})")
+    print(f"hot path: {programs} programs run"
+          + (f" ({programs - prewarmed} after prewarm)"
+             if prewarmed is not None else "")
+          + f", operand cache {hits} hits / {misses} misses")
+    print(f"router: served {rt['served']} (cost imbalance "
+          f"{rt['imbalance']:.2f}x), {st['shed']} shed; autoscaler events: "
+          f"{st['autoscaler']['events'] or 'none'}")
+    faults = {k: st[k] for k in
+              ("failovers", "retries", "hedges", "lost", "degraded")
+              if st.get(k)}
+    unhealthy = {h: s for h, s in st["host_states"].items()
+                 if s != "healthy"}
+    if faults or unhealthy:
+        rec = st.get("recovery") or {}
+        print("faults: " + ", ".join(f"{k} {v}" for k, v in faults.items())
+              + (f"; states {unhealthy}" if unhealthy else "")
+              + (f"; recovery p95 {rec['p95_ms']:.1f}ms (n={rec['count']})"
+                 if rec else ""))
 
 
 if __name__ == "__main__":

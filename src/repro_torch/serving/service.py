@@ -18,10 +18,10 @@ the device computes.
 
 What the reference has and this one does not (yet): a device mesh and the
 ``"data"`` / ``"proc"`` placements (``mesh=`` raises; ROADMAP.md Queue 1
-item 7), erasure (``erasure_rate > 0`` raises; item 4), the cluster tier
-(item 6), operand donation and ahead-of-time compilation (PyTorch runs
+item 7), operand donation and ahead-of-time compilation (PyTorch runs
 eagerly: ``prewarm`` builds the kernels and runs each program once
-instead, and ``compile_count`` counts those distinct first runs).
+instead, and ``compile_count`` counts those distinct first runs). The
+cluster tier over several services is ``serving.frontend``.
 
 Usage::
 
@@ -51,11 +51,13 @@ from ..core.denoisers import BernoulliGauss
 from ..core.engine import (AmpEngine, BlockQuantTransport, BTRateControl,
                            BTTables, ColBTTables, ColDPSchedule,
                            ColumnBTRateControl, ColumnPartition, DPSchedule,
-                           EcsqTransport, EngineConfig, HetParams,
+                           EcsqTransport, EngineConfig, ErasureSpec,
+                           HetParams,
                            RowPartition, pad_bt_tables, split_problem_cols,
                            stack_bt_tables)
 from ..core.quantize import ecsq_entropy, message_mixture, residual_mixture
-from ..core.rate_alloc import dp_allocate, dp_allocate_col, stack_schedules
+from ..core.rate_alloc import (dp_allocate, dp_allocate_col,
+                               erasure_rate_factors, stack_schedules)
 from ..core.rate_distortion import RDModel
 from ..core.state_evolution import CSProblem
 from ..telemetry import (DRIFT_ALERT, DRIFT_BUCKETS, MetricsRegistry,
@@ -94,9 +96,14 @@ class SolveRequest:
 
     ``transport`` is ``"ecsq"`` or the fixed-width ``"block8"`` /
     ``"block4"`` (rate policy ``"lossless"`` only: the wire width fixes the
-    rate). ``erasure_*`` and ``recovery`` describe a lossy link: a request
-    with ``erasure_rate > 0`` is refused until erasure is ported (ROADMAP.md
-    Queue 1 item 4). ``measure_wire`` opts the request into measured-bytes
+    rate). ``erasure_rate`` > 0 subjects the request's fusion packets to
+    per-round, per-processor loss (``erasure_model``: i.i.d.
+    ``"bernoulli"`` or bursty ``"gilbert"`` with mean burst
+    ``erasure_burst``; the mask is drawn deterministically from
+    ``erasure_seed``). ``recovery`` selects the bit accounting:
+    ``"retransmit"`` (a dropped packet is re-sent) or ``"rate_up"`` (the
+    survivors spend the dropped share); see ``rate_alloc``. Erasure
+    requests run on the batched path. ``measure_wire`` opts the request into measured-bytes
     accounting: the engine traces the quantizer symbol streams and the
     service rANS-codes them on the host (``serving.wire``), reporting
     ``bytes_on_wire`` / ``time_on_air_s`` / ``energy_j`` on the result.
@@ -440,10 +447,10 @@ class SolveService:
             raise ValueError(f"unknown layout {req.layout!r}")
         if not 0.0 <= req.erasure_rate < 1.0:
             raise ValueError(f"erasure_rate {req.erasure_rate} not in [0, 1)")
-        if req.erasure_rate > 0.0:
-            raise NotImplementedError(
-                "requests with erasure_rate > 0 (a lossy link) are not "
-                "ported yet: ROADMAP.md Queue 1 item 4")
+        if req.erasure_model not in ("bernoulli", "gilbert"):
+            raise ValueError(f"unknown erasure_model {req.erasure_model!r}")
+        if req.recovery not in ("retransmit", "rate_up"):
+            raise ValueError(f"unknown recovery {req.recovery!r}")
         if req.layout is None:
             # pin the auto-routed layout on our copy (never on the caller's
             # template, which another policy may route differently)
@@ -505,17 +512,31 @@ class SolveService:
 
     def _dp_deltas(self, req: SolveRequest) -> np.ndarray:
         """Offline DP allocation realized as ECSQ bin sizes (DPSchedule /
-        ColDPSchedule for column requests)."""
+        ColDPSchedule for column requests).
+
+        Under erasure the allocators plan for the request's recovery
+        policy; the realized bins then encode the *delivered* per-survivor
+        rates (allocated * survivor boost), which is what the quantizers
+        on the surviving packets spend."""
         prob = req.problem()
         r_total = (req.dp_total_bits if req.dp_total_bits is not None
                    else 2.0 * req.n_iter)
+        _, boost, _ = erasure_rate_factors(req.erasure_rate, req.recovery)
         if req.layout == "col":
-            dp = dp_allocate_col(prob, req.n_proc, req.n_iter, r_total)
+            dp = dp_allocate_col(prob, req.n_proc, req.n_iter, r_total,
+                                 erasure_rate=req.erasure_rate,
+                                 recovery=req.recovery)
+            if boost != 1.0:
+                dp = dataclasses.replace(dp, rates=dp.rates * boost)
             return ColDPSchedule(dp, prob, req.n_proc).deltas
         rd = self._rd_cache.get(req.prior)
         if rd is None:
             rd = self._rd_cache[req.prior] = RDModel(req.prior)
-        dp = dp_allocate(prob, req.n_proc, req.n_iter, r_total, rd=rd)
+        dp = dp_allocate(prob, req.n_proc, req.n_iter, r_total, rd=rd,
+                         erasure_rate=req.erasure_rate,
+                         recovery=req.recovery)
+        if boost != 1.0:
+            dp = dataclasses.replace(dp, rates=dp.rates * boost)
         return DPSchedule(dp, rd, req.n_proc).deltas
 
     def _bt_tables(self, req: SolveRequest, t_max: int):
@@ -523,7 +544,8 @@ class SolveService:
         device, memoized per (operating point, t_max). Column requests get
         ``ColumnBTRateControl`` tables."""
         key = (req.prior, round(req.snr_db, 6), req.n, req.m, req.n_proc,
-               req.n_iter, req.bt_c_ratio, req.bt_r_max, req.layout)
+               req.n_iter, req.bt_c_ratio, req.bt_r_max, req.layout,
+               req.erasure_rate, req.recovery)
         padded = self._bt_cache.get((key, t_max))
         if padded is None:
             ctrl = self._bt_cache.get(key)
@@ -531,11 +553,15 @@ class SolveService:
                 if req.layout == "col":
                     ctrl = ColumnBTRateControl(
                         req.problem(), req.n_proc, req.n_iter,
-                        req.bt_c_ratio, req.bt_r_max)
+                        req.bt_c_ratio, req.bt_r_max,
+                        erasure_rate=req.erasure_rate,
+                        recovery=req.recovery)
                 else:
                     ctrl = BTRateControl(req.problem(), req.n_proc,
                                          req.n_iter, req.bt_c_ratio,
-                                         req.bt_r_max, "ecsq")
+                                         req.bt_r_max, "ecsq",
+                                         erasure_rate=req.erasure_rate,
+                                         recovery=req.recovery)
                 self._bt_cache[key] = ctrl
             padded = pad_bt_tables(ctrl.tables, t_max).to(self.device)
             self._bt_cache[(key, t_max)] = padded
@@ -550,6 +576,18 @@ class SolveService:
             tb = self._dummy_tables[(layout, t_max)] = \
                 cls.dummy(t_max).to(self.device)
         return tb
+
+    def _drop_mask(self, req: SolveRequest) -> np.ndarray | None:
+        """The (n_iter, P) erasure mask of one request, or None when the
+        link is lossless. Deterministic in the request's erasure fields,
+        so dispatch (operand build) and result finalization (retransmit
+        byte accounting) independently draw the same mask."""
+        if req.erasure_rate == 0.0:
+            return None
+        spec = ErasureSpec(rate=req.erasure_rate, model=req.erasure_model,
+                           burst_len=req.erasure_burst,
+                           seed=req.erasure_seed)
+        return spec.sample_mask(req.n_iter, req.n_proc)
 
     def _fingerprint(self, req: SolveRequest):
         """Operand-cache identity of a request's A: the caller-vouched
@@ -638,6 +676,17 @@ class SolveService:
             # no instance decides by BT: the engine runs no controller, the
             # tables are never read
             tables = self._dummy(key.layout, t_max)
+        # the erasure masks ride as a (B, T, P) operand only when some
+        # request of the batch loses packets (drop=None keeps the drop-free
+        # code); a lossless request of such a batch gets zeros, an exact
+        # no-op through the survivor rescale and the column reset
+        drops = None
+        if any(r.erasure_rate > 0.0 for r in batch):
+            drops = np.zeros((b, t_max, p), np.float32)
+            for i, r in enumerate(batch):
+                mask = self._drop_mask(r)
+                if mask is not None:
+                    drops[i, :r.n_iter] = mask
         f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32))
         params = HetParams(
             sched=torch.from_numpy(stack_schedules(scheds, t_max)),
@@ -645,7 +694,8 @@ class SolveService:
             m_real=f32(mreals), n_real=torch.as_tensor(nreals,
                                                        dtype=torch.int64),
             eps=f32(eps), mu_s=f32(mus), sigma_s=f32(sss),
-            use_bt=torch.as_tensor(use_bt), bt=tables)
+            use_bt=torch.as_tensor(use_bt), bt=tables,
+            drop=None if drops is None else torch.from_numpy(drops))
         return torch.from_numpy(y_b), params.to(self.device), has_bt
 
     def _het_operands(self, key: BucketKey, batch: list,
@@ -818,9 +868,11 @@ class SolveService:
         assembly and run the plain true-dims ``dispatch_single`` solve. BT
         stays on the het path (its controller is the per-instance table
         machinery), column requests stay batched (no plain single-dispatch
-        entry point) and so do measured-wire requests (symbol tracing)."""
+        entry point) and so do erasure and measured-wire requests (drop
+        operands and symbol tracing are het-path machinery)."""
         return (self.singleton_fastpath and key.layout == "row"
-                and r.policy != "bt" and not r.measure_wire)
+                and r.policy != "bt" and r.erasure_rate == 0.0
+                and not r.measure_wire)
 
     def _dispatch_singleton(self, key: BucketKey, r: SolveRequest) \
             -> _Pending:
@@ -883,7 +935,8 @@ class SolveService:
             n_elem = r.m if key.layout == "col" else r.n
             t_w0 = _tnow() if self.telemetry else 0.0
             wire = measure_wire(syms[:t, :, :n_elem], deltas, n_elem,
-                                recovery=r.recovery, model=self.wire_model)
+                                drop=self._drop_mask(r), recovery=r.recovery,
+                                model=self.wire_model)
             if self.telemetry:
                 wire_span = _tspan("wire_measure", t_w0)
         if defer:
@@ -963,7 +1016,23 @@ class SolveService:
         sigma_e^2 - P sigma_Q^2_t). Round 0 exchanges all-zero
         contributions — 0 bits at any bin size — and is counted as 0.0
         whenever the request is rate-tracked at all (a fully lossless
-        request stays untracked, all-inf)."""
+        request stays untracked, all-inf).
+
+        Under erasure the reported rates are *on-the-wire*: the delivered
+        model rate times the recovery policy's wire factor (retransmit
+        re-sends dropped packets, rate_up's allocated slot rate is what
+        each slot transmits), ``erasure_rate_factors``. Exactly the
+        delivered rate on a lossless link."""
+        rates = self._rates_delivered(req, s2, deltas, bt_rates, extra_var)
+        if req.erasure_rate > 0.0:
+            _, _, wire_f = erasure_rate_factors(req.erasure_rate,
+                                                req.recovery)
+            fin = np.isfinite(rates)
+            rates = np.where(fin, rates * wire_f, rates)
+        return rates
+
+    def _rates_delivered(self, req: SolveRequest, s2, deltas, bt_rates,
+                         extra_var) -> np.ndarray:
         if req.policy == "bt":
             return np.asarray(bt_rates, np.float64)
         if req.transport != "ecsq":

@@ -1,13 +1,23 @@
-"""Bytes on the wire: measured rANS accounting (the measured half of the
-JAX package's ``repro.serving.wire``, kept as it is; its DESIGN.md §10).
+"""Bytes on the wire: measured rANS accounting and the TCP frame transport
+(the JAX package's ``repro.serving.wire``, kept as it is; its DESIGN.md
+§10 and §13).
 
-The paper's rate numbers are model entropies H_Q, "achievable through
-entropy coding". When a request opts in (``SolveRequest.measure_wire``),
-each round's per-processor quantizer symbol stream from the engine trace is
-actually rANS-coded (``core.entropy_code.RansCodec``, static per-stream
-model) on the host and the *measured* byte count is reported next to the
-model rate. (The reference's TCP frame transport, the other half of its
-module, belongs to the cluster tier: ROADMAP.md Queue 1 item 6.)
+Two layers share this module because they share one concern, what
+actually crosses a link:
+
+  * **Measured wire-byte accounting** (below): the paper's rate numbers
+    are model entropies H_Q, "achievable through entropy coding". When a
+    request opts in (``SolveRequest.measure_wire``), each round's
+    per-processor quantizer symbol stream from the engine trace is
+    actually rANS-coded (``core.entropy_code.RansCodec``, static
+    per-stream model) on the host and the *measured* byte count is
+    reported next to the model rate.
+  * **TCP frame transport** (bottom half): the length-prefixed frame
+    protocol ``TcpBackend`` / ``BackendServer`` speak, hardened for the
+    fault model: bounded frame sizes, every read bounded by the socket's
+    timeout through ``recv_exact``, and typed error frames that carry the
+    remote traceback and a per-request vs backend-fatal flag, so the
+    router can tell a bad request from a dying host.
 
 Accounting per (round, processor) packet:
 
@@ -29,12 +39,20 @@ a radio simulation.
 from __future__ import annotations
 
 import dataclasses
+import json
+import struct
+import traceback as _traceback
 
 import numpy as np
 
 from ..core.entropy_code import RansCodec
+from .codec import CodecError
 
-__all__ = ["WireModel", "measure_wire"]
+__all__ = ["WireModel", "measure_wire",
+           "FrameError", "BackendError", "BackendUnavailable",
+           "RemoteRequestError", "MAX_FRAME_BYTES",
+           "recv_exact", "send_frame", "recv_frame",
+           "pack_error", "remote_error"]
 
 _FREQ_BITS = 12   # rANS quantized-frequency width (entropy_code._SCALE_BITS)
 
@@ -104,3 +122,111 @@ def measure_wire(symbols, deltas, n_elem: int, drop=None,
         "time_on_air_s": time_s,
         "energy_j": time_s * model.tx_power_w,
     }
+
+
+# Frame: u32 length | 1-byte op | body. Replies: u32 length | 1-byte
+# status (b"R" ok / b"E" error) | body. Error bodies are JSON
+# ``{type, msg, traceback, fatal}`` (``pack_error``); ``fatal`` marks
+# backend-level failures where the server closes the connection —
+# everything else is a per-request error the connection survives.
+
+# A solve frame is one request's (M, N) float32 operand plus headers:
+# far under a GiB for any real bucket. Anything bigger is a desynced or
+# hostile stream, and rejecting it *before* the allocate-and-recv loop is
+# what keeps a corrupt length prefix from looking like a hung peer.
+MAX_FRAME_BYTES = 1 << 30
+
+
+class FrameError(CodecError):
+    """Malformed frame at the transport layer (bad length, empty frame,
+    truncated nesting). The stream is desynced: the connection cannot be
+    trusted afterwards — callers must drop it, not resync."""
+
+
+class BackendError(RuntimeError):
+    """Base of the typed backend failure hierarchy the router consumes."""
+
+
+class BackendUnavailable(BackendError):
+    """Connection-level failure: refused, reset, timed out, or a desynced
+    stream. Signals a *dying host* — counts toward the suspect/dead
+    threshold and triggers failover of in-flight requests."""
+
+
+class RemoteRequestError(BackendError):
+    """The backend rejected or failed *this request* but the connection
+    (and the host) survive. Carries the remote traceback so the failure
+    is debuggable from the frontend. Does NOT count toward host death."""
+
+    def __init__(self, host_id: str, remote_type: str, msg: str,
+                 remote_traceback: str = ""):
+        self.host_id = host_id
+        self.remote_type = remote_type
+        self.remote_traceback = remote_traceback
+        detail = f"\n--- remote traceback ---\n{remote_traceback}" \
+            if remote_traceback else ""
+        super().__init__(f"backend {host_id}: {remote_type}: {msg}{detail}")
+
+
+def recv_exact(sock, n: int) -> bytes:
+    """Read exactly ``n`` bytes. Honors the socket's configured timeout
+    (``TimeoutError`` propagates — a half-dead peer must not hang the
+    caller forever) and refuses a socket without one; raises
+    ``ConnectionError`` on mid-frame close."""
+    if sock.gettimeout() is None:
+        raise ValueError("recv_exact: the socket has no timeout; every "
+                         "read must be bounded")
+    chunks = []
+    got = 0
+    while got < n:
+        chunk = sock.recv(n - got)
+        if not chunk:
+            raise ConnectionError("peer closed mid-frame")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+def send_frame(sock, op: bytes, body: bytes = b"") -> None:
+    sock.sendall(struct.pack("<I", len(body) + 1) + op + body)
+
+
+def recv_frame(sock) -> "tuple[bytes, bytes]":
+    (ln,) = struct.unpack("<I", recv_exact(sock, 4))
+    if ln < 1:
+        raise FrameError("empty frame (no opcode)")
+    if ln > MAX_FRAME_BYTES:
+        raise FrameError(f"frame length {ln} exceeds {MAX_FRAME_BYTES}")
+    payload = recv_exact(sock, ln)
+    return payload[:1], payload[1:]
+
+
+def pack_error(exc: BaseException, fatal: bool) -> bytes:
+    """Typed error-frame body: exception type + message + the full remote
+    traceback, plus whether the backend considers itself dying."""
+    return json.dumps({
+        "type": type(exc).__name__,
+        "msg": str(exc),
+        "traceback": _traceback.format_exc(),
+        "fatal": bool(fatal),
+    }, separators=(",", ":")).encode()
+
+
+def remote_error(host_id: str, body: bytes) -> BackendError:
+    """Rebuild the typed exception from an error-frame body. Fatal errors
+    (the server is closing the connection) surface as
+    ``BackendUnavailable``; everything else is a ``RemoteRequestError``
+    carrying the remote traceback."""
+    try:
+        d = json.loads(body)
+        rtype, msg = str(d["type"]), str(d["msg"])
+        tb, fatal = str(d.get("traceback", "")), bool(d.get("fatal"))
+    except (ValueError, KeyError, TypeError):
+        # pre-typed-frame peer (or garbage): treat as per-request
+        return RemoteRequestError(host_id, "RemoteError",
+                                  body.decode(errors="replace"))
+    if fatal:
+        return BackendUnavailable(
+            f"backend {host_id} fatal {rtype}: {msg}\n"
+            f"--- remote traceback ---\n{tb}")
+    return RemoteRequestError(host_id, rtype, msg, tb)

@@ -330,15 +330,26 @@ def test_masked_early_exit_is_exact(col):
 
 
 def test_drop_and_missing_bt_raise():
+    """``HetParams.drop`` is taken now (erasure is ported): an all-zero
+    (B, T, P) mask gives the drop-free bits, ``convert`` carries a
+    reference mask across as a tensor, and a mask of the wrong shape — a
+    missing T or P axis — raises."""
     a_b, y_b, probs, _ = _row_batch(ROW_SPECS[:2])
-    _, hp = _params(ROW_SPECS[:2], probs, col=False)
+    j_hp, hp = _params(ROW_SPECS[:2], probs, col=False)
     _, teng = _engines(col=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        teng.solve_het(a_b, y_b, hp._replace(
-            drop=torch.zeros(2, T_MAX, P)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        convert.het_params_from_arrays({**hp._asdict(),
-                                        "drop": np.zeros((2, T_MAX, P))})
+    free = teng.solve_het(a_b, y_b, hp)
+    zero = teng.solve_het(a_b, y_b, hp._replace(
+        drop=torch.zeros(2, T_MAX, P)))
+    for field in ("x", "sigma2_hat", "deltas", "extra_var", "rates"):
+        np.testing.assert_array_equal(getattr(zero, field),
+                                      getattr(free, field))
+    mask = np.zeros((2, T_MAX, P), np.float32)
+    mask[0, 1, 2] = 1.0
+    conv = convert.het_params_from_arrays({**j_hp._asdict(), "drop": mask})
+    assert conv.drop.dtype == torch.float32
+    np.testing.assert_array_equal(conv.drop.numpy(), mask)
+    with pytest.raises(ValueError, match="drop"):
+        teng.solve_het(a_b, y_b, hp._replace(drop=torch.zeros(2, P)))
 
 
 @pytest.mark.parametrize("update_z", [False, True])

@@ -1,6 +1,7 @@
 """What the PyTorch port may and may not do around its edges: it imports
 neither ``jax`` nor the JAX package ``repro``; its default device is the
-card and without one it raises; its solve loop asks the host nothing.
+card and without one it raises; its solve loops, the erasure ones
+included, ask the host nothing.
 """
 import os
 import pkgutil
@@ -74,7 +75,10 @@ def test_port_has_the_expected_modules():
                  "repro_torch.serving.batcher",
                  "repro_torch.serving.operand_cache",
                  "repro_torch.serving.wire", "repro_torch.serving.service",
-                 "repro_torch.launch.amp_serve"):
+                 "repro_torch.serving.codec", "repro_torch.serving.router",
+                 "repro_torch.serving.frontend", "repro_torch.serving.chaos",
+                 "repro_torch.launch.amp_serve",
+                 "repro_torch.launch.multihost"):
         assert want in names, want
     for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh",
                 "decode_attn.cu", "wkv6.cu"):
@@ -236,6 +240,17 @@ def test_no_host_sync_inside_the_solve_loop(layout, ctrl, batched,
     assert calls == [1] and np.all(np.isfinite(tr.x))
 
 
+def _het_params(t, with_bt, bt, dummy, drop=None):
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    return te.HetParams(
+        sched=f32([[np.inf, 0.05, 0.02]] * 2),
+        t_active=torch.tensor([3, 2]), m_real=f32([96.0, 96.0]),
+        n_real=torch.tensor([256, 240]), eps=f32([0.1, 0.05]),
+        mu_s=f32([0.0, 0.0]), sigma_s=f32([1.0, 1.0]),
+        use_bt=torch.tensor([with_bt, False]),
+        bt=te.stack_bt_tables([bt if with_bt else dummy, dummy]), drop=drop)
+
+
 @pytest.mark.parametrize("layout", ["row", "col"])
 @pytest.mark.parametrize("with_bt", [False, True], ids=["no_bt", "bt"])
 def test_no_host_sync_inside_the_het_loop(layout, with_bt, monkeypatch):
@@ -261,18 +276,55 @@ def test_no_host_sync_inside_the_het_loop(layout, with_bt, monkeypatch):
         dummy = te.BTTables.dummy(t, 4, 7)
         loop = "_het_core"
     eng = te.AmpEngine(prob.prior, cfg, te.EcsqTransport())
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
-    hp = te.HetParams(
-        sched=f32([[np.inf, 0.05, 0.02]] * 2),
-        t_active=torch.tensor([3, 2]), m_real=f32([96.0, 96.0]),
-        n_real=torch.tensor([256, 240]), eps=f32([0.1, 0.05]),
-        mu_s=f32([0.0, 0.0]), sigma_s=f32([1.0, 1.0]),
-        use_bt=torch.tensor([with_bt, False]),
-        bt=te.stack_bt_tables([bt if with_bt else dummy, dummy]))
+    hp = _het_params(t, with_bt, bt, dummy)
     calls = _guard_loop(eng, loop, monkeypatch)
     tr = eng.solve_het(a_b, y_b, hp, has_bt=with_bt)
     assert calls == [1] and tr.x.shape == (2, 256)
     assert np.all(np.isfinite(tr.x)) and tr.sigma2_hat[1, 2] == 0.0
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("ctrl", ["fixed", "bt", "block8"])
+@pytest.mark.parametrize("path", ["solve", "het"])
+def test_no_host_sync_inside_the_erasure_loops(layout, ctrl, path,
+                                               monkeypatch):
+    """The erasure loops ask the host nothing either: a single solve with
+    a (T, P) drop mask (the row survivor rescale, the column reset; K4's
+    erasure form in the block8 case) and a heterogeneous batch with
+    (B, T, P) masks, one instance lossless, its rows taken as views by a
+    Python int."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    drop = np.zeros((t, p), np.float32)
+    drop[0, 1] = drop[1, 0] = drop[1, 3] = drop[2, :] = 1.0
+    eng = _engine(layout, ctrl, prob, p, t)
+    col = layout == "col"
+    if path == "solve":
+        loop = "_col_solve_core" if col else "_solve_core"
+        calls = _guard_loop(eng, loop, monkeypatch)
+        tr = eng.solve(y, a, drop_sched=drop)
+        assert calls == [1] and tr.x.shape == (256,)
+        assert np.all(np.isfinite(tr.x))
+        return
+    if col:
+        a_b = np.stack([te.split_problem_cols(a, p)] * 2)
+        y_b = np.stack([y, 1.1 * y])
+        bt, dummy = (te.ColumnBTRateControl(prob, p, t, n_u_grid=16).tables,
+                     te.ColBTTables.dummy(t, 16))
+    else:
+        a_p, y_p = te.split_problem(a, y, p)
+        a_b, y_b = np.stack([a_p] * 2), np.stack([y_p, 1.1 * y_p])
+        bt, dummy = (te.BTRateControl(prob, p, t, n_s2_grid=4,
+                                      n_u_grid=7).tables,
+                     te.BTTables.dummy(t, 4, 7))
+    with_bt = ctrl == "bt"
+    hp = _het_params(t, with_bt, bt, dummy,
+                     drop=torch.from_numpy(np.stack([drop, 0 * drop])))
+    calls = _guard_loop(eng, "_col_het_core" if col else "_het_core",
+                        monkeypatch)
+    tr = eng.solve_het(a_b, y_b, hp, has_bt=with_bt)
+    assert calls == [1] and tr.x.shape == (2, 256)
+    assert np.all(np.isfinite(tr.x))
 
 
 def test_the_guard_itself_catches_a_sync(monkeypatch):
@@ -307,7 +359,8 @@ def test_loop_body_sources_hold_no_sync_calls():
            tqref.block_quant_fuse_ref, te.AmpEngine._body_het,
            te.AmpEngine._het_core, te.AmpEngine._col_body_het,
            te.AmpEngine._col_het_core, te._search, te._take, te._first,
-           te._last]
+           te._last, te._erasure_rescale, te._survivors, te._per_proc,
+           te._drop_at]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
     for fn in fns:
         src = inspect.getsource(fn)

@@ -423,9 +423,17 @@ def test_mesh_erasure_and_bad_requests_raise():
     prior = BernoulliGauss(eps=0.1)
     _, _, a, y = sample(5, 256, 64, prior)
     svc = SolveService(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # erasure requests are served now (tests/test_torch_erasure.py); a
+    # lossy link out of range or of an unknown model still raises
+    with pytest.raises(ValueError, match="erasure_rate"):
         svc.submit(SolveRequest(y=y, a=a, prior=prior, n_proc=4,
-                                erasure_rate=0.1))
+                                erasure_rate=1.0))
+    with pytest.raises(ValueError, match="erasure_model"):
+        svc.submit(SolveRequest(y=y, a=a, prior=prior, n_proc=4,
+                                erasure_rate=0.1, erasure_model="burst"))
+    with pytest.raises(ValueError, match="recovery"):
+        svc.submit(SolveRequest(y=y, a=a, prior=prior, n_proc=4,
+                                erasure_rate=0.1, recovery="resend"))
     with pytest.raises(ValueError, match="policy"):
         svc.submit(SolveRequest(y=y, a=a, prior=prior, n_proc=4,
                                 policy="greedy"))
@@ -438,7 +446,8 @@ def test_mesh_erasure_and_bad_requests_raise():
 
 def test_amp_serve_launcher(capsys, tmp_path):
     """``python -m repro_torch.launch.amp_serve --smoke`` on the CPU, with
-    its trace and metrics dumps; the mesh and the cluster tier raise."""
+    its trace and metrics dumps; the mesh raises; ``--hosts 2`` serves
+    through the cluster tier."""
     out = tmp_path / "trace.jsonl"
     met = tmp_path / "metrics.txt"
     results = tamp_serve.main(["--smoke", "--device", "cpu", "--requests",
@@ -452,8 +461,11 @@ def test_amp_serve_launcher(capsys, tmp_path):
     assert "amp_requests_total" in met.read_text()
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tamp_serve.main(["--smoke", "--device", "cpu", "--mesh"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tamp_serve.main(["--smoke", "--device", "cpu", "--hosts", "2"])
+    results = tamp_serve.main(["--smoke", "--device", "cpu", "--hosts", "2",
+                               "--requests", "8"])
+    assert sorted(r.request_id for r in results) == list(range(16))
+    text = capsys.readouterr().out
+    assert "2 hosts on cpu" in text and "router: served" in text
 
 
 def test_red_reference_het_batch_is_a_cell_flip():
