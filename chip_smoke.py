@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
-                          [--k6-only | --k5-only | --k4-only]
+                          [--k6-only | --k5-only | --k4-only | --sharded-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -43,6 +43,17 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     (frames of 100-300 MiB: the same bits, the submit round trip by
     layout), and ``launch/multihost.py --smoke`` (a child process behind
     a ``BackendServer`` over TCP at its toy load: the same bits);
+  * multi-device solves (phase ``sharded``): (a) an NCCL world of one rank
+    on the card, in this process, at the paper's row point (P=30):
+    ``PsumFusion`` against the emulated lossless solve, the int8 and int4
+    ``CompressedPsumTransport`` (the two-phase ``compressed_psum`` on K4a,
+    K4b and K4b's summing form, the int4 symbols packed on the card), their
+    launches an iteration and no host sync in the loops; (b) a world of two
+    gloo ranks sharing the card (spawned; NCCL refuses two ranks on one
+    GPU): the exact, ECSQ-local, straggler and compressed row solves, the
+    wide column problem, the wire bytes by dtype, and ``SolveService(mesh=)``
+    serving a ``"data"`` bucket of 8 and two ``"proc"`` requests at the
+    paper's size, each against the local service's answer;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -74,7 +85,9 @@ run. ``--k4-only`` does the same for block quantization: it builds
 the fused block-quantized fusion against their plain versions (every
 ``FUSE_CASES`` case, and its erasure form at ``FUSE_MASK_CASES``), times them at the transports' shapes beside the
 fusion composed of the standalone kernels and an empty launch, and stops,
-with the card's line and the last line.
+with the card's line and the last line. ``--sharded-only`` builds every
+kernel, holds the wire forms against their plain versions, runs the
+``sharded`` phase and times the wire forms, and stops the same way.
 """
 from __future__ import annotations
 
@@ -107,9 +120,11 @@ from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
 from repro_torch.core.engine import (AmpEngine, BlockQuantTransport,  # noqa: E402
                                      BTRateControl, ColDPSchedule,
                                      ColumnBTRateControl, ColumnPartition,
+                                     CompressedPsumTransport,
                                      DPSchedule, EcsqTransport, EngineConfig,
                                      ErasureSpec, ExactFusion, FixedSchedule,
-                                     bt_delta_for, col_bt_delta_for)
+                                     PsumFusion, bt_delta_for,
+                                     col_bt_delta_for, split_problem)
 from repro_torch.core.mp_amp import MPAMPConfig, mp_amp_solve  # noqa: E402
 from repro_torch.core.rate_alloc import (BTController, dp_allocate,  # noqa: E402
                                          dp_allocate_col)
@@ -117,7 +132,8 @@ from repro_torch.core.rate_distortion import RDModel  # noqa: E402
 from repro_torch.core.state_evolution import (PAPER_T, CSProblem,  # noqa: E402
                                               se_trajectory,
                                               se_trajectory_col,
-                                              se_trajectory_erasure)
+                                              se_trajectory_erasure,
+                                              se_trajectory_quantized)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.amp_fused import amp_fused as k  # noqa: E402
 from repro_torch.kernels.amp_fused import col as kc  # noqa: E402
@@ -132,6 +148,8 @@ from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import (init_cluster, make_serve_mesh,  # noqa: E402
+                                     spawn_world)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serving import (BackendServer,  # noqa: E402
                                  BucketPolicy, ChaosBackend,
@@ -148,6 +166,10 @@ SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
            "quantize_blocks": "src/repro_torch/csrc/quantize.cu",
            "dequantize_blocks": "src/repro_torch/csrc/quantize.cu",
            "block_quant_fuse": "src/repro_torch/csrc/quantize.cu",
+           "quantize_blocks_packed": "src/repro_torch/csrc/quantize.cu",
+           "dequantize_blocks_packed": "src/repro_torch/csrc/quantize.cu",
+           "dequantize_sum": "src/repro_torch/csrc/quantize.cu",
+           "dequantize_sum_packed": "src/repro_torch/csrc/quantize.cu",
            "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 K1_SITES = ("src/repro/kernels/amp_fused/amp_fused.py:102, "
@@ -160,6 +182,11 @@ REPLACES = {"amp_local": K1_SITES,
             "dequantize_blocks": "src/repro/kernels/quantize/quantize.py:72",
             "block_quant_fuse": ("src/repro/kernels/quantize/quantize.py:44, "
                                  "src/repro/kernels/quantize/quantize.py:72"),
+            "quantize_blocks_packed": "src/repro/kernels/quantize/quantize.py:44",
+            "dequantize_blocks_packed":
+                "src/repro/kernels/quantize/quantize.py:72",
+            "dequantize_sum": "src/repro/kernels/quantize/quantize.py:72",
+            "dequantize_sum_packed": "src/repro/kernels/quantize/quantize.py:72",
             "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:85",
             "wkv6": "src/repro/kernels/wkv6/wkv6.py:80"}
 COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
@@ -167,7 +194,7 @@ COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
 # kernels that no driven path launches any more, checked and timed all the
 # same: K1's two passes (rows past 131072) and the standalone quantizer and
 # its inverse (the transport runs the fused kernel)
-UNDRIVEN = ("amp_local_two_pass", "quantize_blocks", "dequantize_blocks")
+UNDRIVEN = ("amp_local_two_pass",)
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores and the dense TF32 tensor-core rate (K6's products).
@@ -643,6 +670,65 @@ def check_quantize_kernels() -> dict:
                     "dequantized_identical", "within_half_bin")), row
     emit("kernel_check_quantize", limit="bit-identical", cases=rows)
     return {(r["shape"], r["qmax"], r["block"]): r for r in rows}
+
+
+# compressed_psum's chunks: the paper's row message (N = 10000, padded to a
+# multiple of D * 512 * 2) over D = 2 ranks (two chunks of 5120) and a world
+# of 1 (one of 10240), the wide column problem's (M = 4000 -> 4096: two of
+# 2048), and ragged rows (odd length: the packed forms' tail, scalar loads)
+WIRE_CASES = [("row_D2", 2, 5120), ("row_D1", 1, 10240), ("col_D2", 2, 2048),
+              ("ragged", 7, 1001), ("D4", 4, 3072)]
+
+
+def check_wire_kernels() -> dict:
+    """The forms of ``compressed_psum``'s wire against their plain versions,
+    bit for bit: K4a int8 == ``quantize_ref`` and K4b int8 ==
+    ``dequantize_ref``; K4a packed (int4 symbols two a byte) ==
+    ``quantize_ref`` then ``pack_int4``; K4b packed == ``unpack_int4`` then
+    ``dequantize_ref``; K4b's sum over rows (int8 and packed) ==
+    ``dequantize_ref(...)`` summed in row order. Scales bit for bit too."""
+    rows = []
+    for name, r, n in WIRE_CASES:
+        x = quant_inputs(r, n, SEED + 3)
+        for block in (512, 256):
+            pk, sk = kq.quantize_cuda(x, 7, block, packed=True)
+            dk = kq.dequantize_cuda(pk, sk, block, packed=True, n=n)
+            q8, s8 = kq.quantize_cuda(x, 127, block)
+            d8 = kq.dequantize_cuda(q8, s8, block)
+            sum8 = kq.dequantize_sum_cuda(q8, s8, block)
+            sum4 = kq.dequantize_sum_cuda(pk, sk, block, packed=True, c=n)
+            torch.cuda.synchronize()
+            pr, sr = qops.quantize_plain(x, 7, block, packed=True)
+            dr = qops.dequantize_plain(pr, sr, block, packed=True, n=n)
+            q8r, s8r = qops.quantize_plain(x, 127, block)
+            d8r = qops.dequantize_plain(q8r, s8r, block)
+            sum8r = qops.dequantize_sum_plain(q8r, s8r, block)
+            sum4r = qops.dequantize_sum_plain(pr, sr, block, packed=True, c=n)
+            row = {"shape": name, "R": r, "N": n, "block": block,
+                   "int8_q_identical": bool(torch.equal(q8, q8r)),
+                   "int8_scale_bits_identical": bool(torch.equal(
+                       s8.view(torch.int16), s8r.view(torch.int16))),
+                   "int8_dequantized_identical": bool(torch.equal(d8, d8r)),
+                   "packed_identical": bool(torch.equal(pk, pr)),
+                   "packed_scale_bits_identical": bool(torch.equal(
+                       sk.view(torch.int16), sr.view(torch.int16))),
+                   "unpacked_dequantized_identical": bool(torch.equal(dk, dr)),
+                   "sum_int8_identical": bool(torch.equal(sum8, sum8r)),
+                   "sum_packed_identical": bool(torch.equal(sum4, sum4r)),
+                   "max_abs_err": max(float((q8.int() - q8r.int()).abs()
+                                            .max()),
+                                      float((d8 - d8r).abs().max()),
+                                      float((dk - dr).abs().max()),
+                                      float((sum8 - sum8r).abs().max()),
+                                      float((sum4 - sum4r).abs().max()))}
+            rows.append(row)
+            assert pk.shape == (r, (n + 1) // 2) and pk.dtype == torch.uint8
+            assert q8.shape == (r, n) and d8.shape == (r, n)
+            assert sum8.shape == (n,), sum8.shape
+            assert all(v for key, v in row.items()
+                       if key.endswith("identical")), row
+    emit("kernel_check_wire", limit="bit-identical", cases=rows)
+    return {(r["shape"], r["block"]): r for r in rows}
 
 
 FUSE_CASES = [("row_messages", 1, P, N), ("col_contributions", 1, P_COL, M),
@@ -2064,6 +2150,368 @@ def run_cluster() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# multi-device solves (phase ``sharded``)
+# ---------------------------------------------------------------------------
+
+SHARD_D = 2                       # ranks sharing the one card, over gloo
+SHARD_DELTAS = np.asarray([np.inf] + [0.05] * (T - 1), np.float32)
+SHARD_MSE_RATIO = 1.25            # int8 wire: MSE under 1.25 x lossless
+SHARD_DX = 1e-4                   # exact sharded == emulated, max |dx|
+SHARD_ENVELOPE = (0.5, 2.0)       # sigma2_hat / SE on the realized noise
+SHARD_DATA_MSE = 1e-10            # served "data" == local, mean (dx)^2
+SHARD_PROC_MSE = 1e-10            # served "proc" lossless == local
+SHARD_PROC_BT = 1.3               # served "proc" BT: MSE <= 1.3 x local
+# a sharded solve's launches on each rank: K1 once an iteration, and on the
+# compressed wires K4a twice (both phases), K4b-sum and K4b once
+SHARD_LAUNCHES = {
+    "int8": {"amp_local": T, "quantize_blocks": 2 * T, "dequantize_sum": T,
+             "dequantize_blocks": T},
+    "int4": {"amp_local": T, "quantize_blocks_packed": 2 * T,
+             "dequantize_sum_packed": T, "dequantize_blocks_packed": T},
+    "exact": {"amp_local": T}, "ecsq": {"amp_local": T}}
+
+
+def _shard_problems(device):
+    """The paper's row problem (the main path's draw, seed SEED) and the
+    wide column one (the column phase's, SEED + 2), on ``device``."""
+    prior = BernoulliGauss(eps=EPS)
+    prob = CSProblem(n=N, m=M, prior=prior, snr_db=SNR_DB)
+    prob_w = CSProblem(n=WIDE_N, m=WIDE_M, prior=prior, snr_db=SNR_DB)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    row = sample_problem(gen, N, M, prior, prob.sigma_e2, device=str(device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    col = sample_problem(gen, WIDE_N, WIDE_M, prior, prob_w.sigma_e2,
+                         device=str(device))
+    return prior, prob, row, col
+
+
+def _shard_service_requests():
+    """A lossless row bucket of 8 at the paper's size (two priors and SNRs,
+    T of 10 and 8) and two proc requests (lossless, BT), drawn with
+    numpy from seeds: rank 0 of the mesh and the parent draw the same."""
+    rng = np.random.default_rng(SEED + 40)
+    data = []
+    for i in range(BATCH):
+        eps, snr = (0.05, 20.0) if i % 2 == 0 else (0.10, 15.0)
+        prior, prob, s0, a, y = _draw_problem(rng, N, M, eps, snr)
+        data.append((SolveRequest(y=y, a=a, prior=prior, snr_db=snr,
+                                  n_proc=P, n_iter=T if i % 4 else 8), s0))
+    rng = np.random.default_rng(SEED + 41)
+    prior, prob, s0, a, y = _draw_problem(rng, N, M, EPS, SNR_DB)
+    proc = [(SolveRequest(y=y, a=a, prior=prior, snr_db=SNR_DB, n_proc=P,
+                          n_iter=T, policy=pol), s0)
+            for pol in ("lossless", "bt")]
+    return data, proc
+
+
+SHARD_DATA_POLICY = BucketPolicy(max_batch=BATCH, n_quantum=2048,
+                                 mp_quantum=112, t_quantum=6,
+                                 shard_elems=1 << 40)
+SHARD_PROC_POLICY = dataclasses.replace(SHARD_DATA_POLICY, shard_elems=1)
+
+
+def _timed_solve(fn):
+    """``fn()`` with its wall time (host clock, the card synchronised at
+    both ends) and the CUDA-event time of the rank's stream over it (idle
+    gaps included: the loop is host-paced)."""
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, {"wall_ms": 1e3 * (time.perf_counter() - t0),
+                 "events_ms": e0.elapsed_time(e1)}
+
+
+def _shard_engine(prior, transport, p=P, controller=None, col=False,
+                  device=DEV):
+    cfg = EngineConfig(n_proc=p, n_iter=T, collect_symbols=False,
+                       device=str(device),
+                       **({"layout": ColumnPartition(1)} if col else {}))
+    return AmpEngine(prior, cfg, transport, controller)
+
+
+def sharded_rank(mesh) -> dict:
+    """One rank of the phase's world of SHARD_D gloo ranks sharing the card
+    (every rank's tensors on cuda:0): the sharded engine solves, then the
+    solve service on the mesh (rank 0 serves, the others run the worker
+    loop). Results as numpy."""
+    from repro_torch.serving.service import serve_mesh_worker
+    dev, d = mesh.device, mesh.size
+    prior, prob, (s0, a, y), (s0w, aw, yw) = _shard_problems(dev)
+    checksum = float(a.double().sum())
+    out, times = {}, {}
+    sched = FixedSchedule(SHARD_DELTAS)
+    drop = np.zeros((T, d), np.float32)
+    drop[3, 0] = 1.0                          # rank 0 out at iteration 3
+    runs = {
+        "exact": lambda: _shard_engine(prior, PsumFusion(), device=dev)
+        .solve_sharded(y, a, mesh),
+        "ecsq": lambda: _shard_engine(prior, PsumFusion(
+            local=EcsqTransport()), controller=sched, device=dev)
+        .solve_sharded(y, a, mesh),
+        "ecsq_drop": lambda: _shard_engine(prior, PsumFusion(
+            local=EcsqTransport()), controller=sched, device=dev)
+        .solve_sharded(y, a, mesh, drop_sched=drop),
+        "int8": lambda: _shard_engine(prior, CompressedPsumTransport(
+            bits=8), device=dev).solve_sharded(y, a, mesh),
+        "int4": lambda: _shard_engine(prior, CompressedPsumTransport(
+            bits=4), device=dev).solve_sharded(y, a, mesh),
+        "wide_col_exact": lambda: _shard_engine(
+            prior, PsumFusion(), p=WIDE_P, col=True, device=dev)
+        .solve_sharded(yw, aw, mesh),
+    }
+    stats, launches = {}, {}
+    for name, fn in runs.items():
+        fn()                                  # warm: the first call builds
+        mesh.stats.reset()
+        reset_all_counts()
+        tr, times[name] = _timed_solve(fn)
+        launches[name] = {key: v for key, v in all_counts().items() if v}
+        stats[name] = mesh.stats.snapshot()
+        out[name] = {"x": tr.x, "sigma2_hat": tr.sigma2_hat,
+                     "extra_var": tr.extra_var}
+    del a, y, aw, yw
+    res = {"solves": out, "times": times, "stats": stats,
+           "launches": launches, "a_checksum": checksum}
+    if mesh.rank != 0:
+        res["worker"] = serve_mesh_worker(mesh, 2 << 30)
+        return res
+    data, proc = _shard_service_requests()
+    svc_d = SolveService(policy=SHARD_DATA_POLICY, mesh=mesh,
+                         operand_cache_bytes=2 << 30)
+    svc_p = SolveService(policy=SHARD_PROC_POLICY, mesh=mesh,
+                         operand_cache_bytes=2 << 30)
+    try:
+        got_d, times["serve_data_bucket8"] = _timed_solve(
+            lambda: svc_d.solve([r for r, _ in data]))
+        got_p, times["serve_proc_pair"] = _timed_solve(
+            lambda: svc_p.solve([r for r, _ in proc]))
+        # a repeat: every rank's A from its operand cache, only y crosses
+        _, times["serve_data_bucket8_repeat"] = _timed_solve(
+            lambda: svc_d.solve([r for r, _ in data]))
+    finally:
+        svc_p.close()
+    res["service"] = {
+        "data": [{"x": r.x, "sigma2_hat": r.sigma2_hat,
+                  "placement": r.bucket.placement} for r in got_d],
+        "proc": [{"x": r.x, "sigma2_hat": r.sigma2_hat,
+                  "placement": r.bucket.placement,
+                  "total_bits": r.total_bits} for r in got_p],
+        "stats": mesh.stats.snapshot(),
+        "cache": svc_d.stats()["operand_cache"]}
+    return res
+
+
+def _nccl_world_of_one(store_dir: str) -> dict:
+    """Phase (a): an NCCL world of one rank on the card, in this process:
+    the row solve at the paper's point with PsumFusion against the
+    emulated solve, the int8 and int4 compressed wires, their launches, no
+    host sync in the loops."""
+    import torch.distributed as dist
+    init_cluster(num_processes=1, process_id=0, backend="nccl",
+                 store_path=os.path.join(store_dir, "nccl1"), device=str(DEV))
+    try:
+        mesh = make_serve_mesh(device=str(DEV))
+        prior, prob, (s0, a, y), _ = _shard_problems(DEV)
+        s0 = s0.cpu().numpy()
+        em = _shard_engine(prior, ExactFusion()).solve(y, a)
+        engines = {"exact": _shard_engine(prior, PsumFusion()),
+                   "int8": _shard_engine(prior, CompressedPsumTransport(bits=8)),
+                   "int4": _shard_engine(prior, CompressedPsumTransport(bits=4)),
+                   "ecsq": _shard_engine(prior, PsumFusion(
+                       local=EcsqTransport()),
+                       controller=FixedSchedule(SHARD_DELTAS))}
+        runs, times, launches, stats = {}, {}, {}, {}
+        for name, eng in engines.items():
+            eng.solve_sharded(y, a, mesh)      # warm
+            reset_all_counts()
+            mesh.stats.reset()
+            runs[name], times[name] = _timed_solve(
+                lambda eng=eng: eng.solve_sharded(y, a, mesh))
+            launches[name] = {key: v for key, v in all_counts().items() if v}
+            stats[name] = mesh.stats.snapshot()
+        # the driven run whose launches the kernels line reports: the
+        # int8 and int4 wires, counts set to 0 just before
+        reset_all_counts()
+        for name in ("int8", "int4"):
+            engines[name].solve_sharded(y, a, mesh)
+        driven = all_counts()
+        # the loops alone, operands on the card, under the sync debug mode
+        sites = {}
+        for name, eng in engines.items():
+            a_p, y_p = split_problem(a, y, P)
+            sched = eng._f32(eng._sched_operand())
+            drops = eng._rank_drop_sched(None, mesh)
+            loop = lambda eng=eng, a_p=a_p, y_p=y_p, sched=sched, \
+                drops=drops: eng._solve_core(a_p, y_p, sched, M, N, drops,
+                                             mesh)
+            loop()
+            sites[name] = sync_sites(loop)
+        # ---- checks ------------------------------------------------------
+        mse = lambda x: float(np.mean((x - s0) ** 2))
+        dx = float(np.abs(runs["exact"].x - em.x).max())
+        assert dx <= SHARD_DX, ("exact sharded != emulated", dx)
+        ratio = {k: mse(runs[k].x) / mse(em.x) for k in ("int8", "int4")}
+        assert ratio["int8"] < SHARD_MSE_RATIO, ratio
+        envelope = {}
+        for name in ("int8", "int4"):
+            tr = runs[name]
+            assert np.all(np.isfinite(tr.x)) and np.all(tr.extra_var > 0), name
+            se = se_trajectory_quantized(prob, tr.extra_var / P, P)
+            envelope[name] = [float(v) for v in tr.sigma2_hat / se[:T]]
+            lo, hi = SHARD_ENVELOPE
+            assert all(lo < v < hi for v in envelope[name]), (name, envelope)
+        assert np.all(runs["int4"].extra_var > runs["int8"].extra_var)
+        for name, w in SHARD_LAUNCHES.items():
+            assert launches[name] == w, (name, launches[name])
+        for name, st in sites.items():
+            assert not st, (name, st)
+        for name in ("int8", "int4"):
+            assert set(stats[name]["bytes"]["all_to_all"]) == {"uint8"}
+            assert set(stats[name]["bytes"]["all_gather"]) == {"uint8"}
+        return {"mesh": {"backend": mesh.backend, "size": mesh.size,
+                         "device": str(mesh.device)},
+                "max_abs_dx_exact_vs_emulated": dx,
+                "mse_over_lossless": ratio,
+                "sigma2_hat_over_se_realized_noise": envelope,
+                "launches_per_solve": launches, "collectives": stats,
+                "host_sync_sites": sites, "times": times,
+                "emulated_lossless_mse": mse(em.x),
+                "driven_launches": driven}
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded() -> dict:
+    """Phase ``sharded``: (a) an NCCL world of one on the card, in this
+    process; (b) a world of SHARD_D spawned gloo ranks sharing the card
+    (NCCL refuses two ranks on one GPU), every rank's compute on the card,
+    its collectives through host memory (gloo's own copies; send/recv
+    staged by ``core/collectives.py``).
+    The kernels are built before any rank is spawned (the children only
+    load them)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="amp_mesh_")
+    world, p = SHARD_D, P
+    a_res = _nccl_world_of_one(store_dir)
+    driven = a_res.pop("driven_launches")
+    # (b): the parent's own emulated and local answers first
+    prior, prob, (s0, a, y), (s0w, aw, yw) = _shard_problems(DEV)
+    checksum = float(a.double().sum())
+    s0, s0w = s0.cpu().numpy(), s0w.cpu().numpy()
+    em_x = _shard_engine(prior, ExactFusion(), p=p).solve(y, a).x
+    em_ecsq = _shard_engine(prior, EcsqTransport(), p=p,
+                            controller=FixedSchedule(SHARD_DELTAS)).solve(y, a)
+    em_wide = _shard_engine(prior, ExactFusion(), p=WIDE_P,
+                            col=True).solve(yw, aw)
+    del a, y, aw, yw
+    data, proc = _shard_service_requests()
+    local_d = SolveService(policy=SHARD_DATA_POLICY).solve(
+        [r for r, _ in data])
+    local_p = SolveService(policy=SHARD_PROC_POLICY).solve(
+        [r for r, _ in proc])
+    ranks = spawn_world(sharded_rank, world, backend="gloo", device=str(DEV),
+                        store_path=os.path.join(store_dir, f"w{world}"),
+                        timeout_s=400)
+    r0 = ranks[0]
+    sv = r0["solves"]
+    # ---- checks ------------------------------------------------------------
+    for r in ranks:
+        assert r["a_checksum"] == checksum, "a rank drew other data"
+    for r in ranks[1:]:
+        for name, tr in r["solves"].items():
+            assert np.array_equal(tr["x"], sv[name]["x"]), name
+    # every rank launches the wire's kernels on its own chunks, once a
+    # round each: K4a twice, K4b-sum and K4b once an iteration, K1 once
+    for rank, r in enumerate(ranks):
+        for name, w in SHARD_LAUNCHES.items():
+            assert r["launches"][name] == w, (rank, name, r["launches"][name])
+        assert r["launches"]["ecsq_drop"] == SHARD_LAUNCHES["ecsq"], rank
+    mse = lambda x, s: float(np.mean((x - s) ** 2))
+    dx = float(np.abs(sv["exact"]["x"] - em_x).max())
+    assert dx <= SHARD_DX, ("exact sharded != emulated", dx)
+    dxw = float(np.abs(sv["wide_col_exact"]["x"] - em_wide.x).max())
+    assert dxw <= SHARD_DX, ("wide column sharded != emulated", dxw)
+    np.testing.assert_allclose(sv["ecsq"]["sigma2_hat"], em_ecsq.sigma2_hat,
+                               rtol=0.02)
+    np.testing.assert_allclose(sv["ecsq"]["extra_var"], em_ecsq.extra_var,
+                               rtol=1e-6)
+    m_sh, m_em = mse(sv["ecsq"]["x"], s0), mse(em_ecsq.x, s0)
+    assert abs(m_sh - m_em) <= 0.05 * m_em, (m_sh, m_em)
+    np.testing.assert_allclose(sv["ecsq_drop"]["extra_var"][3],
+                               sv["ecsq"]["extra_var"][3] * world
+                               / (world - 1), rtol=1e-5)
+    lossless = mse(em_x, s0)
+    ratio = {b: mse(sv[b]["x"], s0) / lossless for b in ("int8", "int4")}
+    assert ratio["int8"] < SHARD_MSE_RATIO, ratio
+    wire = {}
+    for b in ("int8", "int4"):
+        st = r0["stats"][b]
+        assert set(st["bytes"]["all_to_all"]) == {"uint8"}, st
+        assert set(st["bytes"]["all_gather"]) == {"uint8"}, st
+        handed = {op: sum(v.values()) for op, v in st["bytes"].items()}
+        per_iter = (handed["all_to_all"] * (world - 1) / world
+                    + handed["all_gather"] * (world - 1)) / T
+        f32_ring = 2 * (world - 1) / world * 4 * N
+        wire[b] = {"bytes_per_iteration_per_rank": per_iter,
+                   "float32_ring_allreduce_bytes": f32_ring,
+                   "ratio": f32_ring / per_iter, "staged": st["staged"]}
+    svc = r0["service"]
+    data_dx, data_bits = [], []
+    for got, res in zip(svc["data"], local_d):
+        assert got["placement"] == "data", got["placement"]
+        data_dx.append(float(np.mean((got["x"] - res.x) ** 2)))
+        data_bits.append(bool(np.array_equal(got["x"], res.x)))
+    assert max(data_dx) <= SHARD_DATA_MSE, data_dx
+    proc_cmp = {}
+    for (req, s0p), got, res in zip(proc, svc["proc"], local_p):
+        assert got["placement"] == "proc" and res.bucket.placement == "local"
+        if req.policy == "lossless":
+            d = float(np.mean((got["x"] - res.x) ** 2))
+            assert d <= SHARD_PROC_MSE, d
+            np.testing.assert_allclose(got["sigma2_hat"], res.sigma2_hat,
+                                       rtol=1e-3)
+            proc_cmp["lossless_mean_sq_dx"] = d
+        else:
+            mp_, ml = mse(got["x"], s0p), mse(res.x, s0p)
+            assert mp_ <= SHARD_PROC_BT * ml + 1e-8, (mp_, ml)
+            assert np.isfinite(got["total_bits"])
+            proc_cmp["bt_mse_over_local"] = mp_ / ml
+    workers = [r["worker"] for r in ranks[1:]]
+    for w in workers:
+        assert w["commands"] >= 3 and w["operand_cache"]["hits"] > 0, w
+    emit("sharded",
+         nccl_world_of_one=a_res,
+         world={"ranks": world, "backend": "gloo", "P": p,
+                "devices": "cuda:0 shared",
+                "max_abs_dx_exact_vs_emulated": dx,
+                "wide_col_max_abs_dx_exact_vs_emulated": dxw,
+                "ecsq_mse_sharded_emulated": [m_sh, m_em],
+                "mse_over_lossless": ratio, "wire": wire,
+                "times_by_rank": [r["times"] for r in ranks],
+                "launches_by_rank": [r["launches"] for r in ranks],
+                "service_data_mean_sq_dx": data_dx,
+                "service_data_bit_identical": data_bits,
+                "service_proc": proc_cmp,
+                "service_collectives": svc["stats"],
+                "service_operand_cache_rank0": svc["cache"],
+                "workers": workers},
+         limits={"exact_max_abs_dx": SHARD_DX,
+                 "int8_mse_over_lossless": SHARD_MSE_RATIO,
+                 "sigma2_over_se_realized_noise": SHARD_ENVELOPE,
+                 "ecsq": "sigma2 rtol 0.02, extra rtol 1e-6, MSE 5 %",
+                 "data_mean_sq_dx": SHARD_DATA_MSE,
+                 "proc_lossless_mean_sq_dx": SHARD_PROC_MSE,
+                 "proc_bt_mse_over_local": SHARD_PROC_BT},
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": driven}
+
+
 def sync_sites(fn) -> list:
     """Run ``fn`` with PyTorch's sync debug mode on: every call that makes
     the host wait for the device is reported with the lines of this
@@ -2252,10 +2700,10 @@ def time_col_kernels() -> dict:
 
 
 def time_quantize_kernels() -> dict:
-    """At the transports' shapes: the row messages (P=30, N) and the column
-    contributions (P=25, M), qmax 127, block 512. No single PyTorch call
-    computes the block quantizer, so there is no library yardstick. The
-    fused call is timed beside ``chain_fuse`` (``chain_ms``: the same
+    """The fused transport (K4) at its shapes: the row messages (P=30, N)
+    and the column contributions (P=25, M), qmax 127, block 512. No single
+    PyTorch call computes the block quantizer, so there is no library
+    yardstick. The fused call is timed beside ``chain_fuse`` (``chain_ms``: the same
     function composed of the standalone kernels and PyTorch ops) and beside
     an empty kernel launched with its grid, threads and shared memory
     (``empty_launch_ms``), the floor under any one launch."""
@@ -2263,16 +2711,9 @@ def time_quantize_kernels() -> dict:
     for name, r, n in Q_SHAPES[:2]:
         x = quant_inputs(r, n, SEED)
         x3 = x.reshape(1, r, n)
-        q, s = kq.quantize_cuda(x, 127, 512)
         keep = fuse_keep_rows(1, r, SEED + 8)["random_shared"]
         plan = kq.fuse_plan(1, r, n, 512, sms=k.sm_count(DEV))
         calls = {
-            "quantize_blocks": {
-                "ms": lambda: kq.quantize_cuda(x, 127, 512),
-                "plain_ms": lambda: qops.quantize_plain(x, 127, 512)},
-            "dequantize_blocks": {
-                "ms": lambda: kq.dequantize_cuda(q, s, 512),
-                "plain_ms": lambda: qops.dequantize_plain(q, s, 512)},
             "block_quant_fuse": {
                 "ms": lambda: kq.block_quant_fuse_cuda(x3, 127, 512),
                 "plain_ms": lambda: block_quant_fuse_ref(x3, 127, 512),
@@ -2285,13 +2726,68 @@ def time_quantize_kernels() -> dict:
                 "plain_ms": lambda: block_quant_fuse_ref(x3, 127, 512,
                                                          keep=keep)},
         }
-        table[name] = _time_calls(calls, {**quant_bounds(r, n, 512),
-                                          "block_quant_fuse": fuse_bound(
+        table[name] = _time_calls(calls, {"block_quant_fuse": fuse_bound(
                                               1, r, n),
                                           "block_quant_fuse_erasure":
                                               fuse_bound(1, r, n, keep=r)})
         table[name]["block_quant_fuse"]["plan"] = plan._asdict()
     table["fuse_scaling"] = time_fuse_scaling()
+    return table
+
+
+def wire_bounds(r, n, block):
+    """Least times of the wire forms: K4a packed reads x and writes N / 2
+    bytes a row and the scales (5 operations an element, 2 more to pack);
+    K4b packed the reverse (3 an element: unpack, sign, scale); K4b's sum
+    over R rows reads the R int8 (or packed) rows and scales once and
+    writes one float32 row (2 operations an element of a row)."""
+    scales = 2 * r * (-(-n // block))
+    return {"quantize_blocks_packed": bound(4 * r * n + r * n // 2 + scales,
+                                            7.0 * r * n),
+            "dequantize_blocks_packed": bound(r * n // 2 + scales + 4 * r * n,
+                                              3.0 * r * n),
+            "dequantize_sum": bound(r * n + scales + 4 * n, 2.0 * r * n),
+            "dequantize_sum_packed": bound(r * n // 2 + scales + 4 * n,
+                                           3.0 * r * n)}
+
+
+def time_wire_kernels() -> dict:
+    """The wire forms, int8 and int4, at compressed_psum's chunks: the row
+    message over D = 2 (two chunks of 5120) and over a world of one (one of
+    10240: the kernels line's shape), the column one over D = 2 (two of
+    2048), block 512. No single PyTorch call computes them: no library
+    yardstick."""
+    table = {}
+    for name, r, n in WIRE_CASES[:3]:
+        x = quant_inputs(r, n, SEED + 3)
+        pk, sk = kq.quantize_cuda(x, 7, 512, packed=True)
+        q8, s8 = kq.quantize_cuda(x, 127, 512)
+        calls = {
+            "quantize_blocks": {
+                "ms": lambda: kq.quantize_cuda(x, 127, 512),
+                "plain_ms": lambda: qops.quantize_plain(x, 127, 512)},
+            "dequantize_blocks": {
+                "ms": lambda: kq.dequantize_cuda(q8, s8, 512),
+                "plain_ms": lambda: qops.dequantize_plain(q8, s8, 512)},
+            "quantize_blocks_packed": {
+                "ms": lambda: kq.quantize_cuda(x, 7, 512, packed=True),
+                "plain_ms": lambda: qops.quantize_plain(x, 7, 512,
+                                                        packed=True)},
+            "dequantize_blocks_packed": {
+                "ms": lambda: kq.dequantize_cuda(pk, sk, 512, packed=True),
+                "plain_ms": lambda: qops.dequantize_plain(pk, sk, 512,
+                                                          packed=True)},
+            "dequantize_sum": {
+                "ms": lambda: kq.dequantize_sum_cuda(q8, s8, 512),
+                "plain_ms": lambda: qops.dequantize_sum_plain(q8, s8, 512)},
+            "dequantize_sum_packed": {
+                "ms": lambda: kq.dequantize_sum_cuda(pk, sk, 512,
+                                                     packed=True),
+                "plain_ms": lambda: qops.dequantize_sum_plain(
+                    pk, sk, 512, packed=True)},
+        }
+        table[name] = _time_calls(calls, {**quant_bounds(r, n, 512),
+                                          **wire_bounds(r, n, 512)})
     return table
 
 
@@ -2868,6 +3364,11 @@ def main() -> None:
                            "kernel_check_block_quant_fuse) and time them "
                            "(timing_k4), and stop: no other phase; the last "
                            "line as in a full run")
+    only.add_argument("--sharded-only", action="store_true",
+                      help="build every kernel, check the wire forms, run "
+                           "the sharded phase and time the wire forms "
+                           "(kernel_check_wire, sharded, timing_wire), and "
+                           "stop: the last line as in a full run")
     parser.add_argument("--k3-parent", metavar="DIR",
                         help="a checkout of the parent tree: time its K3 "
                              "(prior as host numbers) in turns with this "
@@ -2903,6 +3404,18 @@ def main() -> None:
     if "wkv6" in paths:
         assert any(op.startswith("HMMA") for op in
                    RESULT["build"]["wkv6_sass_tensor_ops"]), RESULT["build"]
+    if args.sharded_only:
+        check_wire_kernels()
+        run_sharded()
+        emit("timing_wire", card=smi, kernels=time_wire_kernels())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(RESULT, fh, indent=1)
+        print(smi, flush=True)
+        print_last_line()
+        return
     if args.k6_only or args.k5_only or args.k4_only:
         if args.k6_only:
             check_wkv6_kernel()
@@ -2912,8 +3425,10 @@ def main() -> None:
             emit("timing_k5", card=smi, kernels=time_decode_attn())
         else:
             check_quantize_kernels()
+            check_wire_kernels()
             check_block_quant_fuse()
-            emit("timing_k4", card=smi, kernels=time_quantize_kernels())
+            emit("timing_k4", card=smi, kernels=time_quantize_kernels(),
+                 wire=time_wire_kernels())
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -2928,7 +3443,8 @@ def main() -> None:
     errs = check_kernels()
     errs_col = check_col_kernels()
     check_k3_per_instance()
-    errs_q = check_quantize_kernels()
+    check_quantize_kernels()
+    errs_wire = check_wire_kernels()
     errs_fuse = check_block_quant_fuse()
     check_against_cpu_reference()
     ctx = run_main_path()
@@ -2938,6 +3454,7 @@ def main() -> None:
     serve_ctx = run_serve()
     erasure_ctx = run_erasure(ctx, col_ctx)
     cluster_ctx = run_cluster()
+    sharded_ctx = run_sharded()
     errs_da = check_decode_attn_kernel()
     errs_wkv = check_wkv6_kernel()
     check_lm_small()
@@ -2947,6 +3464,7 @@ def main() -> None:
     kernel_times = time_kernels()
     col_times = time_col_kernels()
     quant_times = time_quantize_kernels()
+    wire_times = time_wire_kernels()
     solve_times = time_solves(ctx)
     col_solve_times = time_col_solves(ctx, col_ctx)
     emit("k3_operands", card=smi, **time_k3_operands(args.k3_parent))
@@ -2955,7 +3473,8 @@ def main() -> None:
                 "device (device time), solves on an idle one (host pace "
                 "included)",
          lc_step=kernel_times, col_kernels=col_times,
-         quantize_kernels=quant_times, solve=solve_times,
+         quantize_kernels=quant_times, wire_kernels=wire_times,
+         solve=solve_times,
          col_solve=col_solve_times, serve=serve_ctx["timing"])
     lm_times = time_lm_kernels()
     emit("timing_lm", card=smi,
@@ -2977,8 +3496,10 @@ def main() -> None:
                    + erasure_ctx["launches"].get(key, 0)
                    + cluster_ctx["launches"].get(key, 0)
                    for key in serve_ctx["launches"]}
-    q_err = max(r["q_max_abs_err"] for r in errs_q.values())
-    d_err = max(r["dequantized_max_abs_err"] for r in errs_q.values())
+    sh_launches = sharded_ctx["launches"]
+    wire_err = max(r["max_abs_err"] for r in errs_wire.values())
+    wire_row = lambda name: (wire_times["row_D1"][name],
+                             sh_launches[name], wire_err)
     fuse_err = max(r["f_max_abs_err"] for r in errs_fuse.values())
     paper_col = errs_col[("paper_P25", "float32")]
     lc_err = lambda case: max(errs[(case, "float32")]["z_max_abs_err"],
@@ -3004,12 +3525,16 @@ def main() -> None:
                       max(paper_col["x_max_abs_err_final"],
                           paper_col["x_max_abs_err_upd"],
                           paper_col["z_max_abs_err_upd"])),
-        "quantize_blocks": (quant_times["row_messages"]["quantize_blocks"],
-                            col_launches["quantize_blocks"]
-                            + bq_launches["quantize_blocks"], q_err),
-        "dequantize_blocks": (quant_times["row_messages"]["dequantize_blocks"],
-                              col_launches["dequantize_blocks"]
-                              + bq_launches["dequantize_blocks"], d_err),
+        # compressed_psum's wire forms (the sharded phase, counts set to 0
+        # just before its driven solves), timed at the paper's row message
+        # over a world of one (one chunk of 10240), the shape that run
+        # gives them
+        "quantize_blocks": wire_row("quantize_blocks"),
+        "dequantize_blocks": wire_row("dequantize_blocks"),
+        "quantize_blocks_packed": wire_row("quantize_blocks_packed"),
+        "dequantize_blocks_packed": wire_row("dequantize_blocks_packed"),
+        "dequantize_sum": wire_row("dequantize_sum"),
+        "dequantize_sum_packed": wire_row("dequantize_sum_packed"),
         "block_quant_fuse": (quant_times["row_messages"]["block_quant_fuse"],
                              col_launches["block_quant_fuse"]
                              + bq_launches["block_quant_fuse"]

@@ -9,6 +9,7 @@ build this package's objects from them:
 
     problem_to_torch     (a_mat, y)            -> tensors on a device
     shards_to_torch      pre-split (a_p, y_p)  -> tensors on a device, A in a_dtype
+    rank_shards          a rank's share of (a_p, y_p) or of a_cp (y shared) over a mesh
     schedule_from_deltas a Fixed/DP schedule's ``deltas`` (+ rates, sigma2_d)
     col_dp_schedule_from_arrays  a ColDPSchedule's ``deltas``, ``rates``, ``d_traj``
     bt_tables_from_arrays      the 16 arrays of a BTTables tuple -> BTTables
@@ -24,12 +25,13 @@ import torch
 
 from .core.denoisers import BernoulliGauss
 from .core.engine import (BTTables, ColBTTables, ColDPSchedule, DPSchedule,
-                          EngineConfig, FixedSchedule, HetParams)
+                          EngineConfig, FixedSchedule, HetParams, rank_slice)
 from .core.engine import to_f32 as _f32
 from .core.state_evolution import CSProblem
 from .models.model_api import state_from_flat
 
-__all__ = ["problem_to_torch", "shards_to_torch", "schedule_from_deltas",
+__all__ = ["problem_to_torch", "shards_to_torch", "rank_shards",
+           "schedule_from_deltas",
            "col_dp_schedule_from_arrays", "bt_tables_from_arrays",
            "col_bt_tables_from_arrays", "het_params_from_arrays",
            "prior_from_fields",
@@ -46,6 +48,20 @@ def shards_to_torch(a_p, y_p, device="cuda", a_dtype: str = "float32"):
     operands: A stored in ``a_dtype``, y in float32."""
     a_tdtype = EngineConfig(a_dtype=a_dtype).a_tdtype
     return _f32(a_p, device).to(a_tdtype).contiguous(), _f32(y_p, device)
+
+
+def rank_shards(a_p, y_p, rank: int, size: int, device="cuda",
+                a_dtype: str = "float32", col: bool = False):
+    """Rank ``rank``'s share over a mesh of ``size`` of pre-split shards,
+    as the reference's ``PartitionSpec(axis, None, None)`` places them
+    (``engine.rank_slice``): row (a_p (P, Mp, N), y_p (P, Mp)) -> its P /
+    size processors of both; column (``col``: a_cp (P, M, Np), the shared
+    y (M,)) -> its blocks of A and the whole y. On ``device``, A in
+    ``a_dtype``."""
+    a_loc = rank_slice(np.asarray(a_p), rank, size)
+    y_loc = np.asarray(y_p) if col else rank_slice(np.asarray(y_p), rank,
+                                                   size)
+    return shards_to_torch(a_loc, y_loc, device, a_dtype)
 
 
 def schedule_from_deltas(deltas, rates=None, sigma2_d=None):

@@ -11,11 +11,27 @@ reference's bit for bit (``torch.round`` rounds half to even, as
 ``jnp.round``).
 
 ``BlockQuantTransport`` (``core/engine.py``) runs the same function through
-``kernels/quantize`` (a CUDA kernel on the card); this module is the plain
-counterpart of the reference module and serves the tests and host code. The
-scale rule has one home, ``kernels/quantize/ref.py::block_scale``.
-``compressed_psum`` / ``compressed_grad_transform`` need several devices and
-come with the multi-device solves.
+``kernels/quantize`` (a CUDA kernel on the card); ``quantize_blocks`` /
+``dequantize_blocks`` here are the plain counterparts of the reference's and
+serve the tests and host code. The scale rule has one home,
+``kernels/quantize/ref.py::block_scale``.
+
+``compressed_psum`` is the reference's two-phase lossy all-reduce over a
+device mesh (``launch/mesh.py::Mesh``, collectives of
+``core/collectives.py``):
+
+  phase 1 (a reduce-scatter): each rank pads its summand to a multiple of
+     D * block * 2, cuts it into D chunks, quantizes them (K4a) and
+     ``all_to_all``'s the symbols and scales; each rank dequantizes the D
+     chunks it received and sums them in rank order (K4b's summing form).
+  phase 2 (an all-gather): the reduced chunk is quantized again (K4a),
+     ``all_gather``'d, and every rank dequantizes the whole (K4b).
+
+On the int4 wire the symbols travel packed two a byte, written so by the
+quantizer itself. The kernels run where the tensors lie on the card, their
+plain versions on the CPU (``kernels/quantize/ops.py``).
+``compressed_grad_transform`` belongs to the LM trainer (ROADMAP.md Queue 1
+item 8(f)).
 """
 from __future__ import annotations
 
@@ -23,10 +39,12 @@ import dataclasses
 
 import torch
 
-from ..kernels.quantize.ref import block_scale
+from ..kernels.quantize import ops as qops
+from ..kernels.quantize.ref import block_scale, pack_int4, unpack_int4
+from .collectives import all_gather, all_to_all
 
 __all__ = ["QuantConfig", "quantize_blocks", "dequantize_blocks",
-           "pack_int4", "unpack_int4", "quant_noise_var"]
+           "pack_int4", "unpack_int4", "quant_noise_var", "compressed_psum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,23 +98,6 @@ def dequantize_blocks(q, scale, qc: QuantConfig, orig_len: int | None = None):
     return out
 
 
-def pack_int4(q):
-    """int8 values in [-7, 7] -> packed uint8, two nibbles per byte (the
-    first element of a pair in the low nibble)."""
-    u = (q.to(torch.int32) & 0xF).to(torch.uint8)
-    pairs = u.reshape(*u.shape[:-1], u.shape[-1] // 2, 2)
-    return pairs[..., 0] | (pairs[..., 1] << 4)
-
-
-def unpack_int4(p):
-    lo = (p & 0xF).to(torch.int8)
-    hi = ((p >> 4) & 0xF).to(torch.int8)
-    # sign-extend 4-bit two's complement
-    sext = lambda v: torch.where(v > 7, v - 16, v)
-    out = torch.stack([sext(lo), sext(hi)], dim=-1)
-    return out.reshape(*p.shape[:-1], p.shape[-1] * 2)
-
-
 def quant_noise_var(scale, qc: QuantConfig | None = None, batch_dims: int = 0):
     """Per-element quantization noise variance Delta^2/12 (paper Sec. 3.2),
     the mean over every block of ``scale``. The first ``batch_dims`` axes
@@ -104,3 +105,46 @@ def quant_noise_var(scale, qc: QuantConfig | None = None, batch_dims: int = 0):
     gets from ``vmap``."""
     d = scale.to(torch.float32)
     return torch.mean(d * d, dim=tuple(range(batch_dims, d.ndim))) / 12.0
+
+
+def _wire_encode(x, qc: QuantConfig):
+    """Quantize the rows of ``x`` (R, C) for the wire: int8 symbols, or at
+    4 bits the packed uint8 (R, C / 2), and the bf16 scales."""
+    return qops.quantize(x, qc.qmax, qc.block, packed=qc.bits == 4)
+
+
+def _wire_decode(w, scale, qc: QuantConfig):
+    """Dequantize wire rows (``_wire_encode``'s) to float32 (R, C)."""
+    return qops.dequantize(w, scale, qc.block, packed=qc.bits == 4)
+
+
+def compressed_psum(x, mesh, qc: QuantConfig = QuantConfig()):
+    """Sum ``x`` over ``mesh`` with lossy-compressed transport.
+
+    Every rank calls it with its own ``x`` (any shape, float32) and gets
+    ``(sum, injected_noise_var)``: the sum up to quantization error, the
+    same bits on every rank, in ``x``'s shape, and this rank's noise
+    account ``noise1 * D + noise2``, the paper's P * sigma_Q^2 from its own
+    send-side scales (the transport takes its mean over the mesh). No
+    value is read on the host."""
+    n = mesh.size
+    flat = x.reshape(-1).to(torch.float32)
+    flat, _ = _pad_to(flat[None], n * qc.block * 2)
+    chunks = flat[0].reshape(n, -1)           # (D, C): chunk d goes to rank d
+
+    # phase 1: quantize per-destination chunks, exchange, reduce own chunk
+    wire, scale = _wire_encode(chunks, qc)
+    noise1 = quant_noise_var(scale) * n       # n summands -> n * sigma_Q^2
+    wire_r = all_to_all(wire, mesh)
+    scale_r = all_to_all(scale, mesh)
+    own = qops.dequantize_sum(wire_r, scale_r, qc.block,
+                              packed=qc.bits == 4)          # (C,)
+
+    # phase 2: re-quantize the reduced chunk, gather everyone's
+    wire2, scale2 = _wire_encode(own[None], qc)
+    noise2 = quant_noise_var(scale2)
+    wire_g = all_gather(wire2[0], mesh)       # (D, C) or (D, C / 2)
+    scale_g = all_gather(scale2[0], mesh)     # (D, C / block)
+    full = _wire_decode(wire_g, scale_g, qc)
+    out = full.reshape(-1)[:x.numel()].reshape(x.shape)
+    return out.to(x.dtype), noise1 + noise2

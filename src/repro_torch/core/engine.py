@@ -45,7 +45,16 @@ cache (``_run``, ``lower_het``, ``compile_het``) — eager PyTorch compiles
 nothing; ``compile_count`` counts the distinct programs (entry point,
 operand shapes, BT or not) an engine has run, the serving layer's
 warm-start signal — the ``use_kernel`` / ``kernel_interpret`` / ``donate``
-switches, and (for now) device-sharded solves.
+switches.
+
+Device-sharded solves (the reference's DESIGN.md §6): ``solve_sharded``,
+``dispatch_sharded`` / ``solve_sharded_het`` run the same bodies on every
+rank of a ``torch.distributed`` mesh (``launch/mesh.py::Mesh``), each rank
+on its contiguous P/D processors (row shards, or column blocks), with a
+device-collective transport (``PsumFusion``, ``CompressedPsumTransport``)
+as the fusion and the plug-in's sum of squares, the column layout's
+boundary terms and its estimate gathered by the collectives of
+``core/collectives.py``. Every rank returns the same trace.
 
 Erasure (the reference's DESIGN.md §10): ``solve(y, a, drop_sched=)`` and
 ``HetParams.drop`` take a (T, P) mask of lost fusion packets (1 = lost,
@@ -69,7 +78,8 @@ from ..kernels.amp_fused.ops import (amp_local_grid, col_inner_step,
                                      col_params, col_residual,
                                      pad_col_shards, pad_row_shards)
 from ..kernels.quantize.ops import block_quant_fuse
-from .compression import QuantConfig
+from .collectives import all_gather, pmean, psum
+from .compression import QuantConfig, compressed_psum
 from .denoisers import (BernoulliGauss, eta_and_deriv, eta_bg_and_deriv,
                         make_mmse_interp)
 from .quantize import (GaussMixture, dequantize_midtread, ecsq_entropy,
@@ -86,7 +96,8 @@ __all__ = [
     "BTRateControl", "BTTables", "bt_delta_for", "ColBTTables",
     "col_bt_delta_for", "ColumnBTRateControl", "ColDPSchedule", "interp",
     "amp_gc_step", "split_problem", "split_problem_cols", "to_f32",
-    "HetParams", "stack_bt_tables", "pad_bt_tables",
+    "HetParams", "stack_bt_tables", "pad_bt_tables", "PsumFusion",
+    "CompressedPsumTransport", "rank_slice",
 ]
 
 
@@ -116,6 +127,18 @@ def split_problem_cols(a_mat, n_proc: int):
     if isinstance(blocks, torch.Tensor):
         return blocks.movedim(-2, -3).contiguous()
     return np.ascontiguousarray(np.moveaxis(blocks, -2, -3))
+
+
+def rank_slice(v, rank: int, size: int):
+    """Rank ``rank``'s contiguous share of the leading (processor) axis of
+    ``v`` over a mesh of ``size``, as ``PartitionSpec(axis, None, None)``
+    places it: processors ``[rank * P / size, (rank + 1) * P / size)``.
+    numpy arrays and tensors alike (a view)."""
+    p = v.shape[0]
+    if p % size:
+        raise ValueError(f"P={p} is not a multiple of the mesh size {size}")
+    k = p // size
+    return v[rank * k:(rank + 1) * k]
 
 
 def to_f32(v, device) -> torch.Tensor:
@@ -357,6 +380,72 @@ class BlockQuantTransport:
                                           keep=keep)
         return (f.reshape(lead + (length,)), extra.reshape(lead),
                 None if syms is None else syms.reshape(f_p.shape))
+
+
+# -- device-collective transports (run on every rank of a mesh) ------------
+
+def _drop_rescale(f_local, drop, mesh):
+    """Straggler mitigation of the device transports: zero this rank's
+    summand when ``drop`` (this rank's flag, shaped like ``f_local``'s
+    leading axes) is set and rescale the survivors by D / n_keep, so the
+    fusion stays an unbiased estimate of the full sum. Returns ``(rescaled,
+    keep, scale)`` for the callers' noise accounts. With no rank dropped,
+    ``scale`` is exactly 1.0 (D / D, a division by a tensor)."""
+    keep = 1.0 - drop
+    kept = torch.clamp(psum(keep, mesh), min=1.0)
+    scale = _per_proc(kept, mesh.size) / kept
+    return f_local * keep[..., None] * scale[..., None], keep, scale
+
+
+@dataclasses.dataclass(frozen=True)
+class PsumFusion:
+    """Exact-wire fusion over a mesh: each rank sums its P/D messages
+    locally (through an emulated per-processor ``local`` transport, e.g.
+    ``EcsqTransport`` for the paper's quantize-at-each-processor scenario)
+    and the partial sums are ``psum``'d over the mesh.
+
+    ``fuse`` always takes ``drop``, this rank's straggler flag for the
+    iteration (zeros when there is none), and the mesh. The local accounts
+    saw only this rank's processors: their ``psum`` is the paper's global
+    P * sigma_Q^2; under a straggler rescale the survivors' noise is
+    amplified by scale^2, dropped ranks contribute none."""
+
+    local: Transport = dataclasses.field(default_factory=ExactFusion)
+
+    def fuse(self, f_p, delta, drop, mesh):
+        f_loc, extra_loc, _ = self.local.fuse(f_p, delta, symbols=False)
+        f_loc, keep, scale = _drop_rescale(f_loc, drop, mesh)
+        f = psum(f_loc, mesh)
+        extra = psum(extra_loc * keep, mesh) * (scale * scale)
+        return f, extra, None
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedPsumTransport:
+    """Lossy-compressed wire fusion: the sum over the mesh itself runs as
+    the two-phase int8/int4 ``compressed_psum`` (``core/compression.py``),
+    whose wire carries uint8 payloads: 4x / 8x fewer symbol bytes than a
+    float32 all-reduce. The straggler rescale comes first, so the noise
+    measured from the realized scales includes it; each rank's account is
+    averaged over the mesh (``pmean``), a value every rank shares. One
+    instance a call (its messages are quantized as one flat vector)."""
+
+    bits: int = 8
+    block: int = 512
+
+    @property
+    def qc(self) -> QuantConfig:
+        return QuantConfig(bits=self.bits, block=self.block)
+
+    def fuse(self, f_p, delta, drop, mesh):
+        f_loc, _, _ = _drop_rescale(torch.sum(f_p, dim=-2), drop, mesh)
+        f, noise = compressed_psum(f_loc, mesh, self.qc)
+        return f, pmean(noise, mesh).expand(f.shape[:-1]), None
+
+
+# the transports whose ``fuse`` is a collective over a mesh: only the
+# sharded entry points run them, the emulated ones refuse them
+_COLLECTIVE_TRANSPORTS = (PsumFusion, CompressedPsumTransport)
 
 
 # ---------------------------------------------------------------------------
@@ -1080,34 +1169,47 @@ class AmpEngine:
 
     # -- shared iteration body ----------------------------------------------
 
-    def _local(self, x, z_p, onsager, a_p, y_p, m):
+    def _local(self, x, z_p, onsager, a_p, y_p, m, mesh=None):
         """LC: the whole (batch, processor) stack through one fused op.
-        ``m`` is the measurement count M that normalizes sigma2_hat."""
+        ``m`` is the measurement count M that normalizes sigma2_hat; on a
+        mesh the sum of squares over this rank's processors is ``psum``'d
+        first, so every rank divides the same global sum by the global M."""
         z_new, f_p, ss = amp_local_grid(a_p, x, y_p, z_p, onsager,
                                         self.cfg.n_proc)
+        if mesh is not None:
+            ss = psum(ss, mesh)
         return z_new, f_p, ss / m
 
-    def _fuse(self, f_p, delta, drop=None):
+    def _fuse(self, f_p, delta, drop=None, mesh=None):
         """Transport dispatch; ``drop`` (..., P) is this round's erasure
-        mask, None the drop-free code."""
-        return self.transport.fuse(f_p, delta,
-                                   symbols=self.cfg.collect_symbols,
-                                   drop=drop)
+        mask, None the drop-free code. On a mesh (a device-collective
+        transport) ``drop`` is this rank's straggler flag, always given."""
+        if mesh is None:
+            if isinstance(self.transport, _COLLECTIVE_TRANSPORTS):
+                raise TypeError(
+                    f"{type(self.transport).__name__} is a device-collective"
+                    " transport: solve via solve_sharded/solve_sharded_het, "
+                    "not the emulated entry points")
+            return self.transport.fuse(f_p, delta,
+                                       symbols=self.cfg.collect_symbols,
+                                       drop=drop)
+        return self.transport.fuse(f_p, delta, drop, mesh)
 
-    def _gc(self, f_p, sigma2_hat, delta, kappa, drop=None):
+    def _gc(self, f_p, sigma2_hat, delta, kappa, drop=None, mesh=None):
         """GC: compress + fuse + denoise. Returns (x, onsager, extra, syms)."""
-        f, extra, syms = self._fuse(f_p, delta, drop)
+        f, extra, syms = self._fuse(f_p, delta, drop, mesh)
         x_new, onsager_new = amp_gc_step(f, sigma2_hat + extra, self.prior,
                                          kappa)
         return x_new, onsager_new, extra, syms
 
     def _body(self, t: int, carry, sched_delta, a_p, y_p, kappa, m,
-              outs: _Outs, drop=None):
+              outs: _Outs, drop=None, mesh=None):
         """One iteration; writes its record into ``outs`` at index t.
-        ``drop`` (P,) is the iteration's erasure mask or None. No host
-        sync: nothing here reads a tensor's value."""
+        ``drop`` (P,) is the iteration's erasure mask or None (on a mesh:
+        this rank's flag). No host sync: nothing here reads a tensor's
+        value."""
         x, z_p, onsager = carry
-        z_p, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, m)
+        z_p, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, m, mesh)
         if isinstance(self.controller, FixedSchedule):
             # fixed schedules arrive as a device operand; their rate is not
             # tracked (the record holds inf from allocation)
@@ -1115,7 +1217,7 @@ class AmpEngine:
         else:
             delta, rate = self.controller.delta_for(t, s2)
         x_new, onsager_new, extra, syms = self._gc(f_p, s2, delta, kappa,
-                                                   drop)
+                                                   drop, mesh)
         self._record(outs, t, s2, delta, extra, rate)
         if outs.xs is not None:
             outs.xs[..., t, :] = x_new
@@ -1155,11 +1257,13 @@ class AmpEngine:
         if rate is not None:
             outs.rates[..., t] = rate
 
-    def _solve_core(self, a_p, y_p, sched, m: int, n: int, drop=None):
+    def _solve_core(self, a_p, y_p, sched, m: int, n: int, drop=None,
+                    mesh=None):
         """The T-iteration loop on device operands. a_p (P, Mp, N) or
         (B, P, Mp, N); y_p (P, Mp) or (B, P, Mp); sched (T,); drop the
-        (T, P) erasure mask or None. ``drop[t]`` with a Python int t is a
-        view: no index tensor, no host read."""
+        (T, P) erasure mask or None. On a mesh a_p/y_p hold this rank's
+        P/D processors and drop is its (T,) straggler flags. ``drop[t]``
+        with a Python int t is a view: no index tensor, no host read."""
         cfg, kappa = self.cfg, m / n
         lead = tuple(y_p.shape[:-2])
         carry = (torch.zeros(lead + (n,), dtype=torch.float32,
@@ -1169,7 +1273,7 @@ class AmpEngine:
         outs = self._alloc_outs(lead, n, n)
         for t in range(cfg.n_iter):
             carry = self._body(t, carry, sched[t], a_p, y_p, kappa, m, outs,
-                               None if drop is None else drop[t])
+                               None if drop is None else drop[t], mesh)
         return carry[0], outs
 
     # -- column layout (C-MP-AMP) ---------------------------------------------
@@ -1215,7 +1319,7 @@ class AmpEngine:
         return x, c_p, z_p
 
     def _col_round(self, x, mem, coef, delta, a_cp, y, m_eff, par,
-                   n_mask=None, drop=None):
+                   n_mask=None, drop=None, mesh=None):
         """One round: residual contributions, fuse, the boundary Onsager
         memory, the inner stage. Returns the new carry pieces and the
         round's record ``(v_hat, extra, syms)``. ``m_eff`` normalises the
@@ -1232,17 +1336,29 @@ class AmpEngine:
         the wire. The transport runs drop-free (its survivor rescale must
         not act on the zeroed contributions), and ``extra`` counts only the
         delivered packets' noise (share of survivors). With nothing lost
-        every factor is an exact 1.0."""
+        every factor is an exact 1.0.
+
+        On a mesh ``x``, ``a_cp`` and the per-processor carry are this
+        rank's P/D blocks, ``drop`` (...,) is its flag (always given), the
+        survivors' share and the boundary terms are ``psum``'d, and the
+        transport gets a zero flag."""
         p = self.cfg.n_proc
-        share = None
+        share, fuse_drop = None, None
         if drop is not None:
             keep = 1.0 - drop
-            x = x * keep[..., None]
-            kept = keep.sum(-1)
-            share = kept / _per_proc(kept, p)
+            if mesh is None:
+                x = x * keep[..., None]
+                kept = keep.sum(-1)
+                share = kept / _per_proc(kept, p)
+            else:
+                x = x * keep[..., None, None]
+                kept = psum(keep, mesh)
+                share = kept / _per_proc(kept, mesh.size)
+                keep = keep[..., None]
+                fuse_drop = torch.zeros_like(drop)
             coef = coef * (share if self.cfg.layout.carry_fused else keep)
         r_p = col_residual(a_cp, x)
-        r, extra, syms = self._fuse(r_p, delta)
+        r, extra, syms = self._fuse(r_p, delta, fuse_drop, mesh)
         if share is not None:
             extra = extra * share
         g = y - r
@@ -1251,16 +1367,31 @@ class AmpEngine:
         if self.cfg.layout.carry_fused:
             g = g + coef[..., None] * mem
         else:
-            g = g + torch.einsum("...p,...pm->...m", coef, mem)
+            corr = torch.einsum("...p,...pm->...m", coef, mem)
+            g = g + (corr if mesh is None else psum(corr, mesh))
+        # g is the same on every rank after the fusion: no psum needed
         v_hat = torch.sum(g * g, dim=-1) / m_eff
         z0 = g.unsqueeze(-2).expand(x.shape[:-1] + g.shape[-1:]).contiguous()
         x_new, c_p, z_last = self._col_inner(x, g, z0, a_cp, par, n_mask)
         if self.cfg.layout.carry_fused:
-            return x_new, g, torch.sum(c_p, dim=-1), v_hat, extra, syms
+            coef_new = torch.sum(c_p, dim=-1)
+            if mesh is not None:
+                coef_new = psum(coef_new, mesh)
+            return x_new, g, coef_new, v_hat, extra, syms
         return x_new, z_last, c_p, v_hat, extra, syms
 
+    @staticmethod
+    def _col_gather_x(x, mesh):
+        """(..., P', Np) signal slices -> the flat (..., N) estimate; on a
+        mesh the slices of every rank are gathered first (rank order is
+        processor order)."""
+        if mesh is not None:
+            x = all_gather(x, mesh).movedim(0, -3)
+            x = x.reshape(x.shape[:-3] + (-1, x.shape[-1]))
+        return x.reshape(x.shape[:-2] + (-1,))
+
     def _col_body(self, t: int, carry, sched_delta, a_cp, y, m_eff, par,
-                  outs: _Outs, drop=None):
+                  outs: _Outs, drop=None, mesh=None):
         """One outer round; writes its record into ``outs`` at index t.
         The carry is ``(x (..., P, Np), mem, coef, v_prev)``: the signal
         slices, the Onsager boundary memory (the previous g (..., M) and
@@ -1274,25 +1405,26 @@ class AmpEngine:
         else:
             delta, rate = self.controller.delta_for(t, v_prev)
         x_new, mem, coef, v_hat, extra, syms = self._col_round(
-            x, mem, coef, delta, a_cp, y, m_eff, par, drop=drop)
+            x, mem, coef, delta, a_cp, y, m_eff, par, drop=drop, mesh=mesh)
         if t == 0:
             # round 0 quantizes all-zero contributions exactly: no noise
             # enters g, whatever bin the schedule names
             extra = torch.zeros_like(extra)
         self._record(outs, t, v_hat, delta, extra, rate)
         if outs.xs is not None:
-            outs.xs[..., t, :] = x_new.reshape(x_new.shape[:-2] + (-1,))
+            outs.xs[..., t, :] = self._col_gather_x(x_new, mesh)
         if outs.symbols is not None:
             outs.symbols[..., t, :, :] = syms
         return x_new, mem, coef, v_hat
 
     def _col_solve_core(self, a_cp, y, sched, par, m: int, n: int,
-                        drop=None):
+                        drop=None, mesh=None):
         """The outer-round loop on device operands. a_cp (P, M, Np) or
         (B, P, M, Np); y (M,) or (B, M); sched (T,); par the inner step's
         operand (``_col_prior_params``); drop the (T, P) erasure mask or
-        None."""
-        cfg, p = self.cfg, self.cfg.n_proc
+        None. On a mesh a_cp holds this rank's P/D blocks and drop is its
+        (T,) flags."""
+        cfg, p = self.cfg, a_cp.shape[-3]
         lead = tuple(y.shape[:-1])
         zeros = lambda *shape: torch.zeros(lead + shape, dtype=torch.float32,
                                            device=self.device)
@@ -1305,8 +1437,8 @@ class AmpEngine:
         outs = self._alloc_outs(lead, n, m)
         for t in range(cfg.n_iter):
             carry = self._col_body(t, carry, sched[t], a_cp, y, m, par, outs,
-                                   None if drop is None else drop[t])
-        return carry[0].reshape(lead + (n,)), outs
+                                   None if drop is None else drop[t], mesh)
+        return self._col_gather_x(carry[0], mesh), outs
 
     # -- operands -------------------------------------------------------------
 
@@ -1430,7 +1562,7 @@ class AmpEngine:
     # -- heterogeneous batches (the serving path) -------------------------------
 
     def _body_het(self, t: int, carry, a_p, y_p, hp: HetParams, prior,
-                  n_mask, has_bt: bool, outs: _Outs):
+                  n_mask, has_bt: bool, outs: _Outs, mesh=None, drops=None):
         """One masked iteration of a row bucket with per-instance operands.
 
         ``_body``'s LC/GC split; the differences: sigma2_hat normalises by
@@ -1441,9 +1573,11 @@ class AmpEngine:
         a batch without a BT request runs no controller), and an instance
         freezes once ``t >= t_active``, its record 0 (inf for the rate)
         from there on. ``torch.where`` on device tensors throughout: no
-        host sync."""
+        host sync. On a mesh ``drops`` (B, T) holds this rank's straggler
+        flags."""
         x, z_p, onsager = carry
-        z_new, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, hp.m_real)
+        z_new, f_p, s2 = self._local(x, z_p, onsager, a_p, y_p, hp.m_real,
+                                     mesh)
         sched_t = hp.sched[:, t]
         rate = None
         if has_bt:
@@ -1454,7 +1588,8 @@ class AmpEngine:
             delta = sched_t
         # each instance's erasure row (B, P); a lossless request of the
         # batch has zeros there, an exact no-op
-        f, extra, syms = self._fuse(f_p, delta, _drop_at(hp, t))
+        drop = _drop_at(hp, t) if mesh is None else drops[:, t]
+        f, extra, syms = self._fuse(f_p, delta, drop, mesh)
         val, deriv = eta_bg_and_deriv(f, (s2 + extra)[:, None], *prior)
         x_new = val * n_mask
         onsager_new = torch.sum(deriv * n_mask, dim=-1) / hp.m_real
@@ -1472,9 +1607,11 @@ class AmpEngine:
             outs.symbols[..., t, :, :] = syms
         return x1, z1, ons1
 
-    def _het_core(self, a_b, y_b, hp: HetParams, has_bt: bool):
+    def _het_core(self, a_b, y_b, hp: HetParams, has_bt: bool, mesh=None):
         """The row bucket's T_max-iteration loop on device operands: a_b
-        (B, P, mp_pad, n_pad), y_b (B, P, mp_pad), ``hp`` on the device."""
+        (B, P, mp_pad, n_pad), y_b (B, P, mp_pad), ``hp`` on the device. On
+        a mesh a_b/y_b hold this rank's P/D processors and ``hp.drop`` is
+        (B, T, D), one flag a rank."""
         b, _, _, n = a_b.shape
         dev = self.device
         n_mask = (torch.arange(n, device=dev)[None, :]
@@ -1484,13 +1621,23 @@ class AmpEngine:
                  torch.zeros_like(y_b),
                  torch.zeros(b, dtype=torch.float32, device=dev))
         outs = self._alloc_outs((b,), n, n)
+        drops = None if mesh is None else self._rank_drops(hp, b, mesh)
         for t in range(self.cfg.n_iter):
             carry = self._body_het(t, carry, a_b, y_b, hp, prior, n_mask,
-                                   has_bt, outs)
+                                   has_bt, outs, mesh, drops)
         return carry[0], outs
 
+    def _rank_drops(self, hp: HetParams, b: int, mesh):
+        """This rank's (B, T) straggler flags of a sharded het solve:
+        ``hp.drop[..., rank]`` (a view), zeros when nobody drops."""
+        if hp.drop is None:
+            return torch.zeros((b, self.cfg.n_iter), dtype=torch.float32,
+                               device=self.device)
+        return hp.drop[..., mesh.rank]
+
     def _col_body_het(self, t: int, carry, a_cp, y, hp: HetParams, par,
-                      n_mask, has_bt: bool, outs: _Outs):
+                      n_mask, has_bt: bool, outs: _Outs, mesh=None,
+                      drops=None):
         """One masked C-MP-AMP round of a column bucket with per-instance
         operands: ``_col_body``'s carry plus the ``t_active`` freeze; ``par``
         (B, 4) and ``n_mask`` (B, Np) feed the inner step (K3) each
@@ -1506,7 +1653,7 @@ class AmpEngine:
             delta = sched_t
         x_new, mem_new, coef_new, v_hat, extra, syms = self._col_round(
             x, mem, coef, delta, a_cp, y, hp.m_real, par, n_mask,
-            _drop_at(hp, t))
+            _drop_at(hp, t) if mesh is None else drops[:, t], mesh)
         if t == 0:
             extra = torch.zeros_like(extra)     # zero round-0 payload
         act = t < hp.t_active
@@ -1520,19 +1667,20 @@ class AmpEngine:
                      torch.where(act, extra, 0.0),
                      None if rate is None else torch.where(act, rate, math.inf))
         if outs.xs is not None:
-            outs.xs[..., t, :] = x1.reshape(x1.shape[0], -1)
+            outs.xs[..., t, :] = self._col_gather_x(x1, mesh)
         if outs.symbols is not None:
             outs.symbols[..., t, :, :] = syms
         return x1, mem1, coef1, v1
 
-    def _col_het_core(self, a_b, y_b, hp: HetParams, has_bt: bool):
+    def _col_het_core(self, a_b, y_b, hp: HetParams, has_bt: bool,
+                      mesh=None):
         """The column bucket's T_max-round loop: a_b (B, P, m_pad, np_pad),
         y_b (B, m_pad); every processor owns n_real / P real columns at the
-        head of its slice."""
+        head of its slice. On a mesh a_b holds this rank's P/D blocks."""
         b, p, m_pad, np_pad = a_b.shape
         dev = self.device
         n_mask = (torch.arange(np_pad, device=dev)[None, :]
-                  < (hp.n_real // p)[:, None]).to(torch.float32)
+                  < (hp.n_real // self.cfg.n_proc)[:, None]).to(torch.float32)
         par = col_params(hp.m_real, hp.eps, hp.mu_s, hp.sigma_s**2, dev)
         zeros = lambda *shape: torch.zeros((b,) + shape, dtype=torch.float32,
                                            device=dev)
@@ -1542,11 +1690,12 @@ class AmpEngine:
             mem, coef = zeros(p, m_pad), zeros(p)
         carry = (zeros(p, np_pad), mem, coef,
                  torch.sum(y_b * y_b, dim=-1) / hp.m_real)
-        outs = self._alloc_outs((b,), p * np_pad, m_pad)
+        outs = self._alloc_outs((b,), self.cfg.n_proc * np_pad, m_pad)
+        drops = None if mesh is None else self._rank_drops(hp, b, mesh)
         for t in range(self.cfg.n_iter):
             carry = self._col_body_het(t, carry, a_b, y_b, hp, par, n_mask,
-                                       has_bt, outs)
-        return carry[0].reshape(b, p * np_pad), outs
+                                       has_bt, outs, mesh, drops)
+        return self._col_gather_x(carry[0], mesh), outs
 
     def dispatch_het(self, a_b, y_b, params: HetParams,
                      has_bt: bool | None = None):
@@ -1596,6 +1745,163 @@ class AmpEngine:
         buckets: the first ``n_real[i] / P`` of each slice) and
         ``t_active[i]`` iterations."""
         return self.trace_of(self.dispatch_het(a_b, y_b, params, has_bt))
+
+    # -- device-sharded solves (the mesh as an engine axis) -------------------
+
+    def _sharded_axis(self, mesh) -> int:
+        """Check that this engine can solve on ``mesh``; returns P / D."""
+        if not isinstance(self.transport, _COLLECTIVE_TRANSPORTS):
+            raise TypeError(
+                "solve_sharded needs a device-collective transport "
+                "(PsumFusion / CompressedPsumTransport), got "
+                f"{type(self.transport).__name__}")
+        if self.cfg.collect_symbols:
+            raise ValueError("symbols are per-device in sharded mode; build "
+                             "the engine with collect_symbols=False")
+        if self.cfg.n_proc % mesh.size:
+            raise ValueError(f"P={self.cfg.n_proc} must be a multiple of the "
+                             f"mesh '{mesh.axis}' axis ({mesh.size})")
+        if torch.device(mesh.device) != self.device:
+            raise ValueError(f"the engine runs on {self.device}, this rank "
+                             f"of the mesh on {mesh.device}")
+        return self.cfg.n_proc // mesh.size
+
+    def _rank_part(self, v, mesh, k: int):
+        """This rank's contiguous ``k`` processors of ``v`` (leading axis
+        P); ``v`` already of ``k`` is taken as this rank's own."""
+        if v.shape[0] == self.cfg.n_proc:
+            return rank_slice(v, mesh.rank, mesh.size)
+        if v.shape[0] != k:
+            raise ValueError(f"leading axis {v.shape[0]}: need P="
+                             f"{self.cfg.n_proc} or this rank's P/D={k}")
+        return v
+
+    def _rank_drop_sched(self, drop_sched, mesh):
+        """This rank's (T,) straggler flags of a (T, D) schedule, or zeros:
+        a device transport always takes its flag."""
+        if drop_sched is None:
+            return torch.zeros(self.cfg.n_iter, dtype=torch.float32,
+                               device=self.device)
+        drop = self._f32(drop_sched)
+        want = (self.cfg.n_iter, mesh.size)
+        if tuple(drop.shape) != want:
+            raise ValueError(f"drop_sched: need {want}, got "
+                             f"{tuple(drop.shape)}")
+        return drop[:, mesh.rank].contiguous()
+
+    def solve_sharded(self, y, a_mat, mesh, drop_sched=None) -> EngineTrace:
+        """Device-sharded solve on every rank of ``mesh``: row-partitioned
+        (A, y), each rank on its contiguous P/D processors, the fusion on
+        the wire (the engine's device-collective transport). Every rank
+        passes the whole problem (numpy or host tensors: only its part is
+        copied to its device) and gets the same trace.
+
+        The body, controller and trace are ``solve``'s; only the fusion sum
+        and the plug-in's sum of squares cross the mesh. ``drop_sched``
+        (T, D) marks straggler ranks per iteration: the transport rescales
+        the survivors instead of stalling. Under a ``ColumnPartition`` the
+        mesh carries column blocks, the fusion sums residual contributions,
+        and a dropped rank is reset (its blocks restart from zero), not
+        rescaled."""
+        k = self._sharded_axis(mesh)
+        m, n = a_mat.shape
+        host = lambda v: v if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        drops = self._rank_drop_sched(drop_sched, mesh)
+        sched = self._f32(self._sched_operand())
+        if self.cfg.is_col:
+            self._check_col_controller()
+            a_cp = split_problem_cols(
+                host(a_mat).reshape(m, n), self.cfg.n_proc)
+            a_cp = self._a_operand(self._f32(self._rank_part(a_cp, mesh, k)))
+            y_d = self._f32(y).contiguous()
+            self._dispatched(("col_sharded", tuple(a_cp.shape), m, n))
+            return self._trace(*self._col_solve_core(
+                a_cp, y_d, sched, self._col_prior_params(m), m, n, drops,
+                mesh))
+        a_p, y_p = split_problem(host(a_mat), host(y), self.cfg.n_proc)
+        a_p = self._a_operand(self._f32(self._rank_part(a_p, mesh, k)))
+        y_p = self._f32(self._rank_part(y_p, mesh, k)).contiguous()
+        self._dispatched(("sharded", tuple(a_p.shape), m, n))
+        return self._trace(*self._solve_core(a_p, y_p, sched, m, n, drops,
+                                             mesh))
+
+    def check_sharded(self, a_shape: tuple, y_shape: tuple,
+                      params: HetParams, mesh) -> int:
+        """Every check ``dispatch_sharded`` makes of its operands, on their
+        shapes alone (a mesh worker runs it before any rank starts the
+        solve's collectives); returns P / D."""
+        k = self._sharded_axis(mesh)
+        n_p, t = self.cfg.n_proc, self.cfg.n_iter
+        if len(a_shape) != 3 or a_shape[0] not in (n_p, k):
+            raise ValueError(f"a_p: need (P={n_p} or this rank's P/D={k}, "
+                             f"rows, columns), got {a_shape}")
+        if self.cfg.is_col:
+            want_y, ok_y = f"({a_shape[1]},)", tuple(y_shape) == a_shape[1:2]
+        else:
+            want_y = f"(P={n_p} or P/D={k}, {a_shape[1]})"
+            ok_y = (len(y_shape) == 2 and y_shape[0] in (n_p, k)
+                    and y_shape[1] == a_shape[1])
+        if not ok_y:
+            raise ValueError(f"y_p: need {want_y}, got {tuple(y_shape)}")
+        if tuple(np.shape(params.sched)) != (t,):
+            raise ValueError(f"params.sched: need ({t},), got "
+                             f"{tuple(np.shape(params.sched))}")
+        if params.drop is not None and \
+                tuple(np.shape(params.drop)) != (t, mesh.size):
+            raise ValueError(f"params.drop: need {(t, mesh.size)}, got "
+                             f"{tuple(np.shape(params.drop))}")
+        return k
+
+    def dispatch_sharded(self, a_p, y_p, params: HetParams, mesh,
+                         has_bt: bool | None = None):
+        """Processor-sharded het solve of ONE padded instance (no batch
+        axis) on every rank of ``mesh``, returning the raw ``(x, outs)``
+        without waiting for the device (``trace_of`` builds the trace, the
+        same on every rank). The serving layer's placement for large single
+        requests: the mesh axis is the paper's P, the fusion a (possibly
+        compressed) collective.
+
+        Row: a_p (P, mp_pad, n_pad), y_p (P, mp_pad); column: a_p (P,
+        m_pad, np_pad) and the shared y_p (m_pad,). ``a_p`` (and a row
+        ``y_p``) may hold all P processors, of which each rank takes its
+        contiguous P/D, or this rank's P/D alone; a device tensor already
+        in ``cfg.a_dtype`` is used as it is. ``params`` are the instance's
+        operands without a batch axis; ``params.drop`` is (T, D), one
+        straggler flag a rank, or None."""
+        k = self.check_sharded(tuple(a_p.shape), tuple(np.shape(y_p)),
+                               params, mesh)
+        if has_bt is None:
+            has_bt = bool(torch.as_tensor(params.use_bt).any())
+        as_t = lambda v: v if isinstance(v, torch.Tensor) else \
+            torch.as_tensor(np.asarray(v))
+        one = lambda v: as_t(v)[None]
+        hp = params._replace(
+            sched=one(params.sched), t_active=one(params.t_active),
+            m_real=one(params.m_real), n_real=one(params.n_real),
+            eps=one(params.eps), mu_s=one(params.mu_s),
+            sigma_s=one(params.sigma_s), use_bt=one(params.use_bt),
+            bt=type(params.bt)(*(one(v) for v in params.bt)),
+            drop=None if params.drop is None else one(params.drop))
+        hp = hp.to(self.device)
+        a_loc = self._rank_part(a_p, mesh, k)
+        a_loc = self._a_operand(a_loc if isinstance(a_loc, torch.Tensor)
+                                else self._f32(a_loc))[None]
+        if self.cfg.is_col:
+            y_b = self._f32(y_p).contiguous()[None]
+            self._dispatched(("col_sharded_het", tuple(a_loc.shape), has_bt))
+            x, outs = self._col_het_core(a_loc, y_b, hp, has_bt, mesh)
+        else:
+            y_b = self._f32(self._rank_part(y_p, mesh, k)).contiguous()[None]
+            self._dispatched(("sharded_het", tuple(a_loc.shape), has_bt))
+            x, outs = self._het_core(a_loc, y_b, hp, has_bt, mesh)
+        return x[0], _Outs(*(None if v is None else v[0] for v in outs))
+
+    def solve_sharded_het(self, a_p, y_p, params: HetParams, mesh,
+                          has_bt: bool | None = None) -> EngineTrace:
+        """``dispatch_sharded`` brought to the host."""
+        return self.trace_of(self.dispatch_sharded(a_p, y_p, params, mesh,
+                                                   has_bt))
 
     def solve_host_loop(self, y, a_mat, host_schedule=None) -> EngineTrace:
         """Per-iteration host loop over the same LC/GC pieces.

@@ -9,6 +9,16 @@
 //         q     = clip(round_half_even(x / Delta), -qmax, qmax)   (int8)
 //   * `dequantize_pallas` (`_dequant_kernel`) ->  dequantize_blocks_kernel
 //         out = q * Delta
+//   and the forms the two-phase `compressed_psum` of
+//   src/repro/core/compression.py needs on its int8/int4 wire:
+//   * quantize_blocks_kernel<true>: the int4 symbols (qmax 7) packed two a
+//     byte straight from the registers, the even element of each pair in
+//     the low nibble (`pack_int4`): (R, ceil(N / 2)) uint8, no int8 array
+//   * dequantize_blocks_kernel<true>: reads the nibbles, sign-extends, scales
+//   * dequantize_sum_kernel<packed>: for D received chunks (D, C) and their
+//     scales, out[c] = sum_d q[d, c] * Delta[d, c / block], d = 0, 1, ...
+//     in turn (phase 1's dequantize-then-sum over ranks in one launch, no
+//     (D, C) float32 intermediate)
 //   * both, with the sum over processors and the noise accounting of the
 //     reference's `BlockQuantTransport.fuse` (src/repro/core/engine.py,
 //     `drop=None`)                            ->  block_quant_fuse_kernel
@@ -91,9 +101,11 @@
 //     resets the slots and the counter to 0. The counter only orders the
 //     work: the result is the same bits whichever cluster is last. At the row shape this is 20 clusters of 4 blocks of
 //     31 warps, one wave.
-//   * dequantize_blocks_kernel: a grid-stride loop (no driven path uses the
-//     standalone inverse; it is kept as the counterpart of
-//     `dequantize_pallas`).
+//   * dequantize_blocks_kernel and dequantize_sum_kernel: grid-stride loops,
+//     a thread an element (the sum: a thread a column, the D rows in turn).
+//     Their path is compressed_psum (src/repro_torch/core/compression.py),
+//     whose chunks at the paper's sizes are a few thousand elements: like
+//     the fusion, bound by launch and memory latency, not by bytes.
 //
 // Plain C interface, loaded with ctypes. The entry points launch on the
 // stream they are given, do not synchronise, allocate nothing (the caller
@@ -213,8 +225,24 @@ __device__ __forceinline__ float quantize_block(const float* __restrict__ xb,
   return delta;
 }
 
+// the low nibble of a symbol (float(q), |q| <= 7): its 4-bit two's complement
+__device__ __forceinline__ unsigned nibble(float q) {
+  return static_cast<unsigned>(static_cast<int>(q)) & 0xFu;
+}
+
+// the symbol in nibble `hi` of a packed byte, sign-extended
+__device__ __forceinline__ int unpack_nibble(uint8_t byte, int hi) {
+  const int v = hi ? (byte >> 4) : (byte & 0xF);
+  return v > 7 ? v - 16 : v;
+}
+
+// kPack false: q is int8 (rows, n). kPack true (qmax <= 7): q is uint8
+// (rows, ceil(n / 2)), two symbols a byte, the even element of each pair in
+// the low nibble (pack_int4 of src/repro_torch/core/compression.py); the
+// odd tail's high nibble is 0. Rows start at r * ceil(n / 2) bytes.
+template <bool kPack>
 __global__ void quantize_blocks_kernel(const float* __restrict__ x,
-                                       int8_t* __restrict__ q,
+                                       void* __restrict__ q_out,
                                        __nv_bfloat16* __restrict__ scale,
                                        long long n_blocks, int n, int block,
                                        int nb, float qmax, bool vec) {
@@ -226,12 +254,33 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
   const long long r = w / nb;
   const int base = static_cast<int>(w % nb) * block;
   const int lim = min(block, n - base);
-  int8_t* qb = q + r * n + base;
+  int8_t* qb = static_cast<int8_t*>(q_out) + r * n + base;
+  // base is even (block % 32 == 0), so a block's pairs never straddle it
+  uint8_t* pb = static_cast<uint8_t*>(q_out) + r * ((n + 1) / 2) + base / 2;
   const float delta = quantize_block<NV>(
       x + r * n + base, lim, block, vec, qmax, lane, [](float m) { return m; },
       [](float) {},
       [&](int t0, const float (&v)[NV], float) {
-        if (vec) {
+        if (kPack) {
+          if (vec) {  // lim % 4 == 0: a lane's four elements are all real
+#pragma unroll
+            for (int k = 0; k < NV / 4; ++k) {
+              const int e = t0 + 4 * (lane + 32 * k);
+              if (e < lim)
+                *reinterpret_cast<uchar2*>(pb + e / 2) = make_uchar2(
+                    static_cast<unsigned char>(nibble(v[4 * k]) | (nibble(v[4 * k + 1]) << 4)),
+                    static_cast<unsigned char>(nibble(v[4 * k + 2]) | (nibble(v[4 * k + 3]) << 4)));
+            }
+          } else {  // element t0 + lane + 32 i: its pair is in the next lane
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+              const float hi = __shfl_down_sync(0xffffffffu, v[i], 1);
+              const int e = t0 + lane + 32 * i;
+              if (!(lane & 1) && e < lim)
+                pb[e / 2] = static_cast<uint8_t>(nibble(v[i]) | (nibble(hi) << 4));
+            }
+          }
+        } else if (vec) {
 #pragma unroll
           for (int k = 0; k < NV / 4; ++k) {
             const int e = t0 + 4 * (lane + 32 * k);
@@ -251,16 +300,44 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
   if (lane == 0) scale[w] = __float2bfloat16_rn(delta);  // exact: a bf16 value
 }
 
-__global__ void dequantize_blocks_kernel(const int8_t* __restrict__ q,
+// kPack: q is the packed (rows, ceil(n / 2)) uint8 of quantize_blocks_kernel
+template <bool kPack>
+__global__ void dequantize_blocks_kernel(const void* __restrict__ q_in,
                                          const __nv_bfloat16* __restrict__ scale,
                                          float* __restrict__ out,
                                          long long total, int n, int block,
                                          int nb) {
+  const long long nh = (n + 1) / 2;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long r = i / n;
     const int c = static_cast<int>(i - r * n);
-    out[i] = static_cast<float>(q[i]) * __bfloat162float(scale[r * nb + c / block]);
+    const int q = kPack ? unpack_nibble(static_cast<const uint8_t*>(q_in)[r * nh + c / 2], c & 1)
+                        : static_cast<const int8_t*>(q_in)[i];
+    out[i] = static_cast<float>(q) * __bfloat162float(scale[r * nb + c / block]);
+  }
+}
+
+// out[c] = sum_d q[d, c] * Delta[d, c / block], d = 0, 1, ..., D-1 in turn
+// (phase 1 of compressed_psum: the D received chunks dequantized and summed
+// in rank order, no (D, C) intermediate); IEEE products and adds, never a
+// multiply-add. kPack: q is (D, ceil(C / 2)) packed nibbles.
+template <bool kPack>
+__global__ void dequantize_sum_kernel(const void* __restrict__ q_in,
+                                      const __nv_bfloat16* __restrict__ scale,
+                                      float* __restrict__ out, int D, int C,
+                                      int block, int nb) {
+  const long long ch = kPack ? (C + 1) / 2 : C;
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < C;
+       c += gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const int q = kPack ? unpack_nibble(static_cast<const uint8_t*>(q_in)[d * ch + c / 2], c & 1)
+                          : static_cast<const int8_t*>(q_in)[d * ch + c];
+      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(q),
+                                     __bfloat162float(scale[static_cast<long long>(d) * nb + c / block])));
+    }
+    out[c] = acc;
   }
 }
 
@@ -556,38 +633,68 @@ cudaError_t launch_clusters(void (*kernel)(Args...), int gx, int gy, int cluster
 extern "C" {
 
 // x (rows, n) float32 -> q (rows, n) int8, scale (rows, ceil(n / block))
-// bfloat16. block % 32 == 0; 1 <= qmax <= 127.
-int quantize_blocks_launch(const float* x, int8_t* q, void* scale,
-                           long long rows, int n, int block, int qmax,
-                           void* stream) {
-  if (rows < 1 || n < 1 || bad_block(block) || qmax < 1 || qmax > 127)
+// bfloat16. block % 32 == 0; 1 <= qmax <= 127. With `packed` (qmax <= 7) q
+// is uint8 (rows, ceil(n / 2)): two nibbles a byte.
+int quantize_blocks_launch(const float* x, void* q, void* scale, long long rows,
+                           int n, int block, int qmax, int packed, void* stream) {
+  if (rows < 1 || n < 1 || bad_block(block) || qmax < 1 || qmax > (packed ? 7 : 127))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + block - 1) / block;
   const long long n_blocks = rows * nb;
   const long long grid = (n_blocks + (kThreads / 32) - 1) / (kThreads / 32);
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 4 == 0;
-  quantize_blocks_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, q, static_cast<__nv_bfloat16*>(scale), n_blocks, n, block, nb,
-      static_cast<float>(qmax), vec);
+                   reinterpret_cast<uintptr_t>(q) % (packed ? 2 : 4) == 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* sc = static_cast<__nv_bfloat16*>(scale);
+  const float qm = static_cast<float>(qmax);
+  if (packed)
+    quantize_blocks_kernel<true><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+        x, q, sc, n_blocks, n, block, nb, qm, vec);
+  else
+    quantize_blocks_kernel<false><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+        x, q, sc, n_blocks, n, block, nb, qm, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (rows, n) int8, scale (rows, ceil(n / block)) bfloat16 -> out (rows, n)
-// float32.
-int dequantize_blocks_launch(const int8_t* q, const void* scale, float* out,
-                             long long rows, int n, int block, void* stream) {
+// q (rows, n) int8 (packed: (rows, ceil(n / 2)) uint8), scale (rows,
+// ceil(n / block)) bfloat16 -> out (rows, n) float32.
+int dequantize_blocks_launch(const void* q, const void* scale, float* out,
+                             long long rows, int n, int block, int packed,
+                             void* stream) {
   if (rows < 1 || n < 1 || bad_block(block))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + block - 1) / block;
   const long long total = rows * n;
   long long grid = (total + kThreads - 1) / kThreads;
   if (grid > 132 * 16) grid = 132 * 16;  // grid-stride beyond a few waves
-  dequantize_blocks_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q, static_cast<const __nv_bfloat16*>(scale), out, total, n, block, nb);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* sc = static_cast<const __nv_bfloat16*>(scale);
+  if (packed)
+    dequantize_blocks_kernel<true><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+        q, sc, out, total, n, block, nb);
+  else
+    dequantize_blocks_kernel<false><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+        q, sc, out, total, n, block, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (D, C) int8 (packed: (D, ceil(C / 2)) uint8), scale (D, ceil(C /
+// block)) bfloat16 -> out (C,) float32 = sum over d in order of q * Delta.
+int dequantize_sum_launch(const void* q, const void* scale, float* out, int D,
+                          int C, int block, int packed, void* stream) {
+  if (D < 1 || C < 1 || bad_block(block) ||
+      static_cast<long long>(D) * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (C + block - 1) / block;
+  int grid = (C + kThreads - 1) / kThreads;
+  if (grid > 132 * 16) grid = 132 * 16;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* sc = static_cast<const __nv_bfloat16*>(scale);
+  if (packed)
+    dequantize_sum_kernel<true><<<grid, kThreads, 0, st>>>(q, sc, out, D, C, block, nb);
+  else
+    dequantize_sum_kernel<false><<<grid, kThreads, 0, st>>>(q, sc, out, D, C, block, nb);
   return static_cast<int>(cudaGetLastError());
 }
 

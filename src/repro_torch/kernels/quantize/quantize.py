@@ -3,8 +3,11 @@ quantization (int8 symbols, bf16 scales), its inverse, and the two fused
 with the sum over processors and the noise accounting of the block-quantized
 transport, written by hand for Hopper.
 
-    quantize_cuda         x (R, N) float32 -> q (R, N) int8, scale (R, ceil(N/block)) bf16
-    dequantize_cuda       (q, scale) -> (R, N) float32
+    quantize_cuda         x (R, N) float32 -> q (R, N) int8, scale (R, ceil(N/block)) bf16;
+                          packed (qmax <= 7): q (R, ceil(N/2)) uint8, two nibbles a byte
+    dequantize_cuda       (q, scale) -> (R, N) float32; q int8 or packed
+    dequantize_sum_cuda   (q (D, C), scale (D, ceil(C/block))) -> (C,) float32,
+                          the sum over d = 0, 1, ... of q * Delta; q int8 or packed
     block_quant_fuse_cuda f_p (B, P, L) float32 -> f (B, L), extra (B,),
                           symbols (B, P, L) float32 or None; one launch;
                           with keep (P,) or (B, P), the erasure form
@@ -26,13 +29,16 @@ import torch
 from ..build import check, load
 from ..device import counters_for, sm_count
 
-__all__ = ["quantize_cuda", "dequantize_cuda", "block_quant_fuse_cuda",
+__all__ = ["quantize_cuda", "dequantize_cuda", "dequantize_sum_cuda",
+           "block_quant_fuse_cuda",
            "empty_launch_cuda", "fuse_plan", "fuse_cluster", "FusePlan",
            "launch_counts", "reset_launch_counts", "MAX_WARPS", "MAX_CLUSTER",
            "SMEM_LIMIT"]
 
 launch_counts = {"quantize_blocks": 0, "dequantize_blocks": 0,
-                 "block_quant_fuse": 0}
+                 "block_quant_fuse": 0, "quantize_blocks_packed": 0,
+                 "dequantize_blocks_packed": 0, "dequantize_sum": 0,
+                 "dequantize_sum_packed": 0}
 
 # the fusion kernel's constants (csrc/quantize.cu)
 MAX_WARPS = 31        # quantizing warps a block (kMaxWarps), and one more
@@ -53,10 +59,14 @@ def _library():
     if _lib is None:
         lib = load("quantize")
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.quantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
+        lib.quantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci,
+                                               ci, vp]
         lib.quantize_blocks_launch.restype = ci
-        lib.dequantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, vp]
+        lib.dequantize_blocks_launch.argtypes = [vp, vp, vp, ll, ci, ci, ci,
+                                                 vp]
         lib.dequantize_blocks_launch.restype = ci
+        lib.dequantize_sum_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.dequantize_sum_launch.restype = ci
         lib.block_quant_fuse_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
         lib.block_quant_fuse_launch.restype = ci
         lib.block_quant_empty_launch.argtypes = [ci] * 5 + [vp]
@@ -80,43 +90,88 @@ def _check_block(block: int) -> None:
                          "multiple of 32")
 
 
-def quantize_cuda(x: torch.Tensor, qmax: int, block: int):
+def _symbols_shape(rows: int, n: int, packed: bool) -> tuple:
+    return (rows, (n + 1) // 2 if packed else n)
+
+
+def quantize_cuda(x: torch.Tensor, qmax: int, block: int,
+                  packed: bool = False):
     """Block-quantize the rows of ``x`` on the card; ``N`` need not be a
-    multiple of ``block`` (the ragged tail counts as zeros)."""
+    multiple of ``block`` (the ragged tail counts as zeros). ``packed``
+    (int4, ``qmax <= 7``) writes the symbols two a byte, the even element
+    of each pair in the low nibble: (R, ceil(N / 2)) uint8."""
     if x.ndim != 2:
         raise ValueError(f"x: need (R, N), got {tuple(x.shape)}")
     _need(x, torch.float32, x.shape, "x")
     _check_block(block)
-    if not 1 <= qmax <= 127:
-        raise ValueError(f"qmax={qmax}: int8 symbols need 1 <= qmax <= 127")
+    top = 7 if packed else 127
+    if not 1 <= qmax <= top:
+        raise ValueError(f"qmax={qmax}: {'packed int4' if packed else 'int8'}"
+                         f" symbols need 1 <= qmax <= {top}")
     r, n = x.shape
-    q = torch.empty((r, n), dtype=torch.int8, device=x.device)
+    q = torch.empty(_symbols_shape(r, n, packed),
+                    dtype=torch.uint8 if packed else torch.int8,
+                    device=x.device)
     scale = torch.empty((r, -(-n // block)), dtype=torch.bfloat16,
                         device=x.device)
     with torch.cuda.device(x.device):
         code = _library().quantize_blocks_launch(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), r, n, block, qmax,
-            torch.cuda.current_stream().cuda_stream)
+            int(packed), torch.cuda.current_stream().cuda_stream)
     check("quantize", code, "quantize_blocks_launch")
-    launch_counts["quantize_blocks"] += 1
+    launch_counts["quantize_blocks_packed" if packed
+                  else "quantize_blocks"] += 1
     return q, scale
 
 
-def dequantize_cuda(q: torch.Tensor, scale: torch.Tensor, block: int):
-    """``q * scale`` per block on the card -> float32 (R, N)."""
+def _need_symbols(q, rows: int, n: int, packed: bool, block: int, scale):
+    _need(q, torch.uint8 if packed else torch.int8,
+          _symbols_shape(rows, n, packed), "q")
+    _need(scale, torch.bfloat16, (rows, -(-n // block)), "scale")
+
+
+def dequantize_cuda(q: torch.Tensor, scale: torch.Tensor, block: int,
+                    packed: bool = False, n: int | None = None):
+    """``q * scale`` per block on the card -> float32 (R, N). ``packed``: q
+    is (R, ceil(N / 2)) uint8 nibbles and ``n`` the row length (default
+    twice the bytes)."""
     if q.ndim != 2:
         raise ValueError(f"q: need (R, N), got {tuple(q.shape)}")
     _check_block(block)
-    r, n = q.shape
-    _need(q, torch.int8, (r, n), "q")
-    _need(scale, torch.bfloat16, (r, -(-n // block)), "scale")
+    r = q.shape[0]
+    n = (2 * q.shape[1] if packed else q.shape[1]) if n is None else n
+    _need_symbols(q, r, n, packed, block, scale)
     out = torch.empty((r, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = _library().dequantize_blocks_launch(
             q.data_ptr(), scale.data_ptr(), out.data_ptr(), r, n, block,
-            torch.cuda.current_stream().cuda_stream)
+            int(packed), torch.cuda.current_stream().cuda_stream)
     check("quantize", code, "dequantize_blocks_launch")
-    launch_counts["dequantize_blocks"] += 1
+    launch_counts["dequantize_blocks_packed" if packed
+                  else "dequantize_blocks"] += 1
+    return out
+
+
+def dequantize_sum_cuda(q: torch.Tensor, scale: torch.Tensor, block: int,
+                        packed: bool = False, c: int | None = None):
+    """``sum_d q[d] * scale[d]`` over the rows d = 0, 1, ... of (D, C)
+    symbols, in that order, on the card -> float32 (C,): one launch, no
+    (D, C) float32 array. ``packed``: q is (D, ceil(C / 2)) uint8 and ``c``
+    the row length (default twice the bytes)."""
+    if q.ndim != 2:
+        raise ValueError(f"q: need (D, C), got {tuple(q.shape)}")
+    _check_block(block)
+    d = q.shape[0]
+    c = (2 * q.shape[1] if packed else q.shape[1]) if c is None else c
+    _need_symbols(q, d, c, packed, block, scale)
+    out = torch.empty((c,), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = _library().dequantize_sum_launch(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), d, c, block,
+            int(packed), torch.cuda.current_stream().cuda_stream)
+    check("quantize", code, "dequantize_sum_launch")
+    launch_counts["dequantize_sum_packed" if packed
+                  else "dequantize_sum"] += 1
     return out
 
 

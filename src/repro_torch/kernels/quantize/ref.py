@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["block_scale", "quantize_ref", "dequantize_ref",
-           "block_quant_fuse_ref"]
+           "block_quant_fuse_ref", "pack_int4", "unpack_int4",
+           "quantize_packed_ref", "dequantize_packed_ref",
+           "dequantize_sum_ref"]
 
 
 def block_scale(amax, qmax: int):
@@ -44,6 +46,50 @@ def dequantize_ref(q, scale, block: int):
     r, n = q.shape
     qb = q.reshape(r, n // block, block).to(torch.float32)
     return (qb * scale.to(torch.float32)[..., None]).reshape(r, n)
+
+
+def pack_int4(q):
+    """int8 values in [-7, 7] -> packed uint8, two nibbles per byte (the
+    first element of a pair in the low nibble; the reference's
+    ``pack_int4``). The last axis must be even."""
+    u = (q.to(torch.int32) & 0xF).to(torch.uint8)
+    pairs = u.reshape(*u.shape[:-1], u.shape[-1] // 2, 2)
+    return pairs[..., 0] | (pairs[..., 1] << 4)
+
+
+def unpack_int4(p):
+    """Inverse of ``pack_int4``: int8, twice as long on the last axis."""
+    lo = (p & 0xF).to(torch.int8)
+    hi = ((p >> 4) & 0xF).to(torch.int8)
+    # sign-extend 4-bit two's complement
+    sext = lambda v: torch.where(v > 7, v - 16, v)
+    out = torch.stack([sext(lo), sext(hi)], dim=-1)
+    return out.reshape(*p.shape[:-1], p.shape[-1] * 2)
+
+
+def quantize_packed_ref(x, qmax: int, block: int):
+    """The packed int4 form of the quantizer: ``quantize_ref`` then
+    ``pack_int4`` -> (uint8 (R, N / 2), scale bf16 (R, N / block)); N even
+    and a multiple of ``block``."""
+    q, scale = quantize_ref(x, qmax, block)
+    return pack_int4(q), scale
+
+
+def dequantize_packed_ref(p, scale, block: int):
+    """``unpack_int4`` then ``dequantize_ref`` -> float32 (R, 2 * bytes)."""
+    return dequantize_ref(unpack_int4(p), scale, block)
+
+
+def dequantize_sum_ref(q, scale, block: int, packed: bool = False):
+    """Phase 1 of ``compressed_psum``: the D rows of q (D, C) dequantized
+    and summed in row (rank) order d = 0, 1, ..., as the kernel sums them
+    -> float32 (C,). ``packed``: q is (D, C / 2) nibbles."""
+    deq = (dequantize_packed_ref(q, scale, block) if packed
+           else dequantize_ref(q, scale, block))
+    out = torch.zeros_like(deq[0])
+    for d in range(deq.shape[0]):
+        out = out + deq[d]
+    return out
 
 
 def block_quant_fuse_ref(f_p, qmax: int, block: int, symbols: bool = True,

@@ -1,0 +1,259 @@
+"""The device mesh and the cluster tier over ``torch.distributed`` (the port
+of the JAX package's ``launch/mesh.py``; its DESIGN.md §6 and §11 describe
+the design).
+
+A mesh is a process group with one rank a device, every rank running the
+same program (SPMD): the counterpart of a 1-D ``jax`` mesh with
+``shard_map`` over its ``"data"`` axis. ``Mesh`` carries the group, its
+size, this rank's index and ``torch.device`` and the backend
+(``"nccl"`` where each rank has a card of its own, ``"gloo"`` on the CPU or
+for ranks that share one card: NCCL refuses two ranks on one GPU). The
+backend is the caller's choice, passed explicitly; nothing here picks or
+switches it.
+
+``init_cluster`` joins a process to the world (``dist.init_process_group``)
+from its arguments or ``AMP_COORDINATOR`` (``host:port``) /
+``AMP_NUM_PROCESSES`` / ``AMP_PROCESS_ID``, or through a ``FileStore``
+(``store_path``: tests, and the ranks a launcher spawns on one host).
+Unlike jaxlib's CPU client, both backends run collectives across hosts, so
+``supports_cross_host_collectives`` is true and ``make_cluster_mesh`` is
+the mesh over the whole world. ``spawn_world`` runs a function on a world
+of spawned processes and returns each rank's result.
+
+Importing this module touches no device and starts nothing. The reference's
+2-D LM training meshes (``make_production_mesh``, ``make_host_mesh``) come
+with the LM trainer (ROADMAP.md Queue 1 item 8(f)).
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_mod
+import time
+import traceback
+from typing import ClassVar
+
+import torch
+import torch.distributed as dist
+
+from ..core.collectives import CollectiveStats
+
+__all__ = ["Mesh", "make_serve_mesh", "ClusterInfo", "init_cluster",
+           "supports_cross_host_collectives", "make_cluster_mesh",
+           "spawn_world", "rank_device"]
+
+AXIS = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D device mesh: a process group, one rank a device. ``group``
+    None is the default (world) group. Its one axis is always named
+    ``"data"`` (``AXIS``). ``stats`` counts what the collectives of
+    ``core/collectives.py`` moved over it."""
+
+    axis: ClassVar[str] = AXIS
+    group: object
+    size: int
+    rank: int
+    device: torch.device
+    backend: str
+    stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats, compare=False, repr=False)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}``, as the reference's ``mesh.shape``."""
+        return {self.axis: self.size}
+
+
+def rank_device(device: str | None, rank: int) -> torch.device:
+    """This rank's device: ``device`` as given, or (None) card ``rank %
+    cards``. Raises for a CUDA device where no card is available."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the mesh on the CPU")
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} but no CUDA device is "
+                           "available; pass device='cpu'")
+    return dev
+
+
+def make_serve_mesh(n_devices: int | None = None,
+                    device: str | None = None) -> Mesh | None:
+    """The solve service's 1-D mesh over the first ``n_devices`` ranks of
+    the initialised world (all of them by default). Every rank of the world
+    must call it (a sub-mesh is a new group); a rank outside the mesh gets
+    None. ``device`` is this rank's device (``rank_device``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialised: call "
+                           "init_cluster first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if n_devices is None else n_devices
+    if not 1 <= n <= world:
+        raise ValueError(f"n_devices={n_devices}: the world has {world}")
+    group = None if n == world else dist.new_group(list(range(n)))
+    if rank >= n:
+        return None
+    return Mesh(group=group, size=n, rank=rank,
+                device=rank_device(device, rank),
+                backend=dist.get_backend(group))
+
+
+# -- cluster tier -------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClusterInfo:
+    """This process's view of the cluster after ``init_cluster``."""
+
+    process_index: int
+    process_count: int
+    local_devices: int
+    global_devices: int
+    coordinator: str | None
+
+    @property
+    def is_frontend(self) -> bool:
+        """Process 0 hosts the cluster frontend/router by convention."""
+        return self.process_index == 0
+
+
+def init_cluster(coordinator_address: str | None = None,
+                 num_processes: int | None = None,
+                 process_id: int | None = None, *,
+                 backend: str = "nccl", store_path: str | None = None,
+                 device: str | None = None,
+                 timeout_s: float = 600.0) -> ClusterInfo:
+    """Join (or stand alone as) a ``torch.distributed`` world.
+
+    Arguments fall back to ``AMP_COORDINATOR`` / ``AMP_NUM_PROCESSES`` /
+    ``AMP_PROCESS_ID``. The rendezvous is ``tcp://coordinator`` or, with
+    ``store_path``, a ``FileStore`` at that path (no port). With neither
+    configured this is a single-process no-op reporting one process.
+    Idempotent: a process already initialised reports the live world.
+    ``backend`` is the caller's (``"nccl"``: one card a rank, set as the
+    current device from ``device``/``rank_device`` before the group
+    exists; ``"gloo"``: the CPU, or ranks sharing a card). ``timeout_s``
+    bounds every collective, so a rank that died ends the others' wait."""
+    coordinator_address = (coordinator_address
+                           or os.environ.get("AMP_COORDINATOR"))
+    if num_processes is None:
+        env = os.environ.get("AMP_NUM_PROCESSES")
+        num_processes = int(env) if env else None
+    if process_id is None:
+        env = os.environ.get("AMP_PROCESS_ID")
+        process_id = int(env) if env else None
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {backend!r}: 'nccl' or 'gloo'")
+    if not dist.is_initialized() and (coordinator_address or store_path):
+        if num_processes is None or process_id is None:
+            raise ValueError("a world needs num_processes and process_id "
+                             "(or AMP_NUM_PROCESSES / AMP_PROCESS_ID)")
+        if backend == "nccl":
+            torch.cuda.set_device(rank_device(device, process_id))
+        timeout = datetime.timedelta(seconds=timeout_s)
+        if store_path is not None:
+            store = dist.FileStore(store_path, num_processes)
+            dist.init_process_group(backend, store=store, rank=process_id,
+                                    world_size=num_processes,
+                                    timeout=timeout)
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{coordinator_address}",
+                rank=process_id, world_size=num_processes, timeout=timeout)
+    if dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
+    else:
+        rank, world = 0, 1
+    return ClusterInfo(process_index=rank, process_count=world,
+                       local_devices=1, global_devices=world,
+                       coordinator=coordinator_address)
+
+
+def supports_cross_host_collectives() -> bool:
+    """Whether collectives may span the world's hosts: always, under
+    ``torch.distributed`` (NCCL and gloo both cross hosts; the reference's
+    jaxlib CPU client could not, which is why it asked)."""
+    return True
+
+
+def make_cluster_mesh(device: str | None = None) -> Mesh:
+    """The widest 1-D serve mesh: the whole world, across hosts."""
+    return make_serve_mesh(device=device)
+
+
+# -- a world of spawned processes ---------------------------------------------
+
+def _rank_main(fn, rank, world, backend, device, store_path, args, out,
+               threads, timeout_s):
+    try:
+        if threads is not None:
+            torch.set_num_threads(threads)
+        init_cluster(num_processes=world, process_id=rank, backend=backend,
+                     store_path=store_path, device=device,
+                     timeout_s=timeout_s)
+        try:
+            mesh = make_serve_mesh(device=device)
+            res = fn(mesh, *args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:   # reported to the parent, which raises
+        out.put((rank, False, traceback.format_exc()))
+
+
+def spawn_world(fn, world: int, *, backend: str, device: str | None,
+                store_path: str, args: tuple = (), timeout_s: float = 600.0,
+                threads: int | None = None) -> list:
+    """Run ``fn(mesh, *args)`` on ``world`` spawned processes joined through
+    a ``FileStore`` at ``store_path`` (a path no other world uses) and
+    return each rank's result, by rank. ``fn`` and its arguments and
+    results must pickle (``fn`` a module-level function). ``threads`` sets
+    each child's ``torch.set_num_threads``. Raises with every failing
+    rank's traceback, or when ``timeout_s`` passes first (the children are
+    then terminated); every child is joined before it returns."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, backend, device, store_path,
+                               args, out, threads, timeout_s))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    results, errors = {}, {}
+    try:
+        while len(results) + len(errors) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"spawn_world: {world - len(results) - len(errors)} "
+                    f"rank(s) gave no result in {timeout_s} s"
+                    + "".join(f"\nrank {r}:\n{tb}"
+                              for r, tb in sorted(errors.items())))
+            try:
+                rank, ok, res = out.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)
+                        and r not in results and r not in errors]
+                for r in dead:
+                    errors[r] = f"exited with code {procs[r].exitcode}"
+                continue
+            (results if ok else errors)[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError("spawn_world: " + "".join(
+            f"\nrank {r}:\n{tb}" for r, tb in sorted(errors.items())))
+    return [results[r] for r in range(world)]

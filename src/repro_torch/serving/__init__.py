@@ -9,7 +9,9 @@ per-host ``SolveService`` backends, with ``serving.codec`` bytes on the
 wire between hosts, and the fault-tolerance plane (health probes walking
 hosts through healthy/suspect/dead, bit-identical failover replay, tail
 hedging, the shed ladder and the seeded chaos harness ``serving.chaos``).
-The device mesh is not ported yet (ROADMAP.md Queue 1 item 7).
+On a device mesh (``SolveService(mesh=...)``, rank 0 of a
+``torch.distributed`` world; ``serve_mesh_worker`` on the others) buckets
+are placed data-parallel or processor-sharded (``placement_for``).
 """
 from .batcher import Batcher
 from .buckets import (BucketKey, BucketPolicy, batch_width_ladder,
@@ -23,7 +25,8 @@ from .frontend import (BackendServer, ClusterService, LocalBackend,
 from .operand_cache import OperandCache, fingerprint
 from .router import (Autoscaler, ClusterRouter, DemandTracker, HostInfo,
                      Overloaded, RouterPolicy, routing_key, shape_cost)
-from .service import PrewarmSpec, SolveRequest, SolveResult, SolveService
+from .service import (PrewarmSpec, SolveRequest, SolveResult, SolveService,
+                      serve_mesh_worker)
 from .wire import (BackendError, BackendUnavailable, FrameError,
                    RemoteRequestError, WireModel, measure_wire)
 
@@ -31,7 +34,7 @@ __all__ = [
     "Batcher", "BucketKey", "BucketPolicy", "batch_width_ladder",
     "bucket_for", "pad_batch_size", "placement_for", "OperandCache",
     "fingerprint", "PrewarmSpec", "SolveRequest", "SolveResult",
-    "SolveService", "WireModel", "measure_wire",
+    "SolveService", "serve_mesh_worker", "WireModel", "measure_wire",
     # cluster tier
     "ClusterService", "LocalBackend", "BackendServer", "TcpBackend",
     "ClusterRouter", "Autoscaler", "DemandTracker", "HostInfo",

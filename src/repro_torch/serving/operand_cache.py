@@ -74,6 +74,9 @@ class OperandCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
     @property
     def nbytes(self) -> int:
         return self._bytes

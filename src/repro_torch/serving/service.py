@@ -16,12 +16,25 @@ before the device finishes (PyTorch queues the kernels); results come to
 the host when a consumer pulls them, so the host pads the next batch while
 the device computes.
 
-What the reference has and this one does not (yet): a device mesh and the
-``"data"`` / ``"proc"`` placements (``mesh=`` raises; ROADMAP.md Queue 1
-item 7), operand donation and ahead-of-time compilation (PyTorch runs
-eagerly: ``prewarm`` builds the kernels and runs each program once
-instead, and ``compile_count`` counts those distinct first runs). The
-cluster tier over several services is ``serving.frontend``.
+On a device mesh (``mesh=``, a ``launch/mesh.py::Mesh`` of D ranks) the
+service places buckets as the reference does: mid-size requests batch
+*data-parallel* (the padded batch rounded up to a multiple of D, each rank
+solving its B / D instances with its own ``dispatch_het``, the results
+gathered on rank 0), large single requests run *processor-sharded* (every
+rank runs ``dispatch_sharded`` on its P / D processors, the fusion a
+collective). The mesh is SPMD: rank 0 owns the ``SolveService``, every
+other rank runs ``serve_mesh_worker(mesh)``. Rank 0 broadcasts each
+command (a header of numpy operands); each rank keeps its shards of A in
+its own operand cache keyed by the request's fingerprint, so a repeated
+request sends only y and the parameters; every command ends in a status
+every rank reads, so a failure on one rank ends the others' wait;
+``close()`` stops the workers.
+
+What the reference has and this one does not: operand donation and
+ahead-of-time compilation (PyTorch runs eagerly: ``prewarm`` builds the
+kernels and runs each program once instead, and ``compile_count`` counts
+those distinct first runs). The cluster tier over several services is
+``serving.frontend``.
 
 Usage::
 
@@ -42,18 +55,23 @@ import math
 import operator
 import threading
 import time
+import traceback
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .. import convert
+from ..core.collectives import (broadcast_object, gather_object, recv_tensor,
+                                send_tensor)
 from ..core.denoisers import BernoulliGauss
 from ..core.engine import (AmpEngine, BlockQuantTransport, BTRateControl,
                            BTTables, ColBTTables, ColDPSchedule,
-                           ColumnBTRateControl, ColumnPartition, DPSchedule,
-                           EcsqTransport, EngineConfig, ErasureSpec,
-                           HetParams,
-                           RowPartition, pad_bt_tables, split_problem_cols,
+                           ColumnBTRateControl, ColumnPartition,
+                           CompressedPsumTransport, DPSchedule,
+                           EcsqTransport, EngineConfig, EngineTrace,
+                           ErasureSpec, HetParams, PsumFusion, RowPartition,
+                           pad_bt_tables, rank_slice, split_problem_cols,
                            stack_bt_tables)
 from ..core.quantize import ecsq_entropy, message_mixture, residual_mixture
 from ..core.rate_alloc import (dp_allocate, dp_allocate_col,
@@ -66,11 +84,12 @@ from ..telemetry.spans import now as _tnow
 from ..telemetry.spans import span as _tspan
 from .batcher import Batcher
 from .buckets import (BucketKey, BucketPolicy, batch_width_ladder,
-                      bucket_for, pad_batch_size, placement_for)
+                      bucket_for, pad_batch_size, placement_for, round_up)
 from .operand_cache import OperandCache, fingerprint
 from .wire import WireModel, measure_wire
 
-__all__ = ["SolveRequest", "SolveResult", "SolveService", "PrewarmSpec"]
+__all__ = ["SolveRequest", "SolveResult", "SolveService", "PrewarmSpec",
+           "serve_mesh_worker"]
 
 
 @dataclasses.dataclass
@@ -235,6 +254,74 @@ _TRANSPORTS = {
     "block4": lambda: BlockQuantTransport(bits=4, block=512),
 }
 
+# processor-sharded engines fuse on the mesh instead: the same wire format,
+# executed as a collective
+_SHARDED_TRANSPORTS = {
+    "ecsq": lambda: PsumFusion(local=EcsqTransport()),
+    "block8": lambda: CompressedPsumTransport(bits=8, block=512),
+    "block4": lambda: CompressedPsumTransport(bits=4, block=512),
+}
+
+
+def _bucket_engine(key: BucketKey, wire: bool, collect_xs: bool,
+                   device) -> AmpEngine:
+    """The engine of a bucket (rank 0's and every worker's alike): its
+    prior rides per instance (``HetParams``), so the engine's is unused.
+    Processor-sharded buckets fuse over the mesh."""
+    if wire and key.placement == "proc":
+        raise ValueError(
+            "measured-wire accounting needs the symbol streams on one "
+            "device; the processor-sharded placement keeps them per rank "
+            "(pin layout/shape to a local or data-parallel bucket)")
+    cfg = EngineConfig(
+        n_proc=key.n_proc, n_iter=key.t_max, collect_symbols=wire,
+        collect_xs=collect_xs,
+        layout=(ColumnPartition(n_inner=1) if key.layout == "col"
+                else RowPartition()),
+        device=str(device))
+    transport = (_SHARDED_TRANSPORTS[key.transport]()
+                 if key.placement == "proc" else _TRANSPORTS[key.transport]())
+    return AmpEngine(BernoulliGauss(), cfg, transport)
+
+
+def _engine_key(key: BucketKey) -> BucketKey:
+    """Data-parallel buckets share the local engine: the sharding is of the
+    batch, not of the solve."""
+    return key if key.placement == "proc" else dataclasses.replace(
+        key, placement="local")
+
+
+_INSTANCE_FIELDS = ("sched", "t_active", "m_real", "n_real", "eps", "mu_s",
+                    "sigma_s", "use_bt", "drop")
+
+
+def _instances(params: HetParams, sl, has_bt: bool) -> HetParams:
+    """Instances ``sl`` (a slice, or an int: one instance without its batch
+    axis) of ``HetParams``. The BT tables are stacked only when some
+    instance decides by BT (``has_bt``); otherwise they are one unread set,
+    taken as it is."""
+    take = lambda v: None if v is None else v[sl]
+    return params._replace(
+        **{f: take(getattr(params, f)) for f in _INSTANCE_FIELDS},
+        bt=type(params.bt)(*(v[sl] for v in params.bt)) if has_bt
+        else params.bt)
+
+
+def _params_arrays(params: HetParams) -> dict:
+    """Device ``HetParams`` as numpy, by field name (a worker rebuilds them
+    with ``convert.het_params_from_arrays``)."""
+    host = lambda v: None if v is None else v.cpu().numpy()
+    return {**{f: host(getattr(params, f)) for f in _INSTANCE_FIELDS},
+            "bt": [host(v) for v in params.bt]}
+
+
+def _concat_traces(traces: list) -> EngineTrace:
+    """Batched traces of the ranks, one after the other on the batch axis."""
+    cat = lambda vs: None if vs[0] is None else np.concatenate(vs)
+    return EngineTrace(**{f.name: cat([getattr(t, f.name) for t in traces])
+                          for f in dataclasses.fields(EngineTrace)})
+
+
 # the CUDA sources a bucket's solves launch kernels of
 _SOURCES = {"row": ("amp_local", "quantize"), "col": ("amp_col", "quantize")}
 
@@ -253,8 +340,9 @@ _DRIFT_ATTRS = operator.attrgetter("n_iter", "n", "m", "snr_db",
 
 
 class SolveService:
-    """Shape-bucketed continuous batching over ``AmpEngine.solve_het`` on
-    one device."""
+    """Shape-bucketed continuous batching over ``AmpEngine.solve_het``, with
+    mesh-aware bucket placement when a device mesh is given (rank 0 of the
+    mesh owns the service; see the module docstring)."""
 
     def __init__(self, policy: BucketPolicy | None = None,
                  collect_xs: bool = False, rate_accounting: bool = True,
@@ -262,17 +350,24 @@ class SolveService:
                  singleton_fastpath: bool = True,
                  wire_model: WireModel | None = None,
                  telemetry: bool = True, device: str = "cuda"):
+        self.mesh = mesh
+        self.n_devices = 1 if mesh is None else mesh.size
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (the 'data' and 'proc' placements) is not "
-                "ported yet: ROADMAP.md Queue 1 item 7")
+            if mesh.rank != 0:
+                raise ValueError("rank 0 of the mesh owns the SolveService; "
+                                 "the other ranks run serve_mesh_worker")
+            device = str(mesh.device)
         # raises without a card: the service never carries on on the CPU
         # unless asked to
         self.device = EngineConfig(device=device).torch_device
         self.policy = policy or BucketPolicy()
+        if self.n_devices > 1 and self.policy.max_batch % self.n_devices:
+            # data-parallel dispatch pads batches to a device multiple
+            raise ValueError(
+                f"max_batch={self.policy.max_batch} must be a multiple of "
+                f"the mesh device count ({self.n_devices})")
         self.collect_xs = collect_xs
         self.rate_accounting = rate_accounting
-        self.n_devices = 1
         self.wire_model = wire_model or WireModel()
         self._batcher = Batcher(self.policy)
         self._engines: dict[BucketKey, AmpEngine] = {}
@@ -477,20 +572,12 @@ class SolveService:
 
     def _engine(self, key: BucketKey, wire: bool = False) -> AmpEngine:
         cache = self._wire_engines if wire else self._engines
+        ekey = _engine_key(key)
         with self._lock:
-            eng = cache.get(key)
+            eng = cache.get(ekey)
             if eng is None:
-                cfg = EngineConfig(
-                    n_proc=key.n_proc, n_iter=key.t_max,
-                    collect_symbols=wire, collect_xs=self.collect_xs,
-                    layout=(ColumnPartition(n_inner=1) if key.layout == "col"
-                            else RowPartition()),
-                    device=str(self.device))
-                # the prior rides per instance (HetParams): the engine's
-                # own is unused on this path
-                eng = AmpEngine(BernoulliGauss(), cfg,
-                                _TRANSPORTS[key.transport]())
-                cache[key] = eng
+                eng = cache[ekey] = _bucket_engine(
+                    key, wire, self.collect_xs, self.device)
         return eng
 
     def _single_engine(self, req: SolveRequest) -> AmpEngine:
@@ -577,17 +664,20 @@ class SolveService:
                 cls.dummy(t_max).to(self.device)
         return tb
 
-    def _drop_mask(self, req: SolveRequest) -> np.ndarray | None:
+    def _drop_mask(self, req: SolveRequest,
+                   n_proc: int | None = None) -> np.ndarray | None:
         """The (n_iter, P) erasure mask of one request, or None when the
         link is lossless. Deterministic in the request's erasure fields,
         so dispatch (operand build) and result finalization (retransmit
-        byte accounting) independently draw the same mask."""
+        byte accounting) independently draw the same mask. On the
+        processor-sharded placement the mask's axis is the mesh's ranks
+        (``n_proc`` = D)."""
         if req.erasure_rate == 0.0:
             return None
         spec = ErasureSpec(rate=req.erasure_rate, model=req.erasure_model,
                            burst_len=req.erasure_burst,
                            seed=req.erasure_seed)
-        return spec.sample_mask(req.n_iter, req.n_proc)
+        return spec.sample_mask(req.n_iter, n_proc or req.n_proc)
 
     def _fingerprint(self, req: SolveRequest):
         """Operand-cache identity of a request's A: the caller-vouched
@@ -615,13 +705,27 @@ class SolveService:
         return torch.from_numpy(a).to(device=self.device,
                                       dtype=eng.cfg.a_tdtype)
 
-    def _a_slice(self, key: BucketKey, r: SolveRequest, eng: AmpEngine):
+    def _a_key(self, key: BucketKey, r: SolveRequest, a_dtype: str) -> tuple:
+        """The operand-cache key of one request's padded A shards (every
+        rank of a mesh keys its own shards alike)."""
+        return (key.layout, self._fingerprint(r), key.n_proc, key.mp_pad,
+                key.n_pad, a_dtype)
+
+    def _a_slice(self, key: BucketKey, r: SolveRequest, eng: AmpEngine,
+                 ck: tuple | None = None):
         """Device-resident padded A shards for one request: built (pad +
         dtype cast + copy to the device) once per (fingerprint, bucket
-        shard shape) and reused across batches and streams."""
-        ck = (key.layout, self._fingerprint(r), key.n_proc, key.mp_pad,
-              key.n_pad, eng.cfg.a_dtype)
-        build = lambda: self._upload_a(eng, self._pad_a_one(key, r))
+        shard shape) and reused across batches and streams. On the
+        processor-sharded placement, rank 0's own P / D shards only.
+        ``ck``: the request's ``_a_key``, when the caller has it (the
+        fingerprint hashes all of A)."""
+        ck = self._a_key(key, r, eng.cfg.a_dtype) if ck is None else ck
+        pad = lambda: self._pad_a_one(key, r)
+        if key.placement == "proc":
+            ck = ck + ("proc", 0, self.n_devices)
+            pad = lambda: rank_slice(self._pad_a_one(key, r), 0,
+                                     self.n_devices)
+        build = lambda: self._upload_a(eng, np.ascontiguousarray(pad()))
         if self._opcache is None:
             return build()
         return self._opcache.get(ck, build)
@@ -682,9 +786,10 @@ class SolveService:
         # no-op through the survivor rescale and the column reset
         drops = None
         if any(r.erasure_rate > 0.0 for r in batch):
-            drops = np.zeros((b, t_max, p), np.float32)
+            p_mask = self.n_devices if key.placement == "proc" else p
+            drops = np.zeros((b, t_max, p_mask), np.float32)
             for i, r in enumerate(batch):
-                mask = self._drop_mask(r)
+                mask = self._drop_mask(r, p_mask)
                 if mask is not None:
                     drops[i, :r.n_iter] = mask
         f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32))
@@ -711,8 +816,13 @@ class SolveService:
         return a_b, y_b, params, has_bt
 
     def _dispatch_bucket(self, key: BucketKey, reqs: list) -> _Pending:
-        """Launch one bucket group; bringing results to the host is
-        deferred to the returned ``_Pending``."""
+        """Launch one bucket group on its placement; bringing results to
+        the host is deferred to the returned ``_Pending`` (on a mesh the
+        command runs to its end here, the workers' results gathered)."""
+        if key.placement == "proc":
+            return self._dispatch_proc(key, reqs)
+        if key.placement == "data":
+            return self._dispatch_data(key, reqs)
         if len(reqs) == 1 and self._singleton_ok(key, reqs[0]):
             return self._dispatch_singleton(key, reqs[0])
 
@@ -750,6 +860,191 @@ class SolveService:
             return out
 
         return finalize
+
+    # -- the mesh placements (rank 0's side of the worker protocol) ---------
+
+    def _command(self, header: dict, a_for, own, check=None):
+        """Run one mesh command: broadcast ``header``; rank 0 runs
+        ``check()`` (its operands' checks) while each worker prepares (its
+        engine, the same checks of the operands, the A shards it lacks);
+        gather every rank's ``(ok, missing keys or traceback)``; build the
+        shards to send (``a_for(rank, key)``, a host array); broadcast
+        whether all of that succeeded; send each worker its shards, run
+        ``own()`` (rank 0's part) and gather every rank's ``(ok, result)``.
+
+        A failure up to the go round (a malformed command, a shard that
+        cannot be built) ends the command on every rank, and rank 0 raises
+        with the failing ranks' tracebacks. A failure after it, inside a
+        send or a solve's collectives (out of memory mid-solve), leaves the
+        other ranks waiting in a collective: that ends in the process
+        group's timeout (``init_cluster``). Returns ``(own's result, the
+        workers' results)``."""
+        mesh = self.mesh
+        broadcast_object(header, mesh)
+        try:
+            if check is not None:
+                check()
+            mine = (True, [])
+        except Exception:
+            mine = (False, traceback.format_exc())
+        ready = gather_object(mine, mesh)
+        errors = [f"rank {r}: {msg}" for r, (ok, msg) in enumerate(ready)
+                  if not ok]
+        shards = []
+        if not errors:
+            try:
+                shards = [(rank, np.ascontiguousarray(a_for(rank, ck),
+                                                      np.float32))
+                          for rank, (_, missing) in enumerate(ready)
+                          for ck in missing]
+            except Exception:
+                errors.append(f"rank 0: {traceback.format_exc()}")
+        go = not errors
+        broadcast_object(go, mesh)
+        mine, err = None, None
+        if go:
+            try:
+                for rank, a in shards:
+                    send_tensor(torch.from_numpy(a).to(
+                        mesh.device if mesh.backend == "nccl" else "cpu"),
+                        rank, mesh)
+                mine = own()
+            except Exception:
+                err = traceback.format_exc()
+        done = gather_object((err is None, err), mesh)
+        errors += [f"rank {r}: {msg}" for r, (ok, msg) in enumerate(done)
+                   if not ok and msg]
+        if errors:
+            raise RuntimeError("mesh command failed:\n" + "\n".join(errors))
+        return mine, [msg for _, msg in done[1:]]
+
+    def _dispatch_data(self, key: BucketKey, reqs: list,
+                       zeros: bool = False) -> _Pending:
+        """Data-parallel placement: the padded batch, rounded up to a
+        multiple of D, is cut into D slices of B / D instances; rank r
+        solves slice r with its own ``dispatch_het`` (A from its operand
+        cache) and rank 0 gathers the traces. ``zeros`` (prewarm): zero
+        operands, built on each rank, no cache."""
+        d = self.n_devices
+        b_real = len(reqs)
+        b_pad = round_up(pad_batch_size(b_real, self.policy), d)
+        batch = [reqs[i % b_real] for i in range(b_pad)]
+        per = b_pad // d
+        wire = any(r.measure_wire for r in reqs)
+        eng = self._engine(key, wire)
+        t_op0 = _tnow() if self.telemetry else 0.0
+        y_b, params, has_bt = self._y_and_params(key, batch)
+        y_host = y_b.numpy()
+        # one fingerprint a request (a pad slot repeats a real request)
+        by_req = {id(r): self._a_key(key, r, eng.cfg.a_dtype) for r in reqs}
+        a_keys = [by_req[id(r)] for r in batch]
+        pads = dict(zip(a_keys, batch))
+        header = {"op": "het", "key": key, "wire": wire,
+                  "collect_xs": self.collect_xs, "has_bt": has_bt,
+                  "zeros": zeros, "items": [
+                      {"a_keys": a_keys[r * per:(r + 1) * per],
+                       "y": y_host[r * per:(r + 1) * per],
+                       "params": _params_arrays(_instances(
+                           params, slice(r * per, (r + 1) * per), has_bt))}
+                      for r in range(d)]}
+
+        def own():
+            sl = slice(0, per)
+            if zeros:
+                a_b = self._het_operands(key, batch[sl], use_cache=False)[0]
+            else:
+                a_b = torch.stack([self._a_slice(key, r, eng, ck)
+                                   for r, ck in zip(batch[sl], a_keys[sl])])
+            t_c = _tnow() if self.telemetry else 0.0
+            x_outs = eng.dispatch_het(a_b, y_b[sl].to(self.device),
+                                      _instances(params, sl, has_bt),
+                                      has_bt=has_bt)
+            return t_c, eng.trace_of(x_outs)
+
+        (t_c0, trace0), rest = self._command(
+            header, lambda rank, ck: self._pad_a_one(key, pads[ck]), own)
+        trace = _concat_traces([trace0, *rest])
+
+        def finalize() -> list[SolveResult]:
+            shared = self._batch_spans(t_op0, t_c0)
+            return [self._result_one(key, r, trace, i, b_real,
+                                     shared_spans=shared)
+                    for i, r in enumerate(reqs)]
+
+        return finalize
+
+    def _dispatch_proc(self, key: BucketKey, reqs: list,
+                       zeros: bool = False) -> _Pending:
+        """Processor-sharded placement: each request owns the whole mesh
+        for one ``dispatch_sharded`` on every rank (still padded to the
+        bucket shape); each rank's P / D shards of A ride in its operand
+        cache. ``zeros`` (prewarm): zero operands, no cache."""
+        eng = self._engine(key)
+        done = []
+        for r in reqs:
+            if r.measure_wire:
+                raise ValueError(
+                    "measure_wire is unsupported on the processor-sharded "
+                    "placement (symbols stay per rank); pin layout/shape "
+                    "to a local or data-parallel bucket")
+            t_op0 = _tnow() if self.telemetry else 0.0
+            (t_c0, trace), _ = self._command(
+                *self._proc_command(key, eng, r, zeros))
+            done.append((r, trace, t_op0, t_c0))
+
+        def finalize() -> list[SolveResult]:
+            return [self._result_one(key, r, trace, None, 1,
+                                     shared_spans=self._batch_spans(
+                                         t_op0, t_c0))
+                    for r, trace, t_op0, t_c0 in done]
+
+        return finalize
+
+    def _proc_command(self, key: BucketKey, eng: AmpEngine,
+                      r: SolveRequest, zeros: bool):
+        """One processor-sharded request as ``_command``'s arguments:
+        ``(header, a_for, own, check)``."""
+        d = self.n_devices
+        y_b, params, has_bt = self._y_and_params(key, [r])
+        hp = _instances(params, 0, has_bt)
+        ck = self._a_key(key, r, eng.cfg.a_dtype)
+        shard = (key.n_proc // d,) + self._a_tail(key)
+        header = {"op": "proc", "key": key, "has_bt": has_bt,
+                  "collect_xs": self.collect_xs, "zeros": zeros,
+                  "a_key": ck, "y": y_b[0].numpy(),
+                  "params": _params_arrays(hp)}
+
+        def own():
+            a_own = (torch.zeros(shard, dtype=eng.cfg.a_tdtype,
+                                 device=self.device)
+                     if zeros else self._a_slice(key, r, eng, ck))
+            t_c = _tnow() if self.telemetry else 0.0
+            x_outs = eng.dispatch_sharded(a_own, y_b[0], hp, self.mesh,
+                                          has_bt=has_bt)
+            return t_c, eng.trace_of(x_outs)
+
+        return (header,
+                lambda rank, _ck: rank_slice(self._pad_a_one(key, r), rank,
+                                             d),
+                own,
+                lambda: eng.check_sharded(shard, tuple(y_b[0].shape), hp,
+                                          self.mesh))
+
+    @staticmethod
+    def _a_tail(key: BucketKey) -> tuple:
+        """A processor's padded shard shape in a bucket."""
+        if key.layout == "col":
+            return (key.mp_pad, key.n_pad // key.n_proc)
+        return (key.mp_pad, key.n_pad)
+
+    def close(self) -> None:
+        """Stop the mesh's workers (``serve_mesh_worker`` returns on every
+        other rank; services sharing a mesh share its workers, so one of
+        them closes). Without a mesh, nothing to do."""
+        if self.mesh is not None and self.n_devices > 1:
+            broadcast_object({"op": "stop"}, self.mesh)
+            gather_object((True, None), self.mesh)
+            self.mesh = None
 
     def _layout_children(self, layout: str) -> dict:
         """Label-bound metric handles for one layout, resolved once."""
@@ -1092,6 +1387,10 @@ class SolveService:
         Dummy operands bypass the operand cache (zero-A entries would
         poison it)."""
         menu = list(menu)
+        if background and self.n_devices > 1:
+            # the mesh's commands run in one order on every rank: a second
+            # thread issuing them would interleave with the foreground's
+            raise ValueError("a mesh service prewarms in the foreground")
         if background:
             th = threading.Thread(target=self._prewarm_run, args=(menu,),
                                   name="solve-prewarm", daemon=True)
@@ -1113,12 +1412,24 @@ class SolveService:
             key = self._key_for(req)
             buckets.add(str(key))
             eng = self._engine(key)
+            if key.placement == "proc":
+                # every rank runs the sharded program once, on zeros
+                self._dispatch_proc(key, [req], zeros=True)
+                programs += 1
+                continue
             widths = spec.batch_widths
             if widths is None:
-                widths = batch_width_ladder(self.policy, 1)
+                widths = batch_width_ladder(
+                    self.policy,
+                    self.n_devices if key.placement == "data" else 1)
             for w in widths:
                 w = pad_batch_size(min(int(w), self.policy.max_batch),
                                    self.policy)
+                if key.placement == "data":
+                    self._dispatch_data(key, [req] * round_up(
+                        w, self.n_devices), zeros=True)
+                    programs += 1
+                    continue
                 a_b, y_b, params, has_bt = self._het_operands(
                     key, [req] * w, use_cache=False)
                 eng.dispatch_het(a_b, y_b, params, has_bt=has_bt)
@@ -1237,3 +1548,98 @@ class SolveService:
             "bucket_demand": {str(k): v for k, v in demand.items()},
             "prewarm": prewarm_report,
         }
+
+
+# -- the other ranks of a mesh -------------------------------------------------
+
+def serve_mesh_worker(mesh, operand_cache_bytes: int = 256 << 20) -> dict:
+    """The loop every rank but 0 of a serving mesh runs while rank 0's
+    ``SolveService(mesh=mesh)`` serves: receive a command, take the A
+    shards it lacks from rank 0 (kept in its own operand cache by the
+    request's fingerprint), run its part (``dispatch_het`` of its slice of
+    a data-parallel batch, or ``dispatch_sharded`` of a processor-sharded
+    request) and report ``(ok, result)``. Returns, with a count of the
+    commands it served, when rank 0's service is closed. A failure is
+    reported to rank 0, which raises, and the loop goes on; the operands
+    are checked before the go round, so a malformed command never starts a
+    solve (``SolveService._command`` says which failures end in the
+    group's timeout instead)."""
+    cache = OperandCache(operand_cache_bytes)
+    engines: dict = {}
+    served = 0
+    while True:
+        cmd = broadcast_object(None, mesh)
+        if cmd["op"] == "stop":
+            gather_object((True, None), mesh)
+            return {"commands": served, "operand_cache": cache.stats()}
+        served += 1
+        try:
+            job = _worker_prepare(cmd, mesh, cache, engines)
+            ready = (True, job["missing"])
+        except Exception:
+            job, ready = None, (False, traceback.format_exc())
+        gather_object(ready, mesh)
+        go = broadcast_object(None, mesh)
+        if not go:
+            gather_object((ready[0], None), mesh)
+            continue
+        try:
+            result = _worker_run(cmd, job, mesh, cache)
+            gather_object((True, result), mesh)
+        except Exception:
+            gather_object((False, traceback.format_exc()), mesh)
+
+
+def _worker_prepare(cmd: dict, mesh, cache: OperandCache,
+                    engines: dict) -> dict:
+    """A worker's engine for the command, its operands (a processor-sharded
+    one's checked as ``dispatch_sharded`` checks them) and the A shards it
+    lacks."""
+    key = cmd["key"]
+    wire = cmd.get("wire", False)
+    ekey = (_engine_key(key), wire, cmd["collect_xs"])
+    eng = engines.get(ekey)
+    if eng is None:
+        eng = engines[ekey] = _bucket_engine(key, wire, cmd["collect_xs"],
+                                             mesh.device)
+    if cmd["op"] == "het":
+        item = cmd["items"][mesh.rank]
+        keys, y, params = item["a_keys"], item["y"], item["params"]
+    else:
+        keys = [cmd["a_key"] + ("proc", mesh.rank, mesh.size)]
+        y, params = cmd["y"], cmd["params"]
+    hp = convert.het_params_from_arrays(params, mesh.device)
+    if cmd["op"] == "proc":
+        eng.check_sharded((key.n_proc // mesh.size,)
+                          + SolveService._a_tail(key), np.shape(y), hp, mesh)
+    missing = [] if cmd["zeros"] else list(dict.fromkeys(
+        k for k in keys if k not in cache))
+    return {"eng": eng, "keys": keys, "missing": missing, "y": y, "hp": hp}
+
+
+def _worker_run(cmd: dict, job: dict, mesh, cache: OperandCache):
+    key, eng = cmd["key"], job["eng"]
+    tail = SolveService._a_tail(key)
+    lead = (key.n_proc // mesh.size if cmd["op"] == "proc"
+            else key.n_proc,)
+    got = {}
+    for ck in job["missing"]:
+        t = recv_tensor(lead + tail, torch.float32, 0, mesh)
+        got[ck] = t.to(device=mesh.device, dtype=eng.cfg.a_tdtype)
+    if cmd["zeros"]:
+        shards = [torch.zeros(lead + tail, dtype=eng.cfg.a_tdtype,
+                              device=mesh.device) for _ in job["keys"]]
+    else:
+        # hold every shard of the command before admitting the new ones,
+        # so an eviction cannot take one this command still needs
+        shards = [got[ck] if ck in got else cache.get(ck, None)
+                  for ck in job["keys"]]
+        for ck, t in got.items():
+            cache.get(ck, lambda t=t: t)
+    if cmd["op"] == "proc":
+        eng.dispatch_sharded(shards[0], job["y"], job["hp"], mesh,
+                             has_bt=cmd["has_bt"])
+        return None
+    return eng.trace_of(eng.dispatch_het(torch.stack(shards), job["y"],
+                                         job["hp"], has_bt=cmd["has_bt"]))
+

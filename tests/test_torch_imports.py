@@ -19,7 +19,10 @@ import repro_torch.core.denoisers as td
 import repro_torch.core.engine as te
 import repro_torch.core.mp_amp as tmp
 import repro_torch.core.state_evolution as tse
+import repro_torch.core.collectives as tcoll
+import repro_torch.core.compression as tcomp
 import repro_torch.launch.amp_serve as tamp_serve
+import repro_torch.launch.mesh as tmesh
 import repro_torch.launch.serve as tserve
 import repro_torch.serving as tserving
 import repro_torch.kernels.quantize.ops as tqops
@@ -78,7 +81,9 @@ def test_port_has_the_expected_modules():
                  "repro_torch.serving.codec", "repro_torch.serving.router",
                  "repro_torch.serving.frontend", "repro_torch.serving.chaos",
                  "repro_torch.launch.amp_serve",
-                 "repro_torch.launch.multihost"):
+                 "repro_torch.launch.multihost",
+                 "repro_torch.launch.mesh", "repro_torch.launch.solver",
+                 "repro_torch.core.collectives"):
         assert want in names, want
     for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh",
                 "decode_attn.cu", "wkv6.cu"):
@@ -150,6 +155,15 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tamp_serve.main(["--smoke"])
     assert tserving.SolveService(device="cpu").device.type == "cpu"
+    # the mesh: a rank's device is the card unless asked for the CPU, and
+    # the mesh launcher raises before it spawns anything
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.rank_device(None, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.rank_device("cuda:0", 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tamp_serve.main(["--smoke", "--mesh", "2"])
+    assert tmesh.rank_device("cpu", 3).type == "cpu"
     # asked for the CPU, they run there
     te.AmpEngine(prior, te.EngineConfig(n_proc=2, n_iter=2, device="cpu"))
     out = tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
@@ -327,6 +341,117 @@ def test_no_host_sync_inside_the_erasure_loops(layout, ctrl, path,
     assert np.all(np.isfinite(tr.x))
 
 
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo world of this process alone (a FileStore under tmp_path), its
+    mesh on the CPU; destroyed after the test."""
+    import torch.distributed as dist
+    tmesh.init_cluster(num_processes=1, process_id=0, backend="gloo",
+                       store_path=str(tmp_path / "store"), timeout_s=60)
+    try:
+        yield tmesh.make_serve_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
+@pytest.mark.parametrize("transport", ["psum_ecsq", "compressed8",
+                                       "compressed4"])
+@pytest.mark.parametrize("path", ["solve_sharded", "het"])
+def test_no_host_sync_inside_the_sharded_loops(layout, transport, path,
+                                               world_of_one, monkeypatch):
+    """The sharded loops ask the host nothing either, collectives included
+    (``psum`` of the plug-in, the straggler count and the boundary terms,
+    ``compressed_psum``'s all-to-all and all-gather, the column gather):
+    the same guard, on a gloo world of one rank."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    col = layout == "col"
+    tr_ = {"psum_ecsq": te.PsumFusion(local=te.EcsqTransport()),
+           "compressed8": te.CompressedPsumTransport(bits=8, block=32),
+           "compressed4": te.CompressedPsumTransport(bits=4, block=32)}
+    cfg = te.EngineConfig(n_proc=p, n_iter=t, device="cpu",
+                          collect_symbols=False,
+                          **({"layout": te.ColumnPartition()} if col else {}))
+    eng = te.AmpEngine(prob.prior, cfg, tr_[transport],
+                       te.FixedSchedule([np.inf, 0.05, 0.02]))
+    drop = np.zeros((t, 1), np.float32)
+    drop[1, 0] = 1.0
+    if path == "solve_sharded":
+        calls = _guard_loop(eng, "_col_solve_core" if col else "_solve_core",
+                            monkeypatch)
+        tr = eng.solve_sharded(y, a, world_of_one, drop_sched=drop)
+    else:
+        if col:
+            a_p, y_p = te.split_problem_cols(a, p), y
+            dummy = te.ColBTTables.dummy(t, 16)
+        else:
+            a_p, y_p = te.split_problem(a, y, p)
+            dummy = te.BTTables.dummy(t, 4, 7)
+        hp = _het_params(t, False, None, dummy,
+                         drop=torch.from_numpy(np.stack([drop, drop])))
+        one = lambda v: v[0]
+        hp = hp._replace(**{f: one(getattr(hp, f)) for f in (
+            "sched", "t_active", "m_real", "n_real", "eps", "mu_s",
+            "sigma_s", "use_bt", "drop")},
+            bt=type(hp.bt)(*(one(v) for v in hp.bt)))
+        calls = _guard_loop(eng, "_col_het_core" if col else "_het_core",
+                            monkeypatch)
+        tr = eng.solve_sharded_het(a_p, y_p, hp, world_of_one, has_bt=False)
+    assert calls == [1] and tr.x.shape == (256,)
+    assert np.all(np.isfinite(tr.x))
+
+
+@pytest.mark.parametrize("case", ["ok", "a_leading", "y_rows", "sched",
+                                  "drop", "emulated_transport"])
+def test_check_sharded_refuses_malformed_operands(case, world_of_one):
+    """``check_sharded`` (what a mesh worker runs before any rank starts a
+    solve's collectives) refuses, from the shapes alone, every operand that
+    ``dispatch_sharded`` would refuse."""
+    prob, a, y = _small_problem()
+    p, t = 4, 3
+    transport = te.ExactFusion() if case == "emulated_transport" \
+        else te.PsumFusion()
+    eng = te.AmpEngine(prob.prior, te.EngineConfig(
+        n_proc=p, n_iter=t, device="cpu", collect_symbols=False), transport)
+    a_p, y_p = te.split_problem(a, y, p)
+    hp = _het_params(t, False, None, te.BTTables.dummy(t, 4, 7),
+                     drop=torch.zeros(2, t, 1))
+    hp = hp._replace(**{f: getattr(hp, f)[0] for f in (
+        "sched", "t_active", "m_real", "n_real", "eps", "mu_s", "sigma_s",
+        "use_bt", "drop")}, bt=type(hp.bt)(*(v[0] for v in hp.bt)))
+    a_shape, y_shape = a_p.shape, y_p.shape
+    if case == "a_leading":
+        a_shape = (p - 1,) + a_shape[1:]
+    elif case == "y_rows":
+        y_shape = (p, y_shape[1] + 1)
+    elif case == "sched":
+        hp = hp._replace(sched=hp.sched[:-1])
+    elif case == "drop":
+        hp = hp._replace(drop=torch.zeros(t, 2))
+    if case == "ok":
+        assert eng.check_sharded(a_shape, y_shape, hp, world_of_one) == p
+        return
+    err = TypeError if case == "emulated_transport" else ValueError
+    with pytest.raises(err):
+        eng.check_sharded(a_shape, y_shape, hp, world_of_one)
+    with pytest.raises(err):
+        eng.dispatch_sharded(np.zeros(a_shape, np.float32),
+                             np.zeros(y_shape, np.float32), hp, world_of_one,
+                             has_bt=False)
+
+
+def test_device_transports_refuse_the_emulated_entry_points():
+    """The reference's guard: a device-collective transport fuses over a
+    mesh, so the emulated entry points refuse it."""
+    prob, a, y = _small_problem()
+    eng = te.AmpEngine(prob.prior, te.EngineConfig(n_proc=4, n_iter=2,
+                                                   device="cpu"),
+                       te.PsumFusion())
+    with pytest.raises(TypeError, match="device-collective"):
+        eng.solve(y, a)
+
+
 def test_the_guard_itself_catches_a_sync(monkeypatch):
     """The host loop does sync once per iteration, by design — and the same
     patch that guards ``solve`` sees it."""
@@ -360,7 +485,13 @@ def test_loop_body_sources_hold_no_sync_calls():
            te.AmpEngine._het_core, te.AmpEngine._col_body_het,
            te.AmpEngine._col_het_core, te._search, te._take, te._first,
            te._last, te._erasure_rescale, te._survivors, te._per_proc,
-           te._drop_at]
+           te._drop_at, te.PsumFusion.fuse, te.CompressedPsumTransport.fuse,
+           te._drop_rescale, te.AmpEngine._col_gather_x,
+           te.AmpEngine._rank_drops, tcoll.psum, tcoll.pmean,
+           tcoll.all_to_all, tcoll.all_gather, tcoll._wire,
+           tcomp.compressed_psum, tcomp._wire_encode, tcomp._wire_decode,
+           tqops.quantize, tqops.dequantize, tqops.dequantize_sum,
+           tqref.dequantize_sum_ref]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\(|float\(|bool\(")
     for fn in fns:
         src = inspect.getsource(fn)

@@ -30,7 +30,9 @@ import repro_torch.core.compression as tc
 import repro_torch.core.engine as te
 from repro_torch.core.denoisers import BernoulliGauss as TBG
 from repro_torch.kernels.quantize import ops as tqops
-from repro_torch.kernels.quantize.quantize import dequantize_cuda, quantize_cuda
+from repro_torch.kernels.quantize.quantize import (dequantize_cuda,
+                                                   dequantize_sum_cuda,
+                                                   quantize_cuda)
 from test_torch_engine import assert_traces_agree, make_problem
 
 P, T = 6, 8
@@ -233,5 +235,73 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         quantize_cuda(x, 127, 32)
     with pytest.raises(ValueError, match="CUDA"):
+        quantize_cuda(x, 7, 32, packed=True)
+    with pytest.raises(ValueError, match="CUDA"):
         dequantize_cuda(torch.zeros(2, 64, dtype=torch.int8),
                         torch.zeros(2, 2, dtype=torch.bfloat16), 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dequantize_cuda(torch.zeros(2, 32, dtype=torch.uint8),
+                        torch.zeros(2, 2, dtype=torch.bfloat16), 32,
+                        packed=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        dequantize_sum_cuda(torch.zeros(2, 64, dtype=torch.int8),
+                            torch.zeros(2, 2, dtype=torch.bfloat16), 32)
+
+
+# -- the wire forms of compressed_psum (K4a packed, K4b packed, K4b's sum) ----
+
+@pytest.mark.parametrize("r,n", [(2, 5120), (1, 1024), (7, 1001), (4, 3072)])
+@pytest.mark.parametrize("block", [512, 256])
+def test_packed_quantize_is_reference_quantize_then_pack(r, n, block):
+    """K4a's packed form (its plain version, what the kernel is held to on
+    the card bit for bit): the reference's ``quantize_blocks`` (qmax 7)
+    then ``pack_int4``, byte for byte, scales bit for bit; an odd row's
+    last byte carries the zero of the padding in its high nibble."""
+    x = _messages(r, n, seed=n + block, scale=3.0)
+    packed, scale = tqops.quantize(torch.from_numpy(x), 7, block, packed=True)
+    assert packed.dtype == torch.uint8 and packed.shape == (r, (n + 1) // 2)
+    qj, sj = jc.quantize_blocks(jnp.asarray(x), jc.QuantConfig(4, block))
+    qj = np.asarray(qj)[:, :n + (n % 2)]
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jc.pack_int4(jnp.asarray(qj))))
+    np.testing.assert_array_equal(_bits(scale), _bits(sj))
+
+
+@pytest.mark.parametrize("r,n", [(2, 5120), (7, 1001), (4, 3072)])
+@pytest.mark.parametrize("block", [512, 256])
+def test_packed_dequantize_is_reference_unpack_then_dequantize(r, n, block):
+    """K4b's packed form: the reference's ``unpack_int4`` then
+    ``dequantize_blocks``, the same float32 values."""
+    x = _messages(r, n, seed=3 * n + block)
+    packed, scale = tqops.quantize(torch.from_numpy(x), 7, block, packed=True)
+    got = tqops.dequantize(packed, scale, block, packed=True, n=n)
+    assert got.shape == (r, n)
+    pad = (-packed.shape[1]) % (block // 2)
+    pj = jnp.asarray(np.pad(packed.numpy(), ((0, 0), (0, pad))))
+    sj = jnp.asarray(scale.view(torch.int16).numpy()).view(jnp.bfloat16)
+    want = jc.dequantize_blocks(jc.unpack_int4(pj), sj,
+                                jc.QuantConfig(4, block), orig_len=n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d,c", [(2, 5120), (4, 2048), (8, 1024), (1, 1024)])
+def test_dequantize_sum_is_reference_dequantize_then_sum(d, c, packed):
+    """K4b's summing form (phase 1 of ``compressed_psum``): the reference's
+    ``dequantize_blocks(q_r, scale_r).sum(axis=0)`` within 1e-6 relative
+    (XLA sums in its own order; the port in rank order d = 0, 1, ...), and
+    bit for bit the port's own rows summed in that order."""
+    x = _messages(d, c, seed=d * c, scale=2.0)
+    qmax = 7 if packed else 127
+    q, scale = tqops.quantize(torch.from_numpy(x), qmax, 512, packed=packed)
+    got = tqops.dequantize_sum(q, scale, 512, packed=packed)
+    rows = tqops.dequantize(q, scale, 512, packed=packed)
+    want_port = rows[0]
+    for i in range(1, d):
+        want_port = want_port + rows[i]
+    assert torch.equal(got, want_port)
+    qc = jc.QuantConfig(4 if packed else 8, 512)
+    qj, sj = jc.quantize_blocks(jnp.asarray(x), qc)
+    want = np.asarray(jc.dequantize_blocks(qj, sj, qc).sum(axis=0))
+    np.testing.assert_allclose(got.numpy(), want,
+                               rtol=1e-6, atol=1e-6 * np.abs(want).max())

@@ -18,6 +18,7 @@ single``, whose BT request parts from its single solve in the sixth digit
 """
 import dataclasses
 import threading
+import types
 
 import jax
 import numpy as np
@@ -418,8 +419,15 @@ def test_zero_new_programs_after_prewarm():
 
 
 def test_mesh_erasure_and_bad_requests_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        SolveService(mesh=object(), device="cpu")
+    # the mesh is served (tests/test_torch_mesh_service.py); a service on
+    # a rank other than 0, or whose batch cap the mesh does not divide,
+    # still raises
+    cpu_mesh = lambda rank, size: types.SimpleNamespace(
+        rank=rank, size=size, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="rank 0"):
+        SolveService(mesh=cpu_mesh(1, 2), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        SolveService(mesh=cpu_mesh(0, 3), device="cpu")
     prior = BernoulliGauss(eps=0.1)
     _, _, a, y = sample(5, 256, 64, prior)
     svc = SolveService(device="cpu")
@@ -446,8 +454,8 @@ def test_mesh_erasure_and_bad_requests_raise():
 
 def test_amp_serve_launcher(capsys, tmp_path):
     """``python -m repro_torch.launch.amp_serve --smoke`` on the CPU, with
-    its trace and metrics dumps; the mesh raises; ``--hosts 2`` serves
-    through the cluster tier."""
+    its trace and metrics dumps; ``--mesh`` with ``--hosts`` raises;
+    ``--hosts 2`` serves through the cluster tier."""
     out = tmp_path / "trace.jsonl"
     met = tmp_path / "metrics.txt"
     results = tamp_serve.main(["--smoke", "--device", "cpu", "--requests",
@@ -459,8 +467,11 @@ def test_amp_serve_launcher(capsys, tmp_path):
     assert "16 requests in" in text and "se drift" in text
     assert out.read_text().count("\n") > 16
     assert "amp_requests_total" in met.read_text()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tamp_serve.main(["--smoke", "--device", "cpu", "--mesh"])
+    # --mesh D is served (tests/test_torch_mesh_service.py); with --hosts
+    # it still raises
+    with pytest.raises(ValueError, match="--mesh"):
+        tamp_serve.main(["--smoke", "--device", "cpu", "--mesh", "2",
+                         "--hosts", "2"])
     results = tamp_serve.main(["--smoke", "--device", "cpu", "--hosts", "2",
                                "--requests", "8"])
     assert sorted(r.request_id for r in results) == list(range(16))
