@@ -2,7 +2,7 @@
 """Where the device time of one solve, or of one LM serving step, goes, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--amp-only | --fuse-only]
+    python3 chip_profile.py [--amp-only | --fuse-only | --lm-only]
 
 Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
 solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
@@ -17,14 +17,17 @@ row bucket of 8 at the paper's size and a column bucket of 4 at the wide
 problem (P=20), each without and with BT-rated instances; then, unless
 ``--amp-only``, at ``chip_smoke.py``'s LM shapes (random init from seed
 1234, prompts of 1000 tokens), one gemma3-1b decode step (B=8), one rwkv6-3b
-prefill (B=4) and one rwkv6-3b decode step. ``--fuse-only`` runs the
-block-quantized part alone. It prints one JSON object per call: the number
+prefill (B=4) and one rwkv6-3b decode step, and one decode step of each
+model of ``chip_smoke.py``'s LM zoo at its batch and prompt (gemma3-1b
+after 32768 tokens, qwen3-moe-30b-a3b, recurrentgemma-2b, qwen2-vl-7b,
+whisper-small). ``--fuse-only`` runs the block-quantized part alone,
+``--lm-only`` the LM part alone. It prints one JSON object per call: the number
 of kernels launched (for a solve also per iteration), the span from the
 first kernel's start to the last one's end, the time the device was busy
 inside it, the launches of the call's hand-written kernels (for a solve
 also per iteration: K1's band kernel and its combine, two a step; the
-block-quantized fusion, one a step; for a gemma3-1b decode step K5, one a
-layer) and their share of the busy time, beside the launches the kernels'
+block-quantized fusion, one a step; for a decode step K5, one an attention
+layer, two a Whisper layer) and their share of the busy time, beside the launches the kernels'
 wrappers counted (which tell whether the trace dropped events), and the ten
 heaviest kernels by name. The profiler slows the host
 down, so the span is longer than an unprofiled call's (``chip_smoke.py``
@@ -80,6 +83,10 @@ P_COL = 25
 T = PAPER_T[EPS]
 WIDE_N, WIDE_M = 20_000, 4_000
 LM_PROMPT = 1000
+# (arch, batch, prompt) as chip_smoke.py's LM_ZOO
+LM_ZOO = [("gemma3-1b", 1, 32768), ("qwen3-moe-30b-a3b", 8, 1000),
+          ("recurrentgemma-2b", 4, 3000), ("qwen2-vl-7b", 4, 2048),
+          ("whisper-small", 8, 448)]
 
 
 def profile_call(fn, tag: str) -> dict:
@@ -220,25 +227,28 @@ def profile_het(smi: str) -> None:
 def profile_lm(smi: str) -> None:
     """One gemma3-1b decode step (B=8, at position 1000 after a prefill of
     1000 tokens), one rwkv6-3b prefill (B=4, 1000 tokens) and one rwkv6-3b
-    decode step."""
+    decode step; then one decode step of each ``LM_ZOO`` model after its
+    prompt (with the stub inputs)."""
+    runs = [("gemma3-1b", 8, LM_PROMPT), ("rwkv6-3b", 4, LM_PROMPT)] + LM_ZOO
     with torch.inference_mode():
-        for arch, batch in (("gemma3-1b", 8), ("rwkv6-3b", 4)):
+        for arch, batch, prompt in runs:
             cfg = get_config(arch)
             model = get_model(cfg, seed=SEED)
             prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
-                0, cfg.vocab, (batch, LM_PROMPT)), device="cuda")
-            state = serve.prefill(model, prompts, LM_PROMPT + 1)
+                0, cfg.vocab, (batch, prompt)), device="cuda")
+            state = serve.prefill(model, prompts, prompt + 1,
+                                  serve.stub_inputs(model, batch, prompt))
             tok = prompts[:, -1:]
-            tag = "decode_attn" if cfg.family == "dense" else "wkv6_chunk"
+            tag = "wkv6_chunk" if cfg.family == "rwkv6" else "decode_attn"
             calls = {"decode_step": lambda: model.decode_step(tok, state,
-                                                              LM_PROMPT)}
+                                                              prompt)}
             if cfg.family == "rwkv6":
                 calls = {"prefill": lambda: model(prompts, mode="prefill"),
                          **calls}
             for what, fn in calls.items():
                 print(json.dumps({"lm": arch, "call": what, "batch": batch,
-                                  "card": smi, **profile_call(fn, tag)}),
-                      flush=True)
+                                  "prompt": prompt, "card": smi,
+                                  **profile_call(fn, tag)}), flush=True)
             del model, state
             torch.cuda.empty_cache()
 
@@ -251,12 +261,17 @@ def main() -> None:
     only.add_argument("--fuse-only", action="store_true",
                       help="profile the block-quantized transport only: "
                            "two fuse calls and one row int8 solve")
+    only.add_argument("--lm-only", action="store_true",
+                      help="profile LM serving only")
     args = parser.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.lm_only:
+        profile_lm(smi)
+        return
     prior = BernoulliGauss(eps=EPS)
     prob = CSProblem(n=N, m=M, prior=prior, snr_db=SNR_DB)
     _, a, y = sample_problem(SEED, N, M, prior, prob.sigma_e2)

@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
-                          [--k6-only | --k5-only | --k4-only | --sharded-only]
+                          [--k6-only | --k5-only | --k4-only | --sharded-only
+                           | --zoo-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -60,7 +61,16 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     recurrence, K6, in every layer of prefill), prompts of 1000 tokens and
     32 greedy steps; decode held against one prefill over the same tokens
     (bf16, and float32 weights); the small config of each family on the
-    card against the CPU.
+    card against the CPU, mixtral-8x7b's among them;
+  * the LM zoo (phase ``lm_zoo``): every other family at its published
+    width and depth, one model at a time — gemma3-1b with a prompt of
+    32768 (the streaming attention; K5 over 32 800 rows), qwen3-moe-30b-a3b
+    (128 experts top-8, 61 GB of bf16; decode compared on a no-drop copy,
+    its float32 twin 4 layers deep), recurrentgemma-2b (RG-LRU, window
+    2048 biting), qwen2-vl-7b (M-RoPE, 1024 vision-stub embeddings) and
+    whisper-small (1500 frames; K5 for self- and cross-attention) — each
+    with its K5 launches, no host sync in decode, times, peak memory and
+    decode against prefill in bf16 and float32.
 
 It checks the results, that the paths launched the kernels and made no host
 sync inside their loops, and times the kernels against their bounds.
@@ -70,7 +80,7 @@ then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
 JSON file. Needs a CUDA device and nvcc; needs no network. Takes about
-five minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
+five and a half minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
 ``src/repro_torch/csrc``) also times that tree's K3 in turns with this
 one's (phase ``k3_operands``). ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
@@ -88,11 +98,17 @@ fusion composed of the standalone kernels and an empty launch, and stops,
 with the card's line and the last line. ``--sharded-only`` builds every
 kernel, holds the wire forms against their plain versions, runs the
 ``sharded`` phase and times the wire forms, and stops the same way.
+``--zoo-only`` builds the decode-attention kernel, holds it against its
+plain version at every ``DA_CASES`` case and every shape of the zoo's
+decode paths, runs ``lm_zoo`` and stops the same way.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -143,6 +159,7 @@ from repro_torch.kernels.quantize import quantize as kq  # noqa: E402
 from repro_torch.kernels.quantize.ref import block_quant_fuse_ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn as kd  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
                                                  valid_rows)
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
@@ -150,7 +167,7 @@ from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import (init_cluster, make_serve_mesh,  # noqa: E402
                                      spawn_world)
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import get_model, moe as lm_moe  # noqa: E402
 from repro_torch.serving import (BackendServer,  # noqa: E402
                                  BucketPolicy, ChaosBackend,
                                  ClusterService, FaultPlan, FaultSpec,
@@ -236,6 +253,32 @@ SEED = 1234
 LM_DENSE, LM_DENSE_BATCH = "gemma3-1b", 8
 LM_RWKV, LM_RWKV_BATCH = "rwkv6-3b", 4
 LM_PROMPT, LM_GEN = 1000, 32
+# The LM zoo (phase lm_zoo): every other family at its published width,
+# random init from SEED, 32 greedy steps through serve.generate; (arch,
+# batch, prompt). gemma3-1b's prompt of 32768 takes the streaming attention
+# and puts K5 on its long-cache case; recurrentgemma's 3000 make its window
+# of 2048 bite; qwen2-vl's 2048 are 1024 vision-stub embeddings and 1024 text
+# tokens; whisper-small decodes 448 tokens against 1500 frames.
+LM_ZOO = [("gemma3-1b", 1, 32768), ("qwen3-moe-30b-a3b", 8, 1000),
+          ("recurrentgemma-2b", 4, 3000), ("qwen2-vl-7b", 4, 2048),
+          ("whisper-small", 8, 448)]
+# qwen3-moe's float32 twin at its full depth would need 122 GB: 4 layers of
+# the full width instead
+LM_F32_LAYERS = {"moe": 4}
+# the models whose decode is held to their prefill in bf16 at full depth;
+# the others' bf16 pair is recorded, as their random init amplifies bf16
+# rounding through depth: rwkv6-3b (13 % of the logits' scale), qwen2-vl-7b
+# (3.6-4.0 %, argmax 90-94 % the same, at 28 layers of d 3584, where
+# float32 gives 1.4e-5; both on an H100 80GB HBM3 at 700 W, lm_rwkv6 and
+# lm_zoo), and qwen3-moe, whose router's near ties let a bf16 difference
+# pick another expert. Every model is held in float32.
+LM_BF16_HELD = ("gemma3-1b", "recurrentgemma-2b", "whisper-small")
+# qwen2-vl-7b in bf16 is held at LM_BF16_CUT layers of its weights instead,
+# and its gap recorded at every depth of LM_BF16_LADDER and with 1-D
+# positions at full depth: a gap that grows with depth alike with and
+# without M-RoPE is rounding carried through the layers, not the decode path
+LM_BF16_CUT = {"qwen2-vl-7b": 7}
+LM_BF16_LADDER = (1, 2, 4, 7, 14)
 # the reference's own prefill/decode tolerance (tests/test_models.py:66)
 LM_RTOL, LM_ATOL = 0.05, 0.15
 # card against CPU, small configs: the CPU tests' port-vs-reference bound
@@ -2908,6 +2951,30 @@ DA_CASES = [
     # bf16 caches, float32 q (and output)
     ("f32_q_bf16_cache", 8, 4, 1, 256, 1032, 1031, 512, torch.float32, torch.bfloat16,
      False),
+    # the LM zoo's decode shapes, one a model and layer kind
+    # (zoo_k5_shapes; check_decode_attn_kernel fails if one is missing):
+    # whisper-small's self-attention (G = 1, Dh 64) and its
+    # cross-attention over the 1500 frames (pos 1499); recurrentgemma's
+    # G = 10, Dh 256 with its window of 2048 past pos 2048; qwen3-moe's
+    # G = 8, Dh 128; qwen2-vl's G = 7, Dh 128; gemma3-1b at B = 1 past its
+    # prompt of 32768, global and local. And mixtral's window of 4096 past
+    # S = 4096 (its smoke config alone runs on the card).
+    ("whisper_self_G1_Dh64", 8, 12, 12, 64, 480, 479, 0, torch.bfloat16,
+     torch.bfloat16, False),
+    ("whisper_cross_S1500", 8, 12, 12, 64, 1500, 1499, 0, torch.bfloat16,
+     torch.bfloat16, False),
+    ("rgemma_G10_window2048", 4, 10, 1, 256, 3032, 3031, 2048, torch.bfloat16,
+     torch.bfloat16, False),
+    ("qwen3moe_G8", 8, 32, 4, 128, 1032, 1031, 0, torch.bfloat16, torch.bfloat16,
+     False),
+    ("qwen2vl_G7", 4, 28, 4, 128, 2080, 2079, 0, torch.bfloat16, torch.bfloat16,
+     False),
+    ("gemma3_B1_S32800", 1, 4, 1, 256, 32800, 32799, 0, torch.bfloat16,
+     torch.bfloat16, False),
+    ("gemma3_B1_local_S32800", 1, 4, 1, 256, 32800, 32799, 512, torch.bfloat16,
+     torch.bfloat16, False),
+    ("mixtral_window4096", 2, 32, 8, 128, 5000, 4999, 4096, torch.bfloat16,
+     torch.bfloat16, False),
 ]
 # two shapes of different plans, called in turns: each call must give the
 # bits of its shape's first call (the last block of a group resets its
@@ -2915,6 +2982,68 @@ DA_CASES = [
 DA_ALTERNATE = ("gemma3_global", "b2_global")
 DA_B2 = ("b2_global", 2, 4, 1, 256, 1032, 1031, 0, torch.bfloat16,
          torch.bfloat16, False)
+
+
+def zoo_k5_shapes() -> list[tuple]:
+    """K5's shapes on the LM zoo's decode paths, one a model and layer kind
+    at the last decode step: (key, arch, B, H, KV, Dh, S, pos, window,
+    launches a step). Whisper: its self-attention and its cross-attention
+    over the encoder's frames (pos = frames - 1), each once a layer; the
+    others: one a layer of each attention kind (``attn_kinds``)."""
+    out = []
+    for arch, batch, prompt in LM_ZOO:
+        cfg = get_config(arch)
+        s = prompt + LM_GEN
+        if cfg.family == "whisper":
+            shape = (batch, cfg.n_heads, cfg.n_heads, cfg.d_head)
+            kinds = {"self": (s, 0, cfg.n_layers),
+                     "cross": (cfg.n_audio_frames, 0, cfg.n_layers)}
+        else:
+            shape = (batch, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+            kinds = {kind: (s, cfg.window if kind == "local" else 0,
+                            cfg.attn_kinds.count(kind))
+                     for kind in ("global", "local") if kind in cfg.attn_kinds}
+        for kind, (rows, win, per_step) in kinds.items():
+            out.append((f"{arch}/{kind}", arch, *shape, rows, rows - 1, win,
+                        per_step))
+    return out
+
+
+def zoo_da_cases() -> dict:
+    """{``zoo_k5_shapes`` key: the name of the ``DA_CASES`` case of that
+    shape, bf16 as served}; fails if a shape has none."""
+    cases = {(b, h, kv, dh, s, pos, win): name
+             for name, b, h, kv, dh, s, pos, win, q_dt, c_dt, nan in DA_CASES
+             if q_dt == c_dt == torch.bfloat16 and not nan}
+    out = {key: cases.get((b, h, kv, dh, s, pos, win))
+           for key, _, b, h, kv, dh, s, pos, win, _ in zoo_k5_shapes()}
+    missing = [key for key, name in out.items() if name is None]
+    assert not missing, f"zoo decode shapes without a DA_CASES case: {missing}"
+    return out
+
+
+def k5_shape_key(b, h, kv, dh, s, win) -> str:
+    return f"B{b} H{h} KV{kv} Dh{dh} S{s} window{win}"
+
+
+@contextlib.contextmanager
+def k5_calls_by_shape():
+    """Counts the decode-attention wrapper's calls by shape
+    (``k5_shape_key``) while the block runs: the dispatch's binding of the
+    wrapper is wrapped; nothing is read from the card."""
+    tally = collections.Counter()
+    wrapper = kd_ops.decode_attn_cuda
+
+    def counting(q, k_cache, v_cache, pos, window=0):
+        b, s, kv, dh = k_cache.shape
+        tally[k5_shape_key(b, q.shape[1], kv, dh, s, window)] += 1
+        return wrapper(q, k_cache, v_cache, pos, window)
+
+    kd_ops.decode_attn_cuda = counting
+    try:
+        yield tally
+    finally:
+        kd_ops.decode_attn_cuda = wrapper
 
 
 def da_inputs(b, h, kv, dh, s, q_dtype, c_dtype, seed):
@@ -2947,6 +3076,7 @@ def check_decode_attn_kernel() -> dict:
     In the NaN cases the plain version gets the caches before the NaN is
     written."""
     rows, firsts = [], {}
+    zoo_da_cases()
     for name, b, h, kv, dh, s, pos, win, q_dt, c_dt, nan in DA_CASES + [DA_B2]:
         q, kc_, vc_ = da_inputs(b, h, kv, dh, s, q_dt, c_dt, SEED)
         lo, hi = valid_rows(s, pos, win)
@@ -3056,11 +3186,26 @@ def check_wkv6_kernel() -> dict:
     return {r["case"]: r for r in rows}
 
 
+def k5_per_step(cfg) -> int:
+    """Decode-attention launches a decode step of ``cfg``'s family makes:
+    one a layer (dense, moe), one a macro-block (rglru), two a decoder layer
+    (whisper: self and cross), none (rwkv6)."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "rwkv6": 0,
+            "rglru": cfg.n_layers // 3, "whisper": 2 * cfg.n_layers}[cfg.family]
+
+
+def lm_launches(cfg, steps: int, prefills: int) -> dict:
+    """The K5 and K6 launches of ``prefills`` prefills and ``steps`` decode
+    steps (K6: one a layer of an rwkv6 prefill)."""
+    return {"decode_attn": k5_per_step(cfg) * steps,
+            "wkv6": cfg.n_layers * prefills if cfg.family == "rwkv6" else 0}
+
+
 def teacher_forced_logits(model, prompts, fed):
-    """Prefill ``prompts``, then one decode step per column of ``fed``:
-    float32 logits (B, steps, V) of every step."""
-    p, n = prompts.shape[1], fed.shape[1]
-    state = serve.prefill(model, prompts, p + n)
+    """Prefill ``prompts`` (with the stub inputs), then one decode step per
+    column of ``fed``: float32 logits (B, steps, V) of every step."""
+    (b, p), n = prompts.shape, fed.shape[1]
+    state = serve.prefill(model, prompts, p + n, serve.stub_inputs(model, b, p))
     out = []
     for i in range(n):
         h, state = model.decode_step(fed[:, i:i + 1], state, p + i)
@@ -3068,12 +3213,17 @@ def teacher_forced_logits(model, prompts, fed):
     return torch.stack(out, 1)
 
 
+LM_SMALL = (LM_DENSE, "granite-3-8b", LM_RWKV, "qwen3-moe-30b-a3b",
+            "mixtral-8x7b", "recurrentgemma-2b", "qwen2-vl-7b", "whisper-small")
+
+
 def check_lm_small() -> dict:
     """The smoke config of each family on the card (K5 / K6) against the CPU
     (plain versions), with the same weights: prefill hidden and 8
-    teacher-forced decode steps' logits within 2 % of their scale."""
+    teacher-forced decode steps' logits within 2 % of their scale. mixtral
+    (93.4 GB in bf16, more than the card holds) runs here only."""
     out = {}
-    for arch in (LM_DENSE, "granite-3-8b", LM_RWKV):
+    for arch in LM_SMALL:
         cfg = get_config(arch).smoke_config()
         cpu = get_model(cfg, device="cpu", seed=SEED)
         gpu = get_model(cfg, state={n: p.detach() for n, p in
@@ -3082,23 +3232,23 @@ def check_lm_small() -> dict:
             0, cfg.vocab, (2, 48)))
         prompts, fed = toks[:, :40], toks[:, 40:]
         reset_all_counts()
-        h_g, _ = gpu(prompts.to(DEV), mode="prefill")
+        h_g, _ = gpu(prompts.to(DEV), mode="prefill",
+                     **serve.stub_inputs(gpu, 2, 40))
         l_g = teacher_forced_logits(gpu, prompts.to(DEV), fed.to(DEV))
         torch.cuda.synchronize()
         launches = all_counts()
-        h_c, _ = cpu(prompts, mode="prefill")
+        h_c, _ = cpu(prompts, mode="prefill", **serve.stub_inputs(cpu, 2, 40))
         l_c = teacher_forced_logits(cpu, prompts, fed)
         h_err = float((h_g.float().cpu() - h_c.float()).abs().max()
                       / h_c.float().abs().max())
         l_err = float((l_g.cpu() - l_c).abs().max() / l_c.abs().max())
-        want = ({"decode_attn": cfg.n_layers * 8, "wkv6": 0}
-                if cfg.family == "dense" else
-                {"decode_attn": 0, "wkv6": 2 * cfg.n_layers})
+        want = lm_launches(cfg, 8, 2)
         got = {key: launches[key] for key in want}
         out[arch] = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
                                 "n_heads": cfg.n_heads,
                                 "n_kv_heads": cfg.n_kv_heads,
-                                "d_head": cfg.d_head, "vocab": cfg.vocab},
+                                "d_head": cfg.d_head, "vocab": cfg.vocab,
+                                "n_experts": cfg.n_experts},
                      "hidden_err_of_scale": h_err,
                      "logits_err_of_scale": l_err, "launches": got}
         assert got == want, (arch, got, want)
@@ -3110,8 +3260,10 @@ def check_lm_small() -> dict:
 
 def lm_decode_sync_sites(model, prompts) -> list:
     """``sync_sites`` over the greedy decode loop alone (prefill before)."""
-    state = serve.prefill(model, prompts, LM_PROMPT + LM_GEN)
-    run = lambda: (serve.decode(model, state, prompts[:, -1:], LM_PROMPT,
+    b, p = prompts.shape
+    state = serve.prefill(model, prompts, p + LM_GEN,
+                          serve.stub_inputs(model, b, p))
+    run = lambda: (serve.decode(model, state, prompts[:, -1:], p,
                                 LM_GEN).float(), None)
     run()                                           # warm: allocator, cuBLAS
     return sync_sites(run)
@@ -3122,16 +3274,20 @@ def lm_consistency(model, prompts) -> tuple:
     prompt and the tokens the loop was fed (prompt[-1], then the generated
     ids but the last): the decode logits of every generated position
     against that prefill's. Returns (the generation, the kernel launches of
-    the generate call alone, the comparison)."""
+    the generate call alone, the comparison, the decode-attention calls of
+    the generate call by shape)."""
+    b, p = prompts.shape
     reset_all_counts()
-    out = serve.generate(model, prompts, LM_GEN, keep_logits=True)
+    with k5_calls_by_shape() as by_shape:
+        out = serve.generate(model, prompts, LM_GEN, keep_logits=True)
     launches = all_counts()                          # read just after the path
     p_dev = torch.as_tensor(prompts, device=DEV)
     ids = torch.as_tensor(out.tokens, device=DEV)
     seq = torch.cat([p_dev, p_dev[:, -1:], ids[:, :-1]], dim=1)
     with torch.inference_mode():
-        h, _ = model(seq, mode="prefill")
-        want = model.logits(h[:, LM_PROMPT:])
+        h, _ = model(seq, mode="prefill",
+                     **serve.stub_inputs(model, b, seq.shape[1]))
+        want = model.logits(h[:, p:])
     dec, out.logits = out.logits, None
     err = (dec - want).abs()
     scale = float(want.abs().max())
@@ -3140,21 +3296,71 @@ def lm_consistency(model, prompts) -> tuple:
            "within_rtol_atol": bool((err <= LM_ATOL + LM_RTOL * want.abs()).all()),
            "argmax_agree": float((want.argmax(-1) == ids).float().mean()),
            "finite": bool(torch.isfinite(dec).all())}
-    return out, launches, cmp
+    return out, launches, cmp, dict(by_shape)
 
 
-def run_lm(arch: str, batch: int) -> dict:
-    """``serve.generate`` at full width and depth (random init from SEED):
-    the kernel launches of the path, zero host syncs inside the decode loop,
-    warm prefill and decode times, and decode against prefill
-    (``lm_consistency``) — in bf16, the model as served, and again with the
-    same weights in float32, where bf16 rounding cannot hide a fault of the
-    cache or state handoff. The dense model is held to the reference's
-    tolerance in bf16 too; rwkv6-3b's bf16 numbers are recorded only: its
-    random init amplifies bf16 rounding through the layers (the reference's
-    own prefill and decode differ by a quarter of the logits' scale at 32
-    layers in bf16, ROADMAP Queue 3)."""
+def _no_drop(cfg):
+    """An MoE config whose capacity no routing can exceed (cf = E/k)."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _in_first_layers(name: str, n_layers: int) -> bool:
+    """Whether parameter ``name`` of a decoder-only model is outside its
+    layers or in its first ``n_layers``."""
+    return (not name.startswith("layers.")
+            or int(name.split(".")[1]) < n_layers)
+
+
+def _first_layers(params: dict, cfg):
+    """A model of ``cfg`` on the tensors of ``params`` (named as a full
+    model's parameters), keeping its first ``cfg.n_layers`` layers: no
+    copy for tensors already on the card."""
+    return get_model(cfg, state={n: p for n, p in params.items()
+                                 if _in_first_layers(n, cfg.n_layers)})
+
+
+def moe_prefill_drops(model, tokens) -> list:
+    """One prefill of an MoE model with each layer's dispatch read: its
+    (dropped, routed) slot counts, the slots its ``keep`` marks false, as
+    device tensors (no host read inside the prefill)."""
+    drops = []
+    dispatch = lm_moe._dispatch_group
+
+    def recording(*args):
+        buf, dest, keep = dispatch(*args)
+        drops.append(((~keep).sum(), keep.numel()))
+        return buf, dest, keep
+
+    lm_moe._dispatch_group = recording
+    try:
+        model(tokens, mode="prefill")
+    finally:
+        lm_moe._dispatch_group = dispatch
+    return drops
+
+
+def run_lm(arch: str, batch: int, prompt: int = LM_PROMPT,
+           phase: str | None = None) -> dict:
+    """``serve.generate`` at full width and depth (random init from SEED,
+    the stub inputs of ones): the kernel launches of the path, zero host
+    syncs inside the decode loop, warm prefill and decode times, peak
+    memory, and decode against prefill (``lm_consistency``) — in bf16, the
+    model as served, and again with the same weights in float32, where bf16
+    rounding cannot hide a fault of the cache or state handoff. Models in
+    ``LM_BF16_HELD`` are held to the reference's tolerance in bf16 too; the
+    others' bf16 numbers are recorded only (ROADMAP Queue 3 for rwkv6-3b).
+    An MoE model is compared on its no-drop copy (``_no_drop``: the same
+    weights; its served prefill drops routed slots, its decode none, and
+    the share dropped is recorded), and its float32 twin has
+    ``LM_F32_LAYERS`` layers of the full width. The result is emitted as
+    ``phase`` (default ``lm_<family>``) before it is checked."""
     cfg = get_config(arch)
+    moe = cfg.family == "moe"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = get_model(cfg, seed=SEED)               # the default device: the card
@@ -3162,54 +3368,118 @@ def run_lm(arch: str, batch: int) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
-                                                   (batch, LM_PROMPT))
-    first, launches, cmp16 = lm_consistency(model, prompts)
+                                                   (batch, prompt))
+    first, launches, cmp_served, k5_by_shape = lm_consistency(model, prompts)
+    twin_cfg = _no_drop(cfg) if moe else cfg
+    twin = (type(model)(twin_cfg, dict(model.named_parameters())) if moe
+            else model)
+    cmp16 = lm_consistency(twin, prompts)[2] if moe else cmp_served
+    bf16_depth = {}
+    if arch in LM_BF16_CUT:
+        params = dict(model.named_parameters())
+        for name, c in ([(f"L{n}", dataclasses.replace(cfg, n_layers=n))
+                         for n in LM_BF16_LADDER]
+                        + [(f"L{cfg.n_layers}_1d_positions",
+                            dataclasses.replace(cfg, m_rope=False))]):
+            bf16_depth[name] = lm_consistency(_first_layers(params, c),
+                                              prompts)[2]
+        del params
+    p_dev = torch.as_tensor(prompts, device=DEV)
     with torch.inference_mode():
-        sites = lm_decode_sync_sites(model, torch.as_tensor(prompts, device=DEV))
+        drops = moe_prefill_drops(model, p_dev) if moe else []
+        sites = lm_decode_sync_sites(model, p_dev)
+    dropped = (float(sum(d for d, _ in drops) / sum(r for _, r in drops))
+               if drops else None)
+    dropped_by_layer = [float(d) / r for d, r in drops]
     warm = [serve.generate(model, prompts, LM_GEN) for _ in range(2)][-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    state32 = {n: p.detach().float() for n, p in model.named_parameters()}
-    del model
-    torch.cuda.empty_cache()
-    model32 = get_model(cfg, state=state32)
+    f32_cfg = dataclasses.replace(twin_cfg, n_layers=min(
+        cfg.n_layers, LM_F32_LAYERS.get(cfg.family, cfg.n_layers)))
+    state32 = {n: p.detach().float() for n, p in model.named_parameters()
+               if _in_first_layers(n, f32_cfg.n_layers)}
+    del model, twin
+    _free()
+    model32 = _first_layers(state32, f32_cfg)
     del state32
-    first32, launches32, cmp32 = lm_consistency(model32, prompts)
+    first32, launches32, cmp32, _ = lm_consistency(model32, prompts)
     del model32
-    torch.cuda.empty_cache()
+    _free()
 
-    want_launch = ({"decode_attn": cfg.n_layers * LM_GEN, "wkv6": 0}
-                   if cfg.family == "dense" else
-                   {"decode_attn": 0, "wkv6": cfg.n_layers})
+    want_launch = lm_launches(cfg, LM_GEN, 1)
+    want32 = lm_launches(f32_cfg, LM_GEN, 1)
     got = {key: launches[key] for key in want_launch}
     got32 = {key: launches32[key] for key in want_launch}
     result = {
-        "arch": arch, "batch": batch, "prompt": LM_PROMPT, "gen": LM_GEN,
-        "seed": SEED, "n_params": n_params, "init_s": init_s,
+        "arch": arch, "family": cfg.family, "batch": batch, "prompt": prompt,
+        "gen": LM_GEN, "seed": SEED, "n_params": n_params, "init_s": init_s,
         "first_ids": first.tokens[0].tolist(),
         "decode_vs_prefill_bf16": cmp16, "decode_vs_prefill_f32": cmp32,
+        "decode_vs_prefill_bf16_by_depth": bf16_depth,
+        "f32_layers": f32_cfg.n_layers,
         "launches": got, "launches_f32": got32,
+        "decode_attn_calls_by_shape": k5_by_shape,
         "synchronizing_calls_in_decode_loop": len(sites),
         "ids_same_on_rerun": bool(np.array_equal(first.tokens, warm.tokens)),
         "first_call_prefill_s": first.prefill_s,
         "first_call_decode_s": first.decode_s,
         "prefill_ms": 1e3 * warm.prefill_s,
-        "prefill_tok_per_s": batch * LM_PROMPT / warm.prefill_s,
+        "prefill_tok_per_s": batch * prompt / warm.prefill_s,
         "decode_ms_per_step": 1e3 * warm.decode_s / LM_GEN,
         "decode_tok_per_s": batch * LM_GEN / warm.decode_s,
         "peak_memory_gb_bf16": peak_gb,
     }
+    if moe:
+        result.update(capacity_factor=cfg.capacity_factor,
+                      prefill_dropped_slot_share=dropped,
+                      prefill_dropped_slot_share_by_layer=dropped_by_layer,
+                      compared_capacity_factor=twin_cfg.capacity_factor,
+                      decode_vs_prefill_bf16_served=cmp_served)
+    emit(phase or f"lm_{cfg.family}",
+         limits={"rtol": LM_RTOL, "atol": LM_ATOL,
+                 "f32_err_of_scale": LM_F32_TOL,
+                 "bf16_held": arch in LM_BF16_HELD}, **result)
     assert first.tokens.shape == (batch, LM_GEN), first.tokens.shape
     assert cmp16["finite"] and cmp32["finite"], result
     assert cmp32["within_rtol_atol"] and cmp32["err_of_scale"] <= LM_F32_TOL, result
-    if cfg.family == "dense":
+    if arch in LM_BF16_HELD:
         assert cmp16["within_rtol_atol"], result
-    assert got == want_launch and got32 == want_launch, (got, got32, want_launch)
+    if arch in LM_BF16_CUT:
+        assert bf16_depth[f"L{LM_BF16_CUT[arch]}"]["within_rtol_atol"], result
+    assert got == want_launch and got32 == want32, (got, got32, want_launch,
+                                                    want32)
+    assert sum(k5_by_shape.values()) == got["decode_attn"], (k5_by_shape, got)
     assert not sites, f"host syncs inside the decode loop: {sorted(set(sites))}"
-    emit(f"lm_{cfg.family}", limits={"rtol": LM_RTOL, "atol": LM_ATOL,
-                                     "f32_err_of_scale": LM_F32_TOL},
-         **result)
     return result
+
+
+def run_lm_zoo() -> dict:
+    """Phase ``lm_zoo``: ``run_lm`` for every model of ``LM_ZOO``, one at a
+    time (each freed before the next: qwen3-moe alone peaks near 72 GB),
+    and K5 timed at each one's decode shapes (``time_decode_attn``'s
+    method, L2-hot) beside its plain version, each shape with the calls
+    its model's generate made at it (``launches``: a layer of that kind a
+    step, and their sum the wrapper's count). Returns {"models": the
+    ``run_lm`` results, "k5": the timings by ``zoo_k5_shapes`` key}."""
+    t0 = time.perf_counter()
+    models = {}
+    for arch, batch, prompt in LM_ZOO:
+        models[arch] = run_lm(arch, batch, prompt, phase=f"lm_zoo/{arch}")
+        _free()
+    k5 = time_zoo_decode_attn()
+    for key, arch, b, h, kv, dh, s, _, win, per_step in zoo_k5_shapes():
+        calls = models[arch]["decode_attn_calls_by_shape"]
+        k5[key]["launches"] = calls.get(k5_shape_key(b, h, kv, dh, s, win), 0)
+    keys = ("batch", "prompt", "n_params", "prefill_ms", "prefill_tok_per_s",
+            "decode_ms_per_step", "decode_tok_per_s", "peak_memory_gb_bf16",
+            "launches")
+    emit("lm_zoo", card=nvidia_smi_line(),
+         models={arch: {key: r[key] for key in keys}
+                 for arch, r in models.items()},
+         k5=k5, seconds=time.perf_counter() - t0)
+    for key, arch, *_, per_step in zoo_k5_shapes():
+        assert k5[key]["launches"] == per_step * LM_GEN, (key, k5[key])
+    return {"models": models, "k5": k5}
 
 
 def decode_attn_bound(b, h, kv, dh, rows, dtype) -> dict:
@@ -3294,6 +3564,37 @@ def _rotating(fn, args_list):
     return lambda: fn(*next(it))
 
 
+def _time_k5(b, h, kv, dh, s, pos, win, copies=1, dtype=torch.bfloat16):
+    """K5, its plain version and ``scaled_dot_product_attention`` (GQA, the
+    boolean mask over the whole cache) at one shape, each over ``copies``
+    sets of caches in turns (``time_ms``), beside the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_idx = torch.arange(s, device=DEV)
+    mask = t_idx <= pos
+    if win:
+        mask &= t_idx > pos - win
+    mask = mask[None, None, None]
+    ours, lib = [], []
+    for i in range(copies):
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, dtype, SEED + i)
+        ours.append((q, kc_, vc_, pos, win))
+        lib.append((q[:, :, None], kc_.transpose(1, 2).contiguous(),
+                    vc_.transpose(1, 2).contiguous()))
+    calls = {"decode_attn": {
+        "ms": _rotating(kd.decode_attn_cuda, ours),
+        "plain_ms": _rotating(decode_attn_ref, ours),
+        "library_ms": _rotating(lambda q4, k_t, v_t: sdpa(
+            q4, k_t, v_t, attn_mask=mask, enable_gqa=True), lib)}}
+    lo, hi = valid_rows(s, pos, win)
+    bounds = {"decode_attn": decode_attn_bound(b, h, kv, dh, hi - lo + 1,
+                                               dtype)}
+    row = _time_calls(calls, bounds)["decode_attn"]
+    row.update(B=b, H=h, KV=kv, Dh=dh, S=s, pos=pos, window=win,
+               rows_read=hi - lo + 1, cache_copies=copies,
+               plan=da_plan(b, h, kv, dh, lo, hi, dtype))
+    return row
+
+
 def time_decode_attn() -> dict:
     """K5 at gemma3-1b's decode shapes (a global and a local layer at the
     path's last step), L2-hot (one set of caches, as ``time_ms`` leaves
@@ -3301,41 +3602,24 @@ def time_decode_attn() -> dict:
     B=8, S=32768 (268 MB: cold by itself). Library yardstick:
     ``scaled_dot_product_attention`` with GQA and the boolean mask over the
     whole cache, timed the same way."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    table = {}
     pos = LM_PROMPT + LM_GEN - 1
-    b, h, kv, dh, dtype = LM_DENSE_BATCH, 4, 1, 256, torch.bfloat16
+    shape = (LM_DENSE_BATCH, 4, 1, 256)
+    table = {}
     for name, s, p_, win, copies in (
             ("gemma3_global", LM_PROMPT + LM_GEN, pos, 0, 1),
             ("gemma3_local", LM_PROMPT + LM_GEN, pos, 512, 1),
             ("gemma3_global_cold", LM_PROMPT + LM_GEN, pos, 0, DA_COLD_COPIES),
             ("gemma3_local_cold", LM_PROMPT + LM_GEN, pos, 512, DA_COLD_COPIES),
             ("long_B8_S32768", 32768, 32767, 0, 1)):
-        t_idx = torch.arange(s, device=DEV)
-        mask = t_idx <= p_
-        if win:
-            mask &= t_idx > p_ - win
-        mask = mask[None, None, None]
-        ours, lib = [], []
-        for i in range(copies):
-            q, kc_, vc_ = da_inputs(b, h, kv, dh, s, dtype, dtype, SEED + i)
-            ours.append((q, kc_, vc_, p_, win))
-            lib.append((q[:, :, None], kc_.transpose(1, 2).contiguous(),
-                        vc_.transpose(1, 2).contiguous()))
-        calls = {"decode_attn": {
-            "ms": _rotating(kd.decode_attn_cuda, ours),
-            "plain_ms": _rotating(decode_attn_ref, ours),
-            "library_ms": _rotating(lambda q4, k_t, v_t: sdpa(
-                q4, k_t, v_t, attn_mask=mask, enable_gqa=True), lib)}}
-        lo, hi = valid_rows(s, p_, win)
-        bounds = {"decode_attn": decode_attn_bound(b, h, kv, dh, hi - lo + 1,
-                                                   dtype)}
-        table[name] = _time_calls(calls, bounds)["decode_attn"]
-        table[name].update(S=s, pos=p_, window=win, rows_read=hi - lo + 1,
-                           cache_copies=copies,
-                           plan=da_plan(b, h, kv, dh, lo, hi, dtype))
-        del ours, lib
+        table[name] = _time_k5(*shape, s, p_, win, copies)
     return table
+
+
+def time_zoo_decode_attn() -> dict:
+    """K5 at every ``zoo_k5_shapes`` shape (the last decode step of each
+    ``LM_ZOO`` model, every layer kind it has), L2-hot."""
+    return {key: _time_k5(b, h, kv, dh, s, pos, win)
+            for key, _, b, h, kv, dh, s, pos, win, _ in zoo_k5_shapes()}
 
 
 def time_lm_kernels() -> dict:
@@ -3364,6 +3648,11 @@ def main() -> None:
                            "kernel_check_block_quant_fuse) and time them "
                            "(timing_k4), and stop: no other phase; the last "
                            "line as in a full run")
+    only.add_argument("--zoo-only", action="store_true",
+                      help="build the decode-attention kernel, check it "
+                           "(kernel_check_decode_attn), run the lm_zoo "
+                           "phase (every LM family at its published width) "
+                           "and stop: the last line as in a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -3382,7 +3671,8 @@ def main() -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    names = (["wkv6"] if args.k6_only else ["decode_attn"] if args.k5_only
+    names = (["wkv6"] if args.k6_only
+             else ["decode_attn"] if args.k5_only or args.zoo_only
              else ["quantize"] if args.k4_only
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
@@ -3404,6 +3694,17 @@ def main() -> None:
     if "wkv6" in paths:
         assert any(op.startswith("HMMA") for op in
                    RESULT["build"]["wkv6_sass_tensor_ops"]), RESULT["build"]
+    if args.zoo_only:
+        check_decode_attn_kernel()
+        run_lm_zoo()
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(RESULT, fh, indent=1)
+        print(smi, flush=True)
+        print_last_line()
+        return
     if args.sharded_only:
         check_wire_kernels()
         run_sharded()
@@ -3489,6 +3790,7 @@ def main() -> None:
 
     # each kernel: its time at the shape its main path gives it, its
     # launches on the path(s) that drove it (counts reset just before each)
+    row_launches = ctx["launches"]
     col_launches, bq_launches = col_ctx["launches"], bq_ctx["launches"]
     # the serve, erasure and cluster phases' launches, each read just after
     # its own path
@@ -3497,6 +3799,12 @@ def main() -> None:
                    + cluster_ctx["launches"].get(key, 0)
                    for key in serve_ctx["launches"]}
     sh_launches = sharded_ctx["launches"]
+    # the LM zoo last, with the solve phases' operands freed: qwen3-moe
+    # alone peaks near 72 GB
+    del ctx, col_ctx, bq_ctx, serve_ctx, erasure_ctx, cluster_ctx, sharded_ctx
+    _BUSY.clear()
+    _free()
+    lm_zoo = run_lm_zoo()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
     wire_row = lambda name: (wire_times["row_D1"][name],
                              sh_launches[name], wire_err)
@@ -3506,13 +3814,13 @@ def main() -> None:
                               errs[(case, "float32")]["f_max_abs_err"])
     rows = {
         "amp_local": (kernel_times["paper_P30/float32"]["amp_local"],
-                      ctx["launches"]["amp_local"] + sv_launches["amp_local"],
+                      row_launches["amp_local"] + sv_launches["amp_local"],
                       lc_err("paper_P30")),
         # no driven path takes it any more (N <= 131072 everywhere); timed
         # and checked past the cluster's reach
         "amp_local_two_pass": (
             kernel_times[f"{TWO_PASS_CASE}/float32"]["amp_local_two_pass"],
-            ctx["launches"]["amp_local_two_pass"]
+            row_launches["amp_local_two_pass"]
             + col_launches["amp_local_two_pass"]
             + bq_launches["amp_local_two_pass"]
             + sv_launches["amp_local_two_pass"], lc_err(TWO_PASS_CASE)),
@@ -3539,6 +3847,7 @@ def main() -> None:
                              col_launches["block_quant_fuse"]
                              + bq_launches["block_quant_fuse"]
                              + sv_launches["block_quant_fuse"], fuse_err),
+        # gemma3-1b's serve path (B=8), read just after its generate
         "decode_attn": (lm_times["gemma3_global"],
                         lm_dense["launches"]["decode_attn"],
                         errs_da["gemma3_global"]["max_abs_err"]),
@@ -3555,6 +3864,20 @@ def main() -> None:
             "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
+    # K5 on the zoo's paths: a row a model and layer kind, timed at that
+    # shape, with the calls its model's generate made there
+    zoo_case = zoo_da_cases()
+    for key, *_ in zoo_k5_shapes():
+        tm = lm_zoo["k5"][key]
+        assert tm["launches"] > 0, (key, tm)
+        kernels.append({
+            "name": f"decode_attn/{key}", "route": "cuda",
+            "source": SOURCES["decode_attn"],
+            "replaces": REPLACES["decode_attn"], "launches": tm["launches"],
+            "max_abs_err": errs_da[zoo_case[key]]["max_abs_err"],
+            "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,7 +1,7 @@
-"""Architecture registry of the port: the dense and RWKV-6 models whose
-serving path runs here (gemma3-1b, glm4-9b, granite-3-8b, yi-34b, rwkv6-3b).
-The JAX package's MoE, RG-LRU, Whisper and M-RoPE (qwen2-vl) configs are not
-registered: their model code is not ported."""
+"""Architecture registry of the port: the same ten configs as the JAX
+package's (dense: gemma3-1b, glm4-9b, granite-3-8b, yi-34b, qwen2-vl-7b with
+M-RoPE; moe: qwen3-moe-30b-a3b, mixtral-8x7b; rwkv6-3b; recurrentgemma-2b;
+whisper-small), all of which serve here."""
 from .base import (ModelConfig, ShapeSpec, SHAPES, get_config, list_archs,
                    register)
 
@@ -10,7 +10,11 @@ __all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "get_config", "list_archs",
 
 _LOADED = False
 
-_ARCH_MODULES = ["rwkv6_3b", "gemma3_1b", "glm4_9b", "granite_3_8b", "yi_34b"]
+_ARCH_MODULES = [
+    "rwkv6_3b", "gemma3_1b", "glm4_9b", "granite_3_8b", "yi_34b",
+    "whisper_small", "qwen3_moe_30b_a3b", "mixtral_8x7b",
+    "recurrentgemma_2b", "qwen2_vl_7b",
+]
 
 
 def _ensure_loaded():

@@ -1,15 +1,22 @@
 """Serving launcher: batched prefill, then greedy decode against the KV cache
-(dense) or the recurrent state (rwkv6). The port of the JAX package's
-``launch/serve.py``.
+(dense, moe, whisper) or the recurrent state (rwkv6; rglru with its local
+attention's KV cache). The port of the JAX package's ``launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       [--smoke] [--device cpu] --batch 4 --prompt-len 32 --gen 16 --seed 0
 
 Weights are a random init from the seed (no weights are on disk). As the
 reference does, the decode loop starts by feeding the prompt's last token
-at position ``prompt_len`` and the cache holds ``prompt_len + gen`` rows.
-The next token stays on the device; the generated ids are copied to the
-host once, after the loop (the reference copies them every step).
+at position ``prompt_len``, a decode cache holds ``prompt_len + gen`` rows,
+and the stubbed frontends get inputs of ones (whisper's frames, qwen2-vl's
+vision embeddings). The next token stays on the device; the generated ids
+are copied to the host once, after the loop (the reference copies them
+every step).
+
+Where the reference hands rglru's prefill state straight to decode (its
+K/V caches only ``prompt_len`` rows long, so every decode write lands on
+the last prompt row: ROADMAP Queue 3), ``prefill`` places the prompt's K/V
+into a cache of ``max_len`` rows, as for the dense family.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 from ..configs import get_config
 from ..models import get_model
 
-__all__ = ["Generation", "prefill", "decode", "generate", "main"]
+__all__ = ["Generation", "stub_inputs", "prefill", "decode", "generate",
+           "main"]
 
 
 @dataclasses.dataclass
@@ -39,18 +47,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prefill(model, prompts, max_len: int):
-    """Prefill ``prompts`` (B, P) and return the decode state: the dense
-    family's cache of ``max_len`` rows with the prompt's K/V in its first P
-    rows, or the recurrent family's state after the prompt."""
+def stub_inputs(model, batch: int, seq: int) -> dict:
+    """The stubbed frontends' inputs, ones in bf16 on the model's device, as
+    the reference's serve loop passes them (``model.aux_inputs``)."""
+    return {name: torch.ones(m.shape, dtype=m.dtype, device=model.device)
+            for name, m in model.aux_inputs(batch, seq).items()}
+
+
+def prefill(model, prompts, max_len: int, aux: dict | None = None):
+    """Prefill ``prompts`` (B, P) (with the stub inputs ``aux``) and return
+    the decode state: a cache of ``max_len`` rows with the prompt's K/V in
+    its first P rows (dense, moe, whisper with its cross K/V; rglru with
+    its recurrent state beside it), or rwkv6's state after the prompt."""
     b, p = prompts.shape
-    if model.cfg.family == "dense":
-        _, (k, v) = model(prompts, mode="prefill")
-        state = model.init_state(b, max_len)
-        state["k"][:, :, :p] = k
-        state["v"][:, :, :p] = v
-        return state
-    _, state = model(prompts, mode="prefill")
+    family = model.cfg.family
+    _, caches = model(prompts, mode="prefill", **(aux or {}))
+    if family == "rwkv6":
+        return caches
+    state = model.init_state(b, max_len)
+    if family in ("dense", "moe"):
+        k, v = caches
+    else:
+        k, v = caches["k"], caches["v"]
+        for name, t in caches.items():
+            if name not in ("k", "v"):
+                state[name] = t
+    state["k"][:, :, :p] = k
+    state["v"][:, :, :p] = v
     return state
 
 
@@ -72,15 +95,16 @@ def decode(model, state, tok, start: int, gen: int, logits_out=None):
 
 @torch.inference_mode()
 def generate(model, prompts, gen: int, keep_logits: bool = False) -> Generation:
-    """Prefill ``prompts`` (B, P) ints (a tensor or an array), then ``gen``
-    greedy decode steps. Times are taken on the host clock, the device
-    synchronised at both ends."""
+    """Prefill ``prompts`` (B, P) ints (a tensor or an array) with the stub
+    inputs, then ``gen`` greedy decode steps. Times are taken on the host
+    clock, the device synchronised at both ends."""
     dev = model.device
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long).to(dev)
     b, p = prompts.shape
+    aux = stub_inputs(model, b, p)
     _sync(dev)
     t0 = time.perf_counter()
-    state = prefill(model, prompts, p + gen)
+    state = prefill(model, prompts, p + gen, aux)
     _sync(dev)
     t1 = time.perf_counter()
     logits = (torch.empty((b, gen, model.cfg.vocab_padded),

@@ -1,18 +1,23 @@
-"""The model interface of the port, over the families whose serving path
-runs here: ``dense`` (gemma3, glm4, granite, yi) and ``rwkv6``.
+"""The model interface of the port, over every family of the JAX package:
+``dense`` (gemma3, glm4, granite, yi, qwen2-vl) and ``moe`` (qwen3-moe,
+mixtral) in ``transformer``, ``rwkv6``, ``rglru`` (recurrentgemma) and
+``whisper``; serving only (prefill and decode), training is not ported.
 
-One ``nn.Module`` per family, both ``ModelBundle``s:
+One ``nn.Module`` per family, all ``ModelBundle``s:
 
-    model.forward(tokens, mode)             -> (hidden, caches / state)
+    model.forward(tokens, mode, **aux)      -> (hidden, caches / state)
     model.decode_step(tokens, state, pos)   -> (hidden, state)
     model.init_state(batch, max_len)        -> decode cache / state
+    model.aux_inputs(batch, seq)            -> stub-frontend inputs (meta tensors)
     model.logits(hidden)                    -> float32 vocab logits
 
-Parameters are registered one to one with the reference schema's paths:
-``embed/table`` is ``embed.table``, ``final_norm/w`` is ``final_norm.w``,
-and layer ``i``'s slice of a stacked ``layers/<name>`` is
-``layers.<i>.<name>`` (``state_from_flat``). They are inference weights
-(``requires_grad=False``): training waits.
+Parameters are registered one to one with the reference schema's paths,
+each '/' a module level: ``embed/table`` is ``embed.table``; a path stacked
+over a depth (``layers/*``, rglru's ``macro/*/*``, whisper's ``enc/*/*`` and
+``dec/*/*``) is split into views per slice, slice ``i`` of
+``macro/rec0/w_in`` being ``macro.rec0.<i>.w_in`` (``state_from_flat``);
+rglru's ``tail<i>/*`` are not stacked. They are inference weights
+(``requires_grad=False``).
 """
 from __future__ import annotations
 
@@ -20,11 +25,12 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import rwkv6, transformer
+from . import rglru, rwkv6, transformer, whisper
 from .layers import init_from_schema
 
-__all__ = ["ModelBundle", "DenseLM", "RWKV6LM", "get_model", "lm_logits",
-           "state_from_flat", "schema_for", "resolve_device"]
+__all__ = ["ModelBundle", "DenseLM", "RWKV6LM", "RGLRULM", "WhisperLM",
+           "get_model", "lm_logits", "state_from_flat", "schema_for",
+           "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -45,62 +51,93 @@ class _Params(nn.Module):
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
+_SCHEMAS = {"dense": transformer.dense_schema,
+            "moe": transformer.dense_schema,
+            "rwkv6": rwkv6.rwkv6_schema,
+            "rglru": rglru.rglru_schema,
+            "whisper": whisper.whisper_schema}
+
+
 def schema_for(cfg: ModelConfig) -> dict:
-    if cfg.family == "dense":
-        return transformer.dense_schema(cfg)
-    if cfg.family == "rwkv6":
-        return rwkv6.rwkv6_schema(cfg)
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported (only 'dense' and "
-        "'rwkv6' serve in this package)")
+    if cfg.family not in _SCHEMAS:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    return _SCHEMAS[cfg.family](cfg)
 
 
-def _names(path: str, n_layers: int) -> list[str]:
-    """The module names of a schema path (one per layer for ``layers/*``)."""
-    group, leaf = path.split("/", 1)
-    if group == "layers":
-        return [f"layers.{i}.{leaf}" for i in range(n_layers)]
-    return [f"{group}.{leaf}"]
+def _depth(group: str, cfg: ModelConfig) -> int | None:
+    """The stacked depth of a path's first group, None if not stacked."""
+    return {"layers": cfg.n_layers, "macro": rglru.macro_count(cfg)[0],
+            "enc": cfg.n_enc_layers, "dec": cfg.n_layers}.get(group)
+
+
+def _names(path: str, cfg: ModelConfig) -> list[str]:
+    """The module names of a schema path: one per slice of a stacked path
+    (the index after its group: ``layers.3.wq``, ``macro.rec0.3.w_in``),
+    else the path with '/' as '.'."""
+    *groups, leaf = path.split("/")
+    n = _depth(groups[0], cfg)
+    if n is None:
+        return [".".join(groups + [leaf])]
+    return [".".join(groups + [str(i), leaf]) for i in range(n)]
 
 
 def state_from_flat(flat: dict, cfg: ModelConfig) -> dict:
     """The module state (name -> tensor) of a flat reference-style dict
-    (path -> tensor, per-layer weights stacked on a leading axis): stacked
-    ``layers/*`` are split into views per layer, other paths renamed."""
+    (path -> tensor, stacked weights on a leading axis): stacked paths are
+    split into views per slice, other paths renamed."""
     state = {}
     for path, t in flat.items():
-        stacked = path.startswith("layers/")
-        if stacked and t.shape[0] != cfg.n_layers:
+        names = _names(path, cfg)
+        stacked = _depth(path.split("/")[0], cfg) is not None
+        if stacked and t.shape[0] != len(names):
             raise ValueError(f"{path}: {tuple(t.shape)} has no leading "
-                             f"axis of {cfg.n_layers} layers")
-        state.update(zip(_names(path, cfg.n_layers),
-                         t.unbind(0) if stacked else [t]))
+                             f"axis of {len(names)}")
+        state.update(zip(names, t.unbind(0) if stacked else [t]))
     return state
 
 
+def _tree(state: dict) -> dict:
+    """Module names -> a nested dict of their groups (keys are the names'
+    parts)."""
+    root: dict = {}
+    for name, t in state.items():
+        *parts, leaf = name.split(".")
+        node = root
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return root
+
+
+def _module(node: dict) -> nn.Module:
+    """The module of one group: its tensors as parameters (``_Params``), a
+    ``ModuleList`` of numbered slices, or a module of named subgroups."""
+    if all(isinstance(v, torch.Tensor) for v in node.values()):
+        return _Params(node)
+    if all(k.isdigit() for k in node):
+        return nn.ModuleList(_module(node[str(i)]) for i in range(len(node)))
+    mod = nn.Module()
+    for key, sub in node.items():
+        mod.add_module(key, _module(sub))
+    return mod
+
+
 class ModelBundle(nn.Module):
-    """What every family's module has: its config and schema, the embedding
-    and final norm, per-layer parameter groups, an optional untied head."""
+    """What every family's module has: its config and schema, and one
+    submodule per top-level group of the schema (``embed``, ``final_norm``,
+    ``layers``, an untied ``lm_head``, ...)."""
 
     def __init__(self, cfg: ModelConfig, state: dict):
         super().__init__()
         self.cfg = cfg
         self.schema = schema_for(cfg)
-        want = {n for p in self.schema for n in _names(p, cfg.n_layers)}
+        want = {n for p in self.schema for n in _names(p, cfg)}
         if set(state) != want:
             raise ValueError(f"state does not match the {cfg.name} schema: "
                              f"missing {sorted(want - set(state))}, "
                              f"unexpected {sorted(set(state) - want)}")
-        groups: dict = {}
-        for name, t in state.items():
-            *head, leaf = name.split(".")
-            groups.setdefault(".".join(head), {})[leaf] = t
-        self.embed = _Params(groups["embed"])
-        self.final_norm = _Params(groups["final_norm"])
-        if "lm_head" in groups:
-            self.lm_head = _Params(groups["lm_head"])
-        self.layers = nn.ModuleList(_Params(groups[f"layers.{i}"])
-                                    for i in range(cfg.n_layers))
+        for key, node in _tree(state).items():
+            self.add_module(key, _module(node))
 
     @property
     def device(self) -> torch.device:
@@ -114,12 +151,28 @@ class ModelBundle(nn.Module):
     def logits(self, hidden):
         return lm_logits(self, hidden)
 
+    def aux_inputs(self, batch: int, seq: int) -> dict:
+        """Stub-frontend inputs the forward takes besides the tokens, as
+        meta tensors (shape and dtype): whisper's post-conv ``frames``,
+        qwen2-vl's ``vision_embeds``; none for the other families (the
+        reference's ``ModelBundle.aux_inputs``)."""
+        del seq
+        cfg = self.cfg
+        meta = lambda n: torch.empty((batch, n, cfg.d_model),
+                                     dtype=torch.bfloat16, device="meta")
+        if cfg.family == "whisper":
+            return {"frames": meta(cfg.n_audio_frames)}
+        if cfg.n_vision_tokens:
+            return {"vision_embeds": meta(cfg.n_vision_tokens)}
+        return {}
+
 
 class DenseLM(ModelBundle):
-    """Decoder-only dense transformer (``models/transformer.py``)."""
+    """Decoder-only transformer, dense or MoE (``models/transformer.py``)."""
 
-    def forward(self, tokens, mode: str = "prefill"):
-        return transformer.dense_forward(self, tokens, self.cfg, mode)
+    def forward(self, tokens, mode: str = "prefill", vision_embeds=None):
+        return transformer.dense_forward(self, tokens, self.cfg, mode,
+                                         vision_embeds)
 
     def decode_step(self, tokens, state, pos: int):
         return transformer.dense_decode_step(self, tokens, state, pos, self.cfg)
@@ -143,7 +196,36 @@ class RWKV6LM(ModelBundle):
         return rwkv6.rwkv6_init_state(self.cfg, batch, self.device, self.dtype)
 
 
-_FAMILIES = {"dense": DenseLM, "rwkv6": RWKV6LM}
+class RGLRULM(ModelBundle):
+    """RecurrentGemma / Griffin (``models/rglru.py``)."""
+
+    def forward(self, tokens, mode: str = "prefill", state=None):
+        return rglru.rglru_forward(self, tokens, self.cfg, mode, state)
+
+    def decode_step(self, tokens, state, pos: int):
+        return rglru.rglru_decode_step(self, tokens, state, pos, self.cfg)
+
+    def init_state(self, batch: int, max_len: int):
+        return rglru.rglru_init_state(self.cfg, batch, max_len, self.device,
+                                      self.dtype)
+
+
+class WhisperLM(ModelBundle):
+    """Whisper encoder-decoder (``models/whisper.py``)."""
+
+    def forward(self, tokens, mode: str = "prefill", frames=None):
+        return whisper.whisper_forward(self, tokens, self.cfg, mode, frames)
+
+    def decode_step(self, tokens, state, pos: int):
+        return whisper.whisper_decode_step(self, tokens, state, pos, self.cfg)
+
+    def init_state(self, batch: int, max_len: int):
+        return whisper.whisper_init_cache(self.cfg, batch, max_len,
+                                          dtype=self.dtype, device=self.device)
+
+
+_FAMILIES = {"dense": DenseLM, "moe": DenseLM, "rwkv6": RWKV6LM,
+             "rglru": RGLRULM, "whisper": WhisperLM}
 
 
 def get_model(cfg: ModelConfig, device="cuda", seed: int = 0,

@@ -1,20 +1,24 @@
-"""Decoder-only transformer, dense family (gemma3, glm4, granite, yi): the
-port of the JAX package's ``models/transformer.py`` for serving — prefill
-(``dense_forward``, mode "prefill") and one-token decode
+"""Decoder-only transformer, dense and MoE families (gemma3, glm4, granite,
+yi, qwen2-vl with M-RoPE; qwen3-moe, mixtral with sliding-window attention):
+the port of the JAX package's ``models/transformer.py`` for serving —
+prefill (``dense_forward``, mode "prefill") and one-token decode
 (``dense_decode_step``) against a KV cache.
 
 The reference scans over stacked layers and carries gemma3's 5:1
 local:global pattern as a traced flag; here the layer loop is a Python
 loop and the flag a host bool, so choosing the mask, the RoPE table and the
-decode window costs nothing on the device. Decode attention goes through the
+decode window costs nothing on the device. Prefill attention is
+``layers.causal_attention``: the scores materialised up to 2048 positions,
+the streaming softmax past it. Decode attention goes through the
 decode-attention kernel (``kernels/decode_attn``, the TPU kernel K5's
 counterpart) with ``window = cfg.window`` on local layers and 0 on global
 ones; the reference computes the same function in jnp. The decode cache is
 updated in place at ``pos`` (the reference returns it anew; the values are
 the same).
 
-Not ported: MoE experts (``moe.py``), M-RoPE (qwen2-vl) and the streaming
-attention of prompts over 2048 tokens; each raises.
+M-RoPE (qwen2-vl): a decode step takes the position its own prefill gives
+that index (``layers.mrope_positions``), where the reference's decode step
+puts the raw index (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -23,27 +27,17 @@ import math
 import torch
 
 from ..kernels.decode_attn.ops import decode_attention
-from .layers import (ParamSchema, Schema, apply_rope, embed_tokens, head_mask,
-                     mm, rms_norm, rope_cache, swiglu)
+from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
+                     embed_tokens, mm, mrope_cache, mrope_positions,
+                     mrope_sections, out_proj, rms_norm, rope_cache, swiglu)
+from .moe import moe_mlp
 
-__all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache",
-           "check_dense", "MAX_PREFILL"]
+__all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache"]
 
-MAX_PREFILL = 2048   # longer prompts take the reference's streaming attention
-
-
-def check_dense(cfg) -> None:
-    """Raise for the parts of the dense family this package does not run."""
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE models (models/moe.py) are not ported")
-    if cfg.m_rope or cfg.n_vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE / vision inputs are "
-                                  "not ported")
+N_GROUPS = 16   # MoE token groups (the reference's ``n_groups`` default)
 
 
 def dense_schema(cfg) -> Schema:
-    check_dense(cfg)
     l, d, h, kv, dh, f, vp = (cfg.n_layers, cfg.d_model, cfg.h_eff,
                               cfg.kv_eff, cfg.d_head, cfg.d_ff,
                               cfg.vocab_padded)
@@ -58,11 +52,23 @@ def dense_schema(cfg) -> Schema:
         "layers/wv": ParamSchema((l, d, kv, dh), ("layers", "embed", "kv_heads", "head_dim")),
         "layers/wo": ParamSchema((l, h, dh, d), ("layers", "heads", "head_dim", "embed"),
                                  std=0.02 / math.sqrt(2 * l)),
-        "layers/w_gate": ParamSchema((l, d, f), ("layers", "embed", "mlp")),
-        "layers/w_up": ParamSchema((l, d, f), ("layers", "embed", "mlp")),
-        "layers/w_down": ParamSchema((l, f, d), ("layers", "mlp", "embed"),
-                                     std=0.02 / math.sqrt(2 * l)),
     }
+    if cfg.n_experts:
+        e, fe = cfg.n_experts, cfg.d_ff
+        s.update({
+            "layers/router": ParamSchema((l, d, e), ("layers", "embed", None)),
+            "layers/we_gate": ParamSchema((l, e, d, fe), ("layers", "experts", "embed", "expert_mlp")),
+            "layers/we_up": ParamSchema((l, e, d, fe), ("layers", "experts", "embed", "expert_mlp")),
+            "layers/we_down": ParamSchema((l, e, fe, d), ("layers", "experts", "expert_mlp", "embed"),
+                                          std=0.02 / math.sqrt(2 * l)),
+        })
+    else:
+        s.update({
+            "layers/w_gate": ParamSchema((l, d, f), ("layers", "embed", "mlp")),
+            "layers/w_up": ParamSchema((l, d, f), ("layers", "embed", "mlp")),
+            "layers/w_down": ParamSchema((l, f, d), ("layers", "mlp", "embed"),
+                                         std=0.02 / math.sqrt(2 * l)),
+        })
     if cfg.qk_norm:
         s["layers/q_norm"] = ParamSchema((l, dh), ("layers", None), init="zeros")
         s["layers/k_norm"] = ParamSchema((l, dh), ("layers", None), init="zeros")
@@ -79,10 +85,15 @@ def _embed_scale(cfg) -> bool:
     return cfg.family == "dense" and cfg.vocab > 200_000
 
 
-def _ropes_for(cfg, seq: int, device, pos0: int = 0):
+def _ropes_for(cfg, seq: int, device, pos0: int = 0, batch: int = 1):
     """RoPE tables (sin_g, cos_g, sin_l, cos_l) for positions pos0.. ;
     gemma3-style dual theta: local layers use 1e4 when the global theta is
-    another."""
+    another. M-RoPE: (B, S, Dh/2) tables of the 3-component positions."""
+    if cfg.m_rope:
+        pos3 = mrope_positions(batch, seq, cfg.n_vision_tokens, device, pos0)
+        sin, cos = mrope_cache(pos3, cfg.d_head, cfg.rope_theta,
+                               mrope_sections(cfg.d_head))
+        return sin, cos, None, None
     sin_g, cos_g = rope_cache(seq, cfg.d_head, cfg.rope_theta, device, pos0)
     if cfg.rope_theta != 1e4 and "local" in cfg.attn_pattern:
         sin_l, cos_l = rope_cache(seq, cfg.d_head, 1e4, device, pos0)
@@ -107,37 +118,26 @@ def _qkv(h, lp, cfg, sin, cos):
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _out_proj(ctx, lp, cfg):
-    """Head mask and output projection of ctx (B, S, H, Dh)."""
-    hm = head_mask(cfg, ctx.dtype, ctx.device)
-    if hm is not None:
-        ctx = ctx * hm[None, None, :, None]
-    return mm(ctx.flatten(-2), lp.wo.flatten(0, 1))
-
-
 def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos):
-    """Full-sequence causal attention (prefill), banded to ``cfg.window`` on
-    local layers; the scores are materialised (prompts up to 2048).
-    Returns (out (B, S, D), (k, v))."""
+    """Causal attention over the whole sequence (prefill), banded to
+    ``cfg.window`` on local layers (``layers.causal_attention``). Returns
+    (out (B, S, D), (k, v))."""
     b, s, _ = h.shape
     nh, kv, dh = cfg.h_eff, cfg.kv_eff, cfg.d_head
-    if s > MAX_PREFILL:
-        raise NotImplementedError(
-            f"a prompt of {s} tokens needs the streaming attention of the "
-            f"reference (over {MAX_PREFILL}), which is not ported")
     q, k, v = _qkv(h, lp, cfg, sin, cos)
     qg = q.reshape(b, s, kv, nh // kv, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k.float()) / math.sqrt(dh)
-    qi = torch.arange(s, device=h.device)[:, None]
-    kj = torch.arange(s, device=h.device)[None, :]
-    ok = kj <= qi
-    if is_local and cfg.window > 0:
-        ok &= kj > qi - cfg.window
-    scores = scores.masked_fill(~ok, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(h.dtype)
-    ctx = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(b, s, nh, dh)
-    return _out_proj(ctx, lp, cfg).to(h.dtype), (k, v)
+    ctx = causal_attention(qg, k, v, cfg.window if is_local else 0,
+                           cfg.attn_q_chunk, cfg.attn_kv_chunk,
+                           cfg.scores_bf16)
+    ctx = ctx.to(h.dtype).reshape(b, s, nh, dh)
+    return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
+
+
+def _mlp(x, lp, cfg):
+    if cfg.n_experts:
+        return moe_mlp(x, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
+                       N_GROUPS)
+    return swiglu(x, lp.w_gate, lp.w_up, lp.w_down)
 
 
 def _layer_body(x, lp, cfg, is_local: bool, ropes):
@@ -147,19 +147,28 @@ def _layer_body(x, lp, cfg, is_local: bool, ropes):
     attn_out, kv_out = _attention_flagged(h, lp, cfg, is_local, sin, cos)
     x = x + attn_out
     h = rms_norm(x, lp.pre_mlp_norm, cfg.norm_eps)
-    x = x + swiglu(h, lp.w_gate, lp.w_up, lp.w_down)
+    x = x + _mlp(h, lp, cfg)
     return x, kv_out
 
 
-def dense_forward(model, tokens, cfg, mode: str = "prefill"):
+def dense_forward(model, tokens, cfg, mode: str = "prefill",
+                  vision_embeds=None):
     """Full-sequence forward of ``model`` (a ``DenseLM``). Returns (hidden
-    (B, S, D), (k, v) caches (L, B, S, KV, Dh)). Only mode "prefill" is
-    ported: training is not."""
+    (B, S, D), (k, v) caches (L, B, S, KV, Dh)). ``vision_embeds`` (B,
+    n_vision, D), if given, replace the first embeddings (qwen2-vl's
+    stubbed vision tower). Only mode "prefill" is ported: training is
+    not."""
     if mode != "prefill":
-        raise ValueError(f"mode={mode!r}: need 'prefill'")
+        raise ValueError(f"mode={mode!r}: need 'prefill' (training is not "
+                         "ported)")
     b, s = tokens.shape
     x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
-    ropes = _ropes_for(cfg, s, x.device)
+    if vision_embeds is not None and cfg.n_vision_tokens:
+        if s < vision_embeds.shape[1]:
+            raise ValueError(f"{cfg.name}: a prompt of {s} tokens cannot hold "
+                             f"{vision_embeds.shape[1]} vision embeddings")
+        x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+    ropes = _ropes_for(cfg, s, x.device, batch=b)
     ks, vs = [], []
     for lp, is_local in zip(model.layers, _is_local_flags(cfg)):
         x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes)
@@ -181,7 +190,7 @@ def dense_decode_step(model, tokens, cache, pos: int, cfg):
     Dh), written in place at row ``pos`` (a Python int). Returns (hidden
     (B, 1, D), cache)."""
     x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
-    ropes = _ropes_for(cfg, 1, x.device, pos0=pos)
+    ropes = _ropes_for(cfg, 1, x.device, pos0=pos, batch=x.shape[0])
     for i, (lp, is_local) in enumerate(zip(model.layers,
                                            _is_local_flags(cfg))):
         sin, cos = _rope_of(ropes, is_local)
@@ -192,7 +201,7 @@ def dense_decode_step(model, tokens, cache, pos: int, cfg):
         v_c[:, pos] = v[:, 0].to(v_c.dtype)
         window = cfg.window if is_local else 0
         ctx = decode_attention(q[:, 0], k_c, v_c, pos, window)[:, None]
-        x = x + _out_proj(ctx, lp, cfg).to(x.dtype)
+        x = x + out_proj(ctx, lp.wo, cfg).to(x.dtype)
         h2 = rms_norm(x, lp.pre_mlp_norm, cfg.norm_eps)
-        x = x + swiglu(h2, lp.w_gate, lp.w_up, lp.w_down)
+        x = x + _mlp(h2, lp, cfg)
     return rms_norm(x, model.final_norm.w, cfg.norm_eps), cache

@@ -62,8 +62,15 @@ def test_port_has_the_expected_modules():
                  "repro_torch.configs.glm4_9b",
                  "repro_torch.configs.granite_3_8b",
                  "repro_torch.configs.yi_34b",
+                 "repro_torch.configs.qwen3_moe_30b_a3b",
+                 "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.configs.qwen2_vl_7b",
+                 "repro_torch.configs.whisper_small",
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.rwkv6", "repro_torch.models.model_api",
+                 "repro_torch.models.moe", "repro_torch.models.rglru",
+                 "repro_torch.models.whisper",
                  "repro_torch.kernels.decode_attn.ops",
                  "repro_torch.kernels.decode_attn.ref",
                  "repro_torch.kernels.decode_attn.decode_attn",
@@ -497,6 +504,46 @@ def test_loop_body_sources_hold_no_sync_calls():
         src = inspect.getsource(fn)
         hit = pat.search(src)
         assert hit is None, f"{fn.__qualname__}: {hit.group(0)!r}"
+
+
+def test_lm_decode_sources_hold_no_sync_calls():
+    """Source check on what a decode step of every family runs (the MoE
+    dispatch, the M-RoPE tables, the recurrent blocks, Whisper's two
+    attentions); ``test_torch_{models,moe,rglru,mrope,whisper}.py`` run
+    the decode loops themselves under the runtime guard."""
+    import inspect
+    from repro_torch.models import layers, moe, rglru, transformer, whisper
+    fns = [tserve.decode, transformer.dense_decode_step, transformer._mlp,
+           transformer._ropes_for, transformer._qkv, layers.out_proj,
+           moe.moe_mlp, moe._dispatch_group, moe.route,
+           layers.mrope_positions, layers.mrope_cache, layers.apply_rope,
+           layers.rope_cache, rglru.rglru_decode_step, rglru._rec_block,
+           rglru._sub_states, rglru._mlp_tail, whisper.whisper_decode_step,
+           whisper._gelu_mlp]
+    pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\("
+                     r"|(?<![\w.])(float|bool)\(")
+    for fn in fns:
+        src = inspect.getsource(fn)
+        hit = pat.search(src)
+        assert hit is None, f"{fn.__qualname__}: {hit.group(0)!r}"
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b",
+                                  "recurrentgemma-2b", "qwen2-vl-7b",
+                                  "whisper-small"])
+def test_every_family_defaults_to_the_card(arch, monkeypatch):
+    """``get_model`` and the serve launcher raise without a card for every
+    family, and run on the CPU when asked."""
+    cfg = get_config(arch).smoke_config()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserve.main(["--arch", arch, "--smoke"])
+    out = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "17", "--gen", "3"])
+    assert out.tokens.shape == (2, 3)
 
 
 def test_version():

@@ -3,47 +3,24 @@ decode and greedy ``generate`` of the smoke configs of gemma3-1b (dense,
 5:1 local:global, qk-norm, dual RoPE), granite-3-8b (dense, GQA) and
 rwkv6-3b (the WKV recurrence), plus gemma3 at its real vocab of 262144,
 which takes the sqrt(d) embedding scale. Both packages get the same
-parameters: the reference's ``init_params(PRNGKey(0))``, carried across by
-``convert.lm_params_from_arrays``.
-
-Tolerance. Everything is bfloat16 with float32 norms and softmax, and the
-two frameworks round at different places (XLA fuses elementwise chains
-before it rounds; the port's plain decode attention keeps the
-probabilities in float32 where the reference rounds them to bf16 before
-PV). So agreement is at bf16 level, not float32:
-  * prefill hidden (after the final norm): within 2^-5 of its scale
-    (max |h|), a few bf16 ulps (2^-8 relative) of the largest entries
-    (0.4-0.9 % seen);
-  * logits: within 2 % of their scale (max |logits|) — the logits are
-    float32 products of the bf16 hidden and the bf16 table, so they carry
-    the hidden's error (0.13-0.56 % seen in prefill);
-  * the port's own prefill against its own decode: the reference's own
-    bound for its consistency test (``tests/test_models.py``: rtol 0.05,
-    atol 0.15) is loose next to logits of scale ~1.6, so the same 2 % of
-    scale is used;
-  * generated ids: identical up to the first step where they differ; there
-    the reference's top two logits must be within the logits' tolerance (a
-    near tie), after which the two continuations are free to differ.
+parameters (``torch_lm.pair``); the tolerances are ``torch_lm``'s. The
+other families are held the same way in ``test_torch_{moe,rglru,mrope,
+whisper}.py``, the streaming attention in ``test_torch_streaming.py``.
 """
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as j_get_config
-from repro.models import get_model as j_get_model
-from repro.models import lm_logits as j_lm_logits
-from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.launch.serve import generate
 from repro_torch.models import get_model
-
-H_TOL = 2.0 ** -5       # of max |hidden|
-LOGIT_TOL = 0.02        # of max |logits|
-PROMPT, GEN = 12, 8
+from torch_lm import (check_decode_asks_the_host_nothing,
+                      check_decode_logits, check_generate,
+                      check_own_consistency, check_prefill_hidden, pair,
+                      tokens)
 
 CASES = {
     "gemma3-1b": lambda c: c.smoke_config(),
@@ -55,102 +32,28 @@ CASES = {
         c.smoke_config(), vocab=262144, n_layers=2),
 }
 
-_BUILT: dict = {}
-
 
 def _pair(case):
-    """(reference bundle, reference params, cfg, port model, jitted step)."""
-    if case not in _BUILT:
-        arch = case.split("-vocab")[0]
-        cfg = CASES[case](j_get_config(arch))
-        tcfg = CASES[case](get_config(arch))
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
-        m = j_get_model(cfg)
-        params = m.init_params(jax.random.PRNGKey(0))
-        state = convert.lm_params_from_arrays(
-            {k: np.asarray(v) for k, v in params.items()}, tcfg, "cpu")
-        model = get_model(tcfg, device="cpu", state=state)
-        step = jax.jit(lambda p, t, s, i: m.decode_step(p, t, s, i, cfg))
-        _BUILT[case] = (m, params, cfg, model, step)
-    return _BUILT[case]
-
-
-def _tokens(cfg, b, n, seed):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, n))
-
-
-def _jf32(x):
-    return np.asarray(x.astype(jnp.float32))
-
-
-def _ref_prefill_state(m, params, cfg, prompts, max_len):
-    _, caches = m.forward(params, prompts, cfg, mode="prefill")
-    state = m.init_state(cfg, prompts.shape[0], max_len)
-    if cfg.family == "dense":
-        p = prompts.shape[1]
-        state["k"] = state["k"].at[:, :, :p].set(caches[0])
-        state["v"] = state["v"].at[:, :, :p].set(caches[1])
-        return state
-    return caches
-
-
-def _assert_scaled(got, want, tol, what):
-    scale = np.abs(want).max()
-    err = np.abs(got - want).max()
-    assert err <= tol * scale, f"{what}: {err:.4g} > {tol} * {scale:.4g}"
+    return pair(case, case.split("-vocab")[0], CASES[case])
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_prefill_hidden_matches_reference(case):
-    m, params, cfg, model, _ = _pair(case)
-    toks = _tokens(cfg, 2, 40, seed=1)
-    jh, _ = m.forward(params, jnp.asarray(toks, jnp.int32), cfg, mode="prefill")
-    th, _ = model(torch.as_tensor(toks), mode="prefill")
-    assert th.dtype == torch.bfloat16 and th.shape == (2, 40, cfg.d_model)
-    _assert_scaled(th.float().numpy(), _jf32(jh), H_TOL, "hidden")
+    check_prefill_hidden(_pair(case))
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_decode_logits_match_reference(case):
     """Prefill a prompt, then 8 decode steps fed the same tokens on both
     sides: the logits of every step."""
-    m, params, cfg, model, step = _pair(case)
-    toks = _tokens(cfg, 2, PROMPT + GEN, seed=2)
-    prompts, fed = toks[:, :PROMPT], toks[:, PROMPT:]
-    jstate = _ref_prefill_state(m, params, cfg, jnp.asarray(prompts, jnp.int32),
-                                PROMPT + GEN)
-    with torch.inference_mode():
-        _, tcaches = model(torch.as_tensor(prompts), mode="prefill")
-        if cfg.family == "dense":
-            tstate = model.init_state(2, PROMPT + GEN)
-            tstate["k"][:, :, :PROMPT] = tcaches[0]
-            tstate["v"][:, :, :PROMPT] = tcaches[1]
-        else:
-            tstate = tcaches
-        for i in range(GEN):
-            jh, jstate = step(params, jnp.asarray(fed[:, i:i + 1], jnp.int32),
-                              jstate, PROMPT + i)
-            th, tstate = model.decode_step(torch.as_tensor(fed[:, i:i + 1]),
-                                           tstate, PROMPT + i)
-            _assert_scaled(model.logits(th).numpy(),
-                           np.asarray(j_lm_logits(params, jh, cfg)),
-                           LOGIT_TOL, f"step {i} logits")
+    check_decode_logits(_pair(case))
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_decode_matches_its_own_prefill(case):
     """Token-by-token decode from an empty state against one prefill over
     the same tokens (the reference's consistency test, on the port)."""
-    _, _, cfg, model, _ = _pair(case)
-    toks = torch.as_tensor(_tokens(cfg, 1, 8, seed=3))
-    with torch.inference_mode():
-        full, _ = model(toks, mode="prefill")
-        want = model.logits(full).numpy()
-        state = model.init_state(1, 8)
-        for i in range(8):
-            h, state = model.decode_step(toks[:, i:i + 1], state, i)
-            _assert_scaled(model.logits(h)[:, 0].numpy(), want[:, i],
-                           LOGIT_TOL, f"position {i}")
+    check_own_consistency(_pair(case))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -158,66 +61,55 @@ def test_generate_matches_reference_serve_loop(case):
     """``generate`` against the reference's serve loop (prefill, then greedy
     decode from the prompt's last token at position P, argmax of float32
     logits)."""
-    m, params, cfg, model, step = _pair(case)
-    prompts = _tokens(cfg, 3, PROMPT, seed=4)
-    state = _ref_prefill_state(m, params, cfg, jnp.asarray(prompts, jnp.int32),
-                               PROMPT + GEN)
-    tok = jnp.asarray(prompts[:, -1:], jnp.int32)
-    ids, gaps, scales = [], [], []
-    for i in range(GEN):
-        h, state = step(params, tok, state, PROMPT + i)
-        logits = np.asarray(j_lm_logits(params, h, cfg))[:, -1]
-        top2 = np.sort(logits, axis=-1)[:, -2:]
-        gaps.append(top2[:, 1] - top2[:, 0])
-        scales.append(np.abs(logits).max())
-        tok = jnp.asarray(np.argmax(logits, -1)[:, None], jnp.int32)
-        ids.append(np.argmax(logits, -1))
-    ids, gaps = np.stack(ids, 1), np.stack(gaps, 1)
-    out = generate(model, prompts, GEN)
-    assert out.tokens.shape == (3, GEN) and out.logits is None
-    for row in range(3):
-        diff = np.flatnonzero(out.tokens[row] != ids[row])
-        if diff.size:
-            first = diff[0]
-            assert gaps[row, first] <= LOGIT_TOL * scales[first], (
-                row, first, out.tokens[row], ids[row], gaps[row])
+    check_generate(_pair(case))
 
 
 @pytest.mark.parametrize("case", ["gemma3-1b", "rwkv6-3b"])
 def test_decode_loop_asks_the_host_nothing(case, monkeypatch):
     """While ``serve.decode`` runs, nothing reads a tensor's value on the
-    host (on the card each such call would wait for the device) and no
-    Python number is written into a tensor (a copy from the host)."""
-    from repro_torch.launch import serve
-    _, _, cfg, model, _ = _pair(case)
-    prompts = torch.as_tensor(_tokens(cfg, 2, PROMPT, seed=6))
-    with torch.inference_mode():
-        state = serve.prefill(model, prompts, PROMPT + 4)
-        setitem = torch.Tensor.__setitem__
-
-        def checked_setitem(self, index, value):
-            if isinstance(value, (int, float)):
-                raise AssertionError("a Python number written into a tensor")
-            return setitem(self, index, value)
-
-        def boom(name):
-            def raiser(self, *a, **k):
-                raise AssertionError(f"host sync inside the loop: {name}")
-            return raiser
-        with monkeypatch.context() as mp:
-            for name in ("item", "tolist", "__bool__", "__float__", "__int__",
-                         "cpu", "numpy", "__index__"):
-                mp.setattr(torch.Tensor, name, boom(name))
-            mp.setattr(torch.Tensor, "__setitem__", checked_setitem)
-            ids = serve.decode(model, state, prompts[:, -1:], PROMPT, 4)
-    assert ids.shape == (2, 4)
+    host and no Python number is written into a tensor."""
+    check_decode_asks_the_host_nothing(_pair(case), monkeypatch)
 
 
 def test_generate_keeps_the_logits_it_chose_from():
-    _, _, cfg, model, _ = _pair("gemma3-1b")
-    out = generate(model, _tokens(cfg, 2, PROMPT, seed=5), 4, keep_logits=True)
-    assert out.logits.shape == (2, 4, cfg.vocab_padded)
+    model = _pair("gemma3-1b").model
+    out = generate(model, tokens(model.cfg, 2, 12, seed=5), 4,
+                   keep_logits=True)
+    assert out.logits.shape == (2, 4, model.cfg.vocab_padded)
     np.testing.assert_array_equal(out.logits.argmax(-1).numpy(), out.tokens)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_config_matches_reference(arch):
+    """Every registered config, at full size and smoke size, field for
+    field the JAX package's (the same ten archs in both registries)."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs import list_archs as j_list_archs
+    assert list_archs() == j_list_archs()
+    cfg, ref = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert (dataclasses.asdict(cfg.smoke_config())
+            == dataclasses.asdict(ref.smoke_config()))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_params_carried_bit_for_bit(arch):
+    """``convert.lm_params_from_arrays`` gives every module parameter the
+    reference's bits: stacked paths slice by slice (``layers/*``,
+    ``macro/*/*``, ``enc/*/*``, ``dec/*/*``), the others whole."""
+    from repro_torch.models.model_api import _depth, _names
+    pr = pair(arch, arch)
+    cfg = pr.model.cfg
+    got = dict(pr.model.named_parameters())
+    assert len(got) == sum(len(_names(p, cfg)) for p in pr.params)
+    for path, a in pr.params.items():
+        a = np.asarray(a.view(jnp.int16) if a.dtype == jnp.bfloat16 else a)
+        stacked = _depth(path.split("/")[0], cfg) is not None
+        for i, name in enumerate(_names(path, cfg)):
+            t = got[name].detach()
+            t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            np.testing.assert_array_equal(t.numpy(), a[i] if stacked else a,
+                                          err_msg=name)
 
 
 @pytest.mark.parametrize("d", [64, 72, 1152])
@@ -238,12 +130,21 @@ def test_scaled_embedding_is_bit_identical_to_reference(d):
     np.testing.assert_array_equal(got.view(torch.int16).numpy(), want)
 
 
-def test_not_ported_families_and_long_prompts_raise():
-    cfg = get_config("gemma3-1b").smoke_config()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_model(dataclasses.replace(cfg, n_experts=4, top_k=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(dataclasses.replace(cfg, family="rglru"), device="cpu")
-    model = get_model(dataclasses.replace(cfg, n_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        model(torch.zeros((1, 2049), dtype=torch.long), mode="prefill")
+@pytest.mark.parametrize("arch", list_archs())
+def test_not_ported_families_and_long_prompts_raise(arch):
+    """Training is the part of every family that is not ported: mode
+    "train" raises. Prompts over 2048 tokens, which raised before the
+    streaming attention was ported, run (gemma3: 2050 tokens, its local
+    band and its global layer)."""
+    cfg = get_config(arch).smoke_config()
+    model = get_model(cfg, device="cpu")
+    aux = {name: torch.ones(m.shape, dtype=m.dtype)
+           for name, m in model.aux_inputs(1, 4).items()}
+    with pytest.raises(ValueError, match="mode='train'"):
+        model(torch.zeros((1, 4), dtype=torch.long), mode="train", **aux)
+    if arch == "gemma3-1b":
+        with torch.inference_mode():
+            h, (k, _) = model(torch.zeros((1, 2050), dtype=torch.long),
+                              mode="prefill")
+        assert h.shape == (1, 2050, cfg.d_model) and k.shape[2] == 2050
+        assert bool(torch.isfinite(h.float()).all())
