@@ -2,7 +2,8 @@
 """Where the device time of one solve, or of one LM serving step, goes, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--amp-only | --fuse-only | --lm-only]
+    python3 chip_profile.py [--amp-only | --fuse-only | --lm-only
+                             | --train-only]
 
 Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
 solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
@@ -21,7 +22,12 @@ prefill (B=4) and one rwkv6-3b decode step, and one decode step of each
 model of ``chip_smoke.py``'s LM zoo at its batch and prompt (gemma3-1b
 after 32768 tokens, qwen3-moe-30b-a3b, recurrentgemma-2b, qwen2-vl-7b,
 whisper-small). ``--fuse-only`` runs the block-quantized part alone,
-``--lm-only`` the LM part alone. It prints one JSON object per call: the number
+``--lm-only`` the LM part alone, ``--train-only`` one LM train step alone:
+``chip_smoke.py``'s gemma3-1b int8 step (8 x 4096 tokens in 4
+microbatches, every layer recomputed, the 13 leaves' ``compressed_psum``
+over a "pod" of one on an NCCL world of one), with its device time by
+kind of kernel and the peak device memory after each part of the step
+(gradients, fusion, the whole step). It prints one JSON object per call: the number
 of kernels launched (for a solve also per iteration), the span from the
 first kernel's start to the last one's end, the time the device was busy
 inside it, the launches of the call's hand-written kernels (for a solve
@@ -76,6 +82,11 @@ from repro_torch.kernels.decode_attn import decode_attn as k5  # noqa: E402
 from repro_torch.kernels.quantize import quantize as k4  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as k6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import init_cluster, make_mesh  # noqa: E402
+from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
+                                      build_train_step)
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
 N, M, P, EPS, SNR_DB, SEED = 10_000, 3_000, 30, 0.05, 20.0, 1234
@@ -117,12 +128,17 @@ def profile_call(fn, tag: str) -> dict:
             - min(e.time_range.start for e in kernels))
     ours = sum(v for name, v in by_name.items() if tag in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    kinds: dict[str, float] = {}
+    for name, v in by_name.items():
+        kind = next((k for k, keys in KINDS
+                     if any(key in name.lower() for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + v / 1e3
     return {"device_events": len(kernels), "span_ms": span / 1e3,
             "wrapper_launches": counted,
             "busy_ms": busy / 1e3, "busy_share_of_span": busy / span,
             "kernel_tag": tag, "tagged_kernels_ms": ours / 1e3,
             "tagged_launches": sum(tag in e.name for e in kernels),
-            "tagged_share_of_busy": ours / busy,
+            "tagged_share_of_busy": ours / busy, "busy_ms_by_kind": kinds,
             "top": [{"ms": v / 1e3, "name": name[:100]} for name, v in top]}
 
 
@@ -253,6 +269,60 @@ def profile_lm(smi: str) -> None:
             torch.cuda.empty_cache()
 
 
+# kinds of kernel by name, first match wins: the block quantizer (K4), the
+# collectives, the matrix products (cuBLAS / CUTLASS), the rest
+KINDS = (("k4", ("quantize",)), ("nccl", ("nccl",)),
+         ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")))
+
+
+def profile_train(smi: str) -> None:
+    """One gemma3-1b int8 train step as ``chip_smoke.py``'s phase ``train``
+    runs it (world of one, mesh (1, 1, 1), seed 1234), profiled after a
+    warm step; the device time by kind (``KINDS``), and the peak device
+    memory after the microbatches' gradients, after their fusion and after
+    the whole step, each from a reset."""
+    import tempfile
+    import torch.distributed as dist
+    store = os.path.join(tempfile.mkdtemp(prefix="amp_prof_"), "store")
+    init_cluster(num_processes=1, process_id=0, backend="nccl",
+                 store_path=store, device="cuda:0")
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                         device="cuda:0")
+        cfg = get_config("gemma3-1b")
+        shape = ShapeSpec("train_4k_cut", 4096, 8, "train")
+        step = build_train_step(cfg, mesh, shape, TrainStepConfig(
+            microbatches=4, compression_bits=8))
+        params = step.init_params(SEED)
+        opt = step.init_opt_state(params)
+        tok, lab = SyntheticLMData(cfg.vocab, 4096, 8,
+                                   seed=SEED).global_arrays(0, mesh)
+        peaks = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = step._grads(params, tok, lab)
+        torch.cuda.synchronize()
+        peaks["gradients"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            loss, grads, _ = step._fuse(loss, grads)
+        torch.cuda.synchronize()
+        peaks["fusion"] = torch.cuda.max_memory_allocated() / 1e9
+        del loss, grads
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, opt, tok, lab)
+        torch.cuda.synchronize()
+        peaks["step"] = torch.cuda.max_memory_allocated() / 1e9
+        peaks["resident_params_and_state"] = torch.cuda.memory_allocated() / 1e9
+        row = profile_call(lambda: step(params, opt, tok, lab), "quantize")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"train": "gemma3-1b", "call": "int8_step",
+                      "tokens": 8 * 4096, "microbatches": 4, "card": smi,
+                      "peak_gb": peaks, **row}), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     only = parser.add_mutually_exclusive_group()
@@ -263,6 +333,8 @@ def main() -> None:
                            "two fuse calls and one row int8 solve")
     only.add_argument("--lm-only", action="store_true",
                       help="profile LM serving only")
+    only.add_argument("--train-only", action="store_true",
+                      help="profile one gemma3-1b int8 train step only")
     args = parser.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -271,6 +343,9 @@ def main() -> None:
     print(smi, flush=True)
     if args.lm_only:
         profile_lm(smi)
+        return
+    if args.train_only:
+        profile_train(smi)
         return
     prior = BernoulliGauss(eps=EPS)
     prob = CSProblem(n=N, m=M, prior=prior, snr_db=SNR_DB)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
                           [--k6-only | --k5-only | --k4-only | --sharded-only
-                           | --zoo-only]
+                           | --zoo-only | --train-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -55,6 +55,24 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     wide column problem, the wire bytes by dtype, and ``SolveService(mesh=)``
     serving a ``"data"`` bucket of 8 and two ``"proc"`` requests at the
     paper's size, each against the local service's answer;
+  * LM training (phase ``train``, after the solve phases' operands are
+    freed): (a) gemma3-1b at its published width and depth through
+    ``launch/steps.py::build_train_step``, train_4k's sequence of 4096 and
+    a global batch of 8 in 4 microbatches, 4 steps with the gradients
+    fused over "pod" by the int8 ``compressed_psum`` (K4a, K4b-sum, K4b: 52
+    launches a step, asserted) and 4 exact from the same init and data, on
+    an NCCL world of one, the first int8 step under the sync debug mode
+    "warn" (no site), the others under "error", the int8 losses from step
+    2 on not the exact ones; (b) K4a, K4b-sum and K4b, int8 and packed, at
+    the gradient chunks of gemma3-1b's embed/table and its 26 x 1152 x 6912
+    leaves, bit for bit with their plain versions and timed, the int8
+    forms' kernels-line rows with the launches (a) made at that shape; (c)
+    the reference's red ``test_compressed_gradient_training_converges`` on
+    two gloo ranks sharing the card, (pod=2, data=1, model=1): exact and int8
+    both drop >= 0.3 in 12 steps and end within 0.5, int8 payloads over
+    "pod" (int4 run beside them); (d) the ``Trainer`` preempted at step 8
+    and resumed from its step-5 checkpoint == the uninterrupted run, bit
+    for bit;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -80,7 +98,7 @@ then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
 JSON file. Needs a CUDA device and nvcc; needs no network. Takes about
-five and a half minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
+seven minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
 ``src/repro_torch/csrc``) also times that tree's K3 in turns with this
 one's (phase ``k3_operands``). ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
@@ -100,7 +118,10 @@ kernel, holds the wire forms against their plain versions, runs the
 ``sharded`` phase and times the wire forms, and stops the same way.
 ``--zoo-only`` builds the decode-attention kernel, holds it against its
 plain version at every ``DA_CASES`` case and every shape of the zoo's
-decode paths, runs ``lm_zoo`` and stops the same way.
+decode paths, runs ``lm_zoo`` and stops the same way. ``--train-only``
+builds ``quantize.cu``, holds the wire forms against their plain versions,
+runs the ``train`` phase and stops with its kernels rows, the card's line
+and the last line.
 """
 from __future__ import annotations
 
@@ -165,8 +186,15 @@ from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import (init_cluster, make_serve_mesh,  # noqa: E402
+from repro_torch.launch.mesh import (init_cluster, make_host_mesh,  # noqa: E402
+                                     make_mesh, make_serve_mesh,
                                      spawn_world)
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
+                                      build_train_step)
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.models import get_model, moe as lm_moe  # noqa: E402
 from repro_torch.serving import (BackendServer,  # noqa: E402
                                  BucketPolicy, ChaosBackend,
@@ -2555,6 +2583,421 @@ def run_sharded() -> dict:
     return {"launches": driven}
 
 
+# ---------------------------------------------------------------------------
+# LM training (phase train)
+# ---------------------------------------------------------------------------
+
+# (a) gemma3-1b at its published width and depth, train_4k's sequence of
+# 4096, the global batch cut from 256 to 8 in 4 microbatches of 2 x 4096
+# tokens; 4 steps with int8 pod fusion and 4 exact, from one init (SEED) on
+# the same data, on an NCCL world of one (pod=1, data=1, model=1)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = "gemma3-1b", 4096, 8, 4
+TRAIN_STEPS = 4
+TRAIN_REDUCED = {"global_batch": "256 -> 8 (microbatches 4 of 2 rows)",
+                 "mesh": "(pod, data, model) = (1, 1, 1)",
+                 "steps": TRAIN_STEPS}
+TRAIN_INT8_GAP = 0.05     # |int8 - exact| loss at the last step
+# compressed_psum on each of gemma3-1b's 13 gradient leaves a step: K4a in
+# both phases, K4b-sum in phase 1, K4b in phase 2
+TRAIN_LEAVES = 13
+TRAIN_K4 = {"quantize_blocks": 2 * TRAIN_LEAVES,
+            "dequantize_sum": TRAIN_LEAVES,
+            "dequantize_blocks": TRAIN_LEAVES}
+# (b) K4 at the gradients' sizes: compressed_psum's chunk over a world of
+# one is the whole leaf, padded to a multiple of 1024: gemma3-1b's
+# embed/table (262144 x 1152) and the three leaves of 26 x 1152 x 6912
+# (layers/w_gate, w_up, w_down)
+TRAIN_K4_SHAPES = [("embed_table", 262144 * 1152),
+                   ("layers_mlp", 26 * 1152 * 6912)]
+# (c) two gloo ranks sharing the card, (pod=2, data=1, model=1): the
+# reference's red test_compressed_gradient_training_converges, its config
+# (granite-3-8b smoke, seq 32, batch 8, lr 2e-3, 12 steps) and bounds
+CONV_ARCH, CONV_SEQ, CONV_BATCH, CONV_STEPS, CONV_LR = (
+    "granite-3-8b", 32, 8, 12, 2e-3)
+CONV_DROP, CONV_GAP = 0.3, 0.5
+# (d) the Trainer on the card: granite-3-8b smoke, preempted at step 8 and
+# resumed from its step-5 checkpoint (the reference's tests/test_trainer.py)
+TRAINER_STEPS, TRAINER_FAIL = 12, 8
+
+
+def _train_runs(mesh, cfg, shape, tcfgs: dict, steps: int, seed: int,
+                guard: str | None = None) -> dict:
+    """``steps`` steps of each config of ``tcfgs`` from the same init and
+    data: losses, CUDA-event step times, each step's launches, the peak
+    device memory; ``guard`` names the config whose first step runs under
+    the sync debug mode "warn" (every site recorded) and its later steps
+    under "error"."""
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch,
+                           seed=seed)
+    batches = [data.global_arrays(i, mesh) for i in range(steps)]
+    out = {}
+    for name, tcfg in tcfgs.items():
+        step = build_train_step(cfg, mesh, shape, tcfg)
+        params = step.init_params(seed)
+        opt = step.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"loss": [], "grad_norm": [], "quant_noise": [], "ms": [],
+               "launches": [], "sync_sites": []}
+        for i, (tok, lab) in enumerate(batches):
+            reset_all_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            if name == guard and i == 0:
+                box = {"args": (params, opt, tok, lab)}
+
+                def one():
+                    box["out"] = step(*box.pop("args"))
+                    return box["out"][2]["loss"], None
+                e0.record()
+                run["sync_sites"] = sync_sites(one)
+                e1.record()
+                # nothing may keep a step's state alive past its successor
+                params, opt, m = box.pop("out")
+                del one, box
+            elif name == guard:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    e0.record()
+                    params, opt, m = step(params, opt, tok, lab)
+                    e1.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                e0.record()
+                params, opt, m = step(params, opt, tok, lab)
+                e1.record()
+            e1.synchronize()
+            run["ms"].append(e0.elapsed_time(e1))
+            run["launches"].append({k: v for k, v in all_counts().items()
+                                    if v})
+            for key in ("loss", "grad_norm", "quant_noise"):
+                run[key].append(float(m[key]))
+        run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = run
+        del step, params, opt, m
+        _free()
+    return out
+
+
+def _train_world_of_one(store_dir: str) -> dict:
+    """Phase (a): gemma3-1b on an NCCL world of one, in this process."""
+    import torch.distributed as dist
+    init_cluster(num_processes=1, process_id=0, backend="nccl",
+                 store_path=os.path.join(store_dir, "nccl_train"),
+                 device=str(DEV))
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                         device=str(DEV))
+        cfg = get_config(TRAIN_ARCH)
+        shape = ShapeSpec("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+        with k4_calls_by_shape() as by_shape:
+            runs = _train_runs(mesh, cfg, shape, {
+                "int8": TrainStepConfig(microbatches=TRAIN_MB,
+                                        compression_bits=8),
+                "exact": TrainStepConfig(microbatches=TRAIN_MB)},
+                TRAIN_STEPS, SEED, guard="int8")
+    finally:
+        dist.destroy_process_group()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for name, run in runs.items():
+        assert all(np.isfinite(run["loss"])), (name, run["loss"])
+        steady = statistics.median(run["ms"][1:])
+        run["steady_step_ms"] = steady
+        run["tokens_per_s"] = tokens / (steady / 1e3)
+        want = TRAIN_K4 if name == "int8" else {}
+        for i, got in enumerate(run["launches"]):
+            k4 = {k: got.get(k, 0) for k in TRAIN_K4}
+            assert {k: v for k, v in k4.items() if v} == want, (name, i, got)
+    sites = runs["int8"]["sync_sites"]
+    assert not sites, ("host syncs inside the train step", sites)
+    gap = abs(runs["int8"]["loss"][-1] - runs["exact"]["loss"][-1])
+    assert gap < TRAIN_INT8_GAP, (runs["int8"]["loss"], runs["exact"]["loss"])
+    # the fused gradients are the compressed ones: from step 2 on, the int8
+    # run's loss is not the exact run's
+    assert all(a != b for a, b in zip(runs["int8"]["loss"][1:],
+                                      runs["exact"]["loss"][1:])), \
+        (runs["int8"]["loss"], runs["exact"]["loss"])
+    assert all(v > 0 for v in runs["int8"]["quant_noise"])
+    launches = {k: sum(r.get(k, 0) for r in runs["int8"]["launches"])
+                for k in TRAIN_K4}
+    for k in TRAIN_K4:
+        assert sum(v for (form, _), v in by_shape.items() if form == k) \
+            == launches[k], (k, dict(by_shape), launches)
+    return {"runs": runs, "int8_exact_gap_last_step": gap,
+            "k4_launches_per_step": {k: v for k, v in
+                                     runs["int8"]["launches"][0].items()
+                                     if k in TRAIN_K4},
+            "k4_launches": launches,
+            "k4_launches_by_shape": {f"{form} {key}": v for (form, key), v
+                                     in sorted(by_shape.items())}}
+
+
+def k4_shape_key(r: int, n: int) -> str:
+    return f"R{r} N{n}"
+
+
+@contextlib.contextmanager
+def k4_calls_by_shape():
+    """Counts the calls of K4a, K4b and K4b's sum by (form, ``k4_shape_key``)
+    while the block runs: the dispatch's bindings of the wrappers are
+    wrapped; nothing is read from the card."""
+    tally = collections.Counter()
+    wrappers = {"quantize_cuda": qops.quantize_cuda,
+                "dequantize_cuda": qops.dequantize_cuda,
+                "dequantize_sum_cuda": qops.dequantize_sum_cuda}
+
+    def quantize(x, qmax, block, packed=False):
+        form = "quantize_blocks" + ("_packed" if packed else "")
+        tally[form, k4_shape_key(*x.shape)] += 1
+        return wrappers["quantize_cuda"](x, qmax, block, packed)
+
+    def dequantize(q, scale, block, packed=False, n=None):
+        width = (2 * q.shape[1] if packed else q.shape[1]) if n is None else n
+        form = "dequantize_blocks" + ("_packed" if packed else "")
+        tally[form, k4_shape_key(q.shape[0], width)] += 1
+        return wrappers["dequantize_cuda"](q, scale, block, packed, n)
+
+    def dequantize_sum(q, scale, block, packed=False, c=None):
+        width = (2 * q.shape[1] if packed else q.shape[1]) if c is None else c
+        form = "dequantize_sum" + ("_packed" if packed else "")
+        tally[form, k4_shape_key(q.shape[0], width)] += 1
+        return wrappers["dequantize_sum_cuda"](q, scale, block, packed, c)
+
+    qops.quantize_cuda, qops.dequantize_cuda, qops.dequantize_sum_cuda = (
+        quantize, dequantize, dequantize_sum)
+    try:
+        yield tally
+    finally:
+        for name, fn in wrappers.items():
+            setattr(qops, name, fn)
+
+
+def grad_inputs(n: int, seed: int) -> torch.Tensor:
+    """A gradient-like row (1, n): normal values scaled per 4096 elements
+    by 10^u, u uniform in [-4, 0], so the scale blocks span four decades."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(1, n, generator=g, device=DEV)
+    seg = -(-n // 4096)
+    scale = 10.0 ** (-4.0 * torch.rand(seg, generator=g, device=DEV))
+    x.mul_(scale.repeat_interleave(4096)[None, :n])
+    return x
+
+
+def check_train_k4() -> dict:
+    """K4a, K4b-sum and K4b, int8 and packed int4, at the gradient chunks
+    ``TRAIN_K4_SHAPES``: bit for bit with their plain versions (symbols,
+    scale bits, values), and timed against their byte bounds. Only the
+    int8 forms run at these shapes on a path (gemma3-1b's int8 steps), so
+    only they become kernels-line rows (``train_kernel_rows``)."""
+    rows, times = [], {}
+    for name, n in TRAIN_K4_SHAPES:
+        x = grad_inputs(n, SEED + 7)
+        q8, s8 = kq.quantize_cuda(x, 127, 512)
+        d8 = kq.dequantize_cuda(q8, s8, 512)
+        sum8 = kq.dequantize_sum_cuda(q8, s8, 512)
+        pk, sk = kq.quantize_cuda(x, 7, 512, packed=True)
+        dk = kq.dequantize_cuda(pk, sk, 512, packed=True, n=n)
+        sum4 = kq.dequantize_sum_cuda(pk, sk, 512, packed=True, c=n)
+        torch.cuda.synchronize()
+        q8r, s8r = qops.quantize_plain(x, 127, 512)
+        pr, sr = qops.quantize_plain(x, 7, 512, packed=True)
+        row = {"shape": name, "R": 1, "N": n,
+               "int8_q_identical": bool(torch.equal(q8, q8r)),
+               "int8_scale_bits_identical": bool(torch.equal(
+                   s8.view(torch.int16), s8r.view(torch.int16))),
+               "packed_identical": bool(torch.equal(pk, pr)),
+               "packed_scale_bits_identical": bool(torch.equal(
+                   sk.view(torch.int16), sr.view(torch.int16)))}
+        del x
+        errs = {}
+        for key, got, want in (
+                ("int8_dequantized", d8, qops.dequantize_plain(q8r, s8r, 512)),
+                ("sum_int8", sum8, qops.dequantize_sum_plain(q8r, s8r, 512)),
+                ("unpacked_dequantized", dk,
+                 qops.dequantize_plain(pr, sr, 512, packed=True, n=n)),
+                ("sum_packed", sum4,
+                 qops.dequantize_sum_plain(pr, sr, 512, packed=True, c=n))):
+            row[f"{key}_identical"] = bool(torch.equal(got, want))
+            errs[key] = float((got - want).abs().max())
+            del want
+        row["max_abs_err"] = max(errs.values())
+        rows.append(row)
+        assert all(v for key, v in row.items() if key.endswith("identical")), \
+            row
+        del d8, sum8, dk, sum4, q8r, s8r, pr, sr
+        _free()
+        x = grad_inputs(n, SEED + 7)
+        calls = {
+            "quantize_blocks": {
+                "ms": lambda: kq.quantize_cuda(x, 127, 512),
+                "plain_ms": lambda: qops.quantize_plain(x, 127, 512)},
+            "dequantize_blocks": {
+                "ms": lambda: kq.dequantize_cuda(q8, s8, 512),
+                "plain_ms": lambda: qops.dequantize_plain(q8, s8, 512)},
+            "dequantize_sum": {
+                "ms": lambda: kq.dequantize_sum_cuda(q8, s8, 512),
+                "plain_ms": lambda: qops.dequantize_sum_plain(q8, s8, 512)},
+            "quantize_blocks_packed": {
+                "ms": lambda: kq.quantize_cuda(x, 7, 512, packed=True),
+                "plain_ms": lambda: qops.quantize_plain(x, 7, 512,
+                                                        packed=True)},
+            "dequantize_blocks_packed": {
+                "ms": lambda: kq.dequantize_cuda(pk, sk, 512, packed=True,
+                                                 n=n),
+                "plain_ms": lambda: qops.dequantize_plain(pk, sk, 512,
+                                                          packed=True, n=n)},
+            "dequantize_sum_packed": {
+                "ms": lambda: kq.dequantize_sum_cuda(pk, sk, 512,
+                                                     packed=True, c=n),
+                "plain_ms": lambda: qops.dequantize_sum_plain(
+                    pk, sk, 512, packed=True, c=n)},
+        }
+        times[name] = _time_calls(calls, {**quant_bounds(1, n, 512),
+                                          **wire_bounds(1, n, 512)})
+        del x, q8, s8, pk, sk, calls
+        _free()
+    emit("kernel_check_train_k4", limit="bit-identical", cases=rows)
+    return {"errs": {r["shape"]: r for r in rows}, "times": times}
+
+
+def train_rank(mesh) -> dict:
+    """One rank of (c)'s world of two gloo ranks sharing the card: the
+    reference red's runs (exact, int8; and int4) on (pod=2, data=1,
+    model=1), each rank's losses, the pod axis's collectives and the
+    launches of each run."""
+    grid = make_mesh((2, 1, 1), ("pod", "data", "model"),
+                     device=str(mesh.device))
+    cfg = get_config(CONV_ARCH).smoke_config()
+    shape = ShapeSpec("conv", CONV_SEQ, CONV_BATCH, "train")
+    data = SyntheticLMData(cfg.vocab, CONV_SEQ, CONV_BATCH, seed=1)
+    out = {}
+    for name, bits in (("exact", None), ("int8", 8), ("int4", 4)):
+        step = build_train_step(cfg, grid, shape, TrainStepConfig(
+            compression_bits=bits, adamw=AdamWConfig(lr=CONV_LR)))
+        params = step.init_params(0)
+        opt = step.init_opt_state(params)
+        grid.axis("pod").stats.reset()
+        reset_all_counts()
+        losses = []
+        for i in range(CONV_STEPS):
+            tok, lab = data.global_arrays(i, grid)
+            params, opt, m = step(params, opt, tok, lab)
+            losses.append(float(m["loss"]))
+        out[name] = {"losses": losses,
+                     "pod": grid.axis("pod").stats.snapshot(),
+                     "launches": {k: v for k, v in all_counts().items()
+                                  if v}}
+    return out
+
+
+def _trainer_on_card(tmp: str) -> dict:
+    """Phase (d): the Trainer on the card, an uninterrupted run against one
+    preempted at step 8 and resumed from its step-5 checkpoint."""
+    cfg = get_config(CONV_ARCH).smoke_config()
+    shape = ShapeSpec("tiny", 32, 4, "train")
+    mesh = make_host_mesh(model=1, device=str(DEV))
+
+    def trainer(path, **kw):
+        return Trainer(cfg, shape, mesh, TrainerConfig(
+            total_steps=TRAINER_STEPS, ckpt_every=5, log_every=0,
+            ckpt_dir=os.path.join(tmp, path),
+            step_cfg=TrainStepConfig(microbatches=2), **kw))
+
+    _, _, full = trainer("full").run(resume=False)
+    try:
+        trainer("resumed", fail_at_step=TRAINER_FAIL).run(resume=False)
+        raise AssertionError("the preempted run was not preempted")
+    except RuntimeError as e:
+        assert "simulated preemption" in str(e), e
+    _, _, resumed = trainer("resumed").run(resume=True)
+    assert resumed[0]["step"] == 5, resumed[0]
+    by_step = {h["step"]: h for h in full}
+    same = [h["loss"] == by_step[h["step"]]["loss"]
+            and h["grad_norm"] == by_step[h["step"]]["grad_norm"]
+            for h in resumed]
+    assert all(same), (full, resumed)
+    first = np.mean([h["loss"] for h in full[:3]])
+    last = np.mean([h["loss"] for h in full[-3:]])
+    assert last < first, (first, last)
+    return {"full_losses": [h["loss"] for h in full],
+            "resumed_losses": [h["loss"] for h in resumed],
+            "resumed_from_step": resumed[0]["step"],
+            "bit_identical": all(same)}
+
+
+def run_train() -> dict:
+    """Phase ``train``: (a) gemma3-1b at full width and depth, int8 and
+    exact; (b) K4 at the gradients' sizes; (c) the reference red's runs on
+    two gloo ranks sharing the card; (d) the Trainer preempted and resumed.
+    The kernels are built before the spawn."""
+    import tempfile
+    t_phase = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="amp_train_")
+    a = _train_world_of_one(store_dir)
+    b = check_train_k4()
+    ranks = spawn_world(train_rank, 2, backend="gloo", device=str(DEV),
+                        store_path=os.path.join(store_dir, "conv2"),
+                        timeout_s=400)
+    for r in ranks[1:]:
+        for name in r:
+            assert r[name]["losses"] == ranks[0][name]["losses"], name
+    conv = ranks[0]
+    for name in ("exact", "int8"):
+        l = conv[name]["losses"]
+        assert l[-1] < l[0] - CONV_DROP, (name, l)
+    gap = abs(conv["int8"]["losses"][-1] - conv["exact"]["losses"][-1])
+    assert gap < CONV_GAP, (conv["exact"]["losses"], conv["int8"]["losses"])
+    for name in ("int8", "int4"):
+        pod = conv[name]["pod"]["bytes"]
+        assert set(pod["all_to_all"]) == {"uint8"}, pod
+        assert set(pod["all_gather"]) == {"uint8"}, pod
+    assert "all_to_all" not in conv["exact"]["pod"]["bytes"]
+    d = _trainer_on_card(store_dir)
+    emit("train", card=nvidia_smi_line(), arch=TRAIN_ARCH,
+         seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+         microbatches=TRAIN_MB, reduced=TRAIN_REDUCED,
+         world_of_one=a,
+         k4_at_gradient_sizes=b["times"],
+         two_gloo_ranks={"arch": CONV_ARCH + " smoke", "seq": CONV_SEQ,
+                         "batch": CONV_BATCH, "lr": CONV_LR,
+                         "losses": {n: conv[n]["losses"] for n in conv},
+                         "pod_collectives": {n: conv[n]["pod"]
+                                             for n in conv},
+                         "launches": {n: conv[n]["launches"] for n in conv},
+                         "int8_exact_gap_last_step": gap},
+         trainer=d,
+         limits={"int8_exact_gap_last_step": TRAIN_INT8_GAP,
+                 "k4_launches_per_int8_step": TRAIN_K4,
+                 "two_ranks_drop": CONV_DROP, "two_ranks_gap": CONV_GAP,
+                 "k4": "bit-identical", "trainer": "bit-identical"},
+         seconds=time.perf_counter() - t_phase)
+    return {"k4": b, "launches_by_shape": a["k4_launches_by_shape"]}
+
+
+def train_kernel_rows(train_ctx) -> list:
+    """The kernels line's rows of K4 at the gradients' sizes: each int8
+    form timed at each TRAIN_K4_SHAPES chunk, with the launches at that
+    shape in gemma3-1b's 4 int8 steps (counts set to 0 just before the
+    run). The packed forms, which no path runs at these shapes, stay in the
+    ``train`` line's ``k4_at_gradient_sizes``."""
+    rows, sizes = [], dict(TRAIN_K4_SHAPES)
+    for shape, times in train_ctx["k4"]["times"].items():
+        err = train_ctx["k4"]["errs"][shape]["max_abs_err"]
+        for name, tm in times.items():
+            if name.endswith("_packed"):
+                continue
+            launches = train_ctx["launches_by_shape"].get(
+                f"{name} {k4_shape_key(1, sizes[shape])}", 0)
+            assert launches > 0, (name, shape)
+            rows.append({
+                "name": f"{name}/train_{shape}", "route": "cuda",
+                "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": launches, "max_abs_err": err, "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    return rows
+
+
 def sync_sites(fn) -> list:
     """Run ``fn`` with PyTorch's sync debug mode on: every call that makes
     the host wait for the device is reported with the lines of this
@@ -3653,6 +4096,12 @@ def main() -> None:
                            "(kernel_check_decode_attn), run the lm_zoo "
                            "phase (every LM family at its published width) "
                            "and stop: the last line as in a full run")
+    only.add_argument("--train-only", action="store_true",
+                      help="build the block-quantize kernels, check the wire "
+                           "forms, run the train phase (gemma3-1b at full "
+                           "width, K4 at the gradients' sizes, two gloo "
+                           "ranks, the Trainer resumed) and stop: its "
+                           "kernels rows and the last line as in a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -3673,7 +4122,7 @@ def main() -> None:
     t0 = time.perf_counter()
     names = (["wkv6"] if args.k6_only
              else ["decode_attn"] if args.k5_only or args.zoo_only
-             else ["quantize"] if args.k4_only
+             else ["quantize"] if args.k4_only or args.train_only
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -3703,6 +4152,18 @@ def main() -> None:
             with open(args.out, "w") as fh:
                 json.dump(RESULT, fh, indent=1)
         print(smi, flush=True)
+        print_last_line()
+        return
+    if args.train_only:
+        check_wire_kernels()
+        rows = train_kernel_rows(run_train())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump({**RESULT, "kernels": rows}, fh, indent=1)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
         print_last_line()
         return
     if args.sharded_only:
@@ -3799,10 +4260,12 @@ def main() -> None:
                    + cluster_ctx["launches"].get(key, 0)
                    for key in serve_ctx["launches"]}
     sh_launches = sharded_ctx["launches"]
-    # the LM zoo last, with the solve phases' operands freed: qwen3-moe
-    # alone peaks near 72 GB
+    # training and then the LM zoo last, with the solve phases' operands
+    # freed: a gemma3-1b train step peaks near 34 GB, qwen3-moe near 72
     del ctx, col_ctx, bq_ctx, serve_ctx, erasure_ctx, cluster_ctx, sharded_ctx
     _BUSY.clear()
+    _free()
+    train_ctx = run_train()
     _free()
     lm_zoo = run_lm_zoo()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
@@ -3864,6 +4327,8 @@ def main() -> None:
             "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
+    # K4 at the train path's gradient sizes (phase train)
+    kernels += train_kernel_rows(train_ctx)
     # K5 on the zoo's paths: a row a model and layer kind, timed at that
     # shape, with the calls its model's generate made there
     zoo_case = zoo_da_cases()

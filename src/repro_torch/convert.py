@@ -17,6 +17,8 @@ build this package's objects from them:
     het_params_from_arrays     a HetParams tuple's arrays (bt: stacked tables) -> HetParams
     prior_from_fields / problem_from_fields   dataclasses by their fields
     lm_params_from_arrays  an LM's flat parameter dict -> the module state
+    train_state_from_arrays  an LM's flat parameters and AdamW state -> the
+                           train step's (``launch/steps.py``)
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ __all__ = ["problem_to_torch", "shards_to_torch", "rank_shards",
            "col_dp_schedule_from_arrays", "bt_tables_from_arrays",
            "col_bt_tables_from_arrays", "het_params_from_arrays",
            "prior_from_fields",
-           "problem_from_fields", "lm_params_from_arrays"]
+           "problem_from_fields", "lm_params_from_arrays",
+           "train_state_from_arrays"]
 
 
 def problem_to_torch(a_mat, y, device="cuda"):
@@ -152,3 +155,23 @@ def lm_params_from_arrays(params: dict, cfg, device="cpu") -> dict:
     split per layer."""
     return state_from_flat({path: _array_to_torch(a, device)
                             for path, a in params.items()}, cfg)
+
+
+def train_state_from_arrays(params: dict, opt_state: dict | None = None,
+                            device="cpu"):
+    """The train step's state from the reference's: ``params`` its flat
+    parameter dict (path -> numpy array, bf16 taken by its bits) and
+    ``opt_state`` its AdamW state (``{"master", "m", "v"}`` flat dicts of
+    float32 arrays and ``"step"``, a 0-dim int32), as numpy. Returns
+    (params, whole optimizer state) as tensors on ``device``, bit for bit;
+    ``TrainStep.shard_opt_state`` takes a rank's ZeRO-1 slices of the
+    latter. Without ``opt_state`` the second is None."""
+    p = {path: _array_to_torch(a, device) for path, a in params.items()}
+    if opt_state is None:
+        return p, None
+    tree = lambda d: {k: _array_to_torch(v, device) for k, v in d.items()}
+    opt = {"master": tree(opt_state["master"]), "m": tree(opt_state["m"]),
+           "v": tree(opt_state["v"]),
+           "step": _array_to_torch(np.asarray(opt_state["step"], np.int32),
+                                   device)}
+    return p, opt

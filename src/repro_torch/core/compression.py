@@ -29,9 +29,12 @@ device mesh (``launch/mesh.py::Mesh``, collectives of
 
 On the int4 wire the symbols travel packed two a byte, written so by the
 quantizer itself. The kernels run where the tensors lie on the card, their
-plain versions on the CPU (``kernels/quantize/ops.py``).
-``compressed_grad_transform`` belongs to the LM trainer (ROADMAP.md Queue 1
-item 8(f)).
+plain versions on the CPU (``kernels/quantize/ops.py``). Each phase drops
+its temporaries as soon as the next is made: on a gradient leaf of 3e8
+elements (gemma3-1b's embedding) each float32 one is 1.2 GB.
+
+``compressed_grad_transform`` is the per-leaf compressed sum of a gradient
+pytree with error feedback (the reference's, on the same kernels).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from ..kernels.quantize.ref import block_scale, pack_int4, unpack_int4
 from .collectives import all_gather, all_to_all
 
 __all__ = ["QuantConfig", "quantize_blocks", "dequantize_blocks",
-           "pack_int4", "unpack_int4", "quant_noise_var", "compressed_psum"]
+           "pack_int4", "unpack_int4", "quant_noise_var", "compressed_psum",
+           "compressed_grad_transform"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,17 +138,50 @@ def compressed_psum(x, mesh, qc: QuantConfig = QuantConfig()):
 
     # phase 1: quantize per-destination chunks, exchange, reduce own chunk
     wire, scale = _wire_encode(chunks, qc)
+    del chunks
     noise1 = quant_noise_var(scale) * n       # n summands -> n * sigma_Q^2
     wire_r = all_to_all(wire, mesh)
     scale_r = all_to_all(scale, mesh)
+    del wire, scale
     own = qops.dequantize_sum(wire_r, scale_r, qc.block,
                               packed=qc.bits == 4)          # (C,)
+    del wire_r, scale_r
 
     # phase 2: re-quantize the reduced chunk, gather everyone's
     wire2, scale2 = _wire_encode(own[None], qc)
+    del own
     noise2 = quant_noise_var(scale2)
     wire_g = all_gather(wire2[0], mesh)       # (D, C) or (D, C / 2)
     scale_g = all_gather(scale2[0], mesh)     # (D, C / block)
+    del wire2, scale2
     full = _wire_decode(wire_g, scale_g, qc)
+    del wire_g, scale_g
     out = full.reshape(-1)[:x.numel()].reshape(x.shape)
     return out.to(x.dtype), noise1 + noise2
+
+
+def compressed_grad_transform(grads: dict, residual: dict, mesh,
+                              qc: QuantConfig = QuantConfig()):
+    """Per-leaf compressed sum over ``mesh`` with error feedback.
+
+    ``grads``: this rank's (unreduced) gradients, a flat dict; ``residual``:
+    the same keys, the quantization residue carried from the last call
+    (error feedback keeps the compression bias from accumulating across
+    steps). Leaves go in sorted key order (the reference's pytree order),
+    so every rank runs the same collectives. Returns (reduced grads, new
+    residual, total noise variance): the residual is what quantizing this
+    rank's fed-back gradient ``g + r`` alone loses (the reference's cheap
+    proxy), through the wire's int8 symbols (K4a and K4b on the card)."""
+    out, new_res = {}, {}
+    noise = None
+    for k in sorted(grads):
+        g, r = grads[k], residual[k]
+        g_fb = g.to(torch.float32) + r.to(torch.float32)
+        red, nv = compressed_psum(g_fb, mesh, qc)
+        row = g_fb.reshape(1, -1)
+        q, s = qops.quantize(row, qc.qmax, qc.block)
+        deq = qops.dequantize(q, s, qc.block).reshape(g.shape)
+        new_res[k] = (g_fb - deq).to(r.dtype)
+        out[k] = red.to(g.dtype)
+        noise = nv if noise is None else noise + nv
+    return out, new_res, noise

@@ -33,7 +33,7 @@ __all__ = ["quantize_cuda", "dequantize_cuda", "dequantize_sum_cuda",
            "block_quant_fuse_cuda",
            "empty_launch_cuda", "fuse_plan", "fuse_cluster", "FusePlan",
            "launch_counts", "reset_launch_counts", "MAX_WARPS", "MAX_CLUSTER",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "INDEX_LIMIT"]
 
 launch_counts = {"quantize_blocks": 0, "dequantize_blocks": 0,
                  "block_quant_fuse": 0, "quantize_blocks_packed": 0,
@@ -45,6 +45,9 @@ MAX_WARPS = 31        # quantizing warps a block (kMaxWarps), and one more
 MAX_CLUSTER = 8       # blocks a cluster (kMaxCluster)
 SMS = 132             # an H100's SMs: fuse_plan's default
 SMEM_LIMIT = 232448   # shared memory a block may take on an H100 (kSmemLimit)
+# the standalone kernels index a row (and K4b's sum its D x C symbols) with
+# 32-bit ints, a grid-stride step past the last element included
+INDEX_LIMIT = 2 ** 31 - 2 ** 20
 
 _lib = None
 
@@ -90,6 +93,14 @@ def _check_block(block: int) -> None:
                          "multiple of 32")
 
 
+def _check_index(name: str, elems: int) -> None:
+    """Refuse (never split) what the kernels cannot index in int."""
+    if elems > INDEX_LIMIT:
+        raise ValueError(f"{name}: {elems} elements exceed the kernels' "
+                         f"32-bit index limit of {INDEX_LIMIT}; the caller "
+                         "must cut the tensor")
+
+
 def _symbols_shape(rows: int, n: int, packed: bool) -> tuple:
     return (rows, (n + 1) // 2 if packed else n)
 
@@ -109,6 +120,7 @@ def quantize_cuda(x: torch.Tensor, qmax: int, block: int,
         raise ValueError(f"qmax={qmax}: {'packed int4' if packed else 'int8'}"
                          f" symbols need 1 <= qmax <= {top}")
     r, n = x.shape
+    _check_index("quantize_cuda row", n)
     q = torch.empty(_symbols_shape(r, n, packed),
                     dtype=torch.uint8 if packed else torch.int8,
                     device=x.device)
@@ -140,6 +152,7 @@ def dequantize_cuda(q: torch.Tensor, scale: torch.Tensor, block: int,
     _check_block(block)
     r = q.shape[0]
     n = (2 * q.shape[1] if packed else q.shape[1]) if n is None else n
+    _check_index("dequantize_cuda row", n)
     _need_symbols(q, r, n, packed, block, scale)
     out = torch.empty((r, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -163,6 +176,7 @@ def dequantize_sum_cuda(q: torch.Tensor, scale: torch.Tensor, block: int,
     _check_block(block)
     d = q.shape[0]
     c = (2 * q.shape[1] if packed else q.shape[1]) if c is None else c
+    _check_index("dequantize_sum_cuda D x C", d * c)
     _need_symbols(q, d, c, packed, block, scale)
     out = torch.empty((c,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

@@ -20,14 +20,22 @@ Unlike jaxlib's CPU client, both backends run collectives across hosts, so
 the mesh over the whole world. ``spawn_world`` runs a function on a world
 of spawned processes and returns each rank's result.
 
-Importing this module touches no device and starts nothing. The reference's
-2-D LM training meshes (``make_production_mesh``, ``make_host_mesh``) come
-with the LM trainer (ROADMAP.md Queue 1 item 8(f)).
+The LM trainer's meshes have named axes, ``("pod",) "data", "model"``:
+``GridMesh`` lays the world's ranks out row-major over them and holds one
+process group per axis (``mesh.axis(name)``, the 1-D ``Mesh`` that
+``core/collectives.py`` and ``compressed_psum`` take) and one over the
+data axes together (``mesh.axes(("pod", "data"))``, ZeRO-1's). The
+reference's ``make_production_mesh`` and ``make_host_mesh`` build them
+(``make_mesh`` any other).
+
+Importing this module touches no device and starts nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import queue as queue_mod
 import time
@@ -39,7 +47,8 @@ import torch.distributed as dist
 
 from ..core.collectives import CollectiveStats
 
-__all__ = ["Mesh", "make_serve_mesh", "ClusterInfo", "init_cluster",
+__all__ = ["Mesh", "GridMesh", "make_mesh", "make_production_mesh",
+           "make_host_mesh", "make_serve_mesh", "ClusterInfo", "init_cluster",
            "supports_cross_host_collectives", "make_cluster_mesh",
            "spawn_world", "rank_device"]
 
@@ -102,6 +111,118 @@ def make_serve_mesh(n_devices: int | None = None,
     return Mesh(group=group, size=n, rank=rank,
                 device=rank_device(device, rank),
                 backend=dist.get_backend(group))
+
+
+# -- the LM trainer's meshes --------------------------------------------------
+
+DATA_AXES = ("pod", "data")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A mesh of named axes over the world (``shape``: the ordered ``{axis:
+    size}``), ranks laid out row-major: rank = sum of coords[a] x the sizes
+    of the axes after a. Each axis, and the data axes together, is a 1-D
+    ``Mesh`` over the ranks that share every other coordinate, its ranks in
+    the same row-major order (``axis``, ``axes``)."""
+
+    shape: dict
+    coords: dict
+    rank: int
+    device: torch.device
+    meshes: dict = dataclasses.field(repr=False, compare=False)
+
+    def axis(self, name: str) -> Mesh:
+        """The 1-D mesh of axis ``name`` through this rank."""
+        return self.meshes[(name,)]
+
+    def axes(self, names) -> Mesh:
+        """The 1-D mesh over the axes ``names`` (in the mesh's order)
+        through this rank; a single axis is ``axis``."""
+        return self.meshes[tuple(names)]
+
+    def axes_size(self, names) -> int:
+        return math.prod(self.shape[a] for a in names)
+
+    def axes_index(self, names) -> int:
+        """This rank's index over ``names``, row-major."""
+        return _row_major(self.coords, self.shape, names)
+
+
+def _row_major(coords: dict, shape: dict, names) -> int:
+    """The row-major index of ``coords`` over the axes ``names``."""
+    i = 0
+    for a in names:
+        i = i * shape[a] + coords[a]
+    return i
+
+
+def make_mesh(shape, axis_names, device: str | None = None) -> GridMesh:
+    """A ``GridMesh`` of ``shape`` over the initialised world (or, with no
+    world, over this process alone, where every axis must have size 1).
+    Every rank must call it, in the same order as its other group-making
+    calls: each axis group is made on every rank (``dist.new_group``, the
+    group of the whole world being the default group). ``device`` is this
+    rank's (``rank_device``: the card unless asked otherwise)."""
+    shape = dict(zip(axis_names, (int(n) for n in shape)))
+    if len(shape) != len(axis_names) or min(shape.values()) < 1:
+        raise ValueError(f"mesh {tuple(shape)} of {tuple(axis_names)}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"a mesh of {dict(shape)} needs "
+                         f"{math.prod(shape.values())} ranks; the world has "
+                         f"{world}")
+    dev = rank_device(device, rank)
+    names = list(shape)
+    coords, r = {}, rank
+    for a in reversed(names):
+        coords[a] = r % shape[a]
+        r //= shape[a]
+    groups = [(a,) for a in names]
+    data = tuple(a for a in DATA_AXES if a in shape)
+    if len(data) > 1:
+        groups.append(data)
+    meshes = {}
+    for axes in groups:
+        others = [a for a in names if a not in axes]
+        size = math.prod(shape[a] for a in axes)
+        mine = None
+        for fixed in itertools.product(*(range(shape[a]) for a in others)):
+            pin = dict(zip(others, fixed))
+            ranks = [_row_major({**pin, **dict(zip(axes, c))}, shape, names)
+                     for c in itertools.product(*(range(shape[a])
+                                                  for a in axes))]
+            if size == world:
+                group = None
+            else:      # every rank makes every group, in this order
+                group = dist.new_group(sorted(ranks))
+            if rank in ranks:
+                mine = group
+        backend = dist.get_backend(mine) if dist.is_initialized() else "none"
+        meshes[axes] = Mesh(group=mine, size=size,
+                            rank=_row_major(coords, shape, axes),
+                            device=dev, backend=backend)
+    return GridMesh(shape=shape, coords=coords, rank=rank, device=dev,
+                    meshes=meshes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | None = None) -> GridMesh:
+    """The reference's production mesh: ("data", "model") of (16, 16), or
+    ("pod", "data", "model") of (2, 16, 16), over a world of that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(data: int | None = None, model: int = 1,
+                   device: str | None = None) -> GridMesh:
+    """A small ("data", "model") mesh over whatever ranks exist (this
+    process alone when no world is initialised): tests, ``--smoke``."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data = data or (n // model)
+    return make_mesh((data, model), ("data", "model"), device)
 
 
 # -- cluster tier -------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The model interface of the port, over every family of the JAX package:
 ``dense`` (gemma3, glm4, granite, yi, qwen2-vl) and ``moe`` (qwen3-moe,
 mixtral) in ``transformer``, ``rwkv6``, ``rglru`` (recurrentgemma) and
-``whisper``; serving only (prefill and decode), training is not ported.
+``whisper``, for serving (prefill and decode); the dense family without a
+vision stub also trains (``train_forward``, ``chunked_xent_loss``).
 
 One ``nn.Module`` per family, all ``ModelBundle``s:
 
@@ -18,11 +19,20 @@ over a depth (``layers/*``, rglru's ``macro/*/*``, whisper's ``enc/*/*`` and
 ``macro/rec0/w_in`` being ``macro.rec0.<i>.w_in`` (``state_from_flat``);
 rglru's ``tail<i>/*`` are not stacked. They are inference weights
 (``requires_grad=False``).
+
+Training works on the flat dict itself (path -> stacked tensor, the
+optimizer's and the checkpoint's leaves): ``param_view`` gives the same
+module-shaped access to it with the per-layer slices taken as autograd
+views, so the gradient of a loss reaches each stacked leaf whole.
 """
 from __future__ import annotations
 
+import math
+import types
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import rglru, rwkv6, transformer, whisper
@@ -30,7 +40,8 @@ from .layers import init_from_schema
 
 __all__ = ["ModelBundle", "DenseLM", "RWKV6LM", "RGLRULM", "WhisperLM",
            "get_model", "lm_logits", "state_from_flat", "schema_for",
-           "resolve_device"]
+           "resolve_device", "param_view", "train_forward",
+           "chunked_xent_loss"]
 
 
 def resolve_device(device) -> torch.device:
@@ -251,3 +262,80 @@ def lm_logits(model: ModelBundle, hidden):
     ``preferred_element_type=float32``."""
     head = getattr(model, "lm_head", model.embed)
     return torch.matmul(hidden.float(), head.table.float().T)
+
+
+# -- training -------------------------------------------------------------------
+
+def _view(node: dict):
+    if all(isinstance(v, torch.Tensor) for v in node.values()):
+        return types.SimpleNamespace(**node)
+    if all(k.isdigit() for k in node):
+        return [_view(node[str(i)]) for i in range(len(node))]
+    return types.SimpleNamespace(**{k: _view(v) for k, v in node.items()})
+
+
+def param_view(params: dict, cfg: ModelConfig):
+    """The flat parameter dict ``params`` (path -> tensor, stacked paths on
+    a leading axis) with a model's attribute access (``view.embed.table``,
+    ``view.layers[i].wq``): a stacked leaf's slices are views of it, so
+    autograd carries their gradients to the leaf."""
+    want = set(schema_for(cfg))
+    if set(params) != want:
+        raise ValueError(f"params do not match the {cfg.name} schema: "
+                         f"missing {sorted(want - set(params))}, "
+                         f"unexpected {sorted(set(params) - want)}")
+    return _view(_tree(state_from_flat(params, cfg)))
+
+
+def train_forward(params: dict, tokens, cfg: ModelConfig,
+                  remat: bool = True):
+    """The training forward of the flat ``params`` over ``tokens`` (B, S):
+    the final hidden (B, S, D). The dense family only: the others wait
+    (ROADMAP.md Queue 1 item 8(g))."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            "(ROADMAP.md Queue 1 item 8(g))")
+    hidden, _ = transformer.dense_forward(param_view(params, cfg), tokens,
+                                          cfg, "train", remat=remat)
+    return hidden
+
+
+def _chunk_xent(hc, lc, mc, table, vocab_ok):
+    """Summed cross-entropy of one chunk: float32 logits of bf16 operands,
+    the padded vocab at -inf."""
+    logits = torch.matmul(hc.to(torch.bfloat16).float(), table.float().T)
+    logits = torch.where(vocab_ok, logits, -math.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_xent_loss(params: dict, hidden, labels, cfg: ModelConfig,
+                      chunk: int = 512, label_mask=None):
+    """Mean cross-entropy of ``hidden`` (B, S, D) against ``labels`` (B, S)
+    without materialising (B, S, V) logits: over sequence chunks of at most
+    ``chunk`` (the largest that divides S), each chunk's logits recomputed
+    in backward (a checkpoint: no (B, chunk, V) tensor is saved for
+    backward, the reason the reference checkpoints its scan body). The
+    padded vocab is masked to -inf; ``label_mask`` (B, S) weights the
+    tokens; sum / max(count, 1). ``params`` is the flat parameter dict."""
+    table = params.get("lm_head/table", params["embed/table"])
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    if label_mask is None:
+        label_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                device=hidden.device)
+    vocab_ok = torch.arange(cfg.vocab_padded, device=hidden.device) < cfg.vocab
+    tot = cnt = None
+    for i0 in range(0, s, chunk):
+        sl = slice(i0, i0 + chunk)
+        mc = label_mask[:, sl].to(torch.float32)
+        loss = checkpoint(_chunk_xent, hidden[:, sl], labels[:, sl], mc,
+                          table, vocab_ok, use_reentrant=False,
+                          preserve_rng_state=False)
+        tot = loss if tot is None else tot + loss
+        cnt = mc.sum() if cnt is None else cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)

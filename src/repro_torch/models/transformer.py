@@ -1,8 +1,11 @@
 """Decoder-only transformer, dense and MoE families (gemma3, glm4, granite,
 yi, qwen2-vl with M-RoPE; qwen3-moe, mixtral with sliding-window attention):
-the port of the JAX package's ``models/transformer.py`` for serving —
-prefill (``dense_forward``, mode "prefill") and one-token decode
-(``dense_decode_step``) against a KV cache.
+the port of the JAX package's ``models/transformer.py`` — prefill
+(``dense_forward``, mode "prefill"), one-token decode
+(``dense_decode_step``) against a KV cache, and, for the dense family
+without a vision stub, training (mode "train": no caches, each layer
+recomputed in backward under ``remat``, the reference's ``jax.checkpoint``
+of its scan body).
 
 The reference scans over stacked layers and carries gemma3's 5:1
 local:global pattern as a traced flag; here the layer loop is a Python
@@ -25,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn.ops import decode_attention
 from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
@@ -151,16 +155,27 @@ def _layer_body(x, lp, cfg, is_local: bool, ropes):
     return x, kv_out
 
 
+def _train_layer(x, lp, cfg, is_local: bool, ropes):
+    return _layer_body(x, lp, cfg, is_local, ropes)[0]
+
+
 def dense_forward(model, tokens, cfg, mode: str = "prefill",
-                  vision_embeds=None):
-    """Full-sequence forward of ``model`` (a ``DenseLM``). Returns (hidden
-    (B, S, D), (k, v) caches (L, B, S, KV, Dh)). ``vision_embeds`` (B,
-    n_vision, D), if given, replace the first embeddings (qwen2-vl's
-    stubbed vision tower). Only mode "prefill" is ported: training is
-    not."""
-    if mode != "prefill":
-        raise ValueError(f"mode={mode!r}: need 'prefill' (training is not "
-                         "ported)")
+                  vision_embeds=None, remat: bool = True):
+    """Full-sequence forward of ``model`` (a ``DenseLM``, or a parameter
+    view of one: ``model_api.param_view``). Returns (hidden (B, S, D), (k,
+    v) caches (L, B, S, KV, Dh)), in mode "train" (hidden, None), each
+    layer recomputed in backward when ``remat`` (no activation of a layer
+    is kept but its input). ``vision_embeds`` (B, n_vision, D), if given,
+    replace the first embeddings (qwen2-vl's stubbed vision tower). The
+    MoE and vision-stub configs do not train yet (ROADMAP Queue 1 item
+    8(g))."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
+    if mode == "train" and (cfg.n_experts or cfg.n_vision_tokens
+                            or cfg.m_rope):
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE and vision-stub models is not ported "
+            "(ROADMAP.md Queue 1 item 8(g))")
     b, s = tokens.shape
     x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
     if vision_embeds is not None and cfg.n_vision_tokens:
@@ -171,10 +186,18 @@ def dense_forward(model, tokens, cfg, mode: str = "prefill",
     ropes = _ropes_for(cfg, s, x.device, batch=b)
     ks, vs = [], []
     for lp, is_local in zip(model.layers, _is_local_flags(cfg)):
-        x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes)
-        ks.append(k)
-        vs.append(v)
+        if mode == "train" and remat:
+            x = checkpoint(_train_layer, x, lp, cfg, is_local, ropes,
+                           use_reentrant=False, preserve_rng_state=False)
+        elif mode == "train":
+            x = _train_layer(x, lp, cfg, is_local, ropes)
+        else:
+            x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes)
+            ks.append(k)
+            vs.append(v)
     x = rms_norm(x, model.final_norm.w, cfg.norm_eps)
+    if mode == "train":
+        return x, None
     return x, (torch.stack(ks), torch.stack(vs))
 
 

@@ -1,0 +1,129 @@
+"""Logical-axis sharding rules of the model zoo (the port of the JAX
+package's ``sharding.py``), as pure functions over a mesh's axis sizes.
+
+Model code names the axes of each tensor logically (``ParamSchema.axes``:
+"vocab", "embed", "heads", ...); a per-(config, mesh, mode) rule table maps
+each name to mesh axes. A mapping holds only where the mesh axes' size
+divides the dimension, else the dimension stays whole: this is how yi-34b
+(56 heads on a 16-way "model" axis) falls back to head_dim sharding.
+
+Here the mesh is explicit SPMD (``launch/mesh.py::GridMesh``): a rule table
+decides which dimension a rank keeps a slice of, e.g. the ZeRO-1 dimension
+of the optimizer state (``optim.opt_state_specs``) and the rows of the
+batch (``data.SyntheticLMData.global_arrays``). ``mesh_shape`` is the
+ordered ``{axis: size}`` mapping (``GridMesh.shape``). The reference's
+``use_sharding`` / ``shard`` / ``named_sharding`` place GSPMD constraints
+and have no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+__all__ = ["AxisRules", "logical_spec", "make_rules", "axis_size"]
+
+# logical axis name -> mesh axis name, tuple of names, or None
+AxisRules = dict
+
+
+def axis_size(mesh_shape: Mapping[str, int], phys) -> int:
+    """The number of ranks of mesh axis ``phys`` (a name, a tuple of names
+    or None)."""
+    if phys is None:
+        return 1
+    if isinstance(phys, (tuple, list)):
+        n = 1
+        for a in phys:
+            n *= mesh_shape[a]
+        return n
+    return mesh_shape[phys]
+
+
+def logical_spec(names: Sequence[str | None], shape: Sequence[int] | None,
+                 mesh_shape: Mapping[str, int], rules: AxisRules) -> tuple:
+    """Resolve logical names to mesh axes per dimension (the reference's
+    ``PartitionSpec`` as a tuple): a mapping whose mesh axes are already
+    taken by an earlier dimension, or (with ``shape``) whose size does not
+    divide the dimension, is dropped. A single mesh axis is given by its
+    name, several by a tuple (as ``PartitionSpec`` writes them)."""
+    out = []
+    used: set = set()
+    for i, name in enumerate(names):
+        phys = rules.get(name) if name is not None else None
+        if phys is not None:
+            flat = tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
+            if any(a in used for a in flat):
+                phys = None
+            elif shape is not None and shape[i] % axis_size(mesh_shape,
+                                                             phys) != 0:
+                phys = None
+            else:
+                used.update(flat)
+        if isinstance(phys, (tuple, list)):
+            phys = phys[0] if len(phys) == 1 else tuple(phys)
+        out.append(phys)
+    return tuple(out)
+
+
+def make_rules(cfg, mesh_shape: Mapping[str, int], mode: str = "train",
+               decode_batch: int | None = None,
+               strategy: str = "tp") -> AxisRules:
+    """The logical -> mesh table of a config on a mesh, the reference's
+    ``make_rules`` rule for rule: 'tp' shards heads (or head_dim), mlp,
+    vocab and experts over "model" where it divides them; 'tp_sp' shards
+    the residual stream's sequence instead of d_model; 'fsdp' (train)
+    shards the batch over every axis and no weight over "model" but the
+    vocab; 'decode' shards the KV cache's length over "model" (and over
+    the data axes too when the batch cannot use them)."""
+    axes = dict(mesh_shape)
+    model = "model" if "model" in axes else None
+    data: tuple[str, ...] = tuple(a for a in ("pod", "data") if a in axes)
+    msize = axes.get("model", 1)
+
+    if strategy == "fsdp" and mode == "train":
+        full = data + ((model,) if model else ())
+        return {
+            "batch": full, "seq": None, "embed": None,
+            "residual_embed": None,
+            "vocab": model, "mlp": None, "heads": None, "kv_heads": None,
+            "head_dim": None, "experts": None, "expert_mlp": None,
+            "layers": None, "kv_seq": None, "state": None, "frames": None,
+        }
+
+    def div(n: int) -> bool:
+        return model is not None and n > 0 and n % msize == 0
+
+    heads_sharded = div(getattr(cfg, "h_eff", getattr(cfg, "n_heads", 0)))
+    rules: AxisRules = {
+        "batch": data,
+        "seq": None,
+        "embed": None,
+        "residual_seq": model if strategy == "tp_sp" else None,
+        "residual_embed": (model if (strategy != "tp_sp"
+                                     and div(getattr(cfg, "d_model", 0)))
+                           else None),
+        "vocab": model if div(getattr(cfg, "vocab_padded", 0)) else None,
+        "mlp": model if div(getattr(cfg, "d_ff", 0)) else None,
+        "heads": model if heads_sharded else None,
+        "kv_heads": (model if div(getattr(cfg, "kv_eff",
+                                          getattr(cfg, "n_kv_heads", 0)))
+                     else None),
+        "head_dim": (model if (not heads_sharded
+                               and div(getattr(cfg, "d_head", 0)))
+                     else None),
+        "experts": model if div(getattr(cfg, "n_experts", 0)) else None,
+        "expert_mlp": None,
+        "layers": None,
+        "kv_seq": None,
+        "state": None,
+        "frames": None,
+    }
+    if getattr(cfg, "n_experts", 0) and not div(cfg.n_experts):
+        rules["expert_mlp"] = model if div(cfg.d_ff) else None
+    if mode == "decode":
+        bsz = decode_batch
+        if bsz is not None and data and bsz % axis_size(axes, data) != 0:
+            rules["batch"] = None
+            rules["kv_seq"] = tuple(data) + ((model,) if model else ())
+        else:
+            rules["kv_seq"] = model
+    return rules

@@ -90,7 +90,13 @@ def test_port_has_the_expected_modules():
                  "repro_torch.launch.amp_serve",
                  "repro_torch.launch.multihost",
                  "repro_torch.launch.mesh", "repro_torch.launch.solver",
-                 "repro_torch.core.collectives"):
+                 "repro_torch.core.collectives",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedules", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.store", "repro_torch.sharding",
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.runtime", "repro_torch.runtime.trainer"):
         assert want in names, want
     for src in ("amp_local.cu", "amp_col.cu", "quantize.cu", "amp_common.cuh",
                 "decode_attn.cu", "wkv6.cu"):
@@ -522,6 +528,33 @@ def test_lm_decode_sources_hold_no_sync_calls():
            whisper._gelu_mlp]
     pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\("
                      r"|(?<![\w.])(float|bool)\(")
+    for fn in fns:
+        src = inspect.getsource(fn)
+        hit = pat.search(src)
+        assert hit is None, f"{fn.__qualname__}: {hit.group(0)!r}"
+
+
+def test_train_step_sources_hold_no_sync_calls():
+    """Source check on what a train step runs (the loss and its chunks, the
+    layers' recompute, the fusion, ZeRO-1 and AdamW); the CPU tests run the
+    step itself under the runtime guard
+    (``test_torch_train_step.py::test_train_step_reads_nothing_on_the_host``)
+    and ``chip_smoke.py`` under the card's sync debug mode."""
+    import inspect
+    from repro_torch.launch import steps
+    from repro_torch.models import model_api, transformer
+    from repro_torch.optim import adamw
+    fns = [steps.TrainStep.__call__, steps.TrainStep._grads,
+           steps.TrainStep._fuse, steps.TrainStep._slice,
+           steps.TrainStep._gather, steps._value_and_grad, steps._mean_over,
+           steps.loss_fn, model_api.train_forward, model_api.param_view,
+           model_api.chunked_xent_loss, model_api._chunk_xent,
+           transformer.dense_forward, transformer._train_layer,
+           transformer._layer_body, adamw.adamw_update,
+           adamw.global_norm_sq, adamw._sum_in_order,
+           tcomp.compressed_grad_transform]
+    pat = re.compile(r"\.item\(|\.cpu\(|\.numpy\(|\.tolist\("
+                     r"|(?<![\w.])(float|bool|int)\(")
     for fn in fns:
         src = inspect.getsource(fn)
         hit = pat.search(src)
