@@ -300,7 +300,7 @@ def profile_train(smi: str) -> None:
         peaks = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        loss, grads = step._grads(params, tok, lab)
+        loss, grads = step._grads(params, tok, lab, {})
         torch.cuda.synchronize()
         peaks["gradients"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
@@ -311,11 +311,12 @@ def profile_train(smi: str) -> None:
         del loss, grads
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        step(params, opt, tok, lab)
+        step(params, opt, tok, lab, donate=True)
         torch.cuda.synchronize()
         peaks["step"] = torch.cuda.max_memory_allocated() / 1e9
         peaks["resident_params_and_state"] = torch.cuda.memory_allocated() / 1e9
-        row = profile_call(lambda: step(params, opt, tok, lab), "quantize")
+        row = profile_call(lambda: step(params, opt, tok, lab, donate=True),
+                           "quantize")
     finally:
         dist.destroy_process_group()
     print(json.dumps({"train": "gemma3-1b", "call": "int8_step",

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
                           [--k6-only | --k5-only | --k4-only | --sharded-only
-                           | --zoo-only | --train-only]
+                           | --zoo-only | --train-only | --train-zoo-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -60,8 +60,9 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     ``launch/steps.py::build_train_step``, train_4k's sequence of 4096 and
     a global batch of 8 in 4 microbatches, 4 steps with the gradients
     fused over "pod" by the int8 ``compressed_psum`` (K4a, K4b-sum, K4b: 52
-    launches a step, asserted) and 4 exact from the same init and data, on
-    an NCCL world of one, the first int8 step under the sync debug mode
+    launches a step, asserted) and 4 exact from the same init and data,
+    the donated (in-place) step the Trainer runs, on an NCCL world of one,
+    the first int8 step under the sync debug mode
     "warn" (no site), the others under "error", the int8 losses from step
     2 on not the exact ones; (b) K4a, K4b-sum and K4b, int8 and packed, at
     the gradient chunks of gemma3-1b's embed/table and its 26 x 1152 x 6912
@@ -73,6 +74,21 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     "pod" (int4 run beside them); (d) the ``Trainer`` preempted at step 8
     and resumed from its step-5 checkpoint == the uninterrupted run, bit
     for bit;
+  * LM training of the other families (phase ``train_zoo``): (a) K6's
+    backward kernel (``wkv6_bwd``) against autograd of its plain forward
+    at six cases (rwkv6-3b's microbatch of 2 x 4096, ragged T, a state in,
+    a cotangent of the final state, float32, Dh 32 and 16), timed beside
+    K6 at that shape; (b) rwkv6-3b at its published width and depth, 8 x
+    4096 tokens in 4 microbatches, 6 exact and 6 int8 donated (in-place)
+    steps on an NCCL world of one: K6 256 and its backward 128 launches a
+    step, K4a/K4b-sum/K4b 48/24/24 an int8 step, the loss lower after six
+    steps than at the first, int8 within 1 % of exact's loss at every step,
+    no host sync from step 2 on, peak under 80 GB; (c) the smoke configs of
+    rwkv6 (K6 and its backward through ``WKV6Function``), qwen3-moe,
+    mixtral, recurrentgemma, qwen2-vl (vision embeddings) and whisper
+    (frames): one loss and its gradients on the card against the CPU
+    (float32 weights, limits from the float32 readings; bf16 recorded),
+    then 8 int8 steps whose loss falls;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -98,7 +114,7 @@ then ``{"kernels": [...]}``, then as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is non-zero
 and the last line is not printed. ``--out`` also writes all of it to one
 JSON file. Needs a CUDA device and nvcc; needs no network. Takes about
-seven minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
+ten minutes on an H100. ``--k3-parent DIR`` (DIR holding a parent tree's
 ``src/repro_torch/csrc``) also times that tree's K3 in turns with this
 one's (phase ``k3_operands``). ``--k6-only`` builds the WKV6 kernel alone, holds it
 against its plain version at every ``WKV_CASES`` case and times it at
@@ -121,7 +137,8 @@ plain version at every ``DA_CASES`` case and every shape of the zoo's
 decode paths, runs ``lm_zoo`` and stops the same way. ``--train-only``
 builds ``quantize.cu``, holds the wire forms against their plain versions,
 runs the ``train`` phase and stops with its kernels rows, the card's line
-and the last line.
+and the last line. ``--train-zoo-only`` builds the WKV6 and block-quantize
+kernels, runs the ``train_zoo`` phase and stops the same way.
 """
 from __future__ import annotations
 
@@ -193,6 +210,7 @@ from repro_torch.configs import ShapeSpec  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                       build_train_step)
+from repro_torch.launch.steps import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.models import get_model, moe as lm_moe  # noqa: E402
@@ -216,7 +234,8 @@ SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
            "dequantize_sum": "src/repro_torch/csrc/quantize.cu",
            "dequantize_sum_packed": "src/repro_torch/csrc/quantize.cu",
            "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
-           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+           "wkv6": "src/repro_torch/csrc/wkv6.cu",
+           "wkv6_bwd": "src/repro_torch/csrc/wkv6.cu"}
 K1_SITES = ("src/repro/kernels/amp_fused/amp_fused.py:102, "
             "src/repro/kernels/amp_fused/amp_fused.py:123")
 REPLACES = {"amp_local": K1_SITES,
@@ -233,7 +252,10 @@ REPLACES = {"amp_local": K1_SITES,
             "dequantize_sum": "src/repro/kernels/quantize/quantize.py:72",
             "dequantize_sum_packed": "src/repro/kernels/quantize/quantize.py:72",
             "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:85",
-            "wkv6": "src/repro/kernels/wkv6/wkv6.py:80"}
+            "wkv6": "src/repro/kernels/wkv6/wkv6.py:80",
+            # no TPU kernel: the reference takes jax.grad of its jnp
+            # wkv_chunked
+            "wkv6_bwd": "src/repro/models/rwkv6.py:102"}
 COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
             kd.launch_counts, kw.launch_counts)
 # kernels that no driven path launches any more, checked and timed all the
@@ -2646,7 +2668,7 @@ def _train_runs(mesh, cfg, shape, tcfgs: dict, steps: int, seed: int,
                 box = {"args": (params, opt, tok, lab)}
 
                 def one():
-                    box["out"] = step(*box.pop("args"))
+                    box["out"] = step(*box.pop("args"), donate=True)
                     return box["out"][2]["loss"], None
                 e0.record()
                 run["sync_sites"] = sync_sites(one)
@@ -2658,13 +2680,14 @@ def _train_runs(mesh, cfg, shape, tcfgs: dict, steps: int, seed: int,
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     e0.record()
-                    params, opt, m = step(params, opt, tok, lab)
+                    params, opt, m = step(params, opt, tok, lab,
+                                          donate=True)
                     e1.record()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
             else:
                 e0.record()
-                params, opt, m = step(params, opt, tok, lab)
+                params, opt, m = step(params, opt, tok, lab, donate=True)
                 e1.record()
             e1.synchronize()
             run["ms"].append(e0.elapsed_time(e1))
@@ -2881,7 +2904,7 @@ def train_rank(mesh) -> dict:
         losses = []
         for i in range(CONV_STEPS):
             tok, lab = data.global_arrays(i, grid)
-            params, opt, m = step(params, opt, tok, lab)
+            params, opt, m = step(params, opt, tok, lab, donate=True)
             losses.append(float(m["loss"]))
         out[name] = {"losses": losses,
                      "pod": grid.axis("pod").stats.snapshot(),
@@ -2995,6 +3018,442 @@ def train_kernel_rows(train_ctx) -> list:
                 "launches": launches, "max_abs_err": err, "ms": tm["ms"],
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# LM training of the other families (phase train_zoo)
+# ---------------------------------------------------------------------------
+
+# (a) K6's backward (kernels/wkv6/wkv6.py::wkv6_bwd_cuda) against autograd
+# of its plain forward (wkv_chunked) on the card: name, B, T, H, Dh, dtype
+# of r/k/v, state0 given, dS_T given. The first is rwkv6-3b's training
+# shape (a microbatch of 2 x 4096, 40 heads of 64; no state, and the final
+# state takes no part in the loss), the one the path gives the kernel.
+WKV_BWD_CASES = [
+    ("rwkv6_3b_train", 2, 4096, 40, 64, torch.bfloat16, False, False),
+    ("ragged_T1000_dS", 2, 1000, 8, 64, torch.bfloat16, False, True),
+    ("state0_T70_f32_dS", 2, 70, 3, 64, torch.float32, True, True),
+    ("no_state0_T45_f32", 1, 45, 2, 64, torch.float32, False, False),
+    ("dh32_T100_state0", 2, 100, 4, 32, torch.bfloat16, True, False),
+    ("smoke_dh16_T45_dS", 2, 45, 4, 16, torch.bfloat16, True, True),
+]
+WKV_BWD_PATH = "rwkv6_3b_train"
+# Each gradient within WKV_BWD_RTOL of its largest magnitude, and a bf16
+# one (dr, dk, dv of bf16 inputs: the kernel rounds its float32 sums once)
+# within one bf16 rounding (2^-8 of the element) beyond that. Both sides sum
+# in float32 with factors up to e^{+-64} (log-decay clamped at -2 over 32
+# steps), in other orders, and carry the adjoint and dlogw's running sum
+# over T / 32 chunks: on the CPU the chunked form's gradient parts from the
+# float64 step-by-step adjoint by 7e-7 of its scale at T <= 100
+# (tests/test_torch_wkv6_grad.py); 1e-4 leaves room for 4096 steps.
+WKV_BWD_RTOL = 1e-4
+# (b) rwkv6-3b at its published width and depth (32 layers, d 2560, 40 heads
+# of 64, d_ff 8960, vocab 65536), train_4k's sequence of 4096, the global
+# batch cut from 256 to 8 in 4 microbatches of 2 x 4096; TZ_STEPS steps
+# exact and TZ_STEPS with int8 pod fusion from one init (SEED) on the same
+# data, on an NCCL world of one (pod=1, data=1, model=1), the donated
+# (in-place) step. At this width AdamW's first step raises the loss, in the
+# reference as in the port (a CPU run of both from the same parameters, 2
+# layers of rwkv6-3b's width, vocab 8192, 2 x 256 tokens: 9.51 -> 21.12 ->
+# 9.71 -> 9.42 and 9.51 -> 21.10 -> 9.88 -> 9.14; on the card 11.57 ->
+# 24.05 -> 17.74 in three steps, at lr 3e-4 and at 3e-5 alike), so three
+# steps cannot show the fall: six run, and the last loss must be under the
+# first.
+TZ_ARCH, TZ_SEQ, TZ_BATCH, TZ_MB, TZ_STEPS = "rwkv6-3b", 4096, 8, 4, 6
+TZ_REDUCED = {"global_batch": "256 -> 8 (microbatches 4 of 2 rows)",
+              "mesh": "(pod, data, model) = (1, 1, 1)", "steps": TZ_STEPS}
+# |int8 - exact| loss at every step, as a share of the exact loss: while
+# the loss falls back from the first step's jump, 6 nats a step, the two
+# runs part by up to 0.087 at a loss of 11.71 (0.74 %; 0.14 % at step 3,
+# under 0.07 % at the others; an NVIDIA H100 80GB HBM3 at 700 W)
+TZ_INT8_REL = 0.01
+TZ_PEAK_GB = 80.0
+# (c) the smoke configs of every family but the dense one (rwkv6's runs
+# K6 and its backward through WKV6Function on the card, wkv_chunked and
+# wkv6_bwd_ref on the CPU): one step's loss and gradients in float32 on the
+# card against the CPU, then TZ_SMALL_STEPS int8 steps on the card. The
+# limits come from the float32 readings (an NVIDIA H100 80GB HBM3 at
+# 700 W, the same in two runs): loss <= 7.8e-8 relative, each leaf's max
+# gap <= 4.4e-4 of its largest magnitude, norm gap <= 9.0e-5 of its norm;
+# the same comparison in bf16, recorded beside, reads loss 7.6e-8..1.1e-6,
+# max gap 9.4e-4..8.0e-3 and norm gap 2.8e-4..5.2e-3, so the norm limit
+# sits under every family's bf16 reading
+TZ_SMALL = ("rwkv6-3b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
+            "recurrentgemma-2b", "qwen2-vl-7b", "whisper-small")
+TZ_SMALL_SEQ, TZ_SMALL_BATCH, TZ_SMALL_STEPS, TZ_SMALL_LR = 64, 4, 8, 2e-3
+TZ_LOSS_RTOL, TZ_GRAD_MAX, TZ_GRAD_NORM = 1e-6, 4e-3, 2e-4
+
+
+def wkv6_bwd_bound(b, t, h, dh, dtype, state, has_ds) -> dict:
+    """K6 backward's least time: r, k, v, logw, dy, u (and state0, dS_T)
+    read once, dr, dk, dv, dlogw, du (and dstate0) written once; its
+    operations over the T real steps: the products of a chunk of c steps
+    and head (the state recomputed, A = r'k'^T and Bm = dy v^T, dy S0^T,
+    v G^T, kk G, the three products over the triangle, the adjoint update)
+    at the dense TF32 tensor-core rate, the rest (rebasing, the u terms,
+    dlogw's running sum, decays) at the float32 CUDA-core rate."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    n = b * t * h * dh
+    st = b * h * dh * dh * 4
+    nbytes = (3 * n * e + 8 * n + 4 * h * dh + (st if state else 0)
+              + (st if has_ds else 0)
+              + 3 * n * e + 4 * n + 4 * h * dh + (st if state else 0))
+
+    def products(c):
+        return (2 * dh * dh * c                      # the state, pass 1
+                + c * (c - 1) * dh + 2 * c * c * dh  # A (triangle), Bm
+                + 3 * 2 * c * dh * dh                # dy S0^T, v G^T, kk G
+                + 3 * c * (c - 1) * dh               # Bm k', Bm^T r', A^T dy
+                + 2 * dh * dh * c)                   # the adjoint
+
+    def rest_ops(c):
+        return 16 * c * dh + 4 * dh * dh
+    full, rest = divmod(t, CHUNK)
+    prod = b * h * (full * products(CHUNK) + (products(rest) if rest else 0))
+    other = b * h * (full * rest_ops(CHUNK) + (rest_ops(rest) if rest else 0))
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = prod / TF32_FLOP_PER_S + other / FP32_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": float(prod + other),
+            "tensor_core_flops": float(prod), "cuda_core_flops": float(other)}
+
+
+def wkv_bwd_inputs(case):
+    """The inputs of a WKV_BWD_CASES case (``wkv_inputs``' r, k, v, logw,
+    u, state0 and a cotangent dy, dS_T or None)."""
+    name, b, t, h, dh, dtype, state, has_ds = case
+    r, k_, v, logw, u, s0 = wkv_inputs(b, t, h, dh, dtype, state, SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    dy = torch.randn(b, t, h, dh, generator=g, device=DEV)
+    ds = torch.randn(b, h, dh, dh, generator=g, device=DEV) if has_ds else None
+    return r, k_, v, logw, u, s0, dy, ds
+
+
+def wkv_bwd_plain(r, k_, v, logw, u, s0, dy, ds):
+    """Autograd of the plain forward (``wkv_chunked``) on float32 copies of
+    the inputs: the gradients (dr, dk, dv, dlogw, du[, dstate0]) and a
+    function that runs that backward again (the graph kept: its time)."""
+    ins = [x.detach().float().clone().requires_grad_(True)
+           for x in (r, k_, v, logw, u)]
+    if s0 is not None:
+        ins.append(s0.detach().clone().requires_grad_(True))
+    y, s = wkv_chunked(*ins[:5], ins[5] if s0 is not None else None)
+    loss = (y * dy).sum() + (0 if ds is None else (s * ds).sum())
+    grads = torch.autograd.grad(loss, ins, retain_graph=True)
+    return grads, lambda: torch.autograd.grad(loss, ins, retain_graph=True)
+
+
+def check_wkv6_bwd() -> dict:
+    """K6's backward against autograd of ``wkv_chunked`` at every
+    WKV_BWD_CASES case (WKV_BWD_RTOL), bit-identical over two runs; K6's
+    forward at the path's shape against ``wkv_chunked`` (WKV_TOL); the two
+    timed at the path's shape beside their plain versions and bounds."""
+    rows, times = [], {}
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+    for case in WKV_BWD_CASES:
+        name, b, t, h, dh, dtype, state, has_ds = case
+        args = wkv_bwd_inputs(case)
+        got = kw.wkv6_bwd_cuda(*args, need_state0_grad=state)
+        again = kw.wkv6_bwd_cuda(*args, need_state0_grad=state)
+        torch.cuda.synchronize()
+        want, plain = wkv_bwd_plain(*args)
+        row = {"case": name, "B": b, "T": t, "H": h, "Dh": dh,
+               "dtype": str(dtype).split(".")[-1], "state0": state,
+               "dS_T": has_ds,
+               "bit_identical": all(torch.equal(x, y) for x, y in
+                                    zip(got, again) if x is not None)}
+        ok = True
+        for key, g, w in zip(names, got, want):
+            g = g.float()
+            scale = float(w.abs().max())
+            bf16_out = key in ("dr", "dk", "dv") and dtype == torch.bfloat16
+            ulp = 2.0 ** -8 * w.abs() if bf16_out else 0.0
+            excess = ((g - w).abs() - ulp).clamp(min=0.0)
+            row[f"{key}_max_abs_err"] = float((g - w).abs().max())
+            row[f"{key}_err_of_scale"] = float(excess.max()) / scale
+            ok &= row[f"{key}_err_of_scale"] <= WKV_BWD_RTOL
+        row["max_abs_err"] = max(v for key, v in row.items()
+                                 if key.endswith("_max_abs_err"))
+        if name == WKV_BWD_PATH:
+            r, k_, v, logw, u, s0, dy, ds = args
+            y, _ = kw.wkv6_cuda(r, k_, v, logw, u, s0)
+            y_r, _ = wkv_chunked(r, k_, v, logw, u, s0)
+            row["forward_y_max_abs_err"] = float((y - y_r).abs().max())
+            assert torch.allclose(y, y_r, rtol=WKV_TOL, atol=WKV_TOL), row
+            u32 = u.float().contiguous()
+            times["wkv6_bwd"] = _time_calls(
+                {"wkv6_bwd": {
+                    "ms": lambda: kw.wkv6_bwd_cuda(r, k_, v, logw, u32, s0,
+                                                   dy, ds),
+                    "plain_ms": plain}},
+                {"wkv6_bwd": wkv6_bwd_bound(b, t, h, dh, dtype, state,
+                                            has_ds)})["wkv6_bwd"]
+            times["wkv6_bwd"]["plain_is"] = \
+                "the backward of autograd over wkv_chunked (graph kept)"
+            times["wkv6"] = _time_calls(
+                {"wkv6": {"ms": lambda: kw.wkv6_cuda(r, k_, v, logw, u, s0),
+                          "plain_ms": lambda: wkv_chunked(r, k_, v, logw, u,
+                                                          s0)}},
+                {"wkv6": wkv6_bound(b, t, h, dh, dtype, state)})["wkv6"]
+            times["wkv6"]["y_max_abs_err"] = row["forward_y_max_abs_err"]
+            del y, y_r
+        rows.append(row)
+        assert ok and row["bit_identical"], row
+        del args, got, again, want, plain
+        _free()
+    emit("kernel_check_wkv6_bwd", rtol_of_scale=WKV_BWD_RTOL,
+         bf16_outputs="one bf16 rounding beyond the rtol", cases=rows)
+    return {"rows": {r["case"]: r for r in rows}, "times": times}
+
+
+def _rwkv_train_runs(mesh) -> dict:
+    """Phase (b): rwkv6-3b, TZ_STEPS exact and TZ_STEPS int8 donated steps
+    from one init
+    on the same data; per step its loss, CUDA-event time and launches, the
+    first step's sync sites (sync debug mode "warn"), the later steps
+    under "error"; the peak device memory of each run."""
+    cfg = get_config(TZ_ARCH)
+    shape = ShapeSpec("train_4k_cut", TZ_SEQ, TZ_BATCH, "train")
+    data = SyntheticLMData(cfg.vocab, TZ_SEQ, TZ_BATCH, seed=SEED)
+    batches = [data.global_arrays(i, mesh) for i in range(TZ_STEPS)]
+    runs = {}
+    for name, bits in (("exact", None), ("int8", 8)):
+        step = build_train_step(cfg, mesh, shape, TrainStepConfig(
+            microbatches=TZ_MB, compression_bits=bits))
+        params = step.init_params(SEED)
+        opt = step.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"loss": [], "grad_norm": [], "quant_noise": [], "ms": [],
+               "launches": [],
+               "resident_gb": torch.cuda.memory_allocated() / 1e9}
+        for i, (tok, lab) in enumerate(batches):
+            reset_all_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            if i == 0:
+                box = {}
+
+                def one():
+                    box["m"] = step(params, opt, tok, lab, donate=True)[2]
+                    return box["m"]["loss"], None
+                e0.record()
+                run["sync_sites_step1"] = sync_sites(one)
+                e1.record()
+                m = box.pop("m")
+                del one
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    e0.record()
+                    m = step(params, opt, tok, lab, donate=True)[2]
+                    e1.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            e1.synchronize()
+            run["ms"].append(e0.elapsed_time(e1))
+            run["launches"].append({k_: v for k_, v in all_counts().items()
+                                    if v})
+            for key in ("loss", "grad_norm", "quant_noise"):
+                run[key].append(float(m[key]))
+        run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["n_leaves"] = len(params)
+        runs[name] = run
+        del step, params, opt, m
+        _free()
+    return runs
+
+
+def _tz_aux(cfg, batch: int, device, dtype=torch.bfloat16) -> dict:
+    """The stub inputs (whisper's frames, qwen2-vl's vision embeddings) of
+    ``batch`` rows from a numpy seed."""
+    n = (cfg.n_audio_frames if cfg.family == "whisper"
+         else cfg.n_vision_tokens)
+    if not n:
+        return {}
+    key = "frames" if cfg.family == "whisper" else "vision_embeds"
+    a = np.random.default_rng(SEED).normal(size=(batch, n, cfg.d_model))
+    return {key: torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)}
+
+
+def _tz_loss_grads(cfg, params, tok, lab, aux):
+    keys = sorted(params)
+    leaves = [params[k_].detach().clone().requires_grad_(True) for k_ in keys]
+    loss = train_loss_fn(dict(zip(keys, leaves)), tok, lab, cfg, True, 2, aux)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {k_: g.float().cpu() for k_, g in zip(keys, grads)}
+
+
+def _tz_compare(cfg, params, tok, lab, aux, dtype) -> dict:
+    """One training loss and its gradients of ``params`` (cast to
+    ``dtype``) on the card and on the CPU: the loss's relative gap, each
+    leaf's max gap over its largest magnitude and norm gap over its norm
+    (the worst leaf of each)."""
+    p = {k_: v.to(dtype) for k_, v in params.items()}
+    a = {k_: v.to(dtype) for k_, v in aux.items()}
+    l_g, g_g = _tz_loss_grads(cfg, {k_: v.to(DEV) for k_, v in p.items()},
+                              tok.to(DEV), lab.to(DEV),
+                              {k_: v.to(DEV) for k_, v in a.items()})
+    l_c, g_c = _tz_loss_grads(cfg, p, tok, lab, a)
+    worst_max = max((float((g_g[k_] - g_c[k_]).abs().max()
+                           / g_c[k_].abs().max().clamp(min=1e-30)), k_)
+                    for k_ in g_c)
+    worst_norm = max((float((g_g[k_] - g_c[k_]).norm()
+                            / g_c[k_].norm().clamp(min=1e-30)), k_)
+                     for k_ in g_c)
+    return {"loss_card": l_g, "loss_cpu": l_c,
+            "loss_rel_gap": abs(l_g - l_c) / abs(l_c),
+            "grad_max_gap_of_scale": worst_max[0],
+            "grad_max_gap_leaf": worst_max[1],
+            "grad_norm_gap_of_norm": worst_norm[0],
+            "grad_norm_gap_leaf": worst_norm[1]}
+
+
+def _tz_small(mesh) -> dict:
+    """Phase (c): each TZ_SMALL smoke config. One training loss and its
+    gradients on the card against the CPU with float32 weights (asserted
+    at TZ_LOSS_RTOL / TZ_GRAD_MAX / TZ_GRAD_NORM) and with the bf16 weights
+    the model trains in (recorded: the two devices' products round bf16 at
+    other places, the gap the CPU tests see between the reference's jitted
+    and op-by-op runs); then TZ_SMALL_STEPS int8 donated steps on the card,
+    whose loss falls, with K4a / K4b-sum / K4b 2 / 1 / 1 a leaf a step (and
+    rwkv6's K6 two and its backward one a layer)."""
+    out = {}
+    for arch in TZ_SMALL:
+        cfg = get_config(arch).smoke_config()
+        shape = ShapeSpec("smoke", TZ_SMALL_SEQ, TZ_SMALL_BATCH, "train")
+        step = build_train_step(cfg, mesh, shape, TrainStepConfig(
+            compression_bits=8, moe_groups=2,
+            adamw=AdamWConfig(lr=TZ_SMALL_LR)))
+        cpu = build_train_step(cfg, make_host_mesh(model=1, device="cpu"),
+                               shape, TrainStepConfig(moe_groups=2))
+        params = cpu.init_params(SEED)
+        data = SyntheticLMData(cfg.vocab, TZ_SMALL_SEQ, TZ_SMALL_BATCH,
+                               seed=SEED)
+        tok, lab = (torch.as_tensor(x) for x in data.global_arrays(
+            0, make_host_mesh(model=1, device="cpu")))
+        aux = _tz_aux(cfg, TZ_SMALL_BATCH, "cpu")
+        f32 = _tz_compare(cfg, params, tok, lab, aux, torch.float32)
+        bf16 = _tz_compare(cfg, params, tok, lab, aux, torch.bfloat16)
+        row = {"float32": f32, "bf16_recorded": bf16}
+        assert f32["loss_rel_gap"] <= TZ_LOSS_RTOL, (arch, f32)
+        assert f32["grad_max_gap_of_scale"] <= TZ_GRAD_MAX, (arch, f32)
+        assert f32["grad_norm_gap_of_norm"] <= TZ_GRAD_NORM, (arch, f32)
+        p_dev = {k_: v.to(DEV) for k_, v in params.items()}
+        opt = step.init_opt_state(p_dev)
+        aux_dev = _tz_aux(cfg, TZ_SMALL_BATCH, DEV)
+        losses, launches = [], []
+        for i in range(TZ_SMALL_STEPS):
+            t_i, l_i = data.global_arrays(i, mesh)
+            reset_all_counts()
+            m = step(p_dev, opt, t_i, l_i, aux_dev, donate=True)[2]
+            losses.append(float(m["loss"]))
+            launches.append({k_: v for k_, v in all_counts().items() if v})
+        n = len(p_dev)
+        want = {"quantize_blocks": 2 * n, "dequantize_sum": n,
+                "dequantize_blocks": n}
+        if cfg.family == "rwkv6":          # forward and recompute; backward
+            want.update(wkv6=2 * cfg.n_layers, wkv6_bwd=cfg.n_layers)
+        row.update(losses=losses, k4_launches_per_step=launches[0],
+                   leaves=n)
+        assert all(np.isfinite(losses)), (arch, losses)
+        assert losses[-1] < losses[0], (arch, losses)
+        for got in launches:
+            assert {k_: got.get(k_, 0) for k_ in want} == want, (arch, got)
+        out[arch] = row
+        del step, cpu, params, p_dev, opt
+        _free()
+    return out
+
+
+def run_train_zoo() -> dict:
+    """Phase ``train_zoo``: (a) K6's backward against autograd of its plain
+    forward; (b) rwkv6-3b at full width and depth, exact and int8, the
+    donated step on an NCCL world of one; (c) the other families' smoke
+    configs, card against CPU and int8 steps."""
+    import tempfile
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    a = check_wkv6_bwd()
+    store_dir = tempfile.mkdtemp(prefix="amp_train_zoo_")
+    init_cluster(num_processes=1, process_id=0, backend="nccl",
+                 store_path=os.path.join(store_dir, "nccl_train_zoo"),
+                 device=str(DEV))
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                         device=str(DEV))
+        runs = _rwkv_train_runs(mesh)
+        small = _tz_small(mesh)
+    finally:
+        dist.destroy_process_group()
+    cfg = get_config(TZ_ARCH)
+    n_leaves = runs["exact"]["n_leaves"]
+    per_step = {"wkv6": 2 * cfg.n_layers * TZ_MB,        # forward, recompute
+                "wkv6_bwd": cfg.n_layers * TZ_MB}
+    k4 = {"quantize_blocks": 2 * n_leaves, "dequantize_sum": n_leaves,
+          "dequantize_blocks": n_leaves}
+    tokens = TZ_BATCH * TZ_SEQ
+    for run in runs.values():
+        steady = statistics.median(run["ms"][1:])
+        run["steady_step_ms"] = steady
+        run["tokens_per_s"] = tokens / (steady / 1e3)
+    gaps = [abs(x - y) for x, y in zip(runs["int8"]["loss"],
+                                       runs["exact"]["loss"])]
+    launches = {key: sum(r.get(key, 0) for run in runs.values()
+                         for r in run["launches"])
+                for key in ("wkv6", "wkv6_bwd")}
+    # the line first, then the checks: a failed check still shows its data
+    emit("train_zoo", card=nvidia_smi_line(), arch=TZ_ARCH,
+         seq_len=TZ_SEQ, global_batch=TZ_BATCH, microbatches=TZ_MB,
+         reduced=TZ_REDUCED, wkv6_bwd_times=a["times"], runs=runs,
+         int8_exact_gaps=gaps,
+         launches_per_step={"exact": per_step, "int8": {**per_step, **k4}},
+         launches=launches, small=small,
+         limits={"wkv6_bwd_rtol_of_scale": WKV_BWD_RTOL,
+                 "int8_exact_gap_of_loss": TZ_INT8_REL,
+                 "peak_gb": TZ_PEAK_GB,
+                 "small_loss_rtol": TZ_LOSS_RTOL,
+                 "small_grad_max_of_scale": TZ_GRAD_MAX,
+                 "small_grad_norm_of_norm": TZ_GRAD_NORM},
+         seconds=time.perf_counter() - t_phase)
+    for name, run in runs.items():
+        assert all(np.isfinite(run["loss"])), (name, run["loss"])
+        assert run["loss"][-1] < run["loss"][0], (name, run["loss"])
+        assert run["peak_memory_gb"] < TZ_PEAK_GB, (name, run)
+        for i, got in enumerate(run["launches"]):
+            want = dict(per_step, **(k4 if name == "int8" else {}))
+            keys = list(per_step) + list(k4)
+            assert {k_: got.get(k_, 0) for k_ in keys} == \
+                {k_: want.get(k_, 0) for k_ in keys}, (name, i, got)
+    assert all(g <= TZ_INT8_REL * abs(x) for g, x in
+               zip(gaps, runs["exact"]["loss"])), (runs["int8"]["loss"],
+                                                   runs["exact"]["loss"])
+    # the fused gradients are the compressed ones: from step 2 on, the
+    # int8 run's loss is not the exact run's
+    assert all(x != y for x, y in zip(runs["int8"]["loss"][1:],
+                                      runs["exact"]["loss"][1:])), gaps
+    assert all(v > 0 for v in runs["int8"]["quant_noise"])
+    return {"check": a, "launches": launches}
+
+
+def train_zoo_kernel_rows(ctx) -> list:
+    """The kernels line's rows of phase train_zoo: K6's backward and K6 at
+    rwkv6-3b's training shape, timed there, with the launches of (b)'s six
+    steps (counts set to 0 just before each step)."""
+    rows = []
+    err = ctx["check"]["rows"][WKV_BWD_PATH]
+    for name, key, e in (("wkv6_bwd", "wkv6_bwd", err["max_abs_err"]),
+                         ("wkv6/train_rwkv6_3b", "wkv6",
+                          err["forward_y_max_abs_err"])):
+        tm = ctx["check"]["times"][key]
+        assert ctx["launches"][key] > 0, (name, ctx["launches"])
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[key],
+            "replaces": REPLACES[key], "launches": ctx["launches"][key],
+            "max_abs_err": e, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
     return rows
 
 
@@ -4102,6 +4561,13 @@ def main() -> None:
                            "width, K4 at the gradients' sizes, two gloo "
                            "ranks, the Trainer resumed) and stop: its "
                            "kernels rows and the last line as in a full run")
+    only.add_argument("--train-zoo-only", action="store_true",
+                      help="build the WKV6 and block-quantize kernels, run "
+                           "the train_zoo phase (K6's backward checked and "
+                           "timed, rwkv6-3b at full width exact and int8, "
+                           "the other families' smoke configs card vs CPU "
+                           "and int8) and stop: its kernels rows and the "
+                           "last line as in a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -4123,6 +4589,7 @@ def main() -> None:
     names = (["wkv6"] if args.k6_only
              else ["decode_attn"] if args.k5_only or args.zoo_only
              else ["quantize"] if args.k4_only or args.train_only
+             else ["wkv6", "quantize"] if args.train_zoo_only
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -4157,6 +4624,17 @@ def main() -> None:
     if args.train_only:
         check_wire_kernels()
         rows = train_kernel_rows(run_train())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump({**RESULT, "kernels": rows}, fh, indent=1)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print_last_line()
+        return
+    if args.train_zoo_only:
+        rows = train_zoo_kernel_rows(run_train_zoo())
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -4267,6 +4745,8 @@ def main() -> None:
     _free()
     train_ctx = run_train()
     _free()
+    train_zoo_ctx = run_train_zoo()
+    _free()
     lm_zoo = run_lm_zoo()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
     wire_row = lambda name: (wire_times["row_D1"][name],
@@ -4329,6 +4809,8 @@ def main() -> None:
             "library_ms": tm["library_ms"]})
     # K4 at the train path's gradient sizes (phase train)
     kernels += train_kernel_rows(train_ctx)
+    # K6's backward and K6 at rwkv6-3b's training shape (phase train_zoo)
+    kernels += train_zoo_kernel_rows(train_zoo_ctx)
     # K5 on the zoo's paths: a row a model and layer kind, timed at that
     # shape, with the calls its model's generate made there
     zoo_case = zoo_da_cases()

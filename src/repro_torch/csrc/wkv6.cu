@@ -74,6 +74,10 @@
 // Limits: Dh a multiple of 4 up to 128; r, k, v bf16 or float32 (one
 // dtype); logw, u, the states and y float32.
 //
+// The backward (`wkv6_bwd_kernel`, entry `wkv6_bwd_launch`) has no TPU
+// counterpart: the reference differentiates its jnp `wkv_chunked` with
+// jax.grad. It is described where it starts, below the forward.
+//
 // Plain C interface, loaded with ctypes. The entry points launch on the
 // stream they are given, do not synchronise, allocate nothing and return
 // cudaGetLastError().
@@ -561,6 +565,315 @@ cudaError_t launch(const Args& a, int B, int NV, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward: dr, dk, dv, dlogw, du and dstate0 for the cotangents dy
+// (B, T, H, Dh) of y and dS_T (B, H, Dh, Dh) of the final state (or none).
+//
+// With G_t = dL/dS_t, the adjoint runs backward from G_T = dS_T as
+// G_{t-1} = diag(w_t) G_t + r_t dy_t^T, and (kernels/wkv6/ref.py,
+// `wkv6_bwd_ref`, is the same function step by step)
+//     dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+//     dk_t = G_t v_t + u r_t (v_t . dy_t)
+//     dv_t = G_t^T k_t + (r_t . u k_t) dy_t
+//     du = sum_t r_t k_t (v_t . dy_t),     dstate0 = G_0.
+// dlogw_t[i] = w_t[i] sum_j G_t[i, j] S_{t-1}[i, j] is taken as a reverse
+// cumulative sum: with P_t[i] = sum_j G_t[i, j] S_t[i, j] and dr^h, dk^h
+// the two products above without their u terms, P_{t-1} = P_t - k_t dk^h_t
+// + r_t dr^h_t and dlogw_t = P_t - k_t dk^h_t, from P_T = rowsum(S_T dS_T).
+//
+// A chunk of C = 32 steps in the basis of the reference's wkv_chunked
+// (l_inc, l_exc = l_inc - logw, l_last = l_inc at the chunk's last step;
+// r' = r e^{l_exc}, k' = k e^{-l_inc}, kk = k e^{l_last - l_inc}; S0 and G
+// the state and adjoint at the chunk's start and end):
+//     A = tril_strict(r' k'^T),  Bm = dy v^T,  ruk_t = sum_i r u k
+//     dr^h = e^{l_exc} (dy S0^T + tril_strict(Bm) k')
+//     dk^h = e^{l_last - l_inc} (v G^T) + e^{-l_inc} (tril_strict(Bm)^T r')
+//     dv   = kk G + A^T dy + ruk dy
+//     G   <- diag(e^{l_last}) G + r'^T dy      (the adjoint at the chunk's start)
+// As in the forward, the caller keeps logw >= -2, so every factor stays
+// within e^{+-64} and every product inside float32's range.
+//
+// Design (simple first: CUDA-core float32 FMAs, no tensor cores). One block
+// per (b, h), 256 threads, the whole (Dh, Dh) state and adjoint in shared
+// memory. Pass 1 runs the state recurrence forward and writes each chunk's
+// start state to `scratch` (B, H, ceil(T / 32), Dh, Dh) float32; pass 2
+// takes the chunks in reverse, carrying G and P. Steps past T are zero
+// (k = v = r = dy = 0, logw = 0: they neither add to the state nor decay
+// it) and their gradients are not written. du leaves as partials (B, H, Dh)
+// that the wrapper sums over B in a fixed order. Sums run in a fixed order:
+// the results are the same bits run to run.
+//
+// Limits: Dh a power of two from 4 to 64; r, k, v bf16 or float32 (one
+// dtype; dr, dk, dv in it); logw, u, state0, dy, dS_T, dlogw, du and
+// dstate0 float32.
+
+constexpr int kBwdThreads = 256;
+
+struct BwdLayout {
+  int ld, ldc;               // rows of the (., Dh) and (C, C) matrices (floats)
+  int o_s, o_g, o_r, o_k, o_v, o_dy, o_lw, o_ele, o_enl, o_ekk, o_rp, o_kp, o_kk,
+      o_rd, o_kd, o_a, o_b, o_ruk, o_u, o_elast, o_p;
+  int bytes;
+  __host__ __device__ explicit BwdLayout(int dh) {
+    ld = dh + 1;              // odd: a warp down a column hits 32 banks
+    ldc = kChunk + 1;
+    int o = 0;
+    o_s = o;   o += dh * ld;
+    o_g = o;   o += dh * ld;
+    o_r = o;   o += kChunk * ld;
+    o_k = o;   o += kChunk * ld;
+    o_v = o;   o += kChunk * ld;
+    o_dy = o;  o += kChunk * ld;
+    o_lw = o;  o += kChunk * ld;
+    o_ele = o; o += kChunk * ld;
+    o_enl = o; o += kChunk * ld;
+    o_ekk = o; o += kChunk * ld;
+    o_rp = o;  o += kChunk * ld;
+    o_kp = o;  o += kChunk * ld;
+    o_kk = o;  o += kChunk * ld;
+    o_rd = o;  o += kChunk * ld;
+    o_kd = o;  o += kChunk * ld;
+    o_a = o;   o += kChunk * ldc;
+    o_b = o;   o += kChunk * ldc;
+    o_ruk = o; o += kChunk;
+    o_u = o;   o += dh;
+    o_elast = o; o += dh;
+    o_p = o;   o += dh;
+    bytes = 4 * o;
+  }
+};
+
+struct BwdArgs {
+  const void* r; const void* k; const void* v; const float* logw; const float* u;
+  const float* state0; const float* dy; const float* ds; float* scratch;
+  void* dr; void* dk; void* dv; float* dlogw; float* du_part; float* dstate0;
+  int T_len, H, Dh;
+};
+
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Chunk c's rows (steps past T as zeros) of the listed (B, T, H, Dh) inputs
+// into shared memory as float32.
+template <typename T>
+__device__ void bwd_load_rows(const T* src, float* dst, int ld, size_t base, size_t rs, int Dh,
+                              int n_ok) {
+  for (int e = threadIdx.x; e < kChunk * Dh; e += kBwdThreads) {
+    const int t = e / Dh, i = e - t * Dh;
+    dst[t * ld + i] = t < n_ok ? to_f32(src[base + t * rs + i]) : 0.f;
+  }
+}
+
+// The chunk's cumulative log-decay, a thread a channel: e^{l_exc},
+// e^{-l_inc}, e^{l_last - l_inc} for every step, e^{l_last} for the chunk.
+__device__ void bwd_scan(const BwdLayout& L, float* sm, int Dh) {
+  for (int i = threadIdx.x; i < Dh; i += kBwdThreads) {
+    float inc = 0.f;
+    for (int t = 0; t < kChunk; ++t) {
+      const float lw = sm[L.o_lw + t * L.ld + i];
+      sm[L.o_ele + t * L.ld + i] = inc;          // l_exc, made e^{l_exc} below
+      inc += lw;
+      sm[L.o_enl + t * L.ld + i] = inc;          // l_inc
+    }
+    for (int t = 0; t < kChunk; ++t) {
+      const float li = sm[L.o_enl + t * L.ld + i];
+      sm[L.o_ele + t * L.ld + i] = expf(sm[L.o_ele + t * L.ld + i]);
+      sm[L.o_enl + t * L.ld + i] = expf(-li);
+      sm[L.o_ekk + t * L.ld + i] = expf(inc - li);
+    }
+    sm[L.o_elast + i] = expf(inc);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+wkv6_bwd_kernel(const BwdArgs a) {
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int tid = threadIdx.x;
+  const int Dh = a.Dh, DD = Dh * Dh;
+  const BwdLayout L(Dh);
+  extern __shared__ __align__(16) float sm[];
+  float* S = sm + L.o_s;
+  float* G = sm + L.o_g;
+  const T* r = static_cast<const T*>(a.r);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const size_t rs = static_cast<size_t>(a.H) * Dh;          // one step's row
+  const size_t row0 = static_cast<size_t>(b) * a.T_len * rs + static_cast<size_t>(h) * Dh;
+  const int n_chunks = (a.T_len + kChunk - 1) / kChunk;
+  float* scratch = a.scratch + static_cast<size_t>(bh) * n_chunks * DD;
+  const size_t state_base = static_cast<size_t>(bh) * DD;
+
+  for (int e = tid; e < DD; e += kBwdThreads) {
+    const int i = e / Dh, j = e - i * Dh;
+    S[i * L.ld + j] = a.state0 != nullptr ? a.state0[state_base + e] : 0.f;
+  }
+  for (int i = tid; i < Dh; i += kBwdThreads) sm[L.o_u + i] = a.u[h * Dh + i];
+  __syncthreads();
+
+  // Pass 1: each chunk's start state to scratch, S_T left in S.
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kChunk, n_ok = min(kChunk, a.T_len - t0);
+    const size_t base = row0 + static_cast<size_t>(t0) * rs;
+    for (int e = tid; e < DD; e += kBwdThreads) {
+      const int i = e / Dh, j = e - i * Dh;
+      scratch[static_cast<size_t>(c) * DD + e] = S[i * L.ld + j];
+    }
+    bwd_load_rows<T>(k, sm + L.o_k, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<T>(v, sm + L.o_v, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<float>(a.logw, sm + L.o_lw, L.ld, base, rs, Dh, n_ok);
+    __syncthreads();
+    bwd_scan(L, sm, Dh);
+    __syncthreads();
+    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
+      const int t = e / Dh, i = e - t * Dh;
+      sm[L.o_kk + t * L.ld + i] = sm[L.o_k + t * L.ld + i] * sm[L.o_ekk + t * L.ld + i];
+    }
+    __syncthreads();
+    for (int e = tid; e < DD; e += kBwdThreads) {
+      const int i = e / Dh, j = e - i * Dh;
+      float acc = sm[L.o_elast + i] * S[i * L.ld + j];
+      for (int t = 0; t < kChunk; ++t)
+        acc = fmaf(sm[L.o_kk + t * L.ld + i], sm[L.o_v + t * L.ld + j], acc);
+      S[i * L.ld + j] = acc;
+    }
+    __syncthreads();
+  }
+
+  // Pass 2: G from dS_T, P = rowsum(S_T dS_T); the chunks in reverse.
+  for (int e = tid; e < DD; e += kBwdThreads) {
+    const int i = e / Dh, j = e - i * Dh;
+    G[i * L.ld + j] = a.ds != nullptr ? a.ds[state_base + e] : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < Dh; i += kBwdThreads) {
+    float p = 0.f;
+    if (a.ds != nullptr)
+      for (int j = 0; j < Dh; ++j) p = fmaf(S[i * L.ld + j], G[i * L.ld + j], p);
+    sm[L.o_p + i] = p;
+  }
+  float du_acc = 0.f;                        // thread i < Dh: du[i]
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kChunk, n_ok = min(kChunk, a.T_len - t0);
+    const size_t base = row0 + static_cast<size_t>(t0) * rs;
+    __syncthreads();                         // the previous chunk is done with S
+    for (int e = tid; e < DD; e += kBwdThreads) {
+      const int i = e / Dh, j = e - i * Dh;
+      S[i * L.ld + j] = scratch[static_cast<size_t>(c) * DD + e];
+    }
+    bwd_load_rows<T>(r, sm + L.o_r, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<T>(k, sm + L.o_k, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<T>(v, sm + L.o_v, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<float>(a.dy, sm + L.o_dy, L.ld, base, rs, Dh, n_ok);
+    bwd_load_rows<float>(a.logw, sm + L.o_lw, L.ld, base, rs, Dh, n_ok);
+    __syncthreads();
+    bwd_scan(L, sm, Dh);
+    __syncthreads();
+    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
+      const int t = e / Dh, i = e - t * Dh, o = t * L.ld + i;
+      sm[L.o_rp + o] = sm[L.o_r + o] * sm[L.o_ele + o];
+      sm[L.o_kp + o] = sm[L.o_k + o] * sm[L.o_enl + o];
+      sm[L.o_kk + o] = sm[L.o_k + o] * sm[L.o_ekk + o];
+    }
+    __syncthreads();
+    // A (strictly lower) and Bm (whole), a thread an entry; ruk per step
+    for (int e = tid; e < 2 * kChunk * kChunk; e += kBwdThreads) {
+      const int m = e / (kChunk * kChunk), f = e - m * kChunk * kChunk;
+      const int t = f / kChunk, s2 = f - t * kChunk;
+      float acc = 0.f;
+      if (m == 0) {
+        if (s2 < t)
+          for (int i = 0; i < Dh; ++i)
+            acc = fmaf(sm[L.o_rp + t * L.ld + i], sm[L.o_kp + s2 * L.ld + i], acc);
+        sm[L.o_a + t * L.ldc + s2] = acc;
+      } else {
+        for (int j = 0; j < Dh; ++j)
+          acc = fmaf(sm[L.o_dy + t * L.ld + j], sm[L.o_v + s2 * L.ld + j], acc);
+        sm[L.o_b + t * L.ldc + s2] = acc;
+      }
+    }
+    for (int t = tid; t < kChunk; t += kBwdThreads) {
+      float acc = 0.f;
+      for (int i = 0; i < Dh; ++i)
+        acc = fmaf(sm[L.o_r + t * L.ld + i] * sm[L.o_u + i], sm[L.o_k + t * L.ld + i], acc);
+      sm[L.o_ruk + t] = acc;
+    }
+    __syncthreads();
+    // dr, dk, dv: a thread an entry (t, i) of each
+    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
+      const int t = e / Dh, i = e - t * Dh, o = t * L.ld + i;
+      float x = 0.f, y = 0.f;
+      for (int j = 0; j < Dh; ++j) {
+        x = fmaf(S[i * L.ld + j], sm[L.o_dy + t * L.ld + j], x);
+        y = fmaf(G[i * L.ld + j], sm[L.o_v + t * L.ld + j], y);
+      }
+      float xi = 0.f, yi = 0.f;
+      for (int s2 = 0; s2 < t; ++s2)
+        xi = fmaf(sm[L.o_b + t * L.ldc + s2], sm[L.o_kp + s2 * L.ld + i], xi);
+      for (int s2 = t + 1; s2 < kChunk; ++s2)
+        yi = fmaf(sm[L.o_b + s2 * L.ldc + t], sm[L.o_rp + s2 * L.ld + i], yi);
+      const float drh = sm[L.o_ele + o] * (x + xi);
+      const float dkh = sm[L.o_ekk + o] * y + sm[L.o_enl + o] * yi;
+      const float vdy = sm[L.o_b + t * L.ldc + t];
+      const float ru = sm[L.o_u + i] * vdy;
+      sm[L.o_rd + o] = sm[L.o_r + o] * drh;
+      sm[L.o_kd + o] = sm[L.o_k + o] * dkh;
+      // dv[t, i] (i as the value column)
+      float z = sm[L.o_ruk + t] * sm[L.o_dy + o];
+      for (int d = 0; d < Dh; ++d) z = fmaf(sm[L.o_kk + t * L.ld + d], G[d * L.ld + i], z);
+      for (int s2 = t + 1; s2 < kChunk; ++s2)
+        z = fmaf(sm[L.o_a + s2 * L.ldc + t], sm[L.o_dy + s2 * L.ld + i], z);
+      if (t < n_ok) {
+        const size_t off = base + static_cast<size_t>(t) * rs + i;
+        store_elem(static_cast<T*>(a.dr) + off, fmaf(ru, sm[L.o_k + o], drh));
+        store_elem(static_cast<T*>(a.dk) + off, fmaf(ru, sm[L.o_r + o], dkh));
+        store_elem(static_cast<T*>(a.dv) + off, z);
+      }
+    }
+    __syncthreads();                         // every reader of G and S is done
+    // dlogw by the reverse cumulative sum, and du, a thread a channel
+    for (int i = tid; i < Dh; i += kBwdThreads) {
+      float run = sm[L.o_p + i];
+      for (int t = kChunk - 1; t >= 0; --t) {
+        const float kd = sm[L.o_kd + t * L.ld + i];
+        if (t < n_ok) a.dlogw[base + static_cast<size_t>(t) * rs + i] = run - kd;
+        run = run - kd + sm[L.o_rd + t * L.ld + i];
+        du_acc = fmaf(sm[L.o_r + t * L.ld + i] * sm[L.o_k + t * L.ld + i],
+                      sm[L.o_b + t * L.ldc + t], du_acc);
+      }
+      sm[L.o_p + i] = run;
+    }
+    // the adjoint at the chunk's start
+    for (int e = tid; e < DD; e += kBwdThreads) {
+      const int i = e / Dh, j = e - i * Dh;
+      float acc = sm[L.o_elast + i] * G[i * L.ld + j];
+      for (int t = 0; t < kChunk; ++t)
+        acc = fmaf(sm[L.o_rp + t * L.ld + i], sm[L.o_dy + t * L.ld + j], acc);
+      G[i * L.ld + j] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Dh; i += kBwdThreads) a.du_part[state_base / Dh + i] = du_acc;
+  if (a.dstate0 != nullptr)
+    for (int e = tid; e < DD; e += kBwdThreads) {
+      const int i = e / Dh, j = e - i * Dh;
+      a.dstate0[state_base + e] = G[i * L.ld + j];
+    }
+}
+
+template <typename T>
+cudaError_t bwd_launch(const BwdArgs& a, int B, cudaStream_t stream) {
+  const int smem = BwdLayout(a.Dh).bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wkv6_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  wkv6_bwd_kernel<T><<<B * a.H, kBwdThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool valid_split(int Dh, int NV) {
   return NV >= 1 && Dh % NV == 0 && (NV == 1 || (Dh / NV) % 8 == 0);
 }
@@ -585,6 +898,26 @@ int wkv6_launch(const void* r, const void* k, const void* v, const float* logw,
   const Args a{r, k, v, logw, u, state0, y, state_out, T_len, H, Dh, Dh / NV, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = in_bf16 ? launch<__nv_bfloat16>(a, B, NV, st) : launch<float>(a, B, NV, st);
+  return static_cast<int>(e);
+}
+
+// The backward. r, k, v (B, T, H, Dh) bf16 (in_bf16 = 1) or float32;
+// logw, dy (B, T, H, Dh), u (H, Dh), state0 and ds (B, H, Dh, Dh) or null
+// (zeros) float32; scratch (B, H, ceil(T / 32), Dh, Dh) float32; dr, dk, dv
+// in r's dtype, dlogw (B, T, H, Dh), du_part (B, H, Dh) float32, dstate0
+// (B, H, Dh, Dh) float32 or null (not written). Dh a power of two, 4 to 64.
+int wkv6_bwd_launch(const void* r, const void* k, const void* v, const float* logw,
+                    const float* u, const float* state0, const float* dy, const float* ds,
+                    float* scratch, void* dr, void* dk, void* dv, float* dlogw,
+                    float* du_part, float* dstate0, int B, int T_len, int H, int Dh,
+                    int in_bf16, void* stream) {
+  if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh > 64 || (Dh & (Dh - 1)) != 0 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{r, k, v, logw, u, state0, dy, ds, scratch, dr, dk, dv, dlogw, du_part,
+                  dstate0, T_len, H, Dh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = in_bf16 ? bwd_launch<__nv_bfloat16>(a, B, st) : bwd_launch<float>(a, B, st);
   return static_cast<int>(e);
 }
 

@@ -3,6 +3,8 @@ in chunks of 32 steps, written by hand for Hopper.
 
     wkv6_cuda   r, k, v, logw (B, T, H, Dh), u (H, Dh), state0 (B, H, Dh, Dh)
                 -> y (B, T, H, Dh) float32, final state (B, H, Dh, Dh) float32
+    wkv6_bwd_cuda  the same inputs and the cotangents dy, dS_T
+                -> dr, dk, dv, dlogw, du, dstate0 (its gradient)
 
 The kernel runs one block per (b, h) and slice of value columns: column
 block j of y and of the state depends only on the same columns of v, so
@@ -18,6 +20,11 @@ It takes CUDA tensors only and either launches or raises: the plain version
 Outputs come from ``torch.empty``; the launch goes to PyTorch's current
 stream and nothing synchronises. ``launch_counts`` adds one per wrapper
 call that launched.
+
+The backward kernel runs one block per (b, h) (no value split: dr, dk and
+dlogw sum over every value column) and keeps each chunk's start state in a
+scratch tensor of (B, H, ceil(T / 32), Dh, Dh) float32 that the wrapper
+allocates for the call.
 """
 from __future__ import annotations
 
@@ -27,12 +34,14 @@ import torch
 
 from ..build import check, load
 
-__all__ = ["wkv6_cuda", "launch_counts", "reset_launch_counts", "MAX_DH",
-           "value_splits", "value_slices", "wkv_plan", "max_active_blocks"]
+__all__ = ["wkv6_cuda", "wkv6_bwd_cuda", "launch_counts",
+           "reset_launch_counts", "MAX_DH", "BWD_DHS", "value_splits",
+           "value_slices", "wkv_plan", "max_active_blocks"]
 
-launch_counts = {"wkv6": 0}
+launch_counts = {"wkv6": 0, "wkv6_bwd": 0}
 
 MAX_DH = 128
+BWD_DHS = (4, 8, 16, 32, 64)     # the backward's head sizes
 
 _lib = None
 _active: dict = {}
@@ -50,6 +59,8 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.wkv6_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.wkv6_launch.restype = ci
+        lib.wkv6_bwd_launch.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+        lib.wkv6_bwd_launch.restype = ci
         lib.wkv6_max_active_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         lib.wkv6_max_active_blocks.restype = ci
         _lib = lib
@@ -164,3 +175,50 @@ def wkv6_cuda(r, k, v, logw, u, state0=None, nv=None):
     check("wkv6", code, "wkv6_launch")
     launch_counts["wkv6"] += 1
     return y, state
+
+
+def wkv6_bwd_cuda(r, k, v, logw, u, state0, dy, ds=None,
+                  need_state0_grad: bool = False):
+    """The gradient of ``wkv6_cuda``'s (y, final state) on the card, for the
+    cotangents ``dy`` (B, T, H, Dh) float32 and ``ds`` (B, H, Dh, Dh)
+    float32 or None (zero). The inputs as ``wkv6_cuda`` takes them, u
+    float32 here. Returns (dr, dk, dv in r's dtype, dlogw float32, du (H,
+    Dh) float32, dstate0 (B, H, Dh, Dh) float32 when ``need_state0_grad``,
+    else None)."""
+    if r.ndim != 4:
+        raise ValueError(f"r: need (B, T, H, Dh), got {tuple(r.shape)}")
+    b, t, h, dh = r.shape
+    if dh not in BWD_DHS:
+        raise ValueError(f"Dh={dh}: the backward takes Dh in {BWD_DHS}")
+    _need(r, "r", (torch.bfloat16, torch.float32), r.shape)
+    _need(k, "k", (r.dtype,), r.shape)
+    _need(v, "v", (r.dtype,), r.shape)
+    _need(logw, "logw", (torch.float32,), r.shape)
+    _need(dy, "dy", (torch.float32,), r.shape)
+    _need(u, "u", (torch.float32,), (h, dh))
+    for name, x in (("state0", state0), ("ds", ds)):
+        if x is not None:
+            _need(x, name, (torch.float32,), (b, h, dh, dh))
+    if len({x.device for x in (r, k, v, logw, u, dy, state0, ds)
+            if x is not None}) != 1:
+        raise ValueError("all inputs must be on one device")
+    dev = r.device
+    scratch = torch.empty((b, h, -(-t // 32), dh, dh), dtype=torch.float32,
+                          device=dev)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw = torch.empty_like(logw)
+    du_part = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    ds0 = (torch.empty((b, h, dh, dh), dtype=torch.float32, device=dev)
+           if need_state0_grad else None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):
+        code = _library().wkv6_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(ds),
+            scratch.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dlogw.data_ptr(), du_part.data_ptr(), ptr(ds0), b, t, h, dh,
+            int(r.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    check("wkv6", code, "wkv6_bwd_launch")
+    launch_counts["wkv6_bwd"] += 1
+    return dr, dk, dv, dlogw, du_part.sum(0), ds0

@@ -20,6 +20,19 @@ One step, on each rank:
      all-gathered into every rank's parameters.
 Nothing in the step reads a value on the host.
 
+A step is functional by default (new parameters and state); with
+``donate=True`` it updates the ones it was given in place
+(``adamw_update_``), the counterpart of the reference Trainer's donated
+buffers: at rwkv6-3b the functional step would hold two copies of the
+37 GB float32 state. A donated step whose loss or gradient norm is not
+finite leaves every tensor as it was.
+
+Every family trains (``model_api.train_forward``); MoE layers cut a
+microbatch's tokens into ``moe_groups`` groups, and the stub inputs
+(``aux``: whisper's ``frames``, qwen2-vl's ``vision_embeds``, (global
+batch, ...) each) are cut into this rank's rows and the microbatches as the
+tokens are.
+
 Parameters are the flat dict of the schema's paths (stacked layers on a
 leading axis), bf16, whole on every rank. The "model" axis (tensor
 parallelism) and the 'tp_sp' / 'fsdp' strategies are not ported (ROADMAP
@@ -38,8 +51,8 @@ from ..core.compression import QuantConfig, compressed_psum
 from ..data.pipeline import batch_rows
 from ..models.layers import init_from_schema
 from ..models.model_api import chunked_xent_loss, schema_for, train_forward
-from ..optim import (AdamWConfig, adamw_init, adamw_update, opt_state_specs,
-                     zero_dims)
+from ..optim import (AdamWConfig, adamw_init, adamw_update, adamw_update_,
+                     opt_state_specs, zero_dims)
 from ..sharding import make_rules
 from .mesh import DATA_AXES
 
@@ -53,21 +66,24 @@ class TrainStepConfig:
     remat: bool = True
     zero1: bool = True
     adamw: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    moe_groups: int = 16
     strategy: str = "tp"                  # only 'tp' (no "model" axis) here
 
 
 def loss_fn(params: dict, tokens, labels, cfg: ModelConfig,
-            remat: bool = True):
+            remat: bool = True, n_groups: int = 16, aux: dict | None = None):
     """Mean next-token cross-entropy of the flat ``params`` on (tokens,
-    labels) (B, S)."""
-    hidden = train_forward(params, tokens, cfg, remat)
+    labels) (B, S), with the stub inputs ``aux`` of those rows."""
+    hidden = train_forward(params, tokens, cfg, remat, n_groups,
+                           **(aux or {}))
     return chunked_xent_loss(params, hidden, labels, cfg)
 
 
-def _value_and_grad(params: dict, tokens, labels, cfg, remat: bool):
+def _value_and_grad(params: dict, tokens, labels, cfg, tcfg, aux: dict):
     keys = sorted(params)
     leaves = [params[k].detach().requires_grad_(True) for k in keys]
-    loss = loss_fn(dict(zip(keys, leaves)), tokens, labels, cfg, remat)
+    loss = loss_fn(dict(zip(keys, leaves)), tokens, labels, cfg, tcfg.remat,
+                   tcfg.moe_groups, aux)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), dict(zip(keys, grads))
 
@@ -79,12 +95,14 @@ def _mean_over(x, mesh):
 
 class TrainStep:
     """The train step of ``cfg`` on ``mesh`` (``launch/mesh.py::GridMesh``):
-    ``step(params, opt_state, tokens, labels)`` -> (new params, new
-    opt_state, metrics), with ``tokens``/``labels`` this rank's rows
-    (``data.batch_rows``) on its device and ``opt_state`` this rank's
-    ZeRO-1 slices (``init_opt_state`` / ``shard_opt_state``). Metrics are
-    0-dim float32 tensors: ``loss``, ``grad_norm``, ``clip``,
-    ``quant_noise``."""
+    ``step(params, opt_state, tokens, labels, aux=None, donate=False)`` ->
+    (new params, new opt_state, metrics), with ``tokens``/``labels`` this
+    rank's rows (``data.batch_rows``) on its device, ``aux`` the stub
+    inputs of the global batch (this rank's rows are taken here) and
+    ``opt_state`` this rank's ZeRO-1 slices (``init_opt_state`` /
+    ``shard_opt_state``). With ``donate`` the given params and opt_state
+    are updated in place and returned. Metrics are 0-dim float32 tensors:
+    ``loss``, ``grad_norm``, ``clip``, ``quant_noise``."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
                  tcfg: TrainStepConfig = TrainStepConfig()):
@@ -110,7 +128,7 @@ class TrainStep:
         self.compressed = ("pod" in mesh.shape
                            and tcfg.compression_bits is not None)
         lo, hi = batch_rows(shape.global_batch, mesh)
-        self.rows = hi - lo
+        self.row0, self.rows = lo, hi - lo
         if self.rows % tcfg.microbatches:
             raise ValueError(f"{self.rows} rows a rank do not split into "
                              f"{tcfg.microbatches} microbatches")
@@ -163,21 +181,35 @@ class TrainStep:
 
     # -- the step ------------------------------------------------------------
 
-    def _grads(self, params, tokens, labels):
-        mb, remat = self.tcfg.microbatches, self.tcfg.remat
+    def _aux_rows(self, aux: dict | None) -> dict:
+        """This rank's rows of each stub input (global batch first)."""
+        out = {}
+        for k, v in (aux or {}).items():
+            if v.shape[0] != self.shape.global_batch:
+                raise ValueError(f"aux {k!r} {tuple(v.shape)}: need the "
+                                 f"global batch ({self.shape.global_batch}) "
+                                 "first")
+            out[k] = v.narrow(0, self.row0, self.rows)
+        return out
+
+    def _grads(self, params, tokens, labels, aux: dict):
+        mb, tcfg = self.tcfg.microbatches, self.tcfg
         if tokens.shape[0] != self.rows:
             raise ValueError(f"tokens {tuple(tokens.shape)}: this rank "
                              f"holds {self.rows} rows of the global batch")
         if mb == 1:
             loss, grads = _value_and_grad(params, tokens, labels, self.cfg,
-                                          remat)
+                                          tcfg, aux)
             return loss, {k: g.to(torch.float32) for k, g in grads.items()}
         tok = tokens.reshape(mb, self.rows // mb, -1)
         lab = labels.reshape(mb, self.rows // mb, -1)
+        aux_mb = {k: v.reshape(mb, self.rows // mb, *v.shape[1:])
+                  for k, v in aux.items()}
         acc, loss_sum = None, None
         for i in range(mb):
             loss, grads = _value_and_grad(params, tok[i], lab[i], self.cfg,
-                                          remat)
+                                          tcfg, {k: v[i] for k, v in
+                                                 aux_mb.items()})
             if acc is None:
                 acc = {k: g.to(torch.float32) for k, g in grads.items()}
                 loss_sum = loss
@@ -212,8 +244,10 @@ class TrainStep:
             noise = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, grads, noise
 
-    def __call__(self, params: dict, opt_state: dict, tokens, labels):
-        loss, grads = self._grads(params, tokens, labels)
+    def __call__(self, params: dict, opt_state: dict, tokens, labels,
+                 aux: dict | None = None, donate: bool = False):
+        loss, grads = self._grads(params, tokens, labels,
+                                  self._aux_rows(aux))
         with torch.no_grad():
             loss, grads, noise = self._fuse(loss, grads)
             nz = self._zsize()
@@ -230,10 +264,22 @@ class TrainStep:
                                      device=g_s[k].device)
                     for k in sorted(g_s)])
                 norm_sq = psum(norm_sq, self.zmesh)
-            new_p, new_opt, metrics = adamw_update(
-                p_s, g_s, opt_state, self.tcfg.adamw, norm_sq=norm_sq)
-            del grads, g_s
-            new_params = {k: self._gather(k, new_p[k]) for k in sorted(new_p)}
+            if donate:
+                metrics = adamw_update_(p_s, g_s, opt_state, self.tcfg.adamw,
+                                        norm_sq=norm_sq, loss=loss)
+                del grads, g_s
+                for k in sorted(p_s):
+                    full = self._gather(k, p_s[k])
+                    if full is not p_s[k]:
+                        params[k].copy_(full)
+                    del full
+                new_params, new_opt = params, opt_state
+            else:
+                new_p, new_opt, metrics = adamw_update(
+                    p_s, g_s, opt_state, self.tcfg.adamw, norm_sq=norm_sq)
+                del grads, g_s
+                new_params = {k: self._gather(k, new_p[k])
+                              for k in sorted(new_p)}
         metrics = dict(metrics, loss=loss, quant_noise=noise)
         return new_params, new_opt, metrics
 

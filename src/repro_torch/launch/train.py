@@ -1,16 +1,19 @@
 """Training launcher (the port of the JAX package's ``launch/train.py``):
 --arch <id> --smoke [--steps N] [--device cuda|cpu].
 
-``--smoke`` runs the reduced config end to end on
-``make_host_mesh(model=1)``: data, the train step, checkpoints, resume.
-Without it the reference trains on ``make_production_mesh``, whose
-"model" axis of 16 is tensor parallelism: not ported (ROADMAP.md Queue 1
-item 8(h)), so the launcher refuses before it joins a world. The
-reference's ``--strategy`` ('tp_sp', 'fsdp') waits for the same item, and
-its ``--compression`` is left out: the compressed fusion runs over a "pod"
-axis, which the host mesh does not have (``launch/steps.py``; the pod
-meshes are built with ``make_mesh``, as the tests and ``chip_smoke.py``
-do).
+``--smoke`` runs the reduced config of any family end to end on
+``make_host_mesh(model=1)``: data, the train step, checkpoints, resume;
+MoE layers cut the tokens into 2 groups, as the reference's launcher sets
+at smoke size. Without it the reference trains on
+``make_production_mesh``, whose "model" axis of 16 is tensor parallelism:
+not ported (ROADMAP.md Queue 1 item 8(h)), so the launcher refuses before
+it joins a world. The reference's ``--strategy`` ('tp_sp', 'fsdp'),
+``--shape``, ``--compression`` (gradient-fusion bits over a "pod" axis,
+which the host mesh does not have) and 64 MoE groups at full size wait for
+the same item: on the host mesh none of them would change anything. The
+pod meshes are built with ``make_mesh``, as the tests and
+``chip_smoke.py`` do. The Trainer passes no stub inputs, so whisper raises
+for want of frames, as the reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \\
       --smoke --steps 20 --device cpu
@@ -56,6 +59,7 @@ def main(argv=None):
         ckpt_dir=args.ckpt_dir,
         step_cfg=TrainStepConfig(
             microbatches=args.microbatches,
+            moe_groups=2,
             adamw=AdamWConfig(lr=args.lr)))
     trainer = Trainer(cfg, shape, mesh, tcfg)
     _, _, history = trainer.run(resume=True)

@@ -1,8 +1,8 @@
 """The model interface of the port, over every family of the JAX package:
 ``dense`` (gemma3, glm4, granite, yi, qwen2-vl) and ``moe`` (qwen3-moe,
 mixtral) in ``transformer``, ``rwkv6``, ``rglru`` (recurrentgemma) and
-``whisper``, for serving (prefill and decode); the dense family without a
-vision stub also trains (``train_forward``, ``chunked_xent_loss``).
+``whisper``, for serving (prefill and decode) and training
+(``train_forward``, ``chunked_xent_loss``).
 
 One ``nn.Module`` per family, all ``ModelBundle``s:
 
@@ -288,16 +288,28 @@ def param_view(params: dict, cfg: ModelConfig):
 
 
 def train_forward(params: dict, tokens, cfg: ModelConfig,
-                  remat: bool = True):
+                  remat: bool = True, n_groups: int = 16, **aux):
     """The training forward of the flat ``params`` over ``tokens`` (B, S):
-    the final hidden (B, S, D). The dense family only: the others wait
-    (ROADMAP.md Queue 1 item 8(g))."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            "(ROADMAP.md Queue 1 item 8(g))")
-    hidden, _ = transformer.dense_forward(param_view(params, cfg), tokens,
-                                          cfg, "train", remat=remat)
+    the final hidden (B, S, D), every family dispatched as the reference's
+    ``get_model`` does. ``n_groups``: the MoE layers' token groups (the
+    step's ``moe_groups``); ``aux``: the stub inputs ``aux_inputs``
+    describes (whisper's ``frames``, qwen2-vl's ``vision_embeds``)."""
+    view = param_view(params, cfg)
+    if cfg.family in ("dense", "moe"):
+        hidden, _ = transformer.dense_forward(
+            view, tokens, cfg, "train", aux.get("vision_embeds"), remat,
+            n_groups)
+    elif cfg.family == "rwkv6":
+        hidden, _ = rwkv6.rwkv6_forward(view, tokens, cfg, "train",
+                                        remat=remat)
+    elif cfg.family == "rglru":
+        hidden, _ = rglru.rglru_forward(view, tokens, cfg, "train",
+                                        remat=remat)
+    elif cfg.family == "whisper":
+        hidden, _ = whisper.whisper_forward(view, tokens, cfg, "train",
+                                            aux.get("frames"), remat)
+    else:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return hidden
 
 

@@ -11,6 +11,12 @@ renormalised top-k gates.
 
 The reference shards groups over data and experts over the model axis;
 here, on one device, the groups are a leading axis of the same tensors.
+
+Gradients flow through the dispatch as the reference's do: the scatter
+into the buffer takes the gather back's gradient of each kept slot, the
+gates and router theirs; a dropped slot (the dummy row, and a zero gate)
+gets none. Serving (nothing requires a gradient) multiplies in place to
+spare memory; training takes the same products out of place.
 """
 from __future__ import annotations
 
@@ -70,7 +76,9 @@ def route(xf, router_w, top_k: int):
 
 
 def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg, n_groups: int = 16):
-    """x: (B, S, D) -> (B, S, D). Expert weights (E, D, F) / (E, F, D)."""
+    """x: (B, S, D) -> (B, S, D). Expert weights (E, D, F) / (E, F, D);
+    the B * S tokens cut into the largest number of groups up to
+    ``n_groups`` that divides them."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tokens = b * s
@@ -86,10 +94,13 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg, n_groups: int = 16):
     # expert FFN (SwiGLU), batched over the experts: (E, G*C, D)
     buf = buf[:, :-1].reshape(g, e, capacity, d).transpose(0, 1).reshape(
         e, g * capacity, d)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, router_w, w_gate, w_up, w_down))
     act = torch.nn.functional.silu(torch.matmul(buf, w_gate).float(),
-                                   inplace=True).to(x.dtype)
-    act *= torch.matmul(buf, w_up)
-    del buf
+                                   inplace=not grad).to(x.dtype)
+    up = torch.matmul(buf, w_up)
+    act = act * up if grad else act.mul_(up)
+    del buf, up
     out = torch.matmul(act, w_down)                    # (E, G*C, D)
     del act
     # gather back (a dropped slot from the zero row) + combine

@@ -1,6 +1,8 @@
 """RecurrentGemma (Griffin) — RG-LRU recurrent blocks + local attention
-[arXiv:2402.19427]: the port of the JAX package's ``models/rglru.py`` for
-serving.
+[arXiv:2402.19427]: the port of the JAX package's ``models/rglru.py``:
+prefill, decode and training (mode "train": from the zero state, no K/V
+stacked, each macro-block recomputed in backward under ``remat``, the
+recurrent tail not, as the reference checkpoints its scan body only).
 
 Block pattern (recurrent, recurrent, local-attn) repeating; 26 layers =
 8 full macro-blocks + 2 trailing recurrent layers. The macro-blocks' params
@@ -20,6 +22,7 @@ cfg.window``. Decode states are written in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn.ops import decode_attention
 from .layers import (ParamSchema, Schema, apply_rope, embed_tokens, gelu, mm,
@@ -179,17 +182,46 @@ def _mlp_tail(x, pa, cfg):
     return x + swiglu(u, pa.mlp_gate, pa.mlp_up, pa.mlp_down)
 
 
-def rglru_forward(model, tokens, cfg, mode: str = "prefill", state=None):
-    """Prefill of ``model`` (an ``RGLRULM``) over tokens (B, T), from
-    ``state`` (zero if None). Returns (hidden (B, T, D), the state after
-    the prompt: conv buffers and h, and the prompt's K/V (n_macro, B, T,
-    KV, Dh))."""
-    if mode != "prefill":
-        raise ValueError(f"mode={mode!r}: need 'prefill' (training is not "
-                         "ported)")
+def _train_macro(x, p0, p1, pa, cfg, sin, cos, conv0, h0):
+    """A macro-block of the training forward from the zero state ``conv0``,
+    ``h0``: x' alone."""
+    x, _, _ = _rec_block(x, p0, cfg, conv0, h0)
+    x, _, _ = _rec_block(x, p1, cfg, conv0, h0)
+    hn = rms_norm(x, pa.pre_norm, cfg.norm_eps)
+    a_out, _ = _attention_flagged(hn, pa, cfg, True, sin, cos)
+    return _mlp_tail(x + a_out, pa, cfg)
+
+
+def _train_forward(model, x, cfg, sin, cos, remat: bool):
+    n_macro, n_tail = macro_count(cfg)
+    b, w, cw = x.shape[0], cfg.lru_width, cfg.conv1d_width
+    conv0 = torch.zeros((b, cw - 1, w), dtype=x.dtype, device=x.device)
+    h0 = torch.zeros((b, w), dtype=torch.float32, device=x.device)
+    for p0, p1, pa in zip(model.macro.rec0, model.macro.rec1,
+                          model.macro.attn):
+        args = (x, p0, p1, pa, cfg, sin, cos, conv0, h0)
+        x = (checkpoint(_train_macro, *args, use_reentrant=False,
+                        preserve_rng_state=False) if remat
+             else _train_macro(*args))
+    for i in range(n_tail):
+        x, _, _ = _rec_block(x, getattr(model, f"tail{i}"), cfg, conv0, h0)
+    return rms_norm(x, model.final_norm.w, cfg.norm_eps)
+
+
+def rglru_forward(model, tokens, cfg, mode: str = "prefill", state=None,
+                  remat: bool = True):
+    """Prefill of ``model`` (an ``RGLRULM``, or a parameter view of one:
+    ``model_api.param_view``) over tokens (B, T), from ``state`` (zero if
+    None). Returns (hidden (B, T, D), the state after the prompt: conv
+    buffers and h, and the prompt's K/V (n_macro, B, T, KV, Dh)); in mode
+    "train" (hidden, None) from the zero state."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
     b, t = tokens.shape
     x = embed_tokens(model.embed.table, tokens, scale=True)
     sin, cos = rope_cache(t, cfg.d_head, cfg.rope_theta, x.device)
+    if mode == "train":
+        return _train_forward(model, x, cfg, sin, cos, remat), None
     if state is None:
         state = rglru_init_state(cfg, b, t, x.device, x.dtype)
     blocks, tail = _sub_states(state)

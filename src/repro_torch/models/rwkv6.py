@@ -3,20 +3,29 @@
 
 Per layer: time-mix (the WKV recurrence with per-channel, per-token decay
 w_t = exp(-exp(ww_t)), LoRA-produced from the token stream) and channel-mix
-(squared-ReLU FFN). The recurrence over more than two steps (prefill) runs
-the WKV6 kernel (``kernels/wkv6``, the TPU kernel K6's counterpart) on the
-card, where the reference calls its jnp ``wkv_chunked`` (the same
-function); one or two steps (decode) take the plain step-by-step
-``wkv_scan_ref``, as the reference does. The per-step log-decay is clamped
+(squared-ReLU FFN). The recurrence over more than two steps (prefill,
+training) goes through ``WKV6Function``: the WKV6 kernel (``kernels/wkv6``,
+the TPU kernel K6's counterpart) on the card, where the reference calls its
+jnp ``wkv_chunked`` (the same function); one or two steps (decode) take the
+plain step-by-step ``wkv_scan_ref``, as the reference does. The per-step log-decay is clamped
 to >= -2 (``_LOGW_MIN``), which the chunked form needs.
+
+Training (mode "train") runs the same layers from a zero state, each layer
+recomputed in backward under ``remat`` (the reference's ``jax.checkpoint``
+of its scan body), here as two regions, its time mix and its channel mix:
+the same values, and a layer's backward holds the activations of one half
+at a time (at rwkv6-3b's 2 x 4096 tokens a half saves 2.4-2.7 GB).
+``WKV6Function``'s backward is the WKV6 backward kernel on the card (the
+reference lets ``jax.grad`` differentiate its jnp ``wkv_chunked``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.wkv6.ops import wkv6
+from ..kernels.wkv6.ops import WKV6Function
 from ..kernels.wkv6.ref import wkv_chunked, wkv_scan_ref
 from .layers import ParamSchema, Schema, embed_tokens, mm, mm_f32, rms_norm
 
@@ -98,7 +107,7 @@ def _time_mix(x, lp, cfg, shift_last, wkv_state):
     if t <= 2:                                   # decode: step by step
         y, wkv_new = wkv_scan_ref(r, k, v, logw, lp.u, wkv_state)
     else:
-        y, wkv_new = wkv6(r, k, v, logw, lp.u, wkv_state)
+        y, wkv_new = WKV6Function.apply(r, k, v, logw, lp.u, wkv_state)
     y = _head_norm(y, lp.ln_x, cfg.norm_eps) * g
     out = mm(y.to(x.dtype).flatten(-2), lp.wo.flatten(0, 1))
     return out.to(x.dtype), x[:, -1:], wkv_new
@@ -136,14 +145,38 @@ def rwkv6_init_state(cfg, batch: int, device="cuda", dtype=torch.bfloat16):
     }
 
 
-def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None):
-    """Full-sequence forward of ``model`` (an ``RWKV6LM``). Returns (hidden
-    (B, T, D), the new state). Training is not ported, so there is no mode
-    "train"."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode={mode!r}: need 'prefill' or 'decode'")
+def _train_time(x, lp, cfg, zero):
+    """The time-mix half of a training layer from the zero state."""
+    h, _, _ = _time_mix(rms_norm(x, lp.ln1, cfg.norm_eps), lp, cfg, zero,
+                        None)
+    return x + h
+
+
+def _train_channel(x, lp, cfg, zero):
+    """The channel-mix half of a training layer from the zero state."""
+    h, _ = _channel_mix(rms_norm(x, lp.ln2, cfg.norm_eps), lp, zero)
+    return x + h
+
+
+def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
+                  remat: bool = True):
+    """Full-sequence forward of ``model`` (an ``RWKV6LM``, or a parameter
+    view of one: ``model_api.param_view``). Returns (hidden (B, T, D), the
+    new state); in mode "train" (hidden, None) from the zero state, each
+    layer's two halves recomputed in backward when ``remat``."""
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mode={mode!r}: need 'prefill', 'decode' or "
+                         "'train'")
     b, _ = tokens.shape
     x = embed_tokens(model.embed.table, tokens)
+    if mode == "train":
+        zero = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype, device=x.device)
+        for lp in model.layers:
+            for half in (_train_time, _train_channel):
+                x = (checkpoint(half, x, lp, cfg, zero, use_reentrant=False,
+                                preserve_rng_state=False) if remat
+                     else half(x, lp, cfg, zero))
+        return rms_norm(x, model.final_norm.w, cfg.norm_eps), None
     if state is None:
         state = rwkv6_init_state(cfg, b, x.device, x.dtype)
     new = ([], [], [])

@@ -2,10 +2,10 @@
 yi, qwen2-vl with M-RoPE; qwen3-moe, mixtral with sliding-window attention):
 the port of the JAX package's ``models/transformer.py`` — prefill
 (``dense_forward``, mode "prefill"), one-token decode
-(``dense_decode_step``) against a KV cache, and, for the dense family
-without a vision stub, training (mode "train": no caches, each layer
-recomputed in backward under ``remat``, the reference's ``jax.checkpoint``
-of its scan body).
+(``dense_decode_step``) against a KV cache, and training (mode "train": no
+caches, each layer recomputed in backward under ``remat``, the reference's
+``jax.checkpoint`` of its scan body; MoE layers cut the tokens into the
+step's ``n_groups``).
 
 The reference scans over stacked layers and carries gemma3's 5:1
 local:global pattern as a traced flag; here the layer loop is a Python
@@ -38,7 +38,7 @@ from .moe import moe_mlp
 
 __all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache"]
 
-N_GROUPS = 16   # MoE token groups (the reference's ``n_groups`` default)
+N_GROUPS = 16   # MoE token groups when serving (the reference's default)
 
 
 def dense_schema(cfg) -> Schema:
@@ -137,45 +137,40 @@ def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos):
     return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
 
 
-def _mlp(x, lp, cfg):
+def _mlp(x, lp, cfg, n_groups: int = N_GROUPS):
     if cfg.n_experts:
         return moe_mlp(x, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
-                       N_GROUPS)
+                       n_groups)
     return swiglu(x, lp.w_gate, lp.w_up, lp.w_down)
 
 
-def _layer_body(x, lp, cfg, is_local: bool, ropes):
+def _layer_body(x, lp, cfg, is_local: bool, ropes, n_groups: int = N_GROUPS):
     """One transformer block over the whole sequence. Returns (x', (k, v))."""
     sin, cos = _rope_of(ropes, is_local)
     h = rms_norm(x, lp.pre_attn_norm, cfg.norm_eps)
     attn_out, kv_out = _attention_flagged(h, lp, cfg, is_local, sin, cos)
     x = x + attn_out
     h = rms_norm(x, lp.pre_mlp_norm, cfg.norm_eps)
-    x = x + _mlp(h, lp, cfg)
+    x = x + _mlp(h, lp, cfg, n_groups)
     return x, kv_out
 
 
-def _train_layer(x, lp, cfg, is_local: bool, ropes):
-    return _layer_body(x, lp, cfg, is_local, ropes)[0]
+def _train_layer(x, lp, cfg, is_local: bool, ropes, n_groups: int):
+    return _layer_body(x, lp, cfg, is_local, ropes, n_groups)[0]
 
 
 def dense_forward(model, tokens, cfg, mode: str = "prefill",
-                  vision_embeds=None, remat: bool = True):
+                  vision_embeds=None, remat: bool = True,
+                  n_groups: int = N_GROUPS):
     """Full-sequence forward of ``model`` (a ``DenseLM``, or a parameter
     view of one: ``model_api.param_view``). Returns (hidden (B, S, D), (k,
     v) caches (L, B, S, KV, Dh)), in mode "train" (hidden, None), each
     layer recomputed in backward when ``remat`` (no activation of a layer
     is kept but its input). ``vision_embeds`` (B, n_vision, D), if given,
-    replace the first embeddings (qwen2-vl's stubbed vision tower). The
-    MoE and vision-stub configs do not train yet (ROADMAP Queue 1 item
-    8(g))."""
+    replace the first embeddings (qwen2-vl's stubbed vision tower). MoE
+    layers cut the tokens into ``n_groups`` groups."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
-    if mode == "train" and (cfg.n_experts or cfg.n_vision_tokens
-                            or cfg.m_rope):
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and vision-stub models is not ported "
-            "(ROADMAP.md Queue 1 item 8(g))")
     b, s = tokens.shape
     x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
     if vision_embeds is not None and cfg.n_vision_tokens:
@@ -188,11 +183,12 @@ def dense_forward(model, tokens, cfg, mode: str = "prefill",
     for lp, is_local in zip(model.layers, _is_local_flags(cfg)):
         if mode == "train" and remat:
             x = checkpoint(_train_layer, x, lp, cfg, is_local, ropes,
-                           use_reentrant=False, preserve_rng_state=False)
+                           n_groups, use_reentrant=False,
+                           preserve_rng_state=False)
         elif mode == "train":
-            x = _train_layer(x, lp, cfg, is_local, ropes)
+            x = _train_layer(x, lp, cfg, is_local, ropes, n_groups)
         else:
-            x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes)
+            x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes, n_groups)
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, model.final_norm.w, cfg.norm_eps)

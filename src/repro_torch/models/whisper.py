@@ -1,5 +1,7 @@
 """Whisper-small encoder-decoder backbone [arXiv:2212.04356]: the port of
-the JAX package's ``models/whisper.py`` for serving.
+the JAX package's ``models/whisper.py``: prefill, decode and training (mode
+"train": no caches, each encoder and decoder layer recomputed in backward
+under ``remat``).
 
 The conv frontend is a stub, as in the reference: the caller supplies
 post-conv frame embeddings (B, n_frames, D) (``WhisperLM.aux_inputs``).
@@ -17,6 +19,7 @@ cache is written in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn.ops import decode_attention
 from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
@@ -87,44 +90,70 @@ def _gelu_mlp(x, p, cfg):
     return mm(hdn, p.w_down)
 
 
-def whisper_encode(model, frames, cfg):
-    """frames: (B, n_frames, D) post-conv embeddings (the stub)."""
-    x = frames.to(model.dtype)
+def _enc_layer(x, pa, pm, cfg):
+    a, _ = _mha(rms_norm(x, pa.pre_norm, cfg.norm_eps), pa, cfg)
+    x = x + a
+    return x + _gelu_mlp(x, pm, cfg)
+
+
+def whisper_encode(model, frames, cfg, remat: bool = False):
+    """frames: (B, n_frames, D) post-conv embeddings (the stub). Each layer
+    recomputed in backward when ``remat``."""
+    x = frames.to(model.embed.table.dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     for pa, pm in zip(model.enc.attn, model.enc.mlp):
-        a, _ = _mha(rms_norm(x, pa.pre_norm, cfg.norm_eps), pa, cfg)
-        x = x + a
-        x = x + _gelu_mlp(x, pm, cfg)
+        x = (checkpoint(_enc_layer, x, pa, pm, cfg, use_reentrant=False,
+                        preserve_rng_state=False) if remat
+             else _enc_layer(x, pa, pm, cfg))
     return rms_norm(x, model.enc_final_norm.w, cfg.norm_eps)
 
 
-def whisper_forward(model, tokens, cfg, mode: str = "prefill", frames=None):
+def _dec_layer(x, enc, ps, pc, pm, cfg, sin, cos):
+    """A decoder layer: (x', (k, v), (ck, cv))."""
+    h = rms_norm(x, ps.pre_norm, cfg.norm_eps)
+    a, kv = _mha(h, ps, cfg, causal=True, sin=sin, cos=cos)
+    x = x + a
+    h = rms_norm(x, pc.pre_norm, cfg.norm_eps)
+    ck, cv = mm(enc, pc.wk), mm(enc, pc.wv)
+    x = x + cross_attention(h, (ck, cv), pc.wq, pc.wo, cfg).to(x.dtype)
+    return x + _gelu_mlp(x, pm, cfg), kv, (ck, cv)
+
+
+def _dec_train_layer(x, enc, ps, pc, pm, cfg, sin, cos):
+    return _dec_layer(x, enc, ps, pc, pm, cfg, sin, cos)[0]
+
+
+def whisper_forward(model, tokens, cfg, mode: str = "prefill", frames=None,
+                    remat: bool = True):
     """Encoder over ``frames``, then the decoder over tokens (B, S).
     Returns (hidden (B, S, D), caches {"k", "v": the decoder's self K/V
     (L, B, S, H, Dh); "ck", "cv": the cross K/V of the encoder output
-    (L, B, n_frames, H, Dh)})."""
-    if mode != "prefill":
-        raise ValueError(f"mode={mode!r}: need 'prefill' (training is not "
-                         "ported)")
+    (L, B, n_frames, H, Dh)}); in mode "train" (hidden, None), each layer
+    recomputed in backward when ``remat``."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
     if frames is None:
         raise ValueError("whisper needs frames (B, n_frames, D): the "
                          "stubbed frontend's output (aux_inputs)")
-    enc = whisper_encode(model, frames, cfg)
+    train = mode == "train"
+    enc = whisper_encode(model, frames, cfg, remat=train and remat)
     x = embed_tokens(model.embed.table, tokens)
     sin, cos = rope_cache(tokens.shape[1], cfg.d_head, cfg.rope_theta,
                           x.device)
     caches = {"k": [], "v": [], "ck": [], "cv": []}
     for ps, pc, pm in zip(model.dec.self, model.dec.cross, model.dec.mlp):
-        h = rms_norm(x, ps.pre_norm, cfg.norm_eps)
-        a, (k, v) = _mha(h, ps, cfg, causal=True, sin=sin, cos=cos)
-        x = x + a
-        h = rms_norm(x, pc.pre_norm, cfg.norm_eps)
-        ck, cv = mm(enc, pc.wk), mm(enc, pc.wv)
-        x = x + cross_attention(h, (ck, cv), pc.wq, pc.wo, cfg).to(x.dtype)
-        x = x + _gelu_mlp(x, pm, cfg)
+        args = (x, enc, ps, pc, pm, cfg, sin, cos)
+        if train:
+            x = (checkpoint(_dec_train_layer, *args, use_reentrant=False,
+                            preserve_rng_state=False) if remat
+                 else _dec_train_layer(*args))
+            continue
+        x, (k, v), (ck, cv) = _dec_layer(*args)
         for name, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
             caches[name].append(t)
     x = rms_norm(x, model.final_norm.w, cfg.norm_eps)
+    if train:
+        return x, None
     return x, {name: torch.stack(ts) for name, ts in caches.items()}
 
 

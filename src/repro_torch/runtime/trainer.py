@@ -3,19 +3,26 @@
 
   * async checkpoints every ``ckpt_every`` steps (keep-k, atomic rename)
     and resume-on-start from the newest complete checkpoint;
-  * non-finite loss or gradient-norm steps are rejected: the step's update
-    is dropped and the state before it kept (the step is functional, so
-    nothing was overwritten; the reference, whose step donates its
-    buffers, keeps the rejected update instead), and after
+  * the step donates its buffers, as the reference's does: parameters and
+    optimizer state are updated in place (``TrainStep(..., donate=True)``),
+    so one copy of the float32 state is held, not two;
+  * non-finite loss or gradient-norm steps are rejected: the donated step
+    leaves every tensor as it was when its loss or gradient norm is not
+    finite, so the state before it is kept (the reference, whose donated
+    buffers are gone, keeps the rejected update instead), and after
     ``max_bad_steps`` in a row the run rolls back to the last checkpoint;
   * deterministic data: a batch is a pure function of (seed, step), so a
     restarted run consumes the same tokens;
   * ``fail_at_step`` simulates a preemption (the fault-tolerance tests).
 
 The loop reads the loss and the gradient norm on the host after each step
-(``float``), as the reference does; the step itself reads nothing. On a
-mesh of several ranks every rank runs the loop; the optimizer state is
-gathered from its ZeRO-1 slices for a checkpoint and rank 0 writes it.
+(``float``), as the reference does; the step itself reads nothing. It
+passes no stub inputs (``aux`` is ``{}``, as the reference's loop passes),
+so whisper, which needs frames, raises there as it does in the
+reference. On a mesh of several ranks every rank runs the loop; the
+optimizer state is gathered from its ZeRO-1 slices for a checkpoint (a
+copy on the host, taken before the next step overwrites the state) and
+rank 0 writes it.
 """
 from __future__ import annotations
 
@@ -98,8 +105,8 @@ class Trainer:
                 self.ckpt.wait()
                 raise RuntimeError(f"simulated preemption at step {step}")
             tokens, labels = self.data.global_arrays(step, self.mesh)
-            new_params, new_opt, metrics = self.step_fn(params, opt, tokens,
-                                                        labels)
+            new_params, new_opt, metrics = self.step_fn(
+                params, opt, tokens, labels, {}, donate=True)
             loss = float(metrics["loss"])
             gnorm = float(metrics["grad_norm"])
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
@@ -109,7 +116,7 @@ class Trainer:
                     params, opt, step = self.restore_or_init()
                     bad_streak = 0
                     continue
-                step += 1                 # rejected: params and opt kept
+                step += 1                 # rejected: params and opt as they were
                 continue
             bad_streak = 0
             params, opt = new_params, new_opt

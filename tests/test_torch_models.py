@@ -132,26 +132,26 @@ def test_scaled_embedding_is_bit_identical_to_reference(d):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_not_ported_families_and_long_prompts_raise(arch):
-    """Training is ported for the dense family without a vision stub: mode
-    "train" gives the hidden and no caches. The other families' mode
-    "train" raises: MoE and qwen2-vl name ROADMAP Queue 1 item 8(g), the
-    RWKV-6, RG-LRU and Whisper forwards know no such mode. Prompts over
-    2048 tokens, which raised before the streaming attention was ported,
-    run (gemma3: 2050 tokens, its local band and its global layer)."""
+    """Every family trains: mode "train" gives the hidden and no caches
+    (qwen2-vl over a prompt that holds its vision embeddings; a shorter
+    one raises, as in prefill). A mode no forward knows raises. Prompts
+    over 2048 tokens, which raised before the streaming attention was
+    ported, run (gemma3: 2050 tokens, its local band and its global
+    layer)."""
     cfg = get_config(arch).smoke_config()
     model = get_model(cfg, device="cpu")
+    n = max(4, cfg.n_vision_tokens + 2)
     aux = {name: torch.ones(m.shape, dtype=m.dtype)
-           for name, m in model.aux_inputs(1, 4).items()}
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    if cfg.family == "dense" and not cfg.n_vision_tokens:
-        h, caches = model(tokens, mode="train", **aux)
-        assert caches is None and h.shape == (1, 4, cfg.d_model)
-    elif cfg.family in ("dense", "moe"):
-        with pytest.raises(NotImplementedError, match=r"8\(g\)"):
-            model(tokens, mode="train", **aux)
-    else:
-        with pytest.raises(ValueError, match="mode='train'"):
-            model(tokens, mode="train", **aux)
+           for name, m in model.aux_inputs(1, n).items()}
+    tokens = torch.zeros((1, n), dtype=torch.long)
+    h, caches = model(tokens, mode="train", **aux)
+    assert caches is None and h.shape == (1, n, cfg.d_model)
+    assert bool(torch.isfinite(h.float()).all())
+    with pytest.raises(ValueError, match="mode='generate'"):
+        model(tokens, mode="generate", **aux)
+    if cfg.n_vision_tokens:
+        with pytest.raises(ValueError, match="cannot hold"):
+            model(tokens[:, :4], mode="train", **aux)
     if arch == "gemma3-1b":
         with torch.inference_mode():
             h, (k, _) = model(torch.zeros((1, 2050), dtype=torch.long),

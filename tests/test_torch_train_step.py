@@ -45,7 +45,7 @@ from repro_torch import convert
 from repro_torch.configs import ShapeSpec, get_config
 from repro_torch.launch.mesh import GridMesh, make_host_mesh
 from repro_torch.launch.steps import TrainStepConfig, build_train_step
-from repro_torch.models import chunked_xent_loss, train_forward
+from repro_torch.models import chunked_xent_loss
 
 ARCH = "granite-3-8b"
 SEQ, BATCH = 32, 4
@@ -245,18 +245,6 @@ def test_tensor_parallel_and_other_strategies_raise(shape, strategy):
         build_train_step(cfg, _fake_mesh(shape), ShapeSpec("t", 8, 2,
                                                            "train"),
                          TrainStepConfig(strategy=strategy))
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-3b",
-                                  "recurrentgemma-2b", "whisper-small",
-                                  "qwen2-vl-7b"])
-def test_other_families_do_not_train_yet(arch):
-    cfg = get_config(arch).smoke_config()
-    step = build_train_step(cfg, make_host_mesh(model=1, device="cpu"),
-                            ShapeSpec("t", 8, 2, "train"))
-    params = step.init_params(0)
-    with pytest.raises(NotImplementedError, match=r"8\(g\)"):
-        train_forward(params, torch.zeros((2, 8), dtype=torch.int32), cfg)
 
 
 def test_k4_refuses_rows_past_its_index_limit():

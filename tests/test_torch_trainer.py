@@ -56,8 +56,9 @@ def test_preemption_resume_bit_identical(tmp_path):
 
 
 class _Inject:
-    """The trainer's step with NaN as the loss of the calls in ``bad``
-    (counted from 0); records each call's step and parameters."""
+    """The trainer's (donating) step with NaN as the loss of the calls in
+    ``bad`` (counted from 0), put into the step itself so that its guard
+    sees it; records each call's step and a copy of its parameters."""
 
     def __init__(self, step_fn, bad):
         self.step_fn, self.bad, self.calls = step_fn, set(bad), []
@@ -65,12 +66,19 @@ class _Inject:
     def __getattr__(self, name):
         return getattr(self.step_fn, name)
 
-    def __call__(self, params, opt, tokens, labels):
-        self.calls.append({"params": params, "opt_step": int(opt["step"])})
-        new_p, new_o, m = self.step_fn(params, opt, tokens, labels)
+    def __call__(self, params, opt, tokens, labels, aux=None, donate=False):
+        self.calls.append({"params": {k: v.clone() for k, v in params.items()},
+                           "opt_step": int(opt["step"])})
+        step, grads = self.step_fn, self.step_fn._grads
         if len(self.calls) - 1 in self.bad:
-            m = dict(m, loss=torch.tensor(float("nan")))
-        return new_p, new_o, m
+            def nan_loss(*a):
+                loss, g = grads(*a)
+                return loss * float("nan"), g
+            step._grads = nan_loss
+        try:
+            return step(params, opt, tokens, labels, aux, donate=donate)
+        finally:
+            step.__dict__.pop("_grads", None)
 
 
 def test_nonfinite_step_is_rejected(tmp_path):
@@ -80,7 +88,8 @@ def test_nonfinite_step_is_rejected(tmp_path):
     assert [h["step"] for h in hist] == [0, 1, 2, 4, 5, 6, 7]
     assert all(math.isfinite(h["loss"]) for h in hist)
     # the rejected update was dropped: step 4 starts from step 3's state
-    assert inj.calls[4]["params"] is inj.calls[3]["params"]
+    for k, p in inj.calls[3]["params"].items():
+        assert torch.equal(inj.calls[4]["params"][k], p), k
     assert inj.calls[4]["opt_step"] == inj.calls[3]["opt_step"] == 3
     assert int(opt["step"]) == 7
 

@@ -123,3 +123,66 @@ def grad_transform_cases(_serve_mesh, shape: tuple, names: tuple,
                        "noise": float(noise)})
     return {"rounds": rounds, "rank": pod.rank,
             "stats": pod.stats.snapshot()}
+
+
+ZOO_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x7b", "rwkv6-3b",
+             "recurrentgemma-2b", "qwen2-vl-7b", "whisper-small")
+ZOO_SEQ, ZOO_BATCH = 32, 4
+
+
+def zoo_aux(cfg, batch: int, seed: int = 2) -> dict:
+    """The stub inputs of ``cfg`` for ``batch`` rows: bf16 from a numpy
+    seed (the same on every rank)."""
+    rng = np.random.default_rng(seed)
+    n = (cfg.n_audio_frames if cfg.family == "whisper"
+         else cfg.n_vision_tokens)
+    if not n:
+        return {}
+    key = "frames" if cfg.family == "whisper" else "vision_embeds"
+    a = rng.normal(size=(batch, n, cfg.d_model)).astype(np.float32)
+    return {key: torch.from_numpy(a).to(torch.bfloat16)}
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits (NaN compares equal to itself)."""
+    t = t.detach().contiguous()
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}
+                  [t.element_size()]).numpy().copy()
+
+
+def zoo_cases(_serve_mesh, archs: tuple) -> dict:
+    """One step of each family's smoke config on this rank of a (pod=2,
+    data=1, model=1) world, from the seed-0 init and the same batch:
+    exact (functional), exact donated (in place) and int8 over "pod"
+    donated. Returns per family the losses, whether the donated step
+    gave the functional one's bits, and the parameters (float32 numpy)."""
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch).smoke_config()
+        shape = ShapeSpec("z", ZOO_SEQ, ZOO_BATCH, "train")
+        data = SyntheticLMData(cfg.vocab, ZOO_SEQ, ZOO_BATCH, seed=1)
+        tok, lab = data.global_arrays(0, mesh)
+        aux = zoo_aux(cfg, ZOO_BATCH)
+        res = {}
+        for name, bits, donate in (("exact", None, False),
+                                   ("exact_donated", None, True),
+                                   ("int8", 8, True)):
+            step = build_train_step(cfg, mesh, shape, TrainStepConfig(
+                compression_bits=bits, moe_groups=2))
+            params = step.init_params(0)
+            opt = step.init_opt_state(params)
+            mesh.axis("pod").stats.reset()
+            p2, o2, m = step(params, opt, tok, lab, aux, donate=donate)
+            if donate:
+                assert p2 is params and o2 is opt
+            res[name] = {"loss": float(m["loss"]),
+                         "quant_noise": float(m["quant_noise"]),
+                         "params": _np(p2),
+                         "bits": {k: _bits(v) for k, v in p2.items()},
+                         "opt_bits": {key: {k: _bits(v) for k, v in
+                                            o2[key].items()}
+                                      for key in ("master", "m", "v")},
+                         "pod": mesh.axis("pod").stats.snapshot()}
+        out[arch] = res
+    return out
