@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_profile.py [--amp-only | --fuse-only | --lm-only
-                             | --train-only]
+                             | --train-only] [--src DIR]
 
 Runs under ``torch.profiler``: the PyTorch/CUDA port's row-layout MP-AMP
 solve at the paper's size (N=10000, M=3000, P=30, T=10, eps=0.05, 20 dB;
@@ -22,12 +22,20 @@ prefill (B=4) and one rwkv6-3b decode step, and one decode step of each
 model of ``chip_smoke.py``'s LM zoo at its batch and prompt (gemma3-1b
 after 32768 tokens, qwen3-moe-30b-a3b, recurrentgemma-2b, qwen2-vl-7b,
 whisper-small). ``--fuse-only`` runs the block-quantized part alone,
-``--lm-only`` the LM part alone, ``--train-only`` one LM train step alone:
+``--lm-only`` the LM part alone, ``--train-only`` two LM train steps alone:
 ``chip_smoke.py``'s gemma3-1b int8 step (8 x 4096 tokens in 4
 microbatches, every layer recomputed, the 13 leaves' ``compressed_psum``
 over a "pod" of one on an NCCL world of one), with its device time by
 kind of kernel and the peak device memory after each part of the step
-(gradients, fusion, the whole step). It prints one JSON object per call: the number
+(gradients, fusion, the whole step), and rwkv6-3b's exact step as the
+``train_zoo`` phase runs it (the same shape and microbatches), with K6's
+backward's share of the busy time and the first step's loss, after
+``rwkv_sensitivity`` (the step-1 gradient under the kernel against float64
+autograd as K6's backward, beside two float32-exact controls, at two
+seeds). ``--src DIR``
+profiles the port under DIR instead of this checkout's ``src`` (a paired
+run against another tree, whose kernels build into its own ``build/``).
+It prints one JSON object per call: the number
 of kernels launched (for a solve also per iteration), the span from the
 first kernel's start to the last one's end, the time the device was busy
 inside it, the launches of the call's hand-written kernels (for a solve
@@ -58,8 +66,13 @@ if not torch.cuda.is_available():
     sys.exit("chip_profile.py: torch.cuda.is_available() is False; "
              "this script needs one CUDA device")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+# --src DIR: the port's package from another tree (a `git archive` of the
+# parent under a git-ignored directory), for a paired run; read before the
+# imports below, which it decides
+SRC = (os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+       if "--src" in sys.argv[:-1]
+       else os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+sys.path.insert(0, SRC)
 
 from repro_torch.core.amp import sample_problem  # noqa: E402
 from repro_torch.core.denoisers import (BernoulliGauss,  # noqa: E402
@@ -270,8 +283,10 @@ def profile_lm(smi: str) -> None:
 
 
 # kinds of kernel by name, first match wins: the block quantizer (K4), the
-# collectives, the matrix products (cuBLAS / CUTLASS), the rest
+# collectives, K6's backward and K6, the matrix products (cuBLAS /
+# CUTLASS), the rest
 KINDS = (("k4", ("quantize",)), ("nccl", ("nccl",)),
+         ("k6_backward", ("wkv6_bwd",)), ("k6", ("wkv6_chunk",)),
          ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")))
 
 
@@ -280,7 +295,8 @@ def profile_train(smi: str) -> None:
     runs it (world of one, mesh (1, 1, 1), seed 1234), profiled after a
     warm step; the device time by kind (``KINDS``), and the peak device
     memory after the microbatches' gradients, after their fusion and after
-    the whole step, each from a reset."""
+    the whole step, each from a reset. Then rwkv6-3b's exact step as the
+    ``train_zoo`` phase runs it (``profile_train_rwkv``)."""
     import tempfile
     import torch.distributed as dist
     store = os.path.join(tempfile.mkdtemp(prefix="amp_prof_"), "store")
@@ -317,11 +333,182 @@ def profile_train(smi: str) -> None:
         peaks["resident_params_and_state"] = torch.cuda.memory_allocated() / 1e9
         row = profile_call(lambda: step(params, opt, tok, lab, donate=True),
                            "quantize")
+        print(json.dumps({"train": "gemma3-1b", "call": "int8_step",
+                          "tokens": 8 * 4096, "microbatches": 4, "card": smi,
+                          "src": SRC, "peak_gb": peaks, **row}), flush=True)
+        del step, params, opt
+        torch.cuda.empty_cache()
+        profile_train_rwkv(smi, mesh)
     finally:
         dist.destroy_process_group()
-    print(json.dumps({"train": "gemma3-1b", "call": "int8_step",
+
+
+def profile_train_rwkv(smi: str, mesh) -> None:
+    """rwkv6-3b's exact donated step as ``chip_smoke.py``'s phase
+    ``train_zoo`` (b) runs it: full width and depth, 8 x 4096 tokens in 4
+    microbatches, seed 1234. Step 1 runs on batch 0 (its loss printed in
+    full, the number that phase holds the change to), then one more step
+    warms on batch 1 and the next is profiled on it: device busy share,
+    device ms by kind, and K6's backward's (``wkv6_bwd``) share of the busy
+    time with its launches."""
+    cfg = get_config("rwkv6-3b")
+    shape = ShapeSpec("train_4k_cut", 4096, 8, "train")
+    step = build_train_step(cfg, mesh, shape, TrainStepConfig(microbatches=4))
+    data = SyntheticLMData(cfg.vocab, 4096, 8, seed=SEED)
+    tok0, lab0 = data.global_arrays(0, mesh)
+    tok1, lab1 = data.global_arrays(1, mesh)
+    print(json.dumps({"train": "rwkv6-3b", "call": "backward_sensitivity",
+                      "card": smi, "src": SRC,
+                      **rwkv_sensitivity(step, step.init_params, tok0,
+                                         lab0)}),
+          flush=True)
+    params = step.init_params(SEED)
+    opt = step.init_opt_state(params)
+    loss1 = float(step(params, opt, tok0, lab0, donate=True)[2]["loss"])
+    row = profile_call(lambda: step(params, opt, tok1, lab1, donate=True),
+                       "wkv6_bwd")
+    print(json.dumps({"train": "rwkv6-3b", "call": "exact_step",
                       "tokens": 8 * 4096, "microbatches": 4, "card": smi,
-                      "peak_gb": peaks, **row}), flush=True)
+                      "src": SRC, "step1_loss": repr(loss1), **row}),
+          flush=True)
+    del step, params, opt
+    torch.cuda.empty_cache()
+
+
+# leaves of rwkv6-3b whose step-1 gradient rwkv_sensitivity reports: the
+# decay's (reached by dlogw alone), those dr / dk reach, and two others
+SENSITIVE_LEAVES = ("layers/w0", "layers/w_lora1", "layers/w_lora2",
+                    "layers/wr", "layers/wk", "layers/wv", "layers/wo",
+                    "layers/u", "embed/table")
+# the parameters' seeds rwkv_sensitivity reads the step-1 gradient at
+SENSITIVITY_SEEDS = (SEED, SEED + 1)
+
+
+def _f64_grads(r, k, v, logw, u, dy):
+    """dr, dk, dv, dlogw, du of y = wkv_chunked(r, k, v, logw, u) against
+    dy, by autograd in float64."""
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+    with torch.enable_grad():
+        ins = [x.detach().double().requires_grad_(True)
+               for x in (r, k, v, logw, u)]
+        y, _ = wkv_chunked(*ins)
+        return torch.autograd.grad((y * dy.double()).sum(), ins)
+
+
+def _f32_grads(r, k, v, logw, u, dy):
+    """The same by autograd of ``wkv_chunked`` in float32 (the plain version
+    ``chip_smoke.py`` holds the kernel to)."""
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+    with torch.enable_grad():
+        ins = [x.detach().float().requires_grad_(True)
+               for x in (r, k, v, logw, u)]
+        y, _ = wkv_chunked(*ins)
+        return torch.autograd.grad((y * dy.float()).sum(), ins)
+
+
+def _ulp_moved(g, gen):
+    """``g`` (float64) rounded to float32 and moved one float32 ulp, up or
+    down at random (``gen``): a result as good as float32 can hold, with
+    an error of one unit."""
+    x = g.float()
+    up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+    inf = torch.full_like(x, float("inf"))
+    return torch.nextafter(x, torch.where(up, inf, -inf))
+
+
+def rwkv_sensitivity(step, params_of, tok, lab) -> dict:
+    """How much K6's backward decides rwkv6-3b's step-1 gradient, beside
+    how much the step's own rounding does. At each SENSITIVITY_SEEDS seed's
+    parameters (``params_of(seed)``) on (tok, lab), the gradient with four
+    backwards in WKV6Function: float64 autograd of ``wkv_chunked`` (the
+    referee), the kernel, and two controls that are as right as float32
+    can be: float32 autograd of ``wkv_chunked``, and the referee's results
+    each moved one float32 ulp at random. dr, dk, dv round to the inputs'
+    bf16 in every one, as the kernel's do; the rest of the step is the
+    same. Reported: the gradient norms, and each SENSITIVE_LEAVES leaf's
+    distance from the referee's (norm of the difference over the referee's
+    norm). A kernel whose leaves part from the referee as far as the
+    controls' do is as right as the step can tell. Then, at the inputs of
+    the first and the last backward call of the first seed's kernel step
+    (captured), the kernel's results, the kernel's on float32 copies of r,
+    k, v (its dr, dk, dv before their bf16 rounding) and float32 autograd's
+    against float64 autograd (norm of the error over the referee's), and
+    the same for the
+    part of the decay leaves' gradient that call gives: sum over (b, t) of
+    dlogw * logw where logw > -2 (w0's, by chain rule through logw =
+    -exp(min(w, ln 2)))."""
+    from repro_torch.kernels.wkv6 import ops as k6_ops
+    kernel = k6_ops.wkv6_bwd_cuda
+    captured, calls = [], [0]
+
+    def capture(*args, **kw):
+        if calls[0] in (0, 127) and len(captured) < 2:
+            captured.append([x.detach().clone() if torch.is_tensor(x) else x
+                             for x in args[:8]])
+        calls[0] += 1
+        return kernel(*args, **kw)
+
+    def backward_of(grads_fn):
+        def bwd(r, k, v, logw, u, state0, dy, ds=None,
+                need_state0_grad=False):
+            g = grads_fn(r, k, v, logw, u, dy)
+            return (g[0].to(r.dtype), g[1].to(r.dtype), g[2].to(r.dtype),
+                    g[3].float(), g[4].float(), None)
+        return bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ulp = backward_of(lambda *a: [_ulp_moved(g, gen) for g in _f64_grads(*a)])
+    variants = (("float64_referee", backward_of(_f64_grads)),
+                ("kernel", capture),
+                ("float32_autograd", backward_of(_f32_grads)),
+                ("float64_referee_one_ulp", ulp))
+    out = {"seeds": {}}
+    for seed in SENSITIVITY_SEEDS:
+        params = params_of(seed)
+        row, ref = {}, None
+        for name, fn in variants:
+            k6_ops.wkv6_bwd_cuda = fn
+            try:
+                _, g = step._grads(params, tok, lab, {})
+            finally:
+                k6_ops.wkv6_bwd_cuda = kernel
+            row[f"grad_norm_{name}"] = float(torch.sqrt(sum(
+                (x.float() ** 2).sum() for x in g.values())))
+            leaves = {key: g[key].float() for key in SENSITIVE_LEAVES}
+            del g
+            if ref is None:
+                ref = leaves
+            else:
+                row[f"leaf_gap_of_norm_{name}"] = {
+                    key: float((leaves[key] - ref[key]).norm()
+                               / ref[key].norm()) for key in SENSITIVE_LEAVES}
+            del leaves
+            torch.cuda.empty_cache()
+        out["seeds"][str(seed)] = row
+        del params, ref
+        torch.cuda.empty_cache()
+    names = ("dr", "dk", "dv", "dlogw", "du")
+    errs = []
+    for r, k, v, logw, u, state0, dy, ds in captured:
+        want = _f64_grads(r, k, v, logw, u, dy)
+        keep = (logw > -2.0).double()
+        decay = lambda dlogw: (dlogw.double() * logw.double() * keep).sum((0, 1))
+        row = {}
+        u32 = u.float().contiguous()
+        for name, got in (
+                ("kernel", kernel(r, k, v, logw, u32, state0, dy, ds)),
+                ("kernel_float32_inputs", kernel(r.float(), k.float(),
+                                                 v.float(), logw, u32,
+                                                 state0, dy, ds)),
+                ("float32_autograd", _f32_grads(r, k, v, logw, u, dy))):
+            row[name] = {key: float((a.double() - b).norm() / b.norm())
+                         for key, a, b in zip(names, got, want)}
+            row[name]["decay_leaf_part"] = float(
+                (decay(got[3]) - decay(want[3])).norm()
+                / decay(want[3]).norm())
+        errs.append(row)
+    out["err_of_norm_at_captured_inputs"] = errs
+    return out
 
 
 def main() -> None:
@@ -335,7 +522,11 @@ def main() -> None:
     only.add_argument("--lm-only", action="store_true",
                       help="profile LM serving only")
     only.add_argument("--train-only", action="store_true",
-                      help="profile one gemma3-1b int8 train step only")
+                      help="profile one gemma3-1b int8 train step and one "
+                           "rwkv6-3b exact train step only")
+    parser.add_argument("--src", metavar="DIR",
+                        help="profile the port under DIR (another tree's "
+                             "src, for a paired run) instead of this one's")
     args = parser.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

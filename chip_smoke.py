@@ -76,19 +76,23 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     for bit;
   * LM training of the other families (phase ``train_zoo``): (a) K6's
     backward kernel (``wkv6_bwd``) against autograd of its plain forward
-    at six cases (rwkv6-3b's microbatch of 2 x 4096, ragged T, a state in,
-    a cotangent of the final state, float32, Dh 32 and 16), timed beside
-    K6 at that shape; (b) rwkv6-3b at its published width and depth, 8 x
+    at fifteen cases (rwkv6-3b's microbatch of 2 x 4096, ragged T, a state
+    in, a cotangent of the final state, float32, Dh 32 and 16, and each
+    value split its plan can take), and with a NaN in dy, timed beside K6
+    at that shape; (b) rwkv6-3b at its published width and depth, 8 x
     4096 tokens in 4 microbatches, 6 exact and 6 int8 donated (in-place)
     steps on an NCCL world of one: K6 256 and its backward 128 launches a
     step, K4a/K4b-sum/K4b 48/24/24 an int8 step, the loss lower after six
     steps than at the first, int8 within 1 % of exact's loss at every step,
-    no host sync from step 2 on, peak under 80 GB; (c) the smoke configs of
+    the exact curve the parent tree's (step 1 bit for bit, then within 1
+    %), K6's backward at two of step 1's calls' inputs against float64, no
+    host sync from step 2 on, peak under 80 GB; (c) the smoke configs of
     rwkv6 (K6 and its backward through ``WKV6Function``), qwen3-moe,
     mixtral, recurrentgemma, qwen2-vl (vision embeddings) and whisper
     (frames): one loss and its gradients on the card against the CPU
-    (float32 weights, limits from the float32 readings; bf16 recorded),
-    then 8 int8 steps whose loss falls;
+    (float32 weights, limits from the float32 readings; bf16 recorded;
+    recurrentgemma's also by block, with and without the LM head's bf16
+    cast), then 8 int8 steps whose loss falls;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -149,6 +153,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -200,6 +205,7 @@ from repro_torch.kernels.decode_attn import decode_attn as kd  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
                                                  valid_rows)
+from repro_torch.kernels.wkv6 import ops as k6_ops  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -3027,16 +3033,29 @@ def train_kernel_rows(train_ctx) -> list:
 
 # (a) K6's backward (kernels/wkv6/wkv6.py::wkv6_bwd_cuda) against autograd
 # of its plain forward (wkv_chunked) on the card: name, B, T, H, Dh, dtype
-# of r/k/v, state0 given, dS_T given. The first is rwkv6-3b's training
-# shape (a microbatch of 2 x 4096, 40 heads of 64; no state, and the final
-# state takes no part in the loss), the one the path gives the kernel.
+# of r/k/v, state0 given, dS_T given, NV (value slices, a cluster's blocks:
+# None for the plan's). The first is rwkv6-3b's training shape (a
+# microbatch of 2 x 4096, 40 heads of 64; no state, and the final state
+# takes no part in the loss), the one the path gives the kernel. The last
+# nine force each NV the kernel takes at Dh 64, 32 and 16 (every one runs:
+# the build records the card's clusters of each), on ragged lengths with
+# a state and a dS_T.
 WKV_BWD_CASES = [
-    ("rwkv6_3b_train", 2, 4096, 40, 64, torch.bfloat16, False, False),
-    ("ragged_T1000_dS", 2, 1000, 8, 64, torch.bfloat16, False, True),
-    ("state0_T70_f32_dS", 2, 70, 3, 64, torch.float32, True, True),
-    ("no_state0_T45_f32", 1, 45, 2, 64, torch.float32, False, False),
-    ("dh32_T100_state0", 2, 100, 4, 32, torch.bfloat16, True, False),
-    ("smoke_dh16_T45_dS", 2, 45, 4, 16, torch.bfloat16, True, True),
+    ("rwkv6_3b_train", 2, 4096, 40, 64, torch.bfloat16, False, False, None),
+    ("ragged_T1000_dS", 2, 1000, 8, 64, torch.bfloat16, False, True, None),
+    ("state0_T70_f32_dS", 2, 70, 3, 64, torch.float32, True, True, None),
+    ("no_state0_T45_f32", 1, 45, 2, 64, torch.float32, False, False, None),
+    ("dh32_T100_state0", 2, 100, 4, 32, torch.bfloat16, True, False, None),
+    ("smoke_dh16_T45_dS", 2, 45, 4, 16, torch.bfloat16, True, True, None),
+    ("dh64_nv1_T333_s0_dS", 2, 333, 5, 64, torch.bfloat16, True, True, 1),
+    ("dh64_nv2_T333_s0_dS", 2, 333, 5, 64, torch.bfloat16, True, True, 2),
+    ("dh64_nv4_T1000_f32_dS", 1, 1000, 6, 64, torch.float32, False, True, 4),
+    ("dh64_nv8_T517_s0", 2, 517, 3, 64, torch.bfloat16, True, False, 8),
+    ("dh32_nv1_T517_s0_dS", 1, 517, 6, 32, torch.bfloat16, True, True, 1),
+    ("dh32_nv2_T517_s0_dS", 1, 517, 6, 32, torch.bfloat16, True, True, 2),
+    ("dh32_nv4_T45_f32_s0_dS", 2, 45, 4, 32, torch.float32, True, True, 4),
+    ("dh16_nv1_T260_f32_s0_dS", 2, 260, 4, 16, torch.float32, True, True, 1),
+    ("dh16_nv2_T260_s0_dS", 2, 260, 4, 16, torch.bfloat16, True, True, 2),
 ]
 WKV_BWD_PATH = "rwkv6_3b_train"
 # Each gradient within WKV_BWD_RTOL of its largest magnitude, and a bf16
@@ -3069,6 +3088,25 @@ TZ_REDUCED = {"global_batch": "256 -> 8 (microbatches 4 of 2 rows)",
 # under 0.07 % at the others; an NVIDIA H100 80GB HBM3 at 700 W)
 TZ_INT8_REL = 0.01
 TZ_PEAK_GB = 80.0
+# the exact run's losses on the parent tree (its K6 backward a block per
+# (b, h) on CUDA cores; this phase on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md PR 27): its forward is this one's, so step 1's loss is the same
+# number, bit for bit; the later steps take their gradients from the other
+# backward kernel and are held within TZ_INT8_REL of the parent's
+TZ_PARENT_LOSS = (11.571534156799316, 24.047481536865234, 17.74335289001465,
+                  11.710390090942383, 7.899016380310059, 7.8309760093688965)
+# ... and, since at random init the curve after step 1 follows the
+# backward's rounding (PERF.md PR 27: on rwkv6-3b's step-1 gradient,
+# float32-exact backwards part from a float64 one by up to 33 % of a leaf,
+# the kernels by up to 44 %), K6's backward at the exact run's
+# own inputs: those of the first and the last of step 1's TZ_BWD_CALLS
+# calls (the top layer of the first microbatch, the bottom layer of the
+# last) against float64 autograd of wkv_chunked, within WKV_BWD_RTOL of
+# scale (dr, dk, dv beyond one bf16 rounding) and, for the decay leaves'
+# part (sum over the tokens of dlogw * logw), of its norm (readings <=
+# 7.6e-6). A backward that rounds dlogw / du to bf16, computed beside,
+# reads above the limit (>= 9.4e-4; an NVIDIA H100 80GB HBM3 at 700 W).
+TZ_BWD_CALLS = 128
 # (c) the smoke configs of every family but the dense one (rwkv6's runs
 # K6 and its backward through WKV6Function on the card, wkv_chunked and
 # wkv6_bwd_ref on the CPU): one step's loss and gradients in float32 on the
@@ -3083,6 +3121,14 @@ TZ_SMALL = ("rwkv6-3b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
             "recurrentgemma-2b", "qwen2-vl-7b", "whisper-small")
 TZ_SMALL_SEQ, TZ_SMALL_BATCH, TZ_SMALL_STEPS, TZ_SMALL_LR = 64, 4, 8, 2e-3
 TZ_LOSS_RTOL, TZ_GRAD_MAX, TZ_GRAD_NORM = 1e-6, 4e-3, 2e-4
+# ... and TZ_HEAD_ARCH's float32 comparison again by block, with the model's
+# LM head and with the head fed the float32 hidden state
+# (``_float32_head``): the largest leaf gap, 4.4e-4 of scale, is the head's
+# bf16 cast rounding the backward's gradient (on both devices, as in the
+# reference), not an op the card computes at reduced precision, so without
+# that cast every leaf agrees within TZ_HEAD_GRAD_MAX of its scale
+# (readings <= 1.1e-6, PERF.md PR 27)
+TZ_HEAD_ARCH, TZ_HEAD_GRAD_MAX = "recurrentgemma-2b", 1e-5
 
 
 def wkv6_bwd_bound(b, t, h, dh, dtype, state, has_ds) -> dict:
@@ -3123,7 +3169,7 @@ def wkv6_bwd_bound(b, t, h, dh, dtype, state, has_ds) -> dict:
 def wkv_bwd_inputs(case):
     """The inputs of a WKV_BWD_CASES case (``wkv_inputs``' r, k, v, logw,
     u, state0 and a cotangent dy, dS_T or None)."""
-    name, b, t, h, dh, dtype, state, has_ds = case
+    name, b, t, h, dh, dtype, state, has_ds, _ = case
     r, k_, v, logw, u, s0 = wkv_inputs(b, t, h, dh, dtype, state, SEED)
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     dy = torch.randn(b, t, h, dh, generator=g, device=DEV)
@@ -3145,23 +3191,65 @@ def wkv_bwd_plain(r, k_, v, logw, u, s0, dy, ds):
     return grads, lambda: torch.autograd.grad(loss, ins, retain_graph=True)
 
 
+def wkv6_bwd_plan(b, h, dh, dtype, nv) -> dict:
+    """The backward's plan for a case, as the wrapper makes it: NV value
+    slices (a cluster of NV blocks a (b, h); ``nv`` forces one), and the
+    clusters of NV blocks the card runs at once."""
+    clusters = lambda n: kw.max_active_clusters(DEV, dtype, dh, n)
+    if nv is None:
+        nv = kw.bwd_plan(b, h, dh, clusters)
+    return {"NV": nv, "VB": dh // nv, "active_clusters": clusters(nv),
+            "one_wave": b * h <= clusters(nv)}
+
+
+def wkv6_bwd_nan(args, state, nv) -> dict:
+    """K6's backward with one NaN in dy, the 0x7fffffff that CUDA's
+    arithmetic makes (at batch 0, the middle step, head 0, value column 0),
+    beside its plain version on the same inputs: which results are
+    non-finite, per (b, h) (per head for du), and which steps of dr at
+    (0, 0) (dr_t depends on dy_t alone). The kernel's must be the plain
+    version's: the NaN reaches the results it reaches there (an operand's
+    rounding does not drop it) and no other (b, h) (nor through the
+    cluster's exchange)."""
+    r, k_, v, logw, u, s0, dy, ds = args
+    dy = dy.clone()
+    dy.view(torch.int32)[0, dy.shape[1] // 2, 0, 0] = 0x7fffffff
+    args = (r, k_, v, logw, u, s0, dy, ds)
+    got = kw.wkv6_bwd_cuda(*args, need_state0_grad=state, nv=nv)
+    want, _ = wkv_bwd_plain(*args)
+    out = {}
+    for key, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        dims = (1, 3) if key != "du" else (1,)
+        bad = lambda x: (~torch.isfinite(x.float())).any(dims).cpu().tolist()
+        out[key] = bad(g)
+        assert out[key] == bad(w), (key, out[key], bad(w))
+    rows = lambda x: (~torch.isfinite(x[0, :, 0].float())).any(-1).nonzero()
+    out["dr_steps_at_0_0"] = rows(got[0]).flatten().tolist()
+    assert out["dr_steps_at_0_0"] == rows(want[0]).flatten().tolist() \
+        == [dy.shape[1] // 2], out
+    return out
+
+
 def check_wkv6_bwd() -> dict:
     """K6's backward against autograd of ``wkv_chunked`` at every
-    WKV_BWD_CASES case (WKV_BWD_RTOL), bit-identical over two runs; K6's
-    forward at the path's shape against ``wkv_chunked`` (WKV_TOL); the two
-    timed at the path's shape beside their plain versions and bounds."""
+    WKV_BWD_CASES case (WKV_BWD_RTOL), bit-identical over two runs, each
+    with its plan, and with a NaN in dy (``wkv6_bwd_nan``); K6's forward at
+    the path's shape against ``wkv_chunked`` (WKV_TOL); the two timed at
+    the path's shape beside their plain versions and bounds."""
     rows, times = [], {}
     names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
     for case in WKV_BWD_CASES:
-        name, b, t, h, dh, dtype, state, has_ds = case
+        name, b, t, h, dh, dtype, state, has_ds, nv = case
         args = wkv_bwd_inputs(case)
-        got = kw.wkv6_bwd_cuda(*args, need_state0_grad=state)
-        again = kw.wkv6_bwd_cuda(*args, need_state0_grad=state)
+        plan = wkv6_bwd_plan(b, h, dh, dtype, nv)
+        assert plan["active_clusters"] >= 1, (name, plan)
+        got = kw.wkv6_bwd_cuda(*args, need_state0_grad=state, nv=nv)
+        again = kw.wkv6_bwd_cuda(*args, need_state0_grad=state, nv=nv)
         torch.cuda.synchronize()
         want, plain = wkv_bwd_plain(*args)
         row = {"case": name, "B": b, "T": t, "H": h, "Dh": dh,
                "dtype": str(dtype).split(".")[-1], "state0": state,
-               "dS_T": has_ds,
+               "dS_T": has_ds, "plan": plan, "nv_forced": nv is not None,
                "bit_identical": all(torch.equal(x, y) for x, y in
                                     zip(got, again) if x is not None)}
         ok = True
@@ -3198,7 +3286,10 @@ def check_wkv6_bwd() -> dict:
                                                           s0)}},
                 {"wkv6": wkv6_bound(b, t, h, dh, dtype, state)})["wkv6"]
             times["wkv6"]["y_max_abs_err"] = row["forward_y_max_abs_err"]
+            times["wkv6_bwd"]["plan"] = plan
             del y, y_r
+        else:
+            row["nan_in_dy"] = wkv6_bwd_nan(args, state, nv)
         rows.append(row)
         assert ok and row["bit_identical"], row
         del args, got, again, want, plain
@@ -3208,17 +3299,28 @@ def check_wkv6_bwd() -> dict:
     return {"rows": {r["case"]: r for r in rows}, "times": times}
 
 
-def _rwkv_train_runs(mesh) -> dict:
+def _rwkv_train_runs(mesh) -> tuple:
     """Phase (b): rwkv6-3b, TZ_STEPS exact and TZ_STEPS int8 donated steps
     from one init
     on the same data; per step its loss, CUDA-event time and launches, the
     first step's sync sites (sync debug mode "warn"), the later steps
-    under "error"; the peak device memory of each run."""
+    under "error"; the peak device memory of each run. Beside the runs, K6's
+    backward at two of the exact step 1's calls' inputs against float64
+    (``_wkv6_bwd_vs_float64``)."""
     cfg = get_config(TZ_ARCH)
     shape = ShapeSpec("train_4k_cut", TZ_SEQ, TZ_BATCH, "train")
     data = SyntheticLMData(cfg.vocab, TZ_SEQ, TZ_BATCH, seed=SEED)
     batches = [data.global_arrays(i, mesh) for i in range(TZ_STEPS)]
-    runs = {}
+    runs, captured = {}, []
+    kernel = k6_ops.wkv6_bwd_cuda
+
+    def capture(*args, **kw_):
+        if len(captured) == 0 or capture.calls == TZ_BWD_CALLS - 1:
+            captured.append([x.detach().clone() if torch.is_tensor(x) else x
+                             for x in args[:8]])
+        capture.calls += 1
+        return kernel(*args, **kw_)
+    capture.calls = 0
     for name, bits in (("exact", None), ("int8", 8)):
         step = build_train_step(cfg, mesh, shape, TrainStepConfig(
             microbatches=TZ_MB, compression_bits=bits))
@@ -3238,9 +3340,14 @@ def _rwkv_train_runs(mesh) -> dict:
                 def one():
                     box["m"] = step(params, opt, tok, lab, donate=True)[2]
                     return box["m"]["loss"], None
-                e0.record()
-                run["sync_sites_step1"] = sync_sites(one)
-                e1.record()
+                if name == "exact":
+                    k6_ops.wkv6_bwd_cuda = capture
+                try:
+                    e0.record()
+                    run["sync_sites_step1"] = sync_sites(one)
+                    e1.record()
+                finally:
+                    k6_ops.wkv6_bwd_cuda = kernel
                 m = box.pop("m")
                 del one
             else:
@@ -3262,7 +3369,42 @@ def _rwkv_train_runs(mesh) -> dict:
         runs[name] = run
         del step, params, opt, m
         _free()
-    return runs
+    assert capture.calls == TZ_BWD_CALLS and len(captured) == 2, capture.calls
+    return runs, [_wkv6_bwd_vs_float64(*c) for c in captured]
+
+
+def _wkv6_bwd_vs_float64(r, k_, v, logw, u, s0, dy, ds) -> dict:
+    """K6's backward at inputs captured from the train step, against
+    float64 autograd of ``wkv_chunked``: each result's error over its scale
+    (for dr, dk, dv beyond one bf16 rounding, as in phase (a)) and the
+    decay leaves' part (sum over (b, t) of dlogw * logw where logw > -2,
+    w0's gradient through logw = -exp(min(w, ln 2))) over its norm; the same of the float64 results with dlogw and du
+    rounded to bf16 (a reduced-precision control, recorded). Held to
+    WKV_BWD_RTOL by ``run_train_zoo``."""
+    with torch.enable_grad():
+        ins = [x.detach().double().requires_grad_(True)
+               for x in (r, k_, v, logw, u)]
+        y, _ = wkv_chunked(*ins)
+        want = torch.autograd.grad((y * dy.double()).sum(), ins)
+    del y, ins
+    got = kw.wkv6_bwd_cuda(r, k_, v, logw, u.float().contiguous(), s0, dy, ds)
+    bf16 = [w.to(r.dtype) if i < 3 else w.bfloat16() for i, w in
+            enumerate(want)]
+    keep = (logw > -2.0).double()
+    decay = lambda dlw: (dlw.double() * logw.double() * keep).sum((0, 1))
+    out = {"dy_max_abs": float(dy.abs().max())}
+    for tag, res in (("kernel", got), ("bf16_control", bf16)):
+        row = {}
+        for i, (key, g, w) in enumerate(zip(("dr", "dk", "dv", "dlogw", "du"),
+                                            res, want)):
+            ulp = 2.0 ** -8 * w.abs() if i < 3 and r.dtype == torch.bfloat16 \
+                else 0.0
+            excess = ((g.double() - w).abs() - ulp).clamp(min=0.0)
+            row[f"{key}_err_of_scale"] = float(excess.max() / w.abs().max())
+        row["decay_part_err_of_norm"] = float(
+            (decay(res[3]) - decay(want[3])).norm() / decay(want[3]).norm())
+        out[tag] = row
+    return out
 
 
 def _tz_aux(cfg, batch: int, device, dtype=torch.bfloat16) -> dict:
@@ -3337,6 +3479,8 @@ def _tz_small(mesh) -> dict:
         f32 = _tz_compare(cfg, params, tok, lab, aux, torch.float32)
         bf16 = _tz_compare(cfg, params, tok, lab, aux, torch.bfloat16)
         row = {"float32": f32, "bf16_recorded": bf16}
+        if arch == TZ_HEAD_ARCH:
+            row["head_guard"] = _tz_head_guard(cfg, params, tok, lab)
         assert f32["loss_rel_gap"] <= TZ_LOSS_RTOL, (arch, f32)
         assert f32["grad_max_gap_of_scale"] <= TZ_GRAD_MAX, (arch, f32)
         assert f32["grad_norm_gap_of_norm"] <= TZ_GRAD_NORM, (arch, f32)
@@ -3367,6 +3511,94 @@ def _tz_small(mesh) -> dict:
     return out
 
 
+def _rglru_pass(cfg, params, tok, lab) -> tuple:
+    """One training loss of an rglru model (``params`` float32, no
+    recompute) and its gradients, with the model's blocks wrapped: the
+    residual stream after each recurrent block and each attention + MLP
+    tail, in the forward's order, the loss's gradient with respect to each,
+    and each leaf's gradient; all float32 on the CPU."""
+    from repro_torch.models import rglru
+    saved = (rglru._rec_block, rglru._mlp_tail)
+    acts, grads = [], {}
+
+    def keep(y):
+        i = len(acts)
+        acts.append(y.detach().float().cpu())
+        y.register_hook(lambda g: grads.__setitem__(i, g.detach().float()
+                                                    .cpu()))
+
+    def rec(x, *args, **kw):
+        y = saved[0](x, *args, **kw)
+        keep(y[0])
+        return y
+
+    def tail(x, *args, **kw):
+        y = saved[1](x, *args, **kw)
+        keep(y)
+        return y
+    keys = sorted(params)
+    leaves = [params[k_].detach().clone().requires_grad_(True) for k_ in keys]
+    rglru._rec_block, rglru._mlp_tail = rec, tail
+    try:
+        loss = train_loss_fn(dict(zip(keys, leaves)), tok, lab, cfg, False, 2,
+                             {})
+        g = torch.autograd.grad(loss, leaves)
+    finally:
+        rglru._rec_block, rglru._mlp_tail = saved
+    return (acts, [grads[i] for i in range(len(acts))],
+            {k_: x.float().cpu() for k_, x in zip(keys, g)})
+
+
+@contextlib.contextmanager
+def _float32_head():
+    """The loss's LM head fed the float32 hidden state instead of its bf16
+    rounding (``model_api._chunk_xent``'s cast, the reference's
+    ``hc.astype(jnp.bfloat16)``), for phase (c)'s TZ_HEAD_ARCH control
+    only: in the backward that cast rounds the loss's gradient at the last
+    block to bf16."""
+    from repro_torch.models import model_api
+    saved = model_api._chunk_xent
+
+    def xent(hc, lc, mc, table, vocab_ok):
+        logits = torch.matmul(hc.float(), table.float().T)
+        logits = torch.where(vocab_ok, logits, -math.inf)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+        return ((lse - gold) * mc).sum()
+    model_api._chunk_xent = xent
+    try:
+        yield
+    finally:
+        model_api._chunk_xent = saved
+
+
+def _gap(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _tz_head_guard(cfg, params, tok, lab) -> dict:
+    """TZ_HEAD_ARCH in float32, card against CPU, with the model's LM head
+    and with the head fed float32 (``_float32_head``): each block's output
+    and the loss's gradient at it (``_rglru_pass``) as a gap over its
+    scale, and the largest leaf gap (max over the leaf's largest
+    magnitude). The float32 head's leaves are held to TZ_HEAD_GRAD_MAX."""
+    params = {k_: v.float() for k_, v in params.items()}
+    p_dev = {k_: v.to(DEV) for k_, v in params.items()}
+    out = {}
+    for tag, head in (("model_head", contextlib.nullcontext),
+                      ("float32_head", _float32_head)):
+        with head():
+            a_card, d_card, g_card = _rglru_pass(cfg, p_dev, tok.to(DEV),
+                                                 lab.to(DEV))
+            a_cpu, d_cpu, g_cpu = _rglru_pass(cfg, params, tok, lab)
+        out[tag] = {
+            "block_output_gaps": [_gap(x, y) for x, y in zip(a_card, a_cpu)],
+            "block_grad_gaps": [_gap(x, y) for x, y in zip(d_card, d_cpu)],
+            "leaf_max_gap": max(_gap(g_card[k_], g_cpu[k_]) for k_ in g_cpu)}
+    assert out["float32_head"]["leaf_max_gap"] <= TZ_HEAD_GRAD_MAX, out
+    return out
+
+
 def run_train_zoo() -> dict:
     """Phase ``train_zoo``: (a) K6's backward against autograd of its plain
     forward; (b) rwkv6-3b at full width and depth, exact and int8, the
@@ -3383,7 +3615,7 @@ def run_train_zoo() -> dict:
     try:
         mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
                          device=str(DEV))
-        runs = _rwkv_train_runs(mesh)
+        runs, at_inputs = _rwkv_train_runs(mesh)
         small = _tz_small(mesh)
     finally:
         dist.destroy_process_group()
@@ -3410,6 +3642,7 @@ def run_train_zoo() -> dict:
          int8_exact_gaps=gaps,
          launches_per_step={"exact": per_step, "int8": {**per_step, **k4}},
          launches=launches, small=small,
+         parent_exact_loss=TZ_PARENT_LOSS, wkv6_bwd_at_step_inputs=at_inputs,
          limits={"wkv6_bwd_rtol_of_scale": WKV_BWD_RTOL,
                  "int8_exact_gap_of_loss": TZ_INT8_REL,
                  "peak_gb": TZ_PEAK_GB,
@@ -3429,6 +3662,12 @@ def run_train_zoo() -> dict:
     assert all(g <= TZ_INT8_REL * abs(x) for g, x in
                zip(gaps, runs["exact"]["loss"])), (runs["int8"]["loss"],
                                                    runs["exact"]["loss"])
+    exact = runs["exact"]["loss"]
+    assert exact[0] == TZ_PARENT_LOSS[0], (exact, TZ_PARENT_LOSS)
+    assert all(abs(x - y) <= TZ_INT8_REL * y for x, y in
+               zip(exact[1:], TZ_PARENT_LOSS[1:])), (exact, TZ_PARENT_LOSS)
+    for row in at_inputs:
+        assert all(x <= WKV_BWD_RTOL for x in row["kernel"].values()), row
     # the fused gradients are the compressed ones: from step 2 on, the
     # int8 run's loss is not the exact run's
     assert all(x != y for x, y in zip(runs["int8"]["loss"][1:],

@@ -74,9 +74,13 @@
 // Limits: Dh a multiple of 4 up to 128; r, k, v bf16 or float32 (one
 // dtype); logw, u, the states and y float32.
 //
-// The backward (`wkv6_bwd_kernel`, entry `wkv6_bwd_launch`) has no TPU
-// counterpart: the reference differentiates its jnp `wkv_chunked` with
-// jax.grad. It is described where it starts, below the forward.
+// The backward (`wkv6_bwd_kernel`, entries `wkv6_bwd_launch` and
+// `wkv6_bwd_max_active_clusters`) has no TPU counterpart: the reference
+// differentiates its jnp `wkv_chunked` with jax.grad. It takes the
+// forward's decomposition by value-column slices, with the NV blocks of a
+// (b, h) in one thread-block cluster that sums the slices' partials of dr,
+// dk, dlogw and du through distributed shared memory, and the forward's
+// 3xTF32 products. It is described where it starts, below the forward.
 //
 // Plain C interface, loaded with ctypes. The entry points launch on the
 // stream they are given, do not synchronise, allocate nothing and return
@@ -581,297 +585,970 @@ cudaError_t launch(const Args& a, int B, int NV, cudaStream_t stream) {
 // the two products above without their u terms, P_{t-1} = P_t - k_t dk^h_t
 // + r_t dr^h_t and dlogw_t = P_t - k_t dk^h_t, from P_T = rowsum(S_T dS_T).
 //
-// A chunk of C = 32 steps in the basis of the reference's wkv_chunked
-// (l_inc, l_exc = l_inc - logw, l_last = l_inc at the chunk's last step;
-// r' = r e^{l_exc}, k' = k e^{-l_inc}, kk = k e^{l_last - l_inc}; S0 and G
-// the state and adjoint at the chunk's start and end):
-//     A = tril_strict(r' k'^T),  Bm = dy v^T,  ruk_t = sum_i r u k
-//     dr^h = e^{l_exc} (dy S0^T + tril_strict(Bm) k')
-//     dk^h = e^{l_last - l_inc} (v G^T) + e^{-l_inc} (tril_strict(Bm)^T r')
-//     dv   = kk G + A^T dy + ruk dy
-//     G   <- diag(e^{l_last}) G + r'^T dy      (the adjoint at the chunk's start)
-// As in the forward, the caller keeps logw >= -2, so every factor stays
-// within e^{+-64} and every product inside float32's range.
+// A chunk of C = 32 steps in the forward's rebased basis (l_inc, l_exc =
+// l_inc - logw, l_tot = l_inc at the chunk's last step; r'' = r e^{l_exc -
+// l_tot}, kk = k e^{l_tot - l_inc}, S_dec = diag(e^{l_tot}) S0; S0 and G
+// the state and adjoint at the chunk's start and end; Bm = dy v^T):
+//     A    = tril_strict(r'' kk^T) + diag(sum_i r u k)     (the forward's A)
+//     X_r  = dy S_dec^T + tril_strict(Bm) kk,      dr^h = e^{l_exc - l_tot} X_r
+//     X_k  = v G^T + tril_strict(Bm)^T r'',        dk^h = e^{l_tot - l_inc} X_k
+//     dv   = kk G + A^T dy
+//     G   <- diag(e^{l_tot}) (G + r''^T dy)        (the adjoint at the chunk's start)
+// These are the reference's chunked products (e^{l_exc} (dy S0^T + tril(Bm)
+// k'), e^{l_tot - l_inc} v G^T + e^{-l_inc} tril(Bm)^T r', with r' = r
+// e^{l_exc}, k' = k e^{-l_inc}) with the factors e^{+-l_tot} moved between
+// the operands, as in the forward: every operand stays inside float32's
+// range because the caller keeps logw >= -2 (|l_tot| <= 64).
 //
-// Design (simple first: CUDA-core float32 FMAs, no tensor cores). One block
-// per (b, h), 256 threads, the whole (Dh, Dh) state and adjoint in shared
-// memory. Pass 1 runs the state recurrence forward and writes each chunk's
-// start state to `scratch` (B, H, ceil(T / 32), Dh, Dh) float32; pass 2
-// takes the chunks in reverse, carrying G and P. Steps past T are zero
-// (k = v = r = dy = 0, logw = 0: they neither add to the state nor decay
-// it) and their gradients are not written. du leaves as partials (B, H, Dh)
-// that the wrapper sums over B in a fixed order. Sums run in a fixed order:
-// the results are the same bits run to run.
+// What bounds it on this card: at rwkv6-3b's train microbatch (B=2, T=4096,
+// H=40, Dh=64, bf16 r/k/v) the function must move 503 MB, 0.150 ms at 3.35
+// TB/s; its 1.8e10 FLOP of products take ~0.04 ms at the TF32 tensor-core
+// rate. Bytes bound it; the state scratch (below) adds 2 x 168 MB of its
+// own.
 //
-// Limits: Dh a power of two from 4 to 64; r, k, v bf16 or float32 (one
-// dtype; dr, dk, dv in it); logw, u, state0, dy, dS_T, dlogw, du and
-// dstate0 float32.
+// Design.
+// * Blocks: grid (B * H, NV), VB = Dh / NV value columns a block. The state
+//   S, the adjoint G and dv split exactly by value column (S[:, j] depends
+//   only on v[:, j], G[:, j] only on dy[:, j]), so a block keeps only its
+//   (Dh, VB) slices of S and G, in shared memory, for the whole sequence,
+//   and writes its columns of dv. dr, dk, dlogw and du sum over value
+//   columns: a block forms its slice's partials X_r, X_k (32 x Dh) and v.dy
+//   (32) of a chunk, and the NV blocks of a (b, h), one thread-block
+//   cluster, sum them through distributed shared memory: block j owns the
+//   channels [j VB, (j + 1) VB), every block stores its partials of those
+//   channels into block j's exchange buffer (a slot per rank, pairs of
+//   floats from the products' registers), and block j adds the slots in
+//   rank order, applies the factors and writes its channels of dr, dk and
+//   dlogw once; it carries du of its channels. P is not carried across
+//   chunks: at each chunk's end it is rowsum(G S) exactly (the adjoint just
+//   updated, the next chunk's start state), its slice partials summed the
+//   same way, so dlogw's reverse cumulative sum spans one chunk and its
+//   rounding does not accumulate over the sequence (a carried P's errors
+//   are shared by every earlier step of a channel, and the decay's
+//   gradient sums them coherently over the tokens). The results are the same bits run to run, and no
+//   partial goes to device memory. The plan (`bwd_plan` in
+//   kernels/wkv6/wkv6.py) takes the largest NV whose B * H clusters the
+//   card runs at once (cudaOccupancyMaxActiveClusters at this kernel's
+//   shared memory): NV = 2 at rwkv6-3b's train shape (2 blocks an SM, ~105
+//   KB of shared memory and <= 128 registers each; NV = 4 would need 3).
+// * Pass 1 runs the state recurrence forward, S <- S_dec + kk^T v, and
+//   writes each chunk's start state slice to `scratch` (B, H, ceil(T / 32),
+//   Dh, Dh) float32; pass 2 takes the chunks in reverse, reads it back,
+//   and carries G and P.
+// * Every block recomputes the chunk's scan, rebasing and A from all Dh
+//   channels (as the forward's blocks do): the scan is the forward's, a
+//   warp four channels at a time with lane t on step t, an inclusive
+//   shuffle scan for l_inc, __expf. Steps past T are zero (k = v = r = dy =
+//   0, logw = 0: they neither add to the state nor decay it) and their
+//   gradients are not written.
+// * Loads: rows of r, k, logw (every channel) and of the block's v, dy
+//   slices stream into raw buffers by 16-byte cp.async copies, steps past T
+//   zero-filled through the copy's source size. Pass 1 keeps two raw
+//   buffers (the second in shared memory that only pass 2 uses) and loads
+//   chunk c + 1 while chunk c runs. In pass 2, chunk c - 1's r, k, logw are
+//   issued once chunk c's scan has read them, its v, dy and start state once
+//   chunk c's products are done. Rows that are not whole 16-byte pieces
+//   take plain loads.
+// * Products: mma.sync m16n8k8 3xTF32 with float32 sums (`mma3`); a bf16 v
+//   is a TF32 number and its zero lo term is skipped. Operands are split
+//   when their fragments are loaded, by `split_fin` (below). Each chunk of
+//   pass 2 has two phases between barriers: phase 1 writes A and Bm
+//   (strictly lower, v.dy apart) to shared memory and starts X_r, X_k and dv
+//   in registers (dy S_dec^T, v G^T, kk G); phase 2 adds the triangle
+//   products, writes dv, and updates G in place.
+// * After phase 2 (and P's partials: one more barrier) a cluster barrier
+//   publishes the partials; the owner sums them, runs dlogw's reverse
+//   cumulative sum over the chunk with lane t on step t (shuffles, four
+//   channels a warp at a time), and writes its channels. A second arrive tells the peers that the slots may be stored
+//   again; they wait on it just before their next chunk's stores.
+// * What bounds it now (PERF.md): instruction issue. Per chunk a block
+//   splits ~2600 operand fragments and runs ~1400 mma.sync (counted from
+//   this code at rwkv6-3b's shape); two blocks share an SM. Dh is a
+//   template parameter (five instances a dtype) and every quotient by Dh,
+//   VB or a row's size is a shift (all are powers of two).
+//
+// Limits: Dh a power of two from 4 to 64, NV in value_splits(Dh) (at most
+// 8, a cluster's portable size); r, k, v bf16 or float32 (one dtype; dr,
+// dk, dv in it); logw, u, state0, dy, dS_T, dlogw, du and dstate0 float32.
 
 constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdMaxDh = 64;
+// 16 x 8 tiles a warp holds across the chunk's middle barrier: of X_r and
+// X_k (32 x Dh each) and of dv (32 x VB), 2 x 8 of each at Dh = 64
+constexpr int kMaxXTiles = 2 * (kBwdMaxDh / 8) / kBwdWarps;
 
+// Shared-memory layout of a backward block, for head size dh, value slice
+// vb (= the channels it owns), nv slices and r, k, v elements of esize
+// bytes. Offsets in bytes. Raw rows carry 16 bytes of padding (as the
+// forward's); the rows of r'' and kk are 4 mod 8 floats (A operands), of S
+// and G 8 or 24 mod 32 (B operands); the owner's arrays, read with lane t
+// on step t, have odd rows. Pass 1 reads only k, logw and v, and keeps a
+// second raw buffer of them (o_k1, o_l1, o_v1) where pass 2 keeps
+// G, the exchange and the owner's arrays.
 struct BwdLayout {
-  int ld, ldc;               // rows of the (., Dh) and (C, C) matrices (floats)
-  int o_s, o_g, o_r, o_k, o_v, o_dy, o_lw, o_ele, o_enl, o_ekk, o_rp, o_kp, o_kk,
-      o_rd, o_kd, o_a, o_b, o_ruk, o_u, o_elast, o_p;
+  int dhp, dhm, vbp;          // dh up to 8, dh up to 16, vb up to 8
+  int ld_rk, ld_v, ld_o;
+  int raw_rk, raw_l, raw_v, raw_dy;
+  int o_r, o_k0, o_l0, o_v0, o_dy;                 // raw chunk
+  int o_k1, o_l1, o_v1;                            // pass 1's second buffer
+  int o_rp, o_kk, o_a, o_bm, o_s;
+  int o_etot, o_u, o_dpart, o_vdyp, o_p, o_pn, o_du;
+  int o_g, o_xr, o_xk, o_xv, o_xp, o_own;
   int bytes;
-  __host__ __device__ explicit BwdLayout(int dh) {
-    ld = dh + 1;              // odd: a warp down a column hits 32 banks
-    ldc = kChunk + 1;
+  __host__ __device__ BwdLayout(int dh, int vb, int nv, int esize) {
+    dhp = round_up(dh, 8);
+    dhm = round_up(dh, 16);
+    vbp = round_up(vb, 8);
+    ld_rk = dhm + 4;
+    ld_v = (vbp % 32 == 8 || vbp % 32 == 24) ? vbp : vbp + 8;
+    ld_o = vb + 1;
+    raw_rk = round_up(dh * esize, 16) + 16;
+    raw_l = round_up(dh * 4, 16) + 16;
+    raw_v = round_up(vb * esize, 16) + 16;
+    raw_dy = round_up(vb * 4, 16) + 16;
     int o = 0;
-    o_s = o;   o += dh * ld;
-    o_g = o;   o += dh * ld;
-    o_r = o;   o += kChunk * ld;
-    o_k = o;   o += kChunk * ld;
-    o_v = o;   o += kChunk * ld;
-    o_dy = o;  o += kChunk * ld;
-    o_lw = o;  o += kChunk * ld;
-    o_ele = o; o += kChunk * ld;
-    o_enl = o; o += kChunk * ld;
-    o_ekk = o; o += kChunk * ld;
-    o_rp = o;  o += kChunk * ld;
-    o_kp = o;  o += kChunk * ld;
-    o_kk = o;  o += kChunk * ld;
-    o_rd = o;  o += kChunk * ld;
-    o_kd = o;  o += kChunk * ld;
-    o_a = o;   o += kChunk * ldc;
-    o_b = o;   o += kChunk * ldc;
-    o_ruk = o; o += kChunk;
-    o_u = o;   o += dh;
-    o_elast = o; o += dh;
-    o_p = o;   o += dh;
-    bytes = 4 * o;
+    o_r = o;  o += kChunk * raw_rk;
+    o_k0 = o; o += kChunk * raw_rk;
+    o_l0 = o; o += kChunk * raw_l;
+    o_v0 = o; o += kChunk * raw_v;
+    o_dy = o; o += kChunk * raw_dy;
+    o_rp = o; o += 4 * kChunk * ld_rk;      // r'' (every channel)
+    o_kk = o; o += 4 * kChunk * ld_rk;      // kk
+    o_a = o;  o += 4 * kChunk * kLdA;       // A
+    o_bm = o; o += 4 * kChunk * kLdA;       // tril_strict(Bm)
+    o_s = o;  o += 4 * dhm * ld_v;          // S slice
+    o_etot = o; o += 4 * dhm;
+    o_u = o;  o += 4 * dhp;
+    o_dpart = o; o += 4 * kBwdWarps * kChunk;
+    o_vdyp = o; o += 4 * kChunk;            // this slice's v.dy
+    o_p = o;  o += 4 * round_up(vb, 4);     // P of the owned channels
+    o_pn = o; o += 4 * round_up(vb, 4);     // their P at the previous chunk's end
+    o_du = o; o += 4 * round_up(vb, 4);     // du of the owned channels
+    const int pass2 = o;
+    o_g = o;  o += 4 * dhm * ld_v;          // G slice
+    // the exchange, a slot per rank: X_r and X_k of the owned channels
+    // (rows of vb floats), v.dy, and P at the previous chunk's end
+    o_xr = o; o += 4 * nv * kChunk * vb;
+    o_xk = o; o += 4 * nv * kChunk * vb;
+    o_xv = o; o += 4 * nv * kChunk;
+    o_xp = o; o += 4 * nv * round_up(vb, 4);   // and P's slice partials
+    o_own = o; o += 4 * 4 * kChunk * ld_o;  // owned channels: r, k, e^{l_exc - l_tot}, e^{l_tot - l_inc}
+    int p1 = pass2;
+    o_k1 = p1; p1 += kChunk * raw_rk;
+    o_l1 = p1; p1 += kChunk * raw_l;
+    o_v1 = p1; p1 += kChunk * raw_v;
+    bytes = o > p1 ? o : p1;
   }
+  // raw buffer `buf` of k, logw, v
+  __host__ __device__ int o_k(int buf) const { return buf ? o_k1 : o_k0; }
+  __host__ __device__ int o_l(int buf) const { return buf ? o_l1 : o_l0; }
+  __host__ __device__ int o_v(int buf) const { return buf ? o_v1 : o_v0; }
 };
 
 struct BwdArgs {
   const void* r; const void* k; const void* v; const float* logw; const float* u;
   const float* state0; const float* dy; const float* ds; float* scratch;
   void* dr; void* dk; void* dv; float* dlogw; float* du_part; float* dstate0;
-  int T_len, H, Dh;
+  int T_len, H, Dh, VB, vec;
 };
 
-__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// Chunk c's rows (steps past T as zeros) of the listed (B, T, H, Dh) inputs
-// into shared memory as float32.
+// ---- the backward's operand loads (split on load) and products -----------
+// The forward's split is cvt.rna.tf32.f32, which the compiler emulates with
+// a test for infinity before each rounding. The backward is bound by
+// instruction issue and splits ~2600 fragments a chunk, so it rounds the
+// same way by integer steps: hi = the float32 bits plus half a TF32 ulp,
+// cut to TF32 (round to nearest, ties away: cvt.rna's hi), lo = x - hi plus
+// half an ulp, whose low 13 bits the tensor core does not read (cvt.rna's
+// lo). For a finite x these are cvt.rna's TF32 values. A NaN with a full
+// mantissa (the 0x7fffffff that CUDA's arithmetic makes) would carry into
+// the sign and become a zero that drops out of every product, so hi is
+// taken through fma(x, 0, hi): the same bits for a finite x (x * 0 is a
+// zero of hi's sign), a NaN for a NaN or an infinity, whose lo then reads
+// as -0 or is a NaN. Non-finite operands thus stay non-finite in the
+// products, as with cvt.rna, for one instruction (a select on the exponent
+// took three, and 12 % of the kernel's time).
+__device__ __forceinline__ void split_fin(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = fmaf(x, 0.0f, __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(x - h) + 0x1000u;
+}
+// The forward's load_a and load_b_kn (row-major A; B row-major by k) with
+// split_fin.
+__device__ __forceinline__ void load_a_fin(const float* p, int ld, int m0, int k0, int g, int q,
+                                           Frag& f) {
+  const float* r0 = p + (m0 + g) * ld + k0 + q;
+  const float* r1 = r0 + 8 * ld;
+  split_fin(r0[0], f.hi[0], f.lo[0]);
+  split_fin(r1[0], f.hi[1], f.lo[1]);
+  split_fin(r0[4], f.hi[2], f.lo[2]);
+  split_fin(r1[4], f.hi[3], f.lo[3]);
+}
+__device__ __forceinline__ void load_b_kn_fin(const float* p, int ld, int k0, int n0, int g, int q,
+                                              Frag& f) {
+  const float* c = p + (k0 + q) * ld + n0 + g;
+  split_fin(c[0], f.hi[0], f.lo[0]);
+  split_fin(c[4 * ld], f.hi[1], f.lo[1]);
+}
+// A operand whose element (m, k) is stored at p[k * ld + m] (A = M^T).
+__device__ __forceinline__ void load_at(const float* p, int ld, int m0, int k0, int g, int q,
+                                        Frag& f) {
+  const float* c0 = p + (k0 + q) * ld + m0 + g;
+  const float* c1 = c0 + 4 * ld;
+  split_fin(c0[0], f.hi[0], f.lo[0]);
+  split_fin(c0[8], f.hi[1], f.lo[1]);
+  split_fin(c1[0], f.hi[2], f.lo[2]);
+  split_fin(c1[8], f.hi[3], f.lo[3]);
+}
+// B operand of a matrix stored row-major by n (B = M^T); with w, column n
+// scaled by w[n] first (S_dec^T = (diag(e^{l_tot}) S)^T).
+__device__ __forceinline__ void load_b_nk(const float* p, int ld, int n0, int k0, int g, int q,
+                                          Frag& f) {
+  const float* c = p + (n0 + g) * ld + k0 + q;
+  split_fin(c[0], f.hi[0], f.lo[0]);
+  split_fin(c[4], f.hi[1], f.lo[1]);
+}
+__device__ __forceinline__ void load_b_nk(const float* p, const float* w, int ld, int n0, int k0,
+                                          int g, int q, Frag& f) {
+  const float* c = p + (n0 + g) * ld + k0 + q;
+  const float s = w[n0 + g];
+  split_fin(s * c[0], f.hi[0], f.lo[0]);
+  split_fin(s * c[4], f.hi[1], f.lo[1]);
+}
+// An element of a raw row (v) as a fragment entry: a bf16 is a TF32
+// number, its hi the bits and its lo zero (never read: mma3 and
+// mma3_a_exact skip it).
+__device__ __forceinline__ void frag_elem(float x, uint32_t& hi, uint32_t& lo) { split_fin(x, hi, lo); }
+__device__ __forceinline__ void frag_elem(__nv_bfloat16 x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(__bfloat162float(x));
+  lo = 0u;
+}
+// A operand (rows m0.., depth k0..) and B operands (row-major by k, or by n)
+// of the raw rows at `raw`, `stride` bytes apart, of elements T.
 template <typename T>
-__device__ void bwd_load_rows(const T* src, float* dst, int ld, size_t base, size_t rs, int Dh,
-                              int n_ok) {
-  for (int e = threadIdx.x; e < kChunk * Dh; e += kBwdThreads) {
-    const int t = e / Dh, i = e - t * Dh;
-    dst[t * ld + i] = t < n_ok ? to_f32(src[base + t * rs + i]) : 0.f;
+__device__ __forceinline__ void load_a_raw(const char* raw, int stride, int m0, int k0, int g,
+                                           int q, Frag& f) {
+  const T* r0 = reinterpret_cast<const T*>(raw + (m0 + g) * stride) + k0 + q;
+  const T* r1 = reinterpret_cast<const T*>(raw + (m0 + g + 8) * stride) + k0 + q;
+  frag_elem(r0[0], f.hi[0], f.lo[0]);
+  frag_elem(r1[0], f.hi[1], f.lo[1]);
+  frag_elem(r0[4], f.hi[2], f.lo[2]);
+  frag_elem(r1[4], f.hi[3], f.lo[3]);
+}
+template <typename T>
+__device__ __forceinline__ void load_b_kn_raw(const char* raw, int stride, int k0, int n0, int g,
+                                              int q, Frag& f) {
+  frag_elem(reinterpret_cast<const T*>(raw + (k0 + q) * stride)[n0 + g], f.hi[0], f.lo[0]);
+  frag_elem(reinterpret_cast<const T*>(raw + (k0 + q + 4) * stride)[n0 + g], f.hi[1], f.lo[1]);
+}
+template <typename T>
+__device__ __forceinline__ void load_b_nk_raw(const char* raw, int stride, int n0, int k0, int g,
+                                              int q, Frag& f) {
+  const T* c = reinterpret_cast<const T*>(raw + (n0 + g) * stride) + k0 + q;
+  frag_elem(c[0], f.hi[0], f.lo[0]);
+  frag_elem(c[4], f.hi[1], f.lo[1]);
+}
+// c += a b in 3xTF32 with a TF32 number as A (v from bf16 in v G^T): its
+// lo is zero, a.lo * b.hi is skipped.
+__device__ __forceinline__ void mma3_a_exact(float c[4], const Frag& a, const Frag& b) {
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+// ---- the cluster: rank, barrier halves, stores into a peer's shared memory
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+// every thread of the cluster's blocks: the shared-memory writes before an
+// arrive are seen after the wait that follows it, in any rank
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the shared::cluster address, in block `rank`, of this block's shared
+// address `addr`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// v, or (v0, v1), into a block of the cluster at the shared::cluster
+// address `addr`
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v0, float v1) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(v0), "f"(v1)
+               : "memory");
+}
+
+// ---- loads ------------------------------------------------------------------
+// n_rows rows of `bytes` bytes (a power of two of 16-byte pieces), row t from src + t *
+// src_stride to dst + t * dst_stride, by cp.async; rows t >= n_ok
+// zero-filled (a source size of 0, from row 0).
+__device__ __forceinline__ void bwd_copy_rows(char* dst, int dst_stride, const char* src, size_t src_stride,
+                              int bytes, int n_rows, int n_ok) {
+  const int pieces = bytes / 16, sh = __ffs(pieces) - 1;   // a power of two
+  for (int i = threadIdx.x; i < n_rows * pieces; i += kBwdThreads) {
+    const int t = i >> sh, p = i & (pieces - 1);
+    const bool ok = t < n_ok;
+    cp_async16(dst + t * dst_stride + 16 * p, src + static_cast<size_t>(ok ? t : 0) * src_stride + 16 * p,
+               ok ? 16 : 0);
+  }
+}
+// The same by plain loads, n elements a row (a power of two).
+template <typename T>
+__device__ __forceinline__ void bwd_plain_rows(char* dst, int dst_stride, const T* src, size_t src_stride, int n,
+                               int n_ok) {
+  const int sh = __ffs(n) - 1;                                // n a power of two
+  for (int i = threadIdx.x; i < kChunk * n; i += kBwdThreads) {
+    const int t = i >> sh, e = i & (n - 1);
+    reinterpret_cast<T*>(dst + t * dst_stride)[e] = t < n_ok ? src[t * src_stride + e] : T(0.f);
   }
 }
 
-// The chunk's cumulative log-decay, a thread a channel: e^{l_exc},
-// e^{-l_inc}, e^{l_last - l_inc} for every step, e^{l_last} for the chunk.
-__device__ void bwd_scan(const BwdLayout& L, float* sm, int Dh) {
-  for (int i = threadIdx.x; i < Dh; i += kBwdThreads) {
-    float inc = 0.f;
-    for (int t = 0; t < kChunk; ++t) {
-      const float lw = sm[L.o_lw + t * L.ld + i];
-      sm[L.o_ele + t * L.ld + i] = inc;          // l_exc, made e^{l_exc} below
-      inc += lw;
-      sm[L.o_enl + t * L.ld + i] = inc;          // l_inc
+// A chunk's rows of k and logw (every channel) into raw buffer `buf`, and
+// in pass 2 (with_r) of r; `row` is the element of (b, t0, h, 0), rs a
+// step's row.
+template <typename T, int Dh>
+__device__ __forceinline__ void bwd_load_rkl(const BwdArgs& a, const BwdLayout& L, char* smem, size_t row,
+                             size_t rs, int n_ok, int buf, bool with_r) {
+  const T* r = static_cast<const T*>(a.r) + row;
+  const T* k = static_cast<const T*>(a.k) + row;
+  const int es = static_cast<int>(sizeof(T));
+  if (a.vec) {
+    if (with_r)
+      bwd_copy_rows(smem + L.o_r, L.raw_rk, reinterpret_cast<const char*>(r), rs * es, Dh * es,
+                    kChunk, n_ok);
+    bwd_copy_rows(smem + L.o_k(buf), L.raw_rk, reinterpret_cast<const char*>(k), rs * es,
+                  Dh * es, kChunk, n_ok);
+    bwd_copy_rows(smem + L.o_l(buf), L.raw_l, reinterpret_cast<const char*>(a.logw + row),
+                  rs * 4, Dh * 4, kChunk, n_ok);
+  } else {
+    if (with_r) bwd_plain_rows<T>(smem + L.o_r, L.raw_rk, r, rs, Dh, n_ok);
+    bwd_plain_rows<T>(smem + L.o_k(buf), L.raw_rk, k, rs, Dh, n_ok);
+    bwd_plain_rows<float>(smem + L.o_l(buf), L.raw_l, a.logw + row, rs, Dh, n_ok);
+  }
+  cp_async_commit();
+}
+
+// A chunk's rows of the block's v slice into raw buffer `buf` and, in pass
+// 2 (s0 given), of its dy slice, and its start state slice (Dh rows of VB
+// floats, row stride Dh) into S. `row` is the element of (b, t0, h, lo).
+template <typename T, int Dh>
+__device__ __forceinline__ void bwd_load_vdy(const BwdArgs& a, const BwdLayout& L, char* smem, size_t row,
+                             size_t rs, int n_ok, int buf, const float* s0) {
+  const T* v = static_cast<const T*>(a.v) + row;
+  const int es = static_cast<int>(sizeof(T));
+  if (a.vec) {
+    bwd_copy_rows(smem + L.o_v(buf), L.raw_v, reinterpret_cast<const char*>(v), rs * es,
+                  a.VB * es, kChunk, n_ok);
+    if (s0 != nullptr)
+      bwd_copy_rows(smem + L.o_dy, L.raw_dy, reinterpret_cast<const char*>(a.dy + row), rs * 4,
+                    a.VB * 4, kChunk, n_ok);
+  } else {
+    bwd_plain_rows<T>(smem + L.o_v(buf), L.raw_v, v, rs, a.VB, n_ok);
+    if (s0 != nullptr) bwd_plain_rows<float>(smem + L.o_dy, L.raw_dy, a.dy + row, rs, a.VB, n_ok);
+  }
+  if (s0 != nullptr)
+    bwd_copy_rows(smem + L.o_s, 4 * L.ld_v, reinterpret_cast<const char*>(s0),
+                  4 * static_cast<size_t>(Dh), a.VB * 4, Dh, Dh);
+  cp_async_commit();
+}
+
+// The chunk's cumulative log-decay, as the forward's scan: a warp four
+// channels at a time, lane t on step t, an inclusive shuffle scan. Writes
+// kk = k e^{l_tot - l_inc} and e^{l_tot} of every channel; with R (pass 2)
+// also r'' = r e^{l_exc - l_tot}, the warp's partial of the u bonus
+// sum_i r u k, and the owned channels' r, k and two factors.
+template <typename T, bool R>
+__device__ __forceinline__ void bwd_scan(const BwdLayout& L, char* smem, int Dh, int lo, int VB, int buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* rp_s = reinterpret_cast<float*>(smem + L.o_rp);
+  float* kk_s = reinterpret_cast<float*>(smem + L.o_kk);
+  float* etot_s = reinterpret_cast<float*>(smem + L.o_etot);
+  const float* u_s = reinterpret_cast<const float*>(smem + L.o_u);
+  float* own = reinterpret_cast<float*>(smem + L.o_own);
+  const int os = kChunk * L.ld_o;              // one owned array
+  float dacc = 0.f;
+  for (int g4 = warp; g4 < Dh / 4; g4 += kBwdWarps) {
+    const int d = 4 * g4;
+    float lw[4], k4[4], r4[4] = {0.f, 0.f, 0.f, 0.f};
+    load4(reinterpret_cast<const float*>(smem + L.o_l(buf) + lane * L.raw_l) + d, lw);
+    load4(reinterpret_cast<const T*>(smem + L.o_k(buf) + lane * L.raw_rk) + d, k4);
+    if constexpr (R) load4(reinterpret_cast<const T*>(smem + L.o_r + lane * L.raw_rk) + d, r4);
+    float inc[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) inc[q] = lw[q];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float n = __shfl_up_sync(0xffffffffu, inc[q], off);
+        if (lane >= off) inc[q] += n;
+      }
+    float kk4[4], rp4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float tot = __shfl_sync(0xffffffffu, inc[q], 31);
+      const float ekk = __expf(tot - inc[q]);
+      kk4[q] = k4[q] * ekk;
+      if (lane == 0) etot_s[d + q] = __expf(tot);
+      if constexpr (R) {
+        const float erp = __expf((inc[q] - lw[q]) - tot);
+        rp4[q] = r4[q] * erp;
+        dacc = fmaf(r4[q] * u_s[d + q], k4[q], dacc);
+        const int il = d + q - lo;
+        if (il >= 0 && il < VB) {
+          const int o = lane * L.ld_o + il;
+          own[o] = r4[q];
+          own[os + o] = k4[q];
+          own[2 * os + o] = erp;
+          own[3 * os + o] = ekk;
+        }
+      }
     }
-    for (int t = 0; t < kChunk; ++t) {
-      const float li = sm[L.o_enl + t * L.ld + i];
-      sm[L.o_ele + t * L.ld + i] = expf(sm[L.o_ele + t * L.ld + i]);
-      sm[L.o_enl + t * L.ld + i] = expf(-li);
-      sm[L.o_ekk + t * L.ld + i] = expf(inc - li);
+    *reinterpret_cast<float4*>(kk_s + lane * L.ld_rk + d) = make_float4(kk4[0], kk4[1], kk4[2], kk4[3]);
+    if constexpr (R)
+      *reinterpret_cast<float4*>(rp_s + lane * L.ld_rk + d) = make_float4(rp4[0], rp4[1], rp4[2], rp4[3]);
+  }
+  if constexpr (R) reinterpret_cast<float*>(smem + L.o_dpart)[warp * kChunk + lane] = dacc;
+}
+
+// M <- diag(e^{l_tot}) (M + P^T Q) (ADD_FIRST: G's update) or diag(e^{l_tot})
+// M + P^T Q (S's), in place, for M (Dh, VB) in shared memory, P (32, Dh) the
+// float32 rows at `p` and Q the chunk's rows of Q_T elements at `q`: 16 x 8
+// tiles of M, two a warp at a time (their products interleaved).
+template <typename Q_T, bool ADD_FIRST>
+__device__ __forceinline__ void bwd_state_update(const BwdLayout& L, float* m, const float* p, const float* etot,
+                                 const char* q, int q_stride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  constexpr bool kQExact = sizeof(Q_T) == 2;
+  const int n_tiles = (L.dhm / 16) * (L.vbp / 8), tsh = __ffs(L.vbp / 8) - 1;
+  for (int tile0 = warp; tile0 < n_tiles; tile0 += 2 * kBwdWarps) {
+    float* mp[2][2];
+    float w[2][2], acc[2][4];
+    int tm[2], tn[2];
+    bool on[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int tile = tile0 + i * kBwdWarps;
+      on[i] = tile < n_tiles;
+      const int tt = on[i] ? tile : tile0;
+      tm[i] = tt >> tsh;
+      tn[i] = tt & (L.vbp / 8 - 1);
+      const int d0 = 16 * tm[i] + g, e0 = 8 * tn[i] + 2 * tq;
+      mp[i][0] = m + d0 * L.ld_v + e0;
+      mp[i][1] = m + (d0 + 8) * L.ld_v + e0;
+      w[i][0] = etot[d0];
+      w[i][1] = etot[d0 + 8];
+      acc[i][0] = mp[i][0][0]; acc[i][1] = mp[i][0][1];
+      acc[i][2] = mp[i][1][0]; acc[i][3] = mp[i][1][1];
+      if constexpr (!ADD_FIRST) {
+        acc[i][0] *= w[i][0]; acc[i][1] *= w[i][0]; acc[i][2] *= w[i][1]; acc[i][3] *= w[i][1];
+      }
     }
-    sm[L.o_elast + i] = expf(inc);
+#pragma unroll
+    for (int s = 0; s < kChunk / 8; ++s)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (on[i]) {
+          Frag fa, fb;
+          load_at(p, L.ld_rk, 16 * tm[i], 8 * s, g, tq, fa);
+          load_b_kn_raw<Q_T>(q, q_stride, 8 * s, 8 * tn[i], g, tq, fb);
+          mma3(acc[i], fa, fb, kQExact);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (on[i]) {
+        if constexpr (ADD_FIRST) {
+          acc[i][0] *= w[i][0]; acc[i][1] *= w[i][0]; acc[i][2] *= w[i][1]; acc[i][3] *= w[i][1];
+        }
+        mp[i][0][0] = acc[i][0]; mp[i][0][1] = acc[i][1];
+        mp[i][1][0] = acc[i][2]; mp[i][1][1] = acc[i][3];
+      }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// c += a b in 3xTF32 into two accumulators (the two small terms, the
+// large one): the chains of one tile's products are half as long. The
+// caller adds them when the tile is done.
+__device__ __forceinline__ void mma3_split(float hi[4], float lo[4], const Frag& a, const Frag& b,
+                                           bool b_exact) {
+  mma(lo, a.lo, b.hi);
+  if (!b_exact) mma(lo, a.hi, b.lo);
+  mma(hi, a.hi, b.hi);
+}
+
+// (x, y) as the two elements at p (8 bytes aligned: a pair of channels)
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename T, int Dh>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 wkv6_bwd_kernel(const BwdArgs a) {
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, j = blockIdx.y;
   const int b = bh / a.H, h = bh - b * a.H;
-  const int tid = threadIdx.x;
-  const int Dh = a.Dh, DD = Dh * Dh;
-  const BwdLayout L(Dh);
-  extern __shared__ __align__(16) float sm[];
-  float* S = sm + L.o_s;
-  float* G = sm + L.o_g;
-  const T* r = static_cast<const T*>(a.r);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const size_t rs = static_cast<size_t>(a.H) * Dh;          // one step's row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  // Dh and VB are powers of two: their quotients are shifts
+  const int VB = a.VB, vsh = __ffs(VB) - 1, NV = Dh >> vsh, lo = j * VB;
+  const int rank = cluster_rank();             // == j: the cluster spans the NV slices
+  const BwdLayout L(Dh, VB, NV, static_cast<int>(sizeof(T)));
+  constexpr bool kVExact = sizeof(T) == 2;     // bf16 v is a TF32 number
+
+  extern __shared__ __align__(16) char smem[];
+  float* rp_s = reinterpret_cast<float*>(smem + L.o_rp);     // (C, ld_rk) r''
+  float* kk_s = reinterpret_cast<float*>(smem + L.o_kk);     // (C, ld_rk) kk
+  float* a_s = reinterpret_cast<float*>(smem + L.o_a);       // (C, kLdA) A
+  float* bm_s = reinterpret_cast<float*>(smem + L.o_bm);     // (C, kLdA) tril_strict(Bm)
+  float* s_s = reinterpret_cast<float*>(smem + L.o_s);       // (dhm, ld_v) S slice
+  float* g_s = reinterpret_cast<float*>(smem + L.o_g);       // (dhm, ld_v) G slice
+  float* xr_s = reinterpret_cast<float*>(smem + L.o_xr);     // (NV, C, VB) exchange
+  float* xk_s = reinterpret_cast<float*>(smem + L.o_xk);     // (NV, C, VB)
+  float* xv_s = reinterpret_cast<float*>(smem + L.o_xv);     // (NV, C)
+  float* xp_s = reinterpret_cast<float*>(smem + L.o_xp);     // (NV, VB)
+  float* own = reinterpret_cast<float*>(smem + L.o_own);     // 4 x (C, ld_o)
+  float* etot_s = reinterpret_cast<float*>(smem + L.o_etot);
+  float* u_s = reinterpret_cast<float*>(smem + L.o_u);
+  float* dpart_s = reinterpret_cast<float*>(smem + L.o_dpart);
+  float* vdyp_s = reinterpret_cast<float*>(smem + L.o_vdyp);
+  float* p_s = reinterpret_cast<float*>(smem + L.o_p);
+  float* pn_s = reinterpret_cast<float*>(smem + L.o_pn);
+  float* du_s = reinterpret_cast<float*>(smem + L.o_du);
+  const float* dy_s = reinterpret_cast<const float*>(smem + L.o_dy);   // raw dy rows: float32
+  const int ldy = L.raw_dy / 4;
+  const int os = kChunk * L.ld_o;
+  const uint32_t xr_addr = static_cast<uint32_t>(__cvta_generic_to_shared(xr_s));
+  const uint32_t xk_addr = static_cast<uint32_t>(__cvta_generic_to_shared(xk_s));
+  const uint32_t xv_addr = static_cast<uint32_t>(__cvta_generic_to_shared(xv_s));
+  const uint32_t xp_addr = static_cast<uint32_t>(__cvta_generic_to_shared(xp_s));
+
+  // everything starts at zero: padded channels, columns and steps stay zero
+  for (int i = tid; i < L.bytes / 4; i += kBwdThreads) reinterpret_cast<float*>(smem)[i] = 0.f;
+  __syncthreads();
+  const size_t DD = static_cast<size_t>(Dh) * Dh;
+  const size_t state_base = static_cast<size_t>(bh) * DD + lo;   // (i, e) at + i * Dh + e
+  if (a.state0 != nullptr)
+    for (int i = tid; i < Dh * VB; i += kBwdThreads) {
+      const int d = i >> vsh, e = i & (VB - 1);
+      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dh + e];
+    }
+  for (int d = tid; d < Dh; d += kBwdThreads) u_s[d] = a.u[h * Dh + d];
+  const size_t rs = static_cast<size_t>(a.H) * Dh;                 // one step's row
   const size_t row0 = static_cast<size_t>(b) * a.T_len * rs + static_cast<size_t>(h) * Dh;
   const int n_chunks = (a.T_len + kChunk - 1) / kChunk;
-  float* scratch = a.scratch + static_cast<size_t>(bh) * n_chunks * DD;
-  const size_t state_base = static_cast<size_t>(bh) * DD;
+  float* scratch = a.scratch + static_cast<size_t>(bh) * n_chunks * DD + lo;
 
-  for (int e = tid; e < DD; e += kBwdThreads) {
-    const int i = e / Dh, j = e - i * Dh;
-    S[i * L.ld + j] = a.state0 != nullptr ? a.state0[state_base + e] : 0.f;
-  }
-  for (int i = tid; i < Dh; i += kBwdThreads) sm[L.o_u + i] = a.u[h * Dh + i];
-  __syncthreads();
-
-  // Pass 1: each chunk's start state to scratch, S_T left in S.
+  // Pass 1: the state forward; each chunk's start state slice to scratch,
+  // S_T left in S. Chunk c + 1 streams into the other raw buffer while
+  // chunk c runs.
+  bwd_load_rkl<T, Dh>(a, L, smem, row0, rs, min(kChunk, a.T_len), 0, false);
+  bwd_load_vdy<T, Dh>(a, L, smem, row0 + lo, rs, min(kChunk, a.T_len), 0, nullptr);
   for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * kChunk, n_ok = min(kChunk, a.T_len - t0);
-    const size_t base = row0 + static_cast<size_t>(t0) * rs;
-    for (int e = tid; e < DD; e += kBwdThreads) {
-      const int i = e / Dh, j = e - i * Dh;
-      scratch[static_cast<size_t>(c) * DD + e] = S[i * L.ld + j];
+    const int buf = c & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is in; chunk c - 1 is done, its buffer free
+    if (c + 1 < n_chunks) {
+      const int t1 = (c + 1) * kChunk, n1 = min(kChunk, a.T_len - t1);
+      bwd_load_rkl<T, Dh>(a, L, smem, row0 + t1 * rs, rs, n1, buf ^ 1, false);
+      bwd_load_vdy<T, Dh>(a, L, smem, row0 + t1 * rs + lo, rs, n1, buf ^ 1, nullptr);
     }
-    bwd_load_rows<T>(k, sm + L.o_k, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<T>(v, sm + L.o_v, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<float>(a.logw, sm + L.o_lw, L.ld, base, rs, Dh, n_ok);
-    __syncthreads();
-    bwd_scan(L, sm, Dh);
-    __syncthreads();
-    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
-      const int t = e / Dh, i = e - t * Dh;
-      sm[L.o_kk + t * L.ld + i] = sm[L.o_k + t * L.ld + i] * sm[L.o_ekk + t * L.ld + i];
+    for (int i = tid; i < Dh * VB; i += kBwdThreads) {
+      const int d = i >> vsh, e = i & (VB - 1);
+      scratch[static_cast<size_t>(c) * DD + static_cast<size_t>(d) * Dh + e] = s_s[d * L.ld_v + e];
     }
-    __syncthreads();
-    for (int e = tid; e < DD; e += kBwdThreads) {
-      const int i = e / Dh, j = e - i * Dh;
-      float acc = sm[L.o_elast + i] * S[i * L.ld + j];
-      for (int t = 0; t < kChunk; ++t)
-        acc = fmaf(sm[L.o_kk + t * L.ld + i], sm[L.o_v + t * L.ld + j], acc);
-      S[i * L.ld + j] = acc;
-    }
-    __syncthreads();
+    bwd_scan<T, false>(L, smem, Dh, lo, VB, buf);
+    __syncthreads();  // kk and e^{l_tot} are in; S is stored
+    bwd_state_update<T, false>(L, s_s, kk_s, etot_s, smem + L.o_v(buf), L.raw_v);
   }
+  // S_T is in, and every block of the cluster is done with pass 1: its
+  // second raw buffer (where the exchange lies) is free for the peers'
+  // stores below
+  cluster_arrive();
+  cluster_wait();
 
-  // Pass 2: G from dS_T, P = rowsum(S_T dS_T); the chunks in reverse.
-  for (int e = tid; e < DD; e += kBwdThreads) {
-    const int i = e / Dh, j = e - i * Dh;
-    G[i * L.ld + j] = a.ds != nullptr ? a.ds[state_base + e] : 0.f;
+  // G = dS_T (over the whole region: pass 1's buffer left it dirty), and
+  // P_T = rowsum(S_T dS_T): the slices' partials of each channel stored
+  // into its owner's slots, summed there in rank order.
+  for (int i = tid; i < L.dhm * L.ld_v; i += kBwdThreads) {
+    const int d = i / L.ld_v, e = i - d * L.ld_v;
+    g_s[i] = a.ds != nullptr && d < Dh && e < VB
+                 ? a.ds[state_base + static_cast<size_t>(d) * Dh + e] : 0.f;
   }
   __syncthreads();
-  for (int i = tid; i < Dh; i += kBwdThreads) {
+  for (int d = tid; d < Dh; d += kBwdThreads) {
     float p = 0.f;
-    if (a.ds != nullptr)
-      for (int j = 0; j < Dh; ++j) p = fmaf(S[i * L.ld + j], G[i * L.ld + j], p);
-    sm[L.o_p + i] = p;
+    for (int e = 0; e < VB; ++e) p = fmaf(s_s[d * L.ld_v + e], g_s[d * L.ld_v + e], p);
+    const int q = d >> vsh;
+    st_cluster(map_rank(xr_addr + 4 * (rank * kChunk * VB + d - q * VB), q), p);
   }
-  float du_acc = 0.f;                        // thread i < Dh: du[i]
+  cluster_arrive();
+  cluster_wait();
+  for (int il = tid; il < VB; il += kBwdThreads) {
+    float p = 0.f;
+    for (int q = 0; q < NV; ++q) p += xr_s[q * kChunk * VB + il];
+    p_s[il] = p;
+    du_s[il] = 0.f;
+  }
+  cluster_arrive();   // the slots are read: the peers may store the next partials
+
+  // Pass 2: the chunks in reverse, carrying G, and P and du of the owned
+  // channels.
+  {
+    const int c = n_chunks - 1, t0 = c * kChunk;
+    bwd_load_rkl<T, Dh>(a, L, smem, row0 + t0 * rs, rs, a.T_len - t0, 0, true);
+    bwd_load_vdy<T, Dh>(a, L, smem, row0 + t0 * rs + lo, rs, a.T_len - t0, 0,
+                    a.scratch + (static_cast<size_t>(bh) * n_chunks + c) * DD + lo);
+  }
+  const int ti = warp & 1;                     // the row block of every tile of this warp
+  const int n_xt = 2 * (L.dhp / 8), n_dvt = 2 * (L.vbp / 8);
   for (int c = n_chunks - 1; c >= 0; --c) {
     const int t0 = c * kChunk, n_ok = min(kChunk, a.T_len - t0);
-    const size_t base = row0 + static_cast<size_t>(t0) * rs;
-    __syncthreads();                         // the previous chunk is done with S
-    for (int e = tid; e < DD; e += kBwdThreads) {
-      const int i = e / Dh, j = e - i * Dh;
-      S[i * L.ld + j] = scratch[static_cast<size_t>(c) * DD + e];
-    }
-    bwd_load_rows<T>(r, sm + L.o_r, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<T>(k, sm + L.o_k, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<T>(v, sm + L.o_v, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<float>(a.dy, sm + L.o_dy, L.ld, base, rs, Dh, n_ok);
-    bwd_load_rows<float>(a.logw, sm + L.o_lw, L.ld, base, rs, Dh, n_ok);
-    __syncthreads();
-    bwd_scan(L, sm, Dh);
-    __syncthreads();
-    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
-      const int t = e / Dh, i = e - t * Dh, o = t * L.ld + i;
-      sm[L.o_rp + o] = sm[L.o_r + o] * sm[L.o_ele + o];
-      sm[L.o_kp + o] = sm[L.o_k + o] * sm[L.o_enl + o];
-      sm[L.o_kk + o] = sm[L.o_k + o] * sm[L.o_ekk + o];
-    }
-    __syncthreads();
-    // A (strictly lower) and Bm (whole), a thread an entry; ruk per step
-    for (int e = tid; e < 2 * kChunk * kChunk; e += kBwdThreads) {
-      const int m = e / (kChunk * kChunk), f = e - m * kChunk * kChunk;
-      const int t = f / kChunk, s2 = f - t * kChunk;
-      float acc = 0.f;
-      if (m == 0) {
-        if (s2 < t)
-          for (int i = 0; i < Dh; ++i)
-            acc = fmaf(sm[L.o_rp + t * L.ld + i], sm[L.o_kp + s2 * L.ld + i], acc);
-        sm[L.o_a + t * L.ldc + s2] = acc;
+    const size_t row = row0 + static_cast<size_t>(t0) * rs;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is in; chunk c + 1 is done
+    bwd_scan<T, true>(L, smem, Dh, lo, VB, 0);
+    __syncthreads();  // r'', kk, the factors are in; the raw r, k, logw are free
+    if (c > 0) bwd_load_rkl<T, Dh>(a, L, smem, row - kChunk * rs, rs, kChunk, 0, true);
+
+    // Phase 1. A = tril_strict(r'' kk^T) + diag(sum_i r u k) and Bm = dy
+    // v^T (strictly lower; its diagonal v.dy to vdyp) into shared memory,
+    // twelve 16 x 8 tiles of the lower halves; in registers X_r = dy
+    // S_dec^T, X_k = v G^T and dv = kk G.
+    for (int p = warp; p < 12; p += kBwdWarps) {
+      const int pp = p < 6 ? p : p - 6;
+      const int mi = pp < 2 ? 0 : 1, nj = pp < 2 ? pp : pp - 2;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_lo[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p < 6) {
+#pragma unroll 4
+        for (int s = 0; s < L.dhp / 8; ++s) {
+          Frag fa, fb;
+          load_a_fin(rp_s, L.ld_rk, 16 * mi, 8 * s, g, tq, fa);
+          load_b_nk(kk_s, L.ld_rk, 8 * nj, 8 * s, g, tq, fb);
+          mma3_split(acc, acc_lo, fa, fb, false);
+        }
       } else {
-        for (int j = 0; j < Dh; ++j)
-          acc = fmaf(sm[L.o_dy + t * L.ld + j], sm[L.o_v + s2 * L.ld + j], acc);
-        sm[L.o_b + t * L.ldc + s2] = acc;
+#pragma unroll 2
+        for (int s = 0; s < L.vbp / 8; ++s) {
+          Frag fa, fb;
+          load_a_fin(dy_s, ldy, 16 * mi, 8 * s, g, tq, fa);
+          load_b_nk_raw<T>(smem + L.o_v0, L.raw_v, 8 * nj, 8 * s, g, tq, fb);
+          mma3_split(acc, acc_lo, fa, fb, kVExact);
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float val = acc[x] + acc_lo[x];
+        const int rw = 16 * mi + g + (x >> 1) * 8, col = 8 * nj + 2 * tq + (x & 1);
+        if (p < 6) {
+          float dg = 0.f;
+          if (col == rw)
+            for (int w = 0; w < kBwdWarps; ++w) dg += dpart_s[w * kChunk + rw];
+          a_s[rw * kLdA + col] = col < rw ? val : dg;
+        } else {
+          bm_s[rw * kLdA + col] = col < rw ? val : 0.f;
+          if (col == rw) vdyp_s[rw] = val;
+        }
       }
     }
-    for (int t = tid; t < kChunk; t += kBwdThreads) {
-      float acc = 0.f;
-      for (int i = 0; i < Dh; ++i)
-        acc = fmaf(sm[L.o_r + t * L.ld + i] * sm[L.o_u + i], sm[L.o_k + t * L.ld + i], acc);
-      sm[L.o_ruk + t] = acc;
+    float xr[kMaxXTiles][4], xk[kMaxXTiles][4], dv[kMaxXTiles][4];
+#pragma unroll
+    for (int i = 0; i < kMaxXTiles; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) xr[i][x] = xk[i][x] = dv[i][x] = 0.f;
+    if (warp < n_xt) {
+#pragma unroll 2
+      for (int s = 0; s < L.vbp / 8; ++s) {
+        Frag fdy, fv;
+        load_a_fin(dy_s, ldy, 16 * ti, 8 * s, g, tq, fdy);
+        load_a_raw<T>(smem + L.o_v0, L.raw_v, 16 * ti, 8 * s, g, tq, fv);
+#pragma unroll
+        for (int i = 0; i < kMaxXTiles; ++i) {
+          const int tn = (warp + i * kBwdWarps) >> 1;
+          if (warp + i * kBwdWarps < n_xt) {
+            Frag fb;
+            load_b_nk(s_s, etot_s, L.ld_v, 8 * tn, 8 * s, g, tq, fb);    // S_dec^T
+            mma3(xr[i], fdy, fb, false);
+            load_b_nk(g_s, L.ld_v, 8 * tn, 8 * s, g, tq, fb);            // G^T
+            if constexpr (kVExact) mma3_a_exact(xk[i], fv, fb);
+            else mma3(xk[i], fv, fb, false);
+          }
+        }
+      }
+    }
+    if (warp < n_dvt) {
+      float dv_lo[kMaxXTiles][4];
+#pragma unroll
+      for (int i = 0; i < kMaxXTiles; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dv_lo[i][x] = 0.f;
+#pragma unroll 2
+      for (int s = 0; s < L.dhp / 8; ++s) {
+        Frag fa;
+        load_a_fin(kk_s, L.ld_rk, 16 * ti, 8 * s, g, tq, fa);
+#pragma unroll
+        for (int i = 0; i < kMaxXTiles; ++i) {
+          const int tn = (warp + i * kBwdWarps) >> 1;
+          if (warp + i * kBwdWarps < n_dvt) {
+            Frag fb;
+            load_b_kn_fin(g_s, L.ld_v, 8 * s, 8 * tn, g, tq, fb);
+            mma3_split(dv[i], dv_lo[i], fa, fb, false);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxXTiles; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dv[i][x] += dv_lo[i][x];
+    }
+    __syncthreads();  // A, Bm and v.dy are written; every reader of S and G is done
+
+    // Phase 2. X_r += tril_strict(Bm) kk (steps s < t: the first 16 rows
+    // need the first two k-steps), X_k += tril_strict(Bm)^T r'' (s > t),
+    // dv += A^T dy (s >= t), written out; G updated in place.
+    if (warp < n_xt) {
+#pragma unroll
+      for (int s = 0; s < kChunk / 8; ++s) {
+        const bool lower = s < 2 * ti + 2, upper = s >= 2 * ti;
+        Frag fbm, fbt;
+        if (lower) load_a_fin(bm_s, kLdA, 16 * ti, 8 * s, g, tq, fbm);
+        if (upper) load_at(bm_s, kLdA, 16 * ti, 8 * s, g, tq, fbt);
+#pragma unroll
+        for (int i = 0; i < kMaxXTiles; ++i) {
+          const int tn = (warp + i * kBwdWarps) >> 1;
+          if (warp + i * kBwdWarps < n_xt) {
+            Frag fb;
+            if (lower) {
+              load_b_kn_fin(kk_s, L.ld_rk, 8 * s, 8 * tn, g, tq, fb);
+              mma3(xr[i], fbm, fb, false);
+            }
+            if (upper) {
+              load_b_kn_fin(rp_s, L.ld_rk, 8 * s, 8 * tn, g, tq, fb);
+              mma3(xk[i], fbt, fb, false);
+            }
+          }
+        }
+      }
+    }
+    if (warp < n_dvt) {
+#pragma unroll
+      for (int s = 0; s < kChunk / 8; ++s) {
+        if (s < 2 * ti) continue;
+        Frag fa;
+        load_at(a_s, kLdA, 16 * ti, 8 * s, g, tq, fa);
+#pragma unroll
+        for (int i = 0; i < kMaxXTiles; ++i) {
+          const int tn = (warp + i * kBwdWarps) >> 1;
+          if (warp + i * kBwdWarps < n_dvt) {
+            Frag fb;
+            load_b_kn_fin(dy_s, ldy, 8 * s, 8 * tn, g, tq, fb);
+            mma3(dv[i], fa, fb, false);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxXTiles; ++i) {
+        const int tn = (warp + i * kBwdWarps) >> 1;
+        if (warp + i * kBwdWarps < n_dvt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int t = 16 * ti + g + 8 * half, col = 8 * tn + 2 * tq;
+            if (t < n_ok && col < VB) {
+              T* dvp = static_cast<T*>(a.dv) + row + static_cast<size_t>(t) * rs + lo + col;
+              store_pair(dvp, dv[i][2 * half], dv[i][2 * half + 1]);
+            }
+          }
+      }
+    }
+    bwd_state_update<float, true>(L, g_s, rp_s, etot_s, smem + L.o_dy, L.raw_dy);
+    // P at chunk c - 1's end, exactly: rowsum(G S) of this slice, G the
+    // adjoint just updated, S chunk c's start state (a thread a channel)
+    float pe = 0.f;
+    if (c > 0) {
+      __syncthreads();  // G is updated
+      if (tid < Dh)
+        for (int e = 0; e < VB; ++e) pe = fmaf(g_s[tid * L.ld_v + e], s_s[tid * L.ld_v + e], pe);
+    }
+
+    // The partials of the owned channels into their owners' slots (a 16 x 8
+    // tile lies in one owner's channels; a lane stores pairs of channels),
+    // once every owner has read the last chunk's.
+    cluster_wait();
+#pragma unroll
+    for (int i = 0; i < kMaxXTiles; ++i) {
+      const int tn = (warp + i * kBwdWarps) >> 1;
+      if (warp + i * kBwdWarps < n_xt && 8 * tn + 2 * tq < Dh) {
+        const int q = (8 * tn) >> vsh, il = 8 * tn + 2 * tq - q * VB;
+        const int at = 4 * ((rank * kChunk + 16 * ti + g) * VB + il);
+        const uint32_t r_at = map_rank(xr_addr + at, q), k_at = map_rank(xk_addr + at, q);
+        st_cluster(r_at, xr[i][0], xr[i][1]);
+        st_cluster(r_at + 32 * VB, xr[i][2], xr[i][3]);        // row + 8
+        st_cluster(k_at, xk[i][0], xk[i][1]);
+        st_cluster(k_at + 32 * VB, xk[i][2], xk[i][3]);
+      }
+    }
+    for (int i = tid; i < kChunk * NV; i += kBwdThreads) {
+      const int q = i >> 5, t = i & (kChunk - 1);
+      st_cluster(map_rank(xv_addr + 4 * (rank * kChunk + t), q), vdyp_s[t]);
+    }
+    if (c > 0 && tid < Dh) {
+      const int q = tid >> vsh;
+      st_cluster(map_rank(xp_addr + 4 * (rank * VB + tid - q * VB), q), pe);
+    }
+    cluster_arrive();
+    cluster_wait();   // every slice's partials are in; this block is done with r, S, v, dy
+    if (c > 0)
+      bwd_load_vdy<T, Dh>(a, L, smem, row - kChunk * rs + lo, rs, kChunk, 0,
+                      a.scratch + (static_cast<size_t>(bh) * n_chunks + c - 1) * DD + lo);
+
+    // The owned channels, two a thread: the slots summed in rank order; dr,
+    // dk written; x = k dk^h - r dr^h, k dk^h and du's term r k v.dy kept
+    // for the scan.
+    for (int e = tid; e < kChunk * VB / 2; e += kBwdThreads) {
+      const int t = e >> (vsh - 1), il = 2 * (e & (VB / 2 - 1));
+      float2 sxr = make_float2(0.f, 0.f), sxk = make_float2(0.f, 0.f);
+      float vdy = 0.f;
+      for (int q = 0; q < NV; ++q) {
+        const float2 xr2 = *reinterpret_cast<const float2*>(xr_s + (q * kChunk + t) * VB + il);
+        const float2 xk2 = *reinterpret_cast<const float2*>(xk_s + (q * kChunk + t) * VB + il);
+        sxr.x += xr2.x; sxr.y += xr2.y;
+        sxk.x += xk2.x; sxk.y += xk2.y;
+        vdy += xv_s[q * kChunk + t];
+      }
+      float out_r[2], out_k[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int o = t * L.ld_o + il + m;
+        const float r = own[o], k = own[os + o];
+        const float drh = own[2 * os + o] * (m ? sxr.y : sxr.x);
+        const float dkh = own[3 * os + o] * (m ? sxk.y : sxk.x);
+        const float ru = u_s[lo + il + m] * vdy;
+        out_r[m] = fmaf(ru, k, drh);
+        out_k[m] = fmaf(ru, r, dkh);
+        const float kd = k * dkh;
+        own[o] = kd - r * drh;
+        own[os + o] = kd;
+        own[2 * os + o] = r * k * vdy;
+      }
+      if (t < n_ok) {
+        const size_t off = row + static_cast<size_t>(t) * rs + lo + il;
+        store_pair(static_cast<T*>(a.dr) + off, out_r[0], out_r[1]);
+        store_pair(static_cast<T*>(a.dk) + off, out_k[0], out_k[1]);
+      }
+    }
+    if (c > 0)
+      for (int il = tid; il < VB; il += kBwdThreads) {
+        float p = 0.f;
+        for (int q = 0; q < NV; ++q) p += xp_s[q * VB + il];
+        pn_s[il] = p;
+      }
+    cluster_arrive();   // the slots are read
+    __syncthreads();
+    // dlogw_t = P_t - k dk^h_t with P_t = P - sum_{tau > t} x_tau: a warp
+    // four channels at a time, lane t on step t, the suffix sums by
+    // shuffles; P becomes the previous chunk's end's, as summed above; du
+    // += sum_t r k v.dy (a fixed shuffle tree).
+    for (int il0 = warp; il0 < VB; il0 += 4 * kBwdWarps) {
+      float x[4], kd[4], du[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int il = il0 + m * kBwdWarps;
+        const int o = lane * L.ld_o + (il < VB ? il : il0);
+        x[m] = own[o];
+        kd[m] = own[os + o];
+        du[m] = own[2 * os + o];
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float n = __shfl_down_sync(0xffffffffu, x[m], off);
+          if (lane + off < 32) x[m] += n;      // x: the sum over steps >= lane
+        }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) du[m] += __shfl_xor_sync(0xffffffffu, du[m], off);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int il = il0 + m * kBwdWarps;
+        float excl = __shfl_down_sync(0xffffffffu, x[m], 1);
+        if (lane == 31) excl = 0.f;
+        if (il < VB) {
+          own[3 * os + lane * L.ld_o + il] = (p_s[il] - excl) - kd[m];
+          __syncwarp();
+          if (lane == 0) {
+            p_s[il] = pn_s[il];
+            du_s[il] += du[m];
+          }
+        }
+      }
     }
     __syncthreads();
-    // dr, dk, dv: a thread an entry (t, i) of each
-    for (int e = tid; e < kChunk * Dh; e += kBwdThreads) {
-      const int t = e / Dh, i = e - t * Dh, o = t * L.ld + i;
-      float x = 0.f, y = 0.f;
-      for (int j = 0; j < Dh; ++j) {
-        x = fmaf(S[i * L.ld + j], sm[L.o_dy + t * L.ld + j], x);
-        y = fmaf(G[i * L.ld + j], sm[L.o_v + t * L.ld + j], y);
-      }
-      float xi = 0.f, yi = 0.f;
-      for (int s2 = 0; s2 < t; ++s2)
-        xi = fmaf(sm[L.o_b + t * L.ldc + s2], sm[L.o_kp + s2 * L.ld + i], xi);
-      for (int s2 = t + 1; s2 < kChunk; ++s2)
-        yi = fmaf(sm[L.o_b + s2 * L.ldc + t], sm[L.o_rp + s2 * L.ld + i], yi);
-      const float drh = sm[L.o_ele + o] * (x + xi);
-      const float dkh = sm[L.o_ekk + o] * y + sm[L.o_enl + o] * yi;
-      const float vdy = sm[L.o_b + t * L.ldc + t];
-      const float ru = sm[L.o_u + i] * vdy;
-      sm[L.o_rd + o] = sm[L.o_r + o] * drh;
-      sm[L.o_kd + o] = sm[L.o_k + o] * dkh;
-      // dv[t, i] (i as the value column)
-      float z = sm[L.o_ruk + t] * sm[L.o_dy + o];
-      for (int d = 0; d < Dh; ++d) z = fmaf(sm[L.o_kk + t * L.ld + d], G[d * L.ld + i], z);
-      for (int s2 = t + 1; s2 < kChunk; ++s2)
-        z = fmaf(sm[L.o_a + s2 * L.ldc + t], sm[L.o_dy + s2 * L.ld + i], z);
-      if (t < n_ok) {
-        const size_t off = base + static_cast<size_t>(t) * rs + i;
-        store_elem(static_cast<T*>(a.dr) + off, fmaf(ru, sm[L.o_k + o], drh));
-        store_elem(static_cast<T*>(a.dk) + off, fmaf(ru, sm[L.o_r + o], dkh));
-        store_elem(static_cast<T*>(a.dv) + off, z);
-      }
-    }
-    __syncthreads();                         // every reader of G and S is done
-    // dlogw by the reverse cumulative sum, and du, a thread a channel
-    for (int i = tid; i < Dh; i += kBwdThreads) {
-      float run = sm[L.o_p + i];
-      for (int t = kChunk - 1; t >= 0; --t) {
-        const float kd = sm[L.o_kd + t * L.ld + i];
-        if (t < n_ok) a.dlogw[base + static_cast<size_t>(t) * rs + i] = run - kd;
-        run = run - kd + sm[L.o_rd + t * L.ld + i];
-        du_acc = fmaf(sm[L.o_r + t * L.ld + i] * sm[L.o_k + t * L.ld + i],
-                      sm[L.o_b + t * L.ldc + t], du_acc);
-      }
-      sm[L.o_p + i] = run;
-    }
-    // the adjoint at the chunk's start
-    for (int e = tid; e < DD; e += kBwdThreads) {
-      const int i = e / Dh, j = e - i * Dh;
-      float acc = sm[L.o_elast + i] * G[i * L.ld + j];
-      for (int t = 0; t < kChunk; ++t)
-        acc = fmaf(sm[L.o_rp + t * L.ld + i], sm[L.o_dy + t * L.ld + j], acc);
-      G[i * L.ld + j] = acc;
+    for (int e = tid; e < n_ok * VB / 2; e += kBwdThreads) {
+      const int t = e >> (vsh - 1), il = 2 * (e & (VB / 2 - 1));
+      const float* src = own + 3 * os + t * L.ld_o + il;
+      store_pair(a.dlogw + row + static_cast<size_t>(t) * rs + lo + il, src[0], src[1]);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < Dh; i += kBwdThreads) a.du_part[state_base / Dh + i] = du_acc;
+  cluster_wait();     // no peer stores into this block any more
+  for (int il = tid; il < VB; il += kBwdThreads)
+    a.du_part[static_cast<size_t>(bh) * Dh + lo + il] = du_s[il];
   if (a.dstate0 != nullptr)
-    for (int e = tid; e < DD; e += kBwdThreads) {
-      const int i = e / Dh, j = e - i * Dh;
-      a.dstate0[state_base + e] = G[i * L.ld + j];
+    for (int i = tid; i < Dh * VB; i += kBwdThreads) {
+      const int d = i >> vsh, e = i & (VB - 1);
+      a.dstate0[state_base + static_cast<size_t>(d) * Dh + e] = g_s[d * L.ld_v + e];
     }
 }
 
-template <typename T>
-cudaError_t bwd_launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  const int smem = BwdLayout(a.Dh).bytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wkv6_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  wkv6_bwd_kernel<T><<<B * a.H, kBwdThreads, smem, stream>>>(a);
+// The backward on a grid (B * H, NV) in clusters of (1, NV) blocks:
+// launched, or, with `max_clusters`, only asked how many such clusters the
+// card runs at once.
+template <typename T, int Dh>
+cudaError_t bwd_launch(const BwdArgs& a, int B, int NV, cudaStream_t stream, int* max_clusters) {
+  const int smem = BwdLayout(Dh, a.VB, NV, static_cast<int>(sizeof(T))).bytes;
+  auto kernel = wkv6_bwd_kernel<T, Dh>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = NV;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.H, NV);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The kernel for a.Dh (a power of two from 4 to 64: one instance each).
+template <typename T>
+cudaError_t bwd_dispatch(const BwdArgs& a, int B, int NV, cudaStream_t stream, int* max_clusters) {
+  switch (a.Dh) {
+    case 4: return bwd_launch<T, 4>(a, B, NV, stream, max_clusters);
+    case 8: return bwd_launch<T, 8>(a, B, NV, stream, max_clusters);
+    case 16: return bwd_launch<T, 16>(a, B, NV, stream, max_clusters);
+    case 32: return bwd_launch<T, 32>(a, B, NV, stream, max_clusters);
+    case 64: return bwd_launch<T, 64>(a, B, NV, stream, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool valid_split(int Dh, int NV) {
@@ -905,19 +1582,38 @@ int wkv6_launch(const void* r, const void* k, const void* v, const float* logw,
 // logw, dy (B, T, H, Dh), u (H, Dh), state0 and ds (B, H, Dh, Dh) or null
 // (zeros) float32; scratch (B, H, ceil(T / 32), Dh, Dh) float32; dr, dk, dv
 // in r's dtype, dlogw (B, T, H, Dh), du_part (B, H, Dh) float32, dstate0
-// (B, H, Dh, Dh) float32 or null (not written). Dh a power of two, 4 to 64.
+// (B, H, Dh, Dh) float32 or null (not written). Dh a power of two, 4 to 64;
+// NV value slices of Dh / NV columns (a multiple of 8, or NV = 1), one
+// cluster of NV blocks a (b, h); vec = 1 when every row of r, k, logw and of
+// a v or dy slice is a whole number of 16-byte pieces on 16-byte boundaries.
 int wkv6_bwd_launch(const void* r, const void* k, const void* v, const float* logw,
                     const float* u, const float* state0, const float* dy, const float* ds,
                     float* scratch, void* dr, void* dk, void* dv, float* dlogw,
-                    float* du_part, float* dstate0, int B, int T_len, int H, int Dh,
-                    int in_bf16, void* stream) {
-  if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh > 64 || (Dh & (Dh - 1)) != 0 ||
-      static_cast<long long>(B) * H > 0x7fffffffLL)
+                    float* du_part, float* dstate0, int B, int T_len, int H, int Dh, int NV,
+                    int vec, int in_bf16, void* stream) {
+  if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh > kBwdMaxDh || (Dh & (Dh - 1)) != 0 ||
+      !valid_split(Dh, NV) || static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{r, k, v, logw, u, state0, dy, ds, scratch, dr, dk, dv, dlogw, du_part,
-                  dstate0, T_len, H, Dh};
+                  dstate0, T_len, H, Dh, Dh / NV, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = in_bf16 ? bwd_launch<__nv_bfloat16>(a, B, st) : bwd_launch<float>(a, B, st);
+  const cudaError_t e = in_bf16 ? bwd_dispatch<__nv_bfloat16>(a, B, NV, st, nullptr)
+                                : bwd_dispatch<float>(a, B, NV, st, nullptr);
+  return static_cast<int>(e);
+}
+
+// Clusters of the backward's NV blocks (head size Dh, slices of Dh / NV
+// columns) that the card runs at once (cudaOccupancyMaxActiveClusters at
+// the kernel's shared memory), into *out.
+int wkv6_bwd_max_active_clusters(int in_bf16, int Dh, int NV, int* out) {
+  if (Dh < 4 || Dh > kBwdMaxDh || (Dh & (Dh - 1)) != 0 || !valid_split(Dh, NV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{};
+  a.H = 1;
+  a.Dh = Dh;
+  a.VB = Dh / NV;
+  const cudaError_t e = in_bf16 ? bwd_dispatch<__nv_bfloat16>(a, 1, NV, nullptr, out)
+                                : bwd_dispatch<float>(a, 1, NV, nullptr, out);
   return static_cast<int>(e);
 }
 

@@ -21,8 +21,12 @@ Outputs come from ``torch.empty``; the launch goes to PyTorch's current
 stream and nothing synchronises. ``launch_counts`` adds one per wrapper
 call that launched.
 
-The backward kernel runs one block per (b, h) (no value split: dr, dk and
-dlogw sum over every value column) and keeps each chunk's start state in a
+The backward kernel takes the same split: a grid (B * H, NV) of value
+slices, the NV blocks of a (b, h) one thread-block cluster, which sums the
+slices' partials of dr, dk, dlogw and du (they sum over value columns)
+through distributed shared memory in rank order. ``bwd_plan`` takes the
+largest NV whose B * H clusters the card runs at once
+(``max_active_clusters``). The kernel keeps each chunk's start state in a
 scratch tensor of (B, H, ceil(T / 32), Dh, Dh) float32 that the wrapper
 allocates for the call.
 """
@@ -36,7 +40,8 @@ from ..build import check, load
 
 __all__ = ["wkv6_cuda", "wkv6_bwd_cuda", "launch_counts",
            "reset_launch_counts", "MAX_DH", "BWD_DHS", "value_splits",
-           "value_slices", "wkv_plan", "max_active_blocks"]
+           "value_slices", "wkv_plan", "max_active_blocks", "bwd_plan",
+           "max_active_clusters"]
 
 launch_counts = {"wkv6": 0, "wkv6_bwd": 0}
 
@@ -45,6 +50,7 @@ BWD_DHS = (4, 8, 16, 32, 64)     # the backward's head sizes
 
 _lib = None
 _active: dict = {}
+_clusters: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -59,8 +65,11 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.wkv6_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.wkv6_launch.restype = ci
-        lib.wkv6_bwd_launch.argtypes = [vp] * 15 + [ci] * 5 + [vp]
+        lib.wkv6_bwd_launch.argtypes = [vp] * 15 + [ci] * 7 + [vp]
         lib.wkv6_bwd_launch.restype = ci
+        lib.wkv6_bwd_max_active_clusters.argtypes = [ci, ci, ci,
+                                                     ctypes.POINTER(ci)]
+        lib.wkv6_bwd_max_active_clusters.restype = ci
         lib.wkv6_max_active_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         lib.wkv6_max_active_blocks.restype = ci
         _lib = lib
@@ -123,6 +132,41 @@ def max_active_blocks(dev: torch.device, dtype: torch.dtype, dh: int,
     return _active[key]
 
 
+def bwd_plan(b: int, h: int, dh: int, n_clusters) -> int:
+    """NV of the backward, the value slices of each (b, h), a cluster of NV
+    blocks: the largest of ``value_splits(dh)`` whose ``b * h`` clusters
+    the card runs at once, ``n_clusters(nv)`` (a function; 0 where such a
+    cluster cannot run); 1 when even NV = 1 takes more than one wave.
+    Raises if a cluster of one block cannot run: nothing takes its place."""
+    if n_clusters(1) < 1:
+        raise RuntimeError(
+            f"a WKV6 backward block for Dh={dh} cannot run: no cluster of "
+            "one block is resident")
+    best = 1
+    for nv in value_splits(dh):
+        if b * h <= n_clusters(nv):
+            best = nv
+    return best
+
+
+def max_active_clusters(dev: torch.device, dtype: torch.dtype, dh: int,
+                        nv: int) -> int:
+    """Clusters of the backward's ``nv`` blocks (slices of ``dh // nv``
+    columns) that the card ``dev`` runs at once
+    (``cudaOccupancyMaxActiveClusters`` at the kernel's shared memory;
+    asked once per card, dtype, dh and nv)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, dtype, dh, nv)
+    if key not in _clusters:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            code = _library().wkv6_bwd_max_active_clusters(
+                int(dtype == torch.bfloat16), dh, nv, ctypes.byref(out))
+        check("wkv6", code, "wkv6_bwd_max_active_clusters")
+        _clusters[key] = out.value
+    return _clusters[key]
+
+
 def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
     if not t.is_cuda or t.dtype not in dtypes \
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
@@ -178,13 +222,14 @@ def wkv6_cuda(r, k, v, logw, u, state0=None, nv=None):
 
 
 def wkv6_bwd_cuda(r, k, v, logw, u, state0, dy, ds=None,
-                  need_state0_grad: bool = False):
+                  need_state0_grad: bool = False, nv=None):
     """The gradient of ``wkv6_cuda``'s (y, final state) on the card, for the
     cotangents ``dy`` (B, T, H, Dh) float32 and ``ds`` (B, H, Dh, Dh)
     float32 or None (zero). The inputs as ``wkv6_cuda`` takes them, u
     float32 here. Returns (dr, dk, dv in r's dtype, dlogw float32, du (H,
     Dh) float32, dstate0 (B, H, Dh, Dh) float32 when ``need_state0_grad``,
-    else None)."""
+    else None). ``nv`` (value slices, a cluster's blocks) is ``bwd_plan``'s
+    unless given; the model never gives it."""
     if r.ndim != 4:
         raise ValueError(f"r: need (B, T, H, Dh), got {tuple(r.shape)}")
     b, t, h, dh = r.shape
@@ -203,6 +248,16 @@ def wkv6_bwd_cuda(r, k, v, logw, u, state0, dy, ds=None,
             if x is not None}) != 1:
         raise ValueError("all inputs must be on one device")
     dev = r.device
+    clusters = lambda n: max_active_clusters(dev, r.dtype, dh, n)
+    if nv is None:
+        nv = bwd_plan(b, h, dh, clusters)
+    elif value_slices(dh, nv) and clusters(nv) < 1:
+        raise RuntimeError(f"NV={nv}: a cluster of {nv} WKV6 backward "
+                           f"blocks for Dh={dh} cannot run")
+    vb = dh // nv
+    esize = r.element_size()
+    vec = int(dh * esize % 16 == 0 and vb * esize % 16 == 0
+              and all(x.data_ptr() % 16 == 0 for x in (r, k, v, logw, dy)))
     scratch = torch.empty((b, h, -(-t // 32), dh, dh), dtype=torch.float32,
                           device=dev)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
@@ -216,8 +271,8 @@ def wkv6_bwd_cuda(r, k, v, logw, u, state0, dy, ds=None,
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(ds),
             scratch.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dlogw.data_ptr(), du_part.data_ptr(), ptr(ds0), b, t, h, dh,
-            int(r.dtype == torch.bfloat16),
+            dlogw.data_ptr(), du_part.data_ptr(), ptr(ds0), b, t, h, dh, nv,
+            vec, int(r.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check("wkv6", code, "wkv6_bwd_launch")
     launch_counts["wkv6_bwd"] += 1

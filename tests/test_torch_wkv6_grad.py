@@ -5,8 +5,10 @@ against ``jax.grad`` of the reference's ``models/rwkv6.py::wkv_chunked``;
 ``WKV6Function``'s CPU path against finite differences (float64
 ``gradcheck``); and the chunked algorithm the CUDA backward runs
 (``csrc/wkv6.cu``: chunk start states from a forward pass, then the chunks
-in reverse carrying the adjoint G and the row sums P of dlogw's reverse
-cumulative sum), emulated here in float64, against autograd.
+in reverse carrying the adjoint G, dlogw's reverse cumulative sum started
+at each chunk's end from the row sums P = rowsum(G S), split into NV
+value-column slices whose partials a cluster sums in rank order), emulated here in float64 at every NV the
+kernel takes, against autograd and against ``jax.grad`` of the reference.
 
 Tolerance: float32 throughout, each gradient within 1e-5 of its largest
 magnitude (seen: 7e-7 against autograd of the chunked form, 2e-6 against
@@ -26,7 +28,8 @@ import torch
 from repro.models.rwkv6 import wkv_chunked as j_chunked
 from repro_torch.kernels.wkv6 import ops as tops
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv6_bwd_ref, wkv_chunked
-from repro_torch.kernels.wkv6.wkv6 import BWD_DHS, wkv6_bwd_cuda
+from repro_torch.kernels.wkv6.wkv6 import (BWD_DHS, value_splits,
+                                           wkv6_bwd_cuda)
 
 TOL = 1e-5
 NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
@@ -157,11 +160,21 @@ def test_wkv6_function_under_checkpoint():
         assert torch.equal(a, b)
 
 
-def _chunked_bwd_emulation(r, k, v, logw, u, state0, dy, d_s):
-    """The CUDA backward's algorithm per (b, h), float64: pass 1 keeps each
-    chunk's start state; pass 2 walks the chunks in reverse with
-    A = tril_strict(r' k'^T), Bm = dy v^T and the carried G and P."""
+def _chunked_bwd_emulation(r, k, v, logw, u, state0, dy, d_s, nv=1):
+    """The CUDA backward's algorithm per (b, h), float64, in its value-slice
+    decomposition: NV slices of VB = Dh / NV value columns, each with its
+    own S and G (pass 1 keeps each chunk's start state slice; pass 2 walks
+    the chunks in reverse), in the forward's rebased basis (r'' = r
+    e^{l_exc - l_tot}, kk = k e^{l_tot - l_inc}, S_dec = e^{l_tot} S0). A
+    slice forms the partials X_r = dy S_dec^T + tril(Bm) kk, X_k = v G^T +
+    tril(Bm)^T r'' (Bm = dy v^T) and v.dy of a chunk, and of P =
+    rowsum(G S) at the chunk's end (G the adjoint there, S the next chunk's
+    start state, or S_T); they are summed in the cluster's rank order, and
+    the channels' owners apply the factors, run dlogw's reverse cumulative
+    sum over the chunk from that P, and carry du."""
     b, t, h, dh = r.shape
+    vb = dh // nv
+    cols = [slice(j * vb, (j + 1) * vb) for j in range(nv)]
     nc = -(-t // CHUNK)
     pad = nc * CHUNK - t
     padf = lambda a: torch.nn.functional.pad(a.double(), (0, 0, 0, 0, 0, pad))
@@ -171,44 +184,60 @@ def _chunked_bwd_emulation(r, k, v, logw, u, state0, dy, d_s):
     du = torch.zeros((h, dh), dtype=torch.float64)
     ds0 = torch.zeros((b, h, dh, dh), dtype=torch.float64)
     tri = lambda m: torch.tril(m, -1)
+    zero = torch.zeros((dh, dh), dtype=torch.float64)
     for bi in range(b):
         for hi in range(h):
-            s = (torch.zeros((dh, dh), dtype=torch.float64) if state0 is None
-                 else state0[bi, hi].double())
-            starts = []
+            s = zero if state0 is None else state0[bi, hi].double()
+            g = zero if d_s is None else d_s[bi, hi].double()
+            s_j = [s[:, c] for c in cols]
+            g_j = [g[:, c] for c in cols]
+            starts = [[] for _ in cols]
             for c in range(nc):
                 sl = slice(c * CHUNK, (c + 1) * CHUNK)
-                starts.append(s)
                 li = torch.cumsum(logw[bi, sl, hi], 0)
                 kk = k[bi, sl, hi] * torch.exp(li[-1] - li)
-                s = torch.exp(li[-1])[:, None] * s + kk.T @ v[bi, sl, hi]
-            g = (torch.zeros((dh, dh), dtype=torch.float64) if d_s is None
-                 else d_s[bi, hi].double())
-            p = (s * g).sum(1)
+                for j, cj in enumerate(cols):
+                    starts[j].append(s_j[j])
+                    s_j[j] = (torch.exp(li[-1])[:, None] * s_j[j]
+                              + kk.T @ v[bi, sl, hi][:, cj])
             for c in reversed(range(nc)):
                 sl = slice(c * CHUNK, (c + 1) * CHUNK)
-                rr, kk_, vv, dd, lw = (a[bi, sl, hi] for a in (r, k, v, dy,
-                                                                logw))
+                # P at the chunk's end, exactly: rowsum(G S_end) of each
+                # slice, summed in rank order (S_end the next chunk's start)
+                p = torch.zeros(dh, dtype=torch.float64)
+                for j in range(nv):
+                    s_end = starts[j][c + 1] if c + 1 < nc else s_j[j]
+                    p = p + (s_end * g_j[j]).sum(1)
+                rr, kr, vv, dd, lw = (a[bi, sl, hi] for a in (r, k, v, dy,
+                                                               logw))
                 li = torch.cumsum(lw, 0)
-                le, last = li - lw, li[-1]
-                rp, kp = rr * torch.exp(le), kk_ * torch.exp(-li)
-                kk = kk_ * torch.exp(last - li)
-                a_m, b_m = tri(rp @ kp.T), dd @ vv.T
-                vdy = torch.diagonal(b_m)[:, None]
-                drh = torch.exp(le) * (dd @ starts[c].T + tri(b_m) @ kp)
-                dkh = (torch.exp(last - li) * (vv @ g.T)
-                       + torch.exp(-li) * (tri(b_m).T @ rp))
-                out[0][bi, sl, hi] = drh + u[hi] * kk_ * vdy
-                out[1][bi, sl, hi] = dkh + u[hi] * rr * vdy
-                out[2][bi, sl, hi] = (kk @ g + a_m.T @ dd
-                                      + (rr * u[hi] * kk_).sum(1)[:, None] * dd)
-                du[hi] += (rr * kk_ * vdy).sum(0)
-                kd, rd = kk_ * dkh, rr * drh
-                for tau in reversed(range(CHUNK)):
-                    out[3][bi, c * CHUNK + tau, hi] = p - kd[tau]
-                    p = p - kd[tau] + rd[tau]
-                g = torch.exp(last)[:, None] * g + rp.T @ dd
-            ds0[bi, hi] = g
+                tot = li[-1]
+                erp, ekk = torch.exp(li - lw - tot), torch.exp(tot - li)
+                rpp, kk, etot = rr * erp, kr * ekk, torch.exp(tot)
+                a_m = tri(rpp @ kk.T) + torch.diag((rr * u[hi] * kr).sum(1))
+                xr = torch.zeros((CHUNK, dh), dtype=torch.float64)
+                xk, vdy = torch.zeros_like(xr), torch.zeros(CHUNK,
+                                                            dtype=torch.float64)
+                for j, cj in enumerate(cols):
+                    vj, dj = vv[:, cj], dd[:, cj]
+                    b_m = dj @ vj.T
+                    xr = xr + (dj @ (etot[:, None] * starts[j][c]).T
+                               + tri(b_m) @ kk)
+                    xk = xk + (vj @ g_j[j].T + tri(b_m).T @ rpp)
+                    vdy = vdy + torch.diagonal(b_m)
+                    out[2][bi, sl, hi, cj] = kk @ g_j[j] + a_m.T @ dj
+                    g_j[j] = etot[:, None] * (g_j[j] + rpp.T @ dj)
+                drh, dkh = erp * xr, ekk * xk
+                out[0][bi, sl, hi] = drh + u[hi] * kr * vdy[:, None]
+                out[1][bi, sl, hi] = dkh + u[hi] * rr * vdy[:, None]
+                kd = kr * dkh
+                x = kd - rr * drh
+                incl = torch.flip(torch.cumsum(torch.flip(x, [0]), 0), [0])
+                excl = torch.cat([incl[1:], torch.zeros((1, dh),
+                                                        dtype=torch.float64)])
+                out[3][bi, sl, hi] = (p - excl) - kd
+                du[hi] += (rr * kr * vdy[:, None]).sum(0)
+            ds0[bi, hi] = torch.cat(g_j, dim=1)
     return [o[:, :t] for o in out] + [du, ds0]
 
 
@@ -217,6 +246,41 @@ def test_kernel_algorithm_matches_autograd(b, t, h, dh, s0, ds):
     arrays = _inputs(b, t, h, dh, s0, ds, seed=b * t + dh + 2)
     got = _chunked_bwd_emulation(*(_t(a) for a in arrays))
     want = _autograd(*(_t(a) for a in arrays))
+    for name, g, w in zip(NAMES, got, want):
+        _close(g, w, name)
+
+
+# every NV the kernel takes at each case's head size (its value splits)
+SLICE_CASES = [c + (nv,) for c in CASES for nv in value_splits(c[3])]
+SLICE_IDS = [f"{i}_NV{c[-1]}" for c in SLICE_CASES
+             for i in [IDS[CASES.index(c[:-1])]]]
+
+
+@pytest.mark.parametrize("b,t,h,dh,s0,ds,nv", SLICE_CASES, ids=SLICE_IDS)
+def test_kernel_slices_match_autograd(b, t, h, dh, s0, ds, nv):
+    """The slice decomposition, the partials summed in rank order, at every
+    NV: autograd of ``wkv_chunked`` within TOL of each gradient's scale."""
+    arrays = _inputs(b, t, h, dh, s0, ds, seed=b * t + dh + 3)
+    got = _chunked_bwd_emulation(*(_t(a) for a in arrays), nv=nv)
+    want = _autograd(*(_t(a) for a in arrays))
+    for name, g, w in zip(NAMES, got, want):
+        _close(g, w, name)
+
+
+@pytest.mark.parametrize("b,t,h,dh,s0,ds,nv", SLICE_CASES, ids=SLICE_IDS)
+def test_kernel_slices_match_jax_grad_of_reference(b, t, h, dh, s0, ds, nv):
+    """The same against ``jax.grad`` of the reference's ``wkv_chunked``."""
+    arrays = _inputs(b, t, h, dh, s0, ds, seed=b * t + dh + 4)
+    r, k, v, logw, u, state0, dy, d_s = arrays
+    st = np.zeros((b, h, dh, dh), np.float32) if state0 is None else state0
+    dst = np.zeros_like(st) if d_s is None else d_s
+
+    def loss(r, k, v, logw, u, s):
+        y, fin = j_chunked(r, k, v, logw, u, s)
+        return (y * dy).sum() + (fin * dst).sum()
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, k, v, logw, u, st)))
+    got = _chunked_bwd_emulation(*(_t(a) for a in arrays), nv=nv)
     for name, g, w in zip(NAMES, got, want):
         _close(g, w, name)
 

@@ -20,6 +20,10 @@ its products, checked on the CPU, where the kernel cannot run.
   (``tests/test_torch_wkv6.py``), on ragged lengths, with and without an
   initial state.
   One-term TF32 (hi*hi alone) misses that tolerance.
+* ``bwd_plan`` (the backward's: a thread-block cluster of NV blocks a
+  (b, h)) gives every value column, and every channel, to exactly one
+  block of the cluster, takes the largest split whose clusters the card
+  runs at once, and raises when a block cannot run.
 * The CUDA wrapper raises for CPU tensors and for a split it cannot take.
 
 ``chip_smoke.py`` holds the kernel itself against ``wkv_chunked`` on the
@@ -37,8 +41,9 @@ from hypothesis import strategies as st
 from repro.kernels.wkv6.ops import wkv6 as j_wkv6
 from repro.models.rwkv6 import wkv_chunked as j_chunked
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked
-from repro_torch.kernels.wkv6.wkv6 import (MAX_DH, value_slices,
-                                           value_splits, wkv6_cuda, wkv_plan)
+from repro_torch.kernels.wkv6.wkv6 import (BWD_DHS, MAX_DH, bwd_plan,
+                                           value_slices, value_splits,
+                                           wkv6_cuda, wkv_plan)
 
 TOL = 3e-4
 # (B, T, H, Dh): ragged T against the chunk of 32, rwkv6's head size 64,
@@ -106,6 +111,52 @@ def test_value_slices_refuse_a_split_the_kernel_cannot_take():
         value_slices(64, 3)
     with pytest.raises(ValueError, match="NV=2"):
         value_slices(8, 2)          # slices of 4 columns
+
+
+# the backward's plan: a cluster of NV blocks a (b, h); n_clusters(nv) is
+# what the card runs at once of such clusters (0: it cannot run one)
+@settings(max_examples=300, deadline=None)
+@given(dh=st.sampled_from(BWD_DHS), bh=st.integers(1, 400),
+       counts=st.lists(st.integers(0, 300), min_size=4, max_size=4),
+       one=st.integers(1, 300))
+@example(dh=64, bh=80, counts=[132, 132, 66, 33], one=132)
+@example(dh=4, bh=1, counts=[0, 0, 0, 0], one=1)
+def test_bwd_plan_one_wave_and_every_column_owned_once(dh, bh, counts, one):
+    n = dict(zip(value_splits(dh), [one] + counts[1:]))
+    nv = bwd_plan(1, bh, dh, n.__getitem__)
+    assert nv in value_splits(dh) and nv <= 8      # a portable cluster
+    vb = dh // nv
+    seen = np.zeros(dh, int)
+    for lo, hi in value_slices(dh, nv):
+        assert hi - lo == vb and (vb % 8 == 0 or nv == 1)
+        seen[lo:hi] += 1
+    # every value column, and every channel (block j owns the channels of
+    # its columns' indices), to exactly one block of the cluster
+    assert np.all(seen == 1)
+    assert sorted(ch // vb for ch in range(dh)) == sorted(
+        j for j in range(nv) for _ in range(vb))
+    # one wave: every cluster resident, unless even NV = 1 overflows
+    assert bh <= n[nv] or nv == 1
+    # and the largest such split
+    assert all(bh > n[m] for m in value_splits(dh) if m > nv)
+
+
+def test_bwd_plan_reads_the_clusters_of_each_split():
+    # the layout's shared memory at Dh = 64 (bf16): ~147 KB at NV = 1, ~105
+    # KB at 2, ~88 KB at 4, ~79 KB at 8, so 1, 2, 2, 2 blocks an SM
+    clusters = {1: 132, 2: 132, 4: 66, 8: 33}
+    assert bwd_plan(2, 40, 64, clusters.__getitem__) == 2   # 80 <= 132 > 66
+    assert bwd_plan(1, 40, 64, clusters.__getitem__) == 4   # 40 <= 66
+    assert bwd_plan(1, 4, 64, clusters.__getitem__) == 8
+    assert bwd_plan(4, 40, 64, clusters.__getitem__) == 1   # two waves of one
+    assert bwd_plan(1, 1, 64, {1: 1, 2: 0, 4: 0, 8: 0}.__getitem__) == 1
+
+
+def test_bwd_plan_raises_when_a_block_cannot_run():
+    with pytest.raises(RuntimeError, match="cannot run"):
+        bwd_plan(1, 1, 64, lambda nv: 0)
+    with pytest.raises(RuntimeError, match="Dh=16"):
+        bwd_plan(2, 8, 16, {1: 0, 2: 5}.__getitem__)
 
 
 # ---------------------------------------------------------------------------
