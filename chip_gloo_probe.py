@@ -1,5 +1,7 @@
 """Which collectives gloo runs on CUDA tensors with this installation of
 PyTorch: the evidence behind ``core/collectives.py``'s ``GLOO_HOST_ONLY``
+(and whether gloo has the reduce-scatter that ``reduce_scatter`` composes
+from ``all_to_all`` under gloo)
 (ranks that share one card talk over gloo, since NCCL refuses two ranks on
 one GPU; the collectives gloo refuses with CUDA tensors are staged through
 host memory there, the others run on gloo's own CUDA paths).
@@ -47,6 +49,11 @@ def _op(name: str, rank: int) -> bool:
         out = torch.empty((WORLD, 3), dtype=torch.uint8, device=dev)
         dist.all_gather(list(out.unbind(0)), x)
         return out.tolist() == [[5] * 3, [6] * 3]
+    if name == "reduce_scatter_tensor":
+        x = torch.arange(4, dtype=torch.float32, device=dev) + rank
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        return out.tolist() == ([1.0, 3.0] if rank == 0 else [5.0, 7.0])
     if name in ("send_recv", "send_recv_uint8"):
         dtype = torch.uint8 if name.endswith("uint8") else torch.float32
         if rank == 0:
@@ -60,7 +67,7 @@ def _op(name: str, rank: int) -> bool:
 
 # as core/collectives.py calls them (all_gather into views of one tensor)
 OPS = ("all_reduce", "all_to_all_single", "all_gather", "send_recv",
-       "send_recv_uint8")
+       "send_recv_uint8", "reduce_scatter_tensor")
 
 
 def _rank(rank: int, name: str, store_path: str, out) -> None:

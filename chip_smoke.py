@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
                           [--k6-only | --k5-only | --k4-only | --sharded-only
-                           | --zoo-only | --train-only | --train-zoo-only]
+                           | --zoo-only | --train-only | --train-zoo-only
+                           | --train-tp-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -93,6 +94,27 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     (float32 weights, limits from the float32 readings; bf16 recorded;
     recurrentgemma's also by block, with and without the LM head's bf16
     cast), then 8 int8 steps whose loss falls;
+  * tensor parallelism over "model" in LM training (phase ``train_tp``),
+    on gloo ranks sharing the card (spawned: NCCL refuses two ranks on one
+    GPU; the times are oversubscription, not scaling): (1) gemma3-1b at its
+    published width and depth, 'tp' at (data=1, model=2), 4096 positions,
+    3 steps against the world of one on the same rows (loss 1e-3, gradient
+    norm 1e-2, the loss falling), each rank's parameter and optimizer
+    bytes equal to the rules' slices, per step its peak, times and the
+    collectives' bytes; (2) a float32 guard at 2 layers (loss 1e-6, every
+    leaf's gradient 1e-5 of its scale); (3) (pod=2, data=1, model=2), four
+    ranks, exact and int8 over "pod" at 4 layers, K4a / K4b-sum / K4b 52
+    launches an int8 step on every rank, at the slices' chunks; (4)
+    'tp_sp' and 'fsdp' at 4 layers against the world of one; (5) rwkv6-3b
+    'tp' at full width and 4 layers, K6 and its backward at H = 20 on each
+    rank, step 1's loss against the world of one, and a float32 guard at 1
+    layer (the loss 1e-6, every leaf within 2 x a rounding control's gap,
+    or 1e-5 of its scale); (6) K6 and its backward at
+    (1, 4096, 20, 64) and K4's int8 forms at (3)'s chunks, each against
+    its plain version. The int8 run is held to the exact one (step 1's
+    gradient norm 1e-2, every loss 1 %). Every K4 and K6 row of the
+    kernels line carries its launches on these paths
+    (``train_tp_launches``) and its error at (6)'s shapes;
   * LM serving (``repro_torch.launch.serve.generate``) at full width and
     depth from a random init: gemma3-1b (B=8; decode attention, K5, in
     every layer of every decode step) and rwkv6-3b (B=4; the WKV6
@@ -142,7 +164,9 @@ decode paths, runs ``lm_zoo`` and stops the same way. ``--train-only``
 builds ``quantize.cu``, holds the wire forms against their plain versions,
 runs the ``train`` phase and stops with its kernels rows, the card's line
 and the last line. ``--train-zoo-only`` builds the WKV6 and block-quantize
-kernels, runs the ``train_zoo`` phase and stops the same way.
+kernels, runs the ``train_zoo`` phase and stops the same way;
+``--train-tp-only`` builds the same two, runs the ``train_tp`` phase and
+stops with the card's line and the last line.
 """
 from __future__ import annotations
 
@@ -209,7 +233,9 @@ from repro_torch.kernels.wkv6 import ops as k6_ops  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import (init_cluster, make_host_mesh,  # noqa: E402
+from repro_torch.core.collectives import psum  # noqa: E402
+from repro_torch.launch.mesh import (GridMesh, Mesh,  # noqa: E402
+                                     init_cluster, make_host_mesh,
                                      make_mesh, make_serve_mesh,
                                      spawn_world)
 from repro_torch.configs import ShapeSpec  # noqa: E402
@@ -3230,6 +3256,26 @@ def wkv6_bwd_nan(args, state, nv) -> dict:
     return out
 
 
+def _wkv_bwd_errs(row: dict, got, want, dtype) -> bool:
+    """Each gradient's largest error, and its excess over one bf16 rounding
+    (dr, dk, dv of bf16 inputs) as a share of its scale, into ``row``;
+    whether every share is within WKV_BWD_RTOL."""
+    ok = True
+    for key, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "dstate0"), got,
+                         want):
+        g = g.float()
+        scale = float(w.abs().max())
+        bf16_out = key in ("dr", "dk", "dv") and dtype == torch.bfloat16
+        ulp = 2.0 ** -8 * w.abs() if bf16_out else 0.0
+        excess = ((g - w).abs() - ulp).clamp(min=0.0)
+        row[f"{key}_max_abs_err"] = float((g - w).abs().max())
+        row[f"{key}_err_of_scale"] = float(excess.max()) / scale
+        ok &= row[f"{key}_err_of_scale"] <= WKV_BWD_RTOL
+    row["max_abs_err"] = max(v for key, v in row.items()
+                             if key.endswith("_max_abs_err"))
+    return ok
+
+
 def check_wkv6_bwd() -> dict:
     """K6's backward against autograd of ``wkv_chunked`` at every
     WKV_BWD_CASES case (WKV_BWD_RTOL), bit-identical over two runs, each
@@ -3237,7 +3283,6 @@ def check_wkv6_bwd() -> dict:
     the path's shape against ``wkv_chunked`` (WKV_TOL); the two timed at
     the path's shape beside their plain versions and bounds."""
     rows, times = [], {}
-    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
     for case in WKV_BWD_CASES:
         name, b, t, h, dh, dtype, state, has_ds, nv = case
         args = wkv_bwd_inputs(case)
@@ -3252,18 +3297,7 @@ def check_wkv6_bwd() -> dict:
                "dS_T": has_ds, "plan": plan, "nv_forced": nv is not None,
                "bit_identical": all(torch.equal(x, y) for x, y in
                                     zip(got, again) if x is not None)}
-        ok = True
-        for key, g, w in zip(names, got, want):
-            g = g.float()
-            scale = float(w.abs().max())
-            bf16_out = key in ("dr", "dk", "dv") and dtype == torch.bfloat16
-            ulp = 2.0 ** -8 * w.abs() if bf16_out else 0.0
-            excess = ((g - w).abs() - ulp).clamp(min=0.0)
-            row[f"{key}_max_abs_err"] = float((g - w).abs().max())
-            row[f"{key}_err_of_scale"] = float(excess.max()) / scale
-            ok &= row[f"{key}_err_of_scale"] <= WKV_BWD_RTOL
-        row["max_abs_err"] = max(v for key, v in row.items()
-                                 if key.endswith("_max_abs_err"))
+        ok = _wkv_bwd_errs(row, got, want, dtype)
         if name == WKV_BWD_PATH:
             r, k_, v, logw, u, s0, dy, ds = args
             y, _ = kw.wkv6_cuda(r, k_, v, logw, u, s0)
@@ -3552,24 +3586,18 @@ def _rglru_pass(cfg, params, tok, lab) -> tuple:
 @contextlib.contextmanager
 def _float32_head():
     """The loss's LM head fed the float32 hidden state instead of its bf16
-    rounding (``model_api._chunk_xent``'s cast, the reference's
-    ``hc.astype(jnp.bfloat16)``), for phase (c)'s TZ_HEAD_ARCH control
-    only: in the backward that cast rounds the loss's gradient at the last
-    block to bf16."""
+    rounding (``model_api._chunk_logits``' cast, the reference's
+    ``hc.astype(jnp.bfloat16)``), for phase (c)'s TZ_HEAD_ARCH control and
+    train_tp's float32 comparisons: in the backward that cast rounds the
+    loss's gradient at the last block to bf16."""
     from repro_torch.models import model_api
-    saved = model_api._chunk_xent
-
-    def xent(hc, lc, mc, table, vocab_ok):
-        logits = torch.matmul(hc.float(), table.float().T)
-        logits = torch.where(vocab_ok, logits, -math.inf)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
-        return ((lse - gold) * mc).sum()
-    model_api._chunk_xent = xent
+    saved = model_api._chunk_logits
+    model_api._chunk_logits = lambda hc, table: torch.matmul(
+        hc.float(), table.float().T)
     try:
         yield
     finally:
-        model_api._chunk_xent = saved
+        model_api._chunk_logits = saved
 
 
 def _gap(a, b) -> float:
@@ -3694,6 +3722,605 @@ def train_zoo_kernel_rows(ctx) -> list:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model" (phase train_tp)
+# ---------------------------------------------------------------------------
+
+# The ranks are gloo ranks spawned on the one card (NCCL refuses two ranks
+# on one GPU), as the sharded phase's (b): the phase proves the "model" axis
+# right and records what it moves; its times are of ranks oversubscribing
+# one card, not of scaling.
+# (1) gemma3-1b at its published width and depth, 'tp' at (data=1,
+# model=2), train_4k's 4096 positions, a global batch of 2 rows that both
+# ranks hold, in 2 microbatches; TP_STEPS donated steps against the world of
+# one on the same rows (the loss within TP_LOSS_RTOL, the gradient norm
+# within TP_NORM_RTOL: bf16 weights, products rounded alike, float32 sums
+# in another order), and the loss lower at the last step than at the first
+TP_ARCH, TP_SEQ, TP_BATCH, TP_MB, TP_STEPS = "gemma3-1b", 4096, 2, 2, 3
+TP_LOSS_RTOL, TP_NORM_RTOL = 1e-3, 1e-2
+# (2) the float32 guard: the same width at TP_F32_LAYERS layers, float32
+# weights, the LM head fed the float32 hidden state (its bf16 rounding
+# would flip with the summation order), 'tp', 'tp_sp' and 'fsdp' each
+# against the world of one: the loss within TP_F32_LOSS relative, every
+# leaf's fused gradient within TP_F32_GRAD of its largest magnitude
+TP_F32_LAYERS, TP_F32_LOSS, TP_F32_GRAD = 2, 1e-6, 1e-5
+# (3) (pod=2, data=1, model=2): four ranks, gemma3-1b cut to TP_POD_LAYERS
+# layers (four ranks' peaks on one card), one row a pod, TP_POD_STEPS exact
+# and TP_POD_STEPS int8-over-"pod" steps: K4a / K4b-sum / K4b at the
+# slices' chunks, TRAIN_K4's launches a step on every rank
+TP_POD_LAYERS, TP_POD_STEPS = 4, 2
+# (4) 'tp_sp' and 'fsdp' at model=2 in bf16, gemma3-1b at TP_SP_LAYERS
+# layers: step 1 against the world of one (TP_LOSS_RTOL, TP_NORM_RTOL),
+# with each leaf's gradient norm beside. In bf16 the tied table's gradient
+# depends on how many rows a loss chunk holds (its bf16 sums over the
+# chunks): the world of one in 2 microbatches of a row and in 1 of 2 rows
+# part by 1.45 % on the gradient norm, 2.05 % on embed/table's (an NVIDIA
+# H100 80GB HBM3 at 700 W). 'tp_sp' runs 2 microbatches of a row as the
+# first does; under 'fsdp' each rank's layers take its row but the loss
+# takes both ranks' rows in each chunk, as the second: each is held to the
+# world of one that chunks its loss alike, both gaps recorded
+TP_SP_LAYERS = 4
+# (5) rwkv6-3b 'tp' at model=2: full width (40 heads, 20 a rank), 4 of its
+# 32 layers; K6 and its backward at H = 20 on each rank; step 1's loss
+# against the world of one (TP_LOSS_RTOL); the decay leaves' gradients in
+# float32 (weights and LM head) within TP_F32_GRAD of their scale
+TP_RWKV_ARCH, TP_RWKV_LAYERS = "rwkv6-3b", 4
+# ... the float32 guard of rwkv6-3b: full width at TP_RWKV_F32_LAYERS
+# layer and TP_SEQ positions, float32 weights and LM head, every leaf (the
+# decay and mix LoRAs among them) against the world of one beside a
+# control: the world of one with every weight moved by one float32
+# rounding. The loss within TP_F32_LOSS; each leaf within TP_RWKV_CONTROL
+# x its control, or TP_F32_GRAD where that is larger. Rounding alone moves
+# the leaves upstream of the recurrence (embed, ln1, the mixes, w0,
+# w_lora1/2, wr, wk, u) by up to 6.7e-5 of scale at 4096 positions and
+# 3.9e-4 at 512 (the control; an NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
+# train_tp), so no leaf can be held to TP_F32_GRAD alone; a sum over "model"
+# left out moves a leaf by a share of order 0.5. At TP_RWKV_LAYERS float32
+# layers the decay leaves are chaotic (the control 1.4-2.1e-2 of scale)
+TP_RWKV_F32_LAYERS, TP_RWKV_CONTROL = 1, 2.0
+# (6) the kernels at this phase's shapes, before any rank starts: K6 and
+# its backward at WKV_TP_CASE (a microbatch of 1 x 4096, 20 of rwkv6-3b's
+# 40 heads of 64; WKV_BWD_CASES' form), the backward within WKV_BWD_RTOL
+# of autograd of wkv_chunked and bit-identical over two runs, the forward
+# within WKV_TOL of wkv_chunked; K4a / K4b-sum / K4b (int8, blocks of 512)
+# bit for bit with their plain versions at (3)'s chunks: compressed_psum
+# over "pod" cuts each rank's slice of a leaf into 2 chunks, K4a runs on
+# the (2, C) chunks and on the (1, C) reduced one, K4b-sum and K4b on
+# (2, C). gemma3-1b at 4 layers, model=2: embed/table 262144 x 1152 / 2,
+# w_gate / w_up / w_down 4 x 1152 x 6912 / 2, wq / wo 4 x 1152 x 1024 / 2,
+# wk / wv 4 x 1152 x 256 (whole), the 4 x 1152 norms, the 4 x 256 q / k
+# norms and the final 1152, each padded to a multiple of 2 x 1024: each
+# over 2 pods
+WKV_TP_CASE = ("rwkv6_3b_tp", 1, 4096, 20, 64, torch.bfloat16, False, False,
+               None)
+TP_K4_CHUNKS = (75497472, 7962624, 1179648, 589824, 3072, 1024)
+# (3) the int8 run against the exact one from the same init, every rank:
+# step 1's gradient norm (of the fused, compressed gradients) within
+# TP_INT8_NORM relative, each step's loss within TZ_INT8_REL of the exact
+# loss. Quantization moves the norm by 6.5e-4 (an NVIDIA H100 80GB HBM3 at
+# 700 W); a pod's gradient left out of the sum, or counted twice, moves it
+# by far more (a CPU mutation run on the smoke config: PERF.md, train_tp)
+TP_INT8_NORM = 1e-2
+TP_KERNELS = ("quantize_blocks", "dequantize_blocks", "dequantize_sum",
+              "quantize_blocks_packed", "dequantize_blocks_packed",
+              "dequantize_sum_packed", "wkv6", "wkv6_bwd")
+TP_REDUCED = {
+    "gemma3-1b tp": "global batch 256 -> 2 (2 microbatches of 1 row), "
+                    f"{TP_STEPS} steps, (data, model) = (1, 2)",
+    "float32 guard": f"{TP_F32_LAYERS} of 26 layers",
+    "pod int8": f"{TP_POD_LAYERS} of 26 layers, global batch 2, "
+                "(pod, data, model) = (2, 1, 2)",
+    "tp_sp / fsdp": f"{TP_SP_LAYERS} of 26 layers, global batch 2",
+    "rwkv6-3b tp": f"{TP_RWKV_LAYERS} of 32 layers, global batch 2 in 2 "
+                   "microbatches",
+    "rwkv6-3b float32 guard": f"{TP_RWKV_F32_LAYERS} of 32 layers"}
+
+
+def _local_grid() -> GridMesh:
+    """A (data, model) mesh of one rank on the card inside a larger world:
+    the world of one, no collective runs on it."""
+    one = lambda: Mesh(group=None, size=1, rank=0, device=DEV,
+                       backend="none")
+    return GridMesh(shape={"data": 1, "model": 1},
+                    coords={"data": 0, "model": 0}, rank=0, device=DEV,
+                    meshes={("data",): one(), ("model",): one()})
+
+
+def _rules_bytes(step) -> dict:
+    """A rank's parameter (bf16) and AdamW-state bytes by the rules: each
+    leaf's "model" slice, and its ZeRO-1 slice of that."""
+    m = step.mesh.shape.get("model", 1)
+    z = step._zsize()
+    par = opt = 0
+    for k, shape in step.param_shapes.items():
+        n = math.prod(shape) // (m if step.model_dims[k] is not None else 1)
+        par += 2 * n
+        opt += 12 * n // (z if step.zero_dims[k] is not None else 1)
+    return {"params": par, "opt": opt}
+
+
+def _leaf_norms(step, params, tok, lab) -> dict:
+    """Each leaf's fused step-1 gradient norm (whole leaf: every distinct
+    piece once, summed over the ranks)."""
+    loss, grads = step._grads(params, tok, lab, {})
+    with torch.no_grad():
+        _, grads, _ = step._fuse(loss, grads)
+        sq = torch.stack([step._slice(k_, grads[k_]).float().square().sum()
+                          if step._owner[k_] else
+                          torch.zeros((), device=DEV) for k_ in sorted(grads)])
+        if step.world is not None and step.world.size > 1:
+            sq = psum(sq, step.world)
+    return dict(zip(sorted(grads), sq.sqrt().tolist()))
+
+
+def _tp_steps(mesh, cfg, shape, tcfg, steps: int, k4_shapes: bool = False,
+              leaf_norms: bool = False) -> dict:
+    """``steps`` donated steps of ``cfg`` on ``mesh`` from the SEED init on
+    the SEED data: per step the loss, gradient norm, CUDA-event and wall
+    ms, the peak GB of this process, the launches and what the "model"
+    (and "pod") axis's collectives moved; the rank's bytes against the
+    rules'; with ``leaf_norms`` each leaf's step-1 gradient norm."""
+    step = build_train_step(cfg, mesh, shape, tcfg)
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch,
+                           seed=SEED)
+    params = step.init_params(SEED)
+    opt = step.init_opt_state(params)
+    norms = (_leaf_norms(step, params, *data.global_arrays(
+        0, mesh, step.batch_axes)) if leaf_norms else None)
+    got = {"params": sum(v.numel() * v.element_size()
+                         for v in params.values()),
+           "opt": sum(v.numel() * v.element_size() for key in
+                      ("master", "m", "v") for v in opt[key].values())}
+    run = {"bytes": got, "rules_bytes": _rules_bytes(step),
+           "leaf_norms": norms, "loss": [],
+           "grad_norm": [], "quant_noise": [], "ms": [], "wall_ms": [],
+           "peak_gb": [], "launches": [], "collectives": []}
+    axes = [a for a in ("model", "pod") if a in mesh.shape]
+    for i in range(steps):
+        tok, lab = data.global_arrays(i, mesh, step.batch_axes)
+        for a in axes:
+            mesh.axis(a).stats.reset()
+        reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        with (k4_calls_by_shape() if k4_shapes
+              else contextlib.nullcontext(None)) as by_shape:
+            params, opt, m = step(params, opt, tok, lab, donate=True)
+        e1.record()
+        e1.synchronize()
+        run["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        run["ms"].append(e0.elapsed_time(e1))
+        run["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        run["launches"].append({k_: v for k_, v in all_counts().items()
+                                if v})
+        if by_shape is not None:
+            run.setdefault("k4_by_shape", []).append(
+                {f"{form} {key}": v for (form, key), v in by_shape.items()})
+        run["collectives"].append({a: mesh.axis(a).stats.snapshot()
+                                   for a in axes})
+        for key in ("loss", "grad_norm", "quant_noise"):
+            run[key].append(float(m[key]))
+    del step, params, opt, m
+    _free()
+    return run
+
+
+def _tp_grads(mesh, cfg, shape, tcfg, jitter: bool = False) -> tuple:
+    """Step 1's loss and fused gradients (whole leaves) of ``cfg`` with
+    float32 weights and LM head on ``mesh``; with ``jitter``
+    every weight moved by one float32 rounding (a factor 1 +- 2^-23, signs
+    from SEED + 1): a control of how far rounding alone moves them."""
+    step = build_train_step(cfg, mesh, shape, tcfg)
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch,
+                           seed=SEED)
+    params = {k_: v.float() for k_, v in step.init_params(SEED).items()}
+    if jitter:
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        for k_ in sorted(params):
+            sign = torch.randint(0, 2, params[k_].shape, generator=gen,
+                                 device=DEV) * 2 - 1
+            params[k_].mul_(1 + sign.float() * 2.0 ** -23)
+    tok, lab = data.global_arrays(0, mesh, step.batch_axes)
+    with _float32_head():
+        loss, grads = step._grads(params, tok, lab, {})
+    with torch.no_grad():
+        loss, grads, _ = step._fuse(loss, grads)
+        del params
+        whole = step.gather_params(grads)
+    return float(loss), whole
+
+
+def _grad_gaps(got: dict, want: dict) -> dict:
+    """Each leaf's largest gap over its largest magnitude."""
+    return {k_: float((got[k_] - want[k_]).abs().max()
+                      / want[k_].abs().max().clamp_min(1e-30))
+            for k_ in sorted(want)}
+
+
+@contextlib.contextmanager
+def _k6_heads():
+    """Counts K6's and its backward's calls by their H (the dispatch's
+    bindings of the wrappers wrapped; nothing read from the card)."""
+    tally = collections.Counter()
+    fwd, bwd = k6_ops.wkv6_cuda, k6_ops.wkv6_bwd_cuda
+
+    def f(r, *a, **kw_):
+        tally["wkv6", r.shape[2]] += 1
+        return fwd(r, *a, **kw_)
+
+    def b(r, *a, **kw_):
+        tally["wkv6_bwd", r.shape[2]] += 1
+        return bwd(r, *a, **kw_)
+    k6_ops.wkv6_cuda, k6_ops.wkv6_bwd_cuda = f, b
+    try:
+        yield tally
+    finally:
+        k6_ops.wkv6_cuda, k6_ops.wkv6_bwd_cuda = fwd, bwd
+
+
+def check_train_tp_kernels() -> dict:
+    """(6): K6 and its backward at WKV_TP_CASE, K4's int8 forms at each
+    TP_K4_CHUNKS chunk, each against its plain version on the same inputs;
+    the rows, and each kernel's largest error here."""
+    name, b, t, h, dh, dtype, state, has_ds, nv = WKV_TP_CASE
+    args = wkv_bwd_inputs(WKV_TP_CASE)
+    got = kw.wkv6_bwd_cuda(*args, need_state0_grad=state, nv=nv)
+    again = kw.wkv6_bwd_cuda(*args, need_state0_grad=state, nv=nv)
+    want, _ = wkv_bwd_plain(*args)
+    wkv = {"case": name, "B": b, "T": t, "H": h, "Dh": dh,
+           "plan": wkv6_bwd_plan(b, h, dh, dtype, nv),
+           "bit_identical": all(torch.equal(x, y) for x, y in
+                                zip(got, again) if x is not None)}
+    wkv["backward_ok"] = _wkv_bwd_errs(wkv, got, want, dtype)
+    del got, again, want
+    r, k_, v, logw, u, s0, _, _ = args
+    y, _ = kw.wkv6_cuda(r, k_, v, logw, u, s0)
+    y_r, _ = wkv_chunked(r, k_, v, logw, u, s0)
+    wkv["forward_y_max_abs_err"] = float((y - y_r).abs().max())
+    wkv["forward_ok"] = bool(torch.allclose(y, y_r, rtol=WKV_TOL,
+                                            atol=WKV_TOL))
+    del args, r, k_, v, logw, u, y, y_r
+    _free()
+    k4, errs = [], collections.defaultdict(float)
+    for i, n in enumerate(TP_K4_CHUNKS):
+        x = torch.cat([grad_inputs(n, SEED + 11 + 2 * i + j)
+                       for j in range(2)])
+        q, sc = kq.quantize_cuda(x, 127, 512)
+        q1, s1 = kq.quantize_cuda(x[:1], 127, 512)
+        qr, sr = qops.quantize_plain(x, 127, 512)
+        q1r, s1r = qops.quantize_plain(x[:1], 127, 512)
+        del x
+        row = {"N": n,
+               "quantize_blocks R2": bool(
+                   torch.equal(q, qr) and torch.equal(sc.view(torch.int16),
+                                                      sr.view(torch.int16))),
+               "quantize_blocks R1": bool(
+                   torch.equal(q1, q1r) and torch.equal(
+                       s1.view(torch.int16), s1r.view(torch.int16)))}
+        # K4a's error: the largest gap of its symbols
+        gap = lambda a, b: float((a.float() - b.float()).abs().max())
+        errs["quantize_blocks"] = max(errs["quantize_blocks"], gap(q, qr),
+                                      gap(q1, q1r))
+        del q, sc, q1, s1, q1r, s1r
+        for form, fn, plain in (
+                ("dequantize_sum", kq.dequantize_sum_cuda,
+                 qops.dequantize_sum_plain),
+                ("dequantize_blocks", kq.dequantize_cuda,
+                 qops.dequantize_plain)):
+            a, w = fn(qr, sr, 512), plain(qr, sr, 512)
+            row[f"{form} R2"] = bool(torch.equal(a, w))
+            errs[form] = max(errs[form], float((a - w).abs().max()))
+            del a, w
+        k4.append(row)
+        del qr, sr
+        _free()
+    return {"wkv6_bwd": wkv, "k4": k4,
+            "max_abs_err": {"wkv6": wkv["forward_y_max_abs_err"],
+                            "wkv6_bwd": wkv["max_abs_err"], **errs}}
+
+
+def train_tp_rank(serve_mesh) -> dict:
+    """One rank of (1), (2), (4) and (5)'s world of two gloo ranks sharing
+    the card, (data=1, model=2); rank 0 also runs each world of one (the
+    other rank waits at its next collective) and compares."""
+    grid = make_mesh((1, 2), ("data", "model"), device=str(serve_mesh.device))
+    lead = grid.rank == 0
+    out = {}
+    # (1) gemma3-1b at full width and depth, 'tp' (the world of one's step 1)
+    cfg = get_config(TP_ARCH)
+    shape = ShapeSpec("train_4k_cut", TP_SEQ, TP_BATCH, "train")
+    tcfg = TrainStepConfig(microbatches=TP_MB)
+    tcfgs = {"tp": tcfg,
+             "tp_sp": TrainStepConfig(microbatches=TP_MB, strategy="tp_sp"),
+             "fsdp": TrainStepConfig(strategy="fsdp")}
+    if lead:
+        out["tp_one"] = _tp_steps(_local_grid(), cfg, shape, tcfg, 1)
+    out["tp"] = _tp_steps(grid, cfg, shape, tcfg, TP_STEPS)
+    # (2) the float32 guard, every strategy against one world of one
+    cut = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
+    one = (_tp_grads(_local_grid(), cut, shape, tcfg) if lead
+           else (None, None))
+    out["f32"] = {}
+    for name, tc in tcfgs.items():
+        loss2, g2 = _tp_grads(grid, cut, shape, tc)
+        if lead:
+            out["f32"][name] = {
+                "loss": loss2, "loss_one": one[0],
+                "loss_rel": abs(loss2 - one[0]) / abs(one[0]),
+                "grad_gap_of_scale": _grad_gaps(g2, one[1])}
+        del g2
+        _free()
+    del one
+    _free()
+    # (4) 'tp_sp' and 'fsdp' in bf16 at TP_SP_LAYERS layers, step 1
+    cut = dataclasses.replace(cfg, n_layers=TP_SP_LAYERS)
+    if lead:
+        out["sp_one"] = _tp_steps(_local_grid(), cut, shape, tcfg, 1,
+                                  leaf_norms=True)
+        # a rounding control: the world of one in one microbatch of 2 rows
+        out["sp_one_mb1"] = _tp_steps(_local_grid(), cut, shape,
+                                      TrainStepConfig(), 1, leaf_norms=True)
+    for name in ("tp_sp", "fsdp"):
+        out[name] = _tp_steps(grid, cut, shape, tcfgs[name], 1,
+                              leaf_norms=True)
+    # (5) rwkv6-3b 'tp', 4 layers
+    rcfg = dataclasses.replace(get_config(TP_RWKV_ARCH),
+                               n_layers=TP_RWKV_LAYERS)
+    if lead:
+        out["rwkv_one"] = _tp_steps(_local_grid(), rcfg, shape, tcfg, 1)
+    with _k6_heads() as heads:
+        out["rwkv"] = _tp_steps(grid, rcfg, shape, tcfg, 1)
+    out["rwkv"]["k6_calls_by_heads"] = {f"{n} H{h}": v for (n, h), v
+                                        in sorted(heads.items())}
+    # ... its float32 guard, every leaf, at TP_RWKV_F32_LAYERS layer
+    cut = dataclasses.replace(rcfg, n_layers=TP_RWKV_F32_LAYERS)
+    loss2, g2 = _tp_grads(grid, cut, shape, tcfg)
+    if lead:
+        loss1, g1 = _tp_grads(_local_grid(), cut, shape, tcfg)
+        _, g0 = _tp_grads(_local_grid(), cut, shape, tcfg, jitter=True)
+        out["rwkv_guard"] = {"loss": loss2, "loss_one": loss1,
+                             "loss_rel": abs(loss2 - loss1) / abs(loss1),
+                             "grad_gap_of_scale": _grad_gaps(g2, g1),
+                             "jitter_control_gap_of_scale": _grad_gaps(g0,
+                                                                       g1)}
+    return out
+
+
+def train_tp_pod_rank(serve_mesh) -> dict:
+    """One rank of (3)'s world of four gloo ranks sharing the card, (pod=2,
+    data=1, model=2): exact and int8-over-"pod" steps."""
+    grid = make_mesh((2, 1, 2), ("pod", "data", "model"),
+                     device=str(serve_mesh.device))
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_POD_LAYERS)
+    shape = ShapeSpec("train_4k_cut", TP_SEQ, TP_BATCH, "train")
+    return {name: _tp_steps(grid, cfg, shape,
+                            TrainStepConfig(compression_bits=bits),
+                            TP_POD_STEPS, k4_shapes=True)
+            for name, bits in (("exact", None), ("int8", 8))}
+
+
+def _rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def run_train_tp() -> dict:
+    """Phase ``train_tp``: tensor parallelism over "model" on gloo ranks
+    sharing the card, (1)-(6) above. Every check is read before the phase's
+    line is printed, and the phase fails after it if any failed. Returns
+    this phase's launches of K4 and K6 (summed over ranks and steps) by
+    kernel and by shape."""
+    import tempfile
+    t_phase = time.perf_counter()
+    kernels = check_train_tp_kernels()
+    t_kernels = time.perf_counter() - t_phase
+    store_dir = tempfile.mkdtemp(prefix="amp_train_tp_")
+    two = spawn_world(train_tp_rank, 2, backend="gloo", device=str(DEV),
+                      store_path=os.path.join(store_dir, "tp2"),
+                      timeout_s=600)
+    t_two = time.perf_counter() - t_phase - t_kernels
+    four = spawn_world(train_tp_pod_rank, 4, backend="gloo",
+                       device=str(DEV),
+                       store_path=os.path.join(store_dir, "tp4"),
+                       timeout_s=400)
+    failed = []
+
+    def check(ok, what, *detail):
+        if not ok:
+            failed.append([what, *detail])
+
+    lead = two[0]
+    # (6) the kernels at this phase's shapes
+    wkv = kernels["wkv6_bwd"]
+    check(wkv["backward_ok"] and wkv["bit_identical"] and wkv["forward_ok"],
+          "K6 at the train_tp shape", wkv)
+    for row in kernels["k4"]:
+        check(all(v for key, v in row.items() if key != "N"),
+              "K4 at a train_tp chunk", row)
+    # (1) tp against the world of one; the rules' bytes
+    one, tp = lead["tp_one"], lead["tp"]
+    for r in two:
+        check(r["tp"]["loss"] == tp["loss"], "tp ranks' losses",
+              r["tp"]["loss"], tp["loss"])
+        for key in ("tp", "tp_sp", "fsdp", "rwkv"):
+            check(r[key]["bytes"] == r[key]["rules_bytes"],
+                  f"{key} bytes", r[key]["bytes"], r[key]["rules_bytes"])
+    gaps = {"loss_rel_step1": _rel_gap(tp["loss"][0], one["loss"][0]),
+            "grad_norm_rel_step1": _rel_gap(tp["grad_norm"][0],
+                                            one["grad_norm"][0]),
+            "bytes_over_model_one": {
+                k_: tp["bytes"][k_] / one["bytes"][k_] for k_ in tp["bytes"]}}
+    check(gaps["loss_rel_step1"] <= TP_LOSS_RTOL, "tp loss", gaps)
+    check(gaps["grad_norm_rel_step1"] <= TP_NORM_RTOL, "tp grad norm", gaps)
+    check(tp["loss"][-1] < tp["loss"][0], "tp loss falls", tp["loss"])
+    # (2) the float32 guard, each strategy
+    f32 = lead["f32"]
+    for name, g in f32.items():
+        g["worst_leaf"] = max(g["grad_gap_of_scale"].items(),
+                              key=lambda kv: kv[1])
+        check(g["loss_rel"] <= TP_F32_LOSS, f"{name} float32 loss",
+              g["loss_rel"])
+        check(g["worst_leaf"][1] <= TP_F32_GRAD, f"{name} float32 leaves",
+              g["worst_leaf"])
+    # (4) tp_sp and fsdp in bf16 against the world of one
+    sp_one, strategies = lead["sp_one"], {}
+    mb1 = lead["sp_one_mb1"]
+    strategies["control_one_microbatch"] = {
+        "loss_rel": _rel_gap(mb1["loss"][0], sp_one["loss"][0]),
+        "grad_norm_rel": _rel_gap(mb1["grad_norm"][0],
+                                  sp_one["grad_norm"][0]),
+        "leaf_norm_rel": {k_: _rel_gap(mb1["leaf_norms"][k_], v)
+                          for k_, v in sp_one["leaf_norms"].items() if v > 0}}
+    for key, ref in (("tp_sp", sp_one), ("fsdp", mb1)):
+        run = lead[key]
+        leaves = {k_: _rel_gap(run["leaf_norms"][k_], v)
+                  for k_, v in ref["leaf_norms"].items() if v > 0}
+        strategies[key] = {
+            "world_of_one": ("2 microbatches of 1 row" if ref is sp_one
+                             else "1 microbatch of 2 rows"),
+            "loss": run["loss"][0], "loss_one": ref["loss"][0],
+            "loss_rel": _rel_gap(run["loss"][0], ref["loss"][0]),
+            "grad_norm": run["grad_norm"][0],
+            "grad_norm_one": ref["grad_norm"][0],
+            "grad_norm_rel": _rel_gap(run["grad_norm"][0],
+                                      ref["grad_norm"][0]),
+            "grad_norm_rel_other_one": _rel_gap(
+                run["grad_norm"][0],
+                (mb1 if ref is sp_one else sp_one)["grad_norm"][0]),
+            "leaf_norm_rel": leaves,
+            "leaf_norms_one": ref["leaf_norms"]}
+        check(strategies[key]["loss_rel"] <= TP_LOSS_RTOL, f"{key} loss",
+              strategies[key]["loss_rel"])
+        check(strategies[key]["grad_norm_rel"] <= TP_NORM_RTOL,
+              f"{key} grad norm", strategies[key]["grad_norm_rel"])
+    # (5) rwkv6-3b
+    rwkv, r_one = lead["rwkv"], lead["rwkv_one"]
+    r_gap = _rel_gap(rwkv["loss"][0], r_one["loss"][0])
+    check(r_gap <= TP_LOSS_RTOL, "rwkv loss", rwkv["loss"], r_one["loss"])
+    guard = lead["rwkv_guard"]
+    ctl = guard["jitter_control_gap_of_scale"]
+    guard["gap_of_limit"] = {
+        k_: v / max(TP_F32_GRAD, TP_RWKV_CONTROL * ctl[k_])
+        for k_, v in guard["grad_gap_of_scale"].items()}
+    guard["worst_leaf"] = max(guard["gap_of_limit"].items(),
+                              key=lambda kv: kv[1])
+    check(guard["loss_rel"] <= TP_F32_LOSS, "rwkv float32 loss",
+          guard["loss_rel"])
+    check(guard["worst_leaf"][1] <= 1.0, "rwkv float32 leaves",
+          guard["worst_leaf"])
+    half = get_config(TP_RWKV_ARCH).n_heads // 2
+    check(half == WKV_TP_CASE[3], "K6 checked at the path's heads", half)
+    for r in two:
+        calls = r["rwkv"]["k6_calls_by_heads"]
+        check(set(calls) == {f"wkv6 H{half}", f"wkv6_bwd H{half}"},
+              "K6 heads", calls)
+        got = r["rwkv"]["launches"][0]
+        check(got.get("wkv6", 0) > 0 and got.get("wkv6_bwd", 0) > 0,
+              "K6 launches", got)
+    # (3) int8 over "pod" at (2, 1, 2)
+    for r in four:
+        for i, got in enumerate(r["int8"]["launches"]):
+            k4 = {k_: got.get(k_, 0) for k_ in TRAIN_K4}
+            check(k4 == TRAIN_K4, "K4 launches an int8 step", i, got)
+        for got in r["exact"]["launches"]:
+            check(not any(got.get(k_, 0) for k_ in TRAIN_K4),
+                  "no K4 in an exact step", got)
+        check(all(np.isfinite(r["int8"]["loss"] + r["exact"]["loss"])),
+              "pod losses finite", r["int8"]["loss"], r["exact"]["loss"])
+        check(all(a != b for a, b in zip(r["int8"]["loss"][1:],
+                                         r["exact"]["loss"][1:])),
+              "int8 not exact", r["int8"]["loss"], r["exact"]["loss"])
+        pod = r["int8"]["collectives"][0]["pod"]["bytes"]
+        check(set(pod.get("all_to_all", {})) == {"uint8"}, "int8 wire", pod)
+        x8, ex = r["int8"], r["exact"]
+        check(_rel_gap(x8["grad_norm"][0], ex["grad_norm"][0])
+              <= TP_INT8_NORM, "int8 step-1 gradient norm",
+              x8["grad_norm"][0], ex["grad_norm"][0])
+        check(all(abs(a - b) <= TZ_INT8_REL * abs(b)
+                  for a, b in zip(x8["loss"], ex["loss"])),
+              "int8 losses", x8["loss"], ex["loss"])
+        for got in r["int8"].get("k4_by_shape", []):
+            unchecked = {key for key in got if int(key.split(" N")[-1])
+                         not in TP_K4_CHUNKS}
+            check(not unchecked, "K4 at an unchecked chunk", unchecked)
+    pod_gap = abs(four[0]["int8"]["loss"][-1] - four[0]["exact"]["loss"][-1])
+    pod_norm_gap = _rel_gap(four[0]["int8"]["grad_norm"][0],
+                            four[0]["exact"]["grad_norm"][0])
+    # this phase's launches of K4 and K6, every rank and step
+    launches, by_shape = collections.Counter(), collections.Counter()
+    for r in two:
+        for key in ("tp", "tp_sp", "fsdp", "rwkv"):
+            for got in r[key]["launches"]:
+                launches.update({k_: v for k_, v in got.items()
+                                 if k_ in TP_KERNELS})
+        by_shape.update(r["rwkv"]["k6_calls_by_heads"])
+    for r in four:
+        for name in ("exact", "int8"):
+            for got in r[name]["launches"]:
+                launches.update({k_: v for k_, v in got.items()
+                                 if k_ in TP_KERNELS})
+            for got in r[name].get("k4_by_shape", []):
+                by_shape.update(got)
+    per_step = lambda run: [{key: run[key][i] for key in (
+        "loss", "grad_norm", "ms", "wall_ms", "peak_gb", "collectives")}
+        for i in range(len(run["loss"]))]
+    emit("train_tp", card=nvidia_smi_line(),
+         note="gloo ranks sharing one card: times are oversubscription, "
+              "not scaling",
+         reduced=TP_REDUCED, failed=failed,
+         gemma3_1b_tp={"ranks": [per_step(r["tp"]) for r in two],
+                       "world_of_one": per_step(one),
+                       "bytes": tp["bytes"], "rules_bytes": tp["rules_bytes"],
+                       "bytes_model_one": one["bytes"], **gaps},
+         float32_guard=f32,
+         strategies=strategies,
+         pod_int8={"ranks": [{name: per_step(r[name]) for name in r}
+                             for r in four],
+                   "k4_launches_per_step": {k_: four[0]["int8"]["launches"][
+                       0].get(k_, 0) for k_ in TRAIN_K4},
+                   "k4_calls_by_shape_rank0": four[0]["int8"]["k4_by_shape"],
+                   "int8_exact_gap_last_step": pod_gap,
+                   "int8_exact_grad_norm_rel_step1": pod_norm_gap},
+         rwkv6_3b_tp={"ranks": [per_step(r["rwkv"]) for r in two],
+                      "world_of_one": per_step(r_one), "loss_rel": r_gap,
+                      "k6_calls_by_heads": [r["rwkv"]["k6_calls_by_heads"]
+                                            for r in two],
+                      "float32_guard": guard},
+         kernels_at_phase_shapes=kernels,
+         launches=dict(launches), launches_by_shape=dict(by_shape),
+         limits={"loss_rel": TP_LOSS_RTOL, "grad_norm_rel": TP_NORM_RTOL,
+                 "float32_loss_rel": TP_F32_LOSS,
+                 "float32_grad_of_scale": TP_F32_GRAD,
+                 "rwkv_float32_grad_of_control": TP_RWKV_CONTROL,
+                 "int8_grad_norm_rel_step1": TP_INT8_NORM,
+                 "int8_loss_of_exact": TZ_INT8_REL,
+                 "wkv6_bwd_rtol_of_scale": WKV_BWD_RTOL,
+                 "wkv6_rtol_atol": WKV_TOL, "k4": "bit-identical",
+                 "k4_launches_per_int8_step": TRAIN_K4},
+         seconds_kernel_checks=t_kernels, seconds_two_ranks=t_two,
+         seconds=time.perf_counter() - t_phase)
+    assert not failed, failed
+    return {"launches": dict(launches), "by_shape": dict(by_shape),
+            "max_abs_err": kernels["max_abs_err"]}
+
+
+def add_train_tp_launches(kernels: list, tp_ctx) -> None:
+    """Each K4 and K6 row of the kernels line also carries its launches on
+    the train_tp phase's paths (every rank and step), by shape, and its
+    largest error against its plain version at those shapes."""
+    for row in kernels:
+        base = row["name"].split("/")[0]
+        if base in TP_KERNELS:
+            row["train_tp_launches"] = tp_ctx["launches"].get(base, 0)
+            if base in tp_ctx["max_abs_err"]:
+                row["train_tp_max_abs_err"] = tp_ctx["max_abs_err"][base]
+            row["train_tp_launches_by_shape"] = {
+                key: v for key, v in tp_ctx["by_shape"].items()
+                if key.split(" ")[0] == base}
 
 
 def sync_sites(fn) -> list:
@@ -4807,6 +5434,12 @@ def main() -> None:
                            "the other families' smoke configs card vs CPU "
                            "and int8) and stop: its kernels rows and the "
                            "last line as in a full run")
+    only.add_argument("--train-tp-only", action="store_true",
+                      help="build the WKV6 and block-quantize kernels, run "
+                           "the train_tp phase (tensor parallelism over "
+                           "'model' on gloo ranks sharing the card) and "
+                           "stop: the card's line and the last line as in "
+                           "a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -4828,7 +5461,8 @@ def main() -> None:
     names = (["wkv6"] if args.k6_only
              else ["decode_attn"] if args.k5_only or args.zoo_only
              else ["quantize"] if args.k4_only or args.train_only
-             else ["wkv6", "quantize"] if args.train_zoo_only
+             else ["wkv6", "quantize"] if (args.train_zoo_only
+                                           or args.train_tp_only)
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -4881,6 +5515,16 @@ def main() -> None:
                 json.dump({**RESULT, "kernels": rows}, fh, indent=1)
         print(smi, flush=True)
         print(json.dumps({"kernels": rows}), flush=True)
+        print_last_line()
+        return
+    if args.train_tp_only:
+        run_train_tp()
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(RESULT, fh, indent=1)
+        print(smi, flush=True)
         print_last_line()
         return
     if args.sharded_only:
@@ -4986,6 +5630,8 @@ def main() -> None:
     _free()
     train_zoo_ctx = run_train_zoo()
     _free()
+    train_tp_ctx = run_train_tp()
+    _free()
     lm_zoo = run_lm_zoo()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
     wire_row = lambda name: (wire_times["row_D1"][name],
@@ -5050,6 +5696,8 @@ def main() -> None:
     kernels += train_kernel_rows(train_ctx)
     # K6's backward and K6 at rwkv6-3b's training shape (phase train_zoo)
     kernels += train_zoo_kernel_rows(train_zoo_ctx)
+    # every K4 and K6 row: its launches on the train_tp phase's paths
+    add_train_tp_launches(kernels, train_tp_ctx)
     # K5 on the zoo's paths: a row a model and layer kind, timed at that
     # shape, with the calls its model's generate made there
     zoo_case = zoo_da_cases()

@@ -9,6 +9,9 @@ rank running the same program (SPMD; ``launch/mesh.py::Mesh``):
     lax.all_to_all(x, axis, 0, 0,      all_to_all(x, mesh)  dist.all_to_all_single
                    tiled=True)
     lax.all_gather(x, axis)            all_gather(x, mesh)  dist.all_gather
+    lax.psum_scatter(x, axis, 0,       reduce_scatter(x,    dist.reduce_scatter_tensor
+                     tiled=True)         mesh)              (NCCL; gloo: all_to_all
+                                                            and a sum in rank order)
     axis_size(axis), axis_index(axis)  axis_size(mesh), axis_index(mesh)
 
 Every function returns a new tensor (``all_reduce`` works in place on a
@@ -47,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CollectiveStats", "psum", "pmean", "all_to_all", "all_gather",
-           "axis_size", "axis_index", "send_tensor", "recv_tensor",
+           "reduce_scatter", "axis_size", "axis_index", "send_tensor", "recv_tensor",
            "broadcast_object", "gather_object"]
 
 
@@ -161,6 +164,34 @@ def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
 
     out = _run("all_gather", mesh, send, out, call)
     return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape))
+
+
+def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``lax.psum_scatter(x, scatter_dimension=0, tiled=True)``: x (D * k,
+    ...) summed over the mesh, rank d keeping block d (k, ...). Under NCCL
+    one ``reduce_scatter_tensor``. Under gloo (whose reduce-scatter some
+    builds lack) the blocks travel by ``all_to_all`` and each rank adds the
+    D blocks it received in rank order, as ``compressed_psum``'s phase 1
+    does: the bits depend on nothing but the summands."""
+    if x.shape[0] % mesh.size:
+        raise ValueError(f"reduce_scatter: axis 0 ({x.shape[0]}) is not a "
+                         f"multiple of the mesh size ({mesh.size})")
+    k = x.shape[0] // mesh.size
+    if mesh.backend == "nccl":
+        send = x.contiguous()
+        out = torch.empty((k,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        return _run("reduce_scatter", mesh, send, out,
+                    lambda s, o: dist.reduce_scatter_tensor(
+                        o, s, group=mesh.group))
+    send = _wire(x)
+    out = _run("reduce_scatter", mesh, send, torch.empty_like(send),
+               lambda s, o: dist.all_to_all_single(o, s, group=mesh.group))
+    blocks = out.view(x.dtype).reshape((mesh.size, k) + tuple(x.shape[1:]))
+    total = blocks[0]
+    for b in blocks[1:]:
+        total = total + b
+    return total
 
 
 # -- the solve service's commands (rank 0 -> workers) ------------------------

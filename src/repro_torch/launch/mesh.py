@@ -24,7 +24,8 @@ The LM trainer's meshes have named axes, ``("pod",) "data", "model"``:
 ``GridMesh`` lays the world's ranks out row-major over them and holds one
 process group per axis (``mesh.axis(name)``, the 1-D ``Mesh`` that
 ``core/collectives.py`` and ``compressed_psum`` take) and one over the
-data axes together (``mesh.axes(("pod", "data"))``, ZeRO-1's). The
+data axes together (``mesh.axes(("pod", "data"))``, ZeRO-1's) and one
+over every axis (the world). The
 reference's ``make_production_mesh`` and ``make_host_mesh`` build them
 (``make_mesh`` any other).
 
@@ -124,7 +125,9 @@ class GridMesh:
     size}``), ranks laid out row-major: rank = sum of coords[a] x the sizes
     of the axes after a. Each axis, and the data axes together, is a 1-D
     ``Mesh`` over the ranks that share every other coordinate, its ranks in
-    the same row-major order (``axis``, ``axes``)."""
+    the same row-major order (``axis``, ``axes``); every axis together is
+    the world (``axes(tuple(shape))``: ZeRO-1's under 'fsdp', and the
+    gradient norm's)."""
 
     shape: dict
     coords: dict
@@ -183,6 +186,8 @@ def make_mesh(shape, axis_names, device: str | None = None) -> GridMesh:
     data = tuple(a for a in DATA_AXES if a in shape)
     if len(data) > 1:
         groups.append(data)
+    if len(names) > 1 and tuple(names) not in groups:
+        groups.append(tuple(names))          # the world: no new group
     meshes = {}
     for axes in groups:
         others = [a for a in names if a not in axes]

@@ -5,8 +5,10 @@ global batch.
 
 One step, on each rank:
   1. loss and gradients of its rows, microbatch by microbatch (bf16
-     gradients accumulated in float32, divided by the microbatch count);
-  2. gradient fusion: exact (an all-reduce) over "data", and over "pod"
+     gradients accumulated in float32, divided by the microbatch count),
+     on its "model" slices where the mesh has a "model" axis;
+  2. gradient fusion: under 'fsdp' the whole leaves' gradients summed
+     over "model"; exact (an all-reduce) over "data", and over "pod"
      too unless ``compression_bits`` is set; then the paper's lossy
      compressed sum over "pod" (``core/compression.py::compressed_psum``,
      its two phases on the block quantizer K4a, K4b's summing form and
@@ -14,10 +16,12 @@ One step, on each rank:
      with each leaf's noise account summed into ``quant_noise``; the loss
      is averaged the same way, exactly;
   3. AdamW (``optim/adamw.py``) with ZeRO-1 (``zero1``): each rank of the
-     data axes keeps only its slice of master, m and v along the dimension
-     ``opt_state_specs`` chooses, the global gradient norm comes from one
-     all-reduce of the slices' sums of squares, and the new bf16 slices are
-     all-gathered into every rank's parameters.
+     rules' "zero" axes keeps only its slice of master, m and v along the
+     dimension ``opt_state_specs`` chooses, the global gradient norm comes
+     from one all-reduce of the sums of squares of every distinct piece
+     (each "model" slice once, each whole leaf once: the model = 1 clip),
+     and the new bf16 slices are all-gathered into every rank's
+     parameters.
 Nothing in the step reads a value on the host.
 
 A step is functional by default (new parameters and state); with
@@ -34,10 +38,25 @@ batch, ...) each) are cut into this rank's rows and the microbatches as the
 tokens are.
 
 Parameters are the flat dict of the schema's paths (stacked layers on a
-leading axis), bf16, whole on every rank. The "model" axis (tensor
-parallelism) and the 'tp_sp' / 'fsdp' strategies are not ported (ROADMAP
-Queue 1 item 8(h)); nor is ``build_serve_step`` (item 8(i)): serving runs
-through ``launch/serve.py``.
+leading axis), bf16. A "model" axis of m > 1 ranks is tensor parallelism
+(``tensor_parallel.py``) for the dense, MoE and rwkv6 families, under the
+reference's three strategies (``sharding.make_rules``):
+  * 'tp': each rank holds the "model" slices the rules give (heads, mlp
+    columns, experts, vocab rows; ``sharding.model_dims``) and the same
+    rows of the batch as the other "model" ranks of its data coordinate;
+  * 'tp_sp': the same slices, the residual between blocks the rank's rows
+    of the sequence;
+  * 'fsdp': every weight whole but the vocab-parallel embedding and head,
+    the batch split over every axis, ZeRO-1 over the whole mesh; the
+    gradients of the whole leaves are summed over "model" before the
+    fusion.
+Gradients of "model"-sliced leaves are the rank's own; ZeRO-1 slices the
+rank's slice along a dimension the "model" axis leaves whole, over the
+rules' "zero" axes (the reference's ``_rules_with_zero``). rglru and
+whisper at m > 1 and the rules' head_dim fallback raise
+(``NotImplementedError``, ROADMAP.md Queue 1 item 8(h′)); nothing is
+replicated where the rules slice. ``build_serve_step`` is not ported
+(item 8(i)): serving runs through ``launch/serve.py``.
 """
 from __future__ import annotations
 
@@ -50,10 +69,12 @@ from ..core.collectives import all_gather, psum
 from ..core.compression import QuantConfig, compressed_psum
 from ..data.pipeline import batch_rows
 from ..models.layers import init_from_schema
-from ..models.model_api import chunked_xent_loss, schema_for, train_forward
+from ..models.model_api import (TP_FAMILIES, chunked_xent_loss, schema_for,
+                                train_forward)
 from ..optim import (AdamWConfig, adamw_init, adamw_update, adamw_update_,
                      opt_state_specs, zero_dims)
-from ..sharding import make_rules
+from ..sharding import gather_params, make_rules, model_dims, shard_params
+from ..tensor_parallel import STRATEGIES, TensorParallel
 from .mesh import DATA_AXES
 
 __all__ = ["TrainStepConfig", "TrainStep", "build_train_step", "loss_fn"]
@@ -67,23 +88,27 @@ class TrainStepConfig:
     zero1: bool = True
     adamw: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
     moe_groups: int = 16
-    strategy: str = "tp"                  # only 'tp' (no "model" axis) here
+    strategy: str = "tp"                  # 'tp' | 'tp_sp' | 'fsdp' (make_rules)
 
 
 def loss_fn(params: dict, tokens, labels, cfg: ModelConfig,
-            remat: bool = True, n_groups: int = 16, aux: dict | None = None):
+            remat: bool = True, n_groups: int = 16, aux: dict | None = None,
+            tp: TensorParallel | None = None):
     """Mean next-token cross-entropy of the flat ``params`` on (tokens,
-    labels) (B, S), with the stub inputs ``aux`` of those rows."""
-    hidden = train_forward(params, tokens, cfg, remat, n_groups,
+    labels) (B, S), with the stub inputs ``aux`` of those rows; ``tp``: the
+    "model" axis, ``params`` this rank's slices (under 'fsdp' the mean over
+    the "model" group's rows)."""
+    hidden = train_forward(params, tokens, cfg, remat, n_groups, tp,
                            **(aux or {}))
-    return chunked_xent_loss(params, hidden, labels, cfg)
+    return chunked_xent_loss(params, hidden, labels, cfg, tp=tp)
 
 
-def _value_and_grad(params: dict, tokens, labels, cfg, tcfg, aux: dict):
+def _value_and_grad(params: dict, tokens, labels, cfg, tcfg, aux: dict,
+                    tp=None):
     keys = sorted(params)
     leaves = [params[k].detach().requires_grad_(True) for k in keys]
     loss = loss_fn(dict(zip(keys, leaves)), tokens, labels, cfg, tcfg.remat,
-                   tcfg.moe_groups, aux)
+                   tcfg.moe_groups, aux, tp)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), dict(zip(keys, grads))
 
@@ -96,50 +121,122 @@ def _mean_over(x, mesh):
 class TrainStep:
     """The train step of ``cfg`` on ``mesh`` (``launch/mesh.py::GridMesh``):
     ``step(params, opt_state, tokens, labels, aux=None, donate=False)`` ->
-    (new params, new opt_state, metrics), with ``tokens``/``labels`` this
-    rank's rows (``data.batch_rows``) on its device, ``aux`` the stub
-    inputs of the global batch (this rank's rows are taken here) and
-    ``opt_state`` this rank's ZeRO-1 slices (``init_opt_state`` /
-    ``shard_opt_state``). With ``donate`` the given params and opt_state
-    are updated in place and returned. Metrics are 0-dim float32 tensors:
-    ``loss``, ``grad_norm``, ``clip``, ``quant_noise``."""
+    (new params, new opt_state, metrics), with ``params`` this rank's
+    "model" slices (``init_params`` / ``shard_params``; whole leaves on a
+    "model" axis of one), ``tokens``/``labels`` this rank's rows
+    (``data.batch_rows`` over ``batch_axes``) on its device, ``aux`` the
+    stub inputs of the global batch (this rank's rows are taken here) and
+    ``opt_state`` this rank's ZeRO-1 slices of its "model" slices
+    (``init_opt_state`` / ``shard_opt_state``). With ``donate`` the given
+    params and opt_state are updated in place and returned. Metrics are
+    0-dim float32 tensors: ``loss``, ``grad_norm``, ``clip``,
+    ``quant_noise``; every one is the model = 1 step's, up to float32
+    summation order."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
                  tcfg: TrainStepConfig = TrainStepConfig()):
-        if mesh.shape.get("model", 1) > 1 or tcfg.strategy != "tp":
+        if tcfg.strategy not in STRATEGIES:
+            raise ValueError(f"strategy={tcfg.strategy!r}: one of "
+                             f"{STRATEGIES}")
+        m = mesh.shape.get("model", 1)
+        if m > 1 and cfg.family not in TP_FAMILIES:
             raise NotImplementedError(
-                f"model={mesh.shape.get('model', 1)}, strategy="
-                f"{tcfg.strategy!r}: tensor parallelism and the 'tp_sp' / "
-                "'fsdp' strategies are not ported (ROADMAP.md Queue 1 item "
-                "8(h)); use a mesh with model=1 and strategy='tp'")
+                f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
+                f"{m} is not ported (ROADMAP.md Queue 1 item 8(h′))")
         if tcfg.compression_bits not in (None, 8, 4):
             raise ValueError(f"compression_bits={tcfg.compression_bits}: "
                              "None, 8 or 4")
         self.cfg, self.mesh, self.shape, self.tcfg = cfg, mesh, shape, tcfg
         self.schema = schema_for(cfg)
         self.param_shapes = {k: ps.shape for k, ps in self.schema.items()}
+        axes = {k: ps.axes for k, ps in self.schema.items()}
         rules = make_rules(cfg, mesh.shape, "train", strategy=tcfg.strategy)
-        specs = opt_state_specs({k: ps.axes for k, ps in self.schema.items()},
-                                mesh.shape, self.param_shapes, rules,
-                                tcfg.zero1)
-        self.zero_dims = zero_dims(specs)
+        fsdp = tcfg.strategy == "fsdp"
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
-        self.zmesh = mesh.axes(self.data_axes) if self.data_axes else None
-        self.compressed = ("pod" in mesh.shape
-                           and tcfg.compression_bits is not None)
-        lo, hi = batch_rows(shape.global_batch, mesh)
+        self.zero_axes = self.data_axes + (("model",) if fsdp and
+                                           "model" in mesh.shape else ())
+        rules["zero"] = self.zero_axes or None
+        self.rules = rules
+        self.model_dims = model_dims(axes, self.param_shapes, mesh.shape,
+                                     rules)
+        if m > 1:
+            self._check_model_axis()
+        specs = opt_state_specs(axes, mesh.shape, self.param_shapes, rules,
+                                tcfg.zero1)
+        self.zero_dims = zero_dims(specs, self.param_shapes, mesh.shape,
+                                   rules)
+        batch = rules["batch"]
+        self.batch_axes = tuple(batch) if isinstance(batch, (tuple, list)) \
+            else ((batch,) if batch else ())
+        lo, hi = batch_rows(shape.global_batch, mesh, self.batch_axes)
         self.row0, self.rows = lo, hi - lo
+        if fsdp and m > 1 and self.rows == shape.global_batch:
+            raise ValueError(f"'fsdp': a global batch of "
+                             f"{shape.global_batch} does not split over "
+                             f"{self.batch_axes}")
+        if tcfg.strategy == "tp_sp" and m > 1 and shape.seq_len % m:
+            raise ValueError(f"'tp_sp': a sequence of {shape.seq_len} does "
+                             f"not split over {m} 'model' ranks")
         if self.rows % tcfg.microbatches:
             raise ValueError(f"{self.rows} rows a rank do not split into "
                              f"{tcfg.microbatches} microbatches")
+        self.dmesh = mesh.axes(self.data_axes) if self.data_axes else None
+        self.zmesh = mesh.axes(self.zero_axes) if self.zero_axes else None
+        self.tp = (TensorParallel(mesh.axis("model"), tcfg.strategy,
+                                  self.model_dims) if m > 1 else None)
+        self.world = mesh.axes(tuple(mesh.shape)) if m > 1 else self.zmesh
+        self.compressed = ("pod" in mesh.shape
+                           and tcfg.compression_bits is not None)
+        self._owner = {k: self._owns(k) for k in self.param_shapes}
+
+    def _check_model_axis(self) -> None:
+        """The slices the forward needs under the rules: the vocab rows,
+        and (but under 'fsdp') the attention's or the WKV's heads."""
+        need = ["embed/table"]
+        if self.tcfg.strategy != "fsdp":
+            need.append("layers/wr" if self.cfg.family == "rwkv6"
+                        else "layers/wq")
+        for k in need:
+            if self.model_dims[k] is None:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: {k} whole on a 'model' axis of "
+                    f"{self.mesh.shape['model']} under "
+                    f"{self.tcfg.strategy!r} (ROADMAP.md Queue 1 item "
+                    "8(h′))")
+
+    def _owns(self, k: str) -> bool:
+        """Whether this rank's piece of leaf ``k`` counts in the gradient
+        norm: pieces are distinct along the axes that slice the leaf
+        ("model" if it has a "model" dimension, the "zero" axes if its
+        state is ZeRO-sliced) and copies along the others, of which the
+        rank at coordinate 0 counts."""
+        split = set()
+        if self.model_dims[k] is not None:
+            split.add("model")
+        if self.zero_dims[k] is not None:
+            split.update(self.zero_axes)
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.shape
+                   if a not in split)
 
     # -- state ---------------------------------------------------------------
 
     def init_params(self, seed: int = 0) -> dict:
-        """A random init of the schema from a ``torch.Generator`` seeded
-        with ``seed`` on the mesh's device: the same on every rank."""
+        """A random init of the schema's whole leaves from a
+        ``torch.Generator`` seeded with ``seed`` on the mesh's device (the
+        same on every rank), and this rank's "model" slices of them."""
         gen = torch.Generator(device=self.mesh.device).manual_seed(seed)
-        return init_from_schema(self.schema, gen, self.mesh.device)
+        return self.shard_params(init_from_schema(self.schema, gen,
+                                                  self.mesh.device))
+
+    def shard_params(self, full: dict) -> dict:
+        """This rank's "model" slices of whole leaves (``sharding.
+        shard_params``; whole leaves are shared)."""
+        return shard_params(full, self.model_dims, self.mesh)
+
+    def gather_params(self, params: dict) -> dict:
+        """The whole leaves from every "model" rank's slices (a collective
+        over "model")."""
+        return gather_params(params, self.model_dims, self.mesh)
 
     def _slice(self, k: str, t):
         d, n = self.zero_dims[k], self._zsize()
@@ -151,18 +248,26 @@ class TrainStep:
     def _zsize(self) -> int:
         return 1 if self.zmesh is None else self.zmesh.size
 
-    def shard_opt_state(self, full: dict) -> dict:
-        """This rank's ZeRO-1 slices of a whole optimizer state (slices are
-        copies, so the whole state can be freed; whole leaves are
-        shared)."""
+    def _zero_slices(self, state: dict) -> dict:
         sl = lambda tree: {k: (v if self._slice(k, v) is v
                                else self._slice(k, v).clone())
                            for k, v in tree.items()}
-        return {"master": sl(full["master"]), "m": sl(full["m"]),
-                "v": sl(full["v"]), "step": full["step"].clone()}
+        return {"master": sl(state["master"]), "m": sl(state["m"]),
+                "v": sl(state["v"]), "step": state["step"].clone()}
+
+    def shard_opt_state(self, full: dict) -> dict:
+        """This rank's slices of a whole optimizer state (a checkpoint's):
+        its "model" slices, then their ZeRO-1 slices (copies, so the whole
+        state can be freed; whole leaves are shared)."""
+        cut = lambda tree: self.shard_params(tree)
+        return self._zero_slices({"master": cut(full["master"]),
+                                  "m": cut(full["m"]), "v": cut(full["v"]),
+                                  "step": full["step"]})
 
     def init_opt_state(self, params: dict) -> dict:
-        return self.shard_opt_state(adamw_init(params))
+        """The ZeRO-1 slices of AdamW's initial state of this rank's
+        ``params``."""
+        return self._zero_slices(adamw_init(params))
 
     def _gather(self, k: str, t):
         d = self.zero_dims[k]
@@ -173,9 +278,9 @@ class TrainStep:
 
     def gather_opt_state(self, opt: dict) -> dict:
         """The whole optimizer state from every rank's slices (a collective:
-        every rank of the data axes calls it)."""
-        gather = lambda tree: {k: self._gather(k, tree[k])
-                               for k in sorted(tree)}
+        every rank calls it)."""
+        gather = lambda tree: self.gather_params(
+            {k: self._gather(k, tree[k]) for k in sorted(tree)})
         return {"master": gather(opt["master"]), "m": gather(opt["m"]),
                 "v": gather(opt["v"]), "step": opt["step"]}
 
@@ -199,7 +304,7 @@ class TrainStep:
                              f"holds {self.rows} rows of the global batch")
         if mb == 1:
             loss, grads = _value_and_grad(params, tokens, labels, self.cfg,
-                                          tcfg, aux)
+                                          tcfg, aux, self.tp)
             return loss, {k: g.to(torch.float32) for k, g in grads.items()}
         tok = tokens.reshape(mb, self.rows // mb, -1)
         lab = labels.reshape(mb, self.rows // mb, -1)
@@ -209,7 +314,7 @@ class TrainStep:
         for i in range(mb):
             loss, grads = _value_and_grad(params, tok[i], lab[i], self.cfg,
                                           tcfg, {k: v[i] for k, v in
-                                                 aux_mb.items()})
+                                                 aux_mb.items()}, self.tp)
             if acc is None:
                 acc = {k: g.to(torch.float32) for k, g in grads.items()}
                 loss_sum = loss
@@ -225,6 +330,11 @@ class TrainStep:
 
     def _fuse(self, loss, grads):
         mesh, noise = self.mesh, None
+        if self.tp is not None and self.tp.strategy == "fsdp":
+            # the loss is the "model" group's mean: the whole leaves'
+            # gradients are each rank's rows' share of it
+            grads = {k: (psum(g, self.tp.mesh) if self.model_dims[k] is None
+                         else g) for k, g in grads.items()}
         if self.compressed:
             if "data" in mesh.shape:
                 data = mesh.axis("data")
@@ -237,9 +347,9 @@ class TrainStep:
                 grads[k] = fused.div_(pod.size)
                 noise = nv if noise is None else noise + nv
             loss = _mean_over(loss, pod)
-        elif self.zmesh is not None:
-            loss = _mean_over(loss, self.zmesh)
-            grads = {k: _mean_over(g, self.zmesh) for k, g in grads.items()}
+        elif self.dmesh is not None:
+            loss = _mean_over(loss, self.dmesh)
+            grads = {k: _mean_over(g, self.dmesh) for k, g in grads.items()}
         if noise is None:
             noise = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, grads, noise
@@ -250,20 +360,17 @@ class TrainStep:
                                   self._aux_rows(aux))
         with torch.no_grad():
             loss, grads, noise = self._fuse(loss, grads)
-            nz = self._zsize()
             g_s = {k: self._slice(k, g) for k, g in grads.items()}
             p_s = {k: self._slice(k, p) for k, p in params.items()}
             norm_sq = None
-            if nz > 1:
-                # every sharded leaf's slice once; a whole leaf on rank 0 only
-                owner = self.zmesh.rank == 0
+            if self.world is not None and self.world.size > 1:
+                # every distinct piece of a leaf once (``_owns``)
                 norm_sq = torch.stack([
-                    g_s[k].square().sum()
-                    if self.zero_dims[k] is not None or owner
+                    g_s[k].square().sum() if self._owner[k]
                     else torch.zeros((), dtype=torch.float32,
                                      device=g_s[k].device)
                     for k in sorted(g_s)])
-                norm_sq = psum(norm_sq, self.zmesh)
+                norm_sq = psum(norm_sq, self.world)
             if donate:
                 metrics = adamw_update_(p_s, g_s, opt_state, self.tcfg.adamw,
                                         norm_sq=norm_sq, loss=loss)

@@ -326,11 +326,13 @@ def out_proj(ctx, wo, cfg):
 # mlp / embedding
 # ---------------------------------------------------------------------------
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, down=mm):
+    """The gated MLP; ``down`` makes its last product (the "model" axis's
+    row-parallel partial sum, ``tensor_parallel.row_mm``)."""
     gate = mm(x, w_gate)
     up = mm(x, w_up)
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return mm(act, w_down)
+    return down(act, w_down)
 
 
 def gelu(x):

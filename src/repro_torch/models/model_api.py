@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..tensor_parallel import gather_stack, reduce_from_model
 from . import rglru, rwkv6, transformer, whisper
 from .layers import init_from_schema
 
@@ -287,21 +288,34 @@ def param_view(params: dict, cfg: ModelConfig):
     return _view(_tree(state_from_flat(params, cfg)))
 
 
+TP_FAMILIES = ("dense", "moe", "rwkv6")   # the families with a "model" form
+
+
 def train_forward(params: dict, tokens, cfg: ModelConfig,
-                  remat: bool = True, n_groups: int = 16, **aux):
+                  remat: bool = True, n_groups: int = 16, tp=None, **aux):
     """The training forward of the flat ``params`` over ``tokens`` (B, S):
     the final hidden (B, S, D), every family dispatched as the reference's
     ``get_model`` does. ``n_groups``: the MoE layers' token groups (the
     step's ``moe_groups``); ``aux``: the stub inputs ``aux_inputs``
-    describes (whisper's ``frames``, qwen2-vl's ``vision_embeds``)."""
+    describes (whisper's ``frames``, qwen2-vl's ``vision_embeds``).
+
+    ``tp`` (a ``tensor_parallel.TensorParallel``, or None): the "model"
+    axis, ``params`` holding this rank's slices. The hidden state is then
+    'tp' (B, S, D) on every rank of the axis, 'tp_sp' the rank's (B, S/m,
+    D) rows of the sequence, 'fsdp' (B, S, D) of the rank's own rows; the
+    loss takes it with the same ``tp``."""
     view = param_view(params, cfg)
+    if tp is not None and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no 'model' form "
+            "(ROADMAP.md Queue 1 item 8(h′))")
     if cfg.family in ("dense", "moe"):
         hidden, _ = transformer.dense_forward(
             view, tokens, cfg, "train", aux.get("vision_embeds"), remat,
-            n_groups)
+            n_groups, tp)
     elif cfg.family == "rwkv6":
         hidden, _ = rwkv6.rwkv6_forward(view, tokens, cfg, "train",
-                                        remat=remat)
+                                        remat=remat, tp=tp)
     elif cfg.family == "rglru":
         hidden, _ = rglru.rglru_forward(view, tokens, cfg, "train",
                                         remat=remat)
@@ -313,40 +327,80 @@ def train_forward(params: dict, tokens, cfg: ModelConfig,
     return hidden
 
 
+def _chunk_logits(hc, table):
+    """Float32 logits of one chunk: the hidden state rounded to bf16 (the
+    reference's ``hc.astype(jnp.bfloat16)``) against the table rows."""
+    return torch.matmul(hc.to(torch.bfloat16).float(), table.float().T)
+
+
 def _chunk_xent(hc, lc, mc, table, vocab_ok):
-    """Summed cross-entropy of one chunk: float32 logits of bf16 operands,
-    the padded vocab at -inf."""
-    logits = torch.matmul(hc.to(torch.bfloat16).float(), table.float().T)
+    """Summed cross-entropy of one chunk: ``_chunk_logits``, the padded
+    vocab at -inf."""
+    logits = _chunk_logits(hc, table)
     logits = torch.where(vocab_ok, logits, -math.inf)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
     return ((lse - gold) * mc).sum()
 
 
+def _chunk_xent_tp(hc, lc, mc, table, vocab_ok, mesh):
+    """``_chunk_xent`` over the vocab rows ``table`` (V/m, D) of this rank
+    of ``mesh`` ("model"): its logits (the padding at -inf by global
+    index), the log-sum-exp of every rank's log-sum-exp, and the gold logit
+    from the rank that holds the label's row, all in float32. The same
+    value on every rank."""
+    v0, vl = mesh.rank * table.shape[0], table.shape[0]
+    logits = _chunk_logits(hc, table)
+    logits = torch.where(vocab_ok, logits, -math.inf)
+    lse = torch.logsumexp(gather_stack(torch.logsumexp(logits, dim=-1),
+                                       mesh), dim=0)
+    local = lc.long() - v0
+    own = (local >= 0) & (local < vl)
+    gold = torch.take_along_dim(logits, local.clamp(0, vl - 1)[..., None],
+                                dim=-1)[..., 0]
+    gold = reduce_from_model(torch.where(own, gold, 0.0), mesh)
+    return ((lse - gold) * mc).sum()
+
+
 def chunked_xent_loss(params: dict, hidden, labels, cfg: ModelConfig,
-                      chunk: int = 512, label_mask=None):
+                      chunk: int = 512, label_mask=None, tp=None):
     """Mean cross-entropy of ``hidden`` (B, S, D) against ``labels`` (B, S)
     without materialising (B, S, V) logits: over sequence chunks of at most
     ``chunk`` (the largest that divides S), each chunk's logits recomputed
     in backward (a checkpoint: no (B, chunk, V) tensor is saved for
     backward, the reason the reference checkpoints its scan body). The
     padded vocab is masked to -inf; ``label_mask`` (B, S) weights the
-    tokens; sum / max(count, 1). ``params`` is the flat parameter dict."""
+    tokens; sum / max(count, 1). ``params`` is the flat parameter dict.
+
+    With ``tp`` (the "model" axis, ``train_forward``'s) the head is this
+    rank's vocab rows and the loss vocab-parallel (``_chunk_xent_tp``), of
+    the rows ``tp.loss_inputs`` gives: under 'fsdp' the mean over the
+    "model" group's rows, the same on each of its ranks."""
     table = params.get("lm_head/table", params["embed/table"])
+    if label_mask is None:
+        label_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                device=hidden.device)
+    if tp is not None:
+        hidden, labels, label_mask = tp.loss_inputs(hidden, labels,
+                                                    label_mask)
+        v0 = tp.rank * table.shape[0]
+        vocab_ok = torch.arange(v0, v0 + table.shape[0],
+                                device=hidden.device) < cfg.vocab
+        fn, extra = _chunk_xent_tp, (tp.mesh,)
+    else:
+        vocab_ok = torch.arange(cfg.vocab_padded,
+                                device=hidden.device) < cfg.vocab
+        fn, extra = _chunk_xent, ()
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     while s % chunk:
         chunk -= 1
-    if label_mask is None:
-        label_mask = torch.ones(labels.shape, dtype=torch.float32,
-                                device=hidden.device)
-    vocab_ok = torch.arange(cfg.vocab_padded, device=hidden.device) < cfg.vocab
     tot = cnt = None
     for i0 in range(0, s, chunk):
         sl = slice(i0, i0 + chunk)
         mc = label_mask[:, sl].to(torch.float32)
-        loss = checkpoint(_chunk_xent, hidden[:, sl], labels[:, sl], mc,
-                          table, vocab_ok, use_reentrant=False,
+        loss = checkpoint(fn, hidden[:, sl], labels[:, sl], mc, table,
+                          vocab_ok, *extra, use_reentrant=False,
                           preserve_rng_state=False)
         tot = loss if tot is None else tot + loss
         cnt = mc.sum() if cnt is None else cnt + mc.sum()

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..tensor_parallel import row_mm
 from .layers import mm_f32
 
 __all__ = ["moe_mlp", "route"]
@@ -75,10 +76,18 @@ def route(xf, router_w, top_k: int):
     return gates, e_idx
 
 
-def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg, n_groups: int = 16):
+def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg, n_groups: int = 16,
+            tp=None):
     """x: (B, S, D) -> (B, S, D). Expert weights (E, D, F) / (E, F, D);
     the B * S tokens cut into the largest number of groups up to
-    ``n_groups`` that divides them."""
+    ``n_groups`` that divides them.
+
+    ``tp`` (the "model" axis, x the region's input, the expert weights the
+    rank's slices): the router, the sort and the capacity run alike on
+    every rank, so each drops the same slots; each rank runs its E/m
+    experts' rows of the buffer (or every expert on its d_ff/m columns)
+    and the gather back gives the other experts' slots zero. Returns the
+    rank's partial sum in float32, for ``tp.leave``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tokens = b * s
@@ -91,24 +100,33 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg, n_groups: int = 16):
     xf = x.reshape(g, t_g, d)
     gates, e_idx = route(xf, router_w, k)
     buf, dest, keep = _dispatch_group(xf, e_idx, capacity, e)
-    # expert FFN (SwiGLU), batched over the experts: (E, G*C, D)
+    # expert FFN (SwiGLU), batched over the experts: (E, G*C, D), of them
+    # the rank's el experts from e0 (every one on a d_ff slice: e0 = 0)
     buf = buf[:, :-1].reshape(g, e, capacity, d).transpose(0, 1).reshape(
         e, g * capacity, d)
+    el = w_gate.shape[0]
+    e0 = tp.rank * el if tp is not None and el < e else 0
+    mine = buf.narrow(0, e0, el)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, router_w, w_gate, w_up, w_down))
-    act = torch.nn.functional.silu(torch.matmul(buf, w_gate).float(),
+    act = torch.nn.functional.silu(torch.matmul(mine, w_gate).float(),
                                    inplace=not grad).to(x.dtype)
-    up = torch.matmul(buf, w_up)
+    up = torch.matmul(mine, w_up)
     act = act * up if grad else act.mul_(up)
-    del buf, up
-    out = torch.matmul(act, w_down)                    # (E, G*C, D)
+    del buf, mine, up
+    # each expert's d_ff sliced: the down product's partial sums (float32)
+    out = (row_mm(act, w_down) if tp is not None and el == e
+           else torch.matmul(act, w_down))              # (el, G*C, D)
     del act
-    # gather back (a dropped slot from the zero row) + combine
-    flat = x.new_zeros((g, e * capacity + 1, d))
-    flat[:, :-1].view(g, e, capacity, d).copy_(
-        out.view(e, g, capacity, d).transpose(0, 1))
+    # gather back (a dropped slot, or another rank's expert, from a zero
+    # row) + combine
+    flat = out.new_zeros((g, e * capacity + 1, d))
+    flat[:, e0 * capacity:(e0 + el) * capacity].view(
+        g, el, capacity, d).copy_(out.view(el, g, capacity, d).transpose(0, 1))
     del out
     rows = torch.gather(flat, 1, dest[..., None].expand(-1, -1, d))
     w = (gates.reshape(g, t_g * k) * keep).to(x.dtype)
-    y = (rows * w[..., None]).reshape(g, t_g, k, d).sum(dim=2)
-    return y.reshape(b, s, d)
+    y = (rows * w[..., None].to(rows.dtype)).reshape(g, t_g, k, d)
+    if tp is not None:
+        return y.sum(dim=2, dtype=torch.float32).reshape(b, s, d)
+    return y.sum(dim=2).reshape(b, s, d)

@@ -17,6 +17,10 @@ the same values, and a layer's backward holds the activations of one half
 at a time (at rwkv6-3b's 2 x 4096 tokens a half saves 2.4-2.7 GB).
 ``WKV6Function``'s backward is the WKV6 backward kernel on the card (the
 reference lets ``jax.grad`` differentiate its jnp ``wkv_chunked``).
+
+Under a "model" axis (``tp``, ``tensor_parallel.py``) a rank runs its
+H/m heads (K6 and its backward on (B, T, H/m, Dh)) and its d_ff/m columns
+of the channel mix; the decay is computed for the rank's channels only.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.wkv6.ops import WKV6Function
 from ..kernels.wkv6.ref import wkv_chunked, wkv_scan_ref
+from ..tensor_parallel import row_mm
 from .layers import ParamSchema, Schema, embed_tokens, mm, mm_f32, rms_norm
 
 __all__ = ["rwkv6_schema", "rwkv6_forward", "rwkv6_decode_step",
@@ -85,22 +90,35 @@ def _head_norm(y, scale, eps):
     return yf * torch.rsqrt(var + eps) * (1.0 + scale.float())
 
 
-def _time_mix(x, lp, cfg, shift_last, wkv_state):
+def _time_mix(x, lp, cfg, shift_last, wkv_state, tp=None):
+    """The time mix of x (B, T, D). Under ``tp`` (x the region's input,
+    ``lp`` the rank's slices) on this rank's heads: r/k/v/g column
+    products, the decay of the rank's channels only, K6 on (B, T, H/m,
+    Dh), u and ln_x the rank's heads, and the output wo's partial sum in
+    float32. The token-shift mix and the decay LoRAs are whole leaves
+    feeding every head: they enter through ``tp.rep``, so their gradients
+    are summed over "model" and whole."""
     b, t, d = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
+    dh = cfg.d_head
+    rep, cols = (lambda w: w), slice(None)
+    h = lp.wr.shape[-2]
+    if tp is not None:
+        heads = tp.local_heads(cfg.n_heads, h)
+        rep, cols = tp.rep, slice(heads.start * dh, heads.stop * dh)
     xx = _token_shift(x, shift_last) - x
-    xxx = x + xx * lp.mu_x
+    xxx = x + xx * rep(lp.mu_x)
     # LoRA projections in float32
-    s5 = torch.tanh(mm_f32(xxx, lp.mix_w1)).reshape(b, t, 5, _LORA_MIX)
-    mu_dyn = torch.einsum("btfr,frd->btfd", s5, lp.mix_w2.float())
-    mu = lp.mu_rkvwg.float()[None, None] + mu_dyn               # (B, T, 5, D)
+    s5 = torch.tanh(mm_f32(xxx, rep(lp.mix_w1))).reshape(b, t, 5, _LORA_MIX)
+    mu_dyn = torch.einsum("btfr,frd->btfd", s5, rep(lp.mix_w2).float())
+    mu = rep(lp.mu_rkvwg).float()[None, None] + mu_dyn          # (B, T, 5, D)
     xr, xk, xv, xw, xg = (x + xx * mu[:, :, i].to(x.dtype) for i in range(5))
 
     r, k, v = mm(xr, lp.wr), mm(xk, lp.wk), mm(xv, lp.wv)
     g = torch.nn.functional.silu(mm(xg, lp.wg).float())
 
     # Finch data-dependent decay, clamped for the chunked float32 basis
-    ww = lp.w0.float() + mm_f32(mm_f32(xw, lp.w_lora1), lp.w_lora2)
+    ww = rep(lp.w0)[cols].float() + mm_f32(mm_f32(xw, rep(lp.w_lora1)),
+                                           rep(lp.w_lora2)[:, cols])
     logw = -torch.exp(torch.clamp(ww, max=math.log(-_LOGW_MIN)))
     logw = logw.reshape(b, t, h, dh)
 
@@ -109,19 +127,27 @@ def _time_mix(x, lp, cfg, shift_last, wkv_state):
     else:
         y, wkv_new = WKV6Function.apply(r, k, v, logw, lp.u, wkv_state)
     y = _head_norm(y, lp.ln_x, cfg.norm_eps) * g
+    if tp is not None:
+        return row_mm(y.to(x.dtype).flatten(-2), lp.wo.flatten(0, 1)), \
+            x[:, -1:], wkv_new
     out = mm(y.to(x.dtype).flatten(-2), lp.wo.flatten(0, 1))
     return out.to(x.dtype), x[:, -1:], wkv_new
 
 
-def _channel_mix(x, lp, shift_last):
+def _channel_mix(x, lp, shift_last, tp=None):
+    """The channel mix of x; under ``tp`` on the rank's d_ff columns
+    (cmix_wk column-, cmix_wv row-parallel, cmix_wr and the mix weights
+    whole through ``tp.rep``), the partial sum of rr * vv in float32."""
+    rep = (lambda w: w) if tp is None else tp.rep
     xx = _token_shift(x, shift_last) - x
-    xk = x + xx * lp.cmix_mu_k
-    xr = x + xx * lp.cmix_mu_r
+    xk = x + xx * rep(lp.cmix_mu_k)
+    xr = x + xx * rep(lp.cmix_mu_r)
     kk = mm(xk, lp.cmix_wk)
     kk = torch.square(torch.relu(kk.float())).to(x.dtype)
-    vv = mm(kk, lp.cmix_wv)
-    rr = torch.sigmoid(mm_f32(xr, lp.cmix_wr))
-    return rr.to(x.dtype) * vv, x[:, -1:]
+    rr = torch.sigmoid(mm_f32(xr, rep(lp.cmix_wr)))
+    if tp is not None:
+        return rr.to(x.dtype).float() * row_mm(kk, lp.cmix_wv), x[:, -1:]
+    return rr.to(x.dtype) * mm(kk, lp.cmix_wv), x[:, -1:]
 
 
 def _layer(x, lp, cfg, state):
@@ -145,38 +171,70 @@ def rwkv6_init_state(cfg, batch: int, device="cuda", dtype=torch.bfloat16):
     }
 
 
-def _train_time(x, lp, cfg, zero):
-    """The time-mix half of a training layer from the zero state."""
-    h, _, _ = _time_mix(rms_norm(x, lp.ln1, cfg.norm_eps), lp, cfg, zero,
-                        None)
-    return x + h
+def _zero_shift(x):
+    return torch.zeros((x.shape[0], 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
 
 
-def _train_channel(x, lp, cfg, zero):
-    """The channel-mix half of a training layer from the zero state."""
-    h, _ = _channel_mix(rms_norm(x, lp.ln2, cfg.norm_eps), lp, zero)
-    return x + h
+def _train_time(x, lp, cfg, tp=None):
+    """The time-mix half of a training layer from the zero state; under
+    ``tp`` the region of the rank's heads."""
+    if tp is None:
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        return x + _time_mix(h, lp, cfg, _zero_shift(h), None)[0]
+    h = tp.enter(rms_norm(x, tp.norm_weight(lp.ln1), cfg.norm_eps))
+    return x + tp.leave(_time_mix(h, lp, cfg, _zero_shift(h), None, tp)[0],
+                        x.dtype)
+
+
+def _train_channel(x, lp, cfg, tp=None):
+    """The channel-mix half of a training layer from the zero state; under
+    ``tp`` the region of the rank's d_ff columns."""
+    if tp is None:
+        h = rms_norm(x, lp.ln2, cfg.norm_eps)
+        return x + _channel_mix(h, lp, _zero_shift(h))[0]
+    h = tp.enter(rms_norm(x, tp.norm_weight(lp.ln2), cfg.norm_eps))
+    return x + tp.leave(_channel_mix(h, lp, _zero_shift(h), tp)[0], x.dtype)
+
+
+def _check_tp(cfg, tp) -> None:
+    for path in ("layers/wr", "layers/cmix_wk"):
+        if not tp.sliced(path):
+            raise NotImplementedError(
+                f"{cfg.name}: {path} whole on a 'model' axis of {tp.size} "
+                "(ROADMAP.md Queue 1 item 8(h′))")
 
 
 def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
-                  remat: bool = True):
+                  remat: bool = True, tp=None):
     """Full-sequence forward of ``model`` (an ``RWKV6LM``, or a parameter
     view of one: ``model_api.param_view``). Returns (hidden (B, T, D), the
     new state); in mode "train" (hidden, None) from the zero state, each
-    layer's two halves recomputed in backward when ``remat``."""
+    layer's two halves recomputed in backward when ``remat``. ``tp``
+    (train only): the "model" axis, ``model`` holding the rank's slices
+    (``model_api.train_forward``)."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill', 'decode' or "
                          "'train'")
+    if tp is not None and mode != "train":
+        raise ValueError("the 'model' axis is a training form")
     b, _ = tokens.shape
-    x = embed_tokens(model.embed.table, tokens)
+    if tp is not None:
+        x = tp.embed(model.embed.table, tokens)
+        tp = tp.layers
+        if tp is not None:
+            _check_tp(cfg, tp)
+    else:
+        x = embed_tokens(model.embed.table, tokens)
     if mode == "train":
-        zero = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype, device=x.device)
         for lp in model.layers:
             for half in (_train_time, _train_channel):
-                x = (checkpoint(half, x, lp, cfg, zero, use_reentrant=False,
+                x = (checkpoint(half, x, lp, cfg, tp, use_reentrant=False,
                                 preserve_rng_state=False) if remat
-                     else half(x, lp, cfg, zero))
-        return rms_norm(x, model.final_norm.w, cfg.norm_eps), None
+                     else half(x, lp, cfg, tp))
+        w = model.final_norm.w if tp is None else tp.norm_weight(
+            model.final_norm.w)
+        return rms_norm(x, w, cfg.norm_eps), None
     if state is None:
         state = rwkv6_init_state(cfg, b, x.device, x.dtype)
     new = ([], [], [])

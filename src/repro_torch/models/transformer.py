@@ -19,6 +19,13 @@ ones; the reference computes the same function in jnp. The decode cache is
 updated in place at ``pos`` (the reference returns it anew; the values are
 the same).
 
+Training under a "model" axis (``tp``, ``tensor_parallel.py``) runs each
+block as one region on the rank's q heads (K/V heads where they divide;
+where they do not, every K/V head, each local q head meeting the one it
+meets at model = 1, by global index), mlp columns or experts, the residual
+whole ('tp') or the rank's rows of the sequence ('tp_sp'); under 'fsdp'
+only the embedding and the loss are vocab-parallel.
+
 M-RoPE (qwen2-vl): a decode step takes the position its own prefill gives
 that index (``layers.mrope_positions``), where the reference's decode step
 puts the raw index (ROADMAP Queue 3).
@@ -31,9 +38,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn.ops import decode_attention
+from ..tensor_parallel import row_mm
 from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
-                     embed_tokens, mm, mrope_cache, mrope_positions,
-                     mrope_sections, out_proj, rms_norm, rope_cache, swiglu)
+                     embed_tokens, head_mask, mm, mrope_cache,
+                     mrope_positions, mrope_sections, out_proj, rms_norm,
+                     rope_cache, swiglu, weak_scalar)
 from .moe import moe_mlp
 
 __all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache"]
@@ -113,28 +122,48 @@ def _rope_of(ropes, is_local: bool):
     return sin_g, cos_g
 
 
-def _qkv(h, lp, cfg, sin, cos):
-    """Projections, qk-norm and RoPE of the normed input h (B, S, D)."""
-    q, k, v = mm(h, lp.wq), mm(h, lp.wk), mm(h, lp.wv)
+def _qkv(h, lp, cfg, sin, cos, tp=None):
+    """Projections, qk-norm and RoPE of the normed input h (B, S, D). Under
+    ``tp`` (h the region's input) whole K/V weights and the qk-norm weights
+    enter through ``tp.rep``."""
+    rep = (lambda w: w) if tp is None else tp.rep
+    wk, wv = lp.wk, lp.wv
+    if tp is not None and not tp.sliced("layers/wk"):
+        wk, wv = rep(wk), rep(wv)
+    q, k, v = mm(h, lp.wq), mm(h, wk), mm(h, wv)
     if cfg.qk_norm:
-        q = rms_norm(q, lp.q_norm, cfg.norm_eps)
-        k = rms_norm(k, lp.k_norm, cfg.norm_eps)
+        q = rms_norm(q, rep(lp.q_norm), cfg.norm_eps)
+        k = rms_norm(k, rep(lp.k_norm), cfg.norm_eps)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos):
+def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos, tp=None):
     """Causal attention over the whole sequence (prefill), banded to
     ``cfg.window`` on local layers (``layers.causal_attention``). Returns
-    (out (B, S, D), (k, v))."""
+    (out (B, S, D), (k, v)); under ``tp`` on this rank's q heads (its K/V
+    heads where they divide, else the whole K/V heads each meets at
+    model = 1), out the output projection's partial sum in float32 and no
+    (k, v)."""
     b, s, _ = h.shape
-    nh, kv, dh = cfg.h_eff, cfg.kv_eff, cfg.d_head
-    q, k, v = _qkv(h, lp, cfg, sin, cos)
-    qg = q.reshape(b, s, kv, nh // kv, dh)
-    ctx = causal_attention(qg, k, v, cfg.window if is_local else 0,
-                           cfg.attn_q_chunk, cfg.attn_kv_chunk,
-                           cfg.scores_bf16)
-    ctx = ctx.to(h.dtype).reshape(b, s, nh, dh)
-    return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
+    dh = cfg.d_head
+    q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
+    heads = (range(cfg.h_eff) if tp is None
+             else tp.local_heads(cfg.h_eff, lp.wq.shape[-2]))
+    if tp is not None and not tp.sliced("layers/wk"):
+        k, v, (nkv, g) = _kv_for_heads(k, v, heads, cfg)
+    else:
+        nkv = k.shape[2]
+        g = len(heads) // nkv
+    ctx = causal_attention(q.reshape(b, s, nkv, g, dh), k, v,
+                           cfg.window if is_local else 0, cfg.attn_q_chunk,
+                           cfg.attn_kv_chunk, cfg.scores_bf16)
+    ctx = ctx.to(h.dtype).reshape(b, s, len(heads), dh)
+    if tp is None:
+        return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
+    hm = head_mask(cfg, ctx.dtype, ctx.device)
+    if hm is not None:
+        ctx = ctx * hm[heads.start:heads.stop][None, None, :, None]
+    return row_mm(ctx.flatten(-2), lp.wo.flatten(0, 1)), None
 
 
 def _mlp(x, lp, cfg, n_groups: int = N_GROUPS):
@@ -155,43 +184,129 @@ def _layer_body(x, lp, cfg, is_local: bool, ropes, n_groups: int = N_GROUPS):
     return x, kv_out
 
 
-def _train_layer(x, lp, cfg, is_local: bool, ropes, n_groups: int):
+def _train_layer(x, lp, cfg, is_local: bool, ropes, n_groups: int,
+                 tp=None):
+    if tp is not None:
+        return _layer_tp(x, lp, cfg, is_local, ropes, n_groups, tp)
     return _layer_body(x, lp, cfg, is_local, ropes, n_groups)[0]
+
+
+# -- the "model" axis (tensor_parallel.py) --------------------------------------
+
+def _kv_for_heads(k, v, heads: range, cfg):
+    """The K/V heads (whole on every rank: their count does not divide)
+    that the q heads ``heads`` meet at model = 1, by global index (q head i
+    meets kv head i // G), and the grouped shape of the local q heads."""
+    g = cfg.h_eff // cfg.kv_eff
+    n = len(heads)
+    if n % g == 0:                           # whole groups
+        kv0, nkv = heads.start // g, n // g
+        return k.narrow(2, kv0, nkv), v.narrow(2, kv0, nkv), (nkv, g)
+    if g % n == 0:                           # a part of one group
+        kv0 = heads.start // g
+        return k.narrow(2, kv0, 1), v.narrow(2, kv0, 1), (1, n)
+    idx = torch.tensor([i // g for i in heads], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx), (n, 1)
+
+
+def _mlp_tp(h, lp, cfg, n_groups: int, tp):
+    """The MLP of the normed residual h under the "model" axis: experts
+    (or each expert's d_ff) or the mlp columns sliced, as a region; whole
+    weights (d_ff does not divide) computed as at model = 1 on the rows
+    the rank holds."""
+    if cfg.n_experts:
+        if tp.sliced("layers/we_gate"):
+            hin = tp.enter(h)
+            return tp.leave(moe_mlp(hin, tp.rep(lp.router), lp.we_gate,
+                                    lp.we_up, lp.we_down, cfg, n_groups,
+                                    tp=tp), h.dtype)
+        if tp.sp:
+            raise NotImplementedError(
+                f"{cfg.name}: whole experts under 'tp_sp' would route the "
+                "rank's rows apart (ROADMAP.md Queue 1 item 8(h′))")
+        return moe_mlp(h, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
+                       n_groups)
+    if not tp.sliced("layers/w_gate"):
+        return swiglu(h, lp.w_gate, lp.w_up, lp.w_down)
+    return tp.leave(swiglu(tp.enter(h), lp.w_gate, lp.w_up, lp.w_down,
+                           down=row_mm), h.dtype)
+
+
+def _layer_tp(x, lp, cfg, is_local: bool, ropes, n_groups: int, tp):
+    """``_layer_body`` (train) on the rank's slices: x is (B, S, D) under
+    'tp', the rank's (B, S/m, D) rows under 'tp_sp'."""
+    sin, cos = _rope_of(ropes, is_local)
+    h = rms_norm(x, tp.norm_weight(lp.pre_attn_norm), cfg.norm_eps)
+    x = x + tp.leave(_attention_flagged(tp.enter(h), lp, cfg, is_local, sin,
+                                        cos, tp)[0], x.dtype)
+    h = rms_norm(x, tp.norm_weight(lp.pre_mlp_norm), cfg.norm_eps)
+    return x + _mlp_tp(h, lp, cfg, n_groups, tp)
+
+
+def _embed_tp(model, tokens, cfg, vision_embeds, tp):
+    """The embeddings of the rank's part (``TensorParallel.embed``),
+    scaled after the vocab sum, the vision stub written in after it."""
+    x = tp.embed(model.embed.table, tokens)
+    if _embed_scale(cfg):
+        x = x * weak_scalar(math.sqrt(model.embed.table.shape[1]), x.dtype)
+    if vision_embeds is None or not cfg.n_vision_tokens:
+        return x
+    nv, s = vision_embeds.shape[1], tokens.shape[1]
+    if s < nv:
+        raise ValueError(f"{cfg.name}: a prompt of {s} tokens cannot hold "
+                         f"{nv} vision embeddings")
+    rows = tp.seq_rows(s) if tp.sp else range(s)
+    n = max(min(nv, rows.stop) - rows.start, 0)
+    if n == 0:
+        return x
+    vis = vision_embeds[:, rows.start:rows.start + n].to(x.dtype)
+    return torch.cat([vis, x[:, n:]], dim=1)
 
 
 def dense_forward(model, tokens, cfg, mode: str = "prefill",
                   vision_embeds=None, remat: bool = True,
-                  n_groups: int = N_GROUPS):
+                  n_groups: int = N_GROUPS, tp=None):
     """Full-sequence forward of ``model`` (a ``DenseLM``, or a parameter
     view of one: ``model_api.param_view``). Returns (hidden (B, S, D), (k,
     v) caches (L, B, S, KV, Dh)), in mode "train" (hidden, None), each
     layer recomputed in backward when ``remat`` (no activation of a layer
     is kept but its input). ``vision_embeds`` (B, n_vision, D), if given,
     replace the first embeddings (qwen2-vl's stubbed vision tower). MoE
-    layers cut the tokens into ``n_groups`` groups."""
+    layers cut the tokens into ``n_groups`` groups. ``tp`` (train only):
+    the "model" axis, ``model`` holding the rank's slices
+    (``model_api.train_forward``)."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
+    if tp is not None and mode != "train":
+        raise ValueError("the 'model' axis is a training form")
     b, s = tokens.shape
-    x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
-    if vision_embeds is not None and cfg.n_vision_tokens:
-        if s < vision_embeds.shape[1]:
-            raise ValueError(f"{cfg.name}: a prompt of {s} tokens cannot hold "
-                             f"{vision_embeds.shape[1]} vision embeddings")
-        x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+    if tp is not None:
+        x = _embed_tp(model, tokens, cfg, vision_embeds, tp)
+        tp = tp.layers
+    else:
+        x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
+        if vision_embeds is not None and cfg.n_vision_tokens:
+            if s < vision_embeds.shape[1]:
+                raise ValueError(f"{cfg.name}: a prompt of {s} tokens cannot "
+                                 f"hold {vision_embeds.shape[1]} vision "
+                                 "embeddings")
+            x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
     ropes = _ropes_for(cfg, s, x.device, batch=b)
     ks, vs = [], []
     for lp, is_local in zip(model.layers, _is_local_flags(cfg)):
         if mode == "train" and remat:
             x = checkpoint(_train_layer, x, lp, cfg, is_local, ropes,
-                           n_groups, use_reentrant=False,
+                           n_groups, tp, use_reentrant=False,
                            preserve_rng_state=False)
         elif mode == "train":
-            x = _train_layer(x, lp, cfg, is_local, ropes, n_groups)
+            x = _train_layer(x, lp, cfg, is_local, ropes, n_groups, tp)
         else:
             x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes, n_groups)
             ks.append(k)
             vs.append(v)
-    x = rms_norm(x, model.final_norm.w, cfg.norm_eps)
+    w = model.final_norm.w if tp is None else tp.norm_weight(
+        model.final_norm.w)
+    x = rms_norm(x, w, cfg.norm_eps)
     if mode == "train":
         return x, None
     return x, (torch.stack(ks), torch.stack(vs))

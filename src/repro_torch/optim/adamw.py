@@ -11,6 +11,10 @@ rank. The train step (``launch/steps.py``) updates its slice and
 all-gathers the bf16 parameters; ``adamw_update`` itself is the same
 arithmetic on whole leaves or on slices, given the global gradient norm.
 
+Under 'fsdp' the rules' "zero" also takes "model" (the whole mesh): the
+dimension is still chosen by the data axes' size, as the reference's is,
+and stays whole where the whole mesh does not divide it (``zero_dims``).
+
 ``adamw_update_`` is the same step in place (the counterpart of the
 reference's donated buffers): master, m, v and the parameters are
 overwritten piece by piece, with temporaries the size of one piece, and a
@@ -193,8 +197,21 @@ def opt_state_specs(param_specs: dict, mesh_shape: Mapping[str, int],
             "step": ()}
 
 
-def zero_dims(specs: dict) -> dict:
+def zero_dims(specs: dict, param_shapes: dict | None = None,
+              mesh_shape: Mapping[str, int] | None = None,
+              rules: AxisRules | None = None) -> dict:
     """The ZeRO-1 dimension of each parameter (the index of "zero" in its
-    optimizer-state axes), None where its state stays whole."""
-    return {k: (axes.index("zero") if "zero" in axes else None)
-            for k, axes in specs["master"].items()}
+    optimizer-state axes), None where its state stays whole. With the
+    shapes, the mesh and ``rules`` holding "zero" (the reference's
+    ``_rules_with_zero``: "pod" x "data", and "model" too under 'fsdp'), a
+    "zero" that does not resolve under them is None as well: its mesh axes
+    taken by an earlier dimension (the vocab's "model" under 'fsdp') or
+    their size not dividing the dimension."""
+    out = {}
+    for k, axes in specs["master"].items():
+        d = axes.index("zero") if "zero" in axes else None
+        if d is not None and rules is not None:
+            spec = logical_spec(axes, param_shapes[k], mesh_shape, rules)
+            d = d if spec[d] is not None else None
+        out[k] = d
+    return out

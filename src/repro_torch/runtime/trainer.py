@@ -19,10 +19,12 @@ The loop reads the loss and the gradient norm on the host after each step
 (``float``), as the reference does; the step itself reads nothing. It
 passes no stub inputs (``aux`` is ``{}``, as the reference's loop passes),
 so whisper, which needs frames, raises there as it does in the
-reference. On a mesh of several ranks every rank runs the loop; the
-optimizer state is gathered from its ZeRO-1 slices for a checkpoint (a
-copy on the host, taken before the next step overwrites the state) and
-rank 0 writes it.
+reference. On a mesh of several ranks every rank runs the loop; a
+checkpoint keeps whole leaves: the parameters are gathered from their
+"model" slices and the optimizer state from its ZeRO-1 and "model" slices
+(a copy on the host, taken before the next step overwrites the state),
+rank 0 writes them, and a restore cuts them again for the mesh it runs on
+(so a checkpoint of one "model" size loads at another).
 """
 from __future__ import annotations
 
@@ -82,13 +84,14 @@ class Trainer:
             return self.init_state()
         tree, step, _ = load_checkpoint(self.ckpt.path,
                                         device=self.mesh.device)
-        return (tree["params"], self.step_fn.shard_opt_state(tree["opt"]),
-                step)
+        return (self.step_fn.shard_params(tree["params"]),
+                self.step_fn.shard_opt_state(tree["opt"]), step)
 
     def _save(self, step: int, params, opt, meta: dict) -> None:
+        whole = self.step_fn.gather_params(params)
         full = self.step_fn.gather_opt_state(opt)
         if self.mesh.rank == 0:
-            self.ckpt.save_async(step, {"params": params, "opt": full},
+            self.ckpt.save_async(step, {"params": whole, "opt": full},
                                  meta=meta)
 
     # -- loop ----------------------------------------------------------------
@@ -104,7 +107,8 @@ class Trainer:
                     and step == self.tcfg.fail_at_step):
                 self.ckpt.wait()
                 raise RuntimeError(f"simulated preemption at step {step}")
-            tokens, labels = self.data.global_arrays(step, self.mesh)
+            tokens, labels = self.data.global_arrays(
+                step, self.mesh, self.step_fn.batch_axes)
             new_params, new_opt, metrics = self.step_fn(
                 params, opt, tokens, labels, {}, donate=True)
             loss = float(metrics["loss"])

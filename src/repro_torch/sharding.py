@@ -8,18 +8,27 @@ divides the dimension, else the dimension stays whole: this is how yi-34b
 (56 heads on a 16-way "model" axis) falls back to head_dim sharding.
 
 Here the mesh is explicit SPMD (``launch/mesh.py::GridMesh``): a rule table
-decides which dimension a rank keeps a slice of, e.g. the ZeRO-1 dimension
-of the optimizer state (``optim.opt_state_specs``) and the rows of the
-batch (``data.SyntheticLMData.global_arrays``). ``mesh_shape`` is the
-ordered ``{axis: size}`` mapping (``GridMesh.shape``). The reference's
-``use_sharding`` / ``shard`` / ``named_sharding`` place GSPMD constraints
-and have no counterpart.
+decides which dimension a rank keeps a slice of: a parameter's "model"
+dimension (``model_dims``; ``shard_params`` cuts a rank's slices from whole
+leaves and ``gather_params`` rebuilds them), the ZeRO-1 dimension of the
+optimizer state (``optim.opt_state_specs``) and the rows of the batch
+(``data.batch_rows``). ``mesh_shape`` is the ordered ``{axis: size}``
+mapping (``GridMesh.shape``). The reference's ``use_sharding`` / ``shard``
+/ ``named_sharding`` place GSPMD constraints and have no counterpart: the
+forward computes on the slices with explicit collectives
+(``tensor_parallel.py``).
 """
 from __future__ import annotations
 
 from typing import Mapping, Sequence
 
-__all__ = ["AxisRules", "logical_spec", "make_rules", "axis_size"]
+__all__ = ["AxisRules", "logical_spec", "make_rules", "axis_size",
+           "model_dims", "shard_params", "gather_params"]
+
+# the logical names whose "model" slice the forward computes on
+# (``tensor_parallel.py``); any other name resolved to "model" raises
+MODEL_SLICED = frozenset({"vocab", "heads", "kv_heads", "mlp", "experts",
+                          "expert_mlp"})
 
 # logical axis name -> mesh axis name, tuple of names, or None
 AxisRules = dict
@@ -127,3 +136,66 @@ def make_rules(cfg, mesh_shape: Mapping[str, int], mode: str = "train",
         else:
             rules["kv_seq"] = model
     return rules
+
+
+def _has_model(phys) -> bool:
+    flat = phys if isinstance(phys, (tuple, list)) else (phys,)
+    return "model" in flat
+
+
+def model_dims(param_axes: Mapping[str, tuple], param_shapes: Mapping,
+               mesh_shape: Mapping[str, int], rules: AxisRules) -> dict:
+    """Each leaf's dimension that the "model" axis slices under ``rules``
+    (None: whole on every rank of the axis), as ``optim.zero_dims`` gives
+    ZeRO-1's. Raises ``NotImplementedError`` for a name the forward has no
+    sliced form of: "head_dim" (the rules' fallback where the heads do not
+    divide, ROADMAP.md Queue 1 item 8(h′)) or any other."""
+    out = {}
+    for k, axes in param_axes.items():
+        spec = logical_spec(axes, param_shapes[k], mesh_shape, rules)
+        dims = [i for i, phys in enumerate(spec) if _has_model(phys)]
+        if dims and mesh_shape.get("model", 1) > 1:
+            name = axes[dims[0]]
+            if name not in MODEL_SLICED:
+                raise NotImplementedError(
+                    f"{k}: its {name!r} dimension resolves to \"model\"; "
+                    "the forward has no sliced form of it (ROADMAP.md "
+                    "Queue 1 item 8(h′))")
+        out[k] = dims[0] if dims else None
+    return out
+
+
+def shard_params(full: dict, dims: Mapping, mesh) -> dict:
+    """This rank's slices of whole leaves ``full``: leaf ``k`` cut along
+    ``dims[k]`` into ``mesh.shape["model"]`` equal parts, the part of this
+    rank's "model" coordinate (a copy, so the whole leaf can be freed);
+    leaves with no "model" dimension are shared."""
+    m = mesh.shape.get("model", 1)
+    r = mesh.coords.get("model", 0)
+    out = {}
+    for k, t in full.items():
+        d = dims[k]
+        if d is None or m == 1:
+            out[k] = t
+        else:
+            w = t.shape[d] // m
+            out[k] = t.narrow(d, r * w, w).clone()
+    return out
+
+
+def gather_params(local: dict, dims: Mapping, mesh) -> dict:
+    """The whole leaves from every "model" rank's slices (a collective:
+    every rank of the axis calls it, leaves in sorted order)."""
+    from .core.collectives import all_gather
+    if mesh.shape.get("model", 1) == 1:
+        return dict(local)
+    axis = mesh.axis("model")
+    out = {}
+    for k in sorted(local):
+        d, t = dims[k], local[k]
+        if d is None:
+            out[k] = t
+            continue
+        g = all_gather(t.contiguous(), axis)
+        out[k] = g.movedim(0, d).flatten(d, d + 1).contiguous()
+    return out

@@ -132,39 +132,80 @@ def test_adamw_init_matches_reference_layout():
 
 MESHES = [{"data": d, "model": m} for d in (1, 2, 4, 16) for m in (1, 16)] \
     + [{"pod": 2, "data": d, "model": 1} for d in (1, 2, 4, 16)]
+# ... and (mesh, strategy) pairs with a "model" axis of 2 and 16: 'fsdp'
+# puts "model" into ZeRO-1's "zero" axes (the reference's _rules_with_zero)
+MESH_STRATEGIES = [(m, "tp") for m in MESHES] + [
+    ({"data": 1, "model": 2}, "tp"), ({"data": 2, "model": 2}, "tp"),
+    ({"pod": 2, "data": 2, "model": 2}, "tp"),
+    ({"data": 1, "model": 2}, "fsdp"), ({"data": 2, "model": 2}, "fsdp"),
+    ({"pod": 2, "data": 2, "model": 2}, "fsdp"),
+    ({"data": 1, "model": 16}, "fsdp"), ({"data": 16, "model": 16}, "fsdp")]
+# every config the "model" axis covers (dense, qwen2-vl, MoE, rwkv6)
+TP_ARCHS = ["gemma3-1b", "granite-3-8b", "yi-34b", "glm4-9b", "qwen2-vl-7b",
+            "qwen3-moe-30b-a3b", "mixtral-8x7b", "rwkv6-3b"]
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-3-8b", "yi-34b"])
-@pytest.mark.parametrize("mesh_shape", MESHES,
-                         ids=lambda m: "x".join(f"{k}{v}"
-                                                for k, v in m.items()))
-def test_opt_state_specs_zero_dims_match_reference(arch, mesh_shape):
-    """The ZeRO-1 dimension of every parameter's optimizer state, and the
-    rules behind it, are the reference's (its ``opt_state_specs`` under
-    ``use_sharding`` of its ``build_train_step`` rules, on a stand-in mesh
-    of the same axis sizes: the functions read ``mesh.shape`` only)."""
+def _mesh_id(pair) -> str:
+    mesh, strategy = pair
+    name = "x".join(f"{k}{v}" for k, v in mesh.items())
+    return name if strategy == "tp" else f"{name}-{strategy}"
+
+
+def _model_axis(phys) -> bool:
+    return "model" in (phys if isinstance(phys, tuple) else (phys,))
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("mesh_shape,strategy", MESH_STRATEGIES,
+                         ids=[_mesh_id(p) for p in MESH_STRATEGIES])
+def test_opt_state_specs_zero_dims_match_reference(arch, mesh_shape,
+                                                   strategy):
+    """The ZeRO-1 dimension of every parameter's optimizer state, the rules
+    behind it and each parameter's "model" dimension are the reference's
+    (its ``opt_state_specs`` and ``logical_spec`` under ``use_sharding``
+    of its ``build_train_step`` rules, ``_rules_with_zero``, on a stand-in
+    mesh of the same axis sizes: the functions read ``mesh.shape`` only).
+    Where the reference's rules put "model" on a head_dim (its fallback
+    where the heads do not divide), the port raises, naming ROADMAP.md
+    Queue 1 item 8(h′)."""
+    from repro.launch.steps import _rules_with_zero
     cfg_j, cfg_t = j_get_config(arch), get_config(arch)
     jmesh = types.SimpleNamespace(shape=dict(mesh_shape))
     schema = j_get_model(cfg_j).schema
     specs = {k: ps.axes for k, ps in schema.items()}
     shapes = {k: ps.shape for k, ps in schema.items()}
-    rules_j = jsh.make_rules(cfg_j, jmesh, "train")
-    rules_j["zero"] = tuple(a for a in ("pod", "data") if a in mesh_shape)
+    rules_j = _rules_with_zero(cfg_j, jmesh, "train", strategy=strategy)
     with jsh.use_sharding(jmesh, rules_j):
         want = jopt.opt_state_specs(specs, jmesh, shapes)
-    rules_t = tsh.make_rules(cfg_t, mesh_shape, "train")
-    assert {k: v for k, v in rules_t.items()} == \
-        {k: v for k, v in rules_j.items() if k != "zero"}
+        want_zero = {k: (axes.index("zero") if "zero" in axes
+                         and jsh.logical_spec(axes, shapes[k])[
+                             axes.index("zero")] is not None else None)
+                     for k, axes in want["master"].items()}
+        want_model = {}
+        for k, axes in specs.items():
+            spec = jsh.logical_spec(axes, shapes[k])
+            dims = [i for i, p in enumerate(spec) if _model_axis(p)]
+            want_model[k] = dims[0] if dims else None
+    rules_t = tsh.make_rules(cfg_t, mesh_shape, "train", strategy=strategy)
+    assert rules_t == {k: v for k, v in rules_j.items() if k != "zero"}
     t_schema = schema_for(cfg_t)
     assert {k: ps.axes for k, ps in t_schema.items()} == specs
     got = topt.opt_state_specs(specs, mesh_shape, shapes, rules_t)
     assert got == want
-    dims = topt.zero_dims(got)
-    for k, d in dims.items():
+    rules_t["zero"] = rules_j["zero"]
+    assert topt.zero_dims(got, shapes, mesh_shape, rules_t) == want_zero
+    n = int(np.prod([mesh_shape[a] for a in (rules_j["zero"] or ())]))
+    for k, d in topt.zero_dims(got, shapes, mesh_shape, rules_t).items():
         if d is not None:
-            n = np.prod([mesh_shape[a] for a in ("pod", "data")
-                         if a in mesh_shape])
             assert shapes[k][d] % n == 0
+    fallback = [k for k, d in want_model.items()
+                if d is not None and specs[k][d] == "head_dim"]
+    if fallback:
+        with pytest.raises(NotImplementedError, match=r"8\(h′\)"):
+            tsh.model_dims(specs, shapes, mesh_shape, rules_t)
+    else:
+        assert tsh.model_dims(specs, shapes, mesh_shape, rules_t) == \
+            want_model
     assert topt.opt_state_specs(specs, mesh_shape, shapes, rules_t,
                                 zero1=False)["master"] == specs
 

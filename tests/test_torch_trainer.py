@@ -129,9 +129,41 @@ def test_launcher_smoke_on_the_cpu(tmp_path):
 
 
 def test_launcher_refuses_the_production_mesh(tmp_path):
-    """Without ``--smoke`` the reference trains on a mesh with model=16:
-    tensor parallelism (ROADMAP.md Queue 1 item 8(h)) is not ported, so the
-    launcher refuses before it joins a world."""
-    with pytest.raises(NotImplementedError, match=r"8\(h\)"):
+    """Without ``--smoke`` the launcher trains on the reference's production
+    mesh, (data, model) = (16, 16), over the world that exists: a world of
+    one is refused, naming the 256 ranks it needs (512 with
+    ``--multi-pod``)."""
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         ttrain.main(["--arch", "granite-3-8b", "--device", "cpu",
                      "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        ttrain.main(["--arch", "granite-3-8b", "--device", "cpu",
+                     "--multi-pod", "--strategy", "fsdp",
+                     "--compression", "8", "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("mesh_args", [["--smoke"], [],
+                                       ["--smoke", "--model", "2"]],
+                         ids=["smoke", "production", "smoke_model2"])
+def test_launcher_refuses_compression_without_a_pod_axis(tmp_path,
+                                                         mesh_args):
+    """``--compression`` fuses the gradients over "pod": on a mesh without
+    that axis (the host mesh, the (16, 16) production mesh) it would train
+    with exact fusion, so the launcher refuses it before any rank starts."""
+    with pytest.raises(ValueError, match="only the --multi-pod mesh"):
+        ttrain.main(["--arch", "granite-3-8b", "--device", "cpu",
+                     "--compression", "8", "--ckpt-dir", str(tmp_path),
+                     *mesh_args])
+
+
+def test_launcher_smoke_on_a_model_axis_of_two(tmp_path):
+    """``--smoke --model 2``: a world of two gloo ranks on the CPU trains
+    the smoke config on ``make_host_mesh(model=2)`` under 'tp_sp', and a
+    second call resumes from its last checkpoint."""
+    args = ["--arch", "gemma3-1b", "--smoke", "--model", "2",
+            "--strategy", "tp_sp", "--device", "cpu", "--steps", "3",
+            "--ckpt-dir", str(tmp_path)]
+    hist = ttrain.main(args)
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert np.isfinite([h["loss"] for h in hist]).all()
+    assert ttrain.main(args) == []
