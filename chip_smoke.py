@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
                           [--k6-only | --k5-only | --k4-only | --sharded-only
                            | --zoo-only | --train-only | --train-zoo-only
-                           | --train-tp-only]
+                           | --train-tp-only | --serve-tp-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -122,6 +122,22 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     32 greedy steps; decode held against one prefill over the same tokens
     (bf16, and float32 weights); the small config of each family on the
     card against the CPU, mixtral-8x7b's among them;
+  * sharded LM serving (phase ``serve_tp``, ``build_serve_step``): gloo
+    ranks sharing the card, each case against the world of one computed on
+    rank 0 in the same call: (a) gemma3-1b at full width and depth on
+    (data 1, model 2), B=8, prompts of 1000, 32 greedy steps teacher-forced
+    on the world of one's ids, its cache of 1032 rows 516 a rank: logits at
+    the bf16 serving limits, ids, K5's slice form launched on each rank
+    exactly where its rows meet the window (worked out from the positions);
+    (b) rwkv6-3b at full width (1, 2), float32 weights, K6 at H = 20; (c)
+    gemma3-1b B=1 at (2, 2), a prompt of 16384, the cache over ("data",
+    "model"), 4104 rows a rank; (d) float32 guards at 2 layers (gemma3-1b,
+    qwen2-vl-7b, qwen3-moe-30b-a3b, mixtral-8x7b) within 1e-5 of scale;
+    (e) K5's slice form against its plain version at (a)'s and (c)'s
+    shapes and an empty slice (no launch), and timed beside SDPA on the
+    same slice; (f) the dry-run's count of (a)'s rank bytes against the
+    rise of ``torch.cuda.memory_allocated``. The dry-run's cells (phase
+    ``dryrun``) run on meta in a CPU subprocess meanwhile;
   * the LM zoo (phase ``lm_zoo``): every other family at its published
     width and depth, one model at a time — gemma3-1b with a prompt of
     32768 (the streaming attention; K5 over 32 800 rows), qwen3-moe-30b-a3b
@@ -166,11 +182,14 @@ runs the ``train`` phase and stops with its kernels rows, the card's line
 and the last line. ``--train-zoo-only`` builds the WKV6 and block-quantize
 kernels, runs the ``train_zoo`` phase and stops the same way;
 ``--train-tp-only`` builds the same two, runs the ``train_tp`` phase and
-stops with the card's line and the last line.
+stops with the card's line and the last line. ``--serve-tp-only`` builds
+the decode-attention and WKV6 kernels, runs the ``serve_tp`` phase and
+stops with its kernels rows, the card's line and the last line.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -228,7 +247,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn as kd  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,  # noqa: E402
-                                                 valid_rows)
+                                                 decode_attn_slice_ref,
+                                                 slice_rows, valid_rows)
 from repro_torch.kernels.wkv6 import ops as k6_ops  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6 as kw  # noqa: E402
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked  # noqa: E402
@@ -241,7 +261,13 @@ from repro_torch.launch.mesh import (GridMesh, Mesh,  # noqa: E402
 from repro_torch.configs import ShapeSpec  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
-                                      build_train_step)
+                                      build_serve_step, build_train_step)
+from repro_torch.launch.dryrun import (serve_argument_bytes,  # noqa: E402
+                                       train_argument_bytes)
+from repro_torch.core.collectives import broadcast_object  # noqa: E402
+from repro_torch.models.layers import init_from_schema  # noqa: E402
+from repro_torch.models.model_api import schema_for  # noqa: E402
+from repro_torch.sharding import flat_tree  # noqa: E402
 from repro_torch.launch.steps import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
@@ -266,6 +292,7 @@ SOURCES = {"amp_local": "src/repro_torch/csrc/amp_local.cu",
            "dequantize_sum": "src/repro_torch/csrc/quantize.cu",
            "dequantize_sum_packed": "src/repro_torch/csrc/quantize.cu",
            "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
+           "decode_attn_slice": "src/repro_torch/csrc/decode_attn.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu",
            "wkv6_bwd": "src/repro_torch/csrc/wkv6.cu"}
 K1_SITES = ("src/repro/kernels/amp_fused/amp_fused.py:102, "
@@ -284,6 +311,8 @@ REPLACES = {"amp_local": K1_SITES,
             "dequantize_sum": "src/repro/kernels/quantize/quantize.py:72",
             "dequantize_sum_packed": "src/repro/kernels/quantize/quantize.py:72",
             "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:85",
+            "decode_attn_slice":
+                "src/repro/kernels/decode_attn/decode_attn.py:85",
             "wkv6": "src/repro/kernels/wkv6/wkv6.py:80",
             # no TPU kernel: the reference takes jax.grad of its jnp
             # wkv_chunked
@@ -3738,7 +3767,7 @@ def train_zoo_kernel_rows(ctx) -> list:
 # one on the same rows (the loss within TP_LOSS_RTOL, the gradient norm
 # within TP_NORM_RTOL: bf16 weights, products rounded alike, float32 sums
 # in another order), and the loss lower at the last step than at the first
-TP_ARCH, TP_SEQ, TP_BATCH, TP_MB, TP_STEPS = "gemma3-1b", 4096, 2, 2, 3
+TP_ARCH, TP_SEQ, TP_BATCH, TP_MB, TP_STEPS = "gemma3-1b", 4096, 2, 2, 2
 TP_LOSS_RTOL, TP_NORM_RTOL = 1e-3, 1e-2
 # (2) the float32 guard: the same width at TP_F32_LAYERS layers, float32
 # weights, the LM head fed the float32 hidden state (its bf16 rounding
@@ -3830,15 +3859,10 @@ def _local_grid() -> GridMesh:
 
 def _rules_bytes(step) -> dict:
     """A rank's parameter (bf16) and AdamW-state bytes by the rules: each
-    leaf's "model" slice, and its ZeRO-1 slice of that."""
-    m = step.mesh.shape.get("model", 1)
-    z = step._zsize()
-    par = opt = 0
-    for k, shape in step.param_shapes.items():
-        n = math.prod(shape) // (m if step.model_dims[k] is not None else 1)
-        par += 2 * n
-        opt += 12 * n // (z if step.zero_dims[k] is not None else 1)
-    return {"params": par, "opt": opt}
+    leaf's "model" slice, and its ZeRO-1 slice of that (the dry run's
+    count, less AdamW's int32 step)."""
+    b = train_argument_bytes(step)
+    return {"params": b["params"], "opt": b["opt_state"] - 4}
 
 
 def _leaf_norms(step, params, tok, lab) -> dict:
@@ -4306,6 +4330,547 @@ def run_train_tp() -> dict:
     assert not failed, failed
     return {"launches": dict(launches), "by_shape": dict(by_shape),
             "max_abs_err": kernels["max_abs_err"]}
+
+
+# ---------------------------------------------------------------------------
+# sharded LM serving (phase serve_tp): build_serve_step over "model"
+# ---------------------------------------------------------------------------
+
+# (a) gemma3-1b at full width and depth on (data 1, model 2): B=8, prompts
+# of 1000, 32 greedy steps from the prompt's last token at position 1000,
+# a cache of 1032 rows (516 a rank). Prefill's last-64 logits and every
+# decode step's logits (the two ranks teacher-forced on the world of one's
+# ids) against the world of one at the bf16 serving limits (LM_RTOL /
+# LM_ATOL, PERF.md §2), the ids compared; K5's slice form launched on each
+# rank where its rows meet the position's window and nowhere else (worked
+# out from the positions: rank 0 holds none of a local window past 1026)
+ST_ARCH, ST_BATCH, ST_PROMPT, ST_GEN = "gemma3-1b", 8, 1000, 32
+# (b) rwkv6-3b at full width and depth on (1, 2): B=4 x 1000, 32 steps, K6
+# at H = 20 in prefill. Float32 weights (its random init amplifies bf16
+# rounding through 32 layers: PERF.md, LM serving), logits within
+# LM_F32_TOL of their scale
+ST_RWKV, ST_RWKV_BATCH = "rwkv6-3b", 4
+# (c) the batch-1 long-context form: gemma3-1b at (data 2, model 2), B=1, a
+# prompt of 16384 and 32 steps, the cache of 16416 rows over ("data",
+# "model"), 4104 rows a rank; at full depth
+ST_LONG_PROMPT = 16384
+# (d) float32 guards at 2 layers on (1, 2): prefill's logits and 4
+# teacher-forced decode steps' within ST_F32_TOL of their scale of the world
+# of one's; B=2, prompts of 1040 (qwen2-vl's 1024 vision embeddings, random
+# from SEED, and 16 text tokens)
+ST_F32_ARCHS = ("gemma3-1b", "qwen2-vl-7b", "qwen3-moe-30b-a3b",
+                "mixtral-8x7b")
+ST_F32_LAYERS, ST_F32_BATCH, ST_F32_PROMPT, ST_F32_GEN = 2, 2, 1040, 4
+ST_F32_TOL = 1e-5
+# (e) K5's slice form against its plain version: float32 output within one
+# bf16 ulp of the value (2^-7 relative, as the one-device form's bf16
+# check), the log-sum-exp within ST_LSE_TOL; bit-identical over two calls
+ST_LSE_TOL = 1e-4
+# (f) the dry-run's count of (a)'s rank bytes (parameters + decode state)
+# against the rise of torch.cuda.memory_allocated as they are placed: within
+# the caching allocator's rounding, 512 bytes a tensor
+ST_ALLOC_ROUND = 512
+ST_REDUCED = {"gemma3-1b (1, 2)": "none (26 layers, B=8 x 1000, 32 steps)",
+              "rwkv6-3b (1, 2)": "none (32 layers); float32 weights",
+              "gemma3-1b (2, 2) B=1": "none (26 layers, 16384 + 32)",
+              "float32 guards": f"{ST_F32_LAYERS} layers, B={ST_F32_BATCH}"}
+# the dry-run's cells in the kernels' phase (on meta, a CPU subprocess)
+ST_DRYRUN = (("gemma3-1b", "decode_32k", "pod1"),
+             ("qwen3-moe-30b-a3b", "prefill_32k", "pod2"),
+             ("rwkv6-3b", "long_500k", "pod1"))
+
+
+def _slice_launches(n_layers_kinds, rows: int, row0: int, positions) -> int:
+    """K5's slice-form launches a rank makes: one per layer and position
+    whose window meets its rows (``slice_rows``)."""
+    return sum(slice_rows(rows, row0, p, w) is not None
+               for p in positions for w in n_layers_kinds)
+
+
+def _windows(cfg) -> list:
+    return [cfg.window if k == "local" else 0 for k in cfg.attn_kinds]
+
+
+def _serve_world(mesh, cfg, batch, prompt, gen, params_full, fed=None,
+                 aux=None, state_dtype=torch.bfloat16) -> dict:
+    """Prefill and ``gen`` decode steps of ``cfg`` on ``mesh`` from the
+    whole ``params_full`` (this rank's slices cut here): greedy on its own
+    ids, or fed the ids ``fed`` (B, gen) (teacher-forced). On this rank:
+    the prefill logits and each step's (every vocab column, its rows), the
+    greedy ids, the launches, times and "model" bytes of a step."""
+    pre = build_serve_step(cfg, mesh, ShapeSpec("p", prompt, batch,
+                                                "prefill"))
+    dec = build_serve_step(cfg, mesh, ShapeSpec("d", prompt + gen, batch,
+                                                "decode"))
+    params = pre.shard_params(params_full)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (batch, prompt))).to(DEV)
+    mine = toks[pre.row0:pre.row0 + pre.rows]
+    model_mesh = mesh.axis("model") if "model" in mesh.shape else None
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params, mine, aux)
+    state = dec.to_decode_state(caches, dtype=state_dtype)
+    del caches
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    out = {"rows": (pre.row0, pre.rows), "kv": None if dec.kv.mesh is None
+           else (dec.kv.row0, dec.kv.rows, dec.kv.mesh.size),
+           "prefill": pre.gather_logits(logits)}
+    cur = (mine[:, -1:] if fed is None else fed[pre.row0:pre.row0
+                                                + pre.rows, :1])
+    steps, ids, bytes_step = [], [], None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(gen):
+        if model_mesh is not None and i == gen - 1:
+            model_mesh.stats.reset()
+        lg, state = dec(params, cur, state, prompt + i)
+        if model_mesh is not None and i == gen - 1:
+            bytes_step = model_mesh.stats.snapshot()
+        steps.append(dec.gather_logits(lg)[:, 0])
+        nxt = dec.greedy(lg)
+        ids.append(nxt)
+        cur = (nxt if fed is None
+               else fed[pre.row0:pre.row0 + pre.rows, i + 1:i + 2])
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t1
+    out.update(decode=torch.stack(steps, 1), ids=torch.cat(ids, 1),
+               launches={k_: v for k_, v in all_counts().items() if v},
+               prefill_ms=1e3 * t_pre, decode_ms_per_step=1e3 * t_dec / gen,
+               model_bytes_last_step=bytes_step,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, state
+    return out
+
+
+def _near(got, want, rtol, atol) -> dict:
+    """Gap of ``got`` to ``want``: the largest |diff| over the scale, and
+    whether every element is within atol + rtol |want|."""
+    d = (got.float() - want.float()).abs()
+    return {"gap_of_scale": float(d.max() / want.float().abs().max()),
+            "max_abs": float(d.max()),
+            "ok": bool((d <= atol + rtol * want.float().abs()).all())}
+
+
+def _ids_agree(ids, want_ids, want_logits, tol) -> dict:
+    """The greedy ids against the world of one's: equal, or where they
+    differ a near tie in its logits (the top two within ``tol`` of the
+    scale)."""
+    diff = (ids != want_ids).nonzero().tolist()
+    scale = float(want_logits.abs().max())
+    ties = []
+    for b, i in diff:
+        top = torch.topk(want_logits[b, i].float(), 2).values
+        ties.append(float(top[0] - top[1]) <= tol * scale)
+    return {"equal": len(diff) == 0, "differ_at": diff[:8],
+            "near_ties": all(ties)}
+
+
+def _world_of_one_and_fed(mesh, cfg, batch, prompt, gen, full, aux, dtype,
+                          lead: bool):
+    """Rank 0 runs the world of one (greedy); its ids go to every rank of
+    ``mesh`` (``broadcast_object``), which then run fed them."""
+    one = None
+    if lead:
+        one = _serve_world(_local_grid(), cfg, batch, prompt, gen, full,
+                           aux=aux, state_dtype=dtype)
+        ids = one["ids"].cpu()
+        fed = torch.cat([torch.from_numpy(np.random.default_rng(SEED)
+                                          .integers(0, cfg.vocab,
+                                                    (batch, prompt)))[:, -1:],
+                         ids[:, :-1]], 1)
+    else:
+        fed = None
+    fed = broadcast_object(fed, mesh.axes(tuple(mesh.shape)), 0).to(DEV)
+    return one, fed
+
+
+def _compare(one, two, rtol, atol, tol_ids) -> dict:
+    lo, n = two["rows"]
+    rows = slice(lo, lo + n)
+    return {"prefill": _near(two["prefill"], one["prefill"][rows], rtol, atol),
+            "decode": _near(two["decode"], one["decode"][rows], rtol, atol),
+            "ids": _ids_agree(two["ids"], one["ids"][rows],
+                              one["decode"][rows], tol_ids)}
+
+
+def _summary(r) -> dict:
+    return {k_: r[k_] for k_ in ("rows", "kv", "launches", "prefill_ms",
+                                 "decode_ms_per_step",
+                                 "model_bytes_last_step", "peak_gb")}
+
+
+def serve_tp_rank(serve_mesh) -> dict:
+    """One rank of (a), (b), (d) and (f) on (data 1, model 2), gloo ranks
+    sharing the card; rank 0 also runs each world of one."""
+    grid = make_mesh((1, 2), ("data", "model"), device=str(serve_mesh.device))
+    lead = grid.rank == 0
+    out = {}
+    cfg = get_config(ST_ARCH)
+    # (f) the rank's bytes as placed against the dry-run's count
+    dec = build_serve_step(cfg, grid, ShapeSpec("d", ST_PROMPT + ST_GEN,
+                                                ST_BATCH, "decode"))
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params = dec.init_params(SEED)
+    m1 = torch.cuda.memory_allocated()
+    state = dec.init_state()
+    m2 = torch.cuda.memory_allocated()
+    counted = serve_argument_bytes(dec)
+    out["bytes"] = {"params_allocated": m1 - m0,
+                    "state_allocated": m2 - m1,
+                    "params_counted": counted["params"],
+                    "state_counted": counted["state"],
+                    "n_params": len(params),
+                    "n_state": len(flat_tree(state))}
+    del params, state
+    _free()
+    # (a)
+    full = init_from_schema(schema_for(cfg), torch.Generator(
+        device=DEV).manual_seed(SEED), DEV)
+    one, fed = _world_of_one_and_fed(grid, cfg, ST_BATCH, ST_PROMPT, ST_GEN,
+                                     full, None, torch.bfloat16, lead)
+    torch.cuda.reset_peak_memory_stats()
+    two = _serve_world(grid, cfg, ST_BATCH, ST_PROMPT, ST_GEN, full, fed)
+    del full
+    positions = range(ST_PROMPT, ST_PROMPT + ST_GEN)
+    lo, rows = two["kv"][0], two["kv"][1]
+    out["a"] = {**_summary(two),
+                "k5_slice_expected": _slice_launches(_windows(cfg), rows, lo,
+                                                     positions)}
+    if lead:
+        out["a"]["world_of_one"] = _summary(one)
+        out["a"]["gaps"] = _compare(one, two, LM_RTOL, LM_ATOL, LM_SMALL_TOL)
+    del one, two
+    _free()
+    # (b) rwkv6-3b, float32 weights
+    rcfg = get_config(ST_RWKV)
+    full = {k_: v.float() for k_, v in init_from_schema(
+        schema_for(rcfg), torch.Generator(device=DEV).manual_seed(SEED),
+        DEV).items()}
+    one, fed = _world_of_one_and_fed(grid, rcfg, ST_RWKV_BATCH, ST_PROMPT,
+                                     ST_GEN, full, None, torch.float32, lead)
+    with _k6_heads() as heads:
+        two = _serve_world(grid, rcfg, ST_RWKV_BATCH, ST_PROMPT, ST_GEN, full,
+                           fed, state_dtype=torch.float32)
+    del full
+    out["b"] = {**_summary(two),
+                "k6_calls_by_heads": {f"{n} H{h}": v for (n, h), v
+                                      in sorted(heads.items())}}
+    if lead:
+        out["b"]["world_of_one"] = _summary(one)
+        out["b"]["gaps"] = _compare(one, two, LM_F32_TOL, 0.0, LM_F32_TOL)
+    del one, two
+    _free()
+    # (d) float32 guards, 2 layers
+    out["d"] = {}
+    for arch in ST_F32_ARCHS:
+        c = dataclasses.replace(get_config(arch), n_layers=ST_F32_LAYERS)
+        full = {k_: v.float() for k_, v in init_from_schema(
+            schema_for(c), torch.Generator(device=DEV).manual_seed(SEED),
+            DEV).items()}
+        aux = None
+        if c.n_vision_tokens:
+            g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+            aux = {"vision_embeds": torch.randn(
+                ST_F32_BATCH, c.n_vision_tokens, c.d_model, generator=g,
+                device=DEV)}
+        one, fed = _world_of_one_and_fed(grid, c, ST_F32_BATCH, ST_F32_PROMPT,
+                                         ST_F32_GEN, full, aux, torch.float32,
+                                         lead)
+        two = _serve_world(grid, c, ST_F32_BATCH, ST_F32_PROMPT, ST_F32_GEN,
+                           full, fed, aux=aux, state_dtype=torch.float32)
+        del full
+        if lead:
+            out["d"][arch] = _compare(one, two, ST_F32_TOL, 0.0, ST_F32_TOL)
+        del one, two
+        _free()
+    return out
+
+
+def serve_tp_long_rank(serve_mesh) -> dict:
+    """One rank of (c): gemma3-1b B=1 at (data 2, model 2), the cache over
+    ("data", "model"); rank 0 also runs the world of one."""
+    grid = make_mesh((2, 2), ("data", "model"), device=str(serve_mesh.device))
+    cfg = get_config(ST_ARCH)
+    full = init_from_schema(schema_for(cfg), torch.Generator(
+        device=DEV).manual_seed(SEED), DEV)
+    one, fed = _world_of_one_and_fed(grid, cfg, 1, ST_LONG_PROMPT, ST_GEN,
+                                     full, None, torch.bfloat16,
+                                     grid.rank == 0)
+    torch.cuda.reset_peak_memory_stats()
+    two = _serve_world(grid, cfg, 1, ST_LONG_PROMPT, ST_GEN, full, fed)
+    positions = range(ST_LONG_PROMPT, ST_LONG_PROMPT + ST_GEN)
+    lo, rows = two["kv"][0], two["kv"][1]
+    out = {**_summary(two),
+           "k5_slice_expected": _slice_launches(_windows(cfg), rows, lo,
+                                                positions)}
+    if grid.rank == 0:
+        out["world_of_one"] = _summary(one)
+        out["gaps"] = _compare(one, two, LM_RTOL, LM_ATOL, LM_SMALL_TOL)
+    return out
+
+
+def slice_bound(b, h, kv, dh, rows, dtype) -> dict:
+    """K5's slice form's least time: q read, the float32 output and
+    log-sum-exp written, K and V of the rows read once; operations as
+    ``decode_attn_bound``."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    nbytes = b * h * dh * e + 4 * b * h * (dh + 1) + 2 * rows * b * kv * dh * e
+    return bound(nbytes, 4.0 * b * h * dh * rows + 5.0 * b * h * rows)
+
+
+# (name, B, H, KV, Dh, slice rows, row0, pos, window): (a)'s slices at its
+# first and last steps, global and local (rank 0's local slice at the last
+# step is empty), and (c)'s
+ST_SLICE_CASES = [
+    ("a_rank0_global_last", 8, 4, 1, 256, 516, 0, 1031, 0),
+    ("a_rank1_global_last", 8, 4, 1, 256, 516, 516, 1031, 0),
+    ("a_rank0_local_first", 8, 4, 1, 256, 516, 0, 1000, 512),
+    ("a_rank1_local_last", 8, 4, 1, 256, 516, 516, 1031, 512),
+    ("a_rank0_local_last_empty", 8, 4, 1, 256, 516, 0, 1031, 512),
+    ("c_rank0_global_last", 1, 4, 1, 256, 4104, 0, 16415, 0),
+    ("c_rank3_global_last", 1, 4, 1, 256, 4104, 12312, 16415, 0),
+    ("c_rank3_local_last", 1, 4, 1, 256, 4104, 12312, 16415, 512)]
+# the timed ones: (a)'s and (c)'s global layer on the rank whose rows hold
+# the position
+ST_SLICE_TIMED = {"decode_attn_slice": "a_rank1_global_last",
+                  "decode_attn_slice/long_b1": "c_rank3_global_last"}
+
+
+def check_slice_kernel() -> dict:
+    """(e) K5's slice form against its plain version at ST_SLICE_CASES; an
+    empty slice writes (0, -inf) and launches nothing."""
+    rows = []
+    for name, b, h, kv, dh, s, row0, pos, win in ST_SLICE_CASES:
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, torch.bfloat16,
+                                torch.bfloat16, SEED)
+        before = kd.launch_counts["decode_attn_slice"]
+        o, lse = kd.decode_attn_slice_cuda(q, kc_, vc_, pos, win, row0)
+        o2, lse2 = kd.decode_attn_slice_cuda(q, kc_, vc_, pos, win, row0)
+        launched = kd.launch_counts["decode_attn_slice"] - before
+        wo, wl = decode_attn_slice_ref(q, kc_, vc_, pos, win, row0)
+        torch.cuda.synchronize()
+        empty = slice_rows(s, row0, pos, win) is None
+        d = (o - wo).abs()
+        fin = torch.isfinite(wl)
+        row = {"case": name, "B": b, "S_rank": s, "row0": row0, "pos": pos,
+               "window": win, "empty": empty, "launches": launched,
+               "max_abs_err": float(d.max()),
+               "lse_max_abs_err": float((lse[fin] - wl[fin]).abs().max())
+               if bool(fin.any()) else 0.0,
+               "bit_identical": bool(torch.equal(o, o2)
+                                     and torch.equal(lse, lse2))}
+        row["ok"] = (row["bit_identical"]
+                     and bool((d <= 2.0 ** -7 * wo.abs() + 1e-6).all())
+                     and bool(torch.equal(torch.isfinite(lse), fin))
+                     and row["lse_max_abs_err"] <= ST_LSE_TOL
+                     and launched == (0 if empty else 2)
+                     and (not empty or (bool((o == 0).all())
+                                        and not bool(fin.any()))))
+        rows.append(row)
+        del q, kc_, vc_, o, o2, lse, lse2, wo, wl
+    return {r["case"]: r for r in rows}
+
+
+def time_slice_kernel() -> dict:
+    """K5's slice form at ST_SLICE_TIMED: the kernel, its plain version
+    and ``scaled_dot_product_attention`` over the same slice (GQA, the
+    boolean mask of the rows the position attends to: the normalised
+    output alone), L2-hot, beside the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for key, case in ST_SLICE_TIMED.items():
+        _, b, h, kv, dh, s, row0, pos, win = next(
+            c for c in ST_SLICE_CASES if c[0] == case)
+        q, kc_, vc_ = da_inputs(b, h, kv, dh, s, torch.bfloat16,
+                                torch.bfloat16, SEED)
+        lo, hi = slice_rows(s, row0, pos, win)
+        t_idx = torch.arange(s, device=DEV)
+        mask = ((t_idx >= lo) & (t_idx <= hi))[None, None, None]
+        q4, k_t, v_t = (q[:, :, None], kc_.transpose(1, 2).contiguous(),
+                        vc_.transpose(1, 2).contiguous())
+        calls = {key: {
+            "ms": lambda: kd.decode_attn_slice_cuda(q, kc_, vc_, pos, win,
+                                                    row0),
+            "plain_ms": lambda: decode_attn_slice_ref(q, kc_, vc_, pos, win,
+                                                      row0),
+            "library_ms": lambda: sdpa(q4, k_t, v_t, attn_mask=mask,
+                                       enable_gqa=True)}}
+        row = _time_calls(calls, {key: slice_bound(
+            b, h, kv, dh, hi - lo + 1, torch.bfloat16)})[key]
+        row.update(case=case, B=b, S_rank=s, row0=row0, pos=pos,
+                   rows_read=hi - lo + 1,
+                   plan=da_plan(b, h, kv, dh, lo, hi, torch.bfloat16))
+        out[key] = row
+        del q, kc_, vc_, q4, k_t, v_t
+    return out
+
+
+_DRYRUN: dict = {}
+
+
+def start_dryrun() -> None:
+    """The dry-run's ST_DRYRUN cells on meta in a CPU subprocess, started
+    after the build and read at the end of ``serve_tp`` (qwen3-moe's 32k
+    prefill takes minutes to trace)."""
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="amp_dryrun_"), "dryrun.json")
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.dryrun import run_cell; import json; "
+            f"cells = {list(ST_DRYRUN)!r}; "
+            "recs = [run_cell(a, s, m) for a, s, m in cells]; "
+            f"json.dump(recs, open({out!r}, 'w'))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    _DRYRUN.update(out=out, t0=time.perf_counter(), proc=subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    atexit.register(stop_dryrun)   # also when a check fails before serve_tp
+
+
+def stop_dryrun() -> None:
+    """Ends the dry-run's subprocess if it still runs (a failed phase)."""
+    proc = _DRYRUN.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def read_dryrun() -> tuple:
+    """(records, seconds, stderr's tail) of the dry-run's subprocess, which
+    gets up to 600 s from its start."""
+    proc = _DRYRUN["proc"]
+    left = 600 - (time.perf_counter() - _DRYRUN["t0"])
+    try:
+        _, err = proc.communicate(timeout=max(1.0, left))
+    finally:
+        stop_dryrun()
+    seconds = time.perf_counter() - _DRYRUN["t0"]
+    if proc.returncode != 0:
+        return None, seconds, err.decode()[-2000:]
+    with open(_DRYRUN["out"]) as fh:
+        return json.load(fh), seconds, ""
+
+
+def run_serve_tp() -> dict:
+    """Phase ``serve_tp``: (a)-(f) above on gloo ranks sharing the card,
+    and the dry-run's cells. Every check is read before the phase's line
+    is printed, and the phase fails after it if any failed. Returns the
+    slice form's rows for the kernels line."""
+    import tempfile
+    t_phase = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="amp_serve_tp_")
+    try:
+        slices = check_slice_kernel()
+        two = spawn_world(serve_tp_rank, 2, backend="gloo", device=str(DEV),
+                          store_path=os.path.join(store_dir, "st2"),
+                          timeout_s=900)
+        t_two = time.perf_counter() - t_phase
+        four = spawn_world(serve_tp_long_rank, 4, backend="gloo",
+                           device=str(DEV),
+                           store_path=os.path.join(store_dir, "st4"),
+                           timeout_s=600)
+        t_four = time.perf_counter() - t_phase - t_two
+        times = time_slice_kernel()
+    except BaseException:
+        stop_dryrun()
+        raise
+    t_card = time.perf_counter() - t_phase
+    failed = []
+
+    def check(ok, what, *detail):
+        if not ok:
+            failed.append([what, *detail])
+
+    for name, row in slices.items():
+        check(row["ok"], "K5 slice form", row)
+    lead = two[0]
+    for key in ("a",):
+        g = lead[key]["gaps"]
+        check(g["prefill"]["ok"] and g["decode"]["ok"], f"({key}) logits",
+              g["prefill"], g["decode"])
+        check(g["ids"]["equal"] or g["ids"]["near_ties"], f"({key}) ids",
+              g["ids"])
+    g = lead["b"]["gaps"]
+    check(g["prefill"]["gap_of_scale"] <= LM_F32_TOL
+          and g["decode"]["gap_of_scale"] <= LM_F32_TOL, "(b) logits",
+          g["prefill"], g["decode"])
+    check(g["ids"]["equal"] or g["ids"]["near_ties"], "(b) ids", g["ids"])
+    for arch, g in lead["d"].items():
+        check(g["prefill"]["gap_of_scale"] <= ST_F32_TOL
+              and g["decode"]["gap_of_scale"] <= ST_F32_TOL,
+              f"(d) {arch} logits", g["prefill"], g["decode"])
+    g = four[0]["gaps"]
+    check(g["prefill"]["ok"] and g["decode"]["ok"], "(c) logits",
+          g["prefill"], g["decode"])
+    check(g["ids"]["equal"] or g["ids"]["near_ties"], "(c) ids", g["ids"])
+    half = get_config(ST_RWKV).n_heads // 2
+    launches = collections.Counter()
+    for r in two:
+        got = r["a"]["launches"].get("decode_attn_slice", 0)
+        check(got == r["a"]["k5_slice_expected"], "(a) K5 slice launches",
+              got, r["a"]["k5_slice_expected"])
+        check(r["a"]["launches"].get("decode_attn", 0) == 0,
+              "(a) no one-device K5", r["a"]["launches"])
+        calls = r["b"]["k6_calls_by_heads"]
+        check(set(calls) == {f"wkv6 H{half}"}, "(b) K6 heads", calls)
+        by = r["bytes"]
+        check(0 <= by["params_allocated"] - by["params_counted"]
+              <= ST_ALLOC_ROUND * by["n_params"], "(f) params bytes", by)
+        check(0 <= by["state_allocated"] - by["state_counted"]
+              <= ST_ALLOC_ROUND * by["n_state"], "(f) state bytes", by)
+        launches["decode_attn_slice"] += got
+        launches["wkv6"] += r["b"]["launches"].get("wkv6", 0)
+    long_launches = 0
+    for r in four:
+        got = r["launches"].get("decode_attn_slice", 0)
+        check(got == r["k5_slice_expected"], "(c) K5 slice launches", got,
+              r["k5_slice_expected"])
+        long_launches += got
+    dry_recs, dry_s, err = read_dryrun()
+    check(dry_recs is not None, "dry-run subprocess", err)
+    for rec in dry_recs or []:
+        rec.pop("traceback", None)
+        check(rec["ok"] or "8(h′)" in rec.get("error", ""), "dry-run cell",
+              rec)
+    emit("serve_tp", card=nvidia_smi_line(),
+         note="gloo ranks sharing one card: times are oversubscription, "
+              "not scaling",
+         reduced=ST_REDUCED, failed=failed,
+         gemma3_1b=[{k_: v for k_, v in r["a"].items()} for r in two],
+         rwkv6_3b=[r["b"] for r in two],
+         long_b1=four, float32_guards=lead["d"],
+         bytes_vs_dryrun=[r["bytes"] for r in two],
+         k5_slice_checks=slices,
+         limits={"bf16_rtol": LM_RTOL, "bf16_atol": LM_ATOL,
+                 "rwkv_float32_of_scale": LM_F32_TOL,
+                 "float32_guard_of_scale": ST_F32_TOL,
+                 "k5_slice": "1 bf16 ulp of the value; lse "
+                             f"{ST_LSE_TOL} abs",
+                 "alloc_round_per_tensor": ST_ALLOC_ROUND},
+         seconds_two_ranks=t_two, seconds_four_ranks=t_four,
+         seconds_on_card=t_card, seconds=time.perf_counter() - t_phase)
+    emit("dryrun", cells=dry_recs, seconds_since_start=dry_s,
+         note="rank 0's count on a counting mesh, meta tensors, a CPU "
+              "subprocess started after the build")
+    assert not failed, failed
+    err_of = lambda names: max(slices[n]["max_abs_err"] for n in names)
+    rows = []
+    for key, n in (("decode_attn_slice", launches["decode_attn_slice"]),
+                   ("decode_attn_slice/long_b1", long_launches)):
+        tm = times[key]
+        prefix = "a_" if key == "decode_attn_slice" else "c_"
+        rows.append({
+            "name": key, "route": "cuda", "source": SOURCES["decode_attn"],
+            "replaces": REPLACES["decode_attn"], "launches": n,
+            "max_abs_err": err_of([c for c in slices if c.startswith(prefix)]),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
+        assert n > 0, (key, n)
+    return {"rows": rows, "wkv6_launches": launches["wkv6"]}
 
 
 def add_train_tp_launches(kernels: list, tp_ctx) -> None:
@@ -5440,6 +6005,13 @@ def main() -> None:
                            "'model' on gloo ranks sharing the card) and "
                            "stop: the card's line and the last line as in "
                            "a full run")
+    only.add_argument("--serve-tp-only", action="store_true",
+                      help="build the decode-attention and WKV6 kernels, "
+                           "run the serve_tp phase (sharded serving over "
+                           "'model' on gloo ranks sharing the card, K5's "
+                           "slice form checked and timed, the dry-run's "
+                           "cells on meta) and stop: its kernels rows, the "
+                           "card's line and the last line as in a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -5463,6 +6035,7 @@ def main() -> None:
              else ["quantize"] if args.k4_only or args.train_only
              else ["wkv6", "quantize"] if (args.train_zoo_only
                                            or args.train_tp_only)
+             else ["decode_attn", "wkv6"] if args.serve_tp_only
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -5525,6 +6098,22 @@ def main() -> None:
             with open(args.out, "w") as fh:
                 json.dump(RESULT, fh, indent=1)
         print(smi, flush=True)
+        print_last_line()
+        return
+    if args.serve_tp_only or not any(
+            (args.k6_only, args.k5_only, args.k4_only, args.zoo_only,
+             args.train_only, args.train_zoo_only, args.train_tp_only,
+             args.sharded_only)):
+        start_dryrun()
+    if args.serve_tp_only:
+        rows = run_serve_tp()["rows"]
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump({**RESULT, "kernels": rows}, fh, indent=1)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
         print_last_line()
         return
     if args.sharded_only:
@@ -5632,6 +6221,8 @@ def main() -> None:
     _free()
     train_tp_ctx = run_train_tp()
     _free()
+    serve_tp_ctx = run_serve_tp()
+    _free()
     lm_zoo = run_lm_zoo()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
     wire_row = lambda name: (wire_times["row_D1"][name],
@@ -5698,6 +6289,8 @@ def main() -> None:
     kernels += train_zoo_kernel_rows(train_zoo_ctx)
     # every K4 and K6 row: its launches on the train_tp phase's paths
     add_train_tp_launches(kernels, train_tp_ctx)
+    # K5's slice form on the serve_tp phase's paths, (a) and (c)
+    kernels += serve_tp_ctx["rows"]
     # K5 on the zoo's paths: a row a model and layer kind, timed at that
     # shape, with the calls its model's generate made there
     zoo_case = zoo_da_cases()

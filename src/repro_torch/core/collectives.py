@@ -38,6 +38,13 @@ on CUDA tensors goes through host memory either way and is counted
 the compute stays on the card. No collective is ever replaced by a local
 sum.
 
+**Counting** (``backend == "count"``: one rank's view of a mesh of any
+shape, ``launch/mesh.py::make_count_mesh``, on ``meta`` tensors; the dry
+run, ``launch/dryrun.py``): every collective returns a tensor of the shape
+and dtype it would, records the call, its bytes, its mesh axes and their
+size, and moves nothing; no process group exists. ``reduce_scatter``
+counts as NCCL runs it (one call on the operand).
+
 The object and point-to-point helpers at the end carry the solve
 service's commands between rank 0 and its workers (``serving/service.py``).
 """
@@ -62,33 +69,45 @@ GLOO_HOST_ONLY = frozenset({"send", "recv"})
 class CollectiveStats:
     """Per collective: calls, and bytes handed to it by the dtype that
     travelled; ``staged`` counts the collectives that went through host
-    memory (gloo with CUDA tensors, by gloo's own copies or by ours)."""
+    memory (gloo with CUDA tensors, by gloo's own copies or by ours);
+    ``groups`` the calls and bytes by (collective, mesh axes, their size),
+    "op axis+axis size" as its key (what the dry run's ring factors
+    take)."""
 
     calls: dict = dataclasses.field(default_factory=dict)
     bytes: dict = dataclasses.field(default_factory=dict)
     staged: int = 0
+    groups: dict = dataclasses.field(default_factory=dict)
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                               repr=False)
 
-    def add(self, op: str, t: torch.Tensor, staged: bool) -> None:
+    def add(self, op: str, t: torch.Tensor, staged: bool,
+            axes: tuple = (), size: int = 0) -> None:
+        nbytes = t.numel() * t.element_size()
         with self._lock:
             self.calls[op] = self.calls.get(op, 0) + 1
             per = self.bytes.setdefault(op, {})
             key = str(t.dtype).replace("torch.", "")
-            per[key] = per.get(key, 0) + t.numel() * t.element_size()
+            per[key] = per.get(key, 0) + nbytes
             self.staged += int(staged)
+            g = self.groups.setdefault(f"{op} {'+'.join(axes)} {size}",
+                                       {"calls": 0, "bytes": 0})
+            g["calls"] += 1
+            g["bytes"] += nbytes
 
     def reset(self) -> None:
         with self._lock:
             self.calls.clear()
             self.bytes.clear()
+            self.groups.clear()
             self.staged = 0
 
     def snapshot(self) -> dict:
         with self._lock:
             return {"calls": dict(self.calls),
                     "bytes": {k: dict(v) for k, v in self.bytes.items()},
-                    "staged": self.staged}
+                    "staged": self.staged,
+                    "groups": {k: dict(v) for k, v in self.groups.items()}}
 
 
 def axis_size(mesh) -> int:
@@ -113,7 +132,9 @@ def _run(op: str, mesh, send: torch.Tensor, out: torch.Tensor | None, call):
     refuses the CUDA tensors (``GLOO_HOST_ONLY``). Returns what ``call``
     wrote, on the rank's device."""
     staged = mesh.backend == "gloo" and send.is_cuda
-    mesh.stats.add(op, send, staged)
+    mesh.stats.add(op, send, staged, mesh.axes, mesh.size)
+    if mesh.backend == "count":
+        return send if out is None else out
     if not (staged and op in GLOO_HOST_ONLY):
         call(send, out)
         return send if out is None else out
@@ -177,7 +198,7 @@ def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: axis 0 ({x.shape[0]}) is not a "
                          f"multiple of the mesh size ({mesh.size})")
     k = x.shape[0] // mesh.size
-    if mesh.backend == "nccl":
+    if mesh.backend in ("nccl", "count"):
         send = x.contiguous()
         out = torch.empty((k,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)

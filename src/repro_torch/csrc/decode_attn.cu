@@ -53,6 +53,12 @@
 //     same bits run to run. A single split writes the output directly.
 //   * A partial or team with m = -inf (no row) adds nothing, as the
 //     reference's `m_safe`/`corr` guard does.
+//   * The slice form (a rank's rows of a cache sharded along its sequence):
+//     given `lse`, the fold (or the single split) writes the normalised
+//     output in float32 and, per head, the log-sum-exp of its scores in
+//     natural units, (m + log2 l) ln 2, for the ranks to fold their
+//     partials (tensor_parallel.py::fold_attention). The caller passes the
+//     slice's local rows lo..hi; a slice with no row is not launched.
 //
 // Limits (checked here and by the Python wrapper): Dh a multiple of 8 up to
 // 256, G * Dh <= 4096, q bf16 or float32, caches bf16 or float32, 16-byte
@@ -94,7 +100,8 @@ struct Args {
   void* out;
   float* part;    // (B*KV*n_slices, nsplit, kHeads * (Dh + 2)): acc, then (m, l) a head
   int* counters;  // (B*KV*n_slices), zero between launches
-  int S, KV, G, Dh, lo, hi, rows_per_split, nsplit, q_bf16;
+  float* lse;     // (B, KV*G) float32, or null; given, the output is float32
+  int S, KV, G, Dh, lo, hi, rows_per_split, nsplit, q_bf16, out_bf16;
   int stage_rows, stages;
   float scale_log2;  // 1/sqrt(Dh) * log2 e
 };
@@ -180,6 +187,12 @@ __device__ __forceinline__ int count_in(int* counter) {
 // scores, maxima and weights are in log2 units (the scale carries log2 e)
 __device__ __forceinline__ float weight(float m, float m_safe) {
   return isfinite(m) ? exp2f(m - m_safe) : 0.f;
+}
+
+// a head's log-sum-exp in natural units from its running max m (log2
+// units) and sum l of exp2(s - m): ln(2^m l)
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return (m + log2f(l)) * 0.6931471805599453f;
 }
 
 // L: lanes of a team (8, 16 or 32), so that every shuffle loop unrolls and
@@ -421,12 +434,14 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
       o = make_float4(fmaf(v.x, w, o.x), fmaf(v.y, w, o.y), fmaf(v.z, w, o.z), fmaf(v.w, w, o.w));
     }
   }
-  const size_t out_i = (static_cast<size_t>(bk) * a.G + hs * kHeads + g) * Dh + 4 * d4;
+  const size_t head_i = static_cast<size_t>(bk) * a.G + hs * kHeads + g;
+  const size_t out_i = head_i * Dh + 4 * d4;
   if (a.nsplit == 1) {
     if (tid < n4 && g < gn) {
       const float inv = 1.f / fmaxf(l_all, 1e-30f);
-      store_out4(a.out, a.q_bf16, out_i,
+      store_out4(a.out, a.out_bf16, out_i,
                  make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
+      if (a.lse != nullptr && d4 == 0) a.lse[head_i] = log_sum_exp(m_all, l_all);
     }
     return;
   }
@@ -481,7 +496,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
       o = make_float4(fmaf(v.x, w, o.x), fmaf(v.y, w, o.y), fmaf(v.z, w, o.z), fmaf(v.w, w, o.w));
     }
     const float inv = 1.f / fmaxf(l_all, 1e-30f);
-    store_out4(a.out, a.q_bf16, out_i, make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
+    store_out4(a.out, a.out_bf16, out_i, make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
+    if (a.lse != nullptr && d4 == 0) a.lse[head_i] = log_sum_exp(m_all, l_all);
   }
   if (tid == 0) a.counters[unit] = 0;  // ready for the next launch on the stream
 }
@@ -532,9 +548,11 @@ extern "C" {
 // and counters, int32 of B*KV*ceil(G/4), zero (they are zero again after
 // the kernel). lanes, stage_rows, stages: the layout of
 // decode_attn.py::layout. q_bf16 / c_bf16: 1 for bfloat16, 0 for float32.
+// lse: null, or float32 (B, KV*G), the slice form: out is then float32 and
+// each head's log-sum-exp goes to lse.
 int decode_attn_launch(const void* q, const void* k, const void* v, void* out, float* part,
-                       int* counters, int B, int S, int KV, int G, int Dh, int lo, int hi,
-                       int rows_per_split, int nsplit, int q_bf16, int c_bf16, int lanes,
+                       int* counters, float* lse, int B, int S, int KV, int G, int Dh, int lo,
+                       int hi, int rows_per_split, int nsplit, int q_bf16, int c_bf16, int lanes,
                        int stage_rows, int stages, float scale, void* stream) {
   const int n_slices = (G + kHeads - 1) / kHeads;
   if (B < 1 || S < 1 || KV < 1 || G < 1 || Dh < 8 || Dh % 8 != 0 || Dh > kMaxDh ||
@@ -544,9 +562,10 @@ int decode_attn_launch(const void* q, const void* k, const void* v, void* out, f
       (nsplit > 1 && (part == nullptr || counters == nullptr)) ||
       !valid_layout(Dh, c_bf16 ? 2 : 4, lanes, stage_rows, stages))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,  k,      v,    out, part, counters, S,     KV,         G,      Dh,   lo,
-               hi, rows_per_split, nsplit, q_bf16, stage_rows, stages,
-               scale * 1.4426950408889634f};
+  const int out_bf16 = lse == nullptr ? q_bf16 : 0;
+  const Args a{q,      k,      v,      out,      part,       counters, lse,
+               S,      KV,     G,      Dh,       lo,         hi,       rows_per_split,
+               nsplit, q_bf16, out_bf16, stage_rows, stages, scale * 1.4426950408889634f};
   const Kernel kernel = kernel_for(c_bf16, lanes);
   size_t smem = 0;
   const cudaError_t e = prepare(kernel, Dh, c_bf16 ? 2 : 4, stage_rows, stages, &smem);

@@ -2,7 +2,10 @@
 attention against a KV cache, split over the cache rows (flash-decode),
 written by hand for Hopper.
 
-    decode_attn_cuda   q (B, H, Dh), caches (B, S, KV, Dh), pos -> (B, H, Dh)
+    decode_attn_cuda        q (B, H, Dh), caches (B, S, KV, Dh), pos -> (B, H, Dh)
+    decode_attn_slice_cuda  q, a rank's rows (B, S_r, KV, Dh) of a cache
+                            sharded along its sequence, pos, row0 ->
+                            (out (B, H, Dh), lse (B, H)), float32
 
 One launch a call. A block takes a run of rows of one (b, kv head) and a
 slice of up to ``HEADS`` of its query heads; ``split_plan`` cuts the rows a
@@ -21,7 +24,15 @@ in ``ref.py`` is chosen one level up (``ops.py``) and only for CPU tensors.
 number written into a device tensor would be a copy from the host). The
 output and the scratch come from ``torch.empty``; launches go to PyTorch's
 current stream and nothing synchronises. ``launch_counts`` adds one per
-wrapper call that launched.
+wrapper call that launched, under ``decode_attn`` or, for the slice form,
+``decode_attn_slice``.
+
+The slice form is the same launch on the slice's local rows with the
+kernel's fold writing float32 and each head's log-sum-exp beside it
+(``ref.decode_attn_slice_ref`` is the same function). A slice holding no
+row that the position attends to is decided from the Python ints ``row0``
+and ``pos``: its output (0, -inf) is written without a launch, and nothing
+is counted.
 """
 from __future__ import annotations
 
@@ -32,15 +43,15 @@ import torch
 
 from ..build import check, load
 from ..device import counters_for
-from .ref import valid_rows
+from .ref import slice_rows, valid_rows
 
-__all__ = ["decode_attn_cuda", "split_plan", "layout", "shared_bytes",
+__all__ = ["decode_attn_cuda", "decode_attn_slice_cuda", "split_plan", "layout", "shared_bytes",
            "head_slices", "resident_blocks", "launch_counts",
            "reset_launch_counts", "HEADS", "BATCH", "CONSUMERS",
            "HEADER_BYTES", "MAX_DH", "MAX_G_DH", "MAX_SPLITS", "MIN_ROWS",
            "SMEM_LIMIT"]
 
-launch_counts = {"decode_attn": 0}
+launch_counts = {"decode_attn": 0, "decode_attn_slice": 0}
 
 MAX_DH = 256
 MAX_G_DH = 4096
@@ -72,7 +83,7 @@ def _library():
     if _lib is None:
         lib = load("decode_attn")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.decode_attn_launch.argtypes = [vp] * 6 + [ci] * 14 + [cf, vp]
+        lib.decode_attn_launch.argtypes = [vp] * 7 + [ci] * 14 + [cf, vp]
         lib.decode_attn_launch.restype = ci
         lib.decode_attn_max_active_blocks.argtypes = [ci] * 5 + [
             ctypes.POINTER(ci)] * 2
@@ -160,11 +171,7 @@ def _need(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def decode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, window: int = 0):
-    """One token's attention on the card (``ref.decode_attn_ref`` is the
-    same function): rows ``t <= pos`` (and ``t > pos - window`` if
-    ``window > 0``) of the caches; output in ``q.dtype``."""
+def _check(q, k_cache, v_cache) -> None:
     _need(q, "q", _FLOATS, 3)
     _need(k_cache, "k_cache", _FLOATS, 4)
     _need(v_cache, "v_cache", (k_cache.dtype,), 4)
@@ -180,14 +187,18 @@ def decode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"(H / KV) * Dh <= {MAX_G_DH}")
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError("q and the caches must be on one device")
-    pos, window = int(pos), int(window)
-    lo, hi = valid_rows(s, pos, window)
+
+
+def _launch(q, k_cache, v_cache, lo: int, hi: int, out, lse) -> None:
+    """One launch over rows lo..hi of the caches into ``out`` (and, the
+    slice form, ``lse``)."""
+    b, h, dh = q.shape
+    _, s, kv, _ = k_cache.shape
     g = h // kv
     units = b * kv * head_slices(g)
     esize = k_cache.element_size()
     rows, nsplit = split_plan(units, lo, hi,
                               resident_blocks(q.device, k_cache.dtype, dh))
-    out = torch.empty_like(q)
     part = cnt = None
     if nsplit > 1:
         part = torch.empty(units * nsplit * HEADS * (dh + 2),
@@ -197,10 +208,41 @@ def decode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         code = _library().decode_attn_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), b, s, kv, g, dh, lo, hi,
+            None if cnt is None else cnt.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, kv, g, dh, lo, hi,
             rows, nsplit, int(q.dtype == torch.bfloat16),
             int(k_cache.dtype == torch.bfloat16), *layout(dh, esize),
             1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
     check("decode_attn", code, "decode_attn_launch")
+
+
+def decode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, window: int = 0):
+    """One token's attention on the card (``ref.decode_attn_ref`` is the
+    same function): rows ``t <= pos`` (and ``t > pos - window`` if
+    ``window > 0``) of the caches; output in ``q.dtype``."""
+    _check(q, k_cache, v_cache)
+    lo, hi = valid_rows(k_cache.shape[1], int(pos), int(window))
+    out = torch.empty_like(q)
+    _launch(q, k_cache, v_cache, lo, hi, out, None)
     launch_counts["decode_attn"] += 1
     return out
+
+
+def decode_attn_slice_cuda(q: torch.Tensor, k_slice: torch.Tensor,
+                           v_slice: torch.Tensor, pos: int, window: int = 0,
+                           row0: int = 0):
+    """The slice form on the card (``ref.decode_attn_slice_ref`` is the
+    same function): q against a rank's rows ``row0 .. row0 + S_r - 1`` of a
+    cache at global position ``pos``; (out (B, H, Dh), lse (B, H)) float32.
+    A slice with no row that ``pos`` attends to: (0, -inf), no launch."""
+    _check(q, k_slice, v_slice)
+    b, h, dh = q.shape
+    rows = slice_rows(k_slice.shape[1], int(row0), int(pos), int(window))
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    if rows is None:
+        return out.zero_(), lse.fill_(float("-inf"))
+    _launch(q, k_slice, v_slice, rows[0], rows[1], out, lse)
+    launch_counts["decode_attn_slice"] += 1
+    return out, lse

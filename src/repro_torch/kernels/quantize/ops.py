@@ -3,7 +3,9 @@
 A CUDA tensor goes to the hand-written kernels (``quantize.py``) and either
 launches or raises; a CPU tensor goes to the plain versions (``ref.py``),
 with the ragged row tail padded here (the kernels read it as zeros, so on
-the card no padded copy is made). There is no switch and no fallback.
+the card no padded copy is made); a meta tensor (the dry run) to the
+kernels' meta forms (``kernels/meta.py``). There is no switch and no
+fallback: any other device raises.
 ``block_quant_fuse`` is the whole of the block-quantized transport's fusion
 (``core/engine.py::BlockQuantTransport``), one launch on the card.
 ``quantize`` / ``dequantize`` with ``packed`` (the int4 wire: two symbols a
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import meta
 from .quantize import (block_quant_fuse_cuda, dequantize_cuda,
                        dequantize_sum_cuda, quantize_cuda)
 from .ref import (block_quant_fuse_ref, dequantize_packed_ref,
@@ -29,6 +32,15 @@ __all__ = ["quantize", "dequantize", "dequantize_sum", "quantize_plain",
            "BLOCK"]
 
 BLOCK = 512           # elements per scale block (QuantConfig.block default)
+
+
+def _route(x):
+    kind = x.device.type
+    if kind not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"block quantization on {x.device}: the kernels "
+                         "take CUDA tensors, their plain versions CPU ones, "
+                         "their meta forms meta ones")
+    return kind
 
 
 def _pad_cols(x, block: int):
@@ -77,8 +89,11 @@ def quantize(x, qmax: int = 127, block: int = BLOCK, packed: bool = False):
     (R, ceil(N / block)))``; ``packed`` (int4, qmax <= 7): q is uint8
     (R, ceil(N / 2)), two symbols a byte, the first of a pair in the low
     nibble."""
-    if x.is_cuda:
+    kind = _route(x)
+    if kind == "cuda":
         return quantize_cuda(x, qmax, block, packed)
+    if kind == "meta":
+        return meta.quantize(x, qmax, block, packed)
     return quantize_plain(x, qmax, block, packed)
 
 
@@ -86,8 +101,11 @@ def dequantize(q, scale, block: int = BLOCK, packed: bool = False,
                n: int | None = None):
     """Inverse of ``quantize``: float32 (R, N) (``n`` the row length of
     packed symbols, default twice the bytes)."""
-    if q.is_cuda:
+    kind = _route(q)
+    if kind == "cuda":
         return dequantize_cuda(q, scale, block, packed, n)
+    if kind == "meta":
+        return meta.dequantize(q, scale, block, packed, n)
     return dequantize_plain(q, scale, block, packed, n)
 
 
@@ -95,8 +113,11 @@ def dequantize_sum(q, scale, block: int = BLOCK, packed: bool = False,
                    c: int | None = None):
     """Dequantize the D rows of q (D, C) and sum them in row order, d = 0,
     1, ...: float32 (C,). One launch on the card."""
-    if q.is_cuda:
+    kind = _route(q)
+    if kind == "cuda":
         return dequantize_sum_cuda(q, scale, block, packed, c)
+    if kind == "meta":
+        return meta.dequantize_sum(q, scale, block, packed, c)
     return dequantize_sum_plain(q, scale, block, packed, c)
 
 
@@ -109,6 +130,9 @@ def block_quant_fuse(f_p, qmax: int = 127, block: int = BLOCK,
     the sum of the delivered messages times P / n_surv and ``extra =
     mean(Delta^2) / 12 * n_surv * (P / n_surv)^2``, n_surv = max(sum keep,
     1)."""
-    if f_p.is_cuda:
+    kind = _route(f_p)
+    if kind == "cuda":
         return block_quant_fuse_cuda(f_p, qmax, block, symbols, keep=keep)
+    if kind == "meta":
+        return meta.block_quant_fuse(f_p, qmax, block, symbols, keep)
     return block_quant_fuse_ref(f_p, qmax, block, symbols, keep=keep)

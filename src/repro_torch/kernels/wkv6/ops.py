@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel (``wkv6.py``) and either
 launches or raises; a CPU tensor goes to the plain chunked version
-(``ref.py::wkv_chunked``). There is no switch and no fallback.
+(``ref.py::wkv_chunked``); a meta tensor (the dry run) to the kernel's meta
+form (``kernels/meta.py``). There is no switch and no fallback: any other
+device raises.
 
 Unlike the reference's ``ops.wkv6``, which starts from a zero state and
 returns y alone, this takes the model's initial state and returns the final
@@ -12,7 +14,7 @@ and it pads nothing on the card (the kernel masks the ragged last chunk).
 ``WKV6Function`` is the recurrence with its gradient, for training: on the
 card its forward launches the forward kernel and its backward the backward
 kernel (``wkv6_bwd_cuda``); on the CPU they are the plain ``wkv_chunked``
-and ``wkv6_bwd_ref``. It saves only its inputs, so under
+and ``wkv6_bwd_ref``; on meta the meta forms. It saves only its inputs, so under
 ``torch.utils.checkpoint`` the forward runs again in backward (a second
 launch) and nothing else changes.
 """
@@ -20,18 +22,31 @@ from __future__ import annotations
 
 import torch
 
+from .. import meta
 from .ref import wkv6_bwd_ref, wkv_chunked
 from .wkv6 import wkv6_bwd_cuda, wkv6_cuda
 
 __all__ = ["wkv6", "WKV6Function"]
 
 
+def _route(r):
+    kind = r.device.type
+    if kind not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"WKV6 on {r.device}: the kernel takes CUDA "
+                         "tensors, its plain version CPU ones, its meta form "
+                         "meta ones")
+    return kind
+
+
 def wkv6(r, k, v, logw, u, state0=None):
     """WKV6 sequence mix. r, k, v, logw (B, T, H, Dh) with logw >= -2,
     u (H, Dh), state0 (B, H, Dh, Dh) or None. Returns (y (B, T, H, Dh)
     float32, final state (B, H, Dh, Dh) float32)."""
-    if r.is_cuda:
+    kind = _route(r)
+    if kind == "cuda":
         return wkv6_cuda(r, k, v, logw, u, state0)
+    if kind == "meta":
+        return meta.wkv6(r, k, v, logw, u, state0)
     return wkv_chunked(r, k, v, logw, u, state0)
 
 
@@ -53,11 +68,15 @@ class WKV6Function(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         need_s0 = state0 is not None and ctx.needs_input_grad[5]
-        if r.is_cuda:
+        kind = _route(r)
+        if kind == "cuda":
             dr, dk, dv, dlw, du, ds0 = wkv6_bwd_cuda(
                 r, k, v, logw, u.float().contiguous(), state0,
                 dy.float().contiguous(),
                 None if ds is None else ds.float().contiguous(), need_s0)
+        elif kind == "meta":
+            dr, dk, dv, dlw, du, ds0 = meta.wkv6_bwd(r, k, v, logw, u, state0,
+                                                     dy, ds, need_s0)
         else:
             dr, dk, dv, dlw, du, ds0 = wkv6_bwd_ref(r, k, v, logw, u, state0,
                                                     dy, ds)

@@ -48,7 +48,8 @@ import torch.distributed as dist
 
 from ..core.collectives import CollectiveStats
 
-__all__ = ["Mesh", "GridMesh", "make_mesh", "make_production_mesh",
+__all__ = ["Mesh", "GridMesh", "make_mesh", "make_count_mesh",
+           "make_production_mesh",
            "make_host_mesh", "make_serve_mesh", "ClusterInfo", "init_cluster",
            "supports_cross_host_collectives", "make_cluster_mesh",
            "spawn_world", "rank_device"]
@@ -60,8 +61,10 @@ AXIS = "data"
 class Mesh:
     """A 1-D device mesh: a process group, one rank a device. ``group``
     None is the default (world) group. Its one axis is always named
-    ``"data"`` (``AXIS``). ``stats`` counts what the collectives of
-    ``core/collectives.py`` moved over it."""
+    ``"data"`` (``AXIS``); ``axes`` names the grid axes it spans (a
+    ``GridMesh``'s). ``stats`` counts what the collectives of
+    ``core/collectives.py`` moved over it. Backend ``"count"``: a counting
+    mesh (``make_count_mesh``), no group behind it."""
 
     axis: ClassVar[str] = AXIS
     group: object
@@ -71,6 +74,7 @@ class Mesh:
     backend: str
     stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats, compare=False, repr=False)
+    axes: tuple = (AXIS,)
 
     @property
     def shape(self) -> dict:
@@ -182,14 +186,8 @@ def make_mesh(shape, axis_names, device: str | None = None) -> GridMesh:
     for a in reversed(names):
         coords[a] = r % shape[a]
         r //= shape[a]
-    groups = [(a,) for a in names]
-    data = tuple(a for a in DATA_AXES if a in shape)
-    if len(data) > 1:
-        groups.append(data)
-    if len(names) > 1 and tuple(names) not in groups:
-        groups.append(tuple(names))          # the world: no new group
     meshes = {}
-    for axes in groups:
+    for axes in _groups(names):
         others = [a for a in names if a not in axes]
         size = math.prod(shape[a] for a in axes)
         mine = None
@@ -207,7 +205,43 @@ def make_mesh(shape, axis_names, device: str | None = None) -> GridMesh:
         backend = dist.get_backend(mine) if dist.is_initialized() else "none"
         meshes[axes] = Mesh(group=mine, size=size,
                             rank=_row_major(coords, shape, axes),
-                            device=dev, backend=backend)
+                            device=dev, backend=backend, axes=axes)
+    return GridMesh(shape=shape, coords=coords, rank=rank, device=dev,
+                    meshes=meshes)
+
+
+def _groups(names) -> list:
+    """The axis groups a ``GridMesh`` holds: each axis, the data axes
+    together, the whole mesh."""
+    groups = [(a,) for a in names]
+    data = tuple(a for a in DATA_AXES if a in names)
+    if len(data) > 1:
+        groups.append(data)
+    if len(names) > 1 and tuple(names) not in groups:
+        groups.append(tuple(names))
+    return groups
+
+
+def make_count_mesh(shape, axis_names, rank: int = 0) -> GridMesh:
+    """One rank's view of a mesh of ``shape`` over ``axis_names`` (the
+    production meshes' (16, 16) or (2, 16, 16) among them) with no world
+    behind it: every axis group a counting ``Mesh`` (backend ``"count"``,
+    device ``meta``), whose collectives return tensors of the right shape
+    and dtype and record their calls and bytes (``core/collectives.py``).
+    Nothing is allocated and no process group is made."""
+    shape = dict(zip(axis_names, (int(n) for n in shape)))
+    names = list(shape)
+    if not 0 <= rank < math.prod(shape.values()):
+        raise ValueError(f"rank {rank} of a mesh of {shape}")
+    coords, r = {}, rank
+    for a in reversed(names):
+        coords[a] = r % shape[a]
+        r //= shape[a]
+    dev = torch.device("meta")
+    meshes = {axes: Mesh(group=None, size=math.prod(shape[a] for a in axes),
+                         rank=_row_major(coords, shape, axes), device=dev,
+                         backend="count", axes=axes)
+              for axes in _groups(names)}
     return GridMesh(shape=shape, coords=coords, rank=rank, device=dev,
                     meshes=meshes)
 

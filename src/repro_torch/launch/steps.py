@@ -55,8 +55,21 @@ rank's slice along a dimension the "model" axis leaves whole, over the
 rules' "zero" axes (the reference's ``_rules_with_zero``). rglru and
 whisper at m > 1 and the rules' head_dim fallback raise
 (``NotImplementedError``, ROADMAP.md Queue 1 item 8(h′)); nothing is
-replicated where the rules slice. ``build_serve_step`` is not ported
-(item 8(i)): serving runs through ``launch/serve.py``.
+replicated where the rules slice.
+
+``build_serve_step`` (``ServeStep``) is the LM serving step over the same
+meshes: prefill under the 'tp' rules (the logits of the last 64 positions,
+this rank's vocab columns, and the caches of its K/V heads), or one decode
+step under the decode rules, whose cache is sharded along its sequence
+over "kv_seq" ("model", or the data axes and "model" where the batch
+cannot take the data axes): see ``models/transformer.py`` and
+``tensor_parallel.fold_attention``. With it go the rank's slices
+(``specs``, ``local_shapes``) and the global shapes (``abstract``), the
+counterparts of the reference's ``(fn, shardings, abstract)``, and
+``to_decode_state``, which places a prefill's caches into the decode
+step's layout (what the reference's ``jax.jit(in_shardings=)`` does when
+prefill's caches feed decode). rglru and whisper serve at model = 1 with
+their caches whole (item 8(h′) otherwise).
 """
 from __future__ import annotations
 
@@ -69,15 +82,22 @@ from ..core.collectives import all_gather, psum
 from ..core.compression import QuantConfig, compressed_psum
 from ..data.pipeline import batch_rows
 from ..models.layers import init_from_schema
-from ..models.model_api import (TP_FAMILIES, chunked_xent_loss, schema_for,
-                                train_forward)
+from ..models import rglru, rwkv6, transformer, whisper
+from ..models.model_api import (TP_FAMILIES, aux_abstract,
+                                chunked_xent_loss, schema_for,
+                                serve_decode_step, serve_forward,
+                                serve_logits, train_forward)
 from ..optim import (AdamWConfig, adamw_init, adamw_update, adamw_update_,
                      opt_state_specs, zero_dims)
-from ..sharding import gather_params, make_rules, model_dims, shard_params
-from ..tensor_parallel import STRATEGIES, TensorParallel
+from ..sharding import (flat_tree, gather_params, local_shape, local_slice,
+                        logical_spec, make_rules, model_dims, nest_tree,
+                        shard_params, state_specs)
+from ..tensor_parallel import (STRATEGIES, KVSlice, TensorParallel,
+                               gather_dim, greedy_ids)
 from .mesh import DATA_AXES
 
-__all__ = ["TrainStepConfig", "TrainStep", "build_train_step", "loss_fn"]
+__all__ = ["TrainStepConfig", "TrainStep", "build_train_step", "loss_fn",
+           "ServeStep", "build_serve_step", "PREFILL_LOGITS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,3 +415,257 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
                      tcfg: TrainStepConfig = TrainStepConfig()) -> TrainStep:
     """The train step of ``cfg`` on ``mesh`` for batches of ``shape``."""
     return TrainStep(cfg, mesh, shape, tcfg)
+
+
+# -- serving ------------------------------------------------------------------
+
+PREFILL_LOGITS = 64      # prefill's logits: the last 64 positions
+
+
+def _axes_of(phys) -> tuple:
+    return () if phys is None else (tuple(phys) if isinstance(phys, tuple)
+                                    else (phys,))
+
+
+def _state_abstract(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode state's leaves (flat paths) as meta tensors, the
+    reference's ``init_state(cfg, batch, max_len)``."""
+    meta = torch.device("meta")
+    if cfg.family in ("dense", "moe"):
+        st = transformer.init_cache(cfg, batch, max_len, device=meta)
+    elif cfg.family == "rwkv6":
+        st = rwkv6.rwkv6_init_state(cfg, batch, meta)
+    elif cfg.family == "rglru":
+        st = rglru.rglru_init_state(cfg, batch, max_len, meta)
+    else:
+        st = whisper.whisper_init_cache(cfg, batch, max_len, device=meta)
+    return flat_tree(st)
+
+
+class ServeStep:
+    """The serving step of ``cfg`` on ``mesh`` (``launch/mesh.py::
+    GridMesh``) for ``shape`` (``kind`` "prefill" or "decode"), the port of
+    the reference's ``build_serve_step``:
+
+      prefill: ``step(params, tokens, aux=None)`` -> (logits (B_r, 64,
+        V/m) float32 of the last 64 positions on this rank's vocab columns,
+        caches of its K/V heads (rwkv6: its state, ``wkv`` of its heads));
+      decode: ``step(params, tokens, state, pos)`` -> (logits (B_r, 1,
+        V/m), the state, updated in place),
+
+    ``params`` this rank's "model" slices (``init_params`` /
+    ``shard_params``), ``tokens`` its rows (B_r, S) or (B_r, 1) of the
+    global batch (``row0``, ``rows``), ``aux`` the stub inputs of the
+    global batch, ``state`` its slices of the decode state
+    (``init_state`` / ``to_decode_state``), ``pos`` a Python int.
+    ``greedy`` and ``gather_logits`` read the vocab slices of every
+    "model" rank. ``specs`` / ``local_shapes`` / ``abstract``: each
+    argument's mesh axes per dimension, this rank's shape and the global
+    shape and dtype (meta tensors). Nothing reads a value on the host."""
+
+    def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
+                 moe_groups: int = 16):
+        if shape.kind not in ("prefill", "decode"):
+            raise ValueError(f"shape.kind={shape.kind!r}: 'prefill' or "
+                             "'decode'")
+        m = mesh.shape.get("model", 1)
+        if m > 1 and cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
+                f"{m} is not ported (ROADMAP.md Queue 1 item 8(h′))")
+        self.cfg, self.mesh, self.shape = cfg, mesh, shape
+        self.decode = shape.kind == "decode"
+        b, s = shape.global_batch, shape.seq_len
+        self.rules = make_rules(cfg, mesh.shape,
+                                "decode" if self.decode else "prefill",
+                                decode_batch=b if self.decode else None)
+        self.schema = schema_for(cfg)
+        shapes = {k: ps.shape for k, ps in self.schema.items()}
+        axes = {k: ps.axes for k, ps in self.schema.items()}
+        self.model_dims = model_dims(axes, shapes, mesh.shape, self.rules)
+        need = ["embed/table",
+                "layers/wr" if cfg.family == "rwkv6" else "layers/wq"]
+        if m > 1 and any(self.model_dims[k] is None for k in need):
+            raise NotImplementedError(
+                f"{cfg.name}: {need} not sliced on a 'model' axis of {m} "
+                "(ROADMAP.md Queue 1 item 8(h′))")
+        self.tp = (TensorParallel(mesh.axis("model"), "tp", self.model_dims)
+                   if m > 1 else None)
+        batch = self.rules["batch"]
+        self.batch_axes = _axes_of(batch)
+        lo, hi = batch_rows(b, mesh, self.batch_axes)
+        self.row0, self.rows = lo, hi - lo
+        # MoE token groups: the reference's ``moe_groups`` cut the global
+        # batch's tokens, its groups sharded with the batch's rows
+        self.rank_groups = max(moe_groups * self.rows // b, 1)
+        tok_len = 1 if self.decode else s
+        ab = {"params": {k: torch.empty(v, dtype=torch.bfloat16,
+                                        device="meta")
+                         for k, v in shapes.items()},
+              "tokens": torch.empty((b, tok_len), dtype=torch.int32,
+                                    device="meta")}
+        sp = {"params": {k: logical_spec(axes[k], v, mesh.shape, self.rules)
+                         for k, v in shapes.items()},
+              "tokens": logical_spec(("batch", "seq"), (b, tok_len),
+                                     mesh.shape, self.rules)}
+        if self.decode:
+            ab["state"] = _state_abstract(cfg, b, s)
+            ab["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+            sp["state"] = state_specs({k: v.shape for k, v in
+                                       ab["state"].items()}, mesh.shape,
+                                      self.rules)
+            sp["pos"] = ()
+        else:
+            aux = aux_abstract(cfg, b)
+            ab["aux"] = aux
+            sp["aux"] = {k: logical_spec(("batch", None, None), v.shape,
+                                         mesh.shape, self.rules)
+                         for k, v in aux.items()}
+        self.abstract, self.specs = ab, sp
+        self.local_shapes = {
+            group: ({k: local_shape(ab[group][k].shape, sp[group][k],
+                                    mesh.shape) for k in ab[group]}
+                    if isinstance(ab[group], dict)
+                    else local_shape(ab[group].shape, sp[group], mesh.shape))
+            for group in ab}
+        self.kv = self._kv_slice() if self.decode else None
+        if self.decode and cfg.family not in TP_FAMILIES:
+            for k, spec in sp["state"].items():
+                if any(mesh.axes_size(_axes_of(p)) > 1 for p in spec[2:]):
+                    raise NotImplementedError(
+                        f"{cfg.name}: its decode state's {k} sharded past "
+                        "the batch (ROADMAP.md Queue 1 item 8(h′))")
+
+    # -- layout -------------------------------------------------------------
+
+    def _kv_slice(self) -> KVSlice:
+        key = "wkv" if self.cfg.family == "rwkv6" else "k"
+        spec = self.specs["state"][key]
+        n = self.abstract["state"][key].shape[2]
+        start, rows = local_slice(self.abstract["state"][key].shape, spec,
+                                  self.mesh)[2]
+        names = _axes_of(spec[2])
+        mesh = (self.mesh.axes(names)
+                if names and self.mesh.axes_size(names) > 1 else None)
+        return KVSlice(mesh, start, rows if mesh is not None else n)
+
+    def _heads(self, n: int) -> range:
+        """This rank's heads of ``n`` (all of them at model = 1)."""
+        if self.tp is None:
+            return range(n)
+        return self.tp.local_heads(n, n // self.tp.size)
+
+    def _wkv_compute(self, held):
+        """rwkv6's ``wkv`` (L, B, H_held, Dh, Dh) as the rules hold it ->
+        the heads this rank computes."""
+        kv, heads = self.kv, self._heads(self.cfg.n_heads)
+        if kv.mesh is not None and kv.mesh.axes == ("model",):
+            return held
+        whole = gather_dim(held, kv.mesh, 2)
+        return whole[:, :, heads.start:heads.stop].contiguous()
+
+    def _wkv_held(self, computed):
+        """The inverse of ``_wkv_compute``: the rules' slice of the new
+        state from each "model" rank's heads."""
+        kv = self.kv
+        if kv.mesh is not None and kv.mesh.axes == ("model",):
+            return computed
+        whole = gather_dim(computed, None if self.tp is None
+                           else self.tp.mesh, 2)
+        return whole.narrow(2, kv.row0, kv.rows).contiguous()
+
+    # -- parameters and state -------------------------------------------------
+
+    def init_params(self, seed: int = 0) -> dict:
+        """A random init of the schema's whole leaves from a
+        ``torch.Generator`` seeded with ``seed`` on the mesh's device (the
+        same on every rank), and this rank's "model" slices of them."""
+        gen = torch.Generator(device=self.mesh.device).manual_seed(seed)
+        return self.shard_params(init_from_schema(self.schema, gen,
+                                                  self.mesh.device))
+
+    def shard_params(self, full: dict) -> dict:
+        return shard_params(full, self.model_dims, self.mesh)
+
+    def init_state(self, dtype=torch.bfloat16) -> dict:
+        """This rank's slices of the zero decode state (bf16 leaves in
+        ``dtype``: float32 for a float32 model)."""
+        out = {}
+        for k, t in self.abstract["state"].items():
+            dt = dtype if t.dtype == torch.bfloat16 else t.dtype
+            out[k] = torch.zeros(self.local_shapes["state"][k], dtype=dt,
+                                 device=self.mesh.device)
+        return nest_tree(out)
+
+    def to_decode_state(self, caches, dtype=torch.bfloat16) -> dict:
+        """The decode state of this step's layout from a prefill step's
+        caches on the same mesh (its prompt of P <= seq_len tokens): K/V
+        heads gathered whole over "model", each rank keeping its rows of a
+        cache of ``seq_len`` rows; rwkv6's ``wkv`` from the rank's heads to
+        the rules' slice. A collective where "model" slices the heads."""
+        if not self.decode:
+            raise ValueError("to_decode_state: a decode step's")
+        cfg = self.cfg
+        if cfg.family == "rwkv6":
+            out = dict(caches)
+            out["wkv"] = self._wkv_held(caches["wkv"])
+            return out
+        state = self.init_state(dtype)
+        if cfg.family in ("dense", "moe"):
+            k, v = caches
+            if self.tp is not None and self.tp.sliced("layers/wk"):
+                k, v = (gather_dim(t, self.tp.mesh, 3) for t in (k, v))
+        else:
+            k, v = caches["k"], caches["v"]
+            for name, t in caches.items():
+                if name not in ("k", "v"):
+                    state[name] = t
+        p = k.shape[2]
+        a, e = self.kv.row0, min(self.kv.row0 + self.kv.rows, p)
+        if a < e:
+            state["k"][:, :, :e - a] = k[:, :, a:e]
+            state["v"][:, :, :e - a] = v[:, :, a:e]
+        return state
+
+    # -- the step --------------------------------------------------------------
+
+    def _aux_rows(self, aux: dict | None) -> dict:
+        return {k: v.narrow(0, self.row0, self.rows)
+                for k, v in (aux or {}).items()}
+
+    def __call__(self, params: dict, tokens, *args):
+        if not self.decode:
+            aux = args[0] if args else None
+            hidden, caches = serve_forward(params, tokens, self.cfg, self.tp,
+                                           self.rank_groups,
+                                           **self._aux_rows(aux))
+            return serve_logits(params, hidden[:, -PREFILL_LOGITS:]), caches
+        state, pos = args
+        if self.cfg.family == "rwkv6":
+            state = dict(state, wkv=self._wkv_compute(state["wkv"]))
+        hidden, state = serve_decode_step(params, tokens, state, int(pos),
+                                          self.cfg, self.tp, self.kv,
+                                          self.rank_groups)
+        if self.cfg.family == "rwkv6":
+            state["wkv"] = self._wkv_held(state["wkv"])
+        return serve_logits(params, hidden), state
+
+    def greedy(self, logits):
+        """The greedy token of each row over every "model" rank's vocab
+        columns (int64): ``torch.argmax`` of the whole row."""
+        if self.tp is None:
+            return greedy_ids(logits, None, 0)
+        return greedy_ids(logits, self.tp.mesh,
+                          self.tp.rank * logits.shape[-1])
+
+    def gather_logits(self, logits):
+        """The whole vocab's logits from every "model" rank's columns."""
+        return gather_dim(logits, None if self.tp is None else self.tp.mesh,
+                          logits.ndim - 1)
+
+
+def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
+                     moe_groups: int = 16) -> ServeStep:
+    """The prefill or decode step (per ``shape.kind``) of ``cfg`` on
+    ``mesh``."""
+    return ServeStep(cfg, mesh, shape, moe_groups)

@@ -23,7 +23,11 @@ rglru's ``tail<i>/*`` are not stacked. They are inference weights
 Training works on the flat dict itself (path -> stacked tensor, the
 optimizer's and the checkpoint's leaves): ``param_view`` gives the same
 module-shaped access to it with the per-layer slices taken as autograd
-views, so the gradient of a loss reaches each stacked leaf whole.
+views, so the gradient of a loss reaches each stacked leaf whole. So does
+serving over a mesh (``serve_forward``, ``serve_decode_step``,
+``serve_logits``; ``launch/steps.py::build_serve_step``), the counterparts
+of ``model.forward(mode="prefill")``, ``decode_step`` and ``lm_logits``
+under the reference's ``use_sharding``.
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ from .layers import init_from_schema
 
 __all__ = ["ModelBundle", "DenseLM", "RWKV6LM", "RGLRULM", "WhisperLM",
            "get_model", "lm_logits", "state_from_flat", "schema_for",
+           "aux_abstract",
            "resolve_device", "param_view", "train_forward",
-           "chunked_xent_loss"]
+           "chunked_xent_loss", "serve_forward", "serve_decode_step",
+           "serve_logits"]
 
 
 def resolve_device(device) -> torch.device:
@@ -68,6 +74,20 @@ _SCHEMAS = {"dense": transformer.dense_schema,
             "rwkv6": rwkv6.rwkv6_schema,
             "rglru": rglru.rglru_schema,
             "whisper": whisper.whisper_schema}
+
+
+def aux_abstract(cfg: ModelConfig, batch: int) -> dict:
+    """Stub-frontend inputs of ``batch`` rows as meta tensors (shape and
+    dtype): whisper's post-conv ``frames``, qwen2-vl's ``vision_embeds``;
+    none for the other families (the reference's
+    ``ModelBundle.aux_inputs``)."""
+    meta = lambda n: torch.empty((batch, n, cfg.d_model),
+                                 dtype=torch.bfloat16, device="meta")
+    if cfg.family == "whisper":
+        return {"frames": meta(cfg.n_audio_frames)}
+    if cfg.n_vision_tokens:
+        return {"vision_embeds": meta(cfg.n_vision_tokens)}
+    return {}
 
 
 def schema_for(cfg: ModelConfig) -> dict:
@@ -165,18 +185,9 @@ class ModelBundle(nn.Module):
 
     def aux_inputs(self, batch: int, seq: int) -> dict:
         """Stub-frontend inputs the forward takes besides the tokens, as
-        meta tensors (shape and dtype): whisper's post-conv ``frames``,
-        qwen2-vl's ``vision_embeds``; none for the other families (the
-        reference's ``ModelBundle.aux_inputs``)."""
+        meta tensors (``aux_abstract``)."""
         del seq
-        cfg = self.cfg
-        meta = lambda n: torch.empty((batch, n, cfg.d_model),
-                                     dtype=torch.bfloat16, device="meta")
-        if cfg.family == "whisper":
-            return {"frames": meta(cfg.n_audio_frames)}
-        if cfg.n_vision_tokens:
-            return {"vision_embeds": meta(cfg.n_vision_tokens)}
-        return {}
+        return aux_abstract(self.cfg, batch)
 
 
 class DenseLM(ModelBundle):
@@ -325,6 +336,73 @@ def train_forward(params: dict, tokens, cfg: ModelConfig,
     else:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return hidden
+
+
+# -- serving over a mesh -----------------------------------------------------
+
+def _serve_family(cfg: ModelConfig, tp, kv=None) -> None:
+    """rglru and whisper serve on a "model" axis of one with their caches
+    whole (ROADMAP.md Queue 1 item 8(h′))."""
+    if cfg.family in TP_FAMILIES:
+        return
+    if tp is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no 'model' form "
+            "(ROADMAP.md Queue 1 item 8(h′))")
+    if kv is not None and kv.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's cache sharded along its "
+            "sequence (ROADMAP.md Queue 1 item 8(h′))")
+
+
+@torch.no_grad()
+def serve_forward(params: dict, tokens, cfg: ModelConfig, tp=None,
+                  n_groups: int = 16, **aux):
+    """Prefill of the flat ``params`` over ``tokens`` (B, S): (hidden (B,
+    S, D), caches / state), as ``model.forward(mode="prefill")``. ``tp``
+    (a 'tp' ``TensorParallel``, or None): the "model" axis, ``params`` the
+    rank's slices; the caches are then of the rank's K/V heads (whole
+    where they do not divide), rwkv6's ``wkv`` of its heads."""
+    _serve_family(cfg, tp)
+    view = param_view(params, cfg)
+    if cfg.family in ("dense", "moe"):
+        return transformer.dense_forward(view, tokens, cfg, "prefill",
+                                         aux.get("vision_embeds"), False,
+                                         n_groups, tp)
+    if cfg.family == "rwkv6":
+        return rwkv6.rwkv6_forward(view, tokens, cfg, "prefill", tp=tp)
+    if cfg.family == "rglru":
+        return rglru.rglru_forward(view, tokens, cfg, "prefill")
+    return whisper.whisper_forward(view, tokens, cfg, "prefill",
+                                   aux.get("frames"))
+
+
+@torch.no_grad()
+def serve_decode_step(params: dict, tokens, state, pos: int,
+                      cfg: ModelConfig, tp=None, kv=None,
+                      n_groups: int = 16):
+    """One decode step of the flat ``params``: (hidden (B, 1, D), state),
+    as ``model.decode_step``. ``tp``: the "model" axis; ``kv`` (a
+    ``tensor_parallel.KVSlice`` or None): the dense family's cache is the
+    rank's rows of it (``transformer.dense_decode_step``); rwkv6's state
+    is of the rank's heads."""
+    _serve_family(cfg, tp, kv)
+    view = param_view(params, cfg)
+    if cfg.family in ("dense", "moe"):
+        return transformer.dense_decode_step(view, tokens, state, pos, cfg,
+                                             tp, kv, n_groups)
+    if cfg.family == "rwkv6":
+        return rwkv6.rwkv6_decode_step(view, tokens, state, pos, cfg, tp)
+    if cfg.family == "rglru":
+        return rglru.rglru_decode_step(view, tokens, state, pos, cfg)
+    return whisper.whisper_decode_step(view, tokens, state, pos, cfg)
+
+
+def serve_logits(params: dict, hidden):
+    """Float32 logits of ``hidden`` against the head's rows in ``params``
+    (the rank's vocab rows on a "model" axis), as ``lm_logits``."""
+    table = params.get("lm_head/table", params["embed/table"])
+    return torch.matmul(hidden.float(), table.float().T)
 
 
 def _chunk_logits(hc, table):

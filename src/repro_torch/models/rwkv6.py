@@ -21,6 +21,10 @@ reference lets ``jax.grad`` differentiate its jnp ``wkv_chunked``).
 Under a "model" axis (``tp``, ``tensor_parallel.py``) a rank runs its
 H/m heads (K6 and its backward on (B, T, H/m, Dh)) and its d_ff/m columns
 of the channel mix; the decay is computed for the rank's channels only.
+Serving under it ('tp', no autograd) runs the same regions: prefill with
+K6 at H/m and a decode step on the rank's heads, the state's ``wkv`` of
+those heads and its shift states whole (``launch/steps.py::ServeStep``
+places the decode rules' slices).
 """
 from __future__ import annotations
 
@@ -150,14 +154,25 @@ def _channel_mix(x, lp, shift_last, tp=None):
     return rr.to(x.dtype) * mm(kk, lp.cmix_wv), x[:, -1:]
 
 
-def _layer(x, lp, cfg, state):
+def _layer(x, lp, cfg, state, tp=None):
+    """One layer from ``state`` (shift_t, wkv, shift_c); under ``tp`` its
+    two halves are regions of the rank's heads and d_ff columns, wkv the
+    rank's heads."""
     shift_t, wkv, shift_c = state
-    h, s_t_new, wkv_new = _time_mix(rms_norm(x, lp.ln1, cfg.norm_eps), lp,
-                                    cfg, shift_t, wkv)
-    x = x + h
-    h, s_c_new = _channel_mix(rms_norm(x, lp.ln2, cfg.norm_eps), lp, shift_c)
-    x = x + h
-    return x, (s_t_new, wkv_new, s_c_new)
+    if tp is None:
+        h, s_t_new, wkv_new = _time_mix(rms_norm(x, lp.ln1, cfg.norm_eps),
+                                        lp, cfg, shift_t, wkv)
+        x = x + h
+        h, s_c_new = _channel_mix(rms_norm(x, lp.ln2, cfg.norm_eps), lp,
+                                  shift_c)
+        return x + h, (s_t_new, wkv_new, s_c_new)
+    h, s_t_new, wkv_new = _time_mix(
+        tp.enter(rms_norm(x, lp.ln1, cfg.norm_eps)), lp, cfg, shift_t, wkv,
+        tp)
+    x = x + tp.leave(h, x.dtype)
+    h, s_c_new = _channel_mix(tp.enter(rms_norm(x, lp.ln2, cfg.norm_eps)),
+                              lp, shift_c, tp)
+    return x + tp.leave(h, x.dtype), (s_t_new, wkv_new, s_c_new)
 
 
 def rwkv6_init_state(cfg, batch: int, device="cuda", dtype=torch.bfloat16):
@@ -210,14 +225,13 @@ def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
     """Full-sequence forward of ``model`` (an ``RWKV6LM``, or a parameter
     view of one: ``model_api.param_view``). Returns (hidden (B, T, D), the
     new state); in mode "train" (hidden, None) from the zero state, each
-    layer's two halves recomputed in backward when ``remat``. ``tp``
-    (train only): the "model" axis, ``model`` holding the rank's slices
-    (``model_api.train_forward``)."""
+    layer's two halves recomputed in backward when ``remat``. ``tp``: the
+    "model" axis, ``model`` holding the rank's slices
+    (``model_api.train_forward``, ``model_api.serve_forward``); a state's
+    ``wkv`` is then of the rank's heads."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill', 'decode' or "
                          "'train'")
-    if tp is not None and mode != "train":
-        raise ValueError("the 'model' axis is a training form")
     b, _ = tokens.shape
     if tp is not None:
         x = tp.embed(model.embed.table, tokens)
@@ -237,11 +251,16 @@ def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
         return rms_norm(x, w, cfg.norm_eps), None
     if state is None:
         state = rwkv6_init_state(cfg, b, x.device, x.dtype)
+        if tp is not None:          # the rank's heads
+            wkv = state["wkv"]
+            state["wkv"] = wkv.new_zeros(wkv.shape[:2]
+                                         + (model.layers[0].wr.shape[-2],)
+                                         + wkv.shape[3:])
     new = ([], [], [])
     for i, lp in enumerate(model.layers):
         x, layer_state = _layer(x, lp, cfg, (state["shift_t"][i],
                                              state["wkv"][i],
-                                             state["shift_c"][i]))
+                                             state["shift_c"][i]), tp)
         for acc, s in zip(new, layer_state):
             acc.append(s)
     x = rms_norm(x, model.final_norm.w, cfg.norm_eps)
@@ -249,7 +268,8 @@ def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
                "shift_c": torch.stack(new[2])}
 
 
-def rwkv6_decode_step(model, tokens, state, pos: int, cfg):
+def rwkv6_decode_step(model, tokens, state, pos: int, cfg, tp=None):
     """One-token step; the recurrence makes this O(1) in context length."""
     del pos
-    return rwkv6_forward(model, tokens, cfg, mode="decode", state=state)
+    return rwkv6_forward(model, tokens, cfg, mode="decode", state=state,
+                         tp=tp)

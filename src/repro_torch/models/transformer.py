@@ -26,6 +26,19 @@ meets at model = 1, by global index), mlp columns or experts, the residual
 whole ('tp') or the rank's rows of the sequence ('tp_sp'); under 'fsdp'
 only the embedding and the loss are vocab-parallel.
 
+Serving under "model" (``launch/steps.py::ServeStep``, 'tp', no autograd):
+prefill runs the same regions and returns the caches of the rank's K/V
+heads (whole K/V where they do not divide). A decode step takes the
+decode rules' cache, a rank's rows of it (``tensor_parallel.KVSlice``):
+per layer q on the rank's heads and K/V on its K/V heads, the new K/V
+row gathered whole over "model" and written by the rank whose rows hold
+``pos``, q gathered over "model", K5's slice form on the rank's rows and
+the partials folded over the "kv_seq" axes
+(``tensor_parallel.fold_attention``), then the rank's heads of the context
+into ``wo`` summed over "model", and the MLP or MoE region as in training.
+A cache whole on every rank (the "kv_seq" axes do not divide its length)
+takes K5's one-device form, no fold.
+
 M-RoPE (qwen2-vl): a decode step takes the position its own prefill gives
 that index (``layers.mrope_positions``), where the reference's decode step
 puts the raw index (ROADMAP Queue 3).
@@ -37,8 +50,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.decode_attn.ops import decode_attention
-from ..tensor_parallel import row_mm
+from ..kernels.decode_attn.ops import decode_attention, decode_attention_slice
+from ..tensor_parallel import fold_attention, gather_dim, row_mm
 from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
                      embed_tokens, head_mask, mm, mrope_cache,
                      mrope_positions, mrope_sections, out_proj, rms_norm,
@@ -142,28 +155,35 @@ def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos, tp=None):
     ``cfg.window`` on local layers (``layers.causal_attention``). Returns
     (out (B, S, D), (k, v)); under ``tp`` on this rank's q heads (its K/V
     heads where they divide, else the whole K/V heads each meets at
-    model = 1), out the output projection's partial sum in float32 and no
-    (k, v)."""
+    model = 1), out the output projection's partial sum in float32 and
+    (k, v) the rank's K/V heads (whole where they do not divide)."""
     b, s, _ = h.shape
     dh = cfg.d_head
     q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
     heads = (range(cfg.h_eff) if tp is None
              else tp.local_heads(cfg.h_eff, lp.wq.shape[-2]))
+    ka, va = k, v
     if tp is not None and not tp.sliced("layers/wk"):
-        k, v, (nkv, g) = _kv_for_heads(k, v, heads, cfg)
+        ka, va, (nkv, g) = _kv_for_heads(k, v, heads, cfg)
     else:
         nkv = k.shape[2]
         g = len(heads) // nkv
-    ctx = causal_attention(q.reshape(b, s, nkv, g, dh), k, v,
+    ctx = causal_attention(q.reshape(b, s, nkv, g, dh), ka, va,
                            cfg.window if is_local else 0, cfg.attn_q_chunk,
                            cfg.attn_kv_chunk, cfg.scores_bf16)
     ctx = ctx.to(h.dtype).reshape(b, s, len(heads), dh)
     if tp is None:
         return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
+    return _out_tp(ctx, lp, cfg, heads), (k, v)
+
+
+def _out_tp(ctx, lp, cfg, heads: range):
+    """The output projection's partial sum (float32) of the rank's heads
+    ``heads`` of the context (B, S, H/m, Dh), padded heads zeroed."""
     hm = head_mask(cfg, ctx.dtype, ctx.device)
     if hm is not None:
         ctx = ctx * hm[heads.start:heads.stop][None, None, :, None]
-    return row_mm(ctx.flatten(-2), lp.wo.flatten(0, 1)), None
+    return row_mm(ctx.flatten(-2), lp.wo.flatten(0, 1))
 
 
 def _mlp(x, lp, cfg, n_groups: int = N_GROUPS):
@@ -187,7 +207,7 @@ def _layer_body(x, lp, cfg, is_local: bool, ropes, n_groups: int = N_GROUPS):
 def _train_layer(x, lp, cfg, is_local: bool, ropes, n_groups: int,
                  tp=None):
     if tp is not None:
-        return _layer_tp(x, lp, cfg, is_local, ropes, n_groups, tp)
+        return _layer_tp(x, lp, cfg, is_local, ropes, n_groups, tp)[0]
     return _layer_body(x, lp, cfg, is_local, ropes, n_groups)[0]
 
 
@@ -233,14 +253,16 @@ def _mlp_tp(h, lp, cfg, n_groups: int, tp):
 
 
 def _layer_tp(x, lp, cfg, is_local: bool, ropes, n_groups: int, tp):
-    """``_layer_body`` (train) on the rank's slices: x is (B, S, D) under
-    'tp', the rank's (B, S/m, D) rows under 'tp_sp'."""
+    """``_layer_body`` on the rank's slices: x is (B, S, D) under 'tp', the
+    rank's (B, S/m, D) rows under 'tp_sp'. Returns (x', (k, v) of the
+    rank's K/V heads)."""
     sin, cos = _rope_of(ropes, is_local)
     h = rms_norm(x, tp.norm_weight(lp.pre_attn_norm), cfg.norm_eps)
-    x = x + tp.leave(_attention_flagged(tp.enter(h), lp, cfg, is_local, sin,
-                                        cos, tp)[0], x.dtype)
+    out, kv = _attention_flagged(tp.enter(h), lp, cfg, is_local, sin, cos,
+                                 tp)
+    x = x + tp.leave(out, x.dtype)
     h = rms_norm(x, tp.norm_weight(lp.pre_mlp_norm), cfg.norm_eps)
-    return x + _mlp_tp(h, lp, cfg, n_groups, tp)
+    return x + _mlp_tp(h, lp, cfg, n_groups, tp), kv
 
 
 def _embed_tp(model, tokens, cfg, vision_embeds, tp):
@@ -272,13 +294,12 @@ def dense_forward(model, tokens, cfg, mode: str = "prefill",
     layer recomputed in backward when ``remat`` (no activation of a layer
     is kept but its input). ``vision_embeds`` (B, n_vision, D), if given,
     replace the first embeddings (qwen2-vl's stubbed vision tower). MoE
-    layers cut the tokens into ``n_groups`` groups. ``tp`` (train only):
-    the "model" axis, ``model`` holding the rank's slices
-    (``model_api.train_forward``)."""
+    layers cut the tokens into ``n_groups`` groups. ``tp``: the "model"
+    axis, ``model`` holding the rank's slices (``model_api.train_forward``,
+    ``model_api.serve_forward``); prefill's caches are then of the rank's
+    K/V heads (whole where they do not divide)."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
-    if tp is not None and mode != "train":
-        raise ValueError("the 'model' axis is a training form")
     b, s = tokens.shape
     if tp is not None:
         x = _embed_tp(model, tokens, cfg, vision_embeds, tp)
@@ -301,7 +322,9 @@ def dense_forward(model, tokens, cfg, mode: str = "prefill",
         elif mode == "train":
             x = _train_layer(x, lp, cfg, is_local, ropes, n_groups, tp)
         else:
-            x, (k, v) = _layer_body(x, lp, cfg, is_local, ropes, n_groups)
+            x, (k, v) = (_layer_body(x, lp, cfg, is_local, ropes, n_groups)
+                         if tp is None else
+                         _layer_tp(x, lp, cfg, is_local, ropes, n_groups, tp))
             ks.append(k)
             vs.append(v)
     w = model.final_norm.w if tp is None else tp.norm_weight(
@@ -319,23 +342,49 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def dense_decode_step(model, tokens, cache, pos: int, cfg):
+def dense_decode_step(model, tokens, cache, pos: int, cfg, tp=None, kv=None,
+                      n_groups: int = N_GROUPS):
     """One decode step. tokens (B, 1); cache {"k", "v"} of (L, B, S, KV,
     Dh), written in place at row ``pos`` (a Python int). Returns (hidden
-    (B, 1, D), cache)."""
-    x = embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
+    (B, 1, D), cache).
+
+    ``tp`` (the "model" axis, 'tp'; ``model`` the rank's slices) and ``kv``
+    (``tensor_parallel.KVSlice``: the cache is the rank's rows of it, S its
+    rows) give the sharded step of the module docstring; either may be None
+    (a "model" axis of one; a cache whole on every rank)."""
+    x = (embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
+         if tp is None else _embed_tp(model, tokens, cfg, None, tp))
     ropes = _ropes_for(cfg, 1, x.device, pos0=pos, batch=x.shape[0])
+    sliced = kv is not None and kv.mesh is not None
+    row0 = kv.row0 if sliced else 0
+    write = not sliced or kv.holds(pos)
     for i, (lp, is_local) in enumerate(zip(model.layers,
                                            _is_local_flags(cfg))):
         sin, cos = _rope_of(ropes, is_local)
         h = rms_norm(x, lp.pre_attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(h, lp, cfg, sin, cos)
+        q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
+        if tp is not None:
+            q = gather_dim(q, tp.mesh, 2)
+            if tp.sliced("layers/wk"):
+                k, v = gather_dim(k, tp.mesh, 2), gather_dim(v, tp.mesh, 2)
         k_c, v_c = cache["k"][i], cache["v"][i]
-        k_c[:, pos] = k[:, 0].to(k_c.dtype)
-        v_c[:, pos] = v[:, 0].to(v_c.dtype)
+        if write:
+            k_c[:, pos - row0] = k[:, 0].to(k_c.dtype)
+            v_c[:, pos - row0] = v[:, 0].to(v_c.dtype)
         window = cfg.window if is_local else 0
-        ctx = decode_attention(q[:, 0], k_c, v_c, pos, window)[:, None]
-        x = x + out_proj(ctx, lp.wo, cfg).to(x.dtype)
+        if sliced:
+            o, lse = decode_attention_slice(q[:, 0], k_c, v_c, pos, window,
+                                            row0)
+            ctx = fold_attention(o, lse, kv.mesh).to(x.dtype)[:, None]
+        else:
+            ctx = decode_attention(q[:, 0], k_c, v_c, pos, window)[:, None]
+        if tp is None:
+            x = x + out_proj(ctx, lp.wo, cfg).to(x.dtype)
+        else:
+            heads = tp.local_heads(cfg.h_eff, lp.wq.shape[-2])
+            x = x + tp.leave(_out_tp(ctx[:, :, heads.start:heads.stop], lp,
+                                     cfg, heads), x.dtype)
         h2 = rms_norm(x, lp.pre_mlp_norm, cfg.norm_eps)
-        x = x + _mlp(h2, lp, cfg)
+        x = x + (_mlp(h2, lp, cfg, n_groups) if tp is None
+                 else _mlp_tp(h2, lp, cfg, n_groups, tp))
     return rms_norm(x, model.final_norm.w, cfg.norm_eps), cache

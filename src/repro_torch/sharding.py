@@ -11,8 +11,11 @@ Here the mesh is explicit SPMD (``launch/mesh.py::GridMesh``): a rule table
 decides which dimension a rank keeps a slice of: a parameter's "model"
 dimension (``model_dims``; ``shard_params`` cuts a rank's slices from whole
 leaves and ``gather_params`` rebuilds them), the ZeRO-1 dimension of the
-optimizer state (``optim.opt_state_specs``) and the rows of the batch
-(``data.batch_rows``). ``mesh_shape`` is the ordered ``{axis: size}``
+optimizer state (``optim.opt_state_specs``), the rows of the batch
+(``data.batch_rows``) and, in serving, each leaf of the decode state
+(``state_specs``, the reference's ``launch/steps.py::_state_spec``: a KV
+cache's sequence over the rules' "kv_seq"; ``local_slice`` gives a rank's
+rows). ``mesh_shape`` is the ordered ``{axis: size}``
 mapping (``GridMesh.shape``). The reference's ``use_sharding`` / ``shard``
 / ``named_sharding`` place GSPMD constraints and have no counterpart: the
 forward computes on the slices with explicit collectives
@@ -23,7 +26,9 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 __all__ = ["AxisRules", "logical_spec", "make_rules", "axis_size",
-           "model_dims", "shard_params", "gather_params"]
+           "model_dims", "shard_params", "gather_params", "state_names",
+           "state_specs", "local_shape", "local_slice", "flat_tree",
+           "nest_tree"]
 
 # the logical names whose "model" slice the forward computes on
 # (``tensor_parallel.py``); any other name resolved to "model" raises
@@ -199,3 +204,73 @@ def gather_params(local: dict, dims: Mapping, mesh) -> dict:
         g = all_gather(t.contiguous(), axis)
         out[k] = g.movedim(0, d).flatten(d, d + 1).contiguous()
     return out
+
+
+# -- the decode state (serving) -------------------------------------------------
+
+def state_names(ndim: int) -> tuple:
+    """The logical names of a decode-state leaf of ``ndim`` dimensions, as
+    the reference's ``_state_spec`` gives them: (layers, batch, kv_seq,
+    None, ...) for a cache (L, B, S, ...) or any leaf of 4 or more
+    dimensions (rwkv6's wkv (L, B, H, Dh, Dh): its heads; a shift state
+    (L, B, 1, D): a length of 1, whole), (layers, batch, None) for 3, none
+    below."""
+    if ndim >= 4:
+        return ("layers", "batch", "kv_seq") + (None,) * (ndim - 3)
+    if ndim == 3:
+        return ("layers", "batch", None)
+    return (None,) * ndim
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of leaves as one dict of '/'-joined paths."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flat_tree(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def nest_tree(flat: dict) -> dict:
+    """The inverse of ``flat_tree``."""
+    out: dict = {}
+    for path, t in flat.items():
+        *parts, leaf = path.split("/")
+        node = out
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return out
+
+
+def state_specs(state_shapes: Mapping[str, tuple],
+                mesh_shape: Mapping[str, int], rules: AxisRules) -> dict:
+    """Each decode-state leaf's mesh axes per dimension (``logical_spec``
+    of ``state_names``, with the divisibility rule): path -> spec."""
+    return {k: logical_spec(state_names(len(shape)), shape, mesh_shape,
+                            rules)
+            for k, shape in state_shapes.items()}
+
+
+def local_shape(shape, spec, mesh_shape: Mapping[str, int]) -> tuple:
+    """A rank's shape of a leaf of ``shape`` placed by ``spec``."""
+    return tuple(n // axis_size(mesh_shape, phys)
+                 for n, phys in zip(shape, spec))
+
+
+def local_slice(shape, spec, mesh) -> tuple:
+    """(start, length) per dimension of this rank's block of a leaf of
+    ``shape`` placed by ``spec`` on ``mesh`` (a ``GridMesh``: a dimension
+    over several axes is split row-major over them)."""
+    out = []
+    for n, phys in zip(shape, spec):
+        if phys is None:
+            out.append((0, n))
+            continue
+        names = phys if isinstance(phys, tuple) else (phys,)
+        w = n // mesh.axes_size(names)
+        out.append((mesh.axes_index(names) * w, w))
+    return tuple(out)

@@ -8,8 +8,7 @@ format.
 Design notes (why this is not prometheus_client):
 
 - No background server, no pip dependency; snapshots are plain JSON-able
-  dicts, which a cluster frontend merges with a ``host`` label (the
-  cluster tier is not ported yet: ROADMAP.md Queue 1 item 6).
+  dicts, which a cluster frontend merges with a ``host`` label.
 - Hot-path cost is one dict lookup + float add under a per-registry
   lock.  Expensive sources (engine counters, cache stats, router state)
   are *pulled* by collector callbacks at snapshot time, not pushed per

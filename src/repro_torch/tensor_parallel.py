@@ -44,15 +44,26 @@ Every rank issues the same collectives in the same order, also in the
 recompute of a checkpointed layer; every sum gives every rank the same
 bits (``core/collectives.py``), so replicated activations and parameters
 stay identical across the "model" ranks.
+
+Serving ('tp' regions without autograd: plain collectives) adds what a
+decode step against a KV cache sharded along its sequence needs
+(``launch/steps.py::ServeStep``): ``KVSlice``, a rank's rows of the cache
+and the mesh of the rules' "kv_seq" axes; ``fold_attention``, the ranks'
+attention partials (K5's slice form: the output normalised over the rank's
+rows and their log-sum-exp) folded into the attention over every row; and
+``greedy_ids``, the greedy token over the vocab slices of the "model" ranks.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from .core.collectives import all_gather, psum, reduce_scatter
 
 __all__ = ["TensorParallel", "copy_to_model", "reduce_from_model",
-           "gather_seq", "scatter_seq", "gather_stack", "row_mm"]
+           "gather_seq", "scatter_seq", "gather_stack", "row_mm", "KVSlice",
+           "fold_attention", "greedy_ids", "gather_dim"]
 
 STRATEGIES = ("tp", "tp_sp", "fsdp")
 
@@ -307,3 +318,62 @@ class TensorParallel:
         if self.sp:
             return gather_seq(hidden, self.mesh), labels, mask
         return copy_to_model(hidden, self.mesh), labels, mask
+
+
+# -- serving ----------------------------------------------------------------------
+
+def gather_dim(x, mesh, dim: int):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (``x``
+    itself on a mesh of one): a plain collective, no autograd rule."""
+    return x if mesh is None or mesh.size == 1 else _gather(x, mesh, dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSlice:
+    """A rank's rows ``row0 .. row0 + rows - 1`` of a decode cache whose
+    sequence the rules' "kv_seq" axes shard; ``mesh`` is the 1-D mesh over
+    those axes (None: the cache is whole on every rank)."""
+
+    mesh: object
+    row0: int
+    rows: int
+
+    def holds(self, pos: int) -> bool:
+        return self.row0 <= pos < self.row0 + self.rows
+
+
+def fold_attention(o, lse, mesh):
+    """The attention over every rank's rows from each rank's partial, ``o``
+    (B, H, Dh) normalised over its rows and ``lse`` (B, H) their
+    log-sum-exp (float32; a rank with no row: 0 and -inf): one all-gather
+    of both, then with M the largest log-sum-exp and w_r = exp(lse_r - M),
+    sum_r w_r o_r / sum_r w_r, summed in rank order, so every rank gets
+    the same bits. Float32 (B, H, Dh)."""
+    both = torch.cat([o, lse[..., None]], dim=-1)
+    g = all_gather(both.contiguous(), mesh)           # (n, B, H, Dh + 1)
+    lses = g[..., -1]
+    m = lses.max(dim=0).values
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = den = None
+    for r in range(mesh.size):
+        w = torch.exp(lses[r] - m)
+        part = g[r, ..., :-1] * w[..., None]
+        num = part if num is None else num + part
+        den = w if den is None else den + w
+    return num / den[..., None]
+
+
+def greedy_ids(logits, mesh, v0: int):
+    """The greedy token of each row of ``logits`` (..., V/m), this rank's
+    vocab columns from global index ``v0``, over every "model" rank's: the
+    largest logit, the lowest global index on a tie, as ``torch.argmax``
+    over the whole row gives (int64, (...))."""
+    idx = torch.argmax(logits, dim=-1)
+    if mesh is None or mesh.size == 1:
+        return idx + v0
+    val = torch.take_along_dim(logits, idx[..., None], dim=-1)[..., 0]
+    both = torch.stack([val.double(), (idx + v0).double()], dim=-1)
+    g = all_gather(both.contiguous(), mesh)            # (m, ..., 2)
+    best = torch.argmax(g[..., 0], dim=0)              # the first on a tie
+    ids = torch.take_along_dim(g[..., 1], best[None], dim=0)[0]
+    return ids.long()

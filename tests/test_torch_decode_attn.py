@@ -13,11 +13,20 @@ bf16 ulp of the value (2^-7 relative) where the float32 results fall on
 either side of a rounding edge; against the float32 oracle the port is off
 by its own rounding, half an ulp (2^-8 relative), plus the float32 term.
 
+K5's slice form (a rank's rows of a cache sharded along its sequence,
+``decode_attn_slice_ref``: the output normalised over the slice and the
+log-sum-exp) is held, folded over the slices in rank order
+(``tensor_parallel.fold_attention``'s arithmetic), to ``decode_attn_ref``
+on the whole cache within 1e-6 in float32; a slice with no row the
+position attends to is (0, -inf) and adds nothing to the fold; its meta
+form gives the shapes and counts no call for an empty slice.
+
 The CUDA kernel cannot run here; ``chip_smoke.py`` holds it against the same
 plain version on the card.
 """
 import ast
 import math
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -31,8 +40,12 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attn import ops as tops
 from repro_torch.kernels.decode_attn.decode_attn import (
     BATCH, CONSUMERS, HEADER_BYTES, HEADS, MAX_SPLITS, MIN_ROWS, SMEM_LIMIT,
-    decode_attn_cuda, head_slices, layout, shared_bytes, split_plan)
-from repro_torch.kernels.decode_attn.ref import decode_attn_ref, valid_rows
+    decode_attn_cuda, decode_attn_slice_cuda, head_slices, layout,
+    shared_bytes, split_plan)
+from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,
+                                                 decode_attn_slice_ref,
+                                                 slice_rows, valid_rows)
+from repro_torch.kernels import meta as kmeta
 
 F32_TOL = 2e-5
 
@@ -306,3 +319,80 @@ def test_cuda_wrapper_takes_cuda_tensors_only():
         decode_attn_cuda(q, k, v, 10)
     with pytest.raises(ValueError, match="pos"):
         decode_attn_ref(q, k, v, -1)
+
+
+# -- the slice form ---------------------------------------------------------------
+
+SLICE_TOL = 1e-6
+# (B, H, KV, Dh, S, pos, window, slices): gemma3's head shape over 2 and 4
+# slices, a local window crossing a slice edge and one leaving slices empty
+# (window 32 at pos 63: rows 32..63), a GQA shape, pos in the first slice
+SLICE_CASES = [(2, 4, 1, 256, 64, 60, 32, 2), (2, 4, 1, 256, 64, 63, 32, 2),
+               (1, 4, 1, 64, 72, 68, 32, 4), (2, 8, 2, 64, 96, 95, 0, 4),
+               (2, 8, 2, 64, 96, 10, 0, 3), (1, 4, 1, 32, 64, 40, 0, 2)]
+
+
+def _fold(parts):
+    """The fold of (out, lse) partials in rank order, as
+    ``tensor_parallel.fold_attention`` does after its all-gather."""
+    lses = torch.stack([lse for _, lse in parts])
+    m = lses.max(dim=0).values
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = den = None
+    for o, lse in parts:
+        w = torch.exp(lse - m)
+        num = o * w[..., None] if num is None else num + o * w[..., None]
+        den = w if den is None else den + w
+    return num / den[..., None]
+
+
+@pytest.mark.parametrize("b,h,kv,dh,s,pos,win,n", SLICE_CASES)
+def test_slices_folded_equal_the_whole_cache(b, h, kv, dh, s, pos, win, n):
+    q, k, v = (torch.from_numpy(a) for a in _inputs(b, h, kv, dh, s, seed=5))
+    w = s // n
+    parts = [decode_attn_slice_ref(q, k[:, r * w:(r + 1) * w],
+                                   v[:, r * w:(r + 1) * w], pos, win, r * w)
+             for r in range(n)]
+    want = decode_attn_ref(q, k, v, pos, win)
+    got = _fold(parts)
+    assert float((got - want).abs().max()) <= SLICE_TOL
+    for r, (o, lse) in enumerate(parts):
+        rows = slice_rows(w, r * w, pos, win)
+        if rows is None:      # an empty slice: nothing to add
+            assert bool((o == 0).all()) and bool(torch.isneginf(lse).all())
+    # the fold without the empty slices: the same bits
+    kept = [p for p in parts if bool(torch.isfinite(p[1]).all())]
+    if len(kept) < len(parts):
+        assert torch.equal(_fold(kept), got)
+
+
+def test_slice_rows_edges():
+    assert slice_rows(32, 0, 63, 32) is None          # window 32..63
+    assert slice_rows(32, 32, 63, 32) == (0, 31)
+    assert slice_rows(32, 0, 60, 32) == (29, 31)
+    assert slice_rows(32, 32, 20, 0) is None          # rows past pos
+    assert slice_rows(32, 0, 20, 0) == (0, 20)
+
+
+def test_slice_meta_form_counts_only_launches():
+    q = torch.empty((2, 4, 256), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 32, 1, 256), dtype=torch.bfloat16, device="meta")
+    with kmeta.tally() as t:
+        o, lse = tops.decode_attention_slice(q, k, k, 63, 32, 0)
+        o2, _ = tops.decode_attention_slice(q, k, k, 63, 32, 32)
+    assert o.shape == (2, 4, 256) and lse.shape == (2, 4)
+    assert o.dtype == lse.dtype == torch.float32 and o2.is_meta
+    assert t["decode_attn_slice"]["calls"] == 1
+    # K and V of the 32 rows read once, q read, out and lse written
+    assert t["decode_attn_slice"]["bytes"] == (2 * 4 * 256 * 2
+                                               + 4 * 2 * 4 * 257
+                                               + 2 * 32 * 2 * 1 * 256 * 2)
+
+
+def test_slice_wrapper_takes_cuda_tensors_only():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 1, 64, 40, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn_slice_cuda(q, k, v, 10, 0, 0)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="xpu"):
+        tops.decode_attention_slice(other, k, v, 10)
