@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out results.json] [--k3-parent DIR]
                           [--k6-only | --k5-only | --k4-only | --sharded-only
                            | --zoo-only | --train-only | --train-zoo-only
-                           | --train-tp-only | --serve-tp-only]
+                           | --train-tp-only | --serve-tp-only
+                           | --tp-zoo-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -59,9 +60,9 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
   * LM training (phase ``train``, after the solve phases' operands are
     freed): (a) gemma3-1b at its published width and depth through
     ``launch/steps.py::build_train_step``, train_4k's sequence of 4096 and
-    a global batch of 8 in 4 microbatches, 4 steps with the gradients
+    a global batch of 8 in 4 microbatches, 2 steps with the gradients
     fused over "pod" by the int8 ``compressed_psum`` (K4a, K4b-sum, K4b: 52
-    launches a step, asserted) and 4 exact from the same init and data,
+    launches a step, asserted) and 2 exact from the same init and data,
     the donated (in-place) step the Trainer runs, on an NCCL world of one,
     the first int8 step under the sync debug mode
     "warn" (no site), the others under "error", the int8 losses from step
@@ -81,9 +82,9 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     in, a cotangent of the final state, float32, Dh 32 and 16, and each
     value split its plan can take), and with a NaN in dy, timed beside K6
     at that shape; (b) rwkv6-3b at its published width and depth, 8 x
-    4096 tokens in 4 microbatches, 6 exact and 6 int8 donated (in-place)
+    4096 tokens in 4 microbatches, 5 exact and 5 int8 donated (in-place)
     steps on an NCCL world of one: K6 256 and its backward 128 launches a
-    step, K4a/K4b-sum/K4b 48/24/24 an int8 step, the loss lower after six
+    step, K4a/K4b-sum/K4b 48/24/24 an int8 step, the loss lower after five
     steps than at the first, int8 within 1 % of exact's loss at every step,
     the exact curve the parent tree's (step 1 bit for bit, then within 1
     %), K6's backward at two of step 1's calls' inputs against float64, no
@@ -105,8 +106,8 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     leaf's gradient 1e-5 of its scale); (3) (pod=2, data=1, model=2), four
     ranks, exact and int8 over "pod" at 4 layers, K4a / K4b-sum / K4b 52
     launches an int8 step on every rank, at the slices' chunks; (4)
-    'tp_sp' and 'fsdp' at 4 layers against the world of one; (5) rwkv6-3b
-    'tp' at full width and 4 layers, K6 and its backward at H = 20 on each
+    'tp_sp' and 'fsdp' at 2 layers against the world of one; (5) rwkv6-3b
+    'tp' at full width and 2 layers, K6 and its backward at H = 20 on each
     rank, step 1's loss against the world of one, and a float32 guard at 1
     layer (the loss 1e-6, every leaf within 2 x a rounding control's gap,
     or 1e-5 of its scale); (6) K6 and its backward at
@@ -136,8 +137,25 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     (e) K5's slice form against its plain version at (a)'s and (c)'s
     shapes and an empty slice (no launch), and timed beside SDPA on the
     same slice; (f) the dry-run's count of (a)'s rank bytes against the
-    rise of ``torch.cuda.memory_allocated``. The dry-run's cells (phase
-    ``dryrun``) run on meta in a CPU subprocess meanwhile;
+    rise of ``torch.cuda.memory_allocated``;
+  * the "model" axis across the zoo (phase ``tp_zoo``): gloo worlds of 4,
+    8, 2 and 16 ranks sharing the card, each case against the world of one
+    on rank 0: (a) recurrentgemma-2b at full width and depth on (1, 4), its
+    10 heads on the head_dim fallback and its LRU columns over "model",
+    B=2 x 3000 + 16 steps; (b) gemma3-1b on (1, 8), the fallback, B=2 x
+    508 + 4; (c) whisper-small on (1, 2), B=8 x (1500 frames + 448), its
+    self and cross caches over "kv_seq": logits at the bf16 serving limits,
+    K5's slice-form launches as worked out; (d) K6's value-column form
+    (rwkv6-3b's 2 x 4096 x 40 x 64 at Dv = 32, 16, 4 in bf16, and the
+    16-rank path's 2 x 512 at Dv = 4 in float32) forward and backward
+    against its plain versions, and rwkv6-3b at 1 layer on (1, 16) in
+    float32, one train step and its serving; (e) float32 training guards
+    at 2 layers (gemma3-1b 'tp' and 'tp_sp' and qwen2-vl-7b on (1, 8),
+    recurrentgemma-2b on (1, 4), whisper-small on (1, 2)) within 1e-5 of
+    scale; (f) K5's slice form at these shapes, checked and timed;
+  * the dry run (phase ``dryrun``): four cells of
+    ``repro_torch.launch.dryrun`` on meta, in a CPU subprocess from the
+    build on, read after the last phase;
   * the LM zoo (phase ``lm_zoo``): every other family at its published
     width and depth, one model at a time — gemma3-1b with a prompt of
     32768 (the streaming attention; K5 over 32 800 rows), qwen3-moe-30b-a3b
@@ -184,13 +202,18 @@ kernels, runs the ``train_zoo`` phase and stops the same way;
 ``--train-tp-only`` builds the same two, runs the ``train_tp`` phase and
 stops with the card's line and the last line. ``--serve-tp-only`` builds
 the decode-attention and WKV6 kernels, runs the ``serve_tp`` phase and
-stops with its kernels rows, the card's line and the last line.
+stops with its kernels rows, the card's line and the last line;
+``--tp-zoo-only`` builds the same two, runs the ``tp_zoo`` phase (the
+"model" axis across the zoo: the head_dim fallback, recurrentgemma and
+whisper over "model", K6's value-column form; worlds of 4, 8, 2 and 16
+gloo ranks sharing the card) and stops the same way.
 """
 from __future__ import annotations
 
 import argparse
 import atexit
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -2672,10 +2695,11 @@ def run_sharded() -> dict:
 
 # (a) gemma3-1b at its published width and depth, train_4k's sequence of
 # 4096, the global batch cut from 256 to 8 in 4 microbatches of 2 x 4096
-# tokens; 4 steps with int8 pod fusion and 4 exact, from one init (SEED) on
-# the same data, on an NCCL world of one (pod=1, data=1, model=1)
+# tokens; 2 steps with int8 pod fusion and 2 exact (cut from 4 for
+# tp_zoo's time), from one init (SEED) on the same data, on an NCCL world of
+# one (pod=1, data=1, model=1)
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = "gemma3-1b", 4096, 8, 4
-TRAIN_STEPS = 4
+TRAIN_STEPS = 2
 TRAIN_REDUCED = {"global_batch": "256 -> 8 (microbatches 4 of 2 rows)",
                  "mesh": "(pod, data, model) = (1, 1, 1)",
                  "steps": TRAIN_STEPS}
@@ -3132,9 +3156,10 @@ WKV_BWD_RTOL = 1e-4
 # layers of rwkv6-3b's width, vocab 8192, 2 x 256 tokens: 9.51 -> 21.12 ->
 # 9.71 -> 9.42 and 9.51 -> 21.10 -> 9.88 -> 9.14; on the card 11.57 ->
 # 24.05 -> 17.74 in three steps, at lr 3e-4 and at 3e-5 alike), so three
-# steps cannot show the fall: six run, and the last loss must be under the
+# steps cannot show the fall: five run (cut from six; the parent's curve is
+# under its first loss from step 5), and the last loss must be under the
 # first.
-TZ_ARCH, TZ_SEQ, TZ_BATCH, TZ_MB, TZ_STEPS = "rwkv6-3b", 4096, 8, 4, 6
+TZ_ARCH, TZ_SEQ, TZ_BATCH, TZ_MB, TZ_STEPS = "rwkv6-3b", 4096, 8, 4, 5
 TZ_REDUCED = {"global_batch": "256 -> 8 (microbatches 4 of 2 rows)",
               "mesh": "(pod, data, model) = (1, 1, 1)", "steps": TZ_STEPS}
 # |int8 - exact| loss at every step, as a share of the exact loss: while
@@ -3186,30 +3211,33 @@ TZ_LOSS_RTOL, TZ_GRAD_MAX, TZ_GRAD_NORM = 1e-6, 4e-3, 2e-4
 TZ_HEAD_ARCH, TZ_HEAD_GRAD_MAX = "recurrentgemma-2b", 1e-5
 
 
-def wkv6_bwd_bound(b, t, h, dh, dtype, state, has_ds) -> dict:
+def wkv6_bwd_bound(b, t, h, dh, dtype, state, has_ds, dv=None) -> dict:
     """K6 backward's least time: r, k, v, logw, dy, u (and state0, dS_T)
     read once, dr, dk, dv, dlogw, du (and dstate0) written once; its
     operations over the T real steps: the products of a chunk of c steps
     and head (the state recomputed, A = r'k'^T and Bm = dy v^T, dy S0^T,
     v G^T, kk G, the three products over the triangle, the adjoint update)
     at the dense TF32 tensor-core rate, the rest (rebasing, the u terms,
-    dlogw's running sum, decays) at the float32 CUDA-core rate."""
+    dlogw's running sum, decays) at the float32 CUDA-core rate. ``dv``:
+    the value columns (the value-column form; Dh unless given)."""
+    dv = dh if dv is None else dv
     e = 2 if dtype == torch.bfloat16 else 4
-    n = b * t * h * dh
-    st = b * h * dh * dh * 4
-    nbytes = (3 * n * e + 8 * n + 4 * h * dh + (st if state else 0)
-              + (st if has_ds else 0)
-              + 3 * n * e + 4 * n + 4 * h * dh + (st if state else 0))
+    n, nv = b * t * h * dh, b * t * h * dv
+    st = b * h * dh * dv * 4
+    nbytes = (2 * n * e + nv * e + 4 * n + 4 * nv + 4 * h * dh
+              + (st if state else 0) + (st if has_ds else 0)
+              + 2 * n * e + nv * e + 4 * n + 4 * h * dh
+              + (st if state else 0))
 
     def products(c):
-        return (2 * dh * dh * c                      # the state, pass 1
-                + c * (c - 1) * dh + 2 * c * c * dh  # A (triangle), Bm
-                + 3 * 2 * c * dh * dh                # dy S0^T, v G^T, kk G
-                + 3 * c * (c - 1) * dh               # Bm k', Bm^T r', A^T dy
-                + 2 * dh * dh * c)                   # the adjoint
+        return (2 * dh * dv * c                      # the state, pass 1
+                + c * (c - 1) * dh + 2 * c * c * dv  # A (triangle), Bm
+                + 3 * 2 * c * dh * dv                # dy S0^T, v G^T, kk G
+                + c * (c - 1) * (2 * dh + dv)        # Bm k', Bm^T r', A^T dy
+                + 2 * dh * dv * c)                   # the adjoint
 
     def rest_ops(c):
-        return 16 * c * dh + 4 * dh * dh
+        return 16 * c * dh + 4 * dh * dv
     full, rest = divmod(t, CHUNK)
     prod = b * h * (full * products(CHUNK) + (products(rest) if rest else 0))
     other = b * h * (full * rest_ops(CHUNK) + (rest_ops(rest) if rest else 0))
@@ -3790,12 +3818,12 @@ TP_POD_LAYERS, TP_POD_STEPS = 4, 2
 # first does; under 'fsdp' each rank's layers take its row but the loss
 # takes both ranks' rows in each chunk, as the second: each is held to the
 # world of one that chunks its loss alike, both gaps recorded
-TP_SP_LAYERS = 4
-# (5) rwkv6-3b 'tp' at model=2: full width (40 heads, 20 a rank), 4 of its
-# 32 layers; K6 and its backward at H = 20 on each rank; step 1's loss
+TP_SP_LAYERS = 2        # cut from 4 for tp_zoo's time
+# (5) rwkv6-3b 'tp' at model=2: full width (40 heads, 20 a rank), 2 of its
+# 32 layers (cut from 4); K6 and its backward at H = 20 on each rank; step 1's loss
 # against the world of one (TP_LOSS_RTOL); the decay leaves' gradients in
 # float32 (weights and LM head) within TP_F32_GRAD of their scale
-TP_RWKV_ARCH, TP_RWKV_LAYERS = "rwkv6-3b", 4
+TP_RWKV_ARCH, TP_RWKV_LAYERS = "rwkv6-3b", 2
 # ... the float32 guard of rwkv6-3b: full width at TP_RWKV_F32_LAYERS
 # layer and TP_SEQ positions, float32 weights and LM head, every leaf (the
 # decay and mix LoRAs among them) against the world of one beside a
@@ -3934,11 +3962,20 @@ def _tp_steps(mesh, cfg, shape, tcfg, steps: int, k4_shapes: bool = False,
     return run
 
 
-def _tp_grads(mesh, cfg, shape, tcfg, jitter: bool = False) -> tuple:
-    """Step 1's loss and fused gradients (whole leaves) of ``cfg`` with
-    float32 weights and LM head on ``mesh``; with ``jitter``
-    every weight moved by one float32 rounding (a factor 1 +- 2^-23, signs
-    from SEED + 1): a control of how far rounding alone moves them."""
+def _tp_grads(mesh, cfg, shape, tcfg, want: str | None = None,
+              jitter: bool = False, aux: dict | None = None) -> tuple:
+    """Step 1's loss and fused gradients of ``cfg`` with float32 weights
+    and LM head on ``mesh``; with ``jitter`` every weight moved by one
+    float32 rounding (a factor 1 +- 2^-23, signs from SEED + 1): a control
+    of how far rounding alone moves them. ``aux``: the stub inputs of the
+    global batch (whisper's frames). Without ``want`` (a world of one)
+    returns the whole gradients. With ``want``, the world of one's whole
+    gradients saved there (``torch.save``, read memory-mapped: a rank reads
+    its slices only), returns instead per leaf this rank's slice's largest
+    gap to them and their largest magnitude on it (``_merge_gaps`` takes
+    the maxima over ranks): nothing is gathered, as whole float32 leaves at
+    qwen2-vl's vocab through gloo's host copies on 8 ranks overran the
+    host's memory."""
     step = build_train_step(cfg, mesh, shape, tcfg)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch,
                            seed=SEED)
@@ -3951,35 +3988,88 @@ def _tp_grads(mesh, cfg, shape, tcfg, jitter: bool = False) -> tuple:
             params[k_].mul_(1 + sign.float() * 2.0 ** -23)
     tok, lab = data.global_arrays(0, mesh, step.batch_axes)
     with _float32_head():
-        loss, grads = step._grads(params, tok, lab, {})
+        loss, grads = step._grads(params, tok, lab, step._aux_rows(aux))
+    del params
     with torch.no_grad():
         loss, grads, _ = step._fuse(loss, grads)
-        del params
-        whole = step.gather_params(grads)
-    return float(loss), whole
+        if want is None:
+            assert all(n == 1 for n in mesh.shape.values()), \
+                "only a world of one returns whole leaves"
+            return float(loss), grads
+        whole = torch.load(want, mmap=True)
+        r = mesh.coords.get("model", 0)
+        gaps = {}
+        for k_ in sorted(grads):
+            g, w, d = grads.pop(k_), whole[k_], step.model_dims[k_]
+            if d is not None and g.shape != w.shape:
+                w = w.narrow(d, r * g.shape[d], g.shape[d])
+            w = w.to(g.device)
+            gaps[k_] = (float((g - w).abs().max()), float(w.abs().max()))
+            del g, w
+    del whole
+    _free()
+    return float(loss), gaps
 
 
-def _grad_gaps(got: dict, want: dict) -> dict:
-    """Each leaf's largest gap over its largest magnitude."""
-    return {k_: float((got[k_] - want[k_]).abs().max()
-                      / want[k_].abs().max().clamp_min(1e-30))
-            for k_ in sorted(want)}
+def _merge_gaps(ranks: list) -> dict:
+    """Each leaf's largest gap over every rank's slice, over the world of
+    one's largest magnitude (``_tp_grads``' pairs of every rank)."""
+    return {k_: max(r[k_][0] for r in ranks)
+            / max(max(r[k_][1] for r in ranks), 1e-30) for k_ in ranks[0]}
+
+
+def _cut_cfg(arch: str, layers: int):
+    """``arch`` at ``layers`` layers (whisper's encoder too)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return (dataclasses.replace(cfg, n_enc_layers=layers)
+            if cfg.n_enc_layers else cfg)
+
+
+def _f32_aux(cfg, batch: int) -> dict | None:
+    """The stub inputs of a float32 guard's global batch (whisper's)."""
+    return (_tz_aux(cfg, batch, DEV, torch.float32)
+            if cfg.family == "whisper" else None)
+
+
+def world_of_one(cases, shape, tcfg, tmp: str) -> dict:
+    """The float32 guards' world of one, in this process before their
+    world spawns: per (arch, layers, control) of ``cases`` the loss and the
+    whole fused gradients saved to a file under ``tmp``; with ``control``
+    also each leaf's gap under one float32 rounding of every weight
+    (``_tp_grads(jitter=True)`` against that file), over its scale."""
+    out = {}
+    for arch, layers, control in cases:
+        cfg = _cut_cfg(arch, layers)
+        aux = _f32_aux(cfg, shape.global_batch)
+        loss, g = _tp_grads(_local_grid(), cfg, shape, tcfg, aux=aux)
+        rec = {"loss": loss, "path": os.path.join(tmp, f"{arch}_{layers}.pt")}
+        torch.save({k_: v.cpu() for k_, v in g.items()}, rec["path"])
+        del g
+        _free()
+        if control:
+            _, gaps = _tp_grads(_local_grid(), cfg, shape, tcfg,
+                                want=rec["path"], jitter=True, aux=aux)
+            rec["control"] = _merge_gaps([gaps])
+        out[(arch, layers)] = rec
+    return out
 
 
 @contextlib.contextmanager
-def _k6_heads():
-    """Counts K6's and its backward's calls by their H (the dispatch's
-    bindings of the wrappers wrapped; nothing read from the card)."""
+def _k6_calls(key=lambda r, v: r.shape[2]):
+    """Counts K6's and its backward's calls by ``key(r, v)`` of their
+    operands (their H by default; the value columns Dv with
+    ``lambda r, v: v.shape[-1]``): the dispatch's bindings of the wrappers
+    wrapped, nothing read from the card."""
     tally = collections.Counter()
     fwd, bwd = k6_ops.wkv6_cuda, k6_ops.wkv6_bwd_cuda
 
-    def f(r, *a, **kw_):
-        tally["wkv6", r.shape[2]] += 1
-        return fwd(r, *a, **kw_)
+    def f(r, k_, v, *a, **kw_):
+        tally["wkv6", key(r, v)] += 1
+        return fwd(r, k_, v, *a, **kw_)
 
-    def b(r, *a, **kw_):
-        tally["wkv6_bwd", r.shape[2]] += 1
-        return bwd(r, *a, **kw_)
+    def b(r, k_, v, *a, **kw_):
+        tally["wkv6_bwd", key(r, v)] += 1
+        return bwd(r, k_, v, *a, **kw_)
     k6_ops.wkv6_cuda, k6_ops.wkv6_bwd_cuda = f, b
     try:
         yield tally
@@ -4048,10 +4138,12 @@ def check_train_tp_kernels() -> dict:
                             "wkv6_bwd": wkv["max_abs_err"], **errs}}
 
 
-def train_tp_rank(serve_mesh) -> dict:
+def train_tp_rank(serve_mesh, ones: dict) -> dict:
     """One rank of (1), (2), (4) and (5)'s world of two gloo ranks sharing
-    the card, (data=1, model=2); rank 0 also runs each world of one (the
-    other rank waits at its next collective) and compares."""
+    the card, (data=1, model=2); rank 0 also runs each world of one of (1),
+    (4) and (5) (the other rank waits at its next collective). The float32
+    guards' world of one is ``ones`` (``world_of_one``'s, run before the
+    world spawns): each rank compares its slices."""
     grid = make_mesh((1, 2), ("data", "model"), device=str(serve_mesh.device))
     lead = grid.rank == 0
     out = {}
@@ -4066,21 +4158,12 @@ def train_tp_rank(serve_mesh) -> dict:
         out["tp_one"] = _tp_steps(_local_grid(), cfg, shape, tcfg, 1)
     out["tp"] = _tp_steps(grid, cfg, shape, tcfg, TP_STEPS)
     # (2) the float32 guard, every strategy against one world of one
-    cut = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
-    one = (_tp_grads(_local_grid(), cut, shape, tcfg) if lead
-           else (None, None))
+    cut = _cut_cfg(TP_ARCH, TP_F32_LAYERS)
+    path = ones[(TP_ARCH, TP_F32_LAYERS)]["path"]
     out["f32"] = {}
     for name, tc in tcfgs.items():
-        loss2, g2 = _tp_grads(grid, cut, shape, tc)
-        if lead:
-            out["f32"][name] = {
-                "loss": loss2, "loss_one": one[0],
-                "loss_rel": abs(loss2 - one[0]) / abs(one[0]),
-                "grad_gap_of_scale": _grad_gaps(g2, one[1])}
-        del g2
-        _free()
-    del one
-    _free()
+        loss, gaps = _tp_grads(grid, cut, shape, tc, want=path)
+        out["f32"][name] = {"loss": loss, "gaps": gaps}
     # (4) 'tp_sp' and 'fsdp' in bf16 at TP_SP_LAYERS layers, step 1
     cut = dataclasses.replace(cfg, n_layers=TP_SP_LAYERS)
     if lead:
@@ -4092,26 +4175,20 @@ def train_tp_rank(serve_mesh) -> dict:
     for name in ("tp_sp", "fsdp"):
         out[name] = _tp_steps(grid, cut, shape, tcfgs[name], 1,
                               leaf_norms=True)
-    # (5) rwkv6-3b 'tp', 4 layers
+    # (5) rwkv6-3b 'tp', TP_RWKV_LAYERS layers
     rcfg = dataclasses.replace(get_config(TP_RWKV_ARCH),
                                n_layers=TP_RWKV_LAYERS)
     if lead:
         out["rwkv_one"] = _tp_steps(_local_grid(), rcfg, shape, tcfg, 1)
-    with _k6_heads() as heads:
+    with _k6_calls() as heads:
         out["rwkv"] = _tp_steps(grid, rcfg, shape, tcfg, 1)
     out["rwkv"]["k6_calls_by_heads"] = {f"{n} H{h}": v for (n, h), v
                                         in sorted(heads.items())}
     # ... its float32 guard, every leaf, at TP_RWKV_F32_LAYERS layer
-    cut = dataclasses.replace(rcfg, n_layers=TP_RWKV_F32_LAYERS)
-    loss2, g2 = _tp_grads(grid, cut, shape, tcfg)
-    if lead:
-        loss1, g1 = _tp_grads(_local_grid(), cut, shape, tcfg)
-        _, g0 = _tp_grads(_local_grid(), cut, shape, tcfg, jitter=True)
-        out["rwkv_guard"] = {"loss": loss2, "loss_one": loss1,
-                             "loss_rel": abs(loss2 - loss1) / abs(loss1),
-                             "grad_gap_of_scale": _grad_gaps(g2, g1),
-                             "jitter_control_gap_of_scale": _grad_gaps(g0,
-                                                                       g1)}
+    cut = _cut_cfg(TP_RWKV_ARCH, TP_RWKV_F32_LAYERS)
+    loss, gaps = _tp_grads(grid, cut, shape, tcfg, want=ones[
+        (TP_RWKV_ARCH, TP_RWKV_F32_LAYERS)]["path"])
+    out["rwkv_guard"] = {"loss": loss, "gaps": gaps}
     return out
 
 
@@ -4143,10 +4220,18 @@ def run_train_tp() -> dict:
     kernels = check_train_tp_kernels()
     t_kernels = time.perf_counter() - t_phase
     store_dir = tempfile.mkdtemp(prefix="amp_train_tp_")
+    ones = world_of_one(
+        [(TP_ARCH, TP_F32_LAYERS, False),
+         (TP_RWKV_ARCH, TP_RWKV_F32_LAYERS, True)],
+        ShapeSpec("train_4k_cut", TP_SEQ, TP_BATCH, "train"),
+        TrainStepConfig(microbatches=TP_MB), store_dir)
+    t_one = time.perf_counter() - t_phase - t_kernels
     two = spawn_world(train_tp_rank, 2, backend="gloo", device=str(DEV),
                       store_path=os.path.join(store_dir, "tp2"),
-                      timeout_s=600)
-    t_two = time.perf_counter() - t_phase - t_kernels
+                      args=(ones,), timeout_s=600)
+    for rec in ones.values():
+        os.remove(rec["path"])
+    t_two = time.perf_counter() - t_phase - t_kernels - t_one
     four = spawn_world(train_tp_pod_rank, 4, backend="gloo",
                        device=str(DEV),
                        store_path=os.path.join(store_dir, "tp4"),
@@ -4182,8 +4267,14 @@ def run_train_tp() -> dict:
     check(gaps["grad_norm_rel_step1"] <= TP_NORM_RTOL, "tp grad norm", gaps)
     check(tp["loss"][-1] < tp["loss"][0], "tp loss falls", tp["loss"])
     # (2) the float32 guard, each strategy
-    f32 = lead["f32"]
-    for name, g in f32.items():
+    f32_one = ones[(TP_ARCH, TP_F32_LAYERS)]
+    f32 = {}
+    for name, got in lead["f32"].items():
+        g = f32[name] = {
+            "loss": got["loss"], "loss_one": f32_one["loss"],
+            "loss_rel": _rel_gap(got["loss"], f32_one["loss"]),
+            "grad_gap_of_scale": _merge_gaps([r["f32"][name]["gaps"]
+                                              for r in two])}
         g["worst_leaf"] = max(g["grad_gap_of_scale"].items(),
                               key=lambda kv: kv[1])
         check(g["loss_rel"] <= TP_F32_LOSS, f"{name} float32 loss",
@@ -4225,7 +4316,14 @@ def run_train_tp() -> dict:
     rwkv, r_one = lead["rwkv"], lead["rwkv_one"]
     r_gap = _rel_gap(rwkv["loss"][0], r_one["loss"][0])
     check(r_gap <= TP_LOSS_RTOL, "rwkv loss", rwkv["loss"], r_one["loss"])
-    guard = lead["rwkv_guard"]
+    r_f32_one = ones[(TP_RWKV_ARCH, TP_RWKV_F32_LAYERS)]
+    guard = {"loss": lead["rwkv_guard"]["loss"],
+             "loss_one": r_f32_one["loss"],
+             "loss_rel": _rel_gap(lead["rwkv_guard"]["loss"],
+                                  r_f32_one["loss"]),
+             "grad_gap_of_scale": _merge_gaps([r["rwkv_guard"]["gaps"]
+                                               for r in two]),
+             "jitter_control_gap_of_scale": r_f32_one["control"]}
     ctl = guard["jitter_control_gap_of_scale"]
     guard["gap_of_limit"] = {
         k_: v / max(TP_F32_GRAD, TP_RWKV_CONTROL * ctl[k_])
@@ -4325,8 +4423,8 @@ def run_train_tp() -> dict:
                  "wkv6_bwd_rtol_of_scale": WKV_BWD_RTOL,
                  "wkv6_rtol_atol": WKV_TOL, "k4": "bit-identical",
                  "k4_launches_per_int8_step": TRAIN_K4},
-         seconds_kernel_checks=t_kernels, seconds_two_ranks=t_two,
-         seconds=time.perf_counter() - t_phase)
+         seconds_kernel_checks=t_kernels, seconds_worlds_of_one=t_one,
+         seconds_two_ranks=t_two, seconds=time.perf_counter() - t_phase)
     assert not failed, failed
     return {"launches": dict(launches), "by_shape": dict(by_shape),
             "max_abs_err": kernels["max_abs_err"]}
@@ -4374,9 +4472,13 @@ ST_REDUCED = {"gemma3-1b (1, 2)": "none (26 layers, B=8 x 1000, 32 steps)",
               "rwkv6-3b (1, 2)": "none (32 layers); float32 weights",
               "gemma3-1b (2, 2) B=1": "none (26 layers, 16384 + 32)",
               "float32 guards": f"{ST_F32_LAYERS} layers, B={ST_F32_BATCH}"}
-# the dry-run's cells in the kernels' phase (on meta, a CPU subprocess)
+# the dry-run's cells (on meta, a CPU subprocess beside the card's phases,
+# read after the last: qwen3-moe-30b-a3b's 32k prefill on pod2 takes ~6
+# minutes of one host core; recurrentgemma's decode runs its LRU columns
+# and the head_dim fallback)
 ST_DRYRUN = (("gemma3-1b", "decode_32k", "pod1"),
              ("qwen3-moe-30b-a3b", "prefill_32k", "pod2"),
+             ("recurrentgemma-2b", "decode_32k", "pod1"),
              ("rwkv6-3b", "long_500k", "pod1"))
 
 
@@ -4552,7 +4654,7 @@ def serve_tp_rank(serve_mesh) -> dict:
         DEV).items()}
     one, fed = _world_of_one_and_fed(grid, rcfg, ST_RWKV_BATCH, ST_PROMPT,
                                      ST_GEN, full, None, torch.float32, lead)
-    with _k6_heads() as heads:
+    with _k6_calls() as heads:
         two = _serve_world(grid, rcfg, ST_RWKV_BATCH, ST_PROMPT, ST_GEN, full,
                            fed, state_dtype=torch.float32)
     del full
@@ -4640,11 +4742,12 @@ ST_SLICE_TIMED = {"decode_attn_slice": "a_rank1_global_last",
                   "decode_attn_slice/long_b1": "c_rank3_global_last"}
 
 
-def check_slice_kernel() -> dict:
-    """(e) K5's slice form against its plain version at ST_SLICE_CASES; an
-    empty slice writes (0, -inf) and launches nothing."""
+def check_slice_kernel(cases=None) -> dict:
+    """(e) K5's slice form against its plain version at ``cases``
+    (ST_SLICE_CASES); an empty slice writes (0, -inf) and launches
+    nothing."""
     rows = []
-    for name, b, h, kv, dh, s, row0, pos, win in ST_SLICE_CASES:
+    for name, b, h, kv, dh, s, row0, pos, win in cases or ST_SLICE_CASES:
         q, kc_, vc_ = da_inputs(b, h, kv, dh, s, torch.bfloat16,
                                 torch.bfloat16, SEED)
         before = kd.launch_counts["decode_attn_slice"]
@@ -4675,16 +4778,16 @@ def check_slice_kernel() -> dict:
     return {r["case"]: r for r in rows}
 
 
-def time_slice_kernel() -> dict:
-    """K5's slice form at ST_SLICE_TIMED: the kernel, its plain version
-    and ``scaled_dot_product_attention`` over the same slice (GQA, the
-    boolean mask of the rows the position attends to: the normalised
-    output alone), L2-hot, beside the bound."""
+def time_slice_kernel(timed=None, cases=None) -> dict:
+    """K5's slice form at ``timed`` (ST_SLICE_TIMED, of ``cases``): the
+    kernel, its plain version and ``scaled_dot_product_attention`` over
+    the same slice (GQA, the boolean mask of the rows the position attends
+    to: the normalised output alone), L2-hot, beside the bound."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for key, case in ST_SLICE_TIMED.items():
+    for key, case in (timed or ST_SLICE_TIMED).items():
         _, b, h, kv, dh, s, row0, pos, win = next(
-            c for c in ST_SLICE_CASES if c[0] == case)
+            c for c in cases or ST_SLICE_CASES if c[0] == case)
         q, kc_, vc_ = da_inputs(b, h, kv, dh, s, torch.bfloat16,
                                 torch.bfloat16, SEED)
         lo, hi = slice_rows(s, row0, pos, win)
@@ -4714,8 +4817,8 @@ _DRYRUN: dict = {}
 
 def start_dryrun() -> None:
     """The dry-run's ST_DRYRUN cells on meta in a CPU subprocess, started
-    after the build and read at the end of ``serve_tp`` (qwen3-moe's 32k
-    prefill takes minutes to trace)."""
+    after the build and read by ``finish_dryrun`` after the last phase
+    (qwen3-moe's 32k prefill takes minutes to trace)."""
     import tempfile
     out = os.path.join(tempfile.mkdtemp(prefix="amp_dryrun_"), "dryrun.json")
     code = ("import sys; sys.path.insert(0, 'src'); "
@@ -4727,7 +4830,7 @@ def start_dryrun() -> None:
     _DRYRUN.update(out=out, t0=time.perf_counter(), proc=subprocess.Popen(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
-    atexit.register(stop_dryrun)   # also when a check fails before serve_tp
+    atexit.register(stop_dryrun)   # also when a check fails before its end
 
 
 def stop_dryrun() -> None:
@@ -4740,9 +4843,9 @@ def stop_dryrun() -> None:
 
 def read_dryrun() -> tuple:
     """(records, seconds, stderr's tail) of the dry-run's subprocess, which
-    gets up to 600 s from its start."""
+    gets up to 1100 s from its start."""
     proc = _DRYRUN["proc"]
-    left = 600 - (time.perf_counter() - _DRYRUN["t0"])
+    left = 1100 - (time.perf_counter() - _DRYRUN["t0"])
     try:
         _, err = proc.communicate(timeout=max(1.0, left))
     finally:
@@ -4754,29 +4857,41 @@ def read_dryrun() -> tuple:
         return json.load(fh), seconds, ""
 
 
+def finish_dryrun() -> None:
+    """Phase ``dryrun``: the subprocess's records, each cell ok (the rules'
+    argument bytes, FLOPs and collectives of rank 0's count); fails if the
+    subprocess did not end well or a cell stopped."""
+    recs, seconds, err = read_dryrun()
+    failed = [] if recs is not None else [["dry-run subprocess", err]]
+    for rec in recs or []:
+        rec.pop("traceback", None)
+        if not rec["ok"]:
+            failed.append(["dry-run cell", rec])
+    emit("dryrun", cells=recs, seconds_since_start=seconds, failed=failed,
+         note="rank 0's count on a counting mesh, meta tensors, a CPU "
+              "subprocess started after the build")
+    assert not failed, failed
+
+
 def run_serve_tp() -> dict:
-    """Phase ``serve_tp``: (a)-(f) above on gloo ranks sharing the card,
-    and the dry-run's cells. Every check is read before the phase's line
-    is printed, and the phase fails after it if any failed. Returns the
-    slice form's rows for the kernels line."""
+    """Phase ``serve_tp``: (a)-(f) above on gloo ranks sharing the card
+    (the dry-run's cells are ``finish_dryrun``'s). Every check is read
+    before the phase's line is printed, and the phase fails after it if any
+    failed. Returns the slice form's rows for the kernels line."""
     import tempfile
     t_phase = time.perf_counter()
     store_dir = tempfile.mkdtemp(prefix="amp_serve_tp_")
-    try:
-        slices = check_slice_kernel()
-        two = spawn_world(serve_tp_rank, 2, backend="gloo", device=str(DEV),
-                          store_path=os.path.join(store_dir, "st2"),
-                          timeout_s=900)
-        t_two = time.perf_counter() - t_phase
-        four = spawn_world(serve_tp_long_rank, 4, backend="gloo",
-                           device=str(DEV),
-                           store_path=os.path.join(store_dir, "st4"),
-                           timeout_s=600)
-        t_four = time.perf_counter() - t_phase - t_two
-        times = time_slice_kernel()
-    except BaseException:
-        stop_dryrun()
-        raise
+    slices = check_slice_kernel()
+    two = spawn_world(serve_tp_rank, 2, backend="gloo", device=str(DEV),
+                      store_path=os.path.join(store_dir, "st2"),
+                      timeout_s=900)
+    t_two = time.perf_counter() - t_phase
+    four = spawn_world(serve_tp_long_rank, 4, backend="gloo",
+                       device=str(DEV),
+                       store_path=os.path.join(store_dir, "st4"),
+                       timeout_s=600)
+    t_four = time.perf_counter() - t_phase - t_two
+    times = time_slice_kernel()
     t_card = time.perf_counter() - t_phase
     failed = []
 
@@ -4829,12 +4944,6 @@ def run_serve_tp() -> dict:
         check(got == r["k5_slice_expected"], "(c) K5 slice launches", got,
               r["k5_slice_expected"])
         long_launches += got
-    dry_recs, dry_s, err = read_dryrun()
-    check(dry_recs is not None, "dry-run subprocess", err)
-    for rec in dry_recs or []:
-        rec.pop("traceback", None)
-        check(rec["ok"] or "8(h′)" in rec.get("error", ""), "dry-run cell",
-              rec)
     emit("serve_tp", card=nvidia_smi_line(),
          note="gloo ranks sharing one card: times are oversubscription, "
               "not scaling",
@@ -4852,9 +4961,6 @@ def run_serve_tp() -> dict:
                  "alloc_round_per_tensor": ST_ALLOC_ROUND},
          seconds_two_ranks=t_two, seconds_four_ranks=t_four,
          seconds_on_card=t_card, seconds=time.perf_counter() - t_phase)
-    emit("dryrun", cells=dry_recs, seconds_since_start=dry_s,
-         note="rank 0's count on a counting mesh, meta tensors, a CPU "
-              "subprocess started after the build")
     assert not failed, failed
     err_of = lambda names: max(slices[n]["max_abs_err"] for n in names)
     rows = []
@@ -4871,6 +4977,583 @@ def run_serve_tp() -> dict:
             "library_ms": tm["library_ms"]})
         assert n > 0, (key, n)
     return {"rows": rows, "wkv6_launches": launches["wkv6"]}
+
+
+# ---------------------------------------------------------------------------
+# the "model" axis across the zoo (phase tp_zoo): the head_dim fallback,
+# recurrentgemma and whisper over "model", K6's value-column form
+# ---------------------------------------------------------------------------
+
+# (a) recurrentgemma-2b at full width and depth on (data 1, model 4): its 10
+# heads do not divide 4, so the local attention takes the head_dim fallback
+# (256 / 4 columns a rank) and the recurrent blocks the rank's 640 LRU
+# columns. B=2, prompts of 3000, 16 greedy steps: a cache of 3016 rows, 754
+# a rank, whose window of 2048 misses rank 0 and crosses rank 1's edge.
+# Logits and ids against the world of one at the bf16 serving limits
+# (LM_RTOL / LM_ATOL), K5's slice form launched where the window meets the
+# rank's rows (worked out from the positions)
+TPZ_RGLRU, TPZ_RGLRU_MESH = "recurrentgemma-2b", (1, 4)
+TPZ_RGLRU_BATCH, TPZ_RGLRU_PROMPT, TPZ_RGLRU_GEN = 2, 3000, 16
+# (b) gemma3-1b at full width and depth on (1, 8): 4 heads on 8, the
+# head_dim fallback (32 of 256 columns a rank; its one K/V head's too).
+# B=2, prompts of 508 and 4 steps (a step takes ~2.8 s a rank: 157
+# host-staged collectives on 8 processes), a cache of 512 rows (64 a rank),
+# the same limits
+TPZ_GEMMA, TPZ_GEMMA_MESH = "gemma3-1b", (1, 8)
+TPZ_GEMMA_BATCH, TPZ_GEMMA_PROMPT, TPZ_GEMMA_GEN = 2, 508, 4
+# (c) whisper-small at full width and depth on (1, 2): 12 heads, 6 a rank.
+# B=8, 1500 frames, a decoder budget of 448 (prompts of 432 + 16 steps):
+# the self cache 224 rows a rank, the cross cache of the 1500 frames 750 a
+# rank (the decode rules' "kv_seq" slices both), K5's slice form on each
+# and folded; the same limits
+TPZ_WHISPER, TPZ_WHISPER_MESH = "whisper-small", (1, 2)
+TPZ_WHISPER_BATCH, TPZ_WHISPER_PROMPT, TPZ_WHISPER_GEN = 8, 432, 16
+# (d) K6's value-column form against its plain version at rwkv6-3b's train
+# microbatch (2 x 4096, 40 heads of 64) with Dv = 32, 16 and 4 value
+# columns (a rank's at model 2, 4 and 16): y and the final state within
+# TPZ_VC_FWD_TOL of their scale of ``wkv_chunked`` on the same columns; the
+# backward within TPZ_VC_BWD_TOL of float64 autograd of ``wkv_chunked``
+# (dr, dk, dv beyond one bf16 rounding, as WKV_BWD_CASES); bit-identical
+# over two runs; the same at the 16-rank path's own shape and dtype (2 x
+# 512, Dv = 4, float32). In float32 at (1, 1024, 40, 64), the four Dv = 16
+# slices' partials of dr, dk, dlogw and du summed in rank order against
+# float64 autograd of the whole head (what the "model" axis sums)
+TPZ_VC_CASES = [("rwkv6_3b_dv32", 2, 4096, 40, 64, 32, torch.bfloat16),
+                ("rwkv6_3b_dv16", 2, 4096, 40, 64, 16, torch.bfloat16),
+                ("rwkv6_3b_dv4", 2, 4096, 40, 64, 4, torch.bfloat16),
+                ("rwkv6_3b_dv4_f32_path", 2, 512, 40, 64, 4, torch.float32)]
+TPZ_VC_SUM = ("rwkv6_3b_dv16_f32_sum", 1, 1024, 40, 64, 16, torch.float32)
+TPZ_VC_FWD_TOL, TPZ_VC_BWD_TOL = 1.4e-5, 2.0e-6
+# ... and rwkv6-3b at full width, 1 of its 32 layers, on (1, 16) (40 heads
+# on 16: a rank's 4 value columns of every head), float32 weights: one
+# train step of B=2 x 512 (K6 and its backward on the value columns; the
+# loss within TPZ_F32_TOL relative, each leaf within TPZ_F32_TOL of its
+# scale or TP_RWKV_CONTROL x the world of one's own move under one float32
+# rounding, train_tp's rule); then its serving, float32, B=2 x 512 + 4
+# greedy steps: prefill with K6 on the value columns, decode through the
+# state's conversions between the rules' layout (``wkv`` whole) and the
+# rank's value columns; logits within TPZ_F32_TOL of their scale of the
+# world of one's, the ids equal (or near ties)
+TPZ_RWKV, TPZ_RWKV_MESH, TPZ_RWKV_LAYERS = "rwkv6-3b", (1, 16), 1
+TPZ_RWKV_BATCH, TPZ_RWKV_PROMPT, TPZ_RWKV_GEN = 2, 512, 4
+# (e) float32 training guards, S = 512, B = 2: step 1's loss and every
+# leaf's gradient within TPZ_F32_TOL (relative; of the leaf's scale) of the
+# world of one's. gemma3-1b 'tp' and 'tp_sp' and qwen2-vl-7b 'tp' (28
+# heads on 8: M-RoPE's sections under the fallback; its vision grid's
+# positions, no vision embeddings) on (1, 8) at 2 layers; recurrentgemma-2b
+# 'tp' on (1, 4) at 3 layers (2 would be its recurrent tail alone, no
+# attention); whisper-small 'tp' on (1, 2) at 2 encoder and 2 decoder
+# layers, 1500 frames
+TPZ_F32_SEQ, TPZ_F32_BATCH, TPZ_F32_TOL = 512, 2, 1e-5
+TPZ_F32_CASES = {8: [("gemma3-1b", 2, "tp"), ("gemma3-1b", 2, "tp_sp"),
+                     ("qwen2-vl-7b", 2, "tp")],
+                 4: [("recurrentgemma-2b", 3, "tp")],
+                 2: [("whisper-small", 2, "tp")]}
+TPZ_REDUCED = {
+    "recurrentgemma-2b (1, 4)": "none (26 layers, B=2 x 3000, 16 steps)",
+    "gemma3-1b (1, 8)": "none (26 layers, B=2 x 508, 4 steps)",
+    "whisper-small (1, 2)": "none (12 + 12 layers, B=8 x (1500 + 448))",
+    "rwkv6-3b (1, 16)": f"{TPZ_RWKV_LAYERS} of 32 layers (B=2 x 512, "
+                        "4 steps)",
+    "float32 guards": "2 layers (recurrentgemma 3; whisper 2 + 2), "
+                      "S = 512, B = 2"}
+# (f) K5's slice form at this phase's shapes, against its plain version
+# (check_slice_kernel's rules) and timed beside SDPA on the same slice:
+# (a)'s rank 3 and rank 1 (the window crossing its first row), (b)'s rank
+# 7, (c)'s self and cross slices of rank 1
+TPZ_SLICE_CASES = [
+    ("rglru_rank3_last", 2, 10, 1, 256, 754, 2262, 3015, 2048),
+    ("rglru_rank1_first", 2, 10, 1, 256, 754, 754, 3000, 2048),
+    ("gemma3_m8_rank7_global_last", 2, 4, 1, 256, 64, 448, 511, 0),
+    ("gemma3_m8_rank0_local_first", 2, 4, 1, 256, 64, 0, 508, 512),
+    ("whisper_self_rank1_last", 8, 12, 12, 64, 224, 224, 447, 0),
+    ("whisper_cross_rank1", 8, 12, 12, 64, 750, 750, 1499, 0)]
+TPZ_SLICE_TIMED = {"decode_attn_slice/rglru_window": "rglru_rank3_last",
+                   "decode_attn_slice/gemma3_m8": "gemma3_m8_rank7_global_last",
+                   "decode_attn_slice/whisper_self": "whisper_self_rank1_last",
+                   "decode_attn_slice/whisper_cross": "whisper_cross_rank1"}
+
+
+@contextlib.contextmanager
+def _k5_slice_rows():
+    """K5's slice-form launches by the rows of the cache slice they read
+    (the dispatch's binding of the wrapper wrapped; the wrapper's own
+    count, so an empty slice counts nothing)."""
+    tally = collections.Counter()
+    fn = kd_ops.decode_attn_slice_cuda
+
+    def f(q, k_slice, *a, **kw_):
+        before = kd.launch_counts["decode_attn_slice"]
+        out = fn(q, k_slice, *a, **kw_)
+        tally[k_slice.shape[1]] += kd.launch_counts["decode_attn_slice"] \
+            - before
+        return out
+    kd_ops.decode_attn_slice_cuda = f
+    try:
+        yield tally
+    finally:
+        kd_ops.decode_attn_slice_cuda = fn
+
+
+def _of_scale(got, want, ulp: bool = False) -> float:
+    """The largest |got - want| (beyond one bf16 rounding of want with
+    ``ulp``) over want's largest magnitude, in float64."""
+    g, w = got.double(), want.double()
+    d = (g - w).abs()
+    if ulp:
+        d = (d - 2.0 ** -8 * w.abs()).clamp(min=0.0)
+    return float(d.max() / w.abs().max().clamp_min(1e-300))
+
+
+def _float64_grads(r, k_, v, logw, u, dy):
+    """Float64 autograd of ``wkv_chunked`` (dr, dk, dv, dlogw, du)."""
+    with torch.enable_grad():
+        ins = [x.detach().double().requires_grad_(True)
+               for x in (r, k_, v, logw, u)]
+        y, _ = wkv_chunked(*ins)
+        return torch.autograd.grad((y * dy.double()).sum(), ins)
+
+
+def check_wkv6_value_cols() -> dict:
+    """(d) K6's value-column form: every TPZ_VC_CASES case on rank 1's
+    columns (the forward and the backward against their plain versions),
+    and TPZ_VC_SUM's slices summed; the path's shape timed."""
+    rows = []
+    for name, b, t, h, dh, dv, dtype in TPZ_VC_CASES:
+        r, k_, v, logw, u, _ = wkv_inputs(b, t, h, dh, dtype, False, SEED)
+        v = v[..., dv:2 * dv].contiguous()
+        g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        dy = torch.randn(b, t, h, dv, generator=g, device=DEV)
+        y, s = kw.wkv6_cuda(r, k_, v, logw, u)
+        y2, s2 = kw.wkv6_cuda(r, k_, v, logw, u)
+        y_r, s_r = wkv_chunked(r, k_, v, logw, u)
+        u32 = u.float().contiguous()
+        got = kw.wkv6_bwd_cuda(r, k_, v, logw, u32, None, dy)
+        again = kw.wkv6_bwd_cuda(r, k_, v, logw, u32, None, dy)
+        want = _float64_grads(r, k_, v, logw, u, dy)
+        row = {"case": name, "B": b, "T": t, "H": h, "Dh": dh, "Dv": dv,
+               "dtype": str(dtype).split(".")[-1],
+               "plan_nv": kw.wkv_plan(b, h, dv, lambda vb: kw.max_active_blocks(
+                   DEV, dtype, dh, vb)),
+               "bwd_plan_nv": kw.bwd_plan(b, h, dv, lambda n: (
+                   kw.max_active_clusters(DEV, dtype, dh, n, dv))),
+               "y_err_of_scale": _of_scale(y, y_r),
+               "state_err_of_scale": _of_scale(s, s_r),
+               "y_max_abs_err": float((y - y_r).abs().max()),
+               "bit_identical": bool(
+                   torch.equal(y, y2) and torch.equal(s, s2) and all(
+                       torch.equal(x, z) for x, z in zip(got, again)
+                       if x is not None))}
+        for i, key in enumerate(("dr", "dk", "dv", "dlogw", "du")):
+            row[f"{key}_err_of_scale"] = _of_scale(
+                got[i], want[i], ulp=i < 3 and dtype == torch.bfloat16)
+        row["max_abs_err"] = max(float((got[i].double() - want[i]).abs()
+                                       .max()) for i in range(5))
+        row["ok"] = (row["bit_identical"]
+                     and row["y_err_of_scale"] <= TPZ_VC_FWD_TOL
+                     and row["state_err_of_scale"] <= TPZ_VC_FWD_TOL
+                     and all(row[f"{key}_err_of_scale"] <= TPZ_VC_BWD_TOL
+                             for key in ("dr", "dk", "dv", "dlogw", "du")))
+        rows.append(row)
+        del r, k_, v, logw, u, u32, y, y2, s, s2, y_r, s_r, got, again, want
+        _free()
+    # the slices' partials summed in rank order, float32
+    name, b, t, h, dh, dv, dtype = TPZ_VC_SUM
+    r, k_, v, logw, u, _ = wkv_inputs(b, t, h, dh, dtype, False, SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    dy = torch.randn(b, t, h, dh, generator=g, device=DEV)
+    want = _float64_grads(r, k_, v, logw, u, dy)
+    sums = None
+    for j in range(dh // dv):
+        cols = slice(j * dv, (j + 1) * dv)
+        part = kw.wkv6_bwd_cuda(r, k_, v[..., cols].contiguous(), logw,
+                                u.contiguous(), None,
+                                dy[..., cols].contiguous())
+        part = [part[i] for i in (0, 1, 3, 4)]
+        sums = part if sums is None else [a + p for a, p in zip(sums, part)]
+    row = {"case": name, "slices": dh // dv, "Dv": dv}
+    for key, got_, w in zip(("dr", "dk", "dlogw", "du"), sums,
+                            (want[0], want[1], want[3], want[4])):
+        row[f"{key}_err_of_scale"] = _of_scale(got_, w)
+    row["ok"] = all(row[f"{key}_err_of_scale"] <= TPZ_VC_BWD_TOL
+                    for key in ("dr", "dk", "dlogw", "du"))
+    rows.append(row)
+    del r, k_, v, logw, u, dy, want, sums
+    _free()
+    return {"rows": rows, "times": time_wkv6_value_cols()}
+
+
+def time_wkv6_value_cols() -> dict:
+    """K6's value-column form and its backward at the shape and dtype (d)'s
+    16-rank path gives them (B=2 x 512, 40 heads of 64, Dv = 4, float32,
+    no state), beside their plain versions and bounds; no one PyTorch call
+    computes the recurrence."""
+    b, t, h, dh = TPZ_F32_BATCH, TPZ_F32_SEQ, 40, 64
+    dv, dtype = dh // TPZ_RWKV_MESH[1], torch.float32
+    r, k_, v, logw, u, _ = wkv_inputs(b, t, h, dh, dtype, False, SEED)
+    v = v[..., :dv].contiguous()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    dy = torch.randn(b, t, h, dv, generator=g, device=DEV)
+    u32 = u.float().contiguous()
+    y, _ = kw.wkv6_cuda(r, k_, v, logw, u)
+    y_r, _ = wkv_chunked(r, k_, v, logw, u)
+    _, plain = wkv_bwd_plain(r, k_, v, logw, u, None, dy, None)
+    out = _time_calls(
+        {"wkv6/value_cols": {
+            "ms": lambda: kw.wkv6_cuda(r, k_, v, logw, u),
+            "plain_ms": lambda: wkv_chunked(r, k_, v, logw, u)},
+         "wkv6_bwd/value_cols": {
+            "ms": lambda: kw.wkv6_bwd_cuda(r, k_, v, logw, u32, None, dy),
+            "plain_ms": plain}},
+        {"wkv6/value_cols": wkv6_bound(b, t, h, dh, dtype, False, dv),
+         "wkv6_bwd/value_cols": wkv6_bwd_bound(b, t, h, dh, dtype, False,
+                                               False, dv)})
+    for key in out:
+        out[key].update(B=b, T=t, H=h, Dh=dh, Dv=dv, dtype="float32")
+    out["wkv6/value_cols"]["y_max_abs_err"] = float((y - y_r).abs().max())
+    out["wkv6_bwd/value_cols"]["plain_is"] = \
+        "the backward of autograd over wkv_chunked (graph kept)"
+    del r, k_, v, logw, u, u32, dy, y, y_r, plain
+    _free()
+    return out
+
+
+def _tpz_serve(grid, cfg, batch, prompt, gen, full, aux, dtype, lead,
+               limits) -> dict:
+    """A serving case on ``grid`` against the world of one (rank 0): the
+    rank's summary, K5's slice-form launches by the rows of the slice,
+    K6's by value columns, and (rank 0) the gaps."""
+    one, fed = _world_of_one_and_fed(grid, cfg, batch, prompt, gen, full,
+                                     aux, dtype, lead)
+    torch.cuda.reset_peak_memory_stats()
+    with _k5_slice_rows() as k5, _k6_calls(lambda r, v: v.shape[-1]) as k6:
+        two = _serve_world(grid, cfg, batch, prompt, gen, full, fed, aux=aux,
+                           state_dtype=dtype)
+    out = {**_summary(two), "k5_slice_by_rows": dict(k5),
+           "k6_by_value_cols": {f"{n} Dv{d}": c for (n, d), c in
+                                sorted(k6.items())}}
+    if lead:
+        out["world_of_one"] = _summary(one)
+        out["gaps"] = _compare(one, two, *limits)
+    del one, two
+    _free()
+    return out
+
+
+def _tpz_guards(grid, cases, ones: dict) -> dict:
+    """(e) each (arch, layers, strategy) of ``cases``: step 1's float32
+    loss and this rank's slices of the leaves on ``grid`` against the world
+    of one's (``ones``: ``world_of_one``'s)."""
+    out = {}
+    shape = ShapeSpec("tpz_f32", TPZ_F32_SEQ, TPZ_F32_BATCH, "train")
+    for arch, layers, strategy in cases:
+        cfg = _cut_cfg(arch, layers)
+        loss, gaps = _tp_grads(grid, cfg, shape,
+                               TrainStepConfig(strategy=strategy),
+                               want=ones[(arch, layers)]["path"],
+                               aux=_f32_aux(cfg, TPZ_F32_BATCH))
+        out[f"{arch} {strategy}"] = {"layers": layers, "loss": loss,
+                                     "gaps": gaps}
+    return out
+
+
+def _full_init(cfg, dtype=torch.bfloat16) -> dict:
+    """The SEED init of ``cfg``'s whole leaves on the card, in ``dtype``."""
+    full = init_from_schema(schema_for(cfg), torch.Generator(
+        device=DEV).manual_seed(SEED), DEV)
+    return full if dtype == torch.bfloat16 else {
+        k_: v.to(dtype) for k_, v in full.items()}
+
+
+def _grid(serve_mesh, shape):
+    return make_mesh(shape, ("data", "model"), device=str(serve_mesh.device))
+
+
+def tpz_w4_rank(serve_mesh, ones: dict) -> dict:
+    """(a) and recurrentgemma's float32 guard on (1, 4)."""
+    grid = _grid(serve_mesh, TPZ_RGLRU_MESH)
+    lead = grid.rank == 0
+    out = {"e": _tpz_guards(grid, TPZ_F32_CASES[4], ones)}
+    cfg = get_config(TPZ_RGLRU)
+    full = _full_init(cfg)
+    out["a"] = _tpz_serve(grid, cfg, TPZ_RGLRU_BATCH, TPZ_RGLRU_PROMPT,
+                          TPZ_RGLRU_GEN, full, None, torch.bfloat16, lead,
+                          (LM_RTOL, LM_ATOL, LM_SMALL_TOL))
+    del full
+    _free()
+    n_macro = cfg.n_layers // 3
+    lo, rows = out["a"]["kv"][0], out["a"]["kv"][1]
+    out["a"]["k5_slice_expected"] = _slice_launches(
+        [cfg.window] * n_macro, rows, lo,
+        range(TPZ_RGLRU_PROMPT, TPZ_RGLRU_PROMPT + TPZ_RGLRU_GEN))
+    return out
+
+
+def tpz_w8_rank(serve_mesh, ones: dict) -> dict:
+    """(b) and the float32 guards on (1, 8)."""
+    grid = _grid(serve_mesh, TPZ_GEMMA_MESH)
+    lead = grid.rank == 0
+    out = {"e": _tpz_guards(grid, TPZ_F32_CASES[8], ones)}
+    cfg = get_config(TPZ_GEMMA)
+    full = _full_init(cfg)
+    out["b"] = _tpz_serve(grid, cfg, TPZ_GEMMA_BATCH, TPZ_GEMMA_PROMPT,
+                          TPZ_GEMMA_GEN, full, None, torch.bfloat16, lead,
+                          (LM_RTOL, LM_ATOL, LM_SMALL_TOL))
+    del full
+    _free()
+    lo, rows = out["b"]["kv"][0], out["b"]["kv"][1]
+    out["b"]["k5_slice_expected"] = _slice_launches(
+        _windows(cfg), rows, lo,
+        range(TPZ_GEMMA_PROMPT, TPZ_GEMMA_PROMPT + TPZ_GEMMA_GEN))
+    return out
+
+
+def tpz_w2_rank(serve_mesh, ones: dict) -> dict:
+    """(c) and whisper's float32 guard on (1, 2)."""
+    grid = _grid(serve_mesh, TPZ_WHISPER_MESH)
+    lead = grid.rank == 0
+    out = {"e": _tpz_guards(grid, TPZ_F32_CASES[2], ones)}
+    cfg = get_config(TPZ_WHISPER)
+    full = _full_init(cfg)
+    aux = _tz_aux(cfg, TPZ_WHISPER_BATCH, DEV)
+    out["c"] = _tpz_serve(grid, cfg, TPZ_WHISPER_BATCH, TPZ_WHISPER_PROMPT,
+                          TPZ_WHISPER_GEN, full, aux, torch.bfloat16, lead,
+                          (LM_RTOL, LM_ATOL, LM_SMALL_TOL))
+    del full, aux
+    _free()
+    lo, rows = out["c"]["kv"][0], out["c"]["kv"][1]
+    steps = range(TPZ_WHISPER_PROMPT, TPZ_WHISPER_PROMPT + TPZ_WHISPER_GEN)
+    frames = cfg.n_audio_frames // TPZ_WHISPER_MESH[1]
+    out["c"]["k5_slice_expected"] = {
+        rows: _slice_launches([0] * cfg.n_layers, rows, lo, steps),
+        frames: _slice_launches([0] * cfg.n_layers, frames,
+                                grid.coords["model"] * frames,
+                                [cfg.n_audio_frames - 1] * len(steps))}
+    return out
+
+
+def tpz_w16_rank(serve_mesh, ones: dict) -> dict:
+    """(d)'s rwkv6-3b on (1, 16), float32: one train step held to the
+    world of one's (``world_of_one``'s, with train_tp's jitter control),
+    then its serving against the world of one (rank 0)."""
+    grid = _grid(serve_mesh, TPZ_RWKV_MESH)
+    cfg = _cut_cfg(TPZ_RWKV, TPZ_RWKV_LAYERS)
+    shape = ShapeSpec("tpz_f32", TPZ_F32_SEQ, TPZ_F32_BATCH, "train")
+    with _k6_calls(lambda r, v: v.shape[-1]) as k6:
+        loss, gaps = _tp_grads(grid, cfg, shape, TrainStepConfig(),
+                               want=ones[(TPZ_RWKV, TPZ_RWKV_LAYERS)]["path"])
+    out = {"train": {"loss": loss, "gaps": gaps},
+           "train_k6_by_value_cols": {f"{n} Dv{d}": c for (n, d), c in
+                                      sorted(k6.items())}}
+    _free()
+    out["serve"] = _tpz_serve(grid, cfg, TPZ_RWKV_BATCH, TPZ_RWKV_PROMPT,
+                              TPZ_RWKV_GEN, _full_init(cfg, torch.float32),
+                              None, torch.float32, grid.rank == 0,
+                              (TPZ_F32_TOL, 0.0, TPZ_F32_TOL))
+    return out
+
+
+def _first_rank_error(msg: str) -> str:
+    """Of a failed world's report (every rank's traceback), the first
+    rank's that is not another rank's lost connection, whole: the others
+    only say that a peer went away."""
+    parts = msg.split("\nrank ")
+    own = [p for p in parts[1:] if "Connection closed by peer" not in p
+           and "Connection reset by peer" not in p]
+    return (parts[0] + "\nrank " + (own or parts[1:] or [""])[0]
+            + f"\n({len(parts) - 1} ranks reported)")
+
+
+def run_tp_zoo() -> dict:
+    """Phase ``tp_zoo``: (a)-(f) above, the worlds of 4, 8, 2 and 16 gloo
+    ranks sharing the card one after the other. Every check is read before
+    the phase's line is printed, and the phase fails after it if any
+    failed. Returns the kernels line's rows of this phase."""
+    import tempfile
+    t_phase = time.perf_counter()
+    vc = check_wkv6_value_cols()
+    slices = check_slice_kernel(TPZ_SLICE_CASES)
+    _free()
+    t_kernels = time.perf_counter() - t_phase
+    store_dir = tempfile.mkdtemp(prefix="amp_tp_zoo_")
+    worlds, seconds, ones = {}, {}, {}
+    fns = {8: tpz_w8_rank, 4: tpz_w4_rank, 2: tpz_w2_rank, 16: tpz_w16_rank}
+
+    def world(n: int, one: dict) -> list:
+        try:
+            return spawn_world(fns[n], n, backend="gloo", device=str(DEV),
+                               store_path=os.path.join(store_dir, f"z{n}"),
+                               args=(one,), timeout_s=600)
+        except RuntimeError as e:
+            raise RuntimeError(_first_rank_error(str(e))) from None
+
+    # the worlds of 4 and 2 ranks at once (6 processes on the host's 8
+    # cores), those of 8 and 16 alone
+    for group in ((8,), (4, 2), (16,)):
+        t0 = time.perf_counter()
+        for n in group:
+            cases = ([(TPZ_RWKV, TPZ_RWKV_LAYERS, True)] if n == 16 else
+                     sorted({(a, layers, False)
+                             for a, layers, _ in TPZ_F32_CASES[n]}))
+            ones[n] = world_of_one(cases, ShapeSpec(
+                "tpz_f32", TPZ_F32_SEQ, TPZ_F32_BATCH, "train"),
+                TrainStepConfig(), store_dir)
+        seconds["worlds_of_one_" + "_".join(map(str, group))] = \
+            time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(len(group)) as ex:
+            futs = {n: ex.submit(world, n, ones[n]) for n in group}
+            worlds.update({n: f.result() for n, f in futs.items()})
+        for n in group:
+            for rec in ones[n].values():
+                os.remove(rec["path"])
+        seconds["worlds_" + "_".join(map(str, group))] = \
+            time.perf_counter() - t0
+    ones = {key: rec for one in ones.values() for key, rec in one.items()}
+    times = time_slice_kernel(TPZ_SLICE_TIMED, TPZ_SLICE_CASES)
+    failed = []
+
+    def check(ok, what, *detail):
+        if not ok:
+            failed.append([what, *detail])
+
+    for row in vc["rows"]:
+        check(row["ok"], "(d) K6 value-column form", row)
+    for name, row in slices.items():
+        check(row["ok"], "(f) K5 slice form", row)
+    launches = collections.Counter()
+    for n, key in ((4, "a"), (8, "b"), (2, "c")):
+        lead = worlds[n][0][key]
+        g = lead["gaps"]
+        check(g["prefill"]["ok"] and g["decode"]["ok"], f"({key}) logits",
+              g["prefill"], g["decode"])
+        check(g["ids"]["equal"] or g["ids"]["near_ties"], f"({key}) ids",
+              g["ids"])
+        for r in worlds[n]:
+            want = r[key]["k5_slice_expected"]
+            got = r[key]["k5_slice_by_rows"]
+            if not isinstance(want, dict):
+                want = {r[key]["kv"][1]: want}
+            check(all(got.get(rows, 0) == c for rows, c in want.items())
+                  and sum(got.values()) == sum(want.values()),
+                  f"({key}) K5 slice launches", got, want)
+            check(r[key]["launches"].get("decode_attn", 0) == 0,
+                  f"({key}) no one-device K5", r[key]["launches"])
+            for rows, c in got.items():
+                launches[(key, rows)] += c
+    lead = worlds[16][0]
+    one = ones[(TPZ_RWKV, TPZ_RWKV_LAYERS)]
+    tr = {"loss": lead["train"]["loss"], "loss_one": one["loss"],
+          "loss_rel": abs(lead["train"]["loss"] - one["loss"])
+          / abs(one["loss"]),
+          "grad_gap_of_scale": _merge_gaps([r["train"]["gaps"]
+                                            for r in worlds[16]]),
+          "jitter_control_gap_of_scale": one["control"]}
+    check(tr["loss_rel"] <= TPZ_F32_TOL, "(d) train loss", tr["loss_rel"])
+    for k_, gap in tr["grad_gap_of_scale"].items():
+        lim = max(TPZ_F32_TOL,
+                  TP_RWKV_CONTROL * tr["jitter_control_gap_of_scale"][k_])
+        check(gap <= lim, "(d) train leaf", k_, gap, lim)
+    dv = 64 // TPZ_RWKV_MESH[1]
+    g = lead["serve"]["gaps"]
+    check(g["prefill"]["gap_of_scale"] <= TPZ_F32_TOL
+          and g["decode"]["gap_of_scale"] <= TPZ_F32_TOL, "(d) serve logits",
+          g["prefill"], g["decode"])
+    check(g["ids"]["equal"] or g["ids"]["near_ties"], "(d) serve ids",
+          g["ids"])
+    for r in worlds[16]:
+        want = {f"wkv6 Dv{dv}": 2 * TPZ_RWKV_LAYERS,
+                f"wkv6_bwd Dv{dv}": TPZ_RWKV_LAYERS}
+        check(r["train_k6_by_value_cols"] == want, "(d) K6 train Dv",
+              r["train_k6_by_value_cols"], want)
+        got = r["serve"]["k6_by_value_cols"]
+        check(set(got) == {f"wkv6 Dv{dv}"}
+              and got[f"wkv6 Dv{dv}"] >= TPZ_RWKV_LAYERS, "(d) K6 serve Dv",
+              got)
+        for name, c in [*r["train_k6_by_value_cols"].items(), *got.items()]:
+            launches[("d", name.split(" ")[0])] += c
+    guards = {}
+    for n in (8, 4, 2):
+        for (arch, layers, strategy) in TPZ_F32_CASES[n]:
+            case = f"{arch} {strategy}"
+            one = ones[(arch, layers)]
+            gaps = _merge_gaps([r["e"][case]["gaps"] for r in worlds[n]])
+            worst = max(gaps, key=gaps.get)
+            loss = worlds[n][0]["e"][case]["loss"]
+            gd = guards[case] = {
+                "layers": layers, "loss": loss, "loss_one": one["loss"],
+                "loss_rel": abs(loss - one["loss"]) / abs(one["loss"]),
+                "worst_leaf": worst, "grad_gap_of_scale": gaps}
+            check(gd["loss_rel"] <= TPZ_F32_TOL, f"(e) {case} loss",
+                  gd["loss_rel"])
+            check(gaps[worst] <= TPZ_F32_TOL, f"(e) {case} leaves", worst,
+                  gaps[worst])
+    summary = lambda n, key: [{k_: v for k_, v in r[key].items()
+                               if k_ != "gaps"} for r in worlds[n]]
+    emit("tp_zoo", card=nvidia_smi_line(),
+         note="gloo ranks sharing one card: times are oversubscription, "
+              "not scaling",
+         reduced=TPZ_REDUCED, failed=failed,
+         recurrentgemma_2b=summary(4, "a"), gemma3_1b=summary(8, "b"),
+         whisper_small=summary(2, "c"),
+         gaps={key: worlds[n][0][key]["gaps"] for n, key in
+               ((4, "a"), (8, "b"), (2, "c"))},
+         rwkv6_3b_16={"train": tr,
+                      "train_k6": [r["train_k6_by_value_cols"]
+                                   for r in worlds[16]],
+                      "serve": [{k_: v for k_, v in r["serve"].items()
+                                 if k_ != "gaps"} for r in worlds[16]],
+                      "serve_gaps": lead["serve"]["gaps"]},
+         float32_guards=guards, k6_value_cols=vc,
+         k5_slice_checks=slices, k5_slice_times=times,
+         limits={"bf16_rtol": LM_RTOL, "bf16_atol": LM_ATOL,
+                 "float32_of_scale": TPZ_F32_TOL,
+                 "k6_value_cols_fwd_of_scale": TPZ_VC_FWD_TOL,
+                 "k6_value_cols_bwd_of_scale": TPZ_VC_BWD_TOL,
+                 "rwkv_train_leaf_of_control": TP_RWKV_CONTROL},
+         seconds_kernel_checks=t_kernels, **seconds,
+         seconds=time.perf_counter() - t_phase)
+    assert not failed, failed
+    rows = []
+    errs = {"decode_attn_slice/rglru_window": ("rglru",),
+            "decode_attn_slice/gemma3_m8": ("gemma3_m8",),
+            "decode_attn_slice/whisper_self": ("whisper_self",),
+            "decode_attn_slice/whisper_cross": ("whisper_cross",)}
+    kv_rows = {"decode_attn_slice/rglru_window":
+               ("a", (TPZ_RGLRU_PROMPT + TPZ_RGLRU_GEN) // TPZ_RGLRU_MESH[1]),
+               "decode_attn_slice/gemma3_m8":
+               ("b", (TPZ_GEMMA_PROMPT + TPZ_GEMMA_GEN) // TPZ_GEMMA_MESH[1]),
+               "decode_attn_slice/whisper_self":
+               ("c", (TPZ_WHISPER_PROMPT + TPZ_WHISPER_GEN)
+                // TPZ_WHISPER_MESH[1]),
+               "decode_attn_slice/whisper_cross":
+               ("c", get_config(TPZ_WHISPER).n_audio_frames
+                // TPZ_WHISPER_MESH[1])}
+    for key, (case, rows_n) in kv_rows.items():
+        tm, n = times[key], launches[(case, rows_n)]
+        rows.append({
+            "name": key, "route": "cuda", "source": SOURCES["decode_attn"],
+            "replaces": REPLACES["decode_attn"], "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for c, r in slices.items()
+                               if c.startswith(errs[key])),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
+        assert n > 0, (key, n)
+    vc_err = {"wkv6": max(r["y_max_abs_err"] for r in vc["rows"]
+                          if "y_max_abs_err" in r),
+              "wkv6_bwd": max(r["max_abs_err"] for r in vc["rows"]
+                              if "max_abs_err" in r)}
+    for base in ("wkv6", "wkv6_bwd"):
+        key = f"{base}/value_cols"
+        tm, n = vc["times"][key], launches[("d", base)]
+        rows.append({
+            "name": key, "route": "cuda", "source": SOURCES["wkv6"],
+            "replaces": REPLACES["wkv6" if base == "wkv6" else "wkv6_bwd"],
+            "launches": n, "max_abs_err": vc_err[base], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": None})
+        assert n > 0, (key, n)
+    return {"rows": rows}
 
 
 def add_train_tp_launches(kernels: list, tp_ctx) -> None:
@@ -5825,7 +6508,7 @@ def decode_attn_bound(b, h, kv, dh, rows, dtype) -> dict:
     return bound(nbytes, 4.0 * b * h * dh * rows + 5.0 * b * h * rows)
 
 
-def wkv6_bound(b, t, h, dh, dtype, state) -> dict:
+def wkv6_bound(b, t, h, dh, dtype, state, dv=None) -> dict:
     """K6's least time: r, k, v, logw, u and the initial state read once, y
     and the final state written once; the operations of the chunked form
     over the T real steps, the four products (per chunk of c steps and head:
@@ -5834,22 +6517,25 @@ def wkv6_bound(b, t, h, dh, dtype, state) -> dict:
     rebasing, decay of S) at the float32 CUDA-core rate. The ragged last
     chunk counts its real steps, not the padded ones.
     ``bound_ms_cuda_cores`` keeps the earlier figure, every operation at
-    the CUDA-core rate."""
+    the CUDA-core rate. ``dv``: the value columns (the value-column form;
+    Dh unless given)."""
+    dv = dh if dv is None else dv
     e = 2 if dtype == torch.bfloat16 else 4
-    n = b * t * h * dh
-    st = b * h * dh * dh * 4
-    nbytes = 3 * n * e + 4 * n + 4 * h * dh + (st if state else 0) + 4 * n + st
+    n, nv = b * t * h * dh, b * t * h * dv
+    st = b * h * dh * dv * 4
+    nbytes = (2 * n * e + nv * e + 4 * n + 4 * h * dh + (st if state else 0)
+              + 4 * nv + st)
 
     def products(c):
-        return (2 * c * (c - 1) * dh                 # A and A v, lower triangle
-                + 2 * c * dh * dh                    # r' S
-                + 2 * dh * dh * c)                   # (k' e^{l_tot})^T v
+        return (c * (c - 1) * (dh + dv)              # A and A v, lower triangle
+                + 2 * c * dh * dv                    # r' S
+                + 2 * dh * dv * c)                   # (k' e^{l_tot})^T v
 
     def rest_ops(c):
-        return (2 * c * dh                           # diag v
+        return (2 * c * dv                           # diag v
                 + 3 * c * dh + 4 * c * dh            # u-bonus, rebasing
                 + c * dh                             # k' scaled by e^{l_tot}
-                + 2 * dh * dh)                       # decay of S, and the sum
+                + 2 * dh * dv)                       # decay of S, and the sum
     full, rest = divmod(t, CHUNK)
     prod = b * h * (full * products(CHUNK) + (products(rest) if rest else 0))
     other = b * h * (full * rest_ops(CHUNK) + (rest_ops(rest) if rest else 0))
@@ -6012,6 +6698,14 @@ def main() -> None:
                            "slice form checked and timed, the dry-run's "
                            "cells on meta) and stop: its kernels rows, the "
                            "card's line and the last line as in a full run")
+    only.add_argument("--tp-zoo-only", action="store_true",
+                      help="build the decode-attention and WKV6 kernels, "
+                           "run the tp_zoo phase (the 'model' axis across "
+                           "the zoo: the head_dim fallback, recurrentgemma "
+                           "and whisper, K6's value-column form, on gloo "
+                           "ranks sharing the card) and stop: its kernels "
+                           "rows, the card's line and the last line as in "
+                           "a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -6035,7 +6729,8 @@ def main() -> None:
              else ["quantize"] if args.k4_only or args.train_only
              else ["wkv6", "quantize"] if (args.train_zoo_only
                                            or args.train_tp_only)
-             else ["decode_attn", "wkv6"] if args.serve_tp_only
+             else ["decode_attn", "wkv6"] if (args.serve_tp_only
+                                              or args.tp_zoo_only)
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -6100,6 +6795,17 @@ def main() -> None:
         print(smi, flush=True)
         print_last_line()
         return
+    if args.tp_zoo_only:
+        rows = run_tp_zoo()["rows"]
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump({**RESULT, "kernels": rows}, fh, indent=1)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print_last_line()
+        return
     if args.serve_tp_only or not any(
             (args.k6_only, args.k5_only, args.k4_only, args.zoo_only,
              args.train_only, args.train_zoo_only, args.train_tp_only,
@@ -6107,6 +6813,7 @@ def main() -> None:
         start_dryrun()
     if args.serve_tp_only:
         rows = run_serve_tp()["rows"]
+        finish_dryrun()
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -6223,7 +6930,10 @@ def main() -> None:
     _free()
     serve_tp_ctx = run_serve_tp()
     _free()
+    tp_zoo_ctx = run_tp_zoo()
+    _free()
     lm_zoo = run_lm_zoo()
+    finish_dryrun()
     wire_err = max(r["max_abs_err"] for r in errs_wire.values())
     wire_row = lambda name: (wire_times["row_D1"][name],
                              sh_launches[name], wire_err)
@@ -6291,6 +7001,9 @@ def main() -> None:
     add_train_tp_launches(kernels, train_tp_ctx)
     # K5's slice form on the serve_tp phase's paths, (a) and (c)
     kernels += serve_tp_ctx["rows"]
+    # K5's slice form at the tp_zoo phase's shapes, K6's value-column form
+    # and its backward on (d)'s path
+    kernels += tp_zoo_ctx["rows"]
     # K5 on the zoo's paths: a row a model and layer kind, timed at that
     # shape, with the calls its model's generate made there
     zoo_case = zoo_da_cases()

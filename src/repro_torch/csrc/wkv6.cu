@@ -71,8 +71,13 @@
 // registers and the ~75 KB of shared memory of a 32-column slice; a build
 // over either falls to 2 blocks and the plan to NV = 1.
 //
-// Limits: Dh a multiple of 4 up to 128; r, k, v bf16 or float32 (one
-// dtype); logw, u, the states and y float32.
+// The value-column form: v may hold Dv < Dh columns of each head (a
+// rank's share of a head under the "model" axis's head_dim fallback); the
+// blocks then split those Dv columns (VB = Dv / NV), the state is (B, H, Dh,
+// Dv) and y (B, T, H, Dv). Every block still scans all Dh key channels.
+//
+// Limits: Dh a multiple of 4 up to 128, Dv a multiple of 4 dividing Dh; r,
+// k, v bf16 or float32 (one dtype); logw, u, the states and y float32.
 //
 // The backward (`wkv6_bwd_kernel`, entries `wkv6_bwd_launch` and
 // `wkv6_bwd_max_active_clusters`) has no TPU counterpart: the reference
@@ -278,7 +283,7 @@ __device__ __forceinline__ void load_b_kn(const float* p, const float* w, int ld
 struct Args {
   const void* r; const void* k; const void* v; const float* logw;
   const float* u; const float* state0; float* y; float* state_out;
-  int T_len, H, Dh, VB, vec;
+  int T_len, H, Dh, Dv, VB, vec, vec_v;
 };
 
 // Chunk c's steps of r, k, logw (all Dh channels) and v (the block's value
@@ -293,13 +298,13 @@ __device__ void load_chunk(const Args& a, const Layout& L, char* smem, int b, in
   const T* r = static_cast<const T*>(a.r);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  const int Dh = a.Dh, VB = a.VB;
+  const int Dh = a.Dh, Dv = a.Dv, VB = a.VB;
+  const int n_ok = min(kChunk, a.T_len - t0);
   if (a.vec) {
     // step t's row starts rs elements after step t - 1's; a step past T
     // copies nothing (from step t0's row) and zero-fills
     const size_t rs = static_cast<size_t>(a.H) * Dh;
     const size_t base = (static_cast<size_t>(b) * a.T_len + t0) * rs + static_cast<size_t>(h) * Dh;
-    const int n_ok = min(kChunk, a.T_len - t0);
     const int pr = Dh * static_cast<int>(sizeof(T)) / 16;
     for (int i = tid; i < kChunk * pr; i += kThreads) {
       const int t = i / pr, p = i - t * pr;
@@ -315,14 +320,6 @@ __device__ void load_chunk(const Args& a, const Layout& L, char* smem, int b, in
       cp_async16(smem + L.o_l + t * L.raw_l + 16 * p, reinterpret_cast<const char*>(a.logw + off) + 16 * p,
                  t < n_ok ? 16 : 0);
     }
-    const int pv = VB * static_cast<int>(sizeof(T)) / 16;
-    for (int i = tid; i < kChunk * pv; i += kThreads) {
-      const int t = i / pv, p = i - t * pv;
-      const size_t off = base + (t < n_ok ? t : 0) * rs + j * VB;
-      cp_async16(smem + L.o_v + t * L.raw_v + 16 * p, reinterpret_cast<const char*>(v + off) + 16 * p,
-                 t < n_ok ? 16 : 0);
-    }
-    cp_async_commit();
   } else {
     for (int i = tid; i < kChunk * Dh; i += kThreads) {
       const int t = i / Dh, d = i - t * Dh;
@@ -332,13 +329,28 @@ __device__ void load_chunk(const Args& a, const Layout& L, char* smem, int b, in
       reinterpret_cast<T*>(smem + L.o_k + t * L.raw_rk)[d] = ok ? k[off] : T(0.f);
       reinterpret_cast<float*>(smem + L.o_l + t * L.raw_l)[d] = ok ? a.logw[off] : 0.f;
     }
+  }
+  // the block's v slice: rows of Dv columns (Dh, or the caller's value
+  // columns), of which this block takes [j VB, (j + 1) VB)
+  if (a.vec_v) {
+    const size_t rsv = static_cast<size_t>(a.H) * Dv;
+    const size_t base = (static_cast<size_t>(b) * a.T_len + t0) * rsv + static_cast<size_t>(h) * Dv;
+    const int pv = VB * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < kChunk * pv; i += kThreads) {
+      const int t = i / pv, p = i - t * pv;
+      const size_t off = base + (t < n_ok ? t : 0) * rsv + j * VB;
+      cp_async16(smem + L.o_v + t * L.raw_v + 16 * p, reinterpret_cast<const char*>(v + off) + 16 * p,
+                 t < n_ok ? 16 : 0);
+    }
+  } else {
     for (int i = tid; i < kChunk * VB; i += kThreads) {
       const int t = i / VB, e = i - t * VB;
       const bool ok = t0 + t < a.T_len;
-      const size_t off = ((static_cast<size_t>(b) * a.T_len + t0 + t) * a.H + h) * Dh + j * VB + e;
+      const size_t off = ((static_cast<size_t>(b) * a.T_len + t0 + t) * a.H + h) * Dv + j * VB + e;
       reinterpret_cast<T*>(smem + L.o_v + t * L.raw_v)[e] = ok ? v[off] : T(0.f);
     }
   }
+  cp_async_commit();
 }
 
 template <typename T>
@@ -348,7 +360,7 @@ wkv6_chunk_kernel(const Args a) {
   const int b = bh / a.H, h = bh - (bh / a.H) * a.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int Dh = a.Dh, VB = a.VB;
+  const int Dh = a.Dh, Dv = a.Dv, VB = a.VB;
   const Layout L(Dh, VB, static_cast<int>(sizeof(T)));
   const int n_ytiles = 2 * (L.vbp / 8);
   constexpr bool kVExact = sizeof(T) == 2;   // bf16 v is a TF32 number
@@ -369,11 +381,11 @@ wkv6_chunk_kernel(const Args a) {
   for (int i = L.o_rp / 4 + tid; i < L.bytes / 4; i += kThreads)
     reinterpret_cast<float*>(smem)[i] = 0.f;
   __syncthreads();
-  const size_t state_base = static_cast<size_t>(bh) * Dh * Dh + j * VB;
+  const size_t state_base = static_cast<size_t>(bh) * Dh * Dv + j * VB;   // (d, e) at + d * Dv + e
   if (a.state0 != nullptr)
     for (int i = tid; i < Dh * VB; i += kThreads) {
       const int d = i / VB, e = i - d * VB;
-      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dh + e];
+      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dv + e];
     }
   for (int d = tid; d < Dh; d += kThreads) u_s[d] = a.u[h * Dh + d];
 
@@ -427,7 +439,7 @@ wkv6_chunk_kernel(const Args a) {
       *reinterpret_cast<uint4*>(kpl_s + o) = kl;
     }
     dpart_s[warp * kChunk + lane] = dacc;
-    if (a.vec) {   // the v slice to float32, 16 bytes at a time
+    if (a.vec_v) {   // the v slice to float32, 16 bytes at a time
       const int pv = VB * static_cast<int>(sizeof(T)) / 16;
       for (int i = tid; i < kChunk * pv; i += kThreads) {
         const int t = i / pv, p = i - t * pv;
@@ -508,7 +520,7 @@ wkv6_chunk_kernel(const Args a) {
         for (int half = 0; half < 2; ++half) {
           const int row = 16 * ti + g + 8 * half, col = 8 * tn + 2 * tq;
           if (t0 + row < a.T_len && col < VB) {
-            float* yp = a.y + ((static_cast<size_t>(b) * a.T_len + t0 + row) * a.H + h) * Dh +
+            float* yp = a.y + ((static_cast<size_t>(b) * a.T_len + t0 + row) * a.H + h) * Dv +
                         j * VB + col;
             if (col + 1 < VB)
               *reinterpret_cast<float2*>(yp) = make_float2(yacc[i][2 * half], yacc[i][2 * half + 1]);
@@ -547,7 +559,7 @@ wkv6_chunk_kernel(const Args a) {
   __syncthreads();
   for (int i = tid; i < Dh * VB; i += kThreads) {
     const int d = i / VB, e = i - d * VB;
-    a.state_out[state_base + static_cast<size_t>(d) * Dh + e] = s_s[d * L.ld_v + e];
+    a.state_out[state_base + static_cast<size_t>(d) * Dv + e] = s_s[d * L.ld_v + e];
   }
 }
 
@@ -667,9 +679,15 @@ cudaError_t launch(const Args& a, int B, int NV, cudaStream_t stream) {
 //   template parameter (five instances a dtype) and every quotient by Dh,
 //   VB or a row's size is a shift (all are powers of two).
 //
-// Limits: Dh a power of two from 4 to 64, NV in value_splits(Dh) (at most
-// 8, a cluster's portable size); r, k, v bf16 or float32 (one dtype; dr,
-// dk, dv in it); logw, u, state0, dy, dS_T, dlogw, du and dstate0 float32.
+// The value-column form (v of Dv < Dh columns, as the forward's): the NV
+// blocks split the Dv value columns (VB = Dv / NV) and own Dh / NV key
+// channels each (OW), which the exchange and the owner's sums take in place
+// of VB; the state, its scratch and G are (Dh, Dv) a (b, h).
+//
+// Limits: Dh a power of two from 4 to 64, Dv a power of two from 4 to Dh,
+// NV in value_splits(Dv) (at most 8, a cluster's portable size); r, k, v
+// bf16 or float32 (one dtype; dr, dk, dv in it); logw, u, state0, dy, dS_T,
+// dlogw, du and dstate0 float32.
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -696,13 +714,13 @@ struct BwdLayout {
   int o_etot, o_u, o_dpart, o_vdyp, o_p, o_pn, o_du;
   int o_g, o_xr, o_xk, o_xv, o_xp, o_own;
   int bytes;
-  __host__ __device__ BwdLayout(int dh, int vb, int nv, int esize) {
+  __host__ __device__ BwdLayout(int dh, int vb, int ow, int nv, int esize) {
     dhp = round_up(dh, 8);
     dhm = round_up(dh, 16);
     vbp = round_up(vb, 8);
     ld_rk = dhm + 4;
     ld_v = (vbp % 32 == 8 || vbp % 32 == 24) ? vbp : vbp + 8;
-    ld_o = vb + 1;
+    ld_o = ow + 1;
     raw_rk = round_up(dh * esize, 16) + 16;
     raw_l = round_up(dh * 4, 16) + 16;
     raw_v = round_up(vb * esize, 16) + 16;
@@ -722,17 +740,17 @@ struct BwdLayout {
     o_u = o;  o += 4 * dhp;
     o_dpart = o; o += 4 * kBwdWarps * kChunk;
     o_vdyp = o; o += 4 * kChunk;            // this slice's v.dy
-    o_p = o;  o += 4 * round_up(vb, 4);     // P of the owned channels
-    o_pn = o; o += 4 * round_up(vb, 4);     // their P at the previous chunk's end
-    o_du = o; o += 4 * round_up(vb, 4);     // du of the owned channels
+    o_p = o;  o += 4 * round_up(ow, 4);     // P of the owned channels
+    o_pn = o; o += 4 * round_up(ow, 4);     // their P at the previous chunk's end
+    o_du = o; o += 4 * round_up(ow, 4);     // du of the owned channels
     const int pass2 = o;
     o_g = o;  o += 4 * dhm * ld_v;          // G slice
     // the exchange, a slot per rank: X_r and X_k of the owned channels
-    // (rows of vb floats), v.dy, and P at the previous chunk's end
-    o_xr = o; o += 4 * nv * kChunk * vb;
-    o_xk = o; o += 4 * nv * kChunk * vb;
+    // (rows of ow floats), v.dy, and P at the previous chunk's end
+    o_xr = o; o += 4 * nv * kChunk * ow;
+    o_xk = o; o += 4 * nv * kChunk * ow;
     o_xv = o; o += 4 * nv * kChunk;
-    o_xp = o; o += 4 * nv * round_up(vb, 4);   // and P's slice partials
+    o_xp = o; o += 4 * nv * round_up(ow, 4);   // and P's slice partials
     o_own = o; o += 4 * 4 * kChunk * ld_o;  // owned channels: r, k, e^{l_exc - l_tot}, e^{l_tot - l_inc}
     int p1 = pass2;
     o_k1 = p1; p1 += kChunk * raw_rk;
@@ -750,7 +768,7 @@ struct BwdArgs {
   const void* r; const void* k; const void* v; const float* logw; const float* u;
   const float* state0; const float* dy; const float* ds; float* scratch;
   void* dr; void* dk; void* dv; float* dlogw; float* du_part; float* dstate0;
-  int T_len, H, Dh, VB, vec;
+  int T_len, H, Dh, Dv, VB, vec, vec_v;
 };
 
 // ---- the backward's operand loads (split on load) and products -----------
@@ -938,13 +956,14 @@ __device__ __forceinline__ void bwd_load_rkl(const BwdArgs& a, const BwdLayout& 
 
 // A chunk's rows of the block's v slice into raw buffer `buf` and, in pass
 // 2 (s0 given), of its dy slice, and its start state slice (Dh rows of VB
-// floats, row stride Dh) into S. `row` is the element of (b, t0, h, lo).
+// floats, row stride Dv) into S. `row` is the element of (b, t0, h, lo) in
+// the (B, T, H, Dv) layout of v and dy, rs a step's row there.
 template <typename T, int Dh>
 __device__ __forceinline__ void bwd_load_vdy(const BwdArgs& a, const BwdLayout& L, char* smem, size_t row,
                              size_t rs, int n_ok, int buf, const float* s0) {
   const T* v = static_cast<const T*>(a.v) + row;
   const int es = static_cast<int>(sizeof(T));
-  if (a.vec) {
+  if (a.vec_v) {
     bwd_copy_rows(smem + L.o_v(buf), L.raw_v, reinterpret_cast<const char*>(v), rs * es,
                   a.VB * es, kChunk, n_ok);
     if (s0 != nullptr)
@@ -956,7 +975,7 @@ __device__ __forceinline__ void bwd_load_vdy(const BwdArgs& a, const BwdLayout& 
   }
   if (s0 != nullptr)
     bwd_copy_rows(smem + L.o_s, 4 * L.ld_v, reinterpret_cast<const char*>(s0),
-                  4 * static_cast<size_t>(Dh), a.VB * 4, Dh, Dh);
+                  4 * static_cast<size_t>(a.Dv), a.VB * 4, Dh, Dh);
   cp_async_commit();
 }
 
@@ -964,9 +983,9 @@ __device__ __forceinline__ void bwd_load_vdy(const BwdArgs& a, const BwdLayout& 
 // channels at a time, lane t on step t, an inclusive shuffle scan. Writes
 // kk = k e^{l_tot - l_inc} and e^{l_tot} of every channel; with R (pass 2)
 // also r'' = r e^{l_exc - l_tot}, the warp's partial of the u bonus
-// sum_i r u k, and the owned channels' r, k and two factors.
+// sum_i r u k, and the owned channels' (ow from lo) r, k and two factors.
 template <typename T, bool R>
-__device__ __forceinline__ void bwd_scan(const BwdLayout& L, char* smem, int Dh, int lo, int VB, int buf) {
+__device__ __forceinline__ void bwd_scan(const BwdLayout& L, char* smem, int Dh, int lo, int ow, int buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* rp_s = reinterpret_cast<float*>(smem + L.o_rp);
   float* kk_s = reinterpret_cast<float*>(smem + L.o_kk);
@@ -1003,7 +1022,7 @@ __device__ __forceinline__ void bwd_scan(const BwdLayout& L, char* smem, int Dh,
         rp4[q] = r4[q] * erp;
         dacc = fmaf(r4[q] * u_s[d + q], k4[q], dacc);
         const int il = d + q - lo;
-        if (il >= 0 && il < VB) {
+        if (il >= 0 && il < ow) {
           const int o = lane * L.ld_o + il;
           own[o] = r4[q];
           own[os + o] = k4[q];
@@ -1100,10 +1119,13 @@ wkv6_bwd_kernel(const BwdArgs a) {
   const int b = bh / a.H, h = bh - b * a.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  // Dh and VB are powers of two: their quotients are shifts
-  const int VB = a.VB, vsh = __ffs(VB) - 1, NV = Dh >> vsh, lo = j * VB;
+  // Dh, Dv, VB and OW are powers of two: their quotients are shifts. The
+  // block's value columns are [lo, lo + VB) of Dv; the channels it owns
+  // (sums of dr, dk, dlogw, du) [lo_o, lo_o + OW) of Dh.
+  const int Dv = a.Dv, VB = a.VB, vsh = __ffs(VB) - 1, NV = Dv >> vsh, lo = j * VB;
+  const int OW = Dh / NV, osh = __ffs(OW) - 1, lo_o = j * OW;
   const int rank = cluster_rank();             // == j: the cluster spans the NV slices
-  const BwdLayout L(Dh, VB, NV, static_cast<int>(sizeof(T)));
+  const BwdLayout L(Dh, VB, OW, NV, static_cast<int>(sizeof(T)));
   constexpr bool kVExact = sizeof(T) == 2;     // bf16 v is a TF32 number
 
   extern __shared__ __align__(16) char smem[];
@@ -1113,10 +1135,10 @@ wkv6_bwd_kernel(const BwdArgs a) {
   float* bm_s = reinterpret_cast<float*>(smem + L.o_bm);     // (C, kLdA) tril_strict(Bm)
   float* s_s = reinterpret_cast<float*>(smem + L.o_s);       // (dhm, ld_v) S slice
   float* g_s = reinterpret_cast<float*>(smem + L.o_g);       // (dhm, ld_v) G slice
-  float* xr_s = reinterpret_cast<float*>(smem + L.o_xr);     // (NV, C, VB) exchange
-  float* xk_s = reinterpret_cast<float*>(smem + L.o_xk);     // (NV, C, VB)
+  float* xr_s = reinterpret_cast<float*>(smem + L.o_xr);     // (NV, C, OW) exchange
+  float* xk_s = reinterpret_cast<float*>(smem + L.o_xk);     // (NV, C, OW)
   float* xv_s = reinterpret_cast<float*>(smem + L.o_xv);     // (NV, C)
-  float* xp_s = reinterpret_cast<float*>(smem + L.o_xp);     // (NV, VB)
+  float* xp_s = reinterpret_cast<float*>(smem + L.o_xp);     // (NV, OW)
   float* own = reinterpret_cast<float*>(smem + L.o_own);     // 4 x (C, ld_o)
   float* etot_s = reinterpret_cast<float*>(smem + L.o_etot);
   float* u_s = reinterpret_cast<float*>(smem + L.o_u);
@@ -1136,16 +1158,18 @@ wkv6_bwd_kernel(const BwdArgs a) {
   // everything starts at zero: padded channels, columns and steps stay zero
   for (int i = tid; i < L.bytes / 4; i += kBwdThreads) reinterpret_cast<float*>(smem)[i] = 0.f;
   __syncthreads();
-  const size_t DD = static_cast<size_t>(Dh) * Dh;
-  const size_t state_base = static_cast<size_t>(bh) * DD + lo;   // (i, e) at + i * Dh + e
+  const size_t DD = static_cast<size_t>(Dh) * Dv;                 // a (b, h)'s state
+  const size_t state_base = static_cast<size_t>(bh) * DD + lo;   // (i, e) at + i * Dv + e
   if (a.state0 != nullptr)
     for (int i = tid; i < Dh * VB; i += kBwdThreads) {
       const int d = i >> vsh, e = i & (VB - 1);
-      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dh + e];
+      s_s[d * L.ld_v + e] = a.state0[state_base + static_cast<size_t>(d) * Dv + e];
     }
   for (int d = tid; d < Dh; d += kBwdThreads) u_s[d] = a.u[h * Dh + d];
-  const size_t rs = static_cast<size_t>(a.H) * Dh;                 // one step's row
+  const size_t rs = static_cast<size_t>(a.H) * Dh;                 // one step's row: r, k, logw
+  const size_t rsv = static_cast<size_t>(a.H) * Dv;                // v, dy, dv
   const size_t row0 = static_cast<size_t>(b) * a.T_len * rs + static_cast<size_t>(h) * Dh;
+  const size_t row0v = static_cast<size_t>(b) * a.T_len * rsv + static_cast<size_t>(h) * Dv;
   const int n_chunks = (a.T_len + kChunk - 1) / kChunk;
   float* scratch = a.scratch + static_cast<size_t>(bh) * n_chunks * DD + lo;
 
@@ -1153,7 +1177,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
   // S_T left in S. Chunk c + 1 streams into the other raw buffer while
   // chunk c runs.
   bwd_load_rkl<T, Dh>(a, L, smem, row0, rs, min(kChunk, a.T_len), 0, false);
-  bwd_load_vdy<T, Dh>(a, L, smem, row0 + lo, rs, min(kChunk, a.T_len), 0, nullptr);
+  bwd_load_vdy<T, Dh>(a, L, smem, row0v + lo, rsv, min(kChunk, a.T_len), 0, nullptr);
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c & 1;
     cp_async_wait_all();
@@ -1161,13 +1185,13 @@ wkv6_bwd_kernel(const BwdArgs a) {
     if (c + 1 < n_chunks) {
       const int t1 = (c + 1) * kChunk, n1 = min(kChunk, a.T_len - t1);
       bwd_load_rkl<T, Dh>(a, L, smem, row0 + t1 * rs, rs, n1, buf ^ 1, false);
-      bwd_load_vdy<T, Dh>(a, L, smem, row0 + t1 * rs + lo, rs, n1, buf ^ 1, nullptr);
+      bwd_load_vdy<T, Dh>(a, L, smem, row0v + t1 * rsv + lo, rsv, n1, buf ^ 1, nullptr);
     }
     for (int i = tid; i < Dh * VB; i += kBwdThreads) {
       const int d = i >> vsh, e = i & (VB - 1);
-      scratch[static_cast<size_t>(c) * DD + static_cast<size_t>(d) * Dh + e] = s_s[d * L.ld_v + e];
+      scratch[static_cast<size_t>(c) * DD + static_cast<size_t>(d) * Dv + e] = s_s[d * L.ld_v + e];
     }
-    bwd_scan<T, false>(L, smem, Dh, lo, VB, buf);
+    bwd_scan<T, false>(L, smem, Dh, lo_o, OW, buf);
     __syncthreads();  // kk and e^{l_tot} are in; S is stored
     bwd_state_update<T, false>(L, s_s, kk_s, etot_s, smem + L.o_v(buf), L.raw_v);
   }
@@ -1183,20 +1207,20 @@ wkv6_bwd_kernel(const BwdArgs a) {
   for (int i = tid; i < L.dhm * L.ld_v; i += kBwdThreads) {
     const int d = i / L.ld_v, e = i - d * L.ld_v;
     g_s[i] = a.ds != nullptr && d < Dh && e < VB
-                 ? a.ds[state_base + static_cast<size_t>(d) * Dh + e] : 0.f;
+                 ? a.ds[state_base + static_cast<size_t>(d) * Dv + e] : 0.f;
   }
   __syncthreads();
   for (int d = tid; d < Dh; d += kBwdThreads) {
     float p = 0.f;
     for (int e = 0; e < VB; ++e) p = fmaf(s_s[d * L.ld_v + e], g_s[d * L.ld_v + e], p);
-    const int q = d >> vsh;
-    st_cluster(map_rank(xr_addr + 4 * (rank * kChunk * VB + d - q * VB), q), p);
+    const int q = d >> osh;
+    st_cluster(map_rank(xr_addr + 4 * (rank * kChunk * OW + d - q * OW), q), p);
   }
   cluster_arrive();
   cluster_wait();
-  for (int il = tid; il < VB; il += kBwdThreads) {
+  for (int il = tid; il < OW; il += kBwdThreads) {
     float p = 0.f;
-    for (int q = 0; q < NV; ++q) p += xr_s[q * kChunk * VB + il];
+    for (int q = 0; q < NV; ++q) p += xr_s[q * kChunk * OW + il];
     p_s[il] = p;
     du_s[il] = 0.f;
   }
@@ -1207,7 +1231,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
   {
     const int c = n_chunks - 1, t0 = c * kChunk;
     bwd_load_rkl<T, Dh>(a, L, smem, row0 + t0 * rs, rs, a.T_len - t0, 0, true);
-    bwd_load_vdy<T, Dh>(a, L, smem, row0 + t0 * rs + lo, rs, a.T_len - t0, 0,
+    bwd_load_vdy<T, Dh>(a, L, smem, row0v + t0 * rsv + lo, rsv, a.T_len - t0, 0,
                     a.scratch + (static_cast<size_t>(bh) * n_chunks + c) * DD + lo);
   }
   const int ti = warp & 1;                     // the row block of every tile of this warp
@@ -1215,9 +1239,10 @@ wkv6_bwd_kernel(const BwdArgs a) {
   for (int c = n_chunks - 1; c >= 0; --c) {
     const int t0 = c * kChunk, n_ok = min(kChunk, a.T_len - t0);
     const size_t row = row0 + static_cast<size_t>(t0) * rs;
+    const size_t rowv = row0v + static_cast<size_t>(t0) * rsv;
     cp_async_wait_all();
     __syncthreads();  // chunk c is in; chunk c + 1 is done
-    bwd_scan<T, true>(L, smem, Dh, lo, VB, 0);
+    bwd_scan<T, true>(L, smem, Dh, lo_o, OW, 0);
     __syncthreads();  // r'', kk, the factors are in; the raw r, k, logw are free
     if (c > 0) bwd_load_rkl<T, Dh>(a, L, smem, row - kChunk * rs, rs, kChunk, 0, true);
 
@@ -1364,7 +1389,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
           for (int half = 0; half < 2; ++half) {
             const int t = 16 * ti + g + 8 * half, col = 8 * tn + 2 * tq;
             if (t < n_ok && col < VB) {
-              T* dvp = static_cast<T*>(a.dv) + row + static_cast<size_t>(t) * rs + lo + col;
+              T* dvp = static_cast<T*>(a.dv) + rowv + static_cast<size_t>(t) * rsv + lo + col;
               store_pair(dvp, dv[i][2 * half], dv[i][2 * half + 1]);
             }
           }
@@ -1388,13 +1413,13 @@ wkv6_bwd_kernel(const BwdArgs a) {
     for (int i = 0; i < kMaxXTiles; ++i) {
       const int tn = (warp + i * kBwdWarps) >> 1;
       if (warp + i * kBwdWarps < n_xt && 8 * tn + 2 * tq < Dh) {
-        const int q = (8 * tn) >> vsh, il = 8 * tn + 2 * tq - q * VB;
-        const int at = 4 * ((rank * kChunk + 16 * ti + g) * VB + il);
+        const int q = (8 * tn) >> osh, il = 8 * tn + 2 * tq - q * OW;
+        const int at = 4 * ((rank * kChunk + 16 * ti + g) * OW + il);
         const uint32_t r_at = map_rank(xr_addr + at, q), k_at = map_rank(xk_addr + at, q);
         st_cluster(r_at, xr[i][0], xr[i][1]);
-        st_cluster(r_at + 32 * VB, xr[i][2], xr[i][3]);        // row + 8
+        st_cluster(r_at + 32 * OW, xr[i][2], xr[i][3]);        // row + 8
         st_cluster(k_at, xk[i][0], xk[i][1]);
-        st_cluster(k_at + 32 * VB, xk[i][2], xk[i][3]);
+        st_cluster(k_at + 32 * OW, xk[i][2], xk[i][3]);
       }
     }
     for (int i = tid; i < kChunk * NV; i += kBwdThreads) {
@@ -1402,25 +1427,25 @@ wkv6_bwd_kernel(const BwdArgs a) {
       st_cluster(map_rank(xv_addr + 4 * (rank * kChunk + t), q), vdyp_s[t]);
     }
     if (c > 0 && tid < Dh) {
-      const int q = tid >> vsh;
-      st_cluster(map_rank(xp_addr + 4 * (rank * VB + tid - q * VB), q), pe);
+      const int q = tid >> osh;
+      st_cluster(map_rank(xp_addr + 4 * (rank * OW + tid - q * OW), q), pe);
     }
     cluster_arrive();
     cluster_wait();   // every slice's partials are in; this block is done with r, S, v, dy
     if (c > 0)
-      bwd_load_vdy<T, Dh>(a, L, smem, row - kChunk * rs + lo, rs, kChunk, 0,
+      bwd_load_vdy<T, Dh>(a, L, smem, rowv - kChunk * rsv + lo, rsv, kChunk, 0,
                       a.scratch + (static_cast<size_t>(bh) * n_chunks + c - 1) * DD + lo);
 
     // The owned channels, two a thread: the slots summed in rank order; dr,
     // dk written; x = k dk^h - r dr^h, k dk^h and du's term r k v.dy kept
     // for the scan.
-    for (int e = tid; e < kChunk * VB / 2; e += kBwdThreads) {
-      const int t = e >> (vsh - 1), il = 2 * (e & (VB / 2 - 1));
+    for (int e = tid; e < kChunk * OW / 2; e += kBwdThreads) {
+      const int t = e >> (osh - 1), il = 2 * (e & (OW / 2 - 1));
       float2 sxr = make_float2(0.f, 0.f), sxk = make_float2(0.f, 0.f);
       float vdy = 0.f;
       for (int q = 0; q < NV; ++q) {
-        const float2 xr2 = *reinterpret_cast<const float2*>(xr_s + (q * kChunk + t) * VB + il);
-        const float2 xk2 = *reinterpret_cast<const float2*>(xk_s + (q * kChunk + t) * VB + il);
+        const float2 xr2 = *reinterpret_cast<const float2*>(xr_s + (q * kChunk + t) * OW + il);
+        const float2 xk2 = *reinterpret_cast<const float2*>(xk_s + (q * kChunk + t) * OW + il);
         sxr.x += xr2.x; sxr.y += xr2.y;
         sxk.x += xk2.x; sxk.y += xk2.y;
         vdy += xv_s[q * kChunk + t];
@@ -1432,7 +1457,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
         const float r = own[o], k = own[os + o];
         const float drh = own[2 * os + o] * (m ? sxr.y : sxr.x);
         const float dkh = own[3 * os + o] * (m ? sxk.y : sxk.x);
-        const float ru = u_s[lo + il + m] * vdy;
+        const float ru = u_s[lo_o + il + m] * vdy;
         out_r[m] = fmaf(ru, k, drh);
         out_k[m] = fmaf(ru, r, dkh);
         const float kd = k * dkh;
@@ -1441,15 +1466,15 @@ wkv6_bwd_kernel(const BwdArgs a) {
         own[2 * os + o] = r * k * vdy;
       }
       if (t < n_ok) {
-        const size_t off = row + static_cast<size_t>(t) * rs + lo + il;
+        const size_t off = row + static_cast<size_t>(t) * rs + lo_o + il;
         store_pair(static_cast<T*>(a.dr) + off, out_r[0], out_r[1]);
         store_pair(static_cast<T*>(a.dk) + off, out_k[0], out_k[1]);
       }
     }
     if (c > 0)
-      for (int il = tid; il < VB; il += kBwdThreads) {
+      for (int il = tid; il < OW; il += kBwdThreads) {
         float p = 0.f;
-        for (int q = 0; q < NV; ++q) p += xp_s[q * VB + il];
+        for (int q = 0; q < NV; ++q) p += xp_s[q * OW + il];
         pn_s[il] = p;
       }
     cluster_arrive();   // the slots are read
@@ -1458,12 +1483,12 @@ wkv6_bwd_kernel(const BwdArgs a) {
     // four channels at a time, lane t on step t, the suffix sums by
     // shuffles; P becomes the previous chunk's end's, as summed above; du
     // += sum_t r k v.dy (a fixed shuffle tree).
-    for (int il0 = warp; il0 < VB; il0 += 4 * kBwdWarps) {
+    for (int il0 = warp; il0 < OW; il0 += 4 * kBwdWarps) {
       float x[4], kd[4], du[4];
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int il = il0 + m * kBwdWarps;
-        const int o = lane * L.ld_o + (il < VB ? il : il0);
+        const int o = lane * L.ld_o + (il < OW ? il : il0);
         x[m] = own[o];
         kd[m] = own[os + o];
         du[m] = own[2 * os + o];
@@ -1484,7 +1509,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
         const int il = il0 + m * kBwdWarps;
         float excl = __shfl_down_sync(0xffffffffu, x[m], 1);
         if (lane == 31) excl = 0.f;
-        if (il < VB) {
+        if (il < OW) {
           own[3 * os + lane * L.ld_o + il] = (p_s[il] - excl) - kd[m];
           __syncwarp();
           if (lane == 0) {
@@ -1495,19 +1520,19 @@ wkv6_bwd_kernel(const BwdArgs a) {
       }
     }
     __syncthreads();
-    for (int e = tid; e < n_ok * VB / 2; e += kBwdThreads) {
-      const int t = e >> (vsh - 1), il = 2 * (e & (VB / 2 - 1));
+    for (int e = tid; e < n_ok * OW / 2; e += kBwdThreads) {
+      const int t = e >> (osh - 1), il = 2 * (e & (OW / 2 - 1));
       const float* src = own + 3 * os + t * L.ld_o + il;
-      store_pair(a.dlogw + row + static_cast<size_t>(t) * rs + lo + il, src[0], src[1]);
+      store_pair(a.dlogw + row + static_cast<size_t>(t) * rs + lo_o + il, src[0], src[1]);
     }
   }
   cluster_wait();     // no peer stores into this block any more
-  for (int il = tid; il < VB; il += kBwdThreads)
-    a.du_part[static_cast<size_t>(bh) * Dh + lo + il] = du_s[il];
+  for (int il = tid; il < OW; il += kBwdThreads)
+    a.du_part[static_cast<size_t>(bh) * Dh + lo_o + il] = du_s[il];
   if (a.dstate0 != nullptr)
     for (int i = tid; i < Dh * VB; i += kBwdThreads) {
       const int d = i >> vsh, e = i & (VB - 1);
-      a.dstate0[state_base + static_cast<size_t>(d) * Dh + e] = g_s[d * L.ld_v + e];
+      a.dstate0[state_base + static_cast<size_t>(d) * Dv + e] = g_s[d * L.ld_v + e];
     }
 }
 
@@ -1516,7 +1541,7 @@ wkv6_bwd_kernel(const BwdArgs a) {
 // card runs at once.
 template <typename T, int Dh>
 cudaError_t bwd_launch(const BwdArgs& a, int B, int NV, cudaStream_t stream, int* max_clusters) {
-  const int smem = BwdLayout(Dh, a.VB, NV, static_cast<int>(sizeof(T))).bytes;
+  const int smem = BwdLayout(Dh, a.VB, Dh / NV, NV, static_cast<int>(sizeof(T))).bytes;
   auto kernel = wkv6_bwd_kernel<T, Dh>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1551,67 +1576,77 @@ cudaError_t bwd_dispatch(const BwdArgs& a, int B, int NV, cudaStream_t stream, i
   }
 }
 
-bool valid_split(int Dh, int NV) {
-  return NV >= 1 && Dh % NV == 0 && (NV == 1 || (Dh / NV) % 8 == 0);
+// NV slices of D value columns: each a multiple of 8 columns, or NV = 1
+bool valid_split(int D, int NV) {
+  return NV >= 1 && D % NV == 0 && (NV == 1 || (D / NV) % 8 == 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// r, k, v (B, T, H, Dh) bf16 (in_bf16 = 1) or float32; logw (B, T, H, Dh),
-// u (H, Dh), state0 (B, H, Dh, Dh) or null (zeros), y (B, T, H, Dh) and
-// state_out (B, H, Dh, Dh) float32, not aliasing state0. NV value slices of
-// Dh / NV columns (a multiple of 8, or NV = 1); vec = 1 when every row of r,
-// k, logw and of a v slice is a whole number of 16-byte pieces on 16-byte
-// boundaries.
+// r, k (B, T, H, Dh) bf16 (in_bf16 = 1) or float32, v (B, T, H, Dv) in
+// their dtype (Dv = Dh, or Dv value columns of each head: a multiple of 4
+// that divides Dh); logw (B, T, H, Dh), u (H, Dh), state0 (B, H, Dh, Dv) or
+// null (zeros), y (B, T, H, Dv) and state_out (B, H, Dh, Dv) float32, not
+// aliasing state0. NV value slices of Dv / NV columns (a multiple of 8, or
+// NV = 1); vec = 1 when every row of r, k and logw, vec_v = 1 when every row
+// of a v slice, is a whole number of 16-byte pieces on 16-byte boundaries.
 int wkv6_launch(const void* r, const void* k, const void* v, const float* logw,
                 const float* u, const float* state0, float* y, float* state_out,
-                int B, int T_len, int H, int Dh, int NV, int vec, int in_bf16,
-                void* stream) {
-  if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh % 4 != 0 || Dh > kMaxDh ||
-      !valid_split(Dh, NV) || static_cast<long long>(B) * H > 0x7fffffffLL)
+                int B, int T_len, int H, int Dh, int Dv, int NV, int vec, int vec_v,
+                int in_bf16, void* stream) {
+  if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh % 4 != 0 || Dh > kMaxDh || Dv < 4 ||
+      Dv % 4 != 0 || Dv > Dh || Dh % Dv != 0 || !valid_split(Dv, NV) ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{r, k, v, logw, u, state0, y, state_out, T_len, H, Dh, Dh / NV, vec};
+  const Args a{r, k, v, logw, u, state0, y, state_out, T_len, H, Dh, Dv, Dv / NV, vec, vec_v};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = in_bf16 ? launch<__nv_bfloat16>(a, B, NV, st) : launch<float>(a, B, NV, st);
   return static_cast<int>(e);
 }
 
-// The backward. r, k, v (B, T, H, Dh) bf16 (in_bf16 = 1) or float32;
-// logw, dy (B, T, H, Dh), u (H, Dh), state0 and ds (B, H, Dh, Dh) or null
-// (zeros) float32; scratch (B, H, ceil(T / 32), Dh, Dh) float32; dr, dk, dv
-// in r's dtype, dlogw (B, T, H, Dh), du_part (B, H, Dh) float32, dstate0
-// (B, H, Dh, Dh) float32 or null (not written). Dh a power of two, 4 to 64;
-// NV value slices of Dh / NV columns (a multiple of 8, or NV = 1), one
-// cluster of NV blocks a (b, h); vec = 1 when every row of r, k, logw and of
-// a v or dy slice is a whole number of 16-byte pieces on 16-byte boundaries.
+// The backward. r, k (B, T, H, Dh) bf16 (in_bf16 = 1) or float32, v
+// (B, T, H, Dv) in their dtype (Dv a power of two from 4 to Dh: Dh, or Dv
+// value columns of each head); logw (B, T, H, Dh), dy (B, T, H, Dv), u (H,
+// Dh), state0 and ds (B, H, Dh, Dv) or null (zeros) float32; scratch (B, H,
+// ceil(T / 32), Dh, Dv) float32; dr, dk, dv in r's dtype, dlogw (B, T, H,
+// Dh), du_part (B, H, Dh) float32, dstate0 (B, H, Dh, Dv) float32 or null
+// (not written). Dh a power of two, 4 to 64; NV value slices of Dv / NV
+// columns (a multiple of 8, or NV = 1), one cluster of NV blocks a (b, h),
+// block j owning the channels [j Dh / NV, (j + 1) Dh / NV) of the sums over
+// value columns; vec = 1 when every row of r, k and logw, vec_v = 1 when
+// every row of a v or dy slice, is a whole number of 16-byte pieces on
+// 16-byte boundaries.
 int wkv6_bwd_launch(const void* r, const void* k, const void* v, const float* logw,
                     const float* u, const float* state0, const float* dy, const float* ds,
                     float* scratch, void* dr, void* dk, void* dv, float* dlogw,
-                    float* du_part, float* dstate0, int B, int T_len, int H, int Dh, int NV,
-                    int vec, int in_bf16, void* stream) {
+                    float* du_part, float* dstate0, int B, int T_len, int H, int Dh, int Dv,
+                    int NV, int vec, int vec_v, int in_bf16, void* stream) {
   if (B < 1 || T_len < 1 || H < 1 || Dh < 4 || Dh > kBwdMaxDh || (Dh & (Dh - 1)) != 0 ||
-      !valid_split(Dh, NV) || static_cast<long long>(B) * H > 0x7fffffffLL)
+      Dv < 4 || Dv > Dh || (Dv & (Dv - 1)) != 0 || !valid_split(Dv, NV) ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{r, k, v, logw, u, state0, dy, ds, scratch, dr, dk, dv, dlogw, du_part,
-                  dstate0, T_len, H, Dh, Dh / NV, vec};
+                  dstate0, T_len, H, Dh, Dv, Dv / NV, vec, vec_v};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = in_bf16 ? bwd_dispatch<__nv_bfloat16>(a, B, NV, st, nullptr)
                                 : bwd_dispatch<float>(a, B, NV, st, nullptr);
   return static_cast<int>(e);
 }
 
-// Clusters of the backward's NV blocks (head size Dh, slices of Dh / NV
-// columns) that the card runs at once (cudaOccupancyMaxActiveClusters at
-// the kernel's shared memory), into *out.
-int wkv6_bwd_max_active_clusters(int in_bf16, int Dh, int NV, int* out) {
-  if (Dh < 4 || Dh > kBwdMaxDh || (Dh & (Dh - 1)) != 0 || !valid_split(Dh, NV))
+// Clusters of the backward's NV blocks (head size Dh, slices of Dv / NV
+// value columns) that the card runs at once (cudaOccupancyMaxActiveClusters
+// at the kernel's shared memory), into *out.
+int wkv6_bwd_max_active_clusters(int in_bf16, int Dh, int Dv, int NV, int* out) {
+  if (Dh < 4 || Dh > kBwdMaxDh || (Dh & (Dh - 1)) != 0 || Dv < 4 || Dv > Dh ||
+      (Dv & (Dv - 1)) != 0 || !valid_split(Dv, NV))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
   a.H = 1;
   a.Dh = Dh;
-  a.VB = Dh / NV;
+  a.Dv = Dv;
+  a.VB = Dv / NV;
   const cudaError_t e = in_bf16 ? bwd_dispatch<__nv_bfloat16>(a, 1, NV, nullptr, out)
                                 : bwd_dispatch<float>(a, 1, NV, nullptr, out);
   return static_cast<int>(e);

@@ -90,33 +90,38 @@ def _chunks(t: int, per_chunk) -> float:
 
 
 def wkv6(r, k, v, logw, u, state0=None):
-    """K6: (y (B, T, H, Dh), final state (B, H, Dh, Dh)) float32."""
+    """K6: (y (B, T, H, Dv), final state (B, H, Dh, Dv)) float32, Dv = v's
+    last dimension (Dh, or a rank's value columns)."""
     b, t, h, dh = r.shape
-    e, n, st = _size(r.dtype), b * t * h * dh, b * h * dh * dh * 4
-    nbytes = (3 * n * e + 4 * n + 4 * h * dh + (st if state0 is not None
-                                                  else 0) + 4 * n + st)
-    ops = lambda c: (2 * c * (c - 1) * dh + 2 * c * dh * dh + 2 * dh * dh * c
-                     + 10 * c * dh + 2 * dh * dh)
+    dv = v.shape[-1]
+    e, n, nv = _size(r.dtype), b * t * h * dh, b * t * h * dv
+    st = b * h * dh * dv * 4
+    nbytes = (2 * n * e + nv * e + 4 * n + 4 * h * dh
+              + (st if state0 is not None else 0) + 4 * nv + st)
+    ops = lambda c: (2 * c * (c - 1) * dh + 2 * c * dh * dv + 2 * dh * dv * c
+                     + 10 * c * dh + 2 * dh * dv)
     _count("wkv6", b * h * _chunks(t, ops), nbytes)
-    return (_empty((b, t, h, dh), torch.float32),
-            _empty((b, h, dh, dh), torch.float32))
+    return (_empty((b, t, h, dv), torch.float32),
+            _empty((b, h, dh, dv), torch.float32))
 
 
 def wkv6_bwd(r, k, v, logw, u, state0, dy, ds=None,
              need_state0_grad: bool = False):
     """K6's backward: (dr, dk, dv, dlogw, du (H, Dh) float32, dstate0 or
-    None)."""
+    None), v of Dv <= Dh columns as in ``wkv6``."""
     b, t, h, dh = r.shape
-    e, n, st = _size(r.dtype), b * t * h * dh, b * h * dh * dh * 4
+    dv = v.shape[-1]
+    e, n, nv = _size(r.dtype), b * t * h * dh, b * t * h * dv
+    st = b * h * dh * dv * 4
     s0 = st if state0 is not None else 0
-    nbytes = (3 * n * e + 8 * n + 4 * h * dh + s0 + (st if ds is not None
-                                                     else 0)
-              + 3 * n * e + 4 * n + 4 * h * dh + s0)
-    ops = lambda c: (2 * dh * dh * c + c * (c - 1) * dh + 2 * c * c * dh
-                     + 6 * c * dh * dh + 3 * c * (c - 1) * dh
-                     + 2 * dh * dh * c + 16 * c * dh + 4 * dh * dh)
+    nbytes = (2 * n * e + nv * e + 4 * n + 4 * nv + 4 * h * dh + s0
+              + (st if ds is not None else 0)
+              + 2 * n * e + nv * e + 4 * n + 4 * h * dh + s0)
+    ops = lambda c: (2 * dh * dv * c + c * (c - 1) * dv + 2 * c * c * dh
+                     + 6 * c * dh * dv + 3 * c * (c - 1) * dh
+                     + 2 * dh * dv * c + 16 * c * dh + 4 * dh * dv)
     _count("wkv6_bwd", b * h * _chunks(t, ops), nbytes)
-    ds0 = (_empty((b, h, dh, dh), torch.float32)
+    ds0 = (_empty((b, h, dh, dv), torch.float32)
            if state0 is not None and need_state0_grad else None)
     return (_empty(r.shape, r.dtype), _empty(k.shape, k.dtype),
             _empty(v.shape, v.dtype), _empty(logw.shape, logw.dtype),

@@ -39,9 +39,10 @@ def _route(r):
 
 
 def wkv6(r, k, v, logw, u, state0=None):
-    """WKV6 sequence mix. r, k, v, logw (B, T, H, Dh) with logw >= -2,
-    u (H, Dh), state0 (B, H, Dh, Dh) or None. Returns (y (B, T, H, Dh)
-    float32, final state (B, H, Dh, Dh) float32)."""
+    """WKV6 sequence mix. r, k, logw (B, T, H, Dh) with logw >= -2, v
+    (B, T, H, Dv) (Dv = Dh, or a rank's value columns: the value-column
+    form), u (H, Dh), state0 (B, H, Dh, Dv) or None. Returns (y (B, T, H,
+    Dv) float32, final state (B, H, Dh, Dv) float32)."""
     kind = _route(r)
     if kind == "cuda":
         return wkv6_cuda(r, k, v, logw, u, state0)
@@ -66,7 +67,7 @@ class WKV6Function(torch.autograd.Function):
     def backward(ctx, dy, ds):
         r, k, v, logw, u, state0 = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=r.device)
         need_s0 = state0 is not None and ctx.needs_input_grad[5]
         kind = _route(r)
         if kind == "cuda":

@@ -3,8 +3,12 @@ recurrence
 
     S_t = diag(w_t) S_{t-1} + k_t v_t^T,    y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
 
-with ``w_t = exp(logw_t)``, for r, k, v, logw of shape (B, T, H, Dh), a bonus
+with ``w_t = exp(logw_t)``, for r, k, logw of shape (B, T, H, Dh), a bonus
 ``u`` (H, Dh) and a state (B, H, Dh, Dh) (rows indexed by the k channel).
+v may hold Dv <= Dh value columns of each head (the value-column form, a
+rank's share under the head_dim fallback): the state is then (B, H, Dh,
+Dv) and y (B, T, H, Dv), the same columns of the whole recurrence's, which
+is exact per value column.
 
 ``wkv_scan_ref`` runs it step by step; ``wkv_chunked`` in chunks of 32 steps
 in the decay-rebased basis (r' = r e^{l_exc}, k' = k e^{-l_inc}, l the
@@ -35,21 +39,22 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _state0(state0, b, h, dh, device, acc=torch.float32):
+def _state0(state0, b, h, dh, device, acc=torch.float32, dv=None):
     if state0 is None:
-        return torch.zeros((b, h, dh, dh), dtype=acc, device=device)
+        return torch.zeros((b, h, dh, dh if dv is None else dv), dtype=acc,
+                           device=device)
     return state0.to(acc)
 
 
 def wkv_scan_ref(r, k, v, logw, u, state0=None):
-    """Step-by-step recurrence. Returns (y (B, T, H, Dh) float32, final
-    state (B, H, Dh, Dh) float32)."""
+    """Step-by-step recurrence. Returns (y (B, T, H, Dv) float32, final
+    state (B, H, Dh, Dv) float32), Dv = v's last dimension."""
     b, t, h, dh = r.shape
     acc = _acc(r.dtype)
     rf, kf, vf = r.to(acc), k.to(acc), v.to(acc)
     w = torch.exp(logw.to(acc))
     uf = u.to(acc)
-    s = _state0(state0, b, h, dh, r.device, acc)
+    s = _state0(state0, b, h, dh, r.device, acc, v.shape[-1])
     ys = []
     for i in range(t):
         kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]      # (B, H, Dk, Dv)
@@ -64,16 +69,18 @@ def wkv_chunked(r, k, v, logw, u, state0=None, chunk: int = CHUNK):
     A ragged T is padded with k = v = r = 0 and logw = 0: padded steps
     neither add to the state nor decay it."""
     b, t, h, dh = r.shape
+    dv = v.shape[-1]
     pad = (-t) % chunk
     if pad:
         padf = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
         r, k, v, logw = padf(r), padf(k), padf(v), padf(logw)
     nc = (t + pad) // chunk
-    shp = (b, nc, chunk, h, dh)
     acc = _acc(r.dtype)
-    rf, kf, vf, lw = (a.to(acc).reshape(shp) for a in (r, k, v, logw))
+    rf, kf, lw = (a.to(acc).reshape(b, nc, chunk, h, dh)
+                  for a in (r, k, logw))
+    vf = v.to(acc).reshape(b, nc, chunk, h, dv)
     uf = u.to(acc)
-    s = _state0(state0, b, h, dh, r.device, acc)
+    s = _state0(state0, b, h, dh, r.device, acc, dv)
 
     l_inc = torch.cumsum(lw, dim=2)             # inclusive cumulative log decay
     l_exc = l_inc - lw                          # exclusive (decay before step t)
@@ -99,15 +106,18 @@ def wkv_chunked(r, k, v, logw, u, state0=None, chunk: int = CHUNK):
         k_fold = k_resc[:, c] * decay[:, None]
         s = decay[..., None] * s + torch.einsum("bthk,bthv->bhkv", k_fold,
                                                 vf[:, c])
-    y = (y_intra + torch.stack(y_inter, dim=1)).reshape(b, t + pad, h, dh)
+    y = (y_intra + torch.stack(y_inter, dim=1)).reshape(b, t + pad, h, dv)
     return y[:, :t], s
 
 
 def wkv6_bwd_ref(r, k, v, logw, u, state0, dy, ds=None):
     """The gradient of ``(y, S_T) = wkv(r, k, v, logw, u, state0)`` for the
-    cotangents ``dy`` (B, T, H, Dh) and ``ds`` (B, H, Dh, Dh) of the final
+    cotangents ``dy`` (B, T, H, Dv) and ``ds`` (B, H, Dh, Dv) of the final
     state (None: zero). Returns (dr, dk, dv, dlogw, du, dstate0), each in
-    its input's dtype (dstate0 float32 when ``state0`` is None).
+    its input's dtype (dstate0 float32 when ``state0`` is None). With v of
+    Dv < Dh value columns, dr, dk, dlogw and du are those columns' shares
+    (they sum over value columns: the shares of a partition sum to the
+    whole's).
 
     With S_t = diag(w_t) S_{t-1} + k_t v_t^T and y_t = r_t^T (S_{t-1} +
     diag(u) k_t v_t^T), the adjoint G_t = dL/dS_t runs backward from
@@ -124,14 +134,15 @@ def wkv6_bwd_ref(r, k, v, logw, u, state0, dy, ds=None):
     rf, kf, vf, dyf = (a.to(acc) for a in (r, k, v, dy))
     w = torch.exp(logw.to(acc))
     uf = u.to(acc)
-    s = _state0(state0, b, h, dh, r.device, acc)
+    s = _state0(state0, b, h, dh, r.device, acc, v.shape[-1])
     states = []                                     # S_{t-1}, t = 1 .. T
     for i in range(t):
         states.append(s)
         s = w[:, i, :, :, None] * s + kf[:, i, :, :, None] * vf[:, i, :, None, :]
     g = (torch.zeros_like(s) if ds is None else ds.to(acc))
-    dr, dk, dv, dlw = (torch.empty((b, t, h, dh), dtype=acc, device=r.device)
-                       for _ in range(4))
+    dr, dk, dlw = (torch.empty((b, t, h, dh), dtype=acc, device=r.device)
+                   for _ in range(3))
+    dv = torch.empty(vf.shape, dtype=acc, device=r.device)
     du = torch.zeros((h, dh), dtype=acc, device=r.device)
     for i in reversed(range(t)):
         ri, ki, vi, dyi, s_prev = rf[:, i], kf[:, i], vf[:, i], dyf[:, i], states[i]

@@ -98,21 +98,32 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
     return n * torch.empty((), dtype=dtype).element_size()
 
 
+def _unread(step, group: str, key: str | None = None) -> bool:
+    """Whether the step never reads this argument (``jax.jit`` drops it):
+    rwkv6's decode position; whisper's encoder and cross-attention K/V
+    weights in a decode step (its cross K/V are in the state)."""
+    if not step.decode:
+        return False
+    if group == "pos":
+        return step.cfg.family == "rwkv6"
+    return (group == "params" and step.cfg.family == "whisper"
+            and (key.startswith(("enc/", "enc_final_norm/"))
+                 or key in ("dec/cross/wk", "dec/cross/wv")))
+
+
 def serve_argument_bytes(step) -> dict:
     """A ``ServeStep``'s arguments on its rank by the rules' slices, by
     group (params, tokens, aux or state and pos). An argument the step
-    never reads counts nothing, as ``jax.jit`` drops it: rwkv6's decode
-    position."""
+    never reads counts nothing, as ``jax.jit`` drops it (``_unread``)."""
     out = {}
     for group, ab in step.abstract.items():
-        if group == "pos" and step.cfg.family == "rwkv6":
-            out[group] = 0
-            continue
         loc = step.local_shapes[group]
         if isinstance(ab, dict):
-            out[group] = sum(_nbytes(loc[k], t.dtype) for k, t in ab.items())
+            out[group] = sum(_nbytes(loc[k], t.dtype) for k, t in ab.items()
+                             if not _unread(step, group, k))
         else:
-            out[group] = _nbytes(loc, ab.dtype)
+            out[group] = 0 if _unread(step, group) else _nbytes(loc,
+                                                                ab.dtype)
     return out
 
 

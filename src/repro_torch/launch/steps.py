@@ -39,8 +39,8 @@ tokens are.
 
 Parameters are the flat dict of the schema's paths (stacked layers on a
 leading axis), bf16. A "model" axis of m > 1 ranks is tensor parallelism
-(``tensor_parallel.py``) for the dense, MoE and rwkv6 families, under the
-reference's three strategies (``sharding.make_rules``):
+(``tensor_parallel.py``) for every family, under the reference's three
+strategies (``sharding.make_rules``):
   * 'tp': each rank holds the "model" slices the rules give (heads, mlp
     columns, experts, vocab rows; ``sharding.model_dims``) and the same
     rows of the batch as the other "model" ranks of its data coordinate;
@@ -52,8 +52,9 @@ reference's three strategies (``sharding.make_rules``):
     fusion.
 Gradients of "model"-sliced leaves are the rank's own; ZeRO-1 slices the
 rank's slice along a dimension the "model" axis leaves whole, over the
-rules' "zero" axes (the reference's ``_rules_with_zero``). rglru and
-whisper at m > 1 and the rules' head_dim fallback raise
+rules' "zero" axes (the reference's ``_rules_with_zero``). Where the heads
+do not divide the axis the rules slice the head_dim, and so do the
+parameters here. MoE with whole experts under 'tp_sp' raises
 (``NotImplementedError``, ROADMAP.md Queue 1 item 8(h′)); nothing is
 replicated where the rules slice.
 
@@ -68,8 +69,10 @@ cannot take the data axes): see ``models/transformer.py`` and
 counterparts of the reference's ``(fn, shardings, abstract)``, and
 ``to_decode_state``, which places a prefill's caches into the decode
 step's layout (what the reference's ``jax.jit(in_shardings=)`` does when
-prefill's caches feed decode). rglru and whisper serve at model = 1 with
-their caches whole (item 8(h′) otherwise).
+prefill's caches feed decode). Every family serves on a "model" axis;
+rwkv6's ``wkv`` and rglru's recurrent states are held as the rules hold
+them and cut to the heads, value columns or LRU columns a rank computes
+on for the step (``_held_to_compute``).
 """
 from __future__ import annotations
 
@@ -83,8 +86,7 @@ from ..core.compression import QuantConfig, compressed_psum
 from ..data.pipeline import batch_rows
 from ..models.layers import init_from_schema
 from ..models import rglru, rwkv6, transformer, whisper
-from ..models.model_api import (TP_FAMILIES, aux_abstract,
-                                chunked_xent_loss, schema_for,
+from ..models.model_api import (aux_abstract, chunked_xent_loss, schema_for,
                                 serve_decode_step, serve_forward,
                                 serve_logits, train_forward)
 from ..optim import (AdamWConfig, adamw_init, adamw_update, adamw_update_,
@@ -133,6 +135,22 @@ def _value_and_grad(params: dict, tokens, labels, cfg, tcfg, aux: dict,
     return loss.detach(), dict(zip(keys, grads))
 
 
+def layer_leaves(cfg: ModelConfig) -> list[str]:
+    """The leaves the "model" axis must slice for the family's layers to
+    run on it: the attention's or the WKV's heads (or head_dim), rwkv6's
+    channel-mix width, recurrentgemma's LRU width."""
+    return {"rwkv6": ["layers/wr", "layers/cmix_wk"],
+            "rglru": ["macro/attn/wq", "macro/rec0/w_in"],
+            "whisper": ["dec/self/wq"]}.get(cfg.family, ["layers/wq"])
+
+
+def _need_sliced(cfg, dims: dict, need: list, m: int) -> None:
+    for k in need:
+        if dims[k] is None:
+            raise ValueError(f"{cfg.name}: {k} whole on a 'model' axis of "
+                             f"{m}: the rules slice none of its dims there")
+
+
 def _mean_over(x, mesh):
     """The exact mean of ``x`` over ``mesh`` (itself on a mesh of one)."""
     return x if mesh.size == 1 else psum(x, mesh) / mesh.size
@@ -159,10 +177,6 @@ class TrainStep:
             raise ValueError(f"strategy={tcfg.strategy!r}: one of "
                              f"{STRATEGIES}")
         m = mesh.shape.get("model", 1)
-        if m > 1 and cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
-                f"{m} is not ported (ROADMAP.md Queue 1 item 8(h′))")
         if tcfg.compression_bits not in (None, 8, 4):
             raise ValueError(f"compression_bits={tcfg.compression_bits}: "
                              "None, 8 or 4")
@@ -211,18 +225,17 @@ class TrainStep:
 
     def _check_model_axis(self) -> None:
         """The slices the forward needs under the rules: the vocab rows,
-        and (but under 'fsdp') the attention's or the WKV's heads."""
+        and (but under 'fsdp') the layers' (``layer_leaves``)."""
         need = ["embed/table"]
         if self.tcfg.strategy != "fsdp":
-            need.append("layers/wr" if self.cfg.family == "rwkv6"
-                        else "layers/wq")
-        for k in need:
-            if self.model_dims[k] is None:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: {k} whole on a 'model' axis of "
-                    f"{self.mesh.shape['model']} under "
-                    f"{self.tcfg.strategy!r} (ROADMAP.md Queue 1 item "
-                    "8(h′))")
+            need += layer_leaves(self.cfg)
+        _need_sliced(self.cfg, self.model_dims, need,
+                     self.mesh.shape["model"])
+        if (self.tcfg.strategy == "tp_sp" and self.cfg.n_experts
+                and self.model_dims["layers/we_gate"] is None):
+            raise NotImplementedError(
+                f"{self.cfg.name}: whole experts under 'tp_sp' would route "
+                "the rank's rows apart (ROADMAP.md Queue 1 item 8(h′))")
 
     def _owns(self, k: str) -> bool:
         """Whether this rank's piece of leaf ``k`` counts in the gradient
@@ -469,10 +482,6 @@ class ServeStep:
             raise ValueError(f"shape.kind={shape.kind!r}: 'prefill' or "
                              "'decode'")
         m = mesh.shape.get("model", 1)
-        if m > 1 and cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
-                f"{m} is not ported (ROADMAP.md Queue 1 item 8(h′))")
         self.cfg, self.mesh, self.shape = cfg, mesh, shape
         self.decode = shape.kind == "decode"
         b, s = shape.global_batch, shape.seq_len
@@ -483,12 +492,9 @@ class ServeStep:
         shapes = {k: ps.shape for k, ps in self.schema.items()}
         axes = {k: ps.axes for k, ps in self.schema.items()}
         self.model_dims = model_dims(axes, shapes, mesh.shape, self.rules)
-        need = ["embed/table",
-                "layers/wr" if cfg.family == "rwkv6" else "layers/wq"]
-        if m > 1 and any(self.model_dims[k] is None for k in need):
-            raise NotImplementedError(
-                f"{cfg.name}: {need} not sliced on a 'model' axis of {m} "
-                "(ROADMAP.md Queue 1 item 8(h′))")
+        if m > 1:
+            _need_sliced(cfg, self.model_dims,
+                         ["embed/table", *layer_leaves(cfg)], m)
         self.tp = (TensorParallel(mesh.axis("model"), "tp", self.model_dims)
                    if m > 1 else None)
         batch = self.rules["batch"]
@@ -528,51 +534,79 @@ class ServeStep:
                     if isinstance(ab[group], dict)
                     else local_shape(ab[group].shape, sp[group], mesh.shape))
             for group in ab}
-        self.kv = self._kv_slice() if self.decode else None
-        if self.decode and cfg.family not in TP_FAMILIES:
-            for k, spec in sp["state"].items():
-                if any(mesh.axes_size(_axes_of(p)) > 1 for p in spec[2:]):
-                    raise NotImplementedError(
-                        f"{cfg.name}: its decode state's {k} sharded past "
-                        "the batch (ROADMAP.md Queue 1 item 8(h′))")
+        self.kv = self.kv_cross = None
+        if self.decode:
+            self.kv = self._kv_slice("wkv" if cfg.family == "rwkv6"
+                                     else "k")
+            if cfg.family == "whisper":
+                self.kv_cross = self._kv_slice("ck")
+        self._compute = self._compute_dims() if self.decode else {}
 
     # -- layout -------------------------------------------------------------
 
-    def _kv_slice(self) -> KVSlice:
-        key = "wkv" if self.cfg.family == "rwkv6" else "k"
+    def _kv_slice(self, key: str) -> KVSlice:
         spec = self.specs["state"][key]
         n = self.abstract["state"][key].shape[2]
         start, rows = local_slice(self.abstract["state"][key].shape, spec,
                                   self.mesh)[2]
-        names = _axes_of(spec[2])
-        mesh = (self.mesh.axes(names)
-                if names and self.mesh.axes_size(names) > 1 else None)
+        mesh = self._rows_mesh(key)
         return KVSlice(mesh, start, rows if mesh is not None else n)
 
-    def _heads(self, n: int) -> range:
-        """This rank's heads of ``n`` (all of them at model = 1)."""
+    def _rows_mesh(self, key: str):
+        """The mesh over which a decode-state leaf's third dimension (a
+        cache's rows, rwkv6's heads, a conv buffer's steps) is sliced, or
+        None."""
+        names = _axes_of(self.specs["state"][key][2])
+        return (self.mesh.axes(names)
+                if names and self.mesh.axes_size(names) > 1 else None)
+
+    def _compute_dims(self) -> dict:
+        """The decode-state leaves that a step computes on in another
+        layout than the rules hold them in: leaf -> the dimension of which
+        each "model" rank computes its block (rwkv6's ``wkv``: its heads,
+        or under the head_dim fallback its value columns; rglru's conv
+        buffers and h: its LRU columns)."""
         if self.tp is None:
-            return range(n)
-        return self.tp.local_heads(n, n // self.tp.size)
+            return {}
+        if self.cfg.family == "rwkv6":
+            return {"wkv": 4 if self.model_dims["layers/wr"] == 3 else 2}
+        if self.cfg.family == "rglru":
+            return {k: len(v.shape) - 1 for k, v in
+                    self.abstract["state"].items()
+                    if k.endswith(("/conv", "/h"))}
+        return {}
 
-    def _wkv_compute(self, held):
-        """rwkv6's ``wkv`` (L, B, H_held, Dh, Dh) as the rules hold it ->
-        the heads this rank computes."""
-        kv, heads = self.kv, self._heads(self.cfg.n_heads)
-        if kv.mesh is not None and kv.mesh.axes == ("model",):
-            return held
-        whole = gather_dim(held, kv.mesh, 2)
-        return whole[:, :, heads.start:heads.stop].contiguous()
+    def _held_to_compute(self, state: dict) -> dict:
+        """The decode state as the rules hold it -> as the step computes on
+        it (``_compute_dims``): the leaf's third dimension gathered over
+        its rows' mesh, the rank's block of the computed dimension kept."""
+        if not self._compute:
+            return state
+        flat = flat_tree(state)
+        for k, dim in self._compute.items():
+            rows = self._rows_mesh(k)
+            if dim == 2 and rows is not None and rows.axes == ("model",):
+                continue                  # held as computed
+            t = gather_dim(flat[k], rows, 2)
+            w = t.shape[dim] // self.tp.size
+            flat[k] = t.narrow(dim, self.tp.rank * w, w).contiguous()
+        return nest_tree(flat)
 
-    def _wkv_held(self, computed):
-        """The inverse of ``_wkv_compute``: the rules' slice of the new
-        state from each "model" rank's heads."""
-        kv = self.kv
-        if kv.mesh is not None and kv.mesh.axes == ("model",):
-            return computed
-        whole = gather_dim(computed, None if self.tp is None
-                           else self.tp.mesh, 2)
-        return whole.narrow(2, kv.row0, kv.rows).contiguous()
+    def _compute_to_held(self, state: dict) -> dict:
+        """The inverse of ``_held_to_compute``: every "model" rank's block
+        gathered, the rules' slice of the third dimension kept."""
+        if not self._compute:
+            return state
+        flat = flat_tree(state)
+        for k, dim in self._compute.items():
+            rows = self._rows_mesh(k)
+            if dim == 2 and rows is not None and rows.axes == ("model",):
+                continue
+            t = gather_dim(flat[k], self.tp.mesh, dim)
+            a, n = local_slice(self.abstract["state"][k].shape,
+                               self.specs["state"][k], self.mesh)[2]
+            flat[k] = t.narrow(2, a, n).contiguous()
+        return nest_tree(flat)
 
     # -- parameters and state -------------------------------------------------
 
@@ -597,35 +631,55 @@ class ServeStep:
                                  device=self.mesh.device)
         return nest_tree(out)
 
+    def gather_caches(self, caches):
+        """A prefill step's caches in the world of one's layout: every
+        "model" rank's K/V heads or head_dim columns, rwkv6's ``wkv``
+        heads or value columns, rglru's LRU columns (a collective where
+        "model" slices them; the caches themselves on a mesh of one)."""
+        if self.tp is None:
+            return caches
+        cfg, mesh = self.cfg, self.tp.mesh
+
+        def whole(t, dims: dict):
+            for d, n in dims.items():
+                if t.shape[d] != n:
+                    t = gather_dim(t, mesh, d)
+            return t
+
+        kvd = {3: cfg.h_eff if cfg.family == "whisper" else cfg.kv_eff,
+               4: cfg.d_head}
+        if isinstance(caches, tuple):
+            return tuple(whole(t, kvd) for t in caches)
+        out = {}
+        for k, t in flat_tree(caches).items():
+            leaf = k.split("/")[-1]
+            dims = (kvd if leaf in ("k", "v", "ck", "cv") else
+                    {2: cfg.n_heads, 4: cfg.d_head} if leaf == "wkv" else
+                    {t.ndim - 1: cfg.lru_width} if leaf in ("conv", "h")
+                    else {})
+            out[k] = whole(t, dims)
+        return nest_tree(out)
+
     def to_decode_state(self, caches, dtype=torch.bfloat16) -> dict:
         """The decode state of this step's layout from a prefill step's
-        caches on the same mesh (its prompt of P <= seq_len tokens): K/V
-        heads gathered whole over "model", each rank keeping its rows of a
-        cache of ``seq_len`` rows; rwkv6's ``wkv`` from the rank's heads to
-        the rules' slice. A collective where "model" slices the heads."""
+        caches on the same mesh (its prompt of P <= seq_len tokens): the
+        caches gathered whole over "model" (``gather_caches``), each rank
+        keeping the rules' slice of every leaf's third dimension (a K/V
+        cache's rows of ``seq_len``, rwkv6's ``wkv`` heads). A collective
+        where "model" slices the caches."""
         if not self.decode:
             raise ValueError("to_decode_state: a decode step's")
-        cfg = self.cfg
-        if cfg.family == "rwkv6":
-            out = dict(caches)
-            out["wkv"] = self._wkv_held(caches["wkv"])
-            return out
-        state = self.init_state(dtype)
-        if cfg.family in ("dense", "moe"):
-            k, v = caches
-            if self.tp is not None and self.tp.sliced("layers/wk"):
-                k, v = (gather_dim(t, self.tp.mesh, 3) for t in (k, v))
-        else:
-            k, v = caches["k"], caches["v"]
-            for name, t in caches.items():
-                if name not in ("k", "v"):
-                    state[name] = t
-        p = k.shape[2]
-        a, e = self.kv.row0, min(self.kv.row0 + self.kv.rows, p)
-        if a < e:
-            state["k"][:, :, :e - a] = k[:, :, a:e]
-            state["v"][:, :, :e - a] = v[:, :, a:e]
-        return state
+        whole = self.gather_caches(caches)
+        whole = (dict(zip(("k", "v"), whole)) if isinstance(whole, tuple)
+                 else flat_tree(whole))
+        state = flat_tree(self.init_state(dtype))
+        for k, t in whole.items():
+            a, n = local_slice(self.abstract["state"][k].shape,
+                               self.specs["state"][k], self.mesh)[2]
+            e = min(a + n, t.shape[2])
+            if a < e:
+                state[k][:, :, :e - a] = t[:, :, a:e]
+        return nest_tree(state)
 
     # -- the step --------------------------------------------------------------
 
@@ -641,14 +695,12 @@ class ServeStep:
                                            **self._aux_rows(aux))
             return serve_logits(params, hidden[:, -PREFILL_LOGITS:]), caches
         state, pos = args
-        if self.cfg.family == "rwkv6":
-            state = dict(state, wkv=self._wkv_compute(state["wkv"]))
-        hidden, state = serve_decode_step(params, tokens, state, int(pos),
-                                          self.cfg, self.tp, self.kv,
-                                          self.rank_groups)
-        if self.cfg.family == "rwkv6":
-            state["wkv"] = self._wkv_held(state["wkv"])
-        return serve_logits(params, hidden), state
+        hidden, state = serve_decode_step(params, tokens,
+                                          self._held_to_compute(state),
+                                          int(pos), self.cfg, self.tp,
+                                          self.kv, self.rank_groups,
+                                          self.kv_cross)
+        return serve_logits(params, hidden), self._compute_to_held(state)
 
     def greedy(self, logits):
         """The greedy token of each row over every "model" rank's vocab

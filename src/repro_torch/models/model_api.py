@@ -299,9 +299,6 @@ def param_view(params: dict, cfg: ModelConfig):
     return _view(_tree(state_from_flat(params, cfg)))
 
 
-TP_FAMILIES = ("dense", "moe", "rwkv6")   # the families with a "model" form
-
-
 def train_forward(params: dict, tokens, cfg: ModelConfig,
                   remat: bool = True, n_groups: int = 16, tp=None, **aux):
     """The training forward of the flat ``params`` over ``tokens`` (B, S):
@@ -316,10 +313,6 @@ def train_forward(params: dict, tokens, cfg: ModelConfig,
     D) rows of the sequence, 'fsdp' (B, S, D) of the rank's own rows; the
     loss takes it with the same ``tp``."""
     view = param_view(params, cfg)
-    if tp is not None and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no 'model' form "
-            "(ROADMAP.md Queue 1 item 8(h′))")
     if cfg.family in ("dense", "moe"):
         hidden, _ = transformer.dense_forward(
             view, tokens, cfg, "train", aux.get("vision_embeds"), remat,
@@ -329,31 +322,16 @@ def train_forward(params: dict, tokens, cfg: ModelConfig,
                                         remat=remat, tp=tp)
     elif cfg.family == "rglru":
         hidden, _ = rglru.rglru_forward(view, tokens, cfg, "train",
-                                        remat=remat)
+                                        remat=remat, tp=tp)
     elif cfg.family == "whisper":
         hidden, _ = whisper.whisper_forward(view, tokens, cfg, "train",
-                                            aux.get("frames"), remat)
+                                            aux.get("frames"), remat, tp)
     else:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return hidden
 
 
 # -- serving over a mesh -----------------------------------------------------
-
-def _serve_family(cfg: ModelConfig, tp, kv=None) -> None:
-    """rglru and whisper serve on a "model" axis of one with their caches
-    whole (ROADMAP.md Queue 1 item 8(h′))."""
-    if cfg.family in TP_FAMILIES:
-        return
-    if tp is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no 'model' form "
-            "(ROADMAP.md Queue 1 item 8(h′))")
-    if kv is not None and kv.mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's cache sharded along its "
-            "sequence (ROADMAP.md Queue 1 item 8(h′))")
-
 
 @torch.no_grad()
 def serve_forward(params: dict, tokens, cfg: ModelConfig, tp=None,
@@ -362,8 +340,9 @@ def serve_forward(params: dict, tokens, cfg: ModelConfig, tp=None,
     S, D), caches / state), as ``model.forward(mode="prefill")``. ``tp``
     (a 'tp' ``TensorParallel``, or None): the "model" axis, ``params`` the
     rank's slices; the caches are then of the rank's K/V heads (whole
-    where they do not divide), rwkv6's ``wkv`` of its heads."""
-    _serve_family(cfg, tp)
+    where they do not divide; under the head_dim fallback its head_dim
+    columns), rwkv6's ``wkv`` of its heads or value columns, rglru's
+    recurrent states of its LRU columns."""
     view = param_view(params, cfg)
     if cfg.family in ("dense", "moe"):
         return transformer.dense_forward(view, tokens, cfg, "prefill",
@@ -372,21 +351,21 @@ def serve_forward(params: dict, tokens, cfg: ModelConfig, tp=None,
     if cfg.family == "rwkv6":
         return rwkv6.rwkv6_forward(view, tokens, cfg, "prefill", tp=tp)
     if cfg.family == "rglru":
-        return rglru.rglru_forward(view, tokens, cfg, "prefill")
+        return rglru.rglru_forward(view, tokens, cfg, "prefill", tp=tp)
     return whisper.whisper_forward(view, tokens, cfg, "prefill",
-                                   aux.get("frames"))
+                                   aux.get("frames"), tp=tp)
 
 
 @torch.no_grad()
 def serve_decode_step(params: dict, tokens, state, pos: int,
                       cfg: ModelConfig, tp=None, kv=None,
-                      n_groups: int = 16):
+                      n_groups: int = 16, kv_cross=None):
     """One decode step of the flat ``params``: (hidden (B, 1, D), state),
     as ``model.decode_step``. ``tp``: the "model" axis; ``kv`` (a
-    ``tensor_parallel.KVSlice`` or None): the dense family's cache is the
-    rank's rows of it (``transformer.dense_decode_step``); rwkv6's state
-    is of the rank's heads."""
-    _serve_family(cfg, tp, kv)
+    ``tensor_parallel.KVSlice`` or None): the K/V cache is the rank's rows
+    of it (``transformer.dense_decode_step``), ``kv_cross`` whisper's
+    cross cache's; rwkv6's state is of the rank's heads (or value
+    columns), rglru's recurrent states of its LRU columns."""
     view = param_view(params, cfg)
     if cfg.family in ("dense", "moe"):
         return transformer.dense_decode_step(view, tokens, state, pos, cfg,
@@ -394,8 +373,9 @@ def serve_decode_step(params: dict, tokens, state, pos: int,
     if cfg.family == "rwkv6":
         return rwkv6.rwkv6_decode_step(view, tokens, state, pos, cfg, tp)
     if cfg.family == "rglru":
-        return rglru.rglru_decode_step(view, tokens, state, pos, cfg)
-    return whisper.whisper_decode_step(view, tokens, state, pos, cfg)
+        return rglru.rglru_decode_step(view, tokens, state, pos, cfg, tp, kv)
+    return whisper.whisper_decode_step(view, tokens, state, pos, cfg, tp,
+                                       kv, kv_cross)
 
 
 def serve_logits(params: dict, hidden):

@@ -18,16 +18,23 @@ conv1d (width 4) precedes it. The attention sub-layer is the dense
 family's banded one (``transformer._attention_flagged``, local); its
 decode step runs the decode-attention kernel (K5) with ``window =
 cfg.window``. Decode states are written in place.
+
+Under a "model" axis (``tp``, ``tensor_parallel.py``) the recurrent block
+runs on the rank's LRU columns (the rules' "mlp"), the MLPs on their d_ff
+columns and the local attention on its heads, or where 10 heads do not
+divide on its head_dim columns (``transformer._attention_flagged``); in a
+decode step the K/V cache is the rank's rows (K5's slice form, folded).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.decode_attn.ops import decode_attention
-from .layers import (ParamSchema, Schema, apply_rope, embed_tokens, gelu, mm,
-                     mm_f32, out_proj, rms_norm, rope_cache, swiglu)
-from .transformer import _attention_flagged
+from ..tensor_parallel import row_mm
+from .layers import (ParamSchema, Schema, embed_tokens, gelu, mm, mm_f32,
+                     rms_norm, rope_cache, swiglu)
+from .transformer import (_attention_flagged, _embed_tp, attention_decode,
+                          swiglu_tp)
 
 __all__ = ["rglru_schema", "rglru_forward", "rglru_decode_step",
            "rglru_init_state", "rg_lru_scan", "macro_count"]
@@ -107,11 +114,22 @@ def rg_lru_scan(x, a_log, gate_in):
     return b, b[:, -1]
 
 
-def _rec_block(x, p, cfg, conv_buf, h_prev, decode: bool = False):
+def _rec_block(x, p, cfg, conv_buf, h_prev, decode: bool = False, tp=None):
     """Griffin recurrent block + MLP over x (B, T, D) from the state
     (conv_buf (B, cw-1, W), h_prev (B, W) float32). Returns (x', conv_buf',
-    h')."""
-    u = rms_norm(x, p.pre_norm, cfg.norm_eps)
+    h').
+
+    Under ``tp`` (``p`` the rank's slices: the rules put "mlp" on the LRU
+    width) the block is a region on the rank's W/m columns: w_gate / w_in
+    column products, the depthwise conv, lambda and the scan on its
+    columns, the gates' wa / wx row products summed over "model" with the
+    rank keeping its columns (``TensorParallel.scatter_cols``), w_out's
+    row product the partial sum; the state is the rank's columns. The MLP
+    is the dense family's under "model" (``transformer.swiglu_tp``)."""
+    u = rms_norm(x, p.pre_norm if tp is None else tp.norm_weight(p.pre_norm),
+                 cfg.norm_eps)
+    if tp is not None:
+        u = tp.enter(u)
     gate = gelu(mm_f32(u, p.w_gate))
     xin = mm(u, p.w_in)
 
@@ -124,8 +142,10 @@ def _rec_block(x, p, cfg, conv_buf, h_prev, decode: bool = False):
 
     # RG-LRU gates
     conv_f = conv.float()
-    r_gate = torch.sigmoid(mm_f32(conv, p.wa))
-    i_gate = torch.sigmoid(mm_f32(conv, p.wx))
+    ra, rx = mm_f32(conv, p.wa), mm_f32(conv, p.wx)
+    if tp is not None:
+        ra, rx = tp.scatter_cols(ra), tp.scatter_cols(rx)
+    r_gate, i_gate = torch.sigmoid(ra), torch.sigmoid(rx)
     log_a_base = -_C_FACTOR * torch.nn.functional.softplus(
         getattr(p, "lambda").float())
     a_log = log_a_base * r_gate
@@ -142,19 +162,22 @@ def _rec_block(x, p, cfg, conv_buf, h_prev, decode: bool = False):
         h_new = h_seq[:, -1]
 
     y = (gate * h_seq).to(x.dtype)
-    x = x + mm(y, p.w_out).to(x.dtype)
-    u = rms_norm(x, p.mlp_pre_norm, cfg.norm_eps)
-    x = x + swiglu(u, p.mlp_gate, p.mlp_up, p.mlp_down)
-    return x, new_conv_buf, h_new
+    if tp is None:
+        x = x + mm(y, p.w_out).to(x.dtype)
+        u = rms_norm(x, p.mlp_pre_norm, cfg.norm_eps)
+        x = x + swiglu(u, p.mlp_gate, p.mlp_up, p.mlp_down)
+        return x, new_conv_buf, h_new
+    x = x + tp.leave(row_mm(y, p.w_out), x.dtype)
+    return _mlp_tail(x, p, cfg, tp), new_conv_buf, h_new
 
 
 def rglru_init_state(cfg, batch: int, max_len: int, device="cuda",
-                     dtype=torch.bfloat16) -> dict:
+                     dtype=torch.bfloat16, width: int | None = None) -> dict:
     """Zero decode state: conv buffers (n, B, cw-1, W) and K/V caches
     (n_macro, B, max_len, KV, Dh) in ``dtype`` (bf16 as the reference's),
-    recurrent h (n, B, W) float32."""
+    recurrent h (n, B, W) float32; ``width``: W (a rank's LRU columns)."""
     n_macro, n_tail = macro_count(cfg)
-    w, cw = cfg.lru_width, cfg.conv1d_width
+    w, cw = width or cfg.lru_width, cfg.conv1d_width
     rec = lambda n: {
         "conv": torch.zeros((n, batch, cw - 1, w), dtype=dtype, device=device),
         "h": torch.zeros((n, batch, w), dtype=torch.float32, device=device),
@@ -177,100 +200,136 @@ def _sub_states(state):
     return blocks, tail
 
 
-def _mlp_tail(x, pa, cfg):
-    u = rms_norm(x, pa.mlp_pre_norm, cfg.norm_eps)
-    return x + swiglu(u, pa.mlp_gate, pa.mlp_up, pa.mlp_down)
+def _mlp_tail(x, pa, cfg, tp=None):
+    if tp is None:
+        u = rms_norm(x, pa.mlp_pre_norm, cfg.norm_eps)
+        return x + swiglu(u, pa.mlp_gate, pa.mlp_up, pa.mlp_down)
+    u = rms_norm(x, tp.norm_weight(pa.mlp_pre_norm), cfg.norm_eps)
+    return x + swiglu_tp(u, pa.mlp_gate, pa.mlp_up, pa.mlp_down, cfg.d_ff,
+                         tp)
 
 
-def _train_macro(x, p0, p1, pa, cfg, sin, cos, conv0, h0):
+def _attn_block(x, pa, cfg, sin, cos, tp=None):
+    """The local-attention sub-layer and its MLP: (x', (k, v)); under
+    ``tp`` a region of the rank's heads (or head_dim columns)."""
+    if tp is None:
+        hn = rms_norm(x, pa.pre_norm, cfg.norm_eps)
+        a_out, kv = _attention_flagged(hn, pa, cfg, True, sin, cos)
+        return _mlp_tail(x + a_out, pa, cfg), kv
+    hn = rms_norm(x, tp.norm_weight(pa.pre_norm), cfg.norm_eps)
+    a_out, kv = _attention_flagged(tp.enter(hn), pa, cfg, True, sin, cos, tp)
+    return _mlp_tail(x + tp.leave(a_out, x.dtype), pa, cfg, tp), kv
+
+
+def _train_macro(x, p0, p1, pa, cfg, sin, cos, conv0, h0, tp=None):
     """A macro-block of the training forward from the zero state ``conv0``,
     ``h0``: x' alone."""
-    x, _, _ = _rec_block(x, p0, cfg, conv0, h0)
-    x, _, _ = _rec_block(x, p1, cfg, conv0, h0)
-    hn = rms_norm(x, pa.pre_norm, cfg.norm_eps)
-    a_out, _ = _attention_flagged(hn, pa, cfg, True, sin, cos)
-    return _mlp_tail(x + a_out, pa, cfg)
+    x, _, _ = _rec_block(x, p0, cfg, conv0, h0, tp=tp)
+    x, _, _ = _rec_block(x, p1, cfg, conv0, h0, tp=tp)
+    return _attn_block(x, pa, cfg, sin, cos, tp)[0]
 
 
-def _train_forward(model, x, cfg, sin, cos, remat: bool):
+def _zero_rec(model, x, cfg):
+    """The zero (conv, h) of a recurrent sub-layer of ``model``'s width
+    (the rank's LRU columns under "model")."""
+    b, w = x.shape[0], model.macro.rec0[0].w_in.shape[-1]
+    conv0 = torch.zeros((b, cfg.conv1d_width - 1, w), dtype=x.dtype,
+                        device=x.device)
+    return conv0, torch.zeros((b, w), dtype=torch.float32, device=x.device)
+
+
+def _train_forward(model, x, cfg, sin, cos, remat: bool, tp=None):
     n_macro, n_tail = macro_count(cfg)
-    b, w, cw = x.shape[0], cfg.lru_width, cfg.conv1d_width
-    conv0 = torch.zeros((b, cw - 1, w), dtype=x.dtype, device=x.device)
-    h0 = torch.zeros((b, w), dtype=torch.float32, device=x.device)
+    conv0, h0 = _zero_rec(model, x, cfg)
     for p0, p1, pa in zip(model.macro.rec0, model.macro.rec1,
                           model.macro.attn):
-        args = (x, p0, p1, pa, cfg, sin, cos, conv0, h0)
+        args = (x, p0, p1, pa, cfg, sin, cos, conv0, h0, tp)
         x = (checkpoint(_train_macro, *args, use_reentrant=False,
                         preserve_rng_state=False) if remat
              else _train_macro(*args))
     for i in range(n_tail):
-        x, _, _ = _rec_block(x, getattr(model, f"tail{i}"), cfg, conv0, h0)
-    return rms_norm(x, model.final_norm.w, cfg.norm_eps)
+        x, _, _ = _rec_block(x, getattr(model, f"tail{i}"), cfg, conv0, h0,
+                             tp=tp)
+    w = model.final_norm.w if tp is None else tp.norm_weight(
+        model.final_norm.w)
+    return rms_norm(x, w, cfg.norm_eps)
+
+
+def _embed(model, tokens, cfg, tp):
+    """The embeddings scaled by sqrt(D): under ``tp`` the dense family's
+    vocab-parallel lookup (``transformer._embed_tp``)."""
+    if tp is None:
+        return embed_tokens(model.embed.table, tokens, scale=True)
+    return _embed_tp(model, tokens, cfg, None, tp)
 
 
 def rglru_forward(model, tokens, cfg, mode: str = "prefill", state=None,
-                  remat: bool = True):
+                  remat: bool = True, tp=None):
     """Prefill of ``model`` (an ``RGLRULM``, or a parameter view of one:
     ``model_api.param_view``) over tokens (B, T), from ``state`` (zero if
     None). Returns (hidden (B, T, D), the state after the prompt: conv
     buffers and h, and the prompt's K/V (n_macro, B, T, KV, Dh)); in mode
-    "train" (hidden, None) from the zero state."""
+    "train" (hidden, None) from the zero state. ``tp``: the "model" axis,
+    ``model`` the rank's slices; the state is then of the rank's LRU
+    columns and its K/V whole (the one K/V head) or, under the head_dim
+    fallback, the rank's head_dim columns."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
     b, t = tokens.shape
-    x = embed_tokens(model.embed.table, tokens, scale=True)
+    x = _embed(model, tokens, cfg, tp)
+    if tp is not None:
+        tp = tp.layers
     sin, cos = rope_cache(t, cfg.d_head, cfg.rope_theta, x.device)
     if mode == "train":
-        return _train_forward(model, x, cfg, sin, cos, remat), None
+        return _train_forward(model, x, cfg, sin, cos, remat, tp), None
+    w = model.macro.rec0[0].w_in.shape[-1]
     if state is None:
-        state = rglru_init_state(cfg, b, t, x.device, x.dtype)
+        state = rglru_init_state(cfg, b, t, x.device, x.dtype, w)
     blocks, tail = _sub_states(state)
-    new = rglru_init_state(cfg, b, 0, x.device, x.dtype)
+    new = rglru_init_state(cfg, b, 0, x.device, x.dtype, w)
     ks, vs = [], []
     for i, (p0, p1, pa) in enumerate(zip(model.macro.rec0, model.macro.rec1,
                                          model.macro.attn)):
         for r, p in ((0, p0), (1, p1)):
-            x, conv, h = _rec_block(x, p, cfg, *blocks[i][r])
+            x, conv, h = _rec_block(x, p, cfg, *blocks[i][r], tp=tp)
             new[f"rec{r}"]["conv"][i] = conv
             new[f"rec{r}"]["h"][i] = h
-        hn = rms_norm(x, pa.pre_norm, cfg.norm_eps)
-        a_out, (k, v) = _attention_flagged(hn, pa, cfg, True, sin, cos)
-        x = _mlp_tail(x + a_out, pa, cfg)
+        x, (k, v) = _attn_block(x, pa, cfg, sin, cos, tp)
         ks.append(k)
         vs.append(v)
     for i, st in enumerate(tail):
-        x, conv, h = _rec_block(x, getattr(model, f"tail{i}"), cfg, *st)
+        x, conv, h = _rec_block(x, getattr(model, f"tail{i}"), cfg, *st,
+                                tp=tp)
         new["tail"]["conv"][i] = conv
         new["tail"]["h"][i] = h
     new["k"], new["v"] = torch.stack(ks), torch.stack(vs)
     return rms_norm(x, model.final_norm.w, cfg.norm_eps), new
 
 
-def rglru_decode_step(model, tokens, state, pos: int, cfg):
+def rglru_decode_step(model, tokens, state, pos: int, cfg, tp=None, kv=None):
     """One decode step. tokens (B, 1); ``state`` as ``rglru_init_state``
     gives it, its K/V caches of at least pos + 1 rows, written in place at
     row ``pos`` (a Python int), as are the conv buffers and h. Returns
-    (hidden (B, 1, D), state)."""
-    x = embed_tokens(model.embed.table, tokens, scale=True)
+    (hidden (B, 1, D), state). ``tp`` ('tp') and ``kv`` (a ``KVSlice``) as
+    in ``transformer.dense_decode_step``: the recurrent states are the
+    rank's LRU columns, the K/V caches the rank's rows."""
+    x = _embed(model, tokens, cfg, tp)
     sin, cos = rope_cache(1, cfg.d_head, cfg.rope_theta, x.device, pos)
     blocks, tail = _sub_states(state)
     for i, (p0, p1, pa) in enumerate(zip(model.macro.rec0, model.macro.rec1,
                                          model.macro.attn)):
         for (conv_c, h_c), p in zip(blocks[i], (p0, p1)):
-            x, conv, h = _rec_block(x, p, cfg, conv_c, h_c, decode=True)
+            x, conv, h = _rec_block(x, p, cfg, conv_c, h_c, decode=True,
+                                    tp=tp)
             conv_c.copy_(conv)
             h_c.copy_(h)
         hn = rms_norm(x, pa.pre_norm, cfg.norm_eps)
-        q, k, v = mm(hn, pa.wq), mm(hn, pa.wk), mm(hn, pa.wv)
-        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-        k_c, v_c = state["k"][i], state["v"][i]
-        k_c[:, pos] = k[:, 0].to(k_c.dtype)
-        v_c[:, pos] = v[:, 0].to(v_c.dtype)
-        ctx = decode_attention(q[:, 0], k_c, v_c, pos, cfg.window)[:, None]
-        x = _mlp_tail(x + out_proj(ctx, pa.wo, cfg).to(x.dtype), pa, cfg)
+        x = x + attention_decode(hn, pa, cfg, sin, cos, state["k"][i],
+                                 state["v"][i], pos, cfg.window, tp, kv)
+        x = _mlp_tail(x, pa, cfg, tp)
     for i, (conv_c, h_c) in enumerate(tail):
         x, conv, h = _rec_block(x, getattr(model, f"tail{i}"), cfg, conv_c,
-                                h_c, decode=True)
+                                h_c, decode=True, tp=tp)
         conv_c.copy_(conv)
         h_c.copy_(h)
     return rms_norm(x, model.final_norm.w, cfg.norm_eps), state

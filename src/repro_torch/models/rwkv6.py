@@ -21,10 +21,13 @@ reference lets ``jax.grad`` differentiate its jnp ``wkv_chunked``).
 Under a "model" axis (``tp``, ``tensor_parallel.py``) a rank runs its
 H/m heads (K6 and its backward on (B, T, H/m, Dh)) and its d_ff/m columns
 of the channel mix; the decay is computed for the rank's channels only.
+Where the heads do not divide (rwkv6-3b's 40 on 16) the rules slice the
+head_dim: a rank runs every head on its Dh/m value columns (K6's
+value-column form, v (B, T, H, Dh/m) against whole r, k, logw and u).
 Serving under it ('tp', no autograd) runs the same regions: prefill with
-K6 at H/m and a decode step on the rank's heads, the state's ``wkv`` of
-those heads and its shift states whole (``launch/steps.py::ServeStep``
-places the decode rules' slices).
+K6 at H/m and a decode step on the rank's heads (or value columns), the
+state's ``wkv`` of those and its shift states whole
+(``launch/steps.py::ServeStep`` places the decode rules' slices).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.wkv6.ops import WKV6Function
 from ..kernels.wkv6.ref import wkv_chunked, wkv_scan_ref
-from ..tensor_parallel import row_mm
+from ..tensor_parallel import all_reduce, row_mm
 from .layers import ParamSchema, Schema, embed_tokens, mm, mm_f32, rms_norm
 
 __all__ = ["rwkv6_schema", "rwkv6_forward", "rwkv6_decode_step",
@@ -87,10 +90,16 @@ def _token_shift(x, last):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def _head_norm(y, scale, eps):
-    """Per-head RMS norm of (B, T, H, Dh) (RWKV GroupNorm analogue)."""
+def _head_norm(y, scale, eps, tp=None):
+    """Per-head RMS norm of (B, T, H, Dh) (RWKV GroupNorm analogue); under
+    ``tp`` y is the rank's value columns of each head, whose moment sums
+    over "model" (``tensor_parallel.all_reduce``)."""
     yf = y.float()
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        var = all_reduce((yf * yf).sum(-1, keepdim=True), tp.mesh) / (
+            yf.shape[-1] * tp.size)
     return yf * torch.rsqrt(var + eps) * (1.0 + scale.float())
 
 
@@ -99,16 +108,24 @@ def _time_mix(x, lp, cfg, shift_last, wkv_state, tp=None):
     ``lp`` the rank's slices) on this rank's heads: r/k/v/g column
     products, the decay of the rank's channels only, K6 on (B, T, H/m,
     Dh), u and ln_x the rank's heads, and the output wo's partial sum in
-    float32. The token-shift mix and the decay LoRAs are whole leaves
-    feeding every head: they enter through ``tp.rep``, so their gradients
-    are summed over "model" and whole."""
+    float32. Under the head_dim fallback (the heads do not divide) the
+    column products give the rank's head_dim columns: r, k and u are
+    gathered whole over "model", the decay is every channel's, and K6 runs
+    on the rank's value columns of v (the state (B, H, Dh, Dh/m)): the
+    recurrence is exact per value column; ln_x's moment sums over "model".
+    The token-shift mix and the decay LoRAs are whole leaves feeding every
+    head: they enter through ``tp.rep``, so their gradients are summed
+    over "model" and whole."""
     b, t, d = x.shape
     dh = cfg.d_head
     rep, cols = (lambda w: w), slice(None)
     h = lp.wr.shape[-2]
+    hd = tp is not None and tp.head_dim_sliced(dh, lp.wr.shape[-1])
     if tp is not None:
-        heads = tp.local_heads(cfg.n_heads, h)
-        rep, cols = tp.rep, slice(heads.start * dh, heads.stop * dh)
+        rep = tp.rep
+        if not hd:
+            heads = tp.local_heads(cfg.n_heads, h)
+            cols = slice(heads.start * dh, heads.stop * dh)
     xx = _token_shift(x, shift_last) - x
     xxx = x + xx * rep(lp.mu_x)
     # LoRA projections in float32
@@ -119,6 +136,9 @@ def _time_mix(x, lp, cfg, shift_last, wkv_state, tp=None):
 
     r, k, v = mm(xr, lp.wr), mm(xk, lp.wk), mm(xv, lp.wv)
     g = torch.nn.functional.silu(mm(xg, lp.wg).float())
+    u = lp.u
+    if hd:
+        r, k, u = (tp.gather_head_dim(a) for a in (r, k, u))
 
     # Finch data-dependent decay, clamped for the chunked float32 basis
     ww = rep(lp.w0)[cols].float() + mm_f32(mm_f32(xw, rep(lp.w_lora1)),
@@ -127,10 +147,10 @@ def _time_mix(x, lp, cfg, shift_last, wkv_state, tp=None):
     logw = logw.reshape(b, t, h, dh)
 
     if t <= 2:                                   # decode: step by step
-        y, wkv_new = wkv_scan_ref(r, k, v, logw, lp.u, wkv_state)
+        y, wkv_new = wkv_scan_ref(r, k, v, logw, u, wkv_state)
     else:
-        y, wkv_new = WKV6Function.apply(r, k, v, logw, lp.u, wkv_state)
-    y = _head_norm(y, lp.ln_x, cfg.norm_eps) * g
+        y, wkv_new = WKV6Function.apply(r, k, v, logw, u, wkv_state)
+    y = _head_norm(y, lp.ln_x, cfg.norm_eps, tp if hd else None) * g
     if tp is not None:
         return row_mm(y.to(x.dtype).flatten(-2), lp.wo.flatten(0, 1)), \
             x[:, -1:], wkv_new
@@ -212,14 +232,6 @@ def _train_channel(x, lp, cfg, tp=None):
     return x + tp.leave(_channel_mix(h, lp, _zero_shift(h), tp)[0], x.dtype)
 
 
-def _check_tp(cfg, tp) -> None:
-    for path in ("layers/wr", "layers/cmix_wk"):
-        if not tp.sliced(path):
-            raise NotImplementedError(
-                f"{cfg.name}: {path} whole on a 'model' axis of {tp.size} "
-                "(ROADMAP.md Queue 1 item 8(h′))")
-
-
 def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
                   remat: bool = True, tp=None):
     """Full-sequence forward of ``model`` (an ``RWKV6LM``, or a parameter
@@ -236,8 +248,6 @@ def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
     if tp is not None:
         x = tp.embed(model.embed.table, tokens)
         tp = tp.layers
-        if tp is not None:
-            _check_tp(cfg, tp)
     else:
         x = embed_tokens(model.embed.table, tokens)
     if mode == "train":
@@ -251,11 +261,11 @@ def rwkv6_forward(model, tokens, cfg, mode: str = "prefill", state=None,
         return rms_norm(x, w, cfg.norm_eps), None
     if state is None:
         state = rwkv6_init_state(cfg, b, x.device, x.dtype)
-        if tp is not None:          # the rank's heads
-            wkv = state["wkv"]
-            state["wkv"] = wkv.new_zeros(wkv.shape[:2]
-                                         + (model.layers[0].wr.shape[-2],)
-                                         + wkv.shape[3:])
+        if tp is not None:          # the rank's heads or value columns
+            wkv, wr = state["wkv"], model.layers[0].wr
+            state["wkv"] = wkv.new_zeros(wkv.shape[:2] + (wr.shape[-2],
+                                                          cfg.d_head,
+                                                          wr.shape[-1]))
     new = ([], [], [])
     for i, lp in enumerate(model.layers):
         x, layer_state = _layer(x, lp, cfg, (state["shift_t"][i],

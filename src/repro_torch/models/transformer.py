@@ -24,18 +24,24 @@ block as one region on the rank's q heads (K/V heads where they divide;
 where they do not, every K/V head, each local q head meeting the one it
 meets at model = 1, by global index), mlp columns or experts, the residual
 whole ('tp') or the rank's rows of the sequence ('tp_sp'); under 'fsdp'
-only the embedding and the loss are vocab-parallel.
+only the embedding and the loss are vocab-parallel. Where the heads do not
+divide the axis, the rules slice the head_dim: q, k and v are gathered
+whole over "model" before qk-norm and RoPE, every rank attends with every
+head, and its head_dim columns of the context enter ``wo``'s row product
+(``_out_tp``).
 
 Serving under "model" (``launch/steps.py::ServeStep``, 'tp', no autograd):
 prefill runs the same regions and returns the caches of the rank's K/V
 heads (whole K/V where they do not divide). A decode step takes the
 decode rules' cache, a rank's rows of it (``tensor_parallel.KVSlice``):
-per layer q on the rank's heads and K/V on its K/V heads, the new K/V
-row gathered whole over "model" and written by the rank whose rows hold
-``pos``, q gathered over "model", K5's slice form on the rank's rows and
-the partials folded over the "kv_seq" axes
-(``tensor_parallel.fold_attention``), then the rank's heads of the context
-into ``wo`` summed over "model", and the MLP or MoE region as in training.
+per layer q on the rank's heads (or head_dim columns) and K/V on its
+K/V heads, q and the new K/V row gathered whole over "model", the row
+written by the rank whose rows hold ``pos``, K5's slice form on the rank's
+rows and the partials folded over the "kv_seq" axes
+(``tensor_parallel.fold_attention``), then the rank's heads (or columns)
+of the context into ``wo`` summed over "model", and the MLP or MoE region
+as in training (``attention_decode``, which recurrentgemma and whisper
+share).
 A cache whole on every rank (the "kv_seq" axes do not divide its length)
 takes K5's one-device form, no fold.
 
@@ -51,14 +57,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn.ops import decode_attention, decode_attention_slice
-from ..tensor_parallel import fold_attention, gather_dim, row_mm
+from ..tensor_parallel import fold_attention, row_mm
 from .layers import (ParamSchema, Schema, apply_rope, causal_attention,
                      embed_tokens, head_mask, mm, mrope_cache,
                      mrope_positions, mrope_sections, out_proj, rms_norm,
                      rope_cache, swiglu, weak_scalar)
 from .moe import moe_mlp
 
-__all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache"]
+__all__ = ["dense_schema", "dense_forward", "dense_decode_step", "init_cache",
+           "attention_decode", "attend_cache", "write_row", "decode_out",
+           "swiglu_tp"]
 
 N_GROUPS = 16   # MoE token groups when serving (the reference's default)
 
@@ -108,7 +116,10 @@ def _is_local_flags(cfg) -> list[bool]:
 
 
 def _embed_scale(cfg) -> bool:
-    return cfg.family == "dense" and cfg.vocab > 200_000
+    """Whether the embeddings are scaled by sqrt(D): gemma's (a dense
+    vocabulary past 200k) and recurrentgemma's."""
+    return cfg.family == "rglru" or (cfg.family == "dense"
+                                     and cfg.vocab > 200_000)
 
 
 def _ropes_for(cfg, seq: int, device, pos0: int = 0, batch: int = 1):
@@ -135,15 +146,32 @@ def _rope_of(ropes, is_local: bool):
     return sin_g, cos_g
 
 
+def _kv_whole(lp, cfg) -> bool:
+    """Whether the K/V weights are whole on every rank (their heads do not
+    divide the "model" axis and the heads do: the rules slice neither
+    their heads nor their head_dim)."""
+    return tuple(lp.wk.shape[-2:]) == (cfg.kv_eff, cfg.d_head)
+
+
+def _hd(lp, cfg, tp) -> bool:
+    """Whether ``tp`` slices the attention's head_dim (the fallback)."""
+    return tp is not None and tp.head_dim_sliced(cfg.d_head,
+                                                 lp.wq.shape[-1])
+
+
 def _qkv(h, lp, cfg, sin, cos, tp=None):
     """Projections, qk-norm and RoPE of the normed input h (B, S, D). Under
     ``tp`` (h the region's input) whole K/V weights and the qk-norm weights
-    enter through ``tp.rep``."""
+    enter through ``tp.rep``; under the head_dim fallback q, k and v are
+    gathered whole over "model" first (``TensorParallel.gather_head_dim``):
+    qk-norm and the split-half RoPE need whole heads."""
     rep = (lambda w: w) if tp is None else tp.rep
     wk, wv = lp.wk, lp.wv
-    if tp is not None and not tp.sliced("layers/wk"):
+    if tp is not None and _kv_whole(lp, cfg):
         wk, wv = rep(wk), rep(wv)
     q, k, v = mm(h, lp.wq), mm(h, wk), mm(h, wv)
+    if _hd(lp, cfg, tp):
+        q, k, v = (tp.gather_head_dim(t) for t in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, rep(lp.q_norm), cfg.norm_eps)
         k = rms_norm(k, rep(lp.k_norm), cfg.norm_eps)
@@ -156,14 +184,17 @@ def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos, tp=None):
     (out (B, S, D), (k, v)); under ``tp`` on this rank's q heads (its K/V
     heads where they divide, else the whole K/V heads each meets at
     model = 1), out the output projection's partial sum in float32 and
-    (k, v) the rank's K/V heads (whole where they do not divide)."""
+    (k, v) the rank's K/V heads (whole where they do not divide). Under
+    the head_dim fallback every rank attends with every head and (k, v)
+    are the rank's head_dim columns."""
     b, s, _ = h.shape
     dh = cfg.d_head
     q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
-    heads = (range(cfg.h_eff) if tp is None
+    hd = _hd(lp, cfg, tp)
+    heads = (range(cfg.h_eff) if tp is None or hd
              else tp.local_heads(cfg.h_eff, lp.wq.shape[-2]))
     ka, va = k, v
-    if tp is not None and not tp.sliced("layers/wk"):
+    if tp is not None and not hd and _kv_whole(lp, cfg):
         ka, va, (nkv, g) = _kv_for_heads(k, v, heads, cfg)
     else:
         nkv = k.shape[2]
@@ -174,16 +205,75 @@ def _attention_flagged(h, lp, cfg, is_local: bool, sin, cos, tp=None):
     ctx = ctx.to(h.dtype).reshape(b, s, len(heads), dh)
     if tp is None:
         return out_proj(ctx, lp.wo, cfg).to(h.dtype), (k, v)
-    return _out_tp(ctx, lp, cfg, heads), (k, v)
+    if hd:
+        k, v = tp.own_head_dim(k), tp.own_head_dim(v)
+    return _out_tp(ctx, lp.wo, cfg, tp), (k, v)
 
 
-def _out_tp(ctx, lp, cfg, heads: range):
-    """The output projection's partial sum (float32) of the rank's heads
-    ``heads`` of the context (B, S, H/m, Dh), padded heads zeroed."""
+def _out_tp(ctx, wo, cfg, tp):
+    """The output projection's partial sum (float32) of the context ctx
+    (B, S, H', Dh'), whole or already the rank's heads: the rank's heads of
+    it, or under the head_dim fallback its head_dim columns, padded heads
+    zeroed, against its slice ``wo`` (H/m, Dh, D) or (H, Dh/m, D)."""
+    hl, dl = wo.shape[0], wo.shape[1]
+    heads = (range(cfg.h_eff) if hl == cfg.h_eff
+             else tp.local_heads(cfg.h_eff, hl))
+    if ctx.shape[-2] != hl:
+        ctx = ctx[:, :, heads.start:heads.stop]
+    if ctx.shape[-1] != dl:
+        ctx = tp.own_head_dim(ctx)
     hm = head_mask(cfg, ctx.dtype, ctx.device)
     if hm is not None:
         ctx = ctx * hm[heads.start:heads.stop][None, None, :, None]
-    return row_mm(ctx.flatten(-2), lp.wo.flatten(0, 1))
+    return row_mm(ctx.flatten(-2), wo.flatten(0, 1))
+
+
+def attend_cache(q, k_c, v_c, pos: int, window: int, kv):
+    """K5 over a decode cache for q (B, H, Dh) of whole heads: the slice
+    form on the rank's rows, folded over ``kv.mesh``
+    (``tensor_parallel.fold_attention``), where ``kv`` (a ``KVSlice``)
+    slices the cache; else the one-device form. Float32 or q's dtype."""
+    if kv is not None and kv.mesh is not None:
+        o, lse = decode_attention_slice(q, k_c, v_c, pos, window, kv.row0)
+        return fold_attention(o, lse, kv.mesh)
+    return decode_attention(q, k_c, v_c, pos, window)
+
+
+def write_row(c, row, pos: int, kv) -> None:
+    """Row ``pos`` of the cache ``c`` (B, S, ...) set to ``row`` (B, ...),
+    by the rank whose rows hold it (every rank where ``kv`` does not
+    slice the cache)."""
+    if kv is None or kv.mesh is None:
+        c[:, pos] = row.to(c.dtype)
+    elif kv.holds(pos):
+        c[:, pos - kv.row0] = row.to(c.dtype)
+
+
+def decode_out(ctx, wo, cfg, tp, dtype):
+    """The output projection of a decode step's context ctx (B, 1, H, Dh)
+    of every head: whole, or under ``tp`` the rank's part of it summed
+    over "model"."""
+    if tp is None:
+        return out_proj(ctx, wo, cfg).to(dtype)
+    return tp.leave(_out_tp(ctx, wo, cfg, tp), dtype)
+
+
+def attention_decode(h, lp, cfg, sin, cos, k_c, v_c, pos: int, window: int,
+                     tp=None, kv=None):
+    """The self-attention of one decode step from the normed input h (B, 1,
+    D): q, k, v on the rank's heads or head_dim columns gathered whole
+    over "model", the new K/V row written at ``pos``, K5 (``attend_cache``)
+    and the output projection (``decode_out``). Returns its output (B, 1,
+    D) in h's dtype."""
+    q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
+    if tp is not None:
+        q = tp.whole_heads(q, cfg.h_eff, cfg.d_head)
+        k = tp.whole_heads(k, cfg.kv_eff, cfg.d_head)
+        v = tp.whole_heads(v, cfg.kv_eff, cfg.d_head)
+    write_row(k_c, k[:, 0], pos, kv)
+    write_row(v_c, v[:, 0], pos, kv)
+    ctx = attend_cache(q[:, 0], k_c, v_c, pos, window, kv)
+    return decode_out(ctx.to(h.dtype)[:, None], lp.wo, cfg, tp, h.dtype)
 
 
 def _mlp(x, lp, cfg, n_groups: int = N_GROUPS):
@@ -229,6 +319,18 @@ def _kv_for_heads(k, v, heads: range, cfg):
     return k.index_select(2, idx), v.index_select(2, idx), (n, 1)
 
 
+def swiglu_tp(h, w_gate, w_up, w_down, d_ff: int, tp):
+    """The gated MLP of the normed residual h under the "model" axis: its
+    mlp columns sliced, a region; whole weights (d_ff does not divide)
+    computed as at model = 1 on the rows the rank holds, their gradients
+    summed under 'tp_sp' (``norm_weight``), where those are its rows."""
+    if w_gate.shape[-1] == d_ff:
+        nw = tp.norm_weight
+        return swiglu(h, nw(w_gate), nw(w_up), nw(w_down))
+    return tp.leave(swiglu(tp.enter(h), w_gate, w_up, w_down, down=row_mm),
+                    h.dtype)
+
+
 def _mlp_tp(h, lp, cfg, n_groups: int, tp):
     """The MLP of the normed residual h under the "model" axis: experts
     (or each expert's d_ff) or the mlp columns sliced, as a region; whole
@@ -246,10 +348,7 @@ def _mlp_tp(h, lp, cfg, n_groups: int, tp):
                 "rank's rows apart (ROADMAP.md Queue 1 item 8(h′))")
         return moe_mlp(h, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
                        n_groups)
-    if not tp.sliced("layers/w_gate"):
-        return swiglu(h, lp.w_gate, lp.w_up, lp.w_down)
-    return tp.leave(swiglu(tp.enter(h), lp.w_gate, lp.w_up, lp.w_down,
-                           down=row_mm), h.dtype)
+    return swiglu_tp(h, lp.w_gate, lp.w_up, lp.w_down, cfg.d_ff, tp)
 
 
 def _layer_tp(x, lp, cfg, is_local: bool, ropes, n_groups: int, tp):
@@ -297,7 +396,8 @@ def dense_forward(model, tokens, cfg, mode: str = "prefill",
     layers cut the tokens into ``n_groups`` groups. ``tp``: the "model"
     axis, ``model`` holding the rank's slices (``model_api.train_forward``,
     ``model_api.serve_forward``); prefill's caches are then of the rank's
-    K/V heads (whole where they do not divide)."""
+    K/V heads (whole where they do not divide), or under the head_dim
+    fallback its head_dim columns."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode={mode!r}: need 'prefill' or 'train'")
     b, s = tokens.shape
@@ -355,35 +455,13 @@ def dense_decode_step(model, tokens, cache, pos: int, cfg, tp=None, kv=None,
     x = (embed_tokens(model.embed.table, tokens, scale=_embed_scale(cfg))
          if tp is None else _embed_tp(model, tokens, cfg, None, tp))
     ropes = _ropes_for(cfg, 1, x.device, pos0=pos, batch=x.shape[0])
-    sliced = kv is not None and kv.mesh is not None
-    row0 = kv.row0 if sliced else 0
-    write = not sliced or kv.holds(pos)
     for i, (lp, is_local) in enumerate(zip(model.layers,
                                            _is_local_flags(cfg))):
         sin, cos = _rope_of(ropes, is_local)
         h = rms_norm(x, lp.pre_attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(h, lp, cfg, sin, cos, tp)
-        if tp is not None:
-            q = gather_dim(q, tp.mesh, 2)
-            if tp.sliced("layers/wk"):
-                k, v = gather_dim(k, tp.mesh, 2), gather_dim(v, tp.mesh, 2)
-        k_c, v_c = cache["k"][i], cache["v"][i]
-        if write:
-            k_c[:, pos - row0] = k[:, 0].to(k_c.dtype)
-            v_c[:, pos - row0] = v[:, 0].to(v_c.dtype)
-        window = cfg.window if is_local else 0
-        if sliced:
-            o, lse = decode_attention_slice(q[:, 0], k_c, v_c, pos, window,
-                                            row0)
-            ctx = fold_attention(o, lse, kv.mesh).to(x.dtype)[:, None]
-        else:
-            ctx = decode_attention(q[:, 0], k_c, v_c, pos, window)[:, None]
-        if tp is None:
-            x = x + out_proj(ctx, lp.wo, cfg).to(x.dtype)
-        else:
-            heads = tp.local_heads(cfg.h_eff, lp.wq.shape[-2])
-            x = x + tp.leave(_out_tp(ctx[:, :, heads.start:heads.stop], lp,
-                                     cfg, heads), x.dtype)
+        x = x + attention_decode(h, lp, cfg, sin, cos, cache["k"][i],
+                                 cache["v"][i], pos,
+                                 cfg.window if is_local else 0, tp, kv)
         h2 = rms_norm(x, lp.pre_mlp_norm, cfg.norm_eps)
         x = x + (_mlp(h2, lp, cfg, n_groups) if tp is None
                  else _mlp_tp(h2, lp, cfg, n_groups, tp))

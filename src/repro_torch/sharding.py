@@ -5,7 +5,8 @@ Model code names the axes of each tensor logically (``ParamSchema.axes``:
 "vocab", "embed", "heads", ...); a per-(config, mesh, mode) rule table maps
 each name to mesh axes. A mapping holds only where the mesh axes' size
 divides the dimension, else the dimension stays whole: this is how yi-34b
-(56 heads on a 16-way "model" axis) falls back to head_dim sharding.
+(56 heads on a 16-way "model" axis) falls back to head_dim sharding, which
+the forward computes on too (``tensor_parallel.py``).
 
 Here the mesh is explicit SPMD (``launch/mesh.py::GridMesh``): a rule table
 decides which dimension a rank keeps a slice of: a parameter's "model"
@@ -32,8 +33,8 @@ __all__ = ["AxisRules", "logical_spec", "make_rules", "axis_size",
 
 # the logical names whose "model" slice the forward computes on
 # (``tensor_parallel.py``); any other name resolved to "model" raises
-MODEL_SLICED = frozenset({"vocab", "heads", "kv_heads", "mlp", "experts",
-                          "expert_mlp"})
+MODEL_SLICED = frozenset({"vocab", "heads", "kv_heads", "head_dim", "mlp",
+                          "experts", "expert_mlp"})
 
 # logical axis name -> mesh axis name, tuple of names, or None
 AxisRules = dict
@@ -152,9 +153,10 @@ def model_dims(param_axes: Mapping[str, tuple], param_shapes: Mapping,
                mesh_shape: Mapping[str, int], rules: AxisRules) -> dict:
     """Each leaf's dimension that the "model" axis slices under ``rules``
     (None: whole on every rank of the axis), as ``optim.zero_dims`` gives
-    ZeRO-1's. Raises ``NotImplementedError`` for a name the forward has no
-    sliced form of: "head_dim" (the rules' fallback where the heads do not
-    divide, ROADMAP.md Queue 1 item 8(h′)) or any other."""
+    ZeRO-1's. "head_dim" is the rules' fallback where the heads do not
+    divide (``tensor_parallel.TensorParallel.head_dim_sliced``). Raises
+    ``NotImplementedError`` for a name the forward has no sliced form of
+    ("residual_embed", which no leaf carries)."""
     out = {}
     for k, axes in param_axes.items():
         spec = logical_spec(axes, param_shapes[k], mesh_shape, rules)
@@ -164,8 +166,7 @@ def model_dims(param_axes: Mapping[str, tuple], param_shapes: Mapping,
             if name not in MODEL_SLICED:
                 raise NotImplementedError(
                     f"{k}: its {name!r} dimension resolves to \"model\"; "
-                    "the forward has no sliced form of it (ROADMAP.md "
-                    "Queue 1 item 8(h′))")
+                    "the forward has no sliced form of it")
         out[k] = dims[0] if dims else None
     return out
 

@@ -28,6 +28,20 @@ is then one *region* on every rank:
   * Under 'tp_sp' the norms run on the rank's rows, so their weights' and
     the final norm's gradients are partial too (``norm_weight``), as
     Megatron's sequence parallelism sums them.
+  * The head_dim fallback (the rules slice the head_dim where the heads do
+    not divide: ``head_dim_sliced``): q, k and v come out of the column
+    products as the rank's contiguous head_dim columns and are gathered
+    over "model" (``gather_head_dim``; backward: the ranks' partial
+    gradients summed, reduce-scattered), so RoPE, whose split-half rotation
+    pairs column i with i + Dh/2, qk-norm and the attention run on whole
+    heads on every rank; each rank then keeps its head_dim columns of the
+    context (``own_head_dim``) for the row-parallel output product. The
+    other reading (partial q.k^T summed over the ranks before the softmax)
+    would move B * H * S^2 float32 scores a layer against the gather's
+    3 B * S * H * Dh. RWKV-6 gathers r, k and u and keeps v's columns: its
+    recurrence is exact per value column (``models/rwkv6.py``), and its
+    head norm sums its moment over "model" (``all_reduce``: a sum both
+    ways, for a value each rank uses on its own columns).
 
 The vocab is sliced under every strategy (``embed``: the rank's rows of
 the table, a zero row elsewhere, summed over "model"; ``loss_inputs`` and
@@ -62,8 +76,9 @@ import torch
 from .core.collectives import all_gather, psum, reduce_scatter
 
 __all__ = ["TensorParallel", "copy_to_model", "reduce_from_model",
-           "gather_seq", "scatter_seq", "gather_stack", "row_mm", "KVSlice",
-           "fold_attention", "greedy_ids", "gather_dim"]
+           "all_reduce", "gather_seq", "scatter_seq", "gather_stack",
+           "row_mm", "KVSlice", "fold_attention", "greedy_ids",
+           "gather_dim"]
 
 STRATEGIES = ("tp", "tp_sp", "fsdp")
 
@@ -160,6 +175,13 @@ def copy_to_model(x, mesh):
 def reduce_from_model(x, mesh):
     """The sum over "model" forward; the identity backward."""
     return _Reduce.apply(x, mesh)
+
+
+def all_reduce(x, mesh):
+    """The sum over "model" forward, and the sum of the gradient backward:
+    for a sum that each rank then uses on its own slice (the gradient
+    reaching it is partial on every rank)."""
+    return reduce_from_model(copy_to_model(x, mesh), mesh)
 
 
 def gather_seq(x, mesh, dim: int = 1):
@@ -275,6 +297,42 @@ class TensorParallel:
             raise ValueError(f"{n_local} heads a rank of {self.size} is not "
                              f"{n_global}")
         return range(self.rank * n_local, (self.rank + 1) * n_local)
+
+    def head_dim_sliced(self, d_head: int, n_local: int) -> bool:
+        """Whether a leaf whose last head dimension is ``n_local`` wide
+        holds this rank's slice of a head_dim of ``d_head`` (the rules'
+        fallback where the heads do not divide), not whole heads."""
+        if n_local == d_head:
+            return False
+        if n_local * self.size != d_head:
+            raise ValueError(f"a head_dim of {n_local} a rank of "
+                             f"{self.size} is not {d_head}")
+        return True
+
+    def gather_head_dim(self, x):
+        """Every rank's head_dim columns (the last dimension) of ``x``
+        concatenated, in rank order; the backward reduce-scatters."""
+        return gather_seq(x, self.mesh, x.ndim - 1)
+
+    def own_head_dim(self, x):
+        """This rank's columns of the last (whole head_dim) dimension."""
+        w = x.shape[-1] // self.size
+        return x.narrow(x.ndim - 1, self.rank * w, w)
+
+    def whole_heads(self, x, n_heads: int, d_head: int):
+        """``x`` (..., H', Dh') with every "model" rank's heads or head_dim
+        columns, whichever it holds a slice of: (..., n_heads, d_head)."""
+        if x.shape[-2] != n_heads:
+            x = gather_seq(x, self.mesh, x.ndim - 2)
+        if x.shape[-1] != d_head:
+            x = self.gather_head_dim(x)
+        return x
+
+    def scatter_cols(self, x):
+        """This rank's block of the last dimension of the sum over "model"
+        of the partial products ``x`` (float32 kept; backward: the whole
+        gradient all-gathered)."""
+        return scatter_seq(x, self.mesh, x.ndim - 1)
 
     # -- the vocab ------------------------------------------------------------
 

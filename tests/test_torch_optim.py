@@ -166,8 +166,7 @@ def test_opt_state_specs_zero_dims_match_reference(arch, mesh_shape,
     of its ``build_train_step`` rules, ``_rules_with_zero``, on a stand-in
     mesh of the same axis sizes: the functions read ``mesh.shape`` only).
     Where the reference's rules put "model" on a head_dim (its fallback
-    where the heads do not divide), the port raises, naming ROADMAP.md
-    Queue 1 item 8(h′)."""
+    where the heads do not divide), so do the port's."""
     from repro.launch.steps import _rules_with_zero
     cfg_j, cfg_t = j_get_config(arch), get_config(arch)
     jmesh = types.SimpleNamespace(shape=dict(mesh_shape))
@@ -198,14 +197,8 @@ def test_opt_state_specs_zero_dims_match_reference(arch, mesh_shape,
     for k, d in topt.zero_dims(got, shapes, mesh_shape, rules_t).items():
         if d is not None:
             assert shapes[k][d] % n == 0
-    fallback = [k for k, d in want_model.items()
-                if d is not None and specs[k][d] == "head_dim"]
-    if fallback:
-        with pytest.raises(NotImplementedError, match=r"8\(h′\)"):
-            tsh.model_dims(specs, shapes, mesh_shape, rules_t)
-    else:
-        assert tsh.model_dims(specs, shapes, mesh_shape, rules_t) == \
-            want_model
+    # the head_dim fallback's leaves too (its "model" dimension a head_dim)
+    assert tsh.model_dims(specs, shapes, mesh_shape, rules_t) == want_model
     assert topt.opt_state_specs(specs, mesh_shape, shapes, rules_t,
                                 zero1=False)["master"] == specs
 

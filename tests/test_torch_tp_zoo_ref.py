@@ -1,0 +1,139 @@
+"""The port's "model" axis across the zoo against the JAX package's train
+step on the same mesh: one subprocess with 2 host devices runs the
+reference's ``build_train_step`` (GSPMD partitions it) at (data=1,
+model=2) under 'tp' on 3-head variants of the smoke configs of gemma3-1b,
+recurrentgemma and whisper (3 heads on 2: the rules' head_dim fallback;
+recurrentgemma's LRU columns and whisper's MLP over "model" too), one step
+each from its ``init_params(PRNGKey(0))`` cast to float32; a world of two
+gloo ranks runs the port's step on the same parameters, tokens and frames
+(``tests/torch_train_tp.py::ref_cases``).
+
+Tolerances as ``test_torch_train_tp_ref.py``'s: the loss 1e-5 relative,
+the gradient norm 2e-4 relative, the updated parameters within 2 lr of the
+reference's and at least 95 % of them within lr / 100 (a share of all of a
+case's parameters, not of each leaf: the reference rounds recurrentgemma's
+and whisper's projections to bf16 whatever the parameters' dtype, so a
+gradient within that rounding of zero may flip its sign and AdamW's first
+step, and in a norm's 64 weights each flip is 1.6 % of the leaf).
+"""
+import concurrent.futures
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as j_get_config
+from repro.models import get_model as j_get_model
+
+from conftest import run_multidev
+
+import torch_spmd
+import torch_train_tp as T
+
+CASES = ("gemma3-1b/h3", "recurrentgemma-2b/h3", "whisper-small/h3")
+LR = 3e-4
+LOSS_RTOL, NORM_RTOL = 1e-5, 2e-4
+NEAR, NEAR_SHARE = LR / 100, 0.95
+
+REFERENCE = r'''
+import sys, dataclasses
+import numpy as np, jax, jax.numpy as jnp
+from repro.compat import make_mesh
+from repro.configs import get_config
+from repro.configs.base import ShapeSpec
+from repro.data import SyntheticLMData
+from repro.launch.steps import build_train_step, TrainStepConfig
+from repro.models import get_model
+from repro.optim import adamw_init
+
+out_path, cases, seq, batch, groups = sys.argv[1:6]
+seq, batch, groups = int(seq), int(batch), int(groups)
+mesh = make_mesh((1, 2), ('data', 'model'))
+out = {}
+for case in cases.split(','):
+    arch, _, variant = case.partition('/')
+    cfg = get_config(arch).smoke_config()
+    if variant == 'h3':
+        cfg = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1)
+    shape = ShapeSpec('r', seq, batch, 'train')
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          get_model(cfg).init_params(jax.random.PRNGKey(0)))
+    opt = adamw_init(params)
+    b = SyntheticLMData(cfg.vocab, seq, batch, seed=1).batch_np(0)
+    tok, lab = jnp.asarray(b[:, :-1]), jnp.asarray(b[:, 1:])
+    aux = {}
+    if cfg.family == 'whisper':
+        a = np.random.default_rng(2).normal(
+            size=(batch, cfg.n_audio_frames, cfg.d_model))
+        aux = {'frames': jnp.asarray(a.astype(np.float32))}
+    fn, sh, _ = build_train_step(cfg, mesh, shape,
+                                 TrainStepConfig(moe_groups=groups))
+    step = jax.jit(fn, in_shardings=(sh['params'], sh['opt_state'],
+                                     sh['tokens'], sh['labels'], sh['aux']))
+    p, _, m = step(params, opt, tok, lab, aux)
+    out[case + '|loss'] = np.asarray(m['loss'])
+    out[case + '|grad_norm'] = np.asarray(m['grad_norm'])
+    out.update({case + '|tp/' + k: np.asarray(v) for k, v in p.items()})
+np.savez(out_path, **out)
+print('ok')
+'''
+
+
+def _init(case: str) -> dict:
+    """The reference's ``init_params(PRNGKey(0))`` of ``case`` in float32,
+    as numpy (the subprocess draws the same)."""
+    arch, _, variant = case.partition("/")
+    cfg = j_get_config(arch).smoke_config()
+    if variant == "h3":
+        cfg = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1)
+    params = j_get_model(cfg).init_params(jax.random.PRNGKey(0))
+    return {k: np.asarray(v.astype(jnp.float32)) for k, v in params.items()}
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """The reference's subprocess and the port's three worlds, at once."""
+    tmp = tmp_path_factory.mktemp("tp_zoo_ref")
+    path = os.path.join(str(tmp), "ref.npz")
+    code = ("import sys; sys.argv = ['ref', %r, %r, '%d', '%d', '%d']\n"
+            % (path, ",".join(CASES), T.SEQ, T.BATCH, T.MOE_GROUPS)
+            ) + REFERENCE
+    with concurrent.futures.ThreadPoolExecutor(len(CASES) + 1) as ex:
+        ref = ex.submit(run_multidev, code, 2, timeout=300)
+        port = {}
+        for i, case in enumerate(CASES):
+            (tmp / f"w{i}").mkdir()
+            port[case] = ex.submit(torch_spmd.run_world, T.ref_cases, 2,
+                                   tmp / f"w{i}", _init(case), ("tp",), case)
+        ref.result(timeout=330)
+        port = {c: f.result(timeout=torch_spmd.TIMEOUT_S + 30)
+                for c, f in port.items()}
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}, port
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_loss_and_grad_norm_match_reference(both, case):
+    ref, port = both
+    loss, norm = (float(ref[f"{case}|{k}"]) for k in ("loss", "grad_norm"))
+    for r in port[case]:
+        got = r["tp"]
+        assert abs(got["loss"] - loss) <= LOSS_RTOL * loss, (got, loss)
+        assert abs(got["grad_norm"] - norm) <= NORM_RTOL * norm, (got, norm)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_updated_params_match_reference(both, case):
+    ref, port = both
+    for r in port[case]:
+        near = total = 0
+        for k, got in r["tp"]["params"].items():
+            want = ref[f"{case}|tp/{k}"]
+            d = np.abs(got - want)
+            assert d.max() <= 2 * LR * (1 + 1e-3), (k, d.max())
+            near += int((d <= NEAR).sum())
+            total += d.size
+        assert near / total >= NEAR_SHARE, near / total

@@ -234,25 +234,68 @@ def _fake_mesh(shape):
                     device=torch.device("cpu"), meshes={})
 
 
+def _reference_model_dims(cfg, shape: dict, strategy: str) -> dict:
+    """Each leaf's "model" dimension under the JAX package's rules of its
+    ``build_train_step`` (``_rules_with_zero``, ``logical_spec``), on a
+    stand-in mesh of the same axis sizes."""
+    import types
+    import repro.sharding as jsh
+    from repro.launch.steps import _rules_with_zero
+    from repro.models import get_model as j_get_model
+    jcfg = j_get_config(cfg.name.removesuffix("-smoke"))
+    if cfg.name.endswith("-smoke"):
+        jcfg = jcfg.smoke_config()
+    jcfg = dataclasses.replace(jcfg, **{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.compare and f.name != "name"})
+    jmesh = types.SimpleNamespace(shape=dict(shape))
+    rules = _rules_with_zero(jcfg, jmesh, "train", strategy=strategy)
+    out = {}
+    with jsh.use_sharding(jmesh, rules):
+        for k, ps in j_get_model(jcfg).schema.items():
+            spec = jsh.logical_spec(ps.axes, ps.shape)
+            dims = [i for i, p in enumerate(spec)
+                    if "model" in (p if isinstance(p, tuple) else (p,))]
+            out[k] = dims[0] if dims else None
+    return out
+
+
 @pytest.mark.parametrize(
     "arch,shape,strategy",
     [("recurrentgemma-2b", {"data": 1, "model": 2}, "tp"),
      ("whisper-small", {"data": 1, "model": 2}, "fsdp"),
      # gemma3-1b's 4 heads do not divide 8: the rules fall back to head_dim
      ("gemma3-1b", {"data": 1, "model": 8}, "tp_sp"),
-     ("gemma3-1b", {"data": 1, "model": 8}, "tp")],
-    ids=["shape0-tp", "shape1-fsdp", "shape2-tp_sp", "shape3-tp"])
+     ("gemma3-1b", {"data": 1, "model": 8}, "tp"),
+     # 3 experts of a d_ff of 129: neither "experts" nor "expert_mlp"
+     # divides 2, whole experts under 'tp_sp'
+     ("qwen3-moe-30b-a3b/whole", {"data": 1, "model": 2}, "tp_sp")],
+    ids=["shape0-tp", "shape1-fsdp", "shape2-tp_sp", "shape3-tp",
+         "shape4-moe-tp_sp"])
 def test_tensor_parallel_and_other_strategies_raise(arch, shape, strategy):
-    """What the "model" axis does not cover raises, naming ROADMAP.md
-    Queue 1 item 8(h′): rglru and whisper at model > 1, and the rules'
-    head_dim fallback; nothing is replicated where the rules slice."""
-    cfg = get_config(arch)
-    if arch != "gemma3-1b":
+    """Every family builds on a "model" axis wherever the rules put it
+    (rglru and whisper at model > 1, the rules' head_dim fallback), each
+    leaf's "model" dimension the reference's; what it does not cover, MoE
+    with whole experts under 'tp_sp', raises naming ROADMAP.md Queue 1 item
+    8(h′)."""
+    name, _, variant = arch.partition("/")
+    cfg = get_config(name)
+    if name != "gemma3-1b":
         cfg = cfg.smoke_config()
-    with pytest.raises(NotImplementedError, match=r"8\(h′\)"):
-        build_train_step(cfg, _fake_mesh(shape), ShapeSpec("t", 8, 2,
-                                                           "train"),
-                         TrainStepConfig(strategy=strategy))
+    if variant == "whole":
+        cfg = dataclasses.replace(cfg, n_experts=3, d_ff=129)
+        with pytest.raises(NotImplementedError, match=r"8\(h′\)"):
+            build_train_step(cfg, _fake_mesh(shape),
+                             ShapeSpec("t", 8, 2, "train"),
+                             TrainStepConfig(strategy=strategy))
+        return
+    from repro_torch.launch.mesh import make_count_mesh
+    mesh = make_count_mesh(tuple(shape.values()), tuple(shape))
+    step = build_train_step(cfg, mesh, ShapeSpec("t", 8, 2, "train"),
+                            TrainStepConfig(strategy=strategy))
+    assert step.model_dims == _reference_model_dims(cfg, shape, strategy)
+    if strategy != "fsdp":
+        assert step.tp is not None and step.tp.sp == (strategy == "tp_sp")
 
 
 def test_k4_refuses_rows_past_its_index_limit():

@@ -53,18 +53,13 @@ def aux_inputs(case: str, batch: int) -> dict:
 
 
 def _whole_caches(step, caches):
-    """A prefill's caches with every "model" rank's K/V heads (rwkv6: its
-    heads of ``wkv``), as numpy."""
-    mesh = None if step.tp is None else step.tp.mesh
-    if isinstance(caches, tuple):
-        k, v = caches
-        if step.tp is not None and step.tp.sliced("layers/wk"):
-            k, v = gather_dim(k, mesh, 3), gather_dim(v, mesh, 3)
-        return {"k": k.float().numpy(), "v": v.float().numpy()}
-    out = {k: t.float().numpy() for k, t in flat_tree(caches).items()}
-    if "wkv" in caches:
-        out["wkv"] = gather_dim(caches["wkv"], mesh, 2).float().numpy()
-    return out
+    """A prefill's caches with every "model" rank's K/V heads or head_dim
+    columns (rwkv6: its heads or value columns of ``wkv``; rglru: its LRU
+    columns), as numpy (``ServeStep.gather_caches``)."""
+    whole = step.gather_caches(caches)
+    if isinstance(whole, tuple):
+        whole = dict(zip(("k", "v"), whole))
+    return {k: t.float().numpy() for k, t in flat_tree(whole).items()}
 
 
 def serve(mesh, case: str, batch: int, prompt: int, params: dict,
@@ -102,6 +97,9 @@ def serve(mesh, case: str, batch: int, prompt: int, params: dict,
     out["ids"] = np.concatenate(ids, axis=1)
     out["state"] = {k: _whole_rows(dec, k, v).float().numpy()
                     for k, v in flat_tree(state).items()}
+    out["shapes"] = {"params": {k: tuple(v.shape) for k, v in p.items()},
+                     "state": {k: tuple(v.shape)
+                               for k, v in flat_tree(state).items()}}
     return out
 
 
@@ -116,26 +114,14 @@ def _whole_rows(step, path: str, t):
     return gather_dim(t.contiguous(), step.mesh.axes(names), 2)
 
 
-def raises(mesh, case: str) -> str | None:
-    """The error a serve step of ``case`` on ``mesh`` raises, if any."""
-    try:
-        build_serve_step(TT.config(case), mesh,
-                         ShapeSpec("p", 16, 2, "prefill"))
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def world_cases(_serve_mesh, cases: list, params: dict) -> dict:
     """Each (name, mesh shape, axis names, case, batch, prompt) of
-    ``cases`` on this rank: ``serve``'s result, or with ``prompt`` None
-    the error ``raises`` gives."""
+    ``cases`` on this rank: ``serve``'s result."""
     out = {}
     for name, shape, names, case, batch, prompt in cases:
         mesh = (make_host_mesh(model=1, device="cpu") if shape is None
                 else make_mesh(shape, names, device="cpu"))
-        out[name] = (raises(mesh, case) if prompt is None else
-                     serve(mesh, case, batch, prompt, params[case]))
+        out[name] = serve(mesh, case, batch, prompt, params[case])
     return out
 
 

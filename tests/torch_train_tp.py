@@ -37,21 +37,34 @@ CONVERGE_ARCH, CONVERGE_STEPS, CONVERGE_LR = "granite-3-8b", 12, 2e-3
 
 
 def config(case: str):
+    """The smoke config of ``arch[/variant]``: "e3" 3 experts; "h3" 3 heads
+    (one K/V head; rwkv6 a d_model of 3 heads), which "model" = 2 does not
+    divide: the rules' head_dim fallback; "ff129" a d_ff of 129, which it
+    does not divide either: the MLP's weights whole on every rank."""
     arch, _, variant = case.partition("/")
     cfg = get_config(arch).smoke_config()
     if variant == "e3":
         cfg = dataclasses.replace(cfg, n_experts=3)
+    elif variant == "h3":
+        cfg = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1)
+        if cfg.family == "rwkv6":
+            cfg = dataclasses.replace(cfg, d_model=3 * cfg.d_head)
+    elif variant == "ff129":
+        cfg = dataclasses.replace(cfg, d_ff=129)
     return cfg
 
 
 def aux_inputs(cfg) -> dict:
-    """qwen2-vl's vision embeddings of the global batch, float32 from a
-    numpy seed (the same on every rank)."""
-    if not cfg.n_vision_tokens:
+    """The stub inputs of the global batch, float32 from a numpy seed (the
+    same on every rank): qwen2-vl's vision embeddings, whisper's frames."""
+    n = (cfg.n_audio_frames if cfg.family == "whisper"
+         else cfg.n_vision_tokens)
+    if not n:
         return {}
     rng = np.random.default_rng(2)
-    a = rng.normal(size=(BATCH, cfg.n_vision_tokens, cfg.d_model))
-    return {"vision_embeds": torch.from_numpy(a.astype(np.float32))}
+    a = rng.normal(size=(BATCH, n, cfg.d_model))
+    key = "frames" if cfg.family == "whisper" else "vision_embeds"
+    return {key: torch.from_numpy(a.astype(np.float32))}
 
 
 def _np(tree) -> dict:
@@ -218,12 +231,14 @@ def ckpt_one(_serve_mesh, tmp: str) -> dict:
 REF_ARCH = "granite-3-8b"
 
 
-def ref_cases(_serve_mesh, params: dict, strategies: tuple) -> dict:
+def ref_cases(_serve_mesh, params: dict, strategies: tuple,
+              case: str = REF_ARCH) -> dict:
     """One step of each strategy at (data=1, model=2) from the whole
-    float32 ``params`` (numpy, the reference's init) on the seed-1 batch
-    0: the metrics and the updated whole parameters."""
+    float32 ``params`` (numpy, the reference's init) of ``case`` on the
+    seed-1 batch 0 (with ``aux_inputs``' stub inputs): the metrics and the
+    updated whole parameters."""
     mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-    cfg = get_config(REF_ARCH).smoke_config()
+    cfg = config(case)
     out = {}
     for strategy in strategies:
         step = build_train_step(cfg, mesh, ShapeSpec("r", SEQ, BATCH,
@@ -236,7 +251,7 @@ def ref_cases(_serve_mesh, params: dict, strategies: tuple) -> dict:
         tok, lab = SyntheticLMData(cfg.vocab, SEQ, BATCH,
                                    seed=1).global_arrays(0, mesh,
                                                          step.batch_axes)
-        new_p, _, m = step(p, opt, tok, lab)
+        new_p, _, m = step(p, opt, tok, lab, aux_inputs(cfg))
         out[strategy] = {"loss": float(m["loss"]),
                          "grad_norm": float(m["grad_norm"]),
                          "params": _np(step.gather_params(new_p))}
