@@ -5,7 +5,7 @@
                           [--k6-only | --k5-only | --k4-only | --sharded-only
                            | --zoo-only | --train-only | --train-zoo-only
                            | --train-tp-only | --serve-tp-only
-                           | --tp-zoo-only]
+                           | --tp-zoo-only | --examples-only]
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all at once), holds each against its plain PyTorch version on
@@ -57,6 +57,18 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     wide column problem, the wire bytes by dtype, and ``SolveService(mesh=)``
     serving a ``"data"`` bucket of 8 and two ``"proc"`` requests at the
     paper's size, each against the local service's answer;
+  * the examples' twins (phase ``examples``, ``repro_torch.examples``):
+    each twin's ``run`` on the card at the reference example's sizes —
+    quickstart (centralized, lossless, BT), serve_mixed (five requests in
+    four buckets, both layouts), observe (spans, the drift alert, the
+    metrics), wire_demo (the BT solve's rANS accounting, at its defaults
+    and --smoke), mp_amp_cluster (part 1 at the paper's point, BT and DP;
+    part 2 on 8 gloo ranks sharing the card: exact, int8, int4 and int8
+    with 15 % stragglers) and train_lm (--scale 100m, 8 steps, a
+    checkpoint every 4) — each with its wall time, its launches by kernel
+    held to the counts worked out from the code, the gates this script
+    holds at the paper's point, and each kernel it reached held against
+    its plain version on the inputs it was given;
   * LM training (phase ``train``, after the solve phases' operands are
     freed): (a) gemma3-1b at its published width and depth through
     ``launch/steps.py::build_train_step``, train_4k's sequence of 4096 and
@@ -112,7 +124,11 @@ calls, at the paper's problem (N=10000, M=3000, eps=0.05, 20 dB, T=10):
     layer (the loss 1e-6, every leaf within 2 x a rounding control's gap,
     or 1e-5 of its scale); (6) K6 and its backward at
     (1, 4096, 20, 64) and K4's int8 forms at (3)'s chunks, each against
-    its plain version. The int8 run is held to the exact one (step 1's
+    its plain version; (7) MoE with whole experts under 'tp_sp' (qwen3-moe's
+    smoke config with 3 experts of a d_ff of 129, capacity factors 1.25
+    and 1.0) in float32 against the world of one: the loss 1e-6, every
+    leaf 1e-5 of its scale, the same dropped slots. The int8 run is held
+    to the exact one (step 1's
     gradient norm 1e-2, every loss 1 %). Every K4 and K6 row of the
     kernels line carries its launches on these paths
     (``train_tp_launches``) and its error at (6)'s shapes;
@@ -206,7 +222,9 @@ stops with its kernels rows, the card's line and the last line;
 ``--tp-zoo-only`` builds the same two, runs the ``tp_zoo`` phase (the
 "model" axis across the zoo: the head_dim fallback, recurrentgemma and
 whisper over "model", K6's value-column form; worlds of 4, 8, 2 and 16
-gloo ranks sharing the card) and stops the same way.
+gloo ranks sharing the card) and stops the same way. ``--examples-only``
+builds the AMP and block-quantize kernels, runs the ``examples`` phase and
+stops with the card's line and the last line.
 """
 from __future__ import annotations
 
@@ -260,6 +278,11 @@ from repro_torch.core.state_evolution import (PAPER_T, CSProblem,  # noqa: E402
                                               se_trajectory_erasure,
                                               se_trajectory_quantized)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import launch_counts as all_counts  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    reset_launch_counts as reset_all_counts)
+from repro_torch.kernels.amp_fused.check import (  # noqa: E402
+    captured_inputs, check_captured)
 from repro_torch.kernels.amp_fused import amp_fused as k  # noqa: E402
 from repro_torch.kernels.amp_fused import col as kc  # noqa: E402
 from repro_torch.kernels.amp_fused import ref  # noqa: E402
@@ -340,8 +363,6 @@ REPLACES = {"amp_local": K1_SITES,
             # no TPU kernel: the reference takes jax.grad of its jnp
             # wkv_chunked
             "wkv6_bwd": "src/repro/models/rwkv6.py:102"}
-COUNTERS = (k.launch_counts, kc.launch_counts, kq.launch_counts,
-            kd.launch_counts, kw.launch_counts)
 # kernels that no driven path launches any more, checked and timed all the
 # same: K1's two passes (rows past 131072) and the standalone quantizer and
 # its inverse (the transport runs the fused kernel)
@@ -489,18 +510,6 @@ CLUSTER_COL = [(WIDE_N, WIDE_M, T, 0.05, 20.0, "lossless", 0.0, "bernoulli"),
                (WIDE_N, WIDE_M, T, 0.02, 20.0, "fixed", 0.0, "bernoulli")]
 
 RESULT: dict = {}
-
-
-def reset_all_counts() -> None:
-    k.reset_launch_counts()
-    kc.reset_launch_counts()
-    kq.reset_launch_counts()
-    kd.reset_launch_counts()
-    kw.reset_launch_counts()
-
-
-def all_counts() -> dict:
-    return {key: v for counts in COUNTERS for key, v in counts.items()}
 
 
 def emit(phase: str, **fields) -> None:
@@ -857,15 +866,16 @@ WIRE_CASES = [("row_D2", 2, 5120), ("row_D1", 1, 10240), ("col_D2", 2, 2048),
               ("ragged", 7, 1001), ("D4", 4, 3072)]
 
 
-def check_wire_kernels() -> dict:
+def check_wire_kernels(cases=WIRE_CASES, phase="kernel_check_wire") -> dict:
     """The forms of ``compressed_psum``'s wire against their plain versions,
-    bit for bit: K4a int8 == ``quantize_ref`` and K4b int8 ==
-    ``dequantize_ref``; K4a packed (int4 symbols two a byte) ==
-    ``quantize_ref`` then ``pack_int4``; K4b packed == ``unpack_int4`` then
-    ``dequantize_ref``; K4b's sum over rows (int8 and packed) ==
-    ``dequantize_ref(...)`` summed in row order. Scales bit for bit too."""
+    bit for bit, at each (name, R, N) of ``cases``: K4a int8 ==
+    ``quantize_ref`` and K4b int8 == ``dequantize_ref``; K4a packed (int4
+    symbols two a byte) == ``quantize_ref`` then ``pack_int4``; K4b packed
+    == ``unpack_int4`` then ``dequantize_ref``; K4b's sum over rows (int8
+    and packed) == ``dequantize_ref(...)`` summed in row order. Scales bit
+    for bit too."""
     rows = []
-    for name, r, n in WIRE_CASES:
+    for name, r, n in cases:
         x = quant_inputs(r, n, SEED + 3)
         for block in (512, 256):
             pk, sk = kq.quantize_cuda(x, 7, block, packed=True)
@@ -904,7 +914,7 @@ def check_wire_kernels() -> dict:
             assert sum8.shape == (n,), sum8.shape
             assert all(v for key, v in row.items()
                        if key.endswith("identical")), row
-    emit("kernel_check_wire", limit="bit-identical", cases=rows)
+    emit(phase, limit="bit-identical", cases=rows)
     return {(r["shape"], r["block"]): r for r in rows}
 
 
@@ -2690,6 +2700,312 @@ def run_sharded() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the examples' twins (phase examples): repro_torch.examples on the card
+# ---------------------------------------------------------------------------
+
+# Each twin's ``run`` at its defaults (the reference example's sizes), but:
+# train_lm at --scale 100m for EX_TRAIN_STEPS steps with a checkpoint every
+# EX_TRAIN_CKPT_EVERY (the CLI's 150 steps and 50); mp_amp_cluster's part 2
+# on EX_RANKS gloo ranks sharing the card (the reference's 8 emulated
+# devices), its problem drawn here from part 2's seed on the card and handed
+# to it, so that a centralized solve of the same problem stands beside it.
+# wire_demo runs at its defaults and with --smoke. The gates are the ones
+# this script holds at the paper's point: lossless == centralized within
+# EX_DX, BT (and DP) within EX_SDR_DB of lossless, int8 MSE under
+# EX_INT8_RATIO x exact; wire_demo's rANS never under the empirical
+# entropy, and the smoke run's inequalities on every coded iteration;
+# train_lm's loss finite and lower at the last step than at the first.
+# Each twin's launches by kernel are read just after it and held to the
+# counts worked out from the code (``_service_launches`` for the served
+# ones); each kernel it reached is then held against its plain version on
+# the inputs it was given (captured at its first calls of each shape: in
+# this process for the twins, in each rank for part 2), and
+# compressed_psum's forms at part 2's chunks (EX_WIRE_CASES). The twins run
+# one after another in this process, part 2's ranks after them, so that no
+# twin's wall time is read beside the ranks' start
+EX_TRAIN_SCALE, EX_TRAIN_STEPS, EX_TRAIN_CKPT_EVERY = "100m", 8, 4
+EX_RANKS = 8
+EX_DX, EX_SDR_DB, EX_INT8_RATIO = 1e-4, 0.5, 1.3
+# part 2's compressed_psum over 8 ranks: N = 4000 padded to a multiple of
+# 8 x 2 x 512, chunks of 1024 a rank; K4a on (8, 1024) and the reduced
+# (1, 1024), K4b-sum on the received (8, 1024), K4b on the gathered (8, 1024)
+EX_WIRE_CASES = [("cluster_D8", 8, 1024), ("cluster_D8_reduced", 1, 1024)]
+EX_KERNELS = ("amp_local", "col_residual", "col_inner", "quantize_blocks",
+              "dequantize_blocks", "dequantize_sum", "quantize_blocks_packed",
+              "dequantize_blocks_packed", "dequantize_sum_packed")
+
+
+def _service_launches(served) -> collections.Counter:
+    """The launches a service's batch must make, from ``served``: (bucket,
+    policy, T) of each request (no erasure, no measured wire). A row
+    bucket launches K1 once an iteration of its T_max (a lone lossless or
+    fixed request takes the singleton path: once an iteration of its own
+    T); a column bucket K2 and K3 (one inner iteration) once a round of its
+    T_max."""
+    want = collections.Counter()
+    buckets = collections.defaultdict(list)
+    for bucket, policy, t in served:
+        buckets[bucket].append((policy, t))
+    for key, members in buckets.items():
+        if key.layout == "row":
+            lone = len(members) == 1 and members[0][0] != "bt"
+            want["amp_local"] += members[0][1] if lone else key.t_max
+        else:
+            want["col_residual"] += key.t_max
+            want["col_inner"] += key.t_max
+    return want
+
+
+def _ex_counted(fn):
+    """``fn()`` with every count set to 0 just before it; its result, its
+    wall seconds and its launches (the kernels it launched) read just
+    after."""
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {
+        key: v for key, v in all_counts().items() if v}
+
+
+def run_examples(device: str = "cuda") -> dict:
+    """Phase ``examples``: the six twins of ``examples/*.py`` on ``device``
+    (the card; the block comment above). Every check is read before the
+    phase's line
+    is printed, and the phase fails after it if any failed. Returns the
+    twins' launches by kernel and the largest error of each kernel against
+    its plain version at their shapes."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import (mp_amp_cluster, observe, quickstart,
+                                      serve_mixed, train_lm, wire_demo)
+    t_phase = time.perf_counter()
+    failed, twins = [], {}
+
+    def check(ok, what, *detail):
+        if not ok:
+            failed.append([what, *detail])
+
+    def launches_agree(name, got, want):
+        want = {key: v for key, v in want.items() if v}
+        check(got == want, f"{name} launches", got, want)
+
+    with captured_inputs() as seen:
+        # quickstart: centralized, lossless and BT, K1 once an iteration
+        r, wall, got = _ex_counted(lambda: quickstart.run(device))
+        t = r["n_iter"]
+        launches_agree("quickstart", got, {"amp_local": 3 * t})
+        check(r["max_dx_lossless"] <= EX_DX, "quickstart lossless",
+              r["max_dx_lossless"])
+        check(r["sdr_lossless"] - r["sdr_bt"] < EX_SDR_DB, "quickstart BT",
+              r["sdr_lossless"], r["sdr_bt"])
+        check(all(np.isfinite(v).all() for v in r["x"].values()),
+              "quickstart finite")
+        twins["quickstart"] = {
+            "wall_s": wall, "launches": got,
+            **{key: r[key] for key in (
+                "sdr_centralized", "sdr_lossless", "max_dx_lossless",
+                "sdr_bt", "bits_bt", "saved_pct", "rates_bt")}}
+
+        # serve_mixed: five requests, four buckets (two row, two column)
+        r, wall, got = _ex_counted(lambda: serve_mixed.run(device))
+        launches_agree("serve_mixed", got, _service_launches(
+            (row["bucket"], row["policy"], row["spec"][5])
+            for row in r["requests"]))
+        check(r["n_buckets"] == 4, "serve_mixed bucket count",
+              r["n_buckets"])
+        check(all(np.isfinite(row["x"]).all() and np.isfinite(row["sdr"])
+                  for row in r["requests"]), "serve_mixed finite")
+        twins["serve_mixed"] = {
+            "wall_s": wall, "launches": got, "n_buckets": r["n_buckets"],
+            "requests": [{"policy": row["policy"], "sdr": row["sdr"],
+                          "bits": row["bits"],
+                          "bucket": row["bucket_label"]}
+                         for row in r["requests"]]}
+
+        # observe: three lossless requests, the middle one's SNR a lie
+        r, wall, got = _ex_counted(lambda: observe.run(device))
+        launches_agree("observe", got, _service_launches(
+            (row["bucket"], "lossless", row["spec"][6])
+            for row in r["requests"]))
+        alerts = [row["alert"] for row in r["requests"]]
+        check(alerts == [False, True, False], "observe drift alert",
+              [row["drift"] for row in r["requests"]])
+        check(all(row["tree"][0] == "admit"
+                  and row["tree"][-1] == "complete"
+                  for row in r["requests"]), "observe span trees",
+              [row["tree"] for row in r["requests"]])
+        twins["observe"] = {
+            "wall_s": wall, "launches": got,
+            "drift": [row["drift"] for row in r["requests"]],
+            "alert": [row["alert"] for row in r["requests"]],
+            "trees": [row["tree"] for row in r["requests"]],
+            "spans_ms": [row["spans_ms"] for row in r["requests"]],
+            "latency_p95_s": r["latency_p95_s"],
+            "prometheus_lines": len(r["prometheus"])}
+
+        # wire_demo: the BT solve at its defaults, and --smoke
+        for tag, smoke in (("wire_demo", False),
+                           ("wire_demo_smoke", True)):
+            r, wall, got = _ex_counted(
+                lambda: wire_demo.run(device, smoke))
+            launches_agree(tag, got, {"amp_local": r["n_iter"]})
+            coded = [row for row in r["rows"] if "rans" in row]
+            check(r["roundtrip_checked"] and r["total_rans"] > 0
+                  and all(row["rans"] >= row["h_emp"] - 1e-6
+                          for row in coded), f"{tag} rANS", coded)
+            # the reference's smoke inequality on the coder's overhead
+            # (its --smoke problem only: at N = 2000 its few bytes a
+            # processor need not fit under 0.1 + 512 / N bits)
+            check(not smoke or all(
+                row["rans"] <= row["h_emp"] + 0.1 + 64.0 * 8 / r["n"]
+                for row in coded), f"{tag} smoke inequalities", coded)
+            twins[tag] = {
+                "wall_s": wall, "launches": got,
+                "final_mse": r["final_mse"],
+                "rows": coded, "total_h_q": r["total_h_q"],
+                "total_emp": r["total_emp"], "total_rans": r["total_rans"],
+                "total_int8": r["total_int8"]}
+
+        # mp_amp_cluster part 1: the paper's point, centralized, BT and DP
+        r, wall, got = _ex_counted(lambda: mp_amp_cluster.part1(device))
+        launches_agree("mp_amp_cluster part 1", got,
+                       {"amp_local": 3 * r["n_iter"]})
+        for key in ("bt", "dp"):
+            check(r["sdr_centralized"] - r[f"sdr_{key}"] < EX_SDR_DB,
+                  f"part 1 {key}", r["sdr_centralized"], r[f"sdr_{key}"])
+        twins["mp_amp_cluster_part1"] = {
+            "wall_s": wall, "launches": got,
+            **{key: r[key] for key in (
+                "sdr_centralized", "sdr_bt", "bits_bt", "sdr_dp",
+                "bits_dp", "paper_bits")},
+            "note": "the paper's bits are printed, not gated (ROADMAP.md "
+                    "Queue 3: the tier-2 golden is stale)"}
+
+    # train_lm: --scale 100m, EX_TRAIN_STEPS steps, a checkpoint every
+    # EX_TRAIN_CKPT_EVERY; no kernel of the port's: a dense decoder's train
+    # step
+    ckpt = tempfile.mkdtemp(prefix="amp_train_lm_")
+    try:
+        r, wall, got = _ex_counted(lambda: train_lm.run(
+            device, steps=EX_TRAIN_STEPS, scale=EX_TRAIN_SCALE, ckpt=ckpt,
+            ckpt_every=EX_TRAIN_CKPT_EVERY))
+        saved = sorted(os.listdir(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches_agree("train_lm", got, {})
+    check(len(r["losses"]) == EX_TRAIN_STEPS
+          and all(np.isfinite(r["losses"]))
+          and r["losses"][-1] < r["losses"][0], "train_lm loss falls",
+          r["losses"])
+    check(len(saved) >= 2, "train_lm checkpoints", saved)
+    twins["train_lm"] = {
+        "wall_s": wall, "launches": got, "scale": EX_TRAIN_SCALE,
+        "steps": EX_TRAIN_STEPS, "n_params": r["n_params"],
+        "losses": r["losses"], "first10": r["first10"],
+        "last10": r["last10"], "improvement": r["improvement"],
+        "checkpoints": saved}
+
+    # mp_amp_cluster part 2: EX_RANKS gloo ranks sharing the card, each
+    # counting its launches from 0 at its start and holding K1 against its
+    # plain version at its row shard's shape (after its solves)
+    prior2 = BernoulliGauss(eps=mp_amp_cluster.EPS2)
+    prob2 = CSProblem(n=mp_amp_cluster.N2, m=mp_amp_cluster.M2, prior=prior2)
+    s0_2, a_2, y_2 = sample_problem(1, prob2.n, prob2.m, prior2,
+                                    prob2.sigma_e2, device=device)
+    t0 = time.perf_counter()
+    r2 = mp_amp_cluster.part2(device, EX_RANKS, problem=(s0_2, a_2, y_2),
+                              check_kernels=True)
+    wall = time.perf_counter() - t0
+    t2 = r2["n_iter"]
+    rank_want = {"amp_local": 4 * t2, "quantize_blocks": 2 * 2 * t2,
+                 "dequantize_sum": 2 * t2, "dequantize_blocks": 2 * t2,
+                 "quantize_blocks_packed": 2 * t2,
+                 "dequantize_sum_packed": t2,
+                 "dequantize_blocks_packed": t2}
+    part2_launches = collections.Counter()
+    for i, rank in enumerate(r2["launches"]):
+        rank = {key: v for key, v in rank.items() if v}
+        launches_agree(f"part 2 rank {i}", rank, rank_want)
+        part2_launches.update(rank)
+    cen2 = amp_solve(y_2, a_2, prior2, t2, s0=s0_2.cpu().numpy(),
+                     device=device)
+    rows = {row["label"].strip(): row for row in r2["rows"]}
+    dx2 = float(np.abs(rows["exact fusion"]["x"] - cen2.x).max())
+    check(dx2 <= EX_DX, "part 2 exact == centralized", dx2)
+    ratio = rows["int8 compressed psum"]["mse"] / rows["exact fusion"]["mse"]
+    check(ratio < EX_INT8_RATIO, "part 2 int8 MSE", ratio)
+    check(all(row["ranks_agree"] for row in r2["rows"]), "part 2 ranks agree")
+    twins["mp_amp_cluster_part2"] = {
+        "wall_s": wall, "ranks": r2["ranks"], "rank_launches": rank_want,
+        "max_abs_dx_exact_vs_centralized": dx2, "int8_mse_over_exact": ratio,
+        "start_seconds": r2["start_seconds"],
+        "rows": [{key: row[key] for key in ("label", "sdr", "wire",
+                                             "noise_var", "seconds")}
+                 for row in r2["rows"]]}
+    del a_2, y_2, cen2
+
+    _free()
+
+    # every kernel the twins reached, against its plain version on the
+    # inputs it was given; compressed_psum's forms at part 2's chunks
+    t_checks = time.perf_counter()
+    kernel_rows = check_captured(seen)
+    del seen
+    for row in kernel_rows:
+        row["where"] = "twins"
+    # part 2's K1 at a rank's row shard, checked in each rank
+    for i, rank in enumerate(r2["kernel_checks"]):
+        check(any(row["kernel"] == "amp_local" for row in rank),
+              f"part 2 rank {i} K1 checked", rank)
+        kernel_rows += [{**row, "where": f"part 2 rank {i}"} for row in rank]
+    for row in kernel_rows:
+        check(all(v <= KERNEL_RTOL for key_, v in row.items()
+                  if key_.endswith("rel_err")), "kernel against plain", row)
+    wire = check_wire_kernels(EX_WIRE_CASES, "kernel_check_wire_examples")
+    max_err = collections.defaultdict(float)
+    for row in kernel_rows:
+        max_err[row["kernel"]] = max(
+            max_err[row["kernel"]],
+            *(v for key_, v in row.items() if key_.endswith("max_abs_err")))
+    wire_err = max(row["max_abs_err"] for row in wire.values())
+    for name in EX_KERNELS[3:]:
+        max_err[name] = wire_err
+    launches = collections.Counter(part2_launches)
+    for twin in twins.values():
+        launches.update(twin.get("launches", {}))
+    emit("examples", card=nvidia_smi_line(),
+         note="gloo ranks sharing one card in part 2: oversubscription, "
+              "not scaling",
+         reduced={"train_lm": f"--steps 150 -> {EX_TRAIN_STEPS}, "
+                              f"checkpoints every {EX_TRAIN_CKPT_EVERY}"},
+         failed=failed, twins=twins, wall_s={
+             key: v["wall_s"] for key, v in twins.items()},
+         launches=dict(launches),
+         kernels_at_twin_shapes=kernel_rows,
+         limits={"lossless_max_abs_dx": EX_DX, "sdr_db_below": EX_SDR_DB,
+                 "int8_mse_over_exact": EX_INT8_RATIO,
+                 "kernel_rel_err": KERNEL_RTOL, "k4": "bit-identical"},
+         seconds_kernel_checks=time.perf_counter() - t_checks,
+         seconds=time.perf_counter() - t_phase)
+    assert not failed, failed
+    return {"launches": dict(launches), "max_abs_err": dict(max_err)}
+
+
+def add_examples_launches(kernels: list, ex_ctx) -> None:
+    """Each K1, K2, K3 and K4-wire row of the kernels line also carries its
+    launches on the examples phase's paths (every twin, part 2's ranks
+    summed) and its largest error against its plain version at the twins'
+    shapes."""
+    for row in kernels:
+        if row["name"] in EX_KERNELS:
+            row["examples_launches"] = ex_ctx["launches"].get(row["name"], 0)
+            row["examples_max_abs_err"] = ex_ctx["max_abs_err"].get(
+                row["name"])
+
+
+# ---------------------------------------------------------------------------
 # LM training (phase train)
 # ---------------------------------------------------------------------------
 
@@ -3860,6 +4176,15 @@ TP_K4_CHUNKS = (75497472, 7962624, 1179648, 589824, 3072, 1024)
 # 700 W); a pod's gradient left out of the sum, or counted twice, moves it
 # by far more (a CPU mutation run on the smoke config: PERF.md, train_tp)
 TP_INT8_NORM = 1e-2
+# (7) MoE with whole experts under 'tp_sp': qwen3-moe's smoke config with
+# 3 experts of a d_ff of 129 (neither divides "model" = 2, so every rank
+# holds every expert whole and runs the layer on the gathered token set),
+# float32 weights and LM head, at (1, 2) against the world of one computed
+# in this process before the world spawns: the loss within TP_F32_LOSS,
+# every leaf's fused gradient (the router's and the experts' among them)
+# within TP_F32_GRAD of its scale, every dispatch's kept slots the same; at
+# the config's capacity factor and at 1.0, where slots are dropped
+TP_MOE_WHOLE = (("qwen3-moe/whole", 1.25), ("qwen3-moe/whole_cf1", 1.0))
 TP_KERNELS = ("quantize_blocks", "dequantize_blocks", "dequantize_sum",
               "quantize_blocks_packed", "dequantize_blocks_packed",
               "dequantize_sum_packed", "wkv6", "wkv6_bwd")
@@ -3872,7 +4197,9 @@ TP_REDUCED = {
     "tp_sp / fsdp": f"{TP_SP_LAYERS} of 26 layers, global batch 2",
     "rwkv6-3b tp": f"{TP_RWKV_LAYERS} of 32 layers, global batch 2 in 2 "
                    "microbatches",
-    "rwkv6-3b float32 guard": f"{TP_RWKV_F32_LAYERS} of 32 layers"}
+    "rwkv6-3b float32 guard": f"{TP_RWKV_F32_LAYERS} of 32 layers",
+    "qwen3-moe whole experts tp_sp": "the smoke config with 3 experts of a "
+                                     "d_ff of 129, global batch 2"}
 
 
 def _local_grid() -> GridMesh:
@@ -4011,6 +4338,47 @@ def _tp_grads(mesh, cfg, shape, tcfg, want: str | None = None,
     return float(loss), gaps
 
 
+def _moe_whole_cfg(cf: float):
+    """(7)'s config: qwen3-moe's smoke config with 3 experts of a d_ff of
+    129 at capacity factor ``cf``."""
+    return dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b").smoke_config(), n_experts=3,
+        d_ff=129, capacity_factor=cf)
+
+
+def _moe_whole_checks(ones: dict, ranks: list, check) -> dict:
+    """(7)'s comparisons of every rank's cases against the world of one
+    (``ones``: ``world_of_one``'s)."""
+    out = {}
+    for name, cf in TP_MOE_WHOLE:
+        want = ones[name]
+        worst = _merge_gaps([r[name]["gaps"] for r in ranks])
+        rec = out[name] = {
+            "capacity_factor": cf, "loss_one": want["loss"],
+            "dispatches": len(want["keeps"]),
+            "dropped_slots": int(sum((~k_).sum() for k_ in want["keeps"])),
+            "loss_rel": [_rel_gap(r[name]["loss"], want["loss"])
+                         for r in ranks],
+            "worst_leaf": max(worst.items(), key=lambda kv: kv[1])}
+        check(max(rec["loss_rel"]) <= TP_F32_LOSS, f"{name} loss",
+              rec["loss_rel"])
+        check(rec["worst_leaf"][1] <= TP_F32_GRAD, f"{name} leaves",
+              rec["worst_leaf"])
+        for r in ranks:
+            got = r[name]["keeps"]
+            check(len(got) == len(want["keeps"]) and all(
+                np.array_equal(a, b) for a, b in zip(got, want["keeps"])),
+                  f"{name} dropped slots")
+        # the router's and the experts' gradients are not all zero
+        check(all(max(r[name]["gaps"][k_][1] for r in ranks) > 0 for k_ in (
+            "layers/router", "layers/we_gate", "layers/we_up",
+            "layers/we_down")), f"{name} expert gradients")
+        if cf < 1.25:
+            check(rec["dropped_slots"] > 0, f"{name} drops slots",
+                  rec["dropped_slots"])
+    return out
+
+
 def _merge_gaps(ranks: list) -> dict:
     """Each leaf's largest gap over every rank's slice, over the world of
     one's largest magnitude (``_tp_grads``' pairs of every rank)."""
@@ -4033,24 +4401,27 @@ def _f32_aux(cfg, batch: int) -> dict | None:
 
 def world_of_one(cases, shape, tcfg, tmp: str) -> dict:
     """The float32 guards' world of one, in this process before their
-    world spawns: per (arch, layers, control) of ``cases`` the loss and the
-    whole fused gradients saved to a file under ``tmp``; with ``control``
-    also each leaf's gap under one float32 rounding of every weight
+    world spawns: per (key, cfg, control) of ``cases`` the loss, every MoE
+    dispatch's kept slots (``moe.recorded_keeps``) and the whole fused
+    gradients saved to a file under ``tmp``; with ``control`` also each
+    leaf's gap under one float32 rounding of every weight
     (``_tp_grads(jitter=True)`` against that file), over its scale."""
     out = {}
-    for arch, layers, control in cases:
-        cfg = _cut_cfg(arch, layers)
+    for key, cfg, control in cases:
         aux = _f32_aux(cfg, shape.global_batch)
-        loss, g = _tp_grads(_local_grid(), cfg, shape, tcfg, aux=aux)
-        rec = {"loss": loss, "path": os.path.join(tmp, f"{arch}_{layers}.pt")}
+        with lm_moe.recorded_keeps() as keeps:
+            loss, g = _tp_grads(_local_grid(), cfg, shape, tcfg, aux=aux)
+        rec = {"loss": loss, "keeps": [k_.cpu().numpy() for k_ in keeps],
+               "path": os.path.join(tmp, re.sub(r"\W", "_", str(key))
+                                    + ".pt")}
         torch.save({k_: v.cpu() for k_, v in g.items()}, rec["path"])
-        del g
+        del g, keeps
         _free()
         if control:
             _, gaps = _tp_grads(_local_grid(), cfg, shape, tcfg,
                                 want=rec["path"], jitter=True, aux=aux)
             rec["control"] = _merge_gaps([gaps])
-        out[(arch, layers)] = rec
+        out[key] = rec
     return out
 
 
@@ -4175,6 +4546,14 @@ def train_tp_rank(serve_mesh, ones: dict) -> dict:
     for name in ("tp_sp", "fsdp"):
         out[name] = _tp_steps(grid, cut, shape, tcfgs[name], 1,
                               leaf_norms=True)
+    # (7) whole experts under 'tp_sp', every dispatch's kept slots
+    out["moe_whole"] = {}
+    for name, cf in TP_MOE_WHOLE:
+        with lm_moe.recorded_keeps() as keeps:
+            loss, gaps = _tp_grads(grid, _moe_whole_cfg(cf), shape,
+                                   tcfgs["tp_sp"], want=ones[name]["path"])
+        out["moe_whole"][name] = {"loss": loss, "gaps": gaps, "keeps": [
+            k_.cpu().numpy() for k_ in keeps]}
     # (5) rwkv6-3b 'tp', TP_RWKV_LAYERS layers
     rcfg = dataclasses.replace(get_config(TP_RWKV_ARCH),
                                n_layers=TP_RWKV_LAYERS)
@@ -4221,8 +4600,10 @@ def run_train_tp() -> dict:
     t_kernels = time.perf_counter() - t_phase
     store_dir = tempfile.mkdtemp(prefix="amp_train_tp_")
     ones = world_of_one(
-        [(TP_ARCH, TP_F32_LAYERS, False),
-         (TP_RWKV_ARCH, TP_RWKV_F32_LAYERS, True)],
+        [((TP_ARCH, TP_F32_LAYERS), _cut_cfg(TP_ARCH, TP_F32_LAYERS), False),
+         ((TP_RWKV_ARCH, TP_RWKV_F32_LAYERS),
+          _cut_cfg(TP_RWKV_ARCH, TP_RWKV_F32_LAYERS), True)]
+        + [(name, _moe_whole_cfg(cf), False) for name, cf in TP_MOE_WHOLE],
         ShapeSpec("train_4k_cut", TP_SEQ, TP_BATCH, "train"),
         TrainStepConfig(microbatches=TP_MB), store_dir)
     t_one = time.perf_counter() - t_phase - t_kernels
@@ -4369,6 +4750,9 @@ def run_train_tp() -> dict:
             unchecked = {key for key in got if int(key.split(" N")[-1])
                          not in TP_K4_CHUNKS}
             check(not unchecked, "K4 at an unchecked chunk", unchecked)
+    # (7) whole experts under 'tp_sp'
+    moe_whole = _moe_whole_checks(ones, [r["moe_whole"] for r in two],
+                                  check)
     pod_gap = abs(four[0]["int8"]["loss"][-1] - four[0]["exact"]["loss"][-1])
     pod_norm_gap = _rel_gap(four[0]["int8"]["grad_norm"][0],
                             four[0]["exact"]["grad_norm"][0])
@@ -4412,6 +4796,7 @@ def run_train_tp() -> dict:
                       "k6_calls_by_heads": [r["rwkv"]["k6_calls_by_heads"]
                                             for r in two],
                       "float32_guard": guard},
+         moe_whole_experts_tp_sp=moe_whole,
          kernels_at_phase_shapes=kernels,
          launches=dict(launches), launches_by_shape=dict(by_shape),
          limits={"loss_rel": TP_LOSS_RTOL, "grad_norm_rel": TP_NORM_RTOL,
@@ -5392,9 +5777,11 @@ def run_tp_zoo() -> dict:
     for group in ((8,), (4, 2), (16,)):
         t0 = time.perf_counter()
         for n in group:
-            cases = ([(TPZ_RWKV, TPZ_RWKV_LAYERS, True)] if n == 16 else
-                     sorted({(a, layers, False)
-                             for a, layers, _ in TPZ_F32_CASES[n]}))
+            cases = [((a, layers), _cut_cfg(a, layers), control)
+                     for a, layers, control in (
+                         [(TPZ_RWKV, TPZ_RWKV_LAYERS, True)] if n == 16
+                         else sorted({(a, layers, False)
+                                      for a, layers, _ in TPZ_F32_CASES[n]}))]
             ones[n] = world_of_one(cases, ShapeSpec(
                 "tpz_f32", TPZ_F32_SEQ, TPZ_F32_BATCH, "train"),
                 TrainStepConfig(), store_dir)
@@ -6706,6 +7093,13 @@ def main() -> None:
                            "ranks sharing the card) and stop: its kernels "
                            "rows, the card's line and the last line as in "
                            "a full run")
+    only.add_argument("--examples-only", action="store_true",
+                      help="build the AMP and block-quantize kernels, run "
+                           "the examples phase (the six twins of "
+                           "examples/*.py on the card, their launches and "
+                           "their kernels against the plain versions) and "
+                           "stop: the card's line and the last line as in "
+                           "a full run")
     only.add_argument("--sharded-only", action="store_true",
                       help="build every kernel, check the wire forms, run "
                            "the sharded phase and time the wire forms "
@@ -6731,6 +7125,7 @@ def main() -> None:
                                            or args.train_tp_only)
              else ["decode_attn", "wkv6"] if (args.serve_tp_only
                                               or args.tp_zoo_only)
+             else ["amp_local", "amp_col", "quantize"] if args.examples_only
              else ["amp_local", "amp_col", "quantize", "decode_attn", "wkv6"])
     paths = build.ensure_built(names)
     libraries = {"amp_local": k, "amp_col": kc, "quantize": kq,
@@ -6785,6 +7180,16 @@ def main() -> None:
         print(json.dumps({"kernels": rows}), flush=True)
         print_last_line()
         return
+    if args.examples_only:
+        run_examples()
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(RESULT, fh, indent=1)
+        print(smi, flush=True)
+        print_last_line()
+        return
     if args.train_tp_only:
         run_train_tp()
         if args.out:
@@ -6809,7 +7214,7 @@ def main() -> None:
     if args.serve_tp_only or not any(
             (args.k6_only, args.k5_only, args.k4_only, args.zoo_only,
              args.train_only, args.train_zoo_only, args.train_tp_only,
-             args.sharded_only)):
+             args.sharded_only, args.examples_only)):
         start_dryrun()
     if args.serve_tp_only:
         rows = run_serve_tp()["rows"]
@@ -6874,6 +7279,7 @@ def main() -> None:
     erasure_ctx = run_erasure(ctx, col_ctx)
     cluster_ctx = run_cluster()
     sharded_ctx = run_sharded()
+    ex_ctx = run_examples()
     errs_da = check_decode_attn_kernel()
     errs_wkv = check_wkv6_kernel()
     check_lm_small()
@@ -6999,6 +7405,8 @@ def main() -> None:
     kernels += train_zoo_kernel_rows(train_zoo_ctx)
     # every K4 and K6 row: its launches on the train_tp phase's paths
     add_train_tp_launches(kernels, train_tp_ctx)
+    # K1, K2, K3 and K4's wire forms: their launches on the twins' paths
+    add_examples_launches(kernels, ex_ctx)
     # K5's slice form on the serve_tp phase's paths, (a) and (c)
     kernels += serve_tp_ctx["rows"]
     # K5's slice form at the tp_zoo phase's shapes, K6's value-column form

@@ -94,6 +94,28 @@ class ModelConfig:
         pat = self.attn_pattern
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once if tied), the
+        reference's formula."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_padded
+        h, kv, dh = self.n_heads, self.n_kv_heads, self.d_head
+        if self.family == "rwkv6":
+            per_layer = 4 * d * d + 2 * d * f + d * d  # tmix (r,k,v,o,g) + cmix
+            per_layer += 6 * 32 * d * 2 + d * dh  # lora decay/mix params (approx)
+            return (v * d + self.n_layers * per_layer
+                    + (0 if self.tie_embeddings else v * d))
+        attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        if self.family == "moe":
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            mlp = 3 * d * f
+        layers = self.n_layers * (attn + mlp + 2 * d)
+        if self.family == "whisper":
+            layers += self.n_enc_layers * (attn + mlp + 2 * d)  # encoder
+            layers += self.n_layers * (attn + 2 * d)            # cross-attn
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        return layers + embed
+
     def smoke_config(self) -> "ModelConfig":
         """Reduced same-family config for CPU smoke tests."""
         if self._smoke is not None:

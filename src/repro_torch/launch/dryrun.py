@@ -25,9 +25,8 @@ or the prefill or decode step of ``build_serve_step``) runs once on
     / all-to-all (n-1)/n, a point-to-point 1);
   * ``n_devices``.
 
-A cell that a gap of the port stops (the "model" axis's head_dim fallback,
-rglru or whisper at model 16: ROADMAP.md Queue 1 item 8(h′)) is recorded
-``ok: false`` with its error, as the reference records a FAIL.
+A cell that raises is recorded ``ok: false`` with its error, as the
+reference records a FAIL.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh pod1

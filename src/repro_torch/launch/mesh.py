@@ -33,12 +33,15 @@ Importing this module touches no device and starts nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
 import math
 import os
+import pickle
 import queue as queue_mod
+import sys
 import time
 import traceback
 from typing import ClassVar
@@ -348,9 +351,11 @@ def make_cluster_mesh(device: str | None = None) -> Mesh:
 
 # -- a world of spawned processes ---------------------------------------------
 
-def _rank_main(fn, rank, world, backend, device, store_path, args, out,
-               threads, timeout_s):
+def _rank_main(fn, rank, world, backend, device, store_path, args_path,
+               out, threads, timeout_s):
     try:
+        with open(args_path, "rb") as fh:
+            args = pickle.load(fh)
         if threads is not None:
             torch.set_num_threads(threads)
         init_cluster(num_processes=world, process_id=rank, backend=backend,
@@ -366,6 +371,30 @@ def _rank_main(fn, rank, world, backend, device, store_path, args, out,
         out.put((rank, False, traceback.format_exc()))
 
 
+@contextlib.contextmanager
+def _children_skip_main(fn):
+    """While the block starts children, and ``fn`` is not of the parent's
+    ``__main__``: that module's path and spec hidden, so that a spawned
+    child imports only what unpickling ``fn`` and its arguments needs.
+    Otherwise it first runs the parent's main script again as its own
+    ``__mp_main__``, all of that script's imports included: for a script
+    that imports the whole port, every child imports all of it at once
+    before it starts its work."""
+    main = sys.modules["__main__"]
+    if getattr(fn, "__module__", "__main__") == "__main__":
+        yield
+        return
+    saved = {key: main.__dict__[key] for key in ("__file__", "__spec__")
+             if key in main.__dict__}
+    main.__dict__.pop("__file__", None)
+    main.__spec__ = None
+    try:
+        yield
+    finally:
+        main.__dict__.pop("__spec__", None)
+        main.__dict__.update(saved)
+
+
 def spawn_world(fn, world: int, *, backend: str, device: str | None,
                 store_path: str, args: tuple = (), timeout_s: float = 600.0,
                 threads: int | None = None) -> list:
@@ -379,15 +408,23 @@ def spawn_world(fn, world: int, *, backend: str, device: str | None,
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    # the arguments go to the children through a file: a child reads its
+    # start pipe only as far as it has imported what unpickling needs, and
+    # the parent's write of a pipe past its buffer waits for that, so
+    # arrays passed there made the children start one after another
+    args_path = store_path + ".args"
+    with open(args_path, "wb") as fh:
+        pickle.dump(args, fh, protocol=pickle.HIGHEST_PROTOCOL)
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, world, backend, device, store_path,
-                               args, out, threads, timeout_s))
+                               args_path, out, threads, timeout_s))
              for r in range(world)]
-    for p in procs:
-        p.start()
     deadline = time.monotonic() + timeout_s
     results, errors = {}, {}
     try:
+        with _children_skip_main(fn):
+            for p in procs:
+                p.start()
         while len(results) + len(errors) < world:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -408,11 +445,13 @@ def spawn_world(fn, world: int, *, backend: str, device: str | None,
             (results if ok else errors)[rank] = res
     finally:
         for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.pid is not None:
+                p.join(timeout=max(1.0, deadline - time.monotonic()))
         for p in procs:
-            if p.is_alive():
+            if p.pid is not None and p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        os.remove(args_path)
     if errors:
         raise RuntimeError("spawn_world: " + "".join(
             f"\nrank {r}:\n{tb}" for r, tb in sorted(errors.items())))

@@ -54,9 +54,10 @@ Gradients of "model"-sliced leaves are the rank's own; ZeRO-1 slices the
 rank's slice along a dimension the "model" axis leaves whole, over the
 rules' "zero" axes (the reference's ``_rules_with_zero``). Where the heads
 do not divide the axis the rules slice the head_dim, and so do the
-parameters here. MoE with whole experts under 'tp_sp' raises
-(``NotImplementedError``, ROADMAP.md Queue 1 item 8(h′)); nothing is
-replicated where the rules slice.
+parameters here. MoE with whole experts (neither "experts" nor
+"expert_mlp" divides "model") runs on every rank's whole token set under
+'tp_sp', as the reference's does (``transformer.moe_whole_tp``); nothing
+is replicated where the rules slice.
 
 ``build_serve_step`` (``ServeStep``) is the LM serving step over the same
 meshes: prefill under the 'tp' rules (the logits of the last 64 positions,
@@ -231,11 +232,6 @@ class TrainStep:
             need += layer_leaves(self.cfg)
         _need_sliced(self.cfg, self.model_dims, need,
                      self.mesh.shape["model"])
-        if (self.tcfg.strategy == "tp_sp" and self.cfg.n_experts
-                and self.model_dims["layers/we_gate"] is None):
-            raise NotImplementedError(
-                f"{self.cfg.name}: whole experts under 'tp_sp' would route "
-                "the rank's rows apart (ROADMAP.md Queue 1 item 8(h′))")
 
     def _owns(self, k: str) -> bool:
         """Whether this rank's piece of leaf ``k`` counts in the gradient

@@ -20,12 +20,14 @@ spare memory; training takes the same products out of place.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..tensor_parallel import row_mm
 from .layers import mm_f32
 
-__all__ = ["moe_mlp", "route"]
+__all__ = ["moe_mlp", "recorded_keeps", "route"]
 
 
 def _dispatch_group(x_g, e_idx_g, capacity: int, n_experts: int):
@@ -61,6 +63,26 @@ def _dispatch_group(x_g, e_idx_g, capacity: int, n_experts: int):
     buf = x_g.new_zeros((g, n_experts * capacity + 1, x_g.shape[-1]))
     buf.scatter_(1, dest_sorted[..., None].expand_as(tok), tok)
     return buf, dest, keep
+
+
+@contextlib.contextmanager
+def recorded_keeps():
+    """Every dispatch's ``keep`` (which routed slots fit their expert's
+    capacity; a copy, on the tensor's device), in call order, while the
+    block runs: what two runs that must drop the same slots compare."""
+    global _dispatch_group
+    saved, keeps = _dispatch_group, []
+
+    def recording(*args):
+        buf, dest, keep = saved(*args)
+        keeps.append(keep.detach().clone())
+        return buf, dest, keep
+
+    _dispatch_group = recording
+    try:
+        yield keeps
+    finally:
+        _dispatch_group = saved
 
 
 def route(xf, router_w, top_k: int):

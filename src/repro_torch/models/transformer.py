@@ -331,23 +331,38 @@ def swiglu_tp(h, w_gate, w_up, w_down, d_ff: int, tp):
                     h.dtype)
 
 
+def moe_whole_tp(h, lp, cfg, n_groups: int, tp):
+    """The MoE of the normed residual h with whole experts (neither
+    "experts" nor "expert_mlp" divides "model"): under 'tp' h is whole and
+    the layer runs as at model = 1; under 'tp_sp' the rank's rows are
+    gathered, the layer runs on the whole token set, as the reference's
+    does whatever the residual's sharding (so the routing groups and the
+    capacity drops are the world of one's), and the rank keeps its rows
+    of the output by a split that does not sum (every rank computed the
+    whole of it). The weights enter through ``rep``: each rank's gradient
+    of them is its rows' share, summed over "model"."""
+    if not tp.sp:
+        return moe_mlp(h, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
+                       n_groups)
+    hin = tp.enter(h)
+    out = moe_mlp(hin, tp.rep(lp.router), tp.rep(lp.we_gate),
+                  tp.rep(lp.we_up), tp.rep(lp.we_down), cfg, n_groups)
+    rows = tp.seq_rows(hin.shape[1])
+    return out.narrow(1, rows.start, len(rows))
+
+
 def _mlp_tp(h, lp, cfg, n_groups: int, tp):
     """The MLP of the normed residual h under the "model" axis: experts
     (or each expert's d_ff) or the mlp columns sliced, as a region; whole
     weights (d_ff does not divide) computed as at model = 1 on the rows
-    the rank holds."""
+    the rank holds, whole experts on every row (``moe_whole_tp``)."""
     if cfg.n_experts:
         if tp.sliced("layers/we_gate"):
             hin = tp.enter(h)
             return tp.leave(moe_mlp(hin, tp.rep(lp.router), lp.we_gate,
                                     lp.we_up, lp.we_down, cfg, n_groups,
                                     tp=tp), h.dtype)
-        if tp.sp:
-            raise NotImplementedError(
-                f"{cfg.name}: whole experts under 'tp_sp' would route the "
-                "rank's rows apart (ROADMAP.md Queue 1 item 8(h′))")
-        return moe_mlp(h, lp.router, lp.we_gate, lp.we_up, lp.we_down, cfg,
-                       n_groups)
+        return moe_whole_tp(h, lp, cfg, n_groups, tp)
     return swiglu_tp(h, lp.w_gate, lp.w_up, lp.w_down, cfg.d_ff, tp)
 
 

@@ -43,7 +43,7 @@ from repro.models import get_model as j_get_model
 from repro.optim import adamw_init as j_adamw_init
 from repro_torch import convert
 from repro_torch.configs import ShapeSpec, get_config
-from repro_torch.launch.mesh import GridMesh, make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import TrainStepConfig, build_train_step
 from repro_torch.models import chunked_xent_loss
 
@@ -227,12 +227,7 @@ def test_train_step_reads_nothing_on_the_host(ref, monkeypatch):
     assert np.isfinite(float(m["loss"]))
 
 
-# -- what is not ported ------------------------------------------------------------
-
-def _fake_mesh(shape):
-    return GridMesh(shape=shape, coords={a: 0 for a in shape}, rank=0,
-                    device=torch.device("cpu"), meshes={})
-
+# -- the "model" axis's rules --------------------------------------------------
 
 def _reference_model_dims(cfg, shape: dict, strategy: str) -> dict:
     """Each leaf's "model" dimension under the JAX package's rules of its
@@ -274,21 +269,15 @@ def _reference_model_dims(cfg, shape: dict, strategy: str) -> dict:
          "shape4-moe-tp_sp"])
 def test_tensor_parallel_and_other_strategies_raise(arch, shape, strategy):
     """Every family builds on a "model" axis wherever the rules put it
-    (rglru and whisper at model > 1, the rules' head_dim fallback), each
-    leaf's "model" dimension the reference's; what it does not cover, MoE
-    with whole experts under 'tp_sp', raises naming ROADMAP.md Queue 1 item
-    8(h′)."""
+    (rglru and whisper at model > 1, the rules' head_dim fallback, MoE
+    with whole experts under 'tp_sp'), each leaf's "model" dimension the
+    reference's."""
     name, _, variant = arch.partition("/")
     cfg = get_config(name)
     if name != "gemma3-1b":
         cfg = cfg.smoke_config()
     if variant == "whole":
         cfg = dataclasses.replace(cfg, n_experts=3, d_ff=129)
-        with pytest.raises(NotImplementedError, match=r"8\(h′\)"):
-            build_train_step(cfg, _fake_mesh(shape),
-                             ShapeSpec("t", 8, 2, "train"),
-                             TrainStepConfig(strategy=strategy))
-        return
     from repro_torch.launch.mesh import make_count_mesh
     mesh = make_count_mesh(tuple(shape.values()), tuple(shape))
     step = build_train_step(cfg, mesh, ShapeSpec("t", 8, 2, "train"),

@@ -19,7 +19,7 @@ from repro_torch.core.collectives import all_gather
 from repro_torch.data import SyntheticLMData
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.launch.steps import TrainStepConfig, build_train_step
-from repro_torch.models import model_api
+from repro_torch.models import model_api, moe
 from repro_torch.models.model_api import train_forward
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import Trainer, TrainerConfig
@@ -32,6 +32,8 @@ ARCHS = ("granite-3-8b", "gemma3-1b", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
 # mixtral with 3 experts: "experts" does not divide 2, so "expert_mlp"
 # (each expert's d_ff) takes "model"
 E3 = "mixtral-8x7b/e3"
+# qwen3-moe with whole experts under 'tp_sp' (test_torch_moe_tp_sp.py)
+MOE_WHOLE = ("qwen3-moe-30b-a3b/whole", "qwen3-moe-30b-a3b/whole_cf1")
 SEQ, BATCH, MOE_GROUPS = 32, 8, 2
 CONVERGE_ARCH, CONVERGE_STEPS, CONVERGE_LR = "granite-3-8b", 12, 2e-3
 
@@ -40,11 +42,18 @@ def config(case: str):
     """The smoke config of ``arch[/variant]``: "e3" 3 experts; "h3" 3 heads
     (one K/V head; rwkv6 a d_model of 3 heads), which "model" = 2 does not
     divide: the rules' head_dim fallback; "ff129" a d_ff of 129, which it
-    does not divide either: the MLP's weights whole on every rank."""
+    does not divide either: the MLP's weights whole on every rank; "whole"
+    3 experts of a d_ff of 129, neither of which "model" = 2 divides: whole
+    experts on every rank ("whole_cf1" at a capacity factor of 1, where
+    slots are dropped)."""
     arch, _, variant = case.partition("/")
     cfg = get_config(arch).smoke_config()
     if variant == "e3":
         cfg = dataclasses.replace(cfg, n_experts=3)
+    elif variant in ("whole", "whole_cf1"):
+        cfg = dataclasses.replace(cfg, n_experts=3, d_ff=129)
+        if variant == "whole_cf1":
+            cfg = dataclasses.replace(cfg, capacity_factor=1.0)
     elif variant == "h3":
         cfg = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1)
         if cfg.family == "rwkv6":
@@ -167,6 +176,22 @@ def converge(mesh) -> dict:
             losses.append(float(m["loss"]))
         out[bits] = {"losses": losses,
                      "pod": mesh.axis("pod").stats.snapshot()}
+    return out
+
+
+def moe_whole_cases(_serve_mesh, shape: tuple, names: tuple,
+                    strategy: str) -> dict:
+    """``step_case`` of each whole-expert MoE of ``MOE_WHOLE`` on this rank
+    of a world laid out as ``shape`` over ``names`` (() : the world of
+    one), the LM head fed the float32 hidden state, with every dispatch's
+    ``keep``."""
+    mesh = (make_mesh(shape, names, device="cpu") if shape
+            else make_host_mesh(model=1, device="cpu"))
+    out = {}
+    for case in MOE_WHOLE:
+        with float32_head(), moe.recorded_keeps() as keeps:
+            out[case] = step_case(mesh, case, strategy)
+        out[case]["keeps"] = [k.numpy() for k in keeps]
     return out
 
 
